@@ -1,0 +1,63 @@
+"""Carry the JAX package's state into this package.
+
+``grid_from_numpy`` takes a control grid as the JAX package returns it
+(``RegistrationResult.params``, as a numpy array) and
+``options_from_reference`` maps its option values to this package's names,
+so both packages compute the same thing from the same numbers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.options import RegistrationOptions
+from repro_torch.engine.optimizer import AdamOptimizer
+
+__all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "grid_from_numpy", "options_from_reference"]
+
+# The JAX package's value -> this package's value.
+IMPL_NAMES = {"jnp": "torch", "pallas": "cuda"}
+GRAD_IMPL_NAMES = {"xla": "autograd", "jnp": "torch", "pallas": "cuda"}
+
+
+def grid_from_numpy(phi, device) -> torch.Tensor:
+    """A ``(Nx, Ny, Nz, 3)`` control grid as a contiguous float32 tensor."""
+    if np.ndim(phi) != 4 or np.shape(phi)[3] != 3:
+        raise ValueError(
+            f"expected a (Nx, Ny, Nz, 3) control grid, got {np.shape(phi)}")
+    # a copy: numpy views of JAX arrays are read-only
+    return torch.from_numpy(np.array(phi, dtype=np.float32)).to(device)
+
+
+def _name(value):
+    """A registry name for a value given as a name or as the JAX package's spec."""
+    if isinstance(value, str) or callable(value) or value is None:
+        return value
+    return getattr(value, "name", value)
+
+
+def options_from_reference(fields: dict) -> RegistrationOptions:
+    """``RegistrationOptions`` of this package from the JAX package's fields.
+
+    ``fields`` maps field names to values as the JAX package spells them
+    (names, or its frozen spec instances).  ``impl`` and ``grad_impl`` are
+    renamed by ``IMPL_NAMES`` and ``GRAD_IMPL_NAMES``; a value with no
+    counterpart yet (``"auto"``, ``"matmul"``, ...) raises as the options do.
+    ``fused_reason`` is the JAX package's introspection field and is dropped.
+    """
+    kw = {k: v for k, v in fields.items() if k != "fused_reason"}
+    if "impl" in kw:
+        kw["impl"] = IMPL_NAMES.get(kw["impl"], kw["impl"])
+    if "grad_impl" in kw:
+        kw["grad_impl"] = GRAD_IMPL_NAMES.get(kw["grad_impl"], kw["grad_impl"])
+    for k in ("similarity", "transform", "regularizer"):
+        if k in kw:
+            kw[k] = _name(kw[k])
+    opt = kw.get("optimizer")
+    if opt is not None and not isinstance(opt, str):
+        if _name(opt) == "adam":
+            kw["optimizer"] = AdamOptimizer(b1=opt.b1, b2=opt.b2, eps=opt.eps)
+        else:
+            kw["optimizer"] = _name(opt)
+    return RegistrationOptions(**kw)

@@ -1,0 +1,114 @@
+"""Cubic B-spline basis functions and the aligned-grid weight LUTs.
+
+Conventions (shared by every BSI implementation of the package)
+---------------------------------------------------------------
+* A volume of ``T`` tiles per axis with tile size ``delta`` has ``T * delta``
+  voxels per axis.
+* The control grid is voxel aligned and uniformly spaced (the NiftyReg
+  convention of the paper, §3.4): voxel ``x = t*delta + a`` has fractional
+  coordinate ``u = a/delta`` and base index ``i = t - 1``.
+* Control grids are stored with a +1 index offset so that tile ``t`` reads
+  stored points ``[t, t+4)``; a grid of ``T`` tiles stores ``T + 3`` points
+  per axis.
+* Because the grid is aligned, ``u`` takes only ``delta`` distinct values per
+  axis, so all weights live in a ``(delta, 4)`` look-up table.
+
+The LUTs are built in float64 numpy and cast once, so they are bitwise equal
+to the JAX package's.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+__all__ = [
+    "bspline_basis",
+    "weight_lut",
+    "basis_matrix",
+    "lerp_luts",
+    "grid_points_for_tiles",
+]
+
+
+def _np_dtype(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def bspline_basis(u, dtype=torch.float32):
+    """The four cubic B-spline basis values ``B_0..B_3`` at parameter ``u``.
+
+    Returns a tensor of shape ``u.shape + (4,)``; the basis is a partition of
+    unity, ``sum_l B_l(u) == 1``, which the TTLI lerp form relies on.
+    """
+    u = torch.as_tensor(u, dtype=dtype)
+    b0 = (1.0 - u) ** 3 / 6.0
+    b1 = (3.0 * u**3 - 6.0 * u**2 + 4.0) / 6.0
+    b2 = (-3.0 * u**3 + 3.0 * u**2 + 3.0 * u + 1.0) / 6.0
+    b3 = u**3 / 6.0
+    return torch.stack([b0, b1, b2, b3], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_lut_np(delta: int, dtype_name: str) -> np.ndarray:
+    # float64 then one cast: LUT rounding stays out of the error budget
+    u = np.arange(delta, dtype=np.float64) / float(delta)
+    b0 = (1.0 - u) ** 3 / 6.0
+    b1 = (3.0 * u**3 - 6.0 * u**2 + 4.0) / 6.0
+    b2 = (-3.0 * u**3 + 3.0 * u**2 + 3.0 * u + 1.0) / 6.0
+    b3 = u**3 / 6.0
+    return np.stack([b0, b1, b2, b3], axis=-1).astype(dtype_name)
+
+
+def weight_lut(delta: int, dtype=torch.float32, device="cpu"):
+    """``(delta, 4)`` aligned-grid weight LUT: ``W[a, l] = B_l(a / delta)``."""
+    lut = _weight_lut_np(int(delta), _np_dtype(dtype))
+    return torch.from_numpy(lut.copy()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _basis_matrix_np(tile: tuple, dtype_name: str) -> np.ndarray:
+    dx, dy, dz = tile
+    wx, wy, wz = (_weight_lut_np(d, "float64") for d in (dx, dy, dz))
+    b = np.einsum("al,bm,cn->abclmn", wx, wy, wz)
+    return b.reshape(dx * dy * dz, 64).astype(dtype_name)
+
+
+def basis_matrix(tile, dtype=torch.float32, device="cpu"):
+    """``(dx*dy*dz, 64)`` Kronecker product of the three per-axis LUTs.
+
+    ``B[v, k] = Wx[a, l] * Wy[b, m] * Wz[c, n]`` with voxel offset
+    ``v = (a*dy + b)*dz + c`` and control offset ``k = (l*4 + m)*4 + n``.
+    """
+    tile = tuple(int(d) for d in tile)
+    return torch.from_numpy(_basis_matrix_np(tile, _np_dtype(dtype)).copy()).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lerp_luts_np(delta: int, dtype_name: str):
+    w = _weight_lut_np(delta, "float64")
+    b0, b1, b2, b3 = w[:, 0], w[:, 1], w[:, 2], w[:, 3]
+    # pairwise renormalisation (paper §3.3): B0*p0 + B1*p1 ==
+    # (B0+B1) * lerp(p0, p1, B1/(B0+B1)); partition of unity makes the
+    # final combine a lerp too
+    t0 = b1 / (b0 + b1)
+    t1 = b3 / (b2 + b3)
+    s = b2 + b3
+    return tuple(a.astype(dtype_name) for a in (t0, t1, s))
+
+
+def lerp_luts(delta: int, dtype=torch.float32, device="cpu"):
+    """LUTs ``(t0, t1, s)`` of the TTLI lerp form, each of shape ``(delta,)``.
+
+    ``sum_l B_l(u_a) * p_l == lerp(lerp(p0, p1, t0), lerp(p2, p3, t1), s)``:
+    3 lerps per axis level, 63 per voxel in 3-D (paper App. B).
+    """
+    luts = _lerp_luts_np(int(delta), _np_dtype(dtype))
+    return tuple(torch.from_numpy(a.copy()).to(device) for a in luts)
+
+
+def grid_points_for_tiles(num_tiles) -> tuple:
+    """Stored control-grid points per axis for ``num_tiles`` tiles (+3 halo)."""
+    return tuple(int(t) + 3 for t in num_tiles)

@@ -1,0 +1,150 @@
+"""Registration options: one frozen, validated, hashable configuration object.
+
+The fields, defaults and validation follow the JAX package's
+``RegistrationOptions``, with three value sets renamed for PyTorch:
+
+=============  ===============================  ==========================
+field          JAX package                      this package
+=============  ===============================  ==========================
+``impl``       ``jnp``, ``pallas``, ``auto``    ``torch``, ``cuda``
+``grad_impl``  ``xla``, ``jnp``, ``pallas``,    ``autograd``, ``torch``,
+               ``matmul``, ``auto``             ``cuda``
+``fused``      ``auto``, ``on``, ``off``        ``on``, ``off``
+=============  ===============================  ==========================
+
+``torch`` is the plain tensor form and ``cuda`` the hand-written kernel (its
+plain version on a CPU tensor).  The defaults run the kernels: ``mode="ttli",
+impl="cuda", grad_impl="cuda", fused="on"``.  A value whose module or kernel
+is not in the package yet raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, MODE_NAMES
+
+__all__ = ["RegistrationOptions"]
+
+_FUSED = ("on", "off")
+
+# Values the JAX package accepts whose module or kernel is not ported yet,
+# with the ROADMAP.md item that ports them.
+_NOT_YET = {
+    "mode": {"tt": "queue 1 item 2", "matmul": "queue 1 item 2",
+             "auto": "queue 1 item 13"},
+    "impl": {"auto": "queue 1 item 13"},
+    "grad_impl": {"matmul": "queue 2 item 5", "auto": "queue 1 item 13"},
+    "fused": {"auto": "queue 1 item 13"},
+    "similarity": {"ncc": "queue 1 item 8", "lncc": "queue 1 item 8",
+                   "nmi": "queue 1 item 8"},
+    "transform": {"velocity": "queue 1 item 11"},
+    "regularizer": {"bending": "queue 1 item 11"},
+    "optimizer": {"lbfgs": "queue 1 item 12", "gauss_newton": "queue 1 item 12"},
+}
+# Forward kernels of the other modes (impl="cuda").
+_KERNEL_NOT_YET = {"separable": "queue 2 item 6", "tt": "queue 2 item 7",
+                   "matmul": "queue 2 item 4"}
+
+
+def _not_yet(what, item):
+    return NotImplementedError(f"{what} is not in the package yet (ROADMAP.md {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class RegistrationOptions:
+    """The full registration configuration, validated and hashable.
+
+    Fields
+    ------
+    tile:            control-point spacing ``(dx, dy, dz)``.
+    levels:          pyramid levels (coarse-to-fine, 2x downsampling).
+    iters:           optimiser steps per level.
+    lr:              learning rate.
+    bending_weight:  weight of the bending-energy proxy.
+    mode:            BSI form (``gather`` | ``separable`` | ``ttli``).
+    impl:            forward: ``torch`` (plain form) or ``cuda`` (kernel).
+    grad_impl:       adjoint: ``autograd`` | ``torch`` | ``cuda``.
+    compute_dtype:   None (float32 throughout).
+    similarity:      ``"ssd"`` or a ``(warped, fixed) -> scalar`` callable.
+    transform:       ``"displacement"``.
+    regularizer:     ``"none"`` (the ``bending_weight`` proxy).
+    stop:            None (a fixed ``iters`` per level).
+    fused:           ``"on"``: the fused level-step kernel; ``"off"``: the
+                     unfused dense field -> warp -> similarity.
+    optimizer:       ``"adam"`` or an ``AdamOptimizer``.
+    """
+
+    tile: tuple = (5, 5, 5)
+    levels: int = 2
+    iters: int = 40
+    lr: float = 0.5
+    bending_weight: float = 5e-3
+    mode: str = "ttli"
+    impl: str = "cuda"
+    grad_impl: str = "cuda"
+    compute_dtype: Any = None
+    similarity: Any = "ssd"
+    transform: Any = "displacement"
+    regularizer: Any = "none"
+    stop: Any = None
+    fused: str = "on"
+    optimizer: Any = "adam"
+
+    def __post_init__(self):
+        from repro_torch.core.regularizer import resolve_regularizer
+        from repro_torch.core.similarity import fused_spec, resolve_similarity
+        from repro_torch.core.transform import resolve_transform
+        from repro_torch.engine.optimizer import resolve_optimizer
+
+        tile = tuple(int(t) for t in self.tile)
+        if len(tile) != 3 or any(t < 1 for t in tile):
+            raise ValueError(f"tile must be 3 positive ints, got {self.tile!r}")
+        object.__setattr__(self, "tile", tile)
+        for name in ("levels", "iters"):
+            v = int(getattr(self, name))
+            if v < 1:
+                raise ValueError(f"{name} must be >= 1, got {v}")
+            object.__setattr__(self, name, v)
+        for name in ("lr", "bending_weight"):
+            v = float(getattr(self, name))
+            if not v >= 0 or (name == "lr" and v == 0):
+                raise ValueError(f"{name} must be positive, got {v}")
+            object.__setattr__(self, name, v)
+        if self.fused in (True, False):  # bool spelling
+            object.__setattr__(self, "fused", "on" if self.fused else "off")
+        for name, later in _NOT_YET.items():
+            v = getattr(self, name)
+            if isinstance(v, str) and v in later:
+                raise _not_yet(f"{name}={v!r}", later[v])
+        if self.compute_dtype is not None:
+            raise _not_yet("compute_dtype", "queue 1 item 18")
+        if self.stop is not None:
+            raise _not_yet("stop=", "queue 1 item 9")
+        for name, allowed in (("mode", MODE_NAMES), ("impl", IMPLS),
+                              ("grad_impl", GRAD_IMPLS), ("fused", _FUSED)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(
+                    f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
+        if self.impl == "cuda" and self.mode != "ttli":
+            if self.mode not in _KERNEL_NOT_YET:
+                raise ValueError(f"mode={self.mode!r} has no kernel; use impl='torch'")
+            raise _not_yet(f"the CUDA kernel of mode={self.mode!r}",
+                           _KERNEL_NOT_YET[self.mode])
+        if self.grad_impl == "autograd" and self.impl != "torch":
+            raise ValueError(
+                "grad_impl='autograd' differentiates the plain forward; "
+                "impl='cuda' needs grad_impl='cuda' or 'torch'")
+        if not (callable(self.similarity) or isinstance(self.similarity, str)):
+            raise TypeError(
+                "similarity must be a registered name or a loss callable, "
+                f"got {self.similarity!r}")
+        resolve_similarity(self.similarity)
+        if self.fused == "on" and fused_spec(self.similarity) is None:
+            raise ValueError(
+                f"similarity {self.similarity!r} has no fused kernel; use fused='off'")
+        object.__setattr__(self, "transform", resolve_transform(self.transform))
+        object.__setattr__(self, "regularizer", resolve_regularizer(self.regularizer))
+        object.__setattr__(self, "optimizer", resolve_optimizer(self.optimizer))

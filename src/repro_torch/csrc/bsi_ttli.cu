@@ -1,0 +1,69 @@
+// Forward BSI, TTLI form (thread-per-tile + staged lerps, paper §3.3).
+//
+// Replaces: the Pallas TPU kernel repro/kernels/bsi_ttli.py:bsi_ttli_pallas
+// (_kernel), dispatched by repro/kernels/ops.py:bsi_pallas(mode="ttli").
+//
+// What bounds it on an H100: writing the dense field.  At the paper's
+// phantom1 volume (512, 228, 385) with 3 channels that is 539 MB, about
+// 0.16 ms at 3.35 TB/s; the control grid is 5 MB and stays in L2.  The lerp
+// work, staged x -> y -> z over whole tile blocks, is about 7.5 flops per
+// output value, far below the fp32 rate.
+//
+// What the design does about it: one thread block per block of tiles
+// stages its control window in shared memory and runs the x and y stages
+// there once per (x voxel, y voxel, z control point), so each output value
+// costs only its three z-stage lerps.  The output loop runs channel fastest,
+// then z, so a warp writes contiguous runs of the channels-last field.  Only
+// voxels inside (X, Y, Z) are written: dense_field's crop is fused, and no
+// padded copy of the field exists.
+#include "bsi_common.cuh"
+
+namespace repro_torch {
+
+__global__ void __launch_bounds__(kThreads)
+    bsi_ttli_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
+                    float* __restrict__ out, TileBlock g, int X, int Y, int Z) {
+  extern __shared__ float smem[];
+  const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
+  stage_xy(phi, luts, g, ti0, tj0, tk0, smem);
+
+  const float* t0z = smem + 3 * (g.dx + g.dy);
+  const float* t1z = t0z + g.dz;
+  const float* sz = t1z + g.dz;
+  const float* s_hy = smem + lut_floats(g) + window_floats(g);
+  const int wz = g.bz + 3;
+  const int BX = g.bx * g.dx, BY = g.by * g.dy, BZ = g.bz * g.dz;
+  const int x0 = ti0 * g.dx, y0 = tj0 * g.dy, z0 = tk0 * g.dz;
+  const int n = BX * BY * BZ * g.c;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int ch = i % g.c;
+    int r = i / g.c;
+    const int zl = r % BZ;
+    r /= BZ;
+    const int yl = r % BY;
+    const int xl = r / BY;
+    const int x = x0 + xl, y = y0 + yl, z = z0 + zl;
+    if (x >= X || y >= Y || z >= Z) continue;
+    const int tz = zl / g.dz, cz = zl - tz * g.dz;
+    const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * g.c + ch;
+    out[(((size_t)x * Y + y) * Z + z) * g.c + ch] =
+        lerp4(p[0], p[g.c], p[2 * g.c], p[3 * g.c], t0z[cz], t1z[cz], sz[cz]);
+  }
+}
+
+}  // namespace repro_torch
+
+// phi: (nx, ny, nz, c) float32, contiguous.  out: (X, Y, Z, c) float32 with
+// X <= (nx - 3) * dx and so on.  Returns the launch's cudaError_t.
+extern "C" int bsi_ttli_f32(const float* phi, const float* luts, float* out, int nx,
+                            int ny, int nz, int c, int dx, int dy, int dz, int X, int Y,
+                            int Z, int bx, int by, int bz, void* stream) {
+  using namespace repro_torch;
+  const TileBlock g{nx, ny, nz, c, dx, dy, dz, bx, by, bz};
+  const size_t smem = stage_smem_bytes(g);
+  cudaError_t err = allow_smem(bsi_ttli_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  bsi_ttli_kernel<<<tile_grid(g, X, Y, Z), kThreads, smem, (cudaStream_t)stream>>>(
+      phi, luts, out, g, X, Y, Z);
+  return (int)cudaGetLastError();
+}

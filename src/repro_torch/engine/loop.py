@@ -1,0 +1,56 @@
+"""The optimisation loop of one pyramid level.
+
+JAX's ``lax.scan`` over optimiser steps becomes a Python loop: PyTorch runs
+eagerly, so each step's kernels are queued on the stream as the loop runs,
+and the trace stays on the device until the caller reads it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.options import RegistrationOptions
+from repro_torch.engine.optimizer import (Objective, init_state, make_objective,
+                                          opt_step, resolve_optimizer)
+
+__all__ = ["make_adam_runner", "optimize_scan"]
+
+
+def optimize_scan(obj, params, *, optimizer, iters, lr):
+    """Run ``iters`` optimiser steps from ``params``.
+
+    One value-and-grad at ``params`` seeds the first step; each step then
+    updates and evaluates at the new params.  Returns ``(params, trace)``
+    where ``trace[k]`` is the loss after ``k+1`` steps.
+    """
+    if iters < 1:
+        raise ValueError(f"iters must be >= 1, got {iters}")
+    spec = resolve_optimizer(optimizer)
+    opt = init_state(spec, params)
+    loss, g = obj.vg(params)
+    p, trace = params.detach(), []
+    for k in range(iters):
+        p, opt, g, loss = opt_step(spec, obj, k, p, opt, g, loss, lr=lr)
+        trace.append(loss)
+    return p, torch.stack(trace)
+
+
+def make_adam_runner(loss_builder, *, options):
+    """A ``(params, *data) -> (params, trace)`` runner for one level.
+
+    ``loss_builder(*data)`` returns the scalar loss of the params or an
+    :class:`~repro_torch.engine.optimizer.Objective`; ``options`` supplies
+    ``iters``, ``lr`` and ``optimizer`` (whose spec carries Adam's ``b1``,
+    ``b2`` and ``eps``).
+    """
+    if not isinstance(options, RegistrationOptions):
+        raise TypeError(f"options must be a RegistrationOptions, got {options!r}")
+    spec = resolve_optimizer(options.optimizer)
+
+    def run(p, *data):
+        built = loss_builder(*data)
+        obj = built if isinstance(built, Objective) else make_objective(built)
+        return optimize_scan(obj, p, optimizer=spec, iters=options.iters,
+                             lr=options.lr)
+
+    return run

@@ -1,0 +1,150 @@
+"""Build the CUDA kernels with ``nvcc`` into one shared library, loaded by ctypes.
+
+The sources in ``src/repro_torch/csrc/`` have a plain C interface and do not
+include PyTorch's headers, so each compiles in seconds.  One ``nvcc`` per
+source runs in parallel; the objects are then linked into one library under
+``build/`` at the root of the checkout, named by a hash of the sources and
+flags, so an unchanged library is reused and a changed one is rebuilt.  The
+build happens at the first launch, never at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import re
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+__all__ = ["BuildInfo", "Library", "load_library", "nvcc_path"]
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("bsi_ttli.cu", "bsi_adjoint.cu", "bsi_fused.cu")
+HEADERS = ("bsi_common.cuh",)
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)  # fmt: skip
+
+_VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
+# C signature of each entry point: (pointer args, int args); all end with the
+# stream and return a cudaError_t.
+_SIGNATURES = {
+    "bsi_ttli_f32": (3, 13),
+    "bsi_adjoint_f32": (7, 10),
+    "bsi_fused_ssd_f32": (5, 1, 1, 12),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    ptxas: tuple  # one "kernel: N registers, M bytes spill" line per kernel
+
+
+class Library:
+    """The loaded kernels: call ``lib.<entry point>(...)``; ``info`` is the build."""
+
+    def __init__(self, info: BuildInfo):
+        self.info = info
+        self._dll = ctypes.CDLL(str(info.path))
+        for name, groups in _SIGNATURES.items():
+            fn = getattr(self._dll, name)
+            args = []
+            for i, n in enumerate(groups):  # pointer and int groups alternate
+                args += [_VOID_P if i % 2 == 0 else _INT] * n
+            fn.argtypes = args + [_VOID_P]
+            fn.restype = _INT
+            setattr(self, name, fn)
+
+
+def nvcc_path() -> str:
+    """The ``nvcc`` to build with: ``$CUDA_HOME/bin``, then ``PATH``, then
+    ``/usr/local/cuda/bin``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA kernels "
+        "are built from source at first use"
+    )
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _ptxas_summary(log: str) -> tuple:
+    """One line per kernel from ``-Xptxas -v``: registers, spills, smem."""
+    lines, kernel, spills = [], None, "spills not reported"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel:
+            spills = f"{m.group(1)}/{m.group(2)} B spill stores/loads"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(
+                f"{kernel}: {m.group(1)} registers, {spills}, "
+                f"{smem.group(1) if smem else 0} B static smem"
+            )
+            kernel = None
+    return tuple(lines)
+
+
+def _build(out: Path) -> BuildInfo:
+    nvcc = nvcc_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for name in SOURCES:  # one nvcc per source, all started together
+            obj = Path(tmp) / (name + ".o")
+            cmd = [nvcc, *FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, _, p in procs:
+            text, _ = p.communicate()
+            log.append(text)
+            if p.returncode:
+                failed.append(f"{name}:\n{text}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp_lib = Path(tmp) / out.name
+        link = [nvcc, "-shared", *(str(o) for _, o, _ in procs), "-o", str(tmp_lib)]
+        subprocess.run(link, check=True, capture_output=True, text=True)
+        os.replace(tmp_lib, out)
+    return BuildInfo(out, time.perf_counter() - t0, _ptxas_summary("\n".join(log)))
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> Library:
+    """Build the kernels if needed and load them (once per process)."""
+    out = BUILD_ROOT / f"librepro_torch_kernels-{_digest()}.so"
+    info = _build(out) if not out.exists() else BuildInfo(out, 0.0, ())
+    return Library(info)

@@ -1,0 +1,114 @@
+"""Where the time of the port's ``ffd_register`` goes, on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_ffd [--shape X Y Z]
+        [--iters N] [--calls K] [--top T]
+
+Builds the kernels (printing the build seconds), makes ``make_pair(shape,
+seed=0)`` (default: the paper's phantom1, 512 x 228 x 385) and traces the
+process's first ``ffd_register`` call with the default options (the kernels)
+under ``torch.profiler``, printing the host-side calls that took the most
+time (the first call pays one-off costs beyond the build).  Then it times
+``--calls`` more calls, and traces one more warm call, printing the device
+time per kernel name, the package's CUDA kernels against PyTorch's own
+kernels (the plain glue), and the device's busy and idle share of the call.
+The last line is one JSON object with the same numbers.  Needs a CUDA device;
+there is no CPU path.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+from repro_torch import PAPER_VOLUMES, RegistrationOptions, ffd_register, make_pair
+from repro_torch.kernels.build import load_library
+
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+
+
+def _card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _traced(fn):
+    """``(profile, wall seconds)`` of one call of ``fn``."""
+    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def _device_ms_by_name(prof):
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shape", type=int, nargs=3, default=PAPER_VOLUMES["phantom1"])
+    ap.add_argument("--iters", type=int, default=RegistrationOptions().iters)
+    ap.add_argument("--calls", type=int, default=2)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_ffd: needs a CUDA device")
+
+    card = _card()
+    build_s = load_library().info.seconds
+    fixed, moving, _ = make_pair(tuple(args.shape), seed=0)
+    opts = RegistrationOptions(iters=args.iters)
+
+    def run():
+        ffd_register(fixed, moving, options=opts)
+
+    _traced(lambda: torch.ones(1, device="cuda").sum().item())  # profiler start-up
+    cold, cold_wall = _traced(run)
+    host = sorted(cold.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    host_top = [[a.key, a.count, a.self_cpu_time_total / 1e3] for a in host[: args.top]]
+    print(f"card: {card}; shape {tuple(args.shape)}, iters {args.iters}; "
+          f"kernel build {build_s:.2f} s")
+    print(f"first call (traced): wall {cold_wall * 1e3:.1f} ms; host self time by op:")
+    for key, count, ms in host_top:
+        print(f"  {ms:10.2f} ms  x{count:<6d} {key[:100]}")
+
+    seconds = []
+    for _ in range(args.calls):
+        t0 = time.perf_counter()
+        run()
+        seconds.append(time.perf_counter() - t0)
+    print(f"later calls, seconds each: {seconds}")
+
+    warm, wall = _traced(run)
+    by_name = _device_ms_by_name(warm)
+    busy = sum(by_name.values())
+    ours = sum(t for n, t in by_name.items() if "repro_torch" in n)
+    print(f"warm call (traced): wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"({busy / (wall * 1e3):.1%}), package kernels {ours:.1f} ms, "
+          f"PyTorch kernels {busy - ours:.1f} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]
+    for name, ms in top:
+        print(f"  {ms:10.2f} ms  {name[:110]}")
+    print(json.dumps({
+        "card": card, "shape": list(args.shape), "iters": args.iters,
+        "build_seconds": build_s,
+        "first_call_traced_ms": cold_wall * 1e3, "first_call_host_top": host_top,
+        "seconds_per_call": seconds, "profiled_wall_ms": wall * 1e3,
+        "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
+        "package_kernels_ms": ours, "pytorch_kernels_ms": busy - ours,
+        "top": [[n[:200], ms] for n, ms in top]}))
+
+
+if __name__ == "__main__":
+    main()

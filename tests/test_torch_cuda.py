@@ -1,0 +1,142 @@
+"""The CUDA kernels on the card against their plain PyTorch versions.
+
+Card-only: every test is marked ``gpu`` and skips where no CUDA device is
+present (decided inside the ``cuda`` fixture, never at import).  On a machine
+with an H100 and ``nvcc``:
+
+    python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+This file imports no JAX: the card's machine runs the port alone.  The plain
+versions are held against the JAX package by the other ``test_torch_*``
+files on the CPU.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import RegistrationOptions, ffd_register, make_pair  # noqa: E402
+from repro_torch.core import ffd  # noqa: E402
+from repro_torch.core.interpolate import bsi_gather, interpolate  # noqa: E402
+from repro_torch.kernels import bsi_adjoint, bsi_fused, bsi_ttli, ops  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+# (volume, tile): non-cubic tiles, volumes off the tile grid, a tile of 1
+# (more than 48 KB of shared memory per block) and the paper's 5^3
+CASES = [
+    ((13, 11, 9), (5, 4, 3)),
+    ((40, 33, 47), (5, 5, 5)),
+    ((12, 11, 9), (3, 3, 3)),
+    ((22, 15, 30), (7, 7, 7)),
+    ((11, 12, 45), (1, 1, 1)),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _grid(vol, tile, c, seed, device):
+    rng = np.random.default_rng(seed)
+    shape = ffd.grid_shape_for_volume(vol, tile) + (c,)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_ttli_kernel_matches_plain(cuda, vol, tile, c):
+    phi = _grid(vol, tile, c, 0, cuda)
+    before = ops.bsi_ttli.launches
+    out = ops.bsi_ttli(phi, tile, vol)
+    torch.cuda.synchronize()
+    assert ops.bsi_ttli.launches == before + 1
+    ref = bsi_ttli.plain(phi, tile, vol)
+    assert out.shape == ref.shape == vol + (c,)
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_adjoint_kernel_matches_plain(cuda, vol, tile, c):
+    rng = np.random.default_rng(1)
+    g = torch.from_numpy(rng.standard_normal(vol + (c,)).astype(np.float32)).to(cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    before = ops.bsi_adjoint.launches
+    out = ops.bsi_adjoint(g, tile, gshape)
+    torch.cuda.synchronize()
+    assert ops.bsi_adjoint.launches == before + 1
+    ref = bsi_adjoint.plain(g, tile, gshape)
+    assert out.shape == ref.shape == gshape + (c,)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+def test_fused_kernel_matches_plain(cuda, vol, tile):
+    rng = np.random.default_rng(2)
+    phi = _grid(vol, tile, 3, 3, cuda) * 2.0
+    mov, fix = (torch.from_numpy(rng.uniform(0, 1, vol).astype(np.float32)).to(cuda)
+                for _ in range(2))
+    before = ops.fused_ssd_loss.launches
+    out = ops.fused_ssd_loss(phi, mov, fix, tile)
+    assert ops.fused_ssd_loss.launches == before + 1
+    ref = bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
+    assert abs(out.item() - ref.item()) <= 1e-5 * abs(ref.item())
+
+
+def test_kernel_gradient_matches_autograd_of_gather(cuda):
+    tile = (5, 4, 3)
+    phi = _grid((20, 12, 15), tile, 3, 4, cuda).requires_grad_(True)
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.standard_normal((20, 12, 15, 3)).astype(np.float32))
+    w = w.to(cuda)
+    (g_kernel,) = torch.autograd.grad(
+        (interpolate(phi, tile, mode="ttli", impl="cuda", grad_impl="cuda") * w).sum(),
+        phi)
+    (g_ref,) = torch.autograd.grad((bsi_gather(phi, tile) * w).sum(), phi)
+    assert (g_kernel - g_ref).abs().max().item() <= 1e-5 * g_ref.abs().max().item()
+
+
+def test_fused_sums_are_deterministic(cuda):
+    vol, tile = (40, 33, 47), (5, 5, 5)
+    phi = _grid(vol, tile, 3, 6, cuda)
+    rng = np.random.default_rng(7)
+    mov, fix = (torch.from_numpy(rng.uniform(0, 1, vol).astype(np.float32)).to(cuda)
+                for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal(vol + (3,)).astype(np.float32)).to(cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    a = [ops.fused_ssd_loss(phi, mov, fix, tile).item() for _ in range(3)]
+    b = [ops.bsi_adjoint(g, tile, gshape) for _ in range(2)]
+    assert a[0] == a[1] == a[2]
+    assert torch.equal(b[0], b[1])
+
+
+def test_dispatchers_refuse_what_the_kernels_do_not_take(cuda):
+    tile = (5, 5, 5)
+    phi = _grid((10, 10, 10), tile, 3, 8, cuda)
+    with pytest.raises(TypeError):
+        ops.bsi_ttli(phi.double(), tile)
+    with pytest.raises(ValueError):
+        ops.bsi_ttli(phi.transpose(0, 1), tile)
+    with pytest.raises(ValueError):
+        ops.bsi_ttli(phi, tile, (11, 10, 10))  # grid covers only 10 voxels
+
+
+def test_registration_on_card_matches_cpu(cuda):
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5)
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, moving, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, moving, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": steps}
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
+    np.testing.assert_allclose(card.params.cpu().numpy(), host.params.numpy(),
+                               atol=1e-4)
+    np.testing.assert_allclose(card.warped.cpu().numpy(), host.warped.numpy(),
+                               atol=1e-4)

@@ -1,0 +1,65 @@
+"""The port stands alone: no JAX, no ``repro``, and no silent CPU path."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402, F401  (the suite's other files import both packages)
+
+from repro_torch import ffd_register, make_pair  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.kernels.ops; "
+            "assert 'jax' not in sys.modules, 'jax imported'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    vol = torch.zeros(10, 10, 10)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ffd_register(vol, vol)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_pair((10, 10, 10))
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for cwd in (ROOT, tmp_path):
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        run = subprocess.run([sys.executable, str(cwd / "chip_smoke.py")], cwd=cwd,
+                             env=env, capture_output=True, text=True, timeout=120)
+        assert run.returncode != 0
+        assert '"ok": true' not in run.stdout
