@@ -14,12 +14,19 @@ Phases; any failure raises and the script exits nonzero:
 3. each kernel at the shapes of the paper's phantom1 volume (512, 228, 385),
    tile 5^3, 3 channels: compared with its plain version, and timed with CUDA
    events beside the plain version, its byte/operation bound and, where one
-   PyTorch call computes the same function, that call;
-4. the main path: ``ffd_register`` with the default options (the fused SSD,
-   TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``, with the
-   launch counts set to 0 just before and read just after; then the same pair
-   at ``iters=5`` on the kernels and on the plain path, whose per-level losses
-   must agree to 1e-4, and a small pair on the card against the CPU;
+   PyTorch call computes the same function, that call.  The stats, ncc and
+   nmi kernels run on the multi-modal pair of phase 4;
+4. the paths, each with the launch counts set to 0 just before and read just
+   after: ``ffd_register`` with the default options (the fused SSD, TTLI and
+   adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
+   ``iters=5`` on the kernels and on the plain path, whose per-level losses
+   must agree to 1e-4, and a small pair on the card against the CPU.  Then
+   the multi-modal path: the moving volume remapped by ``(1 - v)^1.5`` and
+   registered with ``similarity="nmi"`` (the stats, nmi, TTLI and adjoint
+   kernels), scored by the MAE of the original moving volume warped by the
+   recovered field, beside an SSD run on the same pair; the NCC and NMI
+   paths at ``iters=5`` on the kernels and on the plain path; and a small
+   remapped pair with NMI on the card against the CPU;
 5. one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Float32 convolutions and matrix products are pinned to full fp32
@@ -79,6 +86,11 @@ def conv_kernel(torch, tile, channels, device):
         axes.append(k)
     k3 = axes[0][:, None, None] * axes[1][None, :, None] * axes[2][None, None, :]
     return k3.expand(channels, 1, *k3.shape).contiguous()
+
+
+def remap(v):
+    """Monotone-decreasing intensity remap: a synthetic second modality."""
+    return (1.0 - v) ** 1.5
 
 
 def check_kernels(torch, fixed, moving):
@@ -170,6 +182,71 @@ def check_kernels(torch, fixed, moving):
         plain_ms=cuda_ms(torch, lambda: bsi_fused.plain(phi_f, moving, fixed, TILE),
                          reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # --- the multi-modal pass kernels, on the remapped pair
+    rem = remap(moving)
+    n = rem.numel()
+    out = ops.fused_stats(phi_f, rem, TILE)
+    ref = bsi_fused.plain_stats(phi_f, rem, TILE)
+    rel = abs(out[0].item() - ref[0].item()) / abs(ref[0].item())
+    err = (out - ref).abs().max().item()
+    log(f"bsi_fused_stats: kernel {out.tolist()} plain {ref.tolist()}; sum relative "
+        f"{rel:.3e} (limit 1e-5); min, max, count exact: "
+        f"{torch.equal(out[1:], ref[1:])}")
+    assert torch.equal(out[1:], ref[1:]) and out[3].item() == n, (out, ref)
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    b_ms, b_by = bounds["bsi_fused_stats"]
+    rows.append(dict(
+        name="bsi_fused_stats", route="cuda", source="src/repro_torch/csrc/bsi_fused.cu",
+        replaces="src/repro/kernels/bsi_fused.py:291", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.fused_stats(phi_f, rem, TILE)),
+        plain_ms=cuda_ms(torch, lambda: bsi_fused.plain_stats(phi_f, rem, TILE), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    plain_passes = dict(stats=bsi_fused.plain_stats, ncc_moments=bsi_fused.plain_ncc,
+                        nmi_histogram=bsi_fused.plain_nmi)
+
+    def loss_check(name, spec):
+        """The two-pass loss on the kernels against the same finish on the
+        plain versions, 1e-5 relative."""
+        out = ops.fused_similarity_loss(phi_f, rem, fixed, TILE, sim_spec=spec).item()
+        ref = ops.two_pass_loss(spec, phi_f, rem, fixed, TILE, **plain_passes).item()
+        rel = abs(out - ref) / abs(ref)
+        log(f"{name}: loss kernel {out:.9g} plain {ref:.9g} relative {rel:.3e} "
+            "(limit 1e-5)")
+        assert math.isfinite(rel) and rel <= 1e-5, rel
+        return abs(out - ref)
+
+    scal = torch.stack([ref[0] / n, fixed.mean()])
+    err = loss_check("bsi_fused_ncc", ("ncc",))
+    b_ms, b_by = bounds["bsi_fused_ncc"]
+    rows.append(dict(
+        name="bsi_fused_ncc", route="cuda", source="src/repro_torch/csrc/bsi_fused.cu",
+        replaces="src/repro/kernels/bsi_fused.py:291", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.fused_ncc_moments(phi_f, rem, fixed, scal, TILE)),
+        plain_ms=cuda_ms(torch, lambda: bsi_fused.plain_ncc(phi_f, rem, fixed, scal,
+                                                             TILE), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+
+    st = bsi_fused.plain_stats(phi_f, rem, TILE)
+    scal = torch.stack([st[1], st[2], fixed.min(), fixed.max()])
+    kw = dict(bins=32, sigma=0.5 / 31, eps=1e-8)  # nmi()'s defaults
+    out = ops.fused_nmi_histogram(phi_f, rem, fixed, scal, TILE, **kw)
+    ref = bsi_fused.plain_nmi(phi_f, rem, fixed, scal, TILE, **kw)
+    err = (out - ref).abs().max().item()
+    rel_cell = err / ref.abs().max().item()
+    log(f"bsi_fused_nmi: histogram max |kernel - plain| {err:.3e}, relative to the "
+        f"largest cell {rel_cell:.3e} (limit 1e-5)")
+    assert math.isfinite(rel_cell) and rel_cell <= 1e-5, rel_cell
+    loss_check("bsi_fused_nmi", ("nmi", 32, 0.5, 1e-8))
+    b_ms, b_by = bounds["bsi_fused_nmi"]
+    rows.append(dict(
+        name="bsi_fused_nmi", route="cuda", source="src/repro_torch/csrc/bsi_fused.cu",
+        replaces="src/repro/kernels/bsi_fused.py:291", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: ops.fused_nmi_histogram(phi_f, rem, fixed, scal, TILE,
+                                                          **kw)),
+        plain_ms=cuda_ms(torch, lambda: bsi_fused.plain_nmi(phi_f, rem, fixed, scal,
+                                                            TILE, **kw), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     for r in rows:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -194,10 +271,11 @@ def run_main_path(torch, fixed, moving):
             f"{k} +{mem1.get(k, 0) - mem0.get(k, 0)}"
             for k in ("num_alloc_retries", "num_device_alloc", "num_device_free")))
     steps = opts.levels * (opts.iters + 1)
-    expected = {"bsi_ttli": steps + 1 + 4, "bsi_adjoint": steps, "bsi_fused": steps}
+    expected = {"bsi_ttli": steps + 1 + 4, "bsi_adjoint": steps, "bsi_fused": steps,
+                "bsi_fused_stats": 0, "bsi_fused_ncc": 0, "bsi_fused_nmi": 0}
     log(f"main path: losses {res.losses}, {res.seconds:.3f} s, bsi_seconds "
         f"{res.bsi_seconds:.4f}, launches {counts} (expected {expected})")
-    assert all(counts[k] > 0 for k in expected), counts
+    assert all(counts[k] > 0 for k in ("bsi_ttli", "bsi_adjoint", "bsi_fused")), counts
     assert counts == expected, (counts, expected)
     assert res.warped.shape == fixed.shape and res.params.shape[3] == 3
     assert torch.isfinite(res.warped).all() and torch.isfinite(res.params).all()
@@ -234,6 +312,87 @@ def compare_paths(torch, fixed, moving):
                                for a, b in zip(card.losses, host.losses))
 
 
+def run_multimodal(torch, fixed, moving):
+    """Phase 4: the multi-modal path, ``similarity="nmi"`` on the remapped pair."""
+    from repro_torch import RegistrationOptions, ffd_register
+    from repro_torch.core import ffd, metrics
+    from repro_torch.kernels import ops
+
+    rem = remap(moving)
+    opts = RegistrationOptions(similarity="nmi")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = ffd_register(fixed, rem, options=opts, measure_bsi_time=True)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = opts.levels * (opts.iters + 1)
+    expected = {"bsi_ttli": steps + 1 + 4, "bsi_adjoint": steps, "bsi_fused": 0,
+                "bsi_fused_stats": steps, "bsi_fused_ncc": 0, "bsi_fused_nmi": steps}
+    log(f"nmi path: losses {res.losses}, {res.seconds:.3f} s, bsi_seconds "
+        f"{res.bsi_seconds:.4f}, peak device memory {peak:.2f} GiB, launches "
+        f"{counts} (expected {expected})")
+    assert counts == expected, (counts, expected)
+    assert torch.isfinite(res.params).all() and all(map(math.isfinite, res.losses))
+
+    def recovered_mae(params):
+        """MAE of the original moving volume warped by a recovered field."""
+        with torch.no_grad():
+            disp = ffd.dense_field(params, TILE, tuple(fixed.shape), mode="ttli",
+                                   impl="cuda", grad_impl="cuda")
+            return metrics.mae(ffd.warp_volume(moving, disp), fixed).item()
+
+    mae0 = metrics.mae(moving, fixed).item()
+    mae_nmi = recovered_mae(res.params)
+    ssd = ffd_register(fixed, rem, options=RegistrationOptions())
+    mae_ssd = recovered_mae(ssd.params)
+    log(f"nmi path: MAE of the recovered warp, pre-registration {mae0:.6f}, nmi "
+        f"{mae_nmi:.6f}, ssd on the same remapped pair {mae_ssd:.6f} "
+        f"({ssd.seconds:.3f} s)")
+    assert mae_nmi < mae0, (mae0, mae_nmi)
+    return counts, dict(seconds=res.seconds, peak_gib=peak)
+
+
+def compare_multimodal_paths(torch, fixed, moving):
+    """Phase 4: NCC and NMI at iters=5 on the kernels and on the plain path,
+    and a small remapped pair with NMI on the card against the CPU."""
+    from repro_torch import RegistrationOptions, ffd_register, make_pair
+    from repro_torch.kernels import ops
+
+    rem = remap(moving)
+    counts = {}
+    for sim in ("ncc", "nmi"):
+        ops.reset_launch_counts()
+        kern = ffd_register(fixed, rem, options=RegistrationOptions(iters=5,
+                                                                   similarity=sim))
+        counts[sim] = ops.launch_counts()
+        steps = 2 * (5 + 1)
+        expected = {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": 0,
+                    "bsi_fused_stats": steps,
+                    "bsi_fused_ncc": steps if sim == "ncc" else 0,
+                    "bsi_fused_nmi": steps if sim == "nmi" else 0}
+        assert counts[sim] == expected, (sim, counts[sim], expected)
+        ops.reset_launch_counts()
+        plain = ffd_register(fixed, rem, options=RegistrationOptions(
+            iters=5, impl="torch", grad_impl="torch", fused="off", similarity=sim))
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(kern.losses, plain.losses))
+        log(f"{sim} iters=5: kernels {kern.losses} plain {plain.losses} max relative "
+            f"{rel:.3e} (limit 1e-4); {kern.seconds:.3f} s vs {plain.seconds:.3f} s; "
+            f"launches {counts[sim]}")
+        assert rel <= 1e-4, rel
+
+    f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(iters=5, similarity="nmi")
+    card = ffd_register(f, remap(m), options=opts)
+    host = ffd_register(f, remap(m), options=opts, device="cpu")
+    err = (card.params.cpu() - host.params).abs().max().item()
+    log(f"small remapped pair, nmi: card {card.losses} cpu {host.losses}, "
+        f"params max |diff| {err:.3e}")
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card.losses, host.losses))
+    return counts["ncc"]
+
+
 def main():
     import torch
 
@@ -262,8 +421,15 @@ def main():
     rows = check_kernels(torch, fixed, moving)
     counts = run_main_path(torch, fixed, moving)
     compare_paths(torch, fixed, moving)
+    nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)
+    ncc_counts = compare_multimodal_paths(torch, fixed, moving)
+    # each kernel's launches in the run of its own path: SSD, NMI, NCC
+    path_counts = {"bsi_fused_stats": nmi_counts, "bsi_fused_nmi": nmi_counts,
+                   "bsi_fused_ncc": ncc_counts}
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = path_counts.get(r["name"], counts)[r["name"]]
+        assert r["launches"] > 0, r
+    log(f"nmi call at phantom1: {nmi_call}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")

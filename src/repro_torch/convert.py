@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.options import RegistrationOptions
+from repro_torch.core.similarity import _loss_from_spec
 from repro_torch.engine.optimizer import AdamOptimizer
 
 __all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "grid_from_numpy", "options_from_reference"]
@@ -37,6 +38,17 @@ def _name(value):
     return getattr(value, "name", value)
 
 
+def _similarity(value):
+    """A similarity of the JAX package as this package's: a name stays a name;
+    a loss with a ``_fused_spec`` (``nmi(bins=16)``, ``lncc(window=5)``) maps
+    to this package's loss with the same spec, never by calling the JAX
+    function; any other callable passes through."""
+    spec = getattr(value, "_fused_spec", None)
+    if callable(value) and spec is not None:
+        return _loss_from_spec(tuple(spec))
+    return value
+
+
 def options_from_reference(fields: dict) -> RegistrationOptions:
     """``RegistrationOptions`` of this package from the JAX package's fields.
 
@@ -44,14 +56,18 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
     (names, or its frozen spec instances).  ``impl`` and ``grad_impl`` are
     renamed by ``IMPL_NAMES`` and ``GRAD_IMPL_NAMES``; a value with no
     counterpart yet (``"auto"``, ``"matmul"``, ...) raises as the options do.
-    ``fused_reason`` is the JAX package's introspection field and is dropped.
+    A similarity callable of the JAX package maps to this package's callable
+    with the same ``_fused_spec``.  ``fused_reason`` is the JAX package's
+    introspection field and is dropped.
     """
     kw = {k: v for k, v in fields.items() if k != "fused_reason"}
     if "impl" in kw:
         kw["impl"] = IMPL_NAMES.get(kw["impl"], kw["impl"])
     if "grad_impl" in kw:
         kw["grad_impl"] = GRAD_IMPL_NAMES.get(kw["grad_impl"], kw["grad_impl"])
-    for k in ("similarity", "transform", "regularizer"):
+    if "similarity" in kw:
+        kw["similarity"] = _similarity(kw["similarity"])
+    for k in ("transform", "regularizer"):
         if k in kw:
             kw[k] = _name(kw[k])
     opt = kw.get("optimizer")

@@ -72,55 +72,58 @@ def dense_field(phi, tile, vol_shape, *, mode="separable", impl="torch",
                             grad_impl=grad_impl)
 
 
-class _FusedSsd(torch.autograd.Function):
-    """Fused forward, recompute-based backward (``ffd.py:133-149`` of the JAX
+class _FusedLoss(torch.autograd.Function):
+    """Fused forward, recompute-based backward (``ffd.py:118-150`` of the JAX
     package): the gradient is that of the unfused composition."""
 
     @staticmethod
-    def forward(ctx, phi, moving, fixed, tile, mode, impl, grad_impl):
+    def forward(ctx, phi, moving, fixed, tile, spec, mode, impl, grad_impl):
         from repro_torch.kernels import ops  # kernels import core modules
 
         ctx.save_for_backward(phi, moving, fixed)
-        ctx.conf = (tile, mode, impl, grad_impl)
-        return ops.fused_ssd_loss(phi, moving, fixed, tile)
+        ctx.conf = (tile, spec, mode, impl, grad_impl)
+        disp_form = "matmul" if mode == "matmul" else "lerp"
+        return ops.fused_similarity_loss(phi, moving, fixed, tile, sim_spec=spec,
+                                         disp_form=disp_form)
 
     @staticmethod
     def backward(ctx, g):
-        from repro_torch.core.similarity import ssd
+        from repro_torch.core.similarity import _loss_from_spec
 
         phi, moving, fixed = ctx.saved_tensors
-        tile, mode, impl, grad_impl = ctx.conf
+        tile, spec, mode, impl, grad_impl = ctx.conf
         with torch.enable_grad():
             p = phi.detach().requires_grad_(True)
             disp = dense_field(p, tile, moving.shape, mode=mode, impl=impl,
                                grad_impl=grad_impl)
-            loss = ssd(warp_volume(moving, disp), fixed)
+            loss = _loss_from_spec(spec)(warp_volume(moving, disp), fixed)
             (dphi,) = torch.autograd.grad(loss, p, g)
-        return dphi, None, None, None, None, None, None
+        return dphi, None, None, None, None, None, None, None
 
 
 def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separable",
                     impl="torch", grad_impl="autograd"):
     """``similarity(warp(moving, bsi(phi)), fixed)`` without a dense field.
 
-    The forward is the fused kernel (``kernels.ops.fused_ssd_loss``; its plain
-    version on the CPU), which evaluates the displacement in the TTLI lerp
-    form whatever ``mode`` says.  The backward recomputes ``dense_field ->
-    warp_volume -> ssd`` with ``mode`` / ``impl`` / ``grad_impl`` and returns
-    its gradient, so the gradient is the unfused path's.  Only ``"ssd"`` has
-    a fused kernel in this package.
+    The forward is the fused kernels (``kernels.ops.fused_similarity_loss``;
+    their plain versions on the CPU), which evaluate the displacement in the
+    TTLI lerp form whatever ``mode`` says.  The backward recomputes
+    ``dense_field -> warp_volume -> similarity`` with ``mode`` / ``impl`` /
+    ``grad_impl`` and returns its gradient, so the gradient is the unfused
+    path's.  ``ssd``, ``ncc`` and ``nmi`` have fused kernels in this package;
+    ``lncc`` raises ``NotImplementedError``.
     """
     from repro_torch.core.similarity import fused_spec
 
     spec = fused_spec(similarity)
-    if spec != ("ssd",):
+    if spec is None:
         raise ValueError(
-            f"similarity {similarity!r} has no fused kernel in this package; "
-            "run it unfused (fused='off')"
+            f"similarity {similarity!r} has no fused kernel; run it unfused "
+            "(fused='off')"
         )
     tile = tuple(int(t) for t in tile)
-    return _FusedSsd.apply(phi, moving.detach(), fixed.detach(), tile, mode, impl,
-                           grad_impl)
+    return _FusedLoss.apply(phi, moving.detach(), fixed.detach(), tile, tuple(spec),
+                            mode, impl, grad_impl)
 
 
 def trilinear_sample(vol, coords):

@@ -1,26 +1,46 @@
-"""Fused level step with SSD: the CUDA kernel's launch and its plain version.
+"""Fused level step: the CUDA kernels' launches and their plain versions.
 
-The kernel (``csrc/bsi_fused.cu``) replaces the JAX package's Pallas kernel
-``repro/kernels/bsi_fused.py:bsi_fused_pallas`` with ``sim=("ssd",)``: per
-block of tiles it evaluates the displacement in the TTLI lerp form, samples
-the moving volume trilinearly at identity + displacement (fp32 coordinates,
-clamped to the volume) and sums ``(w - f)^2`` over the voxels of the volume.
-Each block writes a partial sum; a second launch sums them in a fixed order.
-No dense field and no warped volume reach device memory.
+The kernels (``csrc/bsi_fused.cu``) replace the JAX package's Pallas kernel
+``repro/kernels/bsi_fused.py:bsi_fused_pallas`` in four variants.  Per block
+of tiles each evaluates the displacement in the TTLI lerp form, samples the
+moving volume trilinearly at identity + displacement (fp32 coordinates,
+clamped to the volume) and reduces the voxels of the volume to one partial
+row; a second launch combines the rows lane by lane in a fixed order.  No
+dense field and no warped volume reach device memory.
 
-:func:`plain` computes the same function in tensor ops, without autograd:
-the lerp-form displacement, the clamped 8-tap sample and the sum.
-``kernels.ops.fused_ssd_loss`` picks between the two by the tensor's device.
+=========  =====================================================  ===========
+variant    result                                                 lanes
+=========  =====================================================  ===========
+``ssd``    sum of ``(w - f)^2``                                   1
+``stats``  sum, min, max and count of ``w``                       4
+``ncc``    sums of ``ab``, ``aa``, ``bb``; ``a = w - mu_w``,       3
+           ``b = f - mu_f``, the means from ``scal``
+``nmi``    the ``(bins, bins)`` joint Parzen histogram            ``bins^2``
+           ``sum_v wa(v) wb(v)^T`` of the min-max normalised
+           intensities, lo/hi from ``scal``
+=========  =====================================================  ===========
+
+The ``plain_*`` functions compute the same results in tensor ops, without
+autograd: the lerp-form displacement, the clamped 8-tap sample and the sums.
+``kernels.ops`` picks between the two by the tensor's device.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from repro_torch.core.similarity import parzen_centres, parzen_weights
 from repro_torch.kernels import bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["launch", "plain", "num_partials"]
+__all__ = ["LANES", "MAX_BINS", "launch", "num_partials", "nmi_smem_bytes", "plain",
+           "plain_ncc", "plain_nmi", "plain_stats", "warped"]
+
+LANES = {"ssd": 1, "stats": 4, "ncc": 3}
+MAX_BINS = 64  # histogram width the nmi kernel takes (csrc: kNmiMaxBins)
+_NMI_CHUNK_STRIDE = 129  # csrc: kNmiStride
 
 
 def num_partials(vol_shape, tile, blocks) -> int:
@@ -32,27 +52,57 @@ def num_partials(vol_shape, tile, blocks) -> int:
     return n
 
 
-def launch(phi, moving, fixed, tile, blocks):
-    """Launch on the current stream; returns the 0-dim sum of squared differences."""
+def nmi_smem_bytes(bins) -> int:
+    """Shared memory the nmi kernel adds to the staging: centres, the two
+    staged weight matrices (or the group combine, whichever is larger)."""
+    bp = -(-bins // 4) * 4
+    return 4 * (bp + max(2 * bp * _NMI_CHUNK_STRIDE, 16 * 256))
+
+
+def launch(kind, phi, moving, fixed, tile, blocks, *, scal=None, bins=None,
+           sigma=None, eps=None):
+    """Launch variant ``kind`` on the current stream; returns its combined row
+    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``)."""
     nx, ny, nz, _ = phi.shape
     X, Y, Z = moving.shape
     n = num_partials(moving.shape, tile, blocks)
-    partials = torch.empty(n, dtype=torch.float32, device=phi.device)
-    out = torch.empty((), dtype=torch.float32, device=phi.device)
+    k = bins * bins if kind == "nmi" else LANES[kind]
+    partials = torch.empty(n * k, dtype=torch.float32, device=phi.device)
+    out = torch.empty(k, dtype=torch.float32, device=phi.device)
     lib = load_library()
+    dims = (nx, ny, nz, *tile, X, Y, Z, *blocks)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        rc = lib.bsi_fused_ssd_f32(
-            phi.data_ptr(), bsi_ttli.stage_luts(tile, phi.device).data_ptr(),
-            moving.data_ptr(), fixed.data_ptr(), partials.data_ptr(), n,
-            out.data_ptr(), nx, ny, nz, *tile, X, Y, Z, *blocks, stream)
+        luts = bsi_ttli.stage_luts(tile, phi.device).data_ptr()
+        if kind == "ssd":
+            rc = lib.bsi_fused_ssd_f32(
+                phi.data_ptr(), luts, moving.data_ptr(), fixed.data_ptr(),
+                partials.data_ptr(), n, out.data_ptr(), *dims, stream)
+        elif kind == "stats":
+            rc = lib.bsi_fused_stats_f32(
+                phi.data_ptr(), luts, moving.data_ptr(), partials.data_ptr(), n,
+                out.data_ptr(), *dims, stream)
+        elif kind == "ncc":
+            rc = lib.bsi_fused_ncc_f32(
+                phi.data_ptr(), luts, moving.data_ptr(), fixed.data_ptr(),
+                scal.data_ptr(), partials.data_ptr(), n, out.data_ptr(), *dims, stream)
+        elif kind == "nmi":
+            centres = parzen_centres(bins, phi.device)
+            rc = lib.bsi_fused_nmi_f32(
+                phi.data_ptr(), luts, moving.data_ptr(), fixed.data_ptr(),
+                scal.data_ptr(), centres.data_ptr(), partials.data_ptr(), n,
+                out.data_ptr(), *dims, bins, ctypes.c_float(sigma),
+                ctypes.c_float(eps), stream)
+        else:
+            raise ValueError(f"no fused kernel variant {kind!r}")
     if rc:
-        raise RuntimeError(f"bsi_fused kernel launch failed: cudaError_t {rc}")
-    return out
+        raise RuntimeError(f"bsi_fused {kind} kernel launch failed: cudaError_t {rc}")
+    return out.view(bins, bins) if kind == "nmi" else out
 
 
-def plain(phi, moving, fixed, tile):
-    """The kernel's function in tensor ops: the sum of squared differences."""
+def warped(phi, moving, tile):
+    """The kernels' warp in tensor ops: the moving volume sampled at identity
+    + the lerp-form displacement, clamped 8-tap, without autograd."""
     X, Y, Z = moving.shape
     with torch.no_grad():
         disp = bsi_ttli.plain(phi, tile, (X, Y, Z))
@@ -79,5 +129,44 @@ def plain(phi, moving, fixed, tile):
         c11 = at(x0, y1, z1) * (1 - tx) + at(x1, y1, z1) * tx
         c0 = c00 * (1 - ty) + c10 * ty
         c1 = c01 * (1 - ty) + c11 * ty
-        w = c0 * (1 - tz) + c1 * tz
+        return c0 * (1 - tz) + c1 * tz
+
+
+def plain(phi, moving, fixed, tile):
+    """The ssd kernel's function: the sum of squared differences."""
+    w = warped(phi, moving, tile)
+    with torch.no_grad():
         return torch.sum((w - fixed) ** 2)
+
+
+def plain_stats(phi, moving, tile):
+    """The stats kernel's function: ``(sum, min, max, count)`` of the warp."""
+    w = warped(phi, moving, tile)
+    with torch.no_grad():
+        count = w.new_full((), float(w.numel()))
+        return torch.stack([torch.sum(w), torch.min(w), torch.max(w), count])
+
+
+def plain_ncc(phi, moving, fixed, scal, tile):
+    """The ncc kernel's function: the centred ``(sum ab, sum aa, sum bb)``
+    with ``scal = (mu_w, mu_f)``."""
+    w = warped(phi, moving, tile)
+    with torch.no_grad():
+        a = w - scal[0]
+        b = fixed - scal[1]
+        return torch.stack([torch.sum(a * b), torch.sum(a * a), torch.sum(b * b)])
+
+
+def plain_nmi(phi, moving, fixed, scal, tile, *, bins, sigma, eps):
+    """The nmi kernel's function: the un-normalised ``(bins, bins)`` joint
+    Parzen histogram, ``scal = (lo_w, hi_w, lo_f, hi_f)``, ``sigma`` a float."""
+    w = warped(phi, moving, tile).reshape(-1)
+    with torch.no_grad():
+        floor = w.new_full((), 1e-8)
+        an = (w - scal[0]) / torch.maximum(scal[1] - scal[0], floor)
+        bn = (fixed.reshape(-1) - scal[2]) / torch.maximum(scal[3] - scal[2], floor)
+        centres = parzen_centres(bins, w.device)
+        s = w.new_full((), sigma)
+        wa = parzen_weights(an, centres, s, eps)
+        wb = parzen_weights(bn, centres, s, eps)
+        return wa.T @ wb

@@ -45,8 +45,10 @@ def stage_luts(tile, device) -> torch.Tensor:
     return torch.cat([t for d in tile for t in lerp_luts(d, torch.float32, device)])
 
 
-def check_blocks(tile, blocks, channels):
-    smem = stage_smem_bytes(tile, blocks, channels)
+def check_blocks(tile, blocks, channels, extra_bytes=0):
+    """Raise if the staging, plus a kernel's ``extra_bytes``, exceeds what a
+    block may use."""
+    smem = stage_smem_bytes(tile, blocks, channels) + extra_bytes
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"tile {tile} with {channels} channels needs {smem} B of shared "

@@ -32,14 +32,23 @@ FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )  # fmt: skip
+# The fused kernels round every multiply and add of the displacement and the
+# warp as the plain version does (no contraction into FMAs), so their warped
+# samples, and the stats kernel's min and max, equal the plain version's bit
+# for bit; where an FMA is wanted (the NMI histogram) the source says fmaf.
+SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",)}
 
-_VOID_P, _INT = ctypes.c_void_p, ctypes.c_int
-# C signature of each entry point: (pointer args, int args); all end with the
-# stream and return a cudaError_t.
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_DIMS = "i" * 12  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz
+# C signature of each entry point, one letter per argument (p: pointer, i:
+# int, f: float); each ends with the stream and returns a cudaError_t.
 _SIGNATURES = {
-    "bsi_ttli_f32": (3, 13),
-    "bsi_adjoint_f32": (7, 10),
-    "bsi_fused_ssd_f32": (5, 1, 1, 12),
+    "bsi_ttli_f32": "ppp" + "i" * 13,
+    "bsi_adjoint_f32": "p" * 7 + "i" * 10,
+    "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,
+    "bsi_fused_stats_f32": "pppp" + "ip" + _DIMS,
+    "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,
+    "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iff",
 }
 
 
@@ -56,13 +65,10 @@ class Library:
     def __init__(self, info: BuildInfo):
         self.info = info
         self._dll = ctypes.CDLL(str(info.path))
-        for name, groups in _SIGNATURES.items():
+        for name, sig in _SIGNATURES.items():
             fn = getattr(self._dll, name)
-            args = []
-            for i, n in enumerate(groups):  # pointer and int groups alternate
-                args += [_VOID_P if i % 2 == 0 else _INT] * n
-            fn.argtypes = args + [_VOID_P]
-            fn.restype = _INT
+            fn.argtypes = [_CTYPES[c] for c in sig + "p"]
+            fn.restype = ctypes.c_int
             setattr(self, name, fn)
 
 
@@ -87,6 +93,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -124,7 +131,8 @@ def _build(out: Path) -> BuildInfo:
         procs = []
         for name in SOURCES:  # one nvcc per source, all started together
             obj = Path(tmp) / (name + ".o")
-            cmd = [nvcc, *FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            cmd = [nvcc, *FLAGS, *SOURCE_FLAGS.get(name, ()), "-c", str(CSRC / name),
+                   "-o", str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         log, failed = [], []

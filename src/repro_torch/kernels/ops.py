@@ -18,15 +18,24 @@ import torch
 
 from repro_torch.kernels import bsi_adjoint as _adjoint
 from repro_torch.kernels import bsi_fused as _fused
+from repro_torch.core.similarity import entropy_loss
 from repro_torch.kernels import bsi_ttli as _ttli
 
 __all__ = [
     "bsi_ttli",
     "bsi_adjoint",
+    "fused_ncc_moments",
+    "fused_nmi_histogram",
+    "fused_similarity_loss",
     "fused_ssd_loss",
+    "fused_stats",
     "launch_counts",
     "reset_launch_counts",
+    "two_pass_loss",
 ]
+
+# Fused variants of the JAX package not in this package yet.
+_FUSED_NOT_YET = "ROADMAP.md queue 2 item 8"
 
 
 def _on_card(t, name) -> bool:
@@ -99,6 +108,29 @@ def bsi_adjoint(g, tile, grid_shape):
     return out
 
 
+def _fused_inputs(phi, moving, fixed, tile, name):
+    """Check the fused kernels' shared inputs; True on the card."""
+    if fixed is not None and moving.shape != fixed.shape:
+        raise ValueError(
+            f"shape mismatch: {tuple(fixed.shape)} vs {tuple(moving.shape)}")
+    if phi.dim() != 4 or phi.shape[3] != 3:
+        raise ValueError(f"phi must be (Nx, Ny, Nz, 3), got {tuple(phi.shape)}")
+    _covers(phi.shape[:3], tile, moving.shape, name)
+    if not _on_card(phi, name):
+        return False
+    _check(phi, "phi", 4, phi.device)
+    _check(moving, "moving", 3, phi.device)
+    if fixed is not None:
+        _check(fixed, "fixed", 3, phi.device)
+    return True
+
+
+def _blocks(tile, extra_smem=0):
+    blocks = _ttli.block_tiles(tile)
+    _ttli.check_blocks(tile, blocks, 3, extra_smem)
+    return blocks
+
+
 def fused_ssd_loss(phi, moving, fixed, tile):
     """``mean((warp(moving, bsi(phi)) - fixed)**2)`` without a dense field.
 
@@ -106,27 +138,113 @@ def fused_ssd_loss(phi, moving, fixed, tile):
     ``repro_torch.core.ffd.fused_warp_loss``.  Returns a 0-dim float32 tensor.
     """
     tile = tuple(int(d) for d in tile)
+    n = moving.numel()
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_ssd_loss"):
+        return _fused.plain(phi, moving, fixed, tile) / n
+    total = _fused.launch("ssd", phi, moving, fixed, tile, _blocks(tile))
+    fused_ssd_loss.launches += 1
+    return total[0] / n
+
+
+def fused_stats(phi, moving, tile):
+    """``(sum, min, max, count)`` of ``warp(moving, bsi(phi))``, float32 ``(4,)``;
+    the first pass of the fused NCC and NMI."""
+    tile = tuple(int(d) for d in tile)
+    if not _fused_inputs(phi, moving, None, tile, "fused_stats"):
+        return _fused.plain_stats(phi, moving, tile)
+    out = _fused.launch("stats", phi, moving, None, tile, _blocks(tile))
+    fused_stats.launches += 1
+    return out
+
+
+def fused_ncc_moments(phi, moving, fixed, scal, tile):
+    """The centred ``(sum ab, sum aa, sum bb)`` of the warp ``w`` and ``fixed``,
+    ``a = w - scal[0]``, ``b = fixed - scal[1]``; float32 ``(3,)``."""
+    tile = tuple(int(d) for d in tile)
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_ncc_moments"):
+        return _fused.plain_ncc(phi, moving, fixed, scal, tile)
+    _check(scal, "scal", 1, phi.device)
+    out = _fused.launch("ncc", phi, moving, fixed, tile, _blocks(tile), scal=scal)
+    fused_ncc_moments.launches += 1
+    return out
+
+
+def fused_nmi_histogram(phi, moving, fixed, scal, tile, *, bins, sigma, eps):
+    """The un-normalised ``(bins, bins)`` joint Parzen histogram of the warp
+    and ``fixed``, each min-max normalised with ``scal = (lo_w, hi_w, lo_f,
+    hi_f)``; ``sigma`` in ``[0, 1]`` units, applied in float32."""
+    tile = tuple(int(d) for d in tile)
+    if not 2 <= bins <= _fused.MAX_BINS:
+        raise ValueError(
+            f"the fused nmi kernel takes 2 to {_fused.MAX_BINS} bins, got {bins}; "
+            "run it unfused (fused='off')")
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_nmi_histogram"):
+        return _fused.plain_nmi(phi, moving, fixed, scal, tile, bins=bins,
+                                sigma=sigma, eps=eps)
+    _check(scal, "scal", 1, phi.device)
+    blocks = _blocks(tile, _fused.nmi_smem_bytes(bins))
+    out = _fused.launch("nmi", phi, moving, fixed, tile, blocks, scal=scal, bins=bins,
+                        sigma=sigma, eps=eps)
+    fused_nmi_histogram.launches += 1
+    return out
+
+
+def fused_similarity_loss(phi, moving, fixed, tile, *, sim_spec, disp_form="lerp"):
+    """``sim(warp(moving, bsi(phi)), fixed)`` without a dense field.
+
+    ``sim_spec`` is a similarity's ``_fused_spec``: ``ssd`` is one pass,
+    ``ncc`` and ``nmi`` two (:func:`two_pass_loss`).  The displacement is the
+    TTLI lerp form (``disp_form="lerp"``).  Forward only; the differentiable
+    face is ``repro_torch.core.ffd.fused_warp_loss``.  Returns a 0-dim
+    float32 tensor.
+    """
+    kind = sim_spec[0]
+    if kind == "lncc" or disp_form != "lerp":
+        what = ("the fused lncc kernel" if kind == "lncc"
+                else f"the fused kernel with disp_form={disp_form!r}")
+        raise NotImplementedError(f"{what} is not in the package yet ({_FUSED_NOT_YET})")
+    if kind == "ssd":
+        return fused_ssd_loss(phi, moving, fixed, tile)
+    return two_pass_loss(sim_spec, phi, moving, fixed, tile, stats=fused_stats,
+                         ncc_moments=fused_ncc_moments,
+                         nmi_histogram=fused_nmi_histogram)
+
+
+def two_pass_loss(sim_spec, phi, moving, fixed, tile, *, stats, ncc_moments,
+                  nmi_histogram):
+    """The fused ``ncc`` or ``nmi`` loss from its two passes.
+
+    Pass one is ``stats`` of the warp; pass two ``ncc_moments`` or
+    ``nmi_histogram``, given the means or lo/hi as a small device buffer.  The
+    finish is ``repro/kernels/ops.py:_fused_loss_jit``'s, in tensor ops on the
+    device: nothing reads a value back to the host.  The passes are the
+    dispatchers above or, to hold the kernels against them on the card, the
+    kernels' plain versions (``kernels.bsi_fused``), which take the same
+    arguments.
+    """
+    kind = sim_spec[0]
+    if kind not in ("ncc", "nmi"):
+        raise ValueError(f"no fused kernel for similarity spec {sim_spec!r}")
     if moving.shape != fixed.shape:
         raise ValueError(
             f"shape mismatch: {tuple(fixed.shape)} vs {tuple(moving.shape)}")
-    if phi.dim() != 4 or phi.shape[3] != 3:
-        raise ValueError(f"phi must be (Nx, Ny, Nz, 3), got {tuple(phi.shape)}")
-    _covers(phi.shape[:3], tile, moving.shape, "fused_ssd_loss")
     n = moving.numel()
-    if not _on_card(phi, "fused_ssd_loss"):
-        return _fused.plain(phi, moving, fixed, tile) / n
-    _check(phi, "phi", 4, phi.device)
-    _check(moving, "moving", 3, phi.device)
-    _check(fixed, "fixed", 3, phi.device)
-    blocks = _ttli.block_tiles(tile)
-    _ttli.check_blocks(tile, blocks, 3)
-    total = _fused.launch(phi, moving, fixed, tile, blocks)
-    fused_ssd_loss.launches += 1
-    return total / n
+    st = stats(phi, moving, tile)
+    if kind == "ncc":
+        scal = torch.stack([st[0] / n, fixed.mean()])
+        acc = ncc_moments(phi, moving, fixed, scal, tile)
+        return 1.0 - acc[0] / torch.clamp_min(torch.sqrt(acc[1] * acc[2]), 1e-8)
+    _, bins, sigma_ratio, eps = sim_spec
+    bins = int(bins)
+    scal = torch.stack([st[1], st[2], fixed.min(), fixed.max()])
+    hist = nmi_histogram(phi, moving, fixed, scal, tile, bins=bins,
+                         sigma=float(sigma_ratio) / (bins - 1), eps=float(eps))
+    return entropy_loss(hist / n, float(eps))
 
 
 _DISPATCHERS = {"bsi_ttli": bsi_ttli, "bsi_adjoint": bsi_adjoint,
-                "bsi_fused": fused_ssd_loss}
+                "bsi_fused": fused_ssd_loss, "bsi_fused_stats": fused_stats,
+                "bsi_fused_ncc": fused_ncc_moments, "bsi_fused_nmi": fused_nmi_histogram}
 
 
 def reset_launch_counts():

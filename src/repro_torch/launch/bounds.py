@@ -1,13 +1,15 @@
 """The least time an H100 could take for each BSI kernel of the JAX package.
 
     PYTHONPATH=src python -m repro_torch.launch.bounds [--shape X Y Z] [--tile D D D]
+        [--bins B] [--seq S]
 
 For a volume and tile (default: the paper's phantom1, 512 x 228 x 385, tile
 5^3, 3 channels) it counts, from the shapes alone, the bytes each kernel must
 move (each input read once, each output written once) and the float32
 operations its algorithm does, and prints the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM fp32 outside the tensor cores) with which
-of the two bounds it.  ``chip_smoke.py`` uses the same counts for the
+of the two bounds it; and the same for one bf16 attention layer (989 TFLOP/s
+on the tensor cores) of a config of the JAX package at ``--seq`` tokens.  ``chip_smoke.py`` uses the same counts for the
 ported kernels.  Pure arithmetic: it needs no card.
 """
 
@@ -17,20 +19,34 @@ import argparse
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 PHANTOM1 = (512, 228, 385)
+# One attention layer of the JAX package's src/repro/configs/internlm2_1_8b.py
+# (16 query heads, 8 key/value heads, head dim 128, causal), batch 1.
+ATTENTION_LAYER = dict(heads=16, kv_heads=8, head_dim=128, causal=True)
 
-__all__ = ["kernel_bounds", "bound_ms"]
+__all__ = ["attention_bound", "kernel_bounds", "bound_ms"]
 
 
-def bound_ms(bytes_moved, flops):
+def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
     """``(ms, "bytes" | "operations")``: the larger of the two times."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bounds(vol_shape, tile, channels=3) -> dict:
-    """``name -> (bytes, flops)`` for the BSI kernels at ``vol_shape``."""
+def attention_bound(seq, *, heads, kv_heads, head_dim, causal, itemsize=2):
+    """``(bytes, flops)`` of one attention layer, batch 1, over ``seq`` tokens:
+    q, k, v read and the output written once; ``QK^T`` and ``PV`` at 2 flops
+    per multiply-add, halved when causal."""
+    moved = itemsize * seq * head_dim * (2 * heads + 2 * kv_heads)
+    flops = 4 * seq * seq * head_dim * heads
+    return moved, flops // 2 if causal else flops
+
+
+def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
+    """``name -> (bytes, flops)`` for the BSI kernels at ``vol_shape``;
+    ``bins`` is the NMI histogram width, ``window`` the LNCC window."""
     X, Y, Z = vol_shape
     dx, dy, dz = tile
     tx, ty, tz = (-(-s // d) for s, d in zip(vol_shape, tile))
@@ -49,11 +65,24 @@ def kernel_bounds(vol_shape, tile, channels=3) -> dict:
     adjoint = 2 * 4 * c * (X * Y * nz * dz + X * ny * nz * dy + nx * ny * nz * dx)
     dense64 = 2 * 64 * c * vox  # a 64-term weighted sum per voxel and channel
     sample_score = 30 * vox  # clamp, 8 taps, 7 lerps, squared difference
+    ncc_score = 8 * vox  # two centrings, three multiply-adds
+    # per voxel: both intensities normalised (2 ops each); per volume and bin a
+    # Parzen weight (subtract, divide, square, scale, exp), its share of the
+    # row sum and its normalising divide (7 ops); the bins^2 multiply-adds of
+    # the histogram
+    nmi_score = (4 + 2 * 7 * bins + 2 * bins * bins) * vox
+    # per voxel: three products, five separable box sums of `window` adds per
+    # axis, and the local cc (about a dozen ops)
+    lncc_score = (3 + 5 * 3 * window + 12) * vox
     return {
         "bsi_ttli": (grid_b + field_b, ttli),
         "bsi_adjoint_separable": (field_b + grid_b, adjoint),
         "bsi_fused_ssd": (grid_b + 2 * vol_b + 4, ttli + sample_score),
         "bsi_fused_stats": (grid_b + vol_b + 16, ttli + sample_score),
+        "bsi_fused_ncc": (grid_b + 2 * vol_b + 8 + 12, ttli + sample_score + ncc_score),
+        "bsi_fused_nmi": (grid_b + 2 * vol_b + 16 + 4 * bins + 4 * bins * bins,
+                          ttli + sample_score + nmi_score),
+        "bsi_fused_lncc": (grid_b + 2 * vol_b + 8, ttli + sample_score + lncc_score),
         "bsi_matmul": (grid_b + field_b, dense64),
         "bsi_adjoint_matmul": (field_b + grid_b, dense64),
         "bsi_separable": (grid_b + field_b, separable),
@@ -66,13 +95,22 @@ def main(argv=None):
     ap.add_argument("--shape", type=int, nargs=3, default=PHANTOM1)
     ap.add_argument("--tile", type=int, nargs=3, default=(5, 5, 5))
     ap.add_argument("--channels", type=int, default=3)
+    ap.add_argument("--bins", type=int, default=32, help="NMI histogram width")
+    ap.add_argument("--seq", type=int, default=4096, help="attention sequence length")
     args = ap.parse_args(argv)
     print(f"volume {tuple(args.shape)}, tile {tuple(args.tile)}, "
-          f"{args.channels} channels; H100 SXM 3.35 TB/s, 67 TFLOP/s fp32")
-    for name, (b, f) in kernel_bounds(args.shape, args.tile, args.channels).items():
+          f"{args.channels} channels, {args.bins} NMI bins; H100 SXM 3.35 TB/s, "
+          "67 TFLOP/s fp32")
+    bounds = kernel_bounds(args.shape, args.tile, args.channels, args.bins)
+    for name, (b, f) in bounds.items():
         ms, by = bound_ms(b, f)
         print(f"{name:24s} {b / 1e6:9.1f} MB {f / 1e9:8.2f} GFLOP  "
               f"bound {ms:.4f} ms ({by})")
+    b, f = attention_bound(args.seq, **ATTENTION_LAYER)
+    ms, by = bound_ms(b, f, BF16_FLOP_PER_S)
+    print(f"{'flash_attention':24s} {b / 1e6:9.1f} MB {f / 1e9:8.2f} GFLOP  "
+          f"bound {ms:.4f} ms ({by}); internlm2_1_8b layer {ATTENTION_LAYER}, "
+          f"sequence {args.seq}, bf16, 989 TFLOP/s")
 
 
 if __name__ == "__main__":

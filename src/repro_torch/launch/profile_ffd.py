@@ -1,12 +1,14 @@
 """Where the time of the port's ``ffd_register`` goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_ffd [--shape X Y Z]
-        [--iters N] [--calls K] [--top T]
+        [--iters N] [--calls K] [--top T] [--similarity NAME] [--remap]
 
 Builds the kernels (printing the build seconds), makes ``make_pair(shape,
-seed=0)`` (default: the paper's phantom1, 512 x 228 x 385) and traces the
-process's first ``ffd_register`` call with the default options (the kernels)
-under ``torch.profiler``, printing the host-side calls that took the most
+seed=0)`` (default: the paper's phantom1, 512 x 228 x 385), with ``--remap``
+maps the moving volume's intensities through ``(1 - v)^1.5`` (a synthetic
+second modality), and traces the process's first ``ffd_register`` call with
+the default options (the kernels) and ``--similarity`` (default ``ssd``;
+``nmi`` and ``ncc`` run the two-pass fused kernels) under ``torch.profiler``, printing the host-side calls that took the most
 time (the first call pays one-off costs beyond the build).  Then it times
 ``--calls`` more calls, and traces one more warm call, printing the device
 time per kernel name, the package's CUDA kernels against PyTorch's own
@@ -61,6 +63,9 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=RegistrationOptions().iters)
     ap.add_argument("--calls", type=int, default=2)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--similarity", default="ssd")
+    ap.add_argument("--remap", action="store_true",
+                    help="moving volume through (1 - v)^1.5")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ffd: needs a CUDA device")
@@ -68,7 +73,9 @@ def main(argv=None):
     card = _card()
     build_s = load_library().info.seconds
     fixed, moving, _ = make_pair(tuple(args.shape), seed=0)
-    opts = RegistrationOptions(iters=args.iters)
+    if args.remap:
+        moving = (1.0 - moving) ** 1.5
+    opts = RegistrationOptions(iters=args.iters, similarity=args.similarity)
 
     def run():
         ffd_register(fixed, moving, options=opts)
@@ -77,18 +84,21 @@ def main(argv=None):
     cold, cold_wall = _traced(run)
     host = sorted(cold.key_averages(), key=lambda a: -a.self_cpu_time_total)
     host_top = [[a.key, a.count, a.self_cpu_time_total / 1e3] for a in host[: args.top]]
-    print(f"card: {card}; shape {tuple(args.shape)}, iters {args.iters}; "
+    print(f"card: {card}; shape {tuple(args.shape)}, iters {args.iters}, "
+          f"similarity {args.similarity}, remap {args.remap}; "
           f"kernel build {build_s:.2f} s")
     print(f"first call (traced): wall {cold_wall * 1e3:.1f} ms; host self time by op:")
     for key, count, ms in host_top:
         print(f"  {ms:10.2f} ms  x{count:<6d} {key[:100]}")
 
     seconds = []
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(args.calls):
         t0 = time.perf_counter()
         run()
         seconds.append(time.perf_counter() - t0)
-    print(f"later calls, seconds each: {seconds}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"later calls, seconds each: {seconds}; peak device memory {peak:.2f} GiB")
 
     warm, wall = _traced(run)
     by_name = _device_ms_by_name(warm)
@@ -102,7 +112,8 @@ def main(argv=None):
         print(f"  {ms:10.2f} ms  {name[:110]}")
     print(json.dumps({
         "card": card, "shape": list(args.shape), "iters": args.iters,
-        "build_seconds": build_s,
+        "similarity": args.similarity, "remap": args.remap,
+        "build_seconds": build_s, "peak_gib": peak,
         "first_call_traced_ms": cold_wall * 1e3, "first_call_host_top": host_top,
         "seconds_per_call": seconds, "profiled_wall_ms": wall * 1e3,
         "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),

@@ -88,6 +88,88 @@ def test_fused_kernel_matches_plain(cuda, vol, tile):
     assert abs(out.item() - ref.item()) <= 1e-5 * abs(ref.item())
 
 
+def _fused_inputs(vol, tile, seed, device):
+    rng = np.random.default_rng(seed)
+    phi = _grid(vol, tile, 3, seed, device) * 2.0
+    mov, fix = (torch.from_numpy(rng.uniform(0, 1, vol).astype(np.float32)).to(device)
+                for _ in range(2))
+    mov = torch.clamp(mov - 0.3, min=0.0)  # ties at the minimum, as in a phantom
+    return phi, mov, fix
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+def test_stats_kernel_matches_plain(cuda, vol, tile):
+    phi, mov, _ = _fused_inputs(vol, tile, 10, cuda)
+    before = ops.fused_stats.launches
+    out = ops.fused_stats(phi, mov, tile)
+    assert ops.fused_stats.launches == before + 1
+    ref = bsi_fused.plain_stats(phi, mov, tile)
+    assert out.shape == (4,)
+    assert torch.equal(out[1:], ref[1:])  # min, max, count: exact
+    assert out[3].item() == mov.numel()
+    assert abs(out[0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+def test_ncc_kernel_matches_plain(cuda, vol, tile):
+    phi, mov, fix = _fused_inputs(vol, tile, 11, cuda)
+    st = bsi_fused.plain_stats(phi, mov, tile)
+    scal = torch.stack([st[0] / mov.numel(), fix.mean()])
+    before = ops.fused_ncc_moments.launches
+    out = ops.fused_ncc_moments(phi, mov, fix, scal, tile)
+    assert ops.fused_ncc_moments.launches == before + 1
+    ref = bsi_fused.plain_ncc(phi, mov, fix, scal, tile)
+    assert out.shape == (3,)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("bins", [32, 16, 10])
+def test_nmi_kernel_matches_plain(cuda, vol, tile, bins):
+    phi, mov, fix = _fused_inputs(vol, tile, 12, cuda)
+    st = bsi_fused.plain_stats(phi, mov, tile)
+    scal = torch.stack([st[1], st[2], fix.min(), fix.max()])
+    kw = dict(bins=bins, sigma=0.5 / (bins - 1), eps=1e-8)
+    before = ops.fused_nmi_histogram.launches
+    out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **kw)
+    assert ops.fused_nmi_histogram.launches == before + 1
+    ref = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **kw)
+    assert out.shape == (bins, bins)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert abs(out.sum().item() - mov.numel()) <= 1e-4 * mov.numel()
+
+
+@pytest.mark.parametrize("spec", [("ncc",), ("nmi", 32, 0.5, 1e-8),
+                                  ("nmi", 16, 0.5, 1e-8)])
+def test_fused_similarity_loss_matches_cpu(cuda, spec):
+    vol, tile = (40, 33, 47), (5, 5, 5)
+    phi, mov, fix = _fused_inputs(vol, tile, 13, cuda)
+    out = ops.fused_similarity_loss(phi, mov, fix, tile, sim_spec=spec)
+    ref = ops.fused_similarity_loss(phi.cpu(), mov.cpu(), fix.cpu(), tile, sim_spec=spec)
+    assert out.device.type == "cuda" and out.dim() == 0
+    assert abs(out.item() - ref.item()) <= 1e-5 * abs(ref.item())
+
+
+def test_stats_and_nmi_are_deterministic(cuda):
+    vol, tile = (40, 33, 47), (5, 5, 5)
+    phi, mov, fix = _fused_inputs(vol, tile, 14, cuda)
+    st = [ops.fused_stats(phi, mov, tile) for _ in range(3)]
+    scal = torch.stack([st[0][1], st[0][2], fix.min(), fix.max()])
+    h = [ops.fused_nmi_histogram(phi, mov, fix, scal, tile, bins=32, sigma=0.5 / 31,
+                                 eps=1e-8) for _ in range(3)]
+    assert torch.equal(st[0], st[1]) and torch.equal(st[0], st[2])
+    assert torch.equal(h[0], h[1]) and torch.equal(h[0], h[2])
+
+
+def test_nmi_dispatcher_refuses_more_bins_than_the_kernel_takes(cuda):
+    vol, tile = (13, 11, 9), (5, 4, 3)
+    phi, mov, fix = _fused_inputs(vol, tile, 15, cuda)
+    scal = torch.stack([mov.min(), mov.max(), fix.min(), fix.max()])
+    with pytest.raises(ValueError, match="bins"):
+        ops.fused_nmi_histogram(phi, mov, fix, scal, tile, bins=bsi_fused.MAX_BINS + 1,
+                                sigma=0.01, eps=1e-8)
+
+
 def test_kernel_gradient_matches_autograd_of_gather(cuda):
     tile = (5, 4, 3)
     phi = _grid((20, 12, 15), tile, 3, 4, cuda).requires_grad_(True)
@@ -134,9 +216,27 @@ def test_registration_on_card_matches_cpu(cuda):
     counts = ops.launch_counts()
     host = ffd_register(fixed, moving, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
-    assert counts == {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": steps}
+    assert counts == {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": steps,
+                      "bsi_fused_stats": 0, "bsi_fused_ncc": 0, "bsi_fused_nmi": 0}
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
     np.testing.assert_allclose(card.params.cpu().numpy(), host.params.numpy(),
                                atol=1e-4)
     np.testing.assert_allclose(card.warped.cpu().numpy(), host.warped.numpy(),
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("similarity", ["nmi", "ncc"])
+def test_multimodal_registration_on_card_matches_cpu(cuda, similarity):
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    remapped = (1.0 - moving) ** 1.5
+    opts = RegistrationOptions(levels=2, iters=5, similarity=similarity)
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, remapped, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, remapped, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": 0,
+                      "bsi_fused_stats": steps,
+                      "bsi_fused_ncc": steps if similarity == "ncc" else 0,
+                      "bsi_fused_nmi": steps if similarity == "nmi" else 0}
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)

@@ -124,6 +124,41 @@ def test_fused_level_loss_and_gradient_equal_unfused(tile):
     assert abs(lu.item() - ref) <= 1e-5 * abs(ref)
 
 
+@pytest.mark.parametrize("similarity", ["ncc", "nmi"])
+@pytest.mark.parametrize("tile", [TILE, (3, 3, 3)])
+def test_fused_multimodal_loss_and_gradient_equal_unfused(similarity, tile):
+    mov = np.clip(_vol(15) * 1.3 - 0.1, 0.0, 1.0)  # min/max ties, as a phantom
+    fix = _vol(16)
+    phi = torch.from_numpy(_rand(ffd.grid_shape_for_volume(VOL, tile) + (3,), 17, 1.5))
+    kw = dict(tile=tile, bending_weight=5e-3, mode="ttli", impl="cuda",
+              grad_impl="cuda", similarity=similarity)
+    f, m = torch.from_numpy(fix), torch.from_numpy(mov)
+    lf, gf = ffd_level_objective(f, m, fused="on", **kw).vg(phi)
+    lu, gu = ffd_level_objective(f, m, fused="off", **kw).vg(phi)
+    assert abs(lf.item() - lu.item()) <= 1e-6 * abs(lu.item())
+    assert (gf - gu).abs().max().item() <= 1e-6 * gu.abs().max().item()
+    ref = float(ref_level_loss(jnp.asarray(fix), jnp.asarray(mov), tile=tile,
+                               bending_weight=5e-3, mode="ttli", impl="jnp",
+                               similarity=similarity)(jnp.asarray(phi.numpy())))
+    assert abs(lu.item() - ref) <= 1e-5 * abs(ref)
+
+
+def test_fused_lncc_is_not_ported_and_unfused_lncc_runs():
+    phi = torch.zeros(ffd.grid_shape_for_volume(VOL, TILE) + (3,))
+    vol = torch.from_numpy(_vol(18))
+    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+        ffd.fused_warp_loss(phi, vol, vol, TILE, similarity="lncc")
+    fix = _vol(19)
+    loss = ffd_level_objective(torch.from_numpy(fix), vol, tile=TILE, bending_weight=5e-3,
+                               mode="ttli", impl="cuda", grad_impl="cuda",
+                               similarity="lncc", fused="off")
+    value, grad = loss.vg(phi)
+    ref = float(ref_level_loss(jnp.asarray(fix), jnp.asarray(vol.numpy()), tile=TILE,
+                               bending_weight=5e-3, mode="ttli", impl="jnp",
+                               similarity="lncc")(jnp.asarray(phi.numpy())))
+    assert abs(value.item() - ref) <= 1e-5 * abs(ref) and torch.isfinite(grad).all()
+
+
 def test_fused_warp_loss_needs_a_fused_similarity():
     phi = torch.zeros(ffd.grid_shape_for_volume(VOL, TILE) + (3,))
     vol = torch.from_numpy(_vol(14))

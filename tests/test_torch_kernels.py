@@ -17,7 +17,7 @@ from repro.core import ffd as rffd  # noqa: E402
 from repro.core import interpolate as rint  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.core import interpolate as tint  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import bsi_fused, ops  # noqa: E402
 
 # (control grid points, tile): non-cubic tiles, the paper's 5^3
 GRIDS = [
@@ -113,6 +113,66 @@ def test_fused_plain_matches_reference_fused_ssd(vol, tile):
     assert abs(out.item() - ref) <= 1e-5 * abs(ref)
 
 
+FUSED_SPECS = [("ncc",), ("nmi", 32, 0.5, 1e-8), ("nmi", 16, 0.5, 1e-8)]
+
+
+@pytest.mark.parametrize("spec", FUSED_SPECS, ids=lambda s: "-".join(map(str, s[:2])))
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_fused_plain_matches_reference_fused_similarity(vol, tile, spec):
+    rng = np.random.default_rng(8)
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    phi = (rng.standard_normal(grid + (3,)) * 1.5).astype(np.float32)
+    mov, fix = (rng.uniform(0, 1, vol).astype(np.float32) for _ in range(2))
+    ref = float(rops.fused_similarity_loss(jnp.asarray(phi), jnp.asarray(mov),
+                                           jnp.asarray(fix), tile, sim_spec=spec,
+                                           interpret=True))
+    out = ops.fused_similarity_loss(torch.from_numpy(phi), torch.from_numpy(mov),
+                                    torch.from_numpy(fix), tile, sim_spec=spec)
+    assert out.dtype == torch.float32 and out.dim() == 0
+    assert abs(out.item() - ref) <= 1e-5 * abs(ref)
+
+
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_fused_plain_passes_match_the_reference_warp(vol, tile):
+    """stats, ncc and nmi of the plain versions against the same sums of the
+    JAX package's unfused warp."""
+    rng = np.random.default_rng(9)
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    phi = (rng.standard_normal(grid + (3,)) * 1.5).astype(np.float32)
+    mov = np.clip(rng.uniform(-0.2, 1, vol), 0, 1).astype(np.float32)  # ties
+    fix = rng.uniform(0, 1, vol).astype(np.float32)
+    w = np.asarray(rffd.warp_volume(jnp.asarray(mov), rffd.dense_field(
+        jnp.asarray(phi), tile, vol, mode="ttli")), np.float64)
+    p, m, f = (torch.from_numpy(a) for a in (phi, mov, fix))
+    st = bsi_fused.plain_stats(p, m, tile).double().numpy()
+    assert st[3] == w.size  # exact; min and max of two warps that round apart
+    assert np.abs(st[1:3] - [w.min(), w.max()]).max() <= 1e-6
+    assert abs(st[0] - w.sum()) <= 1e-5 * abs(w.sum())
+    scal = torch.tensor([0.4, 0.5])
+    acc = bsi_fused.plain_ncc(p, m, f, scal, tile).double().numpy()
+    a, b = w - 0.4, fix.astype(np.float64) - 0.5
+    ref = np.array([(a * b).sum(), (a * a).sum(), (b * b).sum()])
+    assert np.abs(acc - ref).max() <= 1e-5 * np.abs(ref).max()
+    scal = torch.tensor([w.min(), w.max(), fix.min(), fix.max()], dtype=torch.float32)
+    hist = bsi_fused.plain_nmi(p, m, f, scal, tile, bins=16, sigma=0.5 / 15, eps=1e-8)
+    assert hist.shape == (16, 16)
+    assert abs(hist.sum().item() - w.size) <= 1e-4 * w.size  # rows sum to 1
+
+
+def test_fused_dispatcher_names_what_is_not_ported():
+    vol, tile = (13, 11, 9), (5, 4, 3)
+    phi = torch.from_numpy(_phi(rffd.grid_shape_for_volume(vol, tile)))
+    v = torch.zeros(vol)
+    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("lncc", 9, 1e-5))
+    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
+        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("ncc",), disp_form="matmul")
+    with pytest.raises(ValueError, match="2 to 64 bins"):
+        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("nmi", 65, 0.5, 1e-8))
+    with pytest.raises(ValueError, match="no fused kernel"):
+        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("mae",))
+
+
 @pytest.mark.parametrize("mode,impl,grad_impl", [
     ("ttli", "cuda", "cuda"),
     ("ttli", "torch", "torch"),
@@ -136,8 +196,13 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     vol = (10, 8, 6)
     g = ops.bsi_ttli(phi, (5, 4, 3), vol)
     ops.bsi_adjoint(g, (5, 4, 3), (7, 6, 5))
-    ops.fused_ssd_loss(phi, g[..., 0].contiguous(), g[..., 1].contiguous(), (5, 4, 3))
-    assert ops.launch_counts() == {"bsi_ttli": 0, "bsi_adjoint": 0, "bsi_fused": 0}
+    m, f = g[..., 0].contiguous(), g[..., 1].contiguous()
+    ops.fused_ssd_loss(phi, m, f, (5, 4, 3))
+    for spec in (("ncc",), ("nmi", 32, 0.5, 1e-8)):
+        ops.fused_similarity_loss(phi, m, f, (5, 4, 3), sim_spec=spec)
+    assert ops.launch_counts() == {"bsi_ttli": 0, "bsi_adjoint": 0, "bsi_fused": 0,
+                                   "bsi_fused_stats": 0, "bsi_fused_ncc": 0,
+                                   "bsi_fused_nmi": 0}
 
 
 def test_dispatchers_check_coverage():
