@@ -19,7 +19,8 @@ __all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "grid_from_numpy", "options_from_ref
 
 # The JAX package's value -> this package's value.
 IMPL_NAMES = {"jnp": "torch", "pallas": "cuda"}
-GRAD_IMPL_NAMES = {"xla": "autograd", "jnp": "torch", "pallas": "cuda"}
+GRAD_IMPL_NAMES = {"xla": "autograd", "jnp": "torch", "pallas": "cuda",
+                   "matmul": "matmul"}
 
 
 def grid_from_numpy(phi, device) -> torch.Tensor:
@@ -55,7 +56,7 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
     ``fields`` maps field names to values as the JAX package spells them
     (names, or its frozen spec instances).  ``impl`` and ``grad_impl`` are
     renamed by ``IMPL_NAMES`` and ``GRAD_IMPL_NAMES``; a value with no
-    counterpart yet (``"auto"``, ``"matmul"``, ...) raises as the options do.
+    counterpart yet (``"auto"``, ...) raises as the options do.
     A similarity callable of the JAX package maps to this package's callable
     with the same ``_fused_spec``.  ``fused_reason`` is the JAX package's
     introspection field and is dropped.

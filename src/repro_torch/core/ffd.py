@@ -107,11 +107,12 @@ def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separab
 
     The forward is the fused kernels (``kernels.ops.fused_similarity_loss``;
     their plain versions on the CPU), which evaluate the displacement in the
-    TTLI lerp form whatever ``mode`` says.  The backward recomputes
-    ``dense_field -> warp_volume -> similarity`` with ``mode`` / ``impl`` /
-    ``grad_impl`` and returns its gradient, so the gradient is the unfused
-    path's.  ``ssd``, ``ncc`` and ``nmi`` have fused kernels in this package;
-    ``lncc`` raises ``NotImplementedError``.
+    matrix form for ``mode="matmul"`` and in the TTLI lerp form for every
+    other mode (the JAX package's separable form there: the same function).
+    The backward recomputes ``dense_field -> warp_volume -> similarity``
+    with ``mode`` / ``impl`` / ``grad_impl`` and returns its gradient, so the
+    gradient is the unfused path's.  ``ssd``, ``ncc``, ``lncc`` and ``nmi``
+    have fused kernels.
     """
     from repro_torch.core.similarity import fused_spec
 

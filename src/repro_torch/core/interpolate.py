@@ -4,13 +4,14 @@ Forms (each computes the same linear function of the control grid)
 ------------------------------------------------------------------
 ``gather``     thread-per-voxel analog: every voxel gathers its 64 control
                points and weight-sums them (the oracle).
+``tt``         thread-per-tile: 64 weighted sums of tile-shared control
+               point slices, the weights as float32 products of the LUTs.
 ``ttli``       thread-per-tile + the lerp regrouping of paper §3.3: three
                lerps collapse the four neighbours of each axis, x then y then
                z, 63 lerps per voxel.
 ``separable``  three per-axis contractions against the ``(d, 4)`` LUTs.
-
-``tt`` and ``matmul`` are not in the package yet (ROADMAP.md queue 1
-item 2).
+``matmul``     the matrix form (Wu & Zou): one ``(d^3, 64) @ (64, C)``
+               product per tile against the Kronecker basis.
 
 Gradient path
 -------------
@@ -21,6 +22,9 @@ Gradient path
               separable adjoint (:func:`bsi_adjoint_separable`).
 ``cuda``      the same Function with the adjoint kernel
               (``repro_torch.kernels.ops.bsi_adjoint``).
+``matmul``    the same Function with the transposed-matmul adjoint kernel
+              (``repro_torch.kernels.ops.bsi_adjoint_matmul``; its plain
+              version, :func:`bsi_adjoint_matmul`, on a CPU tensor).
 
 BSI is linear, so the Function saves no tensors: the backward needs only the
 cotangent, accumulates in fp32 and casts back to the primal dtype.
@@ -30,19 +34,23 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.bspline import lerp_luts, weight_lut
+from repro_torch.core.bspline import basis_matrix, lerp_luts, weight_lut
 
 __all__ = [
     "bsi_gather",
+    "bsi_tt",
     "bsi_ttli",
     "bsi_separable",
+    "bsi_matmul",
     "bsi_adjoint_separable",
+    "bsi_adjoint_matmul",
     "bsi_adjoint",
     "interpolate",
     "crop_interpolate",
     "MODES",
     "MODE_NAMES",
     "IMPLS",
+    "KERNEL_MODES",
     "GRAD_IMPLS",
 ]
 
@@ -83,6 +91,23 @@ def bsi_gather(phi, tile):
                 )
                 out = out + g * w[..., None]
     return out
+
+
+def bsi_tt(phi, tile):
+    """Thread-per-tile form: tile-shared control-point slices, 64 weighted sums."""
+    (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
+    dev, dt = phi.device, phi.dtype
+    wx, wy, wz = (weight_lut(d, dt, dev) for d in (dx, dy, dz))
+
+    out = torch.zeros((tx, dx, ty, dy, tz, dz, c), dtype=dt, device=dev)
+    for l in range(4):
+        for m in range(4):
+            for n in range(4):
+                sl = phi[l : l + tx, m : m + ty, n : n + tz]  # shared by the tile
+                w = (wx[:, l][:, None, None] * wy[:, m][None, :, None]
+                     * wz[:, n][None, None, :]).reshape(1, dx, 1, dy, 1, dz, 1)
+                out = out + sl[:, None, :, None, :, None, :] * w
+    return out.reshape(tx * dx, ty * dy, tz * dz, c)
 
 
 def _lerp(a, b, t):
@@ -138,20 +163,42 @@ def bsi_separable(phi, tile):
     return hz.reshape(tx * dx, ty * dy, tz * dz, c)
 
 
+def bsi_matmul(phi, tile):
+    """Matrix form (Wu & Zou): one ``(d^3, 64) @ (64, C)`` product per tile.
+
+    The 64 shifted views of the control grid are the per-tile column matrix;
+    the Kronecker basis (:func:`~repro_torch.core.bspline.basis_matrix`)
+    contracts them in one product.
+    """
+    (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
+    b = basis_matrix((dx, dy, dz), phi.dtype, phi.device)  # (d^3, 64)
+    win = torch.stack([
+        phi[l : l + tx, m : m + ty, n : n + tz]
+        for l in range(4) for m in range(4) for n in range(4)
+    ], dim=3)  # (tx, ty, tz, 64, C)
+    h = torch.einsum("vk,xyzkc->vxyzc", b, win).reshape(dx, dy, dz, tx, ty, tz, c)
+    return h.permute(3, 0, 4, 1, 5, 2, 6).reshape(tx * dx, ty * dy, tz * dz, c)
+
+
 MODES = {
     "gather": bsi_gather,
+    "tt": bsi_tt,
     "ttli": bsi_ttli,
     "separable": bsi_separable,
+    "matmul": bsi_matmul,
 }
 MODE_NAMES = tuple(sorted(MODES))
 
 # Forward implementations: the plain tensor forms, or the hand-written
-# kernel (``ttli`` only in this package so far).
+# kernel of the mode (``ttli`` and ``matmul`` in this package so far).
 IMPLS = ("torch", "cuda")
+# Modes with a forward kernel, and the dispatcher that launches it.
+KERNEL_MODES = ("ttli", "matmul")
 
 # "autograd" is plain autodiff of the forward; the others are the analytic
-# adjoint as a plain tensor form ("torch") or as the kernel ("cuda").
-GRAD_IMPLS = ("autograd", "torch", "cuda")
+# adjoint as a plain tensor form ("torch"), as the separable kernel ("cuda")
+# or as the transposed-matmul kernel ("matmul").
+GRAD_IMPLS = ("autograd", "torch", "cuda", "matmul")
 
 
 def _pad_axis(x, axis, before, after):
@@ -196,6 +243,40 @@ def bsi_adjoint_separable(g, tile):
     return sum(_pad_axis(cx[l], 0, l, 3 - l) for l in range(4))
 
 
+def bsi_adjoint_matmul(g, tile):
+    """Transposed matrix form of :func:`bsi_matmul`; contract as
+    :func:`bsi_adjoint_separable`.
+
+    ``c4[t, k] = sum_v B[v, k] * g[t, v]``, one ``(64, d^3) @ (d^3, T*C)``
+    product, then the 64-band overlap-add that lands tile ``t``'s band
+    ``(l, m, n)`` on control point ``t + (l, m, n)``.
+    """
+    dtype = torch.promote_types(g.dtype, torch.float32)
+    dx, dy, dz = (int(t) for t in tile)
+    X, Y, Z, c = g.shape
+    if X % dx or Y % dy or Z % dz:
+        raise ValueError(f"cotangent shape {tuple(g.shape)} not a multiple of {tile}")
+    tx, ty, tz = X // dx, Y // dy, Z // dz
+    b = basis_matrix((dx, dy, dz), dtype, g.device)  # (d^3, 64)
+    u = g.to(dtype).reshape(tx, dx, ty, dy, tz, dz, c).permute(0, 2, 4, 1, 3, 5, 6)
+    u = u.reshape(tx, ty, tz, dx * dy * dz, c)
+    c4 = torch.einsum("vk,xyzvc->kxyzc", b, u).reshape(4, 4, 4, tx, ty, tz, c)
+    out = torch.zeros((tx + 3, ty + 3, tz + 3, c), dtype=dtype, device=g.device)
+    for l in range(4):
+        for m in range(4):
+            for n in range(4):
+                out[l : l + tx, m : m + ty, n : n + tz] += c4[l, m, n]
+    return out
+
+
+def _pad_to_tiles(g, tile, grid_shape):
+    full = [(int(n) - 3) * int(d) for n, d in zip(grid_shape, tile)]
+    for axis, (n, s) in enumerate(zip(full, g.shape[:3])):
+        if s != n:
+            g = _pad_axis(g, axis, 0, n - s)
+    return g
+
+
 def bsi_adjoint(g, tile, grid_shape, *, impl="torch"):
     """The analytic adjoint of a cropped expansion, as ``impl`` computes it.
 
@@ -203,31 +284,30 @@ def bsi_adjoint(g, tile, grid_shape, *, impl="torch"):
     to ``(grid_shape - 3) * tile``); the result is the ``grid_shape + (C,)``
     float32 cotangent of the control grid.  ``impl="torch"`` zero-pads ``g``
     to whole tiles and runs :func:`bsi_adjoint_separable`; ``impl="cuda"``
-    runs the adjoint kernel, which masks the voxels outside the volume.
+    and ``impl="matmul"`` run the separable and the transposed-matmul
+    adjoint kernels, which mask the voxels outside the volume.
     """
-    if impl == "cuda":
+    if impl in ("cuda", "matmul"):
         from repro_torch.kernels import ops  # kernels import this module
 
-        return ops.bsi_adjoint(g, tile, grid_shape)
+        fn = ops.bsi_adjoint if impl == "cuda" else ops.bsi_adjoint_matmul
+        return fn(g, tile, grid_shape)
     if impl != "torch":
         raise ValueError(f"unknown adjoint impl {impl!r}")
-    full = [(int(n) - 3) * int(d) for n, d in zip(grid_shape, tile)]
-    for axis, (n, s) in enumerate(zip(full, g.shape[:3])):
-        if s != n:
-            g = _pad_axis(g, axis, 0, n - s)
-    return bsi_adjoint_separable(g, tile)
+    return bsi_adjoint_separable(_pad_to_tiles(g, tile, grid_shape), tile)
 
 
 def _forward(phi, tile, vol_shape, mode, impl):
     if impl == "cuda":
-        if mode != "ttli":
+        if mode not in KERNEL_MODES:
             raise NotImplementedError(
-                f"no CUDA kernel for mode {mode!r} yet (ROADMAP.md queue 2); "
-                "impl='cuda' runs mode='ttli'"
+                f"no CUDA kernel for mode {mode!r} yet (ROADMAP.md queue 2 items "
+                f"6 and 7); impl='cuda' runs modes {KERNEL_MODES}"
             )
         from repro_torch.kernels import ops  # kernels import this module
 
-        return ops.bsi_ttli(phi, tile, vol_shape)
+        fn = ops.bsi_ttli if mode == "ttli" else ops.bsi_matmul
+        return fn(phi, tile, vol_shape)
     if impl != "torch":
         raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
     X, Y, Z = vol_shape
@@ -253,8 +333,8 @@ def crop_interpolate(phi, tile, vol_shape, *, mode="separable", impl="torch",
                      grad_impl="autograd"):
     """:func:`interpolate` cropped to ``vol_shape`` voxels.
 
-    With the kernels the crop costs nothing: the TTLI kernel writes only the
-    voxels inside the volume and the adjoint kernel reads only those.
+    With the kernels the crop costs nothing: the forward kernels write only
+    the voxels inside the volume and the adjoint kernels read only those.
     """
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose from {MODE_NAMES}")
@@ -266,8 +346,8 @@ def crop_interpolate(phi, tile, vol_shape, *, mode="separable", impl="torch",
         if impl != "torch":
             raise ValueError(
                 "grad_impl='autograd' differentiates the plain forward; the "
-                f"{impl!r} forward has no autograd graph, use grad_impl='cuda' "
-                "or 'torch'"
+                f"{impl!r} forward has no autograd graph, use grad_impl='cuda', "
+                "'matmul' or 'torch'"
             )
         return _forward(phi, tile, vol_shape, mode, impl)
     return _AnalyticBsi.apply(phi, tile, vol_shape, mode, impl, grad_impl)
@@ -281,10 +361,11 @@ def interpolate(phi, tile, *, mode="separable", impl="torch", dtype=None,
       phi: ``(Tx+3, Ty+3, Tz+3, C)`` control grid (aligned, +1 offset).
       tile: ``(dx, dy, dz)`` control-point spacing in voxels.
       mode: one of ``MODE_NAMES``.
-      impl: ``torch`` (the plain forms) or ``cuda`` (the TTLI kernel; its
-        plain version on a CPU tensor).
+      impl: ``torch`` (the plain forms) or ``cuda`` (the mode's kernel, for
+        ``ttli`` and ``matmul``; its plain version on a CPU tensor).
       dtype: compute dtype; only float32 (or None) in this package so far.
-      grad_impl: ``autograd``, ``torch`` or ``cuda`` (module docstring).
+      grad_impl: ``autograd``, ``torch``, ``cuda`` or ``matmul`` (module
+        docstring).
 
     Returns:
       ``(Tx*dx, Ty*dy, Tz*dz, C)`` dense field.

@@ -8,12 +8,13 @@ field          JAX package                      this package
 =============  ===============================  ==========================
 ``impl``       ``jnp``, ``pallas``, ``auto``    ``torch``, ``cuda``
 ``grad_impl``  ``xla``, ``jnp``, ``pallas``,    ``autograd``, ``torch``,
-               ``matmul``, ``auto``             ``cuda``
+               ``matmul``, ``auto``             ``cuda``, ``matmul``
 ``fused``      ``auto``, ``on``, ``off``        ``on``, ``off``
 =============  ===============================  ==========================
 
 ``torch`` is the plain tensor form and ``cuda`` the hand-written kernel (its
-plain version on a CPU tensor).  The defaults run the kernels: ``mode="ttli",
+plain version on a CPU tensor); ``grad_impl="matmul"`` is the
+transposed-matmul adjoint kernel, as in the JAX package.  The defaults run the kernels: ``mode="ttli",
 impl="cuda", grad_impl="cuda", fused="on"``.  A value whose module or kernel
 is not in the package yet raises ``NotImplementedError`` naming the
 ROADMAP.md item that ports it.
@@ -24,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
-from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, MODE_NAMES
+from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, KERNEL_MODES, MODE_NAMES
 
 __all__ = ["RegistrationOptions"]
 
@@ -33,20 +34,16 @@ _FUSED = ("on", "off")
 # Values the JAX package accepts whose module or kernel is not ported yet,
 # with the ROADMAP.md item that ports them.
 _NOT_YET = {
-    "mode": {"tt": "queue 1 item 2", "matmul": "queue 1 item 2",
-             "auto": "queue 1 item 13"},
+    "mode": {"auto": "queue 1 item 13"},
     "impl": {"auto": "queue 1 item 13"},
-    "grad_impl": {"matmul": "queue 2 item 5", "auto": "queue 1 item 13"},
+    "grad_impl": {"auto": "queue 1 item 13"},
     "fused": {"auto": "queue 1 item 13"},
     "transform": {"velocity": "queue 1 item 11"},
     "regularizer": {"bending": "queue 1 item 11"},
     "optimizer": {"lbfgs": "queue 1 item 12", "gauss_newton": "queue 1 item 12"},
 }
-# Fused variants not ported yet (fused="on").
-_FUSED_NOT_YET = {"lncc": "queue 2 item 8"}
 # Forward kernels of the other modes (impl="cuda").
-_KERNEL_NOT_YET = {"separable": "queue 2 item 6", "tt": "queue 2 item 7",
-                   "matmul": "queue 2 item 4"}
+_KERNEL_NOT_YET = {"separable": "queue 2 item 6", "tt": "queue 2 item 7"}
 
 
 def _not_yet(what, item):
@@ -64,13 +61,17 @@ class RegistrationOptions:
     iters:           optimiser steps per level.
     lr:              learning rate.
     bending_weight:  weight of the bending-energy proxy.
-    mode:            BSI form (``gather`` | ``separable`` | ``ttli``).
-    impl:            forward: ``torch`` (plain form) or ``cuda`` (kernel).
-    grad_impl:       adjoint: ``autograd`` | ``torch`` | ``cuda``.
+    mode:            BSI form (``gather`` | ``tt`` | ``ttli`` | ``separable``
+                     | ``matmul``); ``matmul`` also picks the fused step's
+                     matrix-form displacement.
+    impl:            forward: ``torch`` (plain form) or ``cuda`` (the kernel
+                     of ``ttli`` or ``matmul``).
+    grad_impl:       adjoint: ``autograd`` | ``torch`` | ``cuda`` (separable
+                     kernel) | ``matmul`` (transposed-matmul kernel).
     compute_dtype:   None (float32 throughout).
     similarity:      ``"ssd"``, ``"ncc"``, ``"lncc"``, ``"nmi"``, a factory
                      variant (``nmi(bins=16)``) or a ``(warped, fixed) ->
-                     scalar`` callable; ``"lncc"`` runs unfused only.
+                     scalar`` callable.
     transform:       ``"displacement"``.
     regularizer:     ``"none"`` (the ``bending_weight`` proxy).
     stop:            None (a fixed ``iters`` per level).
@@ -130,7 +131,7 @@ class RegistrationOptions:
             if getattr(self, name) not in allowed:
                 raise ValueError(
                     f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
-        if self.impl == "cuda" and self.mode != "ttli":
+        if self.impl == "cuda" and self.mode not in KERNEL_MODES:
             if self.mode not in _KERNEL_NOT_YET:
                 raise ValueError(f"mode={self.mode!r} has no kernel; use impl='torch'")
             raise _not_yet(f"the CUDA kernel of mode={self.mode!r}",
@@ -138,7 +139,7 @@ class RegistrationOptions:
         if self.grad_impl == "autograd" and self.impl != "torch":
             raise ValueError(
                 "grad_impl='autograd' differentiates the plain forward; "
-                "impl='cuda' needs grad_impl='cuda' or 'torch'")
+                "impl='cuda' needs grad_impl='cuda', 'matmul' or 'torch'")
         if not (callable(self.similarity) or isinstance(self.similarity, str)):
             raise TypeError(
                 "similarity must be a registered name or a loss callable, "
@@ -148,9 +149,6 @@ class RegistrationOptions:
         if self.fused == "on" and spec is None:
             raise ValueError(
                 f"similarity {self.similarity!r} has no fused kernel; use fused='off'")
-        if self.fused == "on" and spec[0] in _FUSED_NOT_YET:
-            raise _not_yet(f"the fused {spec[0]} kernel (fused='on')",
-                           _FUSED_NOT_YET[spec[0]])
         object.__setattr__(self, "transform", resolve_transform(self.transform))
         object.__setattr__(self, "regularizer", resolve_regularizer(self.regularizer))
         object.__setattr__(self, "optimizer", resolve_optimizer(self.optimizer))

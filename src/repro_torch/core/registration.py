@@ -34,6 +34,7 @@ class RegistrationResult:
     losses: list  # final loss of each pyramid level, coarse to fine
     seconds: float  # wall time, ending in a device synchronisation
     bsi_seconds: float = 0.0  # time inside BSI (paper Figs. 8-9 breakdown)
+    traces: list = dataclasses.field(default_factory=list)  # per level: (iters,) losses
 
 
 def resolve_device(device) -> torch.device:
@@ -121,7 +122,7 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
 
     runner = _ffd_level_runner(opts)
     phi = None
-    losses = []
+    losses, traces = [], []
     bsi_seconds = 0.0
     t0 = time.perf_counter()
     for level, (f, m) in enumerate(pyramid):
@@ -132,6 +133,7 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
             phi = ffd.upsample_grid(phi, gshape).contiguous()
         phi, trace = runner(phi, f, m)
         losses.append(float(trace[-1]))
+        traces.append(trace)
 
         if measure_bsi_time and level == len(pyramid) - 1:
             # the BSI share the paper optimises (Figs. 8-9): two expansions
@@ -150,4 +152,4 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
         warped = ffd.warp_volume(moving, disp)
     _sync(device)
     return RegistrationResult(warped, phi, losses, time.perf_counter() - t0,
-                              bsi_seconds)
+                              bsi_seconds, traces)

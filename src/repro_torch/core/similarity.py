@@ -34,6 +34,7 @@ __all__ = [
     "available_similarities",
     "fused_spec",
     "lncc",
+    "local_cc",
     "ncc",
     "ncc_loss",
     "nmi",
@@ -157,16 +158,21 @@ def lncc(window=9, eps=1e-5):
     return _lncc(int(window), float(eps))
 
 
+def local_cc(warped, fixed, window, eps):
+    """The local ``cc^2`` map of LNCC over the VALID window positions:
+    ``cross^2 / (var_w * var_f + eps)`` from the five windowed moments."""
+    mu_w = uniform_filter(warped, window)
+    mu_f = uniform_filter(fixed, window)
+    var_w = uniform_filter(warped * warped, window) - mu_w**2
+    var_f = uniform_filter(fixed * fixed, window) - mu_f**2
+    cross = uniform_filter(warped * fixed, window) - mu_w * mu_f
+    return cross**2 / (var_w * var_f + eps)
+
+
 @functools.lru_cache(maxsize=None)
 def _lncc(window, eps):
     def lncc_loss(warped, fixed):
-        mu_w = uniform_filter(warped, window)
-        mu_f = uniform_filter(fixed, window)
-        var_w = uniform_filter(warped * warped, window) - mu_w**2
-        var_f = uniform_filter(fixed * fixed, window) - mu_f**2
-        cross = uniform_filter(warped * fixed, window) - mu_w * mu_f
-        cc = cross**2 / (var_w * var_f + eps)
-        return 1.0 - torch.mean(cc)
+        return 1.0 - torch.mean(local_cc(warped, fixed, window, eps))
 
     lncc_loss.__qualname__ = f"lncc(window={window},eps={eps:g})"
     lncc_loss._fused_spec = ("lncc", window, eps)

@@ -1,12 +1,15 @@
-// Shared device code of the BSI kernels: the lerp staging of the TTLI form.
+// Shared device code of the BSI kernels: the control window, the lerp staging
+// of the TTLI form and the 64-term sum of the matrix form.
 //
-// A thread block owns a block of (bx, by, bz) tiles.  It stages the LUTs and
-// its (bx+3, by+3, bz+3, C) control window in shared memory (the counterpart
-// of kernels/common.py:phi_window in the JAX package), then runs the x and y
-// lerp stages of bsi_ttli once per (x voxel, y voxel, z control point) into
-// shared memory.  The z stage, per voxel, is left to the kernel: bsi_ttli
-// writes the field, bsi_fused warps and scores it.  Every value is the same
-// a + t*(b-a) chain as repro.core.interpolate.bsi_ttli, stage for stage.
+// A thread block owns a block of (bx, by, bz) tiles and stages its
+// (bx+3, by+3, bz+3, C) control window in shared memory (the counterpart of
+// kernels/common.py:phi_window in the JAX package).  The lerp form also
+// stages the LUTs and runs the x and y lerp stages of bsi_ttli once per
+// (x voxel, y voxel, z control point) into shared memory; the z stage, per
+// voxel, is left to the kernel: bsi_ttli writes the field, bsi_fused warps
+// and scores it.  Every value is the same a + t*(b-a) chain as
+// repro.core.interpolate.bsi_ttli, stage for stage.  The matrix form sums
+// B[v, k] * window[tile + (l, m, n)] over k = (l*4 + m)*4 + n in that order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,6 +50,36 @@ __host__ __device__ inline size_t stage_smem_bytes(const TileBlock& g) {
   return sizeof(float) * (size_t)(lut_floats(g) + window_floats(g) + hy_floats(g));
 }
 
+// The block's control window, (bx+3, by+3, bz+3, c) with channels fastest;
+// points past the grid read 0 (only tiles outside the volume use them).
+// Does not synchronise.
+__device__ inline void stage_window(const float* __restrict__ phi, const TileBlock& g,
+                                    int ti0, int tj0, int tk0, float* s_win) {
+  const int wy = g.by + 3, wz = g.bz + 3;
+  const int nwin = window_floats(g);
+  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
+    const int ch = i % g.c;
+    int r = i / g.c;
+    const int kz = r % wz;
+    r /= wz;
+    const int jy = r % wy;
+    const int ix = r / wy;
+    const int gi = ti0 + ix, gj = tj0 + jy, gk = tk0 + kz;
+    float v = 0.f;
+    if (gi < g.nx && gj < g.ny && gk < g.nz)
+      v = phi[(((size_t)gi * g.ny + gj) * g.nz + gk) * g.c + ch];
+    s_win[i] = v;
+  }
+}
+
+// Matrix form: voxel offsets per tile and the (nv, 64) basis floats.
+__host__ __device__ inline int tile_voxels(const TileBlock& g) {
+  return g.dx * g.dy * g.dz;
+}
+__host__ __device__ inline int basis_floats(const TileBlock& g) {
+  return 64 * tile_voxels(g);
+}
+
 // luts: (t0, t1, s) for x, then for y, then for z; 3*(dx+dy+dz) floats.
 // After the call, hy(xl, yl, kz, ch) = smem[lut + window + ((xl*BY + yl)*(bz+3)
 // + kz)*c + ch] with BY = by*dy, for the block's local voxels xl, yl and its
@@ -58,24 +91,10 @@ __device__ inline void stage_xy(const float* __restrict__ phi,
   float* s_lut = smem;
   float* s_win = smem + lut_floats(g);
   float* s_hy = s_win + window_floats(g);
-  const int wx = g.bx + 3, wy = g.by + 3, wz = g.bz + 3;
-  (void)wx;
+  const int wy = g.by + 3, wz = g.bz + 3;
 
   for (int i = threadIdx.x; i < lut_floats(g); i += blockDim.x) s_lut[i] = luts[i];
-  const int nwin = window_floats(g);
-  for (int i = threadIdx.x; i < nwin; i += blockDim.x) {
-    const int ch = i % g.c;
-    int r = i / g.c;
-    const int kz = r % wz;
-    r /= wz;
-    const int jy = r % wy;
-    const int ix = r / wy;
-    const int gi = ti0 + ix, gj = tj0 + jy, gk = tk0 + kz;
-    float v = 0.f;  // past the grid: only tiles outside the volume read it
-    if (gi < g.nx && gj < g.ny && gk < g.nz)
-      v = phi[(((size_t)gi * g.ny + gj) * g.nz + gk) * g.c + ch];
-    s_win[i] = v;
-  }
+  stage_window(phi, g, ti0, tj0, tk0, s_win);
   __syncthreads();
 
   const float* t0x = s_lut;

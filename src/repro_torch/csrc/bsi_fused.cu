@@ -3,20 +3,29 @@
 //
 // Replaces: the Pallas TPU kernel repro/kernels/bsi_fused.py:bsi_fused_pallas
 // (_fused_kernel, _disp_block, _warp_block) in four of its variants, dispatched
-// by repro/kernels/ops.py:fused_similarity_loss:
+// by repro/kernels/ops.py:fused_similarity_loss, in its five variants:
 //   sim=("ssd",)    sum of (w - f)^2                          -> 1 lane
 //   sim=("stats",)  sum, min, max and count of w              -> 4 lanes
 //   sim=("ncc",)    sums of ab, aa, bb with a = w - mu_w,
 //                   b = f - mu_f (the means from a device buffer) -> 3 lanes
 //   sim=("nmi", bins, sigma_ratio, eps)  the (bins, bins) joint Parzen
 //                   histogram sum_v wa(v) wb(v)^T            -> bins^2 lanes
-// Every sum runs over the voxels inside the volume only.
+//   sim=("lncc", w, eps)  sum and count of the local cc^2 over the VALID
+//                   window positions                         -> 2 lanes
+// Every sum runs over the voxels inside the volume only.  Each variant takes
+// its displacement in either form of the JAX kernel's disp_form
+// (_disp_block): the lerp form of bsi_ttli (kLerp, for "separable") or the
+// Kronecker-basis sum of bsi_matmul (kMatmul, for "matmul"), a template
+// parameter of every kernel.
 //
 // What bounds it on an H100: for ssd, stats and ncc, reading the volumes once
 // (at phantom1, (512, 228, 385), 180 MB each: 0.05-0.11 ms at 3.35 TB/s).
 // For nmi, the operations: the histogram is 2 bins^2 flops per voxel (2048 at
 // 32 bins, 92 GFLOP at phantom1, 1.4 ms at 67 TFLOP/s fp32) plus 2 bins
-// Gaussian weights and their normalisation per voxel.
+// Gaussian weights and their normalisation per voxel.  For lncc, the
+// operations of five 3-axis box sums of w terms per voxel (9.1 GFLOP at
+// window 9, 0.14 ms).  The matrix form adds 64 multiply-adds per voxel and
+// channel (17.3 GFLOP, 0.26 ms).
 //
 // Built with -fmad=false (kernels/build.py): every multiply and add of the
 // displacement and the warp rounds as in the plain version, so the warped
@@ -33,6 +42,23 @@
 // launch combines the rows lane by lane in a fixed order.  Every reduction
 // is a fixed tree or a fixed loop: the results are deterministic and no
 // float atomics are used.
+//
+// The matrix form stages the control window and the basis, transposed to
+// (64, d^3) so that the threads of a warp, at consecutive voxel offsets, read
+// consecutive banks; each thread sums its voxel's 64 terms per channel in the
+// order k = 0..63, as bsi_matmul.cu does.
+//
+// The lncc kernel recomputes a halo: a block owns bt tiles per axis (E =
+// bt*d voxels) and warps E + w - 1 voxels per axis into shared memory, the
+// fixed volume beside it; at bt = 2, d = 5 and w = 9 that is 18^3 warped
+// voxels for 10^3 owned, (18/10)^3 = 5.8x the warp work of the other
+// variants.  It forms the five VALID box sums (w, f, w^2, f^2, wf) axis by
+// axis, x then y then z, each a sum of the w terms in order (the slice order
+// of core/similarity.py:uniform_filter), scales them by 1/w^3 and computes
+// cc = cross^2 / (var_w var_f + eps) with the reference's formula
+// (repro/kernels/bsi_fused.py:221-226), then sums cc over the positions that
+// are its own and VALID in the true volume.  The x sums reuse the staging's
+// shared memory and the y sums the warped values'.
 //
 // The nmi kernel stages 128 voxels at a time: one thread per voxel and
 // volume computes the voxel's normalised intensity, its `bins` Gaussian
@@ -70,13 +96,45 @@ __device__ __forceinline__ float sample_clamped(const float* __restrict__ vol, i
   return c0 * (1.f - tz) + c1 * tz;
 }
 
-// The block's voxels after stage_xy: local voxel i -> warped sample.
+enum DispForm { kLerp = 0, kMatmul = 1 };
+
+// Shared memory of the displacement stage, in bytes: the lerp staging of
+// bsi_common.cuh, or the (64, d^3) transposed basis and the control window.
+template <int F>
+__host__ __device__ inline size_t disp_smem_bytes(const TileBlock& g) {
+  if (F == kLerp) return stage_smem_bytes(g);
+  return sizeof(float) * (size_t)(basis_floats(g) + window_floats(g));
+}
+
+// Stage what the displacement of the block's voxels needs; tabs: the lerp
+// LUTs (kLerp) or the (d^3, 64) basis (kMatmul).  Ends with __syncthreads().
+template <int F>
+__device__ inline void stage_disp(const float* __restrict__ phi,
+                                  const float* __restrict__ tabs, const TileBlock& g,
+                                  int ti0, int tj0, int tk0, float* smem) {
+  if (F == kLerp) {
+    stage_xy(phi, tabs, g, ti0, tj0, tk0, smem);
+    return;
+  }
+  const int nv = tile_voxels(g);
+  for (int i = threadIdx.x; i < 64 * nv; i += blockDim.x) {
+    const int v = i / 64, k = i % 64;
+    smem[k * nv + v] = tabs[i];
+  }
+  stage_window(phi, g, ti0, tj0, tk0, smem + basis_floats(g));
+  __syncthreads();
+}
+
+// The block's voxels after stage_disp: local voxel i -> warped sample.
+template <int F>
 struct WarpBlock {
   const float* t0z;
   const float* t1z;
   const float* sz;
   const float* s_hy;
-  int wz, BX, BY, BZ, x0, y0, z0, dz;
+  const float* s_bt;   // matrix form: (64, nv) basis
+  const float* s_win;  // matrix form: the control window
+  int wy, wz, BX, BY, BZ, x0, y0, z0, dx, dy, dz, nv;
   int n;  // voxels of the block, inside the volume or not
 
   __device__ WarpBlock(const float* smem, const TileBlock& g, int ti0, int tj0,
@@ -85,6 +143,9 @@ struct WarpBlock {
     t1z = t0z + g.dz;
     sz = t1z + g.dz;
     s_hy = smem + lut_floats(g) + window_floats(g);
+    s_bt = smem;
+    s_win = smem + basis_floats(g);
+    wy = g.by + 3;
     wz = g.bz + 3;
     BX = g.bx * g.dx;
     BY = g.by * g.dy;
@@ -92,7 +153,10 @@ struct WarpBlock {
     x0 = ti0 * g.dx;
     y0 = tj0 * g.dy;
     z0 = tk0 * g.dz;
+    dx = g.dx;
+    dy = g.dy;
     dz = g.dz;
+    nv = tile_voxels(g);
     n = BX * BY * BZ;
   }
 
@@ -109,16 +173,40 @@ struct WarpBlock {
     return true;
   }
 
+  // The displacement of a local voxel.
+  __device__ __forceinline__ void disp(int xl, int yl, int zl, float* u) const {
+    if (F == kLerp) {
+      const int tz = zl / dz, cz = zl - tz * dz;
+      const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * 3;
+      u[0] = lerp4(p[0], p[3], p[6], p[9], t0z[cz], t1z[cz], sz[cz]);
+      u[1] = lerp4(p[1], p[4], p[7], p[10], t0z[cz], t1z[cz], sz[cz]);
+      u[2] = lerp4(p[2], p[5], p[8], p[11], t0z[cz], t1z[cz], sz[cz]);
+      return;
+    }
+    const int tx = xl / dx, ty = yl / dy, tz = zl / dz;
+    const int v = ((xl - tx * dx) * dy + yl - ty * dy) * dz + zl - tz * dz;
+    const float* w0 = s_win + ((tx * wy + ty) * wz + tz) * 3;
+    float u0 = 0.f, u1 = 0.f, u2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < 64; ++k) {
+      const float b = s_bt[k * nv + v];
+      const float* p = w0 + (((k >> 4) * wy + ((k >> 2) & 3)) * wz + (k & 3)) * 3;
+      u0 = u0 + b * p[0];
+      u1 = u1 + b * p[1];
+      u2 = u2 + b * p[2];
+    }
+    u[0] = u0;
+    u[1] = u1;
+    u[2] = u2;
+  }
+
   // The moving volume sampled at identity + displacement of a local voxel.
   __device__ __forceinline__ float warp(const float* __restrict__ mov, int X, int Y,
                                         int Z, int xl, int yl, int zl) const {
-    const int tz = zl / dz, cz = zl - tz * dz;
-    const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * 3;
-    const float u0 = lerp4(p[0], p[3], p[6], p[9], t0z[cz], t1z[cz], sz[cz]);
-    const float u1 = lerp4(p[1], p[4], p[7], p[10], t0z[cz], t1z[cz], sz[cz]);
-    const float u2 = lerp4(p[2], p[5], p[8], p[11], t0z[cz], t1z[cz], sz[cz]);
-    return sample_clamped(mov, X, Y, Z, (float)(x0 + xl) + u0, (float)(y0 + yl) + u1,
-                          (float)(z0 + zl) + u2);
+    float u[3];
+    disp(xl, yl, zl, u);
+    return sample_clamped(mov, X, Y, Z, (float)(x0 + xl) + u[0], (float)(y0 + yl) + u[1],
+                          (float)(z0 + zl) + u[2]);
   }
 
   // False outside the volume; else the warped sample and the voxel's offset.
@@ -158,15 +246,16 @@ __device__ __forceinline__ size_t block_index() {
   return ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
 
+template <int F>
 __global__ void __launch_bounds__(kThreads)
-    bsi_fused_ssd_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
+    bsi_fused_ssd_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
                          const float* __restrict__ mov, const float* __restrict__ fix,
                          float* __restrict__ partials, TileBlock g, int X, int Y, int Z) {
   extern __shared__ float smem[];
   __shared__ float red[kThreads];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_xy(phi, luts, g, ti0, tj0, tk0, smem);
-  const WarpBlock b(smem, g, ti0, tj0, tk0);
+  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
+  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
   float acc = 0.f;
   for (int i = threadIdx.x; i < b.n; i += blockDim.x) {
     float w;
@@ -179,15 +268,16 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) partials[block_index()] = total;
 }
 
+template <int F>
 __global__ void __launch_bounds__(kThreads)
-    bsi_fused_stats_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
+    bsi_fused_stats_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
                            const float* __restrict__ mov, float* __restrict__ partials,
                            TileBlock g, int X, int Y, int Z) {
   extern __shared__ float smem[];
   __shared__ float red[kThreads];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_xy(phi, luts, g, ti0, tj0, tk0, smem);
-  const WarpBlock b(smem, g, ti0, tj0, tk0);
+  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
+  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
   float sum = 0.f, lo = CUDART_INF_F, hi = -CUDART_INF_F, cnt = 0.f;
   for (int i = threadIdx.x; i < b.n; i += blockDim.x) {
     float w;
@@ -210,16 +300,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // scal: (mu_w, mu_f).
+template <int F>
 __global__ void __launch_bounds__(kThreads)
-    bsi_fused_ncc_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
+    bsi_fused_ncc_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
                          const float* __restrict__ mov, const float* __restrict__ fix,
                          const float* __restrict__ scal, float* __restrict__ partials,
                          TileBlock g, int X, int Y, int Z) {
   extern __shared__ float smem[];
   __shared__ float red[kThreads];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_xy(phi, luts, g, ti0, tj0, tk0, smem);
-  const WarpBlock b(smem, g, ti0, tj0, tk0);
+  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
+  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
   const float mu_w = scal[0], mu_f = scal[1];
   float ab = 0.f, aa = 0.f, bb = 0.f;
   for (int i = threadIdx.x; i < b.n; i += blockDim.x) {
@@ -247,7 +338,7 @@ constexpr int kNmiMaxBins = 64;
 
 __host__ __device__ inline int nmi_padded_bins(int bins) { return (bins + 3) / 4 * 4; }
 
-// Shared floats after the staging: centres, then the two (BP, stride)
+// Shared floats after the displacement staging: centres, then the two (BP, stride)
 // weight matrices, which the group combine reuses (16 floats per thread).
 __host__ __device__ inline int nmi_extra_floats(int bins) {
   const int bp = nmi_padded_bins(bins);
@@ -256,8 +347,9 @@ __host__ __device__ inline int nmi_extra_floats(int bins) {
 }
 
 // scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats.
+template <int F>
 __global__ void __launch_bounds__(kThreads)
-    bsi_fused_nmi_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
+    bsi_fused_nmi_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
                          const float* __restrict__ mov, const float* __restrict__ fix,
                          const float* __restrict__ scal,
                          const float* __restrict__ centres, float* __restrict__ partials,
@@ -265,11 +357,11 @@ __global__ void __launch_bounds__(kThreads)
                          float eps) {
   extern __shared__ float smem[];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_xy(phi, luts, g, ti0, tj0, tk0, smem);
-  const WarpBlock b(smem, g, ti0, tj0, tk0);
+  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
+  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
 
   const int bp = nmi_padded_bins(bins);
-  float* s_c = smem + stage_smem_bytes(g) / sizeof(float);
+  float* s_c = smem + disp_smem_bytes<F>(g) / sizeof(float);
   float* sa = s_c + bp;             // (bp, kNmiStride): wa, bin-major
   float* sb = sa + bp * kNmiStride;  // (bp, kNmiStride): wb
   for (int k = threadIdx.x; k < bins; k += blockDim.x) s_c[k] = centres[k];
@@ -347,12 +439,149 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The lncc kernel's shared memory, in floats: region A holds the
+// displacement staging, then the x sums; region W the warped and fixed
+// values, then the y sums.  g holds the staged (extended) tiles per block,
+// (ox, oy, oz) the owned tiles per block.
+struct LnccLayout {
+  int Ex, Ey, Ez;  // owned voxels per axis
+  int Sx, Sy, Sz;  // staged voxels per axis: owned + window - 1
+  size_t a_floats, w_floats;
+
+  template <int F>
+  __host__ __device__ static LnccLayout make(const TileBlock& g, int ox, int oy, int oz,
+                                             int win) {
+    LnccLayout L;
+    L.Ex = ox * g.dx;
+    L.Ey = oy * g.dy;
+    L.Ez = oz * g.dz;
+    L.Sx = L.Ex + win - 1;
+    L.Sy = L.Ey + win - 1;
+    L.Sz = L.Ez + win - 1;
+    const size_t stage = disp_smem_bytes<F>(g) / sizeof(float);
+    const size_t xs = 5 * (size_t)L.Ex * L.Sy * L.Sz;
+    const size_t wf = 2 * (size_t)L.Sx * L.Sy * L.Sz;
+    const size_t ys = 5 * (size_t)L.Ex * L.Ey * L.Sz;
+    L.a_floats = stage > xs ? stage : xs;
+    L.w_floats = wf > ys ? wf : ys;
+    return L;
+  }
+};
+
+// Moment m of the staged values at offset i: w, f, w^2, f^2, w f.
+__device__ __forceinline__ float lncc_term(const float* s_w, const float* s_f, int m,
+                                           size_t i) {
+  const float w = s_w[i], f = s_f[i];
+  switch (m) {
+    case 0: return w;
+    case 1: return f;
+    case 2: return w * w;
+    case 3: return f * f;
+    default: return w * f;
+  }
+}
+
+// inv: 1 / win^3 in float32.  partials row: (sum cc, count) of the block's
+// own VALID positions.
+template <int F>
+__global__ void __launch_bounds__(kThreads)
+    bsi_fused_lncc_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
+                          const float* __restrict__ mov, const float* __restrict__ fix,
+                          float* __restrict__ partials, TileBlock g, int ox, int oy,
+                          int oz, int X, int Y, int Z, int win, float inv, float eps) {
+  extern __shared__ float smem[];
+  __shared__ float red[kThreads];
+  const int ti0 = blockIdx.x * ox, tj0 = blockIdx.y * oy, tk0 = blockIdx.z * oz;
+  const LnccLayout L = LnccLayout::make<F>(g, ox, oy, oz, win);
+  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
+  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
+  float* s_w = smem + L.a_floats;
+  const size_t s3 = (size_t)L.Sx * L.Sy * L.Sz;
+  float* s_f = s_w + s3;
+
+  // the warp and the fixed volume over the staged extent; 0 outside the
+  // volume, where no VALID window of an own position reaches
+  for (int i = threadIdx.x; i < (int)s3; i += blockDim.x) {
+    const int zl = i % L.Sz, r = i / L.Sz;
+    const int yl = r % L.Sy, xl = r / L.Sy;
+    const int x = b.x0 + xl, y = b.y0 + yl, z = b.z0 + zl;
+    float w = 0.f, f = 0.f;
+    if (x < X && y < Y && z < Z) {
+      w = b.warp(mov, X, Y, Z, xl, yl, zl);
+      f = __ldg(fix + ((size_t)x * Y + y) * Z + z);
+    }
+    s_w[i] = w;
+    s_f[i] = f;
+  }
+  __syncthreads();
+
+  // x sums: (5, Ex, Sy, Sz) over the staging's memory
+  float* xs = smem;
+  const int nxs = 5 * L.Ex * L.Sy * L.Sz;
+  const size_t sxs = (size_t)L.Sy * L.Sz;  // x stride of the staged values
+  for (int i = threadIdx.x; i < nxs; i += blockDim.x) {
+    const int jk = i % (L.Sy * L.Sz), r = i / (L.Sy * L.Sz);
+    const int xi = r % L.Ex, m = r / L.Ex;
+    const size_t at = (size_t)xi * sxs + jk;
+    float acc = lncc_term(s_w, s_f, m, at);
+    for (int a = 1; a < win; ++a) acc = acc + lncc_term(s_w, s_f, m, at + a * sxs);
+    xs[i] = acc;
+  }
+  __syncthreads();
+
+  // y sums: (5, Ex, Ey, Sz) over the warped values' memory
+  float* ys = s_w;
+  const int nys = 5 * L.Ex * L.Ey * L.Sz;
+  for (int i = threadIdx.x; i < nys; i += blockDim.x) {
+    const int k = i % L.Sz, r = i / L.Sz;
+    const int yi = r % L.Ey, mx = r / L.Ey;  // mx = m * Ex + xi
+    const float* src = xs + ((size_t)mx * L.Sy + yi) * L.Sz + k;
+    float acc = src[0];
+    for (int a = 1; a < win; ++a) acc = acc + src[(size_t)a * L.Sz];
+    ys[i] = acc;
+  }
+  __syncthreads();
+
+  // z sums and the local cc of the own positions VALID in the volume
+  const int vx = X - win + 1, vy = Y - win + 1, vz = Z - win + 1;
+  const size_t mstride = (size_t)L.Ex * L.Ey * L.Sz;
+  float acc = 0.f, cnt = 0.f;
+  for (int i = threadIdx.x; i < L.Ex * L.Ey * L.Ez; i += blockDim.x) {
+    const int zi = i % L.Ez, r = i / L.Ez;
+    const int yi = r % L.Ey, xi = r / L.Ey;
+    if (b.x0 + xi >= vx || b.y0 + yi >= vy || b.z0 + zi >= vz) continue;
+    const float* src = ys + ((size_t)xi * L.Ey + yi) * L.Sz + zi;
+    float sm[5];
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+      const float* q = src + m * mstride;
+      float t = q[0];
+      for (int a = 1; a < win; ++a) t = t + q[a];
+      sm[m] = t;
+    }
+    const float mu_w = sm[0] * inv, mu_f = sm[1] * inv;
+    const float var_w = sm[2] * inv - mu_w * mu_w;
+    const float var_f = sm[3] * inv - mu_f * mu_f;
+    const float cross = sm[4] * inv - mu_w * mu_f;
+    acc += cross * cross / (var_w * var_f + eps);
+    cnt += 1.f;  // at most a block's positions: exact
+  }
+  float* row = partials + 2 * block_index();
+  const float s0 = block_reduce<kThreads>(acc, red, SumOp());
+  if (threadIdx.x == 0) row[0] = s0;
+  const float s1 = block_reduce<kThreads>(cnt, red, SumOp());
+  if (threadIdx.x == 0) row[1] = s1;
+}
+
 constexpr int kReduceThreads = 1024;
 enum LaneOp { kSum = 0, kMin = 1, kMax = 2, kCount = 3 };
 
-// The stats row: sum, min, max, count.
-__device__ __forceinline__ int lane_op(int lane, int stats) {
-  return stats ? lane : kSum;
+// The row's lanes by `mode`: 0 sums only; 1 the stats row (sum, min, max,
+// count); 2 the lncc row (sum, count).
+__device__ __forceinline__ int lane_op(int lane, int mode) {
+  if (mode == 1) return lane;
+  if (mode == 2 && lane == 1) return kCount;
+  return kSum;
 }
 
 // Combine n partial rows of K lanes, lane by lane, in a fixed order.  A block
@@ -362,13 +591,13 @@ __device__ __forceinline__ int lane_op(int lane, int stats) {
 // The count lane folds in 64-bit integers, so it is exact.
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_partials_kernel(const float* __restrict__ partials, int n, int K, int L,
-                           int stats, float* __restrict__ out) {
+                           int mode, float* __restrict__ out) {
   __shared__ float red[kReduceThreads];
   __shared__ long long redc[kReduceThreads];
   const int R = kReduceThreads / L;
   const int lane = blockIdx.x * L + threadIdx.x % L;
   const int phase = threadIdx.x / L;
-  const int op = lane < K ? lane_op(lane, stats) : kSum;
+  const int op = lane < K ? lane_op(lane, mode) : kSum;
   float acc = op == kMin ? CUDART_INF_F : op == kMax ? -CUDART_INF_F : 0.f;
   long long cnt = 0;
   if (lane < K) {
@@ -397,88 +626,136 @@ __global__ void __launch_bounds__(kReduceThreads)
     out[lane] = op == kCount ? (float)redc[threadIdx.x] : red[threadIdx.x];
 }
 
-inline cudaError_t reduce_partials(const float* partials, int n, int K, int stats,
+inline cudaError_t reduce_partials(const float* partials, int n, int K, int mode,
                                    float* out, cudaStream_t s) {
   int L = 1;
   while (L < K && L < 32) L *= 2;
   reduce_partials_kernel<<<(K + L - 1) / L, kReduceThreads, 0, s>>>(partials, n, K, L,
-                                                                    stats, out);
+                                                                    mode, out);
   return cudaGetLastError();
 }
 
-// Launch `kernel` on the tile-block grid, then the lane-wise reduce.
+// Launch `kernel` on `grid` with `smem` bytes of shared memory, then the
+// lane-wise reduce.
 template <typename Kernel, typename... Args>
-inline int launch_fused(Kernel kernel, const TileBlock& g, int X, int Y, int Z,
-                        size_t extra_floats, int n_partials, int K, int stats,
-                        const float* partials, float* out, void* stream,
+inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, int K,
+                        int mode, const float* partials, float* out, void* stream,
                         Args... args) {
-  const dim3 grid = tile_grid(g, X, Y, Z);
   if ((long long)grid.x * grid.y * grid.z != n_partials) return (int)cudaErrorInvalidValue;
-  const size_t smem = stage_smem_bytes(g) + sizeof(float) * extra_floats;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = (cudaStream_t)stream;
   kernel<<<grid, kThreads, smem, s>>>(args...);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)reduce_partials(partials, n_partials, K, stats, out, s);
+  return (int)reduce_partials(partials, n_partials, K, mode, out, s);
 }
 
 }  // namespace repro_torch
 
+// Launch variant kernel K<kLerp> or K<kMatmul> on the tile-block grid of g
+// with the displacement staging plus `extra_floats` of shared memory.
+#define REPRO_LAUNCH_FUSED(K, form, extra_floats, n_partials, lanes, mode, ...)      \
+  ((form) == kMatmul                                                                 \
+       ? launch_fused(K<kMatmul>, tile_grid(g, X, Y, Z),                             \
+                      disp_smem_bytes<kMatmul>(g) + sizeof(float) * (extra_floats),  \
+                      n_partials, lanes, mode, partials, out, stream, __VA_ARGS__)   \
+       : launch_fused(K<kLerp>, tile_grid(g, X, Y, Z),                               \
+                      disp_smem_bytes<kLerp>(g) + sizeof(float) * (extra_floats),    \
+                      n_partials, lanes, mode, partials, out, stream, __VA_ARGS__))
+
 // Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all float32 and
-// contiguous.  partials: n_partials rows of K floats, one row per thread
+// contiguous.  tabs: the lerp LUTs (form 0) or the (dx*dy*dz, 64) basis
+// (form 1).  partials: n_partials rows of K floats, one row per thread
 // block (the caller sizes it with the same tile-block grid); out: K floats.
 // Each returns the first cudaError_t, or cudaErrorInvalidValue on a size
-// mismatch.
+// mismatch or an unknown form.
 
 // out: 1 float, the sum of squared differences.
-extern "C" int bsi_fused_ssd_f32(const float* phi, const float* luts, const float* mov,
+extern "C" int bsi_fused_ssd_f32(const float* phi, const float* tabs, const float* mov,
                                  const float* fix, float* partials, int n_partials,
                                  float* out, int nx, int ny, int nz, int dx, int dy,
                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
-                                 void* stream) {
+                                 int form, void* stream) {
   using namespace repro_torch;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return launch_fused(bsi_fused_ssd_kernel, g, X, Y, Z, 0, n_partials, 1, 0, partials,
-                      out, stream, phi, luts, mov, fix, partials, g, X, Y, Z);
+  return REPRO_LAUNCH_FUSED(bsi_fused_ssd_kernel, form, 0, n_partials, 1, 0, phi, tabs,
+                            mov, fix, partials, g, X, Y, Z);
 }
 
 // out: 4 floats, the sum, min, max and count of the warped volume.
-extern "C" int bsi_fused_stats_f32(const float* phi, const float* luts, const float* mov,
+extern "C" int bsi_fused_stats_f32(const float* phi, const float* tabs, const float* mov,
                                    float* partials, int n_partials, float* out, int nx,
                                    int ny, int nz, int dx, int dy, int dz, int X, int Y,
-                                   int Z, int bx, int by, int bz, void* stream) {
+                                   int Z, int bx, int by, int bz, int form,
+                                   void* stream) {
   using namespace repro_torch;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return launch_fused(bsi_fused_stats_kernel, g, X, Y, Z, 0, n_partials, 4, 1,
-                      partials, out, stream, phi, luts, mov, partials, g, X, Y, Z);
+  return REPRO_LAUNCH_FUSED(bsi_fused_stats_kernel, form, 0, n_partials, 4, 1, phi,
+                            tabs, mov, partials, g, X, Y, Z);
 }
 
 // scal: (mu_w, mu_f); out: 3 floats, sum ab, sum aa, sum bb.
-extern "C" int bsi_fused_ncc_f32(const float* phi, const float* luts, const float* mov,
+extern "C" int bsi_fused_ncc_f32(const float* phi, const float* tabs, const float* mov,
                                  const float* fix, const float* scal, float* partials,
                                  int n_partials, float* out, int nx, int ny, int nz,
                                  int dx, int dy, int dz, int X, int Y, int Z, int bx,
-                                 int by, int bz, void* stream) {
+                                 int by, int bz, int form, void* stream) {
   using namespace repro_torch;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return launch_fused(bsi_fused_ncc_kernel, g, X, Y, Z, 0, n_partials, 3, 0, partials,
-                      out, stream, phi, luts, mov, fix, scal, partials, g, X, Y, Z);
+  return REPRO_LAUNCH_FUSED(bsi_fused_ncc_kernel, form, 0, n_partials, 3, 0, phi, tabs,
+                            mov, fix, scal, partials, g, X, Y, Z);
 }
 
 // scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; 2 <= bins <= 64;
 // out: bins * bins floats, the joint histogram (row: moving bin).
-extern "C" int bsi_fused_nmi_f32(const float* phi, const float* luts, const float* mov,
+extern "C" int bsi_fused_nmi_f32(const float* phi, const float* tabs, const float* mov,
                                  const float* fix, const float* scal,
                                  const float* centres, float* partials, int n_partials,
                                  float* out, int nx, int ny, int nz, int dx, int dy,
                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
-                                 int bins, float sigma, float eps, void* stream) {
+                                 int form, int bins, float sigma, float eps,
+                                 void* stream) {
   using namespace repro_torch;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
   if (bins < 2 || bins > kNmiMaxBins) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return launch_fused(bsi_fused_nmi_kernel, g, X, Y, Z, nmi_extra_floats(bins),
-                      n_partials, bins * bins, 0, partials, out, stream, phi, luts, mov,
-                      fix, scal, centres, partials, g, X, Y, Z, bins, sigma, eps);
+  return REPRO_LAUNCH_FUSED(bsi_fused_nmi_kernel, form, nmi_extra_floats(bins),
+                            n_partials, bins * bins, 0, phi, tabs, mov, fix, scal,
+                            centres, partials, g, X, Y, Z, bins, sigma, eps);
+}
+
+// (bx, by, bz): owned tiles per block; (ex, ey, ez): the halo tiles staged
+// beyond them, ceil((win - 1) / d).  1 <= win <= min(X, Y, Z); inv: 1 / win^3.
+// out: 2 floats, the sum of the local cc^2 over the VALID window positions
+// and their count.
+extern "C" int bsi_fused_lncc_f32(const float* phi, const float* tabs, const float* mov,
+                                  const float* fix, float* partials, int n_partials,
+                                  float* out, int nx, int ny, int nz, int dx, int dy,
+                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
+                                  int form, int ex, int ey, int ez, int win, float inv,
+                                  float eps, void* stream) {
+  using namespace repro_torch;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
+  if (win < 1 || win > X || win > Y || win > Z) return (int)cudaErrorInvalidValue;
+  if (ex * dx < win - 1 || ey * dy < win - 1 || ez * dz < win - 1)
+    return (int)cudaErrorInvalidValue;
+  const TileBlock own{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
+  const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx + ex, by + ey, bz + ez};
+  const dim3 grid = tile_grid(own, X, Y, Z);
+  if (form == kMatmul) {
+    const LnccLayout L = LnccLayout::make<kMatmul>(g, bx, by, bz, win);
+    return launch_fused(bsi_fused_lncc_kernel<kMatmul>, grid,
+                        sizeof(float) * (L.a_floats + L.w_floats), n_partials, 2, 2,
+                        partials, out, stream, phi, tabs, mov, fix, partials, g, bx, by,
+                        bz, X, Y, Z, win, inv, eps);
+  }
+  const LnccLayout L = LnccLayout::make<kLerp>(g, bx, by, bz, win);
+  return launch_fused(bsi_fused_lncc_kernel<kLerp>, grid,
+                      sizeof(float) * (L.a_floats + L.w_floats), n_partials, 2, 2,
+                      partials, out, stream, phi, tabs, mov, fix, partials, g, bx, by, bz,
+                      X, Y, Z, win, inv, eps);
 }

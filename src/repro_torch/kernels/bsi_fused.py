@@ -1,12 +1,15 @@
 """Fused level step: the CUDA kernels' launches and their plain versions.
 
 The kernels (``csrc/bsi_fused.cu``) replace the JAX package's Pallas kernel
-``repro/kernels/bsi_fused.py:bsi_fused_pallas`` in four variants.  Per block
-of tiles each evaluates the displacement in the TTLI lerp form, samples the
-moving volume trilinearly at identity + displacement (fp32 coordinates,
-clamped to the volume) and reduces the voxels of the volume to one partial
-row; a second launch combines the rows lane by lane in a fixed order.  No
-dense field and no warped volume reach device memory.
+``repro/kernels/bsi_fused.py:bsi_fused_pallas`` in five variants.  Per block
+of tiles each evaluates the displacement, samples the moving volume
+trilinearly at identity + displacement (fp32 coordinates, clamped to the
+volume) and reduces the voxels of the volume to one partial row; a second
+launch combines the rows lane by lane in a fixed order.  No dense field and
+no warped volume reach device memory.  The displacement takes either form of
+the JAX kernel's ``disp_form``: ``"lerp"``, the TTLI lerp stages (where the
+JAX kernel runs its separable sweeps: the same function), or ``"matmul"``,
+the 64-term Kronecker-basis sum of ``kernels.bsi_matmul``.
 
 =========  =====================================================  ===========
 variant    result                                                 lanes
@@ -18,11 +21,15 @@ variant    result                                                 lanes
 ``nmi``    the ``(bins, bins)`` joint Parzen histogram            ``bins^2``
            ``sum_v wa(v) wb(v)^T`` of the min-max normalised
            intensities, lo/hi from ``scal``
+``lncc``   the sum of the local ``cc^2`` over the VALID window     2
+           positions, and their count; a block warps its tiles
+           plus a halo of ``window - 1`` voxels per axis
 =========  =====================================================  ===========
 
 The ``plain_*`` functions compute the same results in tensor ops, without
-autograd: the lerp-form displacement, the clamped 8-tap sample and the sums.
-``kernels.ops`` picks between the two by the tensor's device.
+autograd: the displacement (``bsi_ttli.plain`` or ``bsi_matmul.plain``, both
+rounding each operation as the kernels do), the clamped 8-tap sample and the
+sums.  ``kernels.ops`` picks between the two by the tensor's device.
 """
 
 from __future__ import annotations
@@ -31,14 +38,16 @@ import ctypes
 
 import torch
 
-from repro_torch.core.similarity import parzen_centres, parzen_weights
-from repro_torch.kernels import bsi_ttli
+from repro_torch.core.similarity import local_cc, parzen_centres, parzen_weights
+from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["LANES", "MAX_BINS", "launch", "num_partials", "nmi_smem_bytes", "plain",
-           "plain_ncc", "plain_nmi", "plain_stats", "warped"]
+__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "block_tiles", "launch", "lncc_blocks",
+           "num_partials", "nmi_smem_bytes", "plain", "plain_lncc", "plain_ncc",
+           "plain_nmi", "plain_stats", "warped"]
 
-LANES = {"ssd": 1, "stats": 4, "ncc": 3}
+DISP_FORMS = ("lerp", "matmul")
+LANES = {"ssd": 1, "stats": 4, "ncc": 3, "lncc": 2}
 MAX_BINS = 64  # histogram width the nmi kernel takes (csrc: kNmiMaxBins)
 _NMI_CHUNK_STRIDE = 129  # csrc: kNmiStride
 
@@ -59,10 +68,56 @@ def nmi_smem_bytes(bins) -> int:
     return 4 * (bp + max(2 * bp * _NMI_CHUNK_STRIDE, 16 * 256))
 
 
-def launch(kind, phi, moving, fixed, tile, blocks, *, scal=None, bins=None,
-           sigma=None, eps=None):
+def _disp_smem_bytes(tile, blocks, disp_form) -> int:
+    """Shared memory of the displacement stage (csrc: disp_smem_bytes)."""
+    if disp_form == "lerp":
+        return bsi_ttli.stage_smem_bytes(tile, blocks, 3)
+    return bsi_matmul.smem_bytes(tile, blocks, 3)
+
+
+def block_tiles(tile, disp_form, extra_bytes=0) -> tuple:
+    """Tiles per block of the ssd, stats, ncc and nmi kernels (those of the
+    TTLI kernel); raises if the displacement stage plus a variant's
+    ``extra_bytes`` does not fit a block."""
+    blocks = bsi_ttli.block_tiles(tile)
+    smem = _disp_smem_bytes(tile, blocks, disp_form) + extra_bytes
+    bsi_ttli.check_smem(f"the fused kernel at tile {tile} (disp_form={disp_form!r})",
+                        smem)
+    return blocks
+
+
+def _lncc_smem_bytes(tile, own, extra, window, disp_form) -> int:
+    """Shared memory of the lncc kernel (csrc: LnccLayout, plus the static
+    reduce buffer)."""
+    ext = tuple(b + e for b, e in zip(own, extra))
+    E = [b * d for b, d in zip(own, tile)]
+    S = [e + window - 1 for e in E]
+    a = max(_disp_smem_bytes(tile, ext, disp_form) // 4, 5 * E[0] * S[1] * S[2])
+    w = max(2 * S[0] * S[1] * S[2], 5 * E[0] * E[1] * S[2])
+    return 4 * (a + w + bsi_ttli.KERNEL_THREADS)
+
+
+def lncc_blocks(tile, window, disp_form) -> tuple:
+    """``(own, extra)`` tiles per block of the lncc kernel: the halo tiles
+    ``ceil((window - 1) / d)`` staged beyond the owned ones, and about 10
+    owned voxels per axis, fewer where the shared memory would not fit a
+    block; raises if one owned tile does not fit."""
+    own = [max(1, 10 // d) for d in tile]
+    extra = tuple(-(-(window - 1) // d) for d in tile)
+    while (_lncc_smem_bytes(tile, own, extra, window, disp_form)
+           > bsi_ttli.MAX_SMEM_BYTES and max(own) > 1):
+        own[own.index(max(own))] -= 1
+    bsi_ttli.check_smem(f"the fused lncc kernel at tile {tile}, window {window} "
+                        f"(disp_form={disp_form!r})",
+                        _lncc_smem_bytes(tile, own, extra, window, disp_form))
+    return tuple(own), extra
+
+
+def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=None,
+           bins=None, sigma=None, eps=None, window=None, extra=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
-    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``)."""
+    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  For ``lncc``,
+    ``blocks`` are the owned tiles per block and ``extra`` the halo tiles."""
     nx, ny, nz, _ = phi.shape
     X, Y, Z = moving.shape
     n = num_partials(moving.shape, tile, blocks)
@@ -70,29 +125,37 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, scal=None, bins=None,
     partials = torch.empty(n * k, dtype=torch.float32, device=phi.device)
     out = torch.empty(k, dtype=torch.float32, device=phi.device)
     lib = load_library()
-    dims = (nx, ny, nz, *tile, X, Y, Z, *blocks)
+    dims = (nx, ny, nz, *tile, X, Y, Z, *blocks, DISP_FORMS.index(disp_form))
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        luts = bsi_ttli.stage_luts(tile, phi.device).data_ptr()
+        if disp_form == "lerp":
+            tabs = bsi_ttli.stage_luts(tile, phi.device).data_ptr()
+        else:
+            tabs = bsi_matmul.basis(tile, phi.device).data_ptr()
         if kind == "ssd":
             rc = lib.bsi_fused_ssd_f32(
-                phi.data_ptr(), luts, moving.data_ptr(), fixed.data_ptr(),
+                phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 partials.data_ptr(), n, out.data_ptr(), *dims, stream)
         elif kind == "stats":
             rc = lib.bsi_fused_stats_f32(
-                phi.data_ptr(), luts, moving.data_ptr(), partials.data_ptr(), n,
+                phi.data_ptr(), tabs, moving.data_ptr(), partials.data_ptr(), n,
                 out.data_ptr(), *dims, stream)
         elif kind == "ncc":
             rc = lib.bsi_fused_ncc_f32(
-                phi.data_ptr(), luts, moving.data_ptr(), fixed.data_ptr(),
+                phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 scal.data_ptr(), partials.data_ptr(), n, out.data_ptr(), *dims, stream)
         elif kind == "nmi":
             centres = parzen_centres(bins, phi.device)
             rc = lib.bsi_fused_nmi_f32(
-                phi.data_ptr(), luts, moving.data_ptr(), fixed.data_ptr(),
+                phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 scal.data_ptr(), centres.data_ptr(), partials.data_ptr(), n,
                 out.data_ptr(), *dims, bins, ctypes.c_float(sigma),
                 ctypes.c_float(eps), stream)
+        elif kind == "lncc":
+            rc = lib.bsi_fused_lncc_f32(
+                phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
+                partials.data_ptr(), n, out.data_ptr(), *dims, *extra, window,
+                ctypes.c_float(1.0 / window**3), ctypes.c_float(eps), stream)
         else:
             raise ValueError(f"no fused kernel variant {kind!r}")
     if rc:
@@ -100,12 +163,15 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, scal=None, bins=None,
     return out.view(bins, bins) if kind == "nmi" else out
 
 
-def warped(phi, moving, tile):
+def warped(phi, moving, tile, disp_form="lerp"):
     """The kernels' warp in tensor ops: the moving volume sampled at identity
-    + the lerp-form displacement, clamped 8-tap, without autograd."""
+    + the displacement of ``disp_form``, clamped 8-tap, without autograd."""
     X, Y, Z = moving.shape
+    if disp_form not in DISP_FORMS:
+        raise ValueError(f"unknown disp_form {disp_form!r}; choose from {DISP_FORMS}")
+    form = bsi_ttli if disp_form == "lerp" else bsi_matmul
     with torch.no_grad():
-        disp = bsi_ttli.plain(phi, tile, (X, Y, Z))
+        disp = form.plain(phi, tile, (X, Y, Z))
         dev = moving.device
         axes = [torch.arange(s, dtype=torch.float32, device=dev) for s in (X, Y, Z)]
         ident = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
@@ -132,35 +198,35 @@ def warped(phi, moving, tile):
         return c0 * (1 - tz) + c1 * tz
 
 
-def plain(phi, moving, fixed, tile):
+def plain(phi, moving, fixed, tile, *, disp_form="lerp"):
     """The ssd kernel's function: the sum of squared differences."""
-    w = warped(phi, moving, tile)
+    w = warped(phi, moving, tile, disp_form)
     with torch.no_grad():
         return torch.sum((w - fixed) ** 2)
 
 
-def plain_stats(phi, moving, tile):
+def plain_stats(phi, moving, tile, *, disp_form="lerp"):
     """The stats kernel's function: ``(sum, min, max, count)`` of the warp."""
-    w = warped(phi, moving, tile)
+    w = warped(phi, moving, tile, disp_form)
     with torch.no_grad():
         count = w.new_full((), float(w.numel()))
         return torch.stack([torch.sum(w), torch.min(w), torch.max(w), count])
 
 
-def plain_ncc(phi, moving, fixed, scal, tile):
+def plain_ncc(phi, moving, fixed, scal, tile, *, disp_form="lerp"):
     """The ncc kernel's function: the centred ``(sum ab, sum aa, sum bb)``
     with ``scal = (mu_w, mu_f)``."""
-    w = warped(phi, moving, tile)
+    w = warped(phi, moving, tile, disp_form)
     with torch.no_grad():
         a = w - scal[0]
         b = fixed - scal[1]
         return torch.stack([torch.sum(a * b), torch.sum(a * a), torch.sum(b * b)])
 
 
-def plain_nmi(phi, moving, fixed, scal, tile, *, bins, sigma, eps):
+def plain_nmi(phi, moving, fixed, scal, tile, *, bins, sigma, eps, disp_form="lerp"):
     """The nmi kernel's function: the un-normalised ``(bins, bins)`` joint
     Parzen histogram, ``scal = (lo_w, hi_w, lo_f, hi_f)``, ``sigma`` a float."""
-    w = warped(phi, moving, tile).reshape(-1)
+    w = warped(phi, moving, tile, disp_form).reshape(-1)
     with torch.no_grad():
         floor = w.new_full((), 1e-8)
         an = (w - scal[0]) / torch.maximum(scal[1] - scal[0], floor)
@@ -170,3 +236,13 @@ def plain_nmi(phi, moving, fixed, scal, tile, *, bins, sigma, eps):
         wa = parzen_weights(an, centres, s, eps)
         wb = parzen_weights(bn, centres, s, eps)
         return wa.T @ wb
+
+
+def plain_lncc(phi, moving, fixed, tile, *, window, eps, disp_form="lerp"):
+    """The lncc kernel's function: ``(sum cc, count)`` of the local ``cc^2``
+    map of :func:`repro_torch.core.similarity.local_cc` (``window`` already
+    clamped to the volume), float32 ``(2,)``."""
+    w = warped(phi, moving, tile, disp_form)
+    with torch.no_grad():
+        cc = local_cc(w, fixed, window, eps)
+        return torch.stack([torch.sum(cc), cc.new_full((), float(cc.numel()))])

@@ -18,10 +18,11 @@ from repro_torch.core.bspline import lerp_luts
 from repro_torch.core.interpolate import bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["block_tiles", "check_blocks", "stage_luts", "stage_smem_bytes", "launch",
-           "plain"]
+__all__ = ["block_tiles", "check_blocks", "check_smem", "stage_luts", "stage_smem_bytes",
+           "launch", "plain"]
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
+KERNEL_THREADS = 256  # threads per block of every BSI kernel (csrc: kThreads)
 
 
 def block_tiles(tile) -> tuple:
@@ -45,15 +46,20 @@ def stage_luts(tile, device) -> torch.Tensor:
     return torch.cat([t for d in tile for t in lerp_luts(d, torch.float32, device)])
 
 
+def check_smem(what, smem):
+    """Raise if ``smem`` bytes exceed what a block may use; ``what`` names
+    the kernel and its shape in the message."""
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{what} needs {smem} B of shared memory per block, more than the "
+            f"{MAX_SMEM_BYTES} B a block may use")
+
+
 def check_blocks(tile, blocks, channels, extra_bytes=0):
     """Raise if the staging, plus a kernel's ``extra_bytes``, exceeds what a
     block may use."""
-    smem = stage_smem_bytes(tile, blocks, channels) + extra_bytes
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"tile {tile} with {channels} channels needs {smem} B of shared "
-            f"memory per block, more than the {MAX_SMEM_BYTES} B a block may use"
-        )
+    check_smem(f"tile {tile} with {channels} channels",
+               stage_smem_bytes(tile, blocks, channels) + extra_bytes)
 
 
 def launch(phi, out, tile, blocks):

@@ -25,7 +25,7 @@ from pathlib import Path
 __all__ = ["BuildInfo", "Library", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("bsi_ttli.cu", "bsi_adjoint.cu", "bsi_fused.cu")
+SOURCES = ("bsi_ttli.cu", "bsi_matmul.cu", "bsi_adjoint.cu", "bsi_fused.cu")
 HEADERS = ("bsi_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = (
@@ -39,16 +39,19 @@ FLAGS = (
 SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",)}
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-_DIMS = "i" * 12  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz
+_DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 # C signature of each entry point, one letter per argument (p: pointer, i:
 # int, f: float); each ends with the stream and returns a cudaError_t.
 _SIGNATURES = {
     "bsi_ttli_f32": "ppp" + "i" * 13,
+    "bsi_matmul_f32": "ppp" + "i" * 13,
     "bsi_adjoint_f32": "p" * 7 + "i" * 10,
+    "bsi_adjoint_matmul_f32": "pppp" + "i" * 13,
     "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,
     "bsi_fused_stats_f32": "pppp" + "ip" + _DIMS,
     "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,
     "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iff",
+    "bsi_fused_lncc_f32": "ppppp" + "ip" + _DIMS + "iiii" + "ff",
 }
 
 

@@ -4,26 +4,35 @@ Each dispatcher takes tensors in the JAX package's channels-last layout.  On a
 CPU tensor it runs its kernel's plain PyTorch version; on a CUDA tensor it
 checks device, dtype (float32), shape and contiguity, allocates the outputs
 with ``torch.empty``, launches the kernel on the current stream, raises if
-the launch failed, and adds one to its ``launches`` count.  There is no
+the launch failed, and adds one to its kernel's launch count
+(:func:`launch_counts`; the fused variants count apart per displacement
+form, ``bsi_fused_ncc`` and ``bsi_fused_ncc_matmul``).  There is no
 fallback: a CUDA tensor runs the kernel or raises.
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
-block sizes from shared memory (``kernels.bsi_ttli.block_tiles``).
+block sizes from shared memory (``kernels.bsi_ttli.block_tiles``,
+``kernels.bsi_matmul.block_tiles``, ``kernels.bsi_fused.lncc_blocks``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import bsi_adjoint as _adjoint
 from repro_torch.kernels import bsi_fused as _fused
+from repro_torch.kernels import bsi_matmul as _matmul
 from repro_torch.core.similarity import entropy_loss
 from repro_torch.kernels import bsi_ttli as _ttli
 
 __all__ = [
     "bsi_ttli",
+    "bsi_matmul",
     "bsi_adjoint",
+    "bsi_adjoint_matmul",
+    "fused_lncc",
     "fused_ncc_moments",
     "fused_nmi_histogram",
     "fused_similarity_loss",
@@ -34,8 +43,29 @@ __all__ = [
     "two_pass_loss",
 ]
 
-# Fused variants of the JAX package not in this package yet.
-_FUSED_NOT_YET = "ROADMAP.md queue 2 item 8"
+
+def _fused_name(kind, disp_form):
+    """The launch-count key of fused variant ``kind`` in ``disp_form``."""
+    name = "bsi_fused" if kind == "ssd" else f"bsi_fused_{kind}"
+    return name if disp_form == "lerp" else f"{name}_matmul"
+
+
+# Launches per kernel since the last reset.
+_KERNELS = ("bsi_ttli", "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul") + tuple(
+    _fused_name(kind, form) for form in _fused.DISP_FORMS
+    for kind in ("ssd", "stats", "ncc", "nmi", "lncc"))
+_LAUNCHES = dict.fromkeys(_KERNELS, 0)
+
+
+def reset_launch_counts():
+    """Set every kernel's launch count to 0."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last reset."""
+    return dict(_LAUNCHES)
 
 
 def _on_card(t, name) -> bool:
@@ -67,26 +97,43 @@ def _covers(grid_shape, tile, vol_shape, name):
             )
 
 
+def _forward(name, module, phi, tile, vol_shape):
+    tile = tuple(int(d) for d in tile)
+    full = tuple((int(n) - 3) * d for n, d in zip(phi.shape[:3], tile))
+    vol_shape = full if vol_shape is None else tuple(int(s) for s in vol_shape)
+    _covers(phi.shape[:3], tile, vol_shape, name)
+    if not _on_card(phi, name):
+        return module.plain(phi, tile, vol_shape)
+    _check(phi, "phi", 4, phi.device)
+    blocks = module.block_tiles(tile)
+    module.check_blocks(tile, blocks, phi.shape[3])
+    out = torch.empty(vol_shape + (phi.shape[3],), dtype=torch.float32,
+                      device=phi.device)
+    module.launch(phi, out, tile, blocks)
+    _LAUNCHES[name] += 1
+    return out
+
+
 def bsi_ttli(phi, tile, vol_shape=None):
     """Forward BSI, TTLI form, cropped to ``vol_shape`` (default: whole tiles).
 
     ``phi``: ``(Nx, Ny, Nz, C)`` control grid.  Returns the
     ``vol_shape + (C,)`` dense field.
     """
+    return _forward("bsi_ttli", _ttli, phi, tile, vol_shape)
+
+
+def bsi_matmul(phi, tile, vol_shape=None):
+    """Forward BSI, matrix form, cropped to ``vol_shape`` (default: whole
+    tiles); as :func:`bsi_ttli`."""
+    return _forward("bsi_matmul", _matmul, phi, tile, vol_shape)
+
+
+def _adjoint_inputs(g, tile, grid_shape, name):
     tile = tuple(int(d) for d in tile)
-    full = tuple((int(n) - 3) * d for n, d in zip(phi.shape[:3], tile))
-    vol_shape = full if vol_shape is None else tuple(int(s) for s in vol_shape)
-    _covers(phi.shape[:3], tile, vol_shape, "bsi_ttli")
-    if not _on_card(phi, "bsi_ttli"):
-        return _ttli.plain(phi, tile, vol_shape)
-    _check(phi, "phi", 4, phi.device)
-    blocks = _ttli.block_tiles(tile)
-    _ttli.check_blocks(tile, blocks, phi.shape[3])
-    out = torch.empty(vol_shape + (phi.shape[3],), dtype=torch.float32,
-                      device=phi.device)
-    _ttli.launch(phi, out, tile, blocks)
-    bsi_ttli.launches += 1
-    return out
+    grid_shape = tuple(int(n) for n in grid_shape)
+    _covers(grid_shape, tile, g.shape[:3], name)
+    return tile, grid_shape, _on_card(g, name)
 
 
 def bsi_adjoint(g, tile, grid_shape):
@@ -95,21 +142,35 @@ def bsi_adjoint(g, tile, grid_shape):
     ``g``: ``(X, Y, Z, C)`` with ``X <= (Nx - 3) * dx`` and so on; the voxels
     past the volume count as zero.  Returns ``grid_shape + (C,)`` float32.
     """
-    tile = tuple(int(d) for d in tile)
-    grid_shape = tuple(int(n) for n in grid_shape)
-    _covers(grid_shape, tile, g.shape[:3], "bsi_adjoint")
-    if not _on_card(g, "bsi_adjoint"):
+    tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint")
+    if not card:
         return _adjoint.plain(g, tile, grid_shape)
     _check(g, "g", 4, g.device)
     out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
                       device=g.device)
     _adjoint.launch(g, out, tile)
-    bsi_adjoint.launches += 1
+    _LAUNCHES["bsi_adjoint"] += 1
     return out
 
 
-def _fused_inputs(phi, moving, fixed, tile, name):
+def bsi_adjoint_matmul(g, tile, grid_shape):
+    """The BSI adjoint in the transposed matrix form; as :func:`bsi_adjoint`."""
+    tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint_matmul")
+    if not card:
+        return _adjoint.plain_matmul(g, tile, grid_shape)
+    _check(g, "g", 4, g.device)
+    out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
+                      device=g.device)
+    _adjoint.launch_matmul(g, out, tile)
+    _LAUNCHES["bsi_adjoint_matmul"] += 1
+    return out
+
+
+def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     """Check the fused kernels' shared inputs; True on the card."""
+    if disp_form not in _fused.DISP_FORMS:
+        raise ValueError(
+            f"unknown disp_form {disp_form!r}; choose from {_fused.DISP_FORMS}")
     if fixed is not None and moving.shape != fixed.shape:
         raise ValueError(
             f"shape mismatch: {tuple(fixed.shape)} vs {tuple(moving.shape)}")
@@ -125,51 +186,52 @@ def _fused_inputs(phi, moving, fixed, tile, name):
     return True
 
 
-def _blocks(tile, extra_smem=0):
-    blocks = _ttli.block_tiles(tile)
-    _ttli.check_blocks(tile, blocks, 3, extra_smem)
-    return blocks
-
-
-def fused_ssd_loss(phi, moving, fixed, tile):
+def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
     """``mean((warp(moving, bsi(phi)) - fixed)**2)`` without a dense field.
 
     The fused level step's forward, SSD only; the differentiable face is
-    ``repro_torch.core.ffd.fused_warp_loss``.  Returns a 0-dim float32 tensor.
+    ``repro_torch.core.ffd.fused_warp_loss``.  ``disp_form`` is ``"lerp"``
+    or ``"matmul"`` (the displacement's form).  Returns a 0-dim float32
+    tensor.
     """
     tile = tuple(int(d) for d in tile)
     n = moving.numel()
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_ssd_loss"):
-        return _fused.plain(phi, moving, fixed, tile) / n
-    total = _fused.launch("ssd", phi, moving, fixed, tile, _blocks(tile))
-    fused_ssd_loss.launches += 1
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_ssd_loss", disp_form):
+        return _fused.plain(phi, moving, fixed, tile, disp_form=disp_form) / n
+    total = _fused.launch("ssd", phi, moving, fixed, tile,
+                          _fused.block_tiles(tile, disp_form), disp_form=disp_form)
+    _LAUNCHES[_fused_name("ssd", disp_form)] += 1
     return total[0] / n
 
 
-def fused_stats(phi, moving, tile):
+def fused_stats(phi, moving, tile, *, disp_form="lerp"):
     """``(sum, min, max, count)`` of ``warp(moving, bsi(phi))``, float32 ``(4,)``;
     the first pass of the fused NCC and NMI."""
     tile = tuple(int(d) for d in tile)
-    if not _fused_inputs(phi, moving, None, tile, "fused_stats"):
-        return _fused.plain_stats(phi, moving, tile)
-    out = _fused.launch("stats", phi, moving, None, tile, _blocks(tile))
-    fused_stats.launches += 1
+    if not _fused_inputs(phi, moving, None, tile, "fused_stats", disp_form):
+        return _fused.plain_stats(phi, moving, tile, disp_form=disp_form)
+    out = _fused.launch("stats", phi, moving, None, tile,
+                        _fused.block_tiles(tile, disp_form), disp_form=disp_form)
+    _LAUNCHES[_fused_name("stats", disp_form)] += 1
     return out
 
 
-def fused_ncc_moments(phi, moving, fixed, scal, tile):
+def fused_ncc_moments(phi, moving, fixed, scal, tile, *, disp_form="lerp"):
     """The centred ``(sum ab, sum aa, sum bb)`` of the warp ``w`` and ``fixed``,
     ``a = w - scal[0]``, ``b = fixed - scal[1]``; float32 ``(3,)``."""
     tile = tuple(int(d) for d in tile)
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_ncc_moments"):
-        return _fused.plain_ncc(phi, moving, fixed, scal, tile)
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_ncc_moments", disp_form):
+        return _fused.plain_ncc(phi, moving, fixed, scal, tile, disp_form=disp_form)
     _check(scal, "scal", 1, phi.device)
-    out = _fused.launch("ncc", phi, moving, fixed, tile, _blocks(tile), scal=scal)
-    fused_ncc_moments.launches += 1
+    out = _fused.launch("ncc", phi, moving, fixed, tile,
+                        _fused.block_tiles(tile, disp_form), disp_form=disp_form,
+                        scal=scal)
+    _LAUNCHES[_fused_name("ncc", disp_form)] += 1
     return out
 
 
-def fused_nmi_histogram(phi, moving, fixed, scal, tile, *, bins, sigma, eps):
+def fused_nmi_histogram(phi, moving, fixed, scal, tile, *, bins, sigma, eps,
+                        disp_form="lerp"):
     """The un-normalised ``(bins, bins)`` joint Parzen histogram of the warp
     and ``fixed``, each min-max normalised with ``scal = (lo_w, hi_w, lo_f,
     hi_f)``; ``sigma`` in ``[0, 1]`` units, applied in float32."""
@@ -178,40 +240,68 @@ def fused_nmi_histogram(phi, moving, fixed, scal, tile, *, bins, sigma, eps):
         raise ValueError(
             f"the fused nmi kernel takes 2 to {_fused.MAX_BINS} bins, got {bins}; "
             "run it unfused (fused='off')")
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_nmi_histogram"):
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_nmi_histogram", disp_form):
         return _fused.plain_nmi(phi, moving, fixed, scal, tile, bins=bins,
-                                sigma=sigma, eps=eps)
+                                sigma=sigma, eps=eps, disp_form=disp_form)
     _check(scal, "scal", 1, phi.device)
-    blocks = _blocks(tile, _fused.nmi_smem_bytes(bins))
-    out = _fused.launch("nmi", phi, moving, fixed, tile, blocks, scal=scal, bins=bins,
-                        sigma=sigma, eps=eps)
-    fused_nmi_histogram.launches += 1
+    blocks = _fused.block_tiles(tile, disp_form, _fused.nmi_smem_bytes(bins))
+    out = _fused.launch("nmi", phi, moving, fixed, tile, blocks, disp_form=disp_form,
+                        scal=scal, bins=bins, sigma=sigma, eps=eps)
+    _LAUNCHES[_fused_name("nmi", disp_form)] += 1
+    return out
+
+
+def lncc_window(window, vol_shape) -> int:
+    """The LNCC window clamped to the volume's smallest extent, as
+    ``core.similarity.uniform_filter`` clamps it."""
+    return max(1, min(int(window), *(int(s) for s in vol_shape)))
+
+
+def fused_lncc(phi, moving, fixed, tile, *, window, eps, disp_form="lerp"):
+    """``(sum cc, count)`` of the local ``cc^2`` of the warp and ``fixed``
+    over the VALID positions of a ``window`` (clamped to the volume), float32
+    ``(2,)``."""
+    tile = tuple(int(d) for d in tile)
+    window = lncc_window(window, moving.shape)
+    if not _fused_inputs(phi, moving, fixed, tile, "fused_lncc", disp_form):
+        return _fused.plain_lncc(phi, moving, fixed, tile, window=window, eps=eps,
+                                 disp_form=disp_form)
+    own, extra = _fused.lncc_blocks(tile, window, disp_form)
+    out = _fused.launch("lncc", phi, moving, fixed, tile, own, disp_form=disp_form,
+                        eps=float(eps), window=window, extra=extra)
+    _LAUNCHES[_fused_name("lncc", disp_form)] += 1
     return out
 
 
 def fused_similarity_loss(phi, moving, fixed, tile, *, sim_spec, disp_form="lerp"):
     """``sim(warp(moving, bsi(phi)), fixed)`` without a dense field.
 
-    ``sim_spec`` is a similarity's ``_fused_spec``: ``ssd`` is one pass,
-    ``ncc`` and ``nmi`` two (:func:`two_pass_loss`).  The displacement is the
-    TTLI lerp form (``disp_form="lerp"``).  Forward only; the differentiable
-    face is ``repro_torch.core.ffd.fused_warp_loss``.  Returns a 0-dim
-    float32 tensor.
+    ``sim_spec`` is a similarity's ``_fused_spec``: ``ssd`` and ``lncc`` are
+    one pass, ``ncc`` and ``nmi`` two (:func:`two_pass_loss`).  The
+    displacement is the TTLI lerp form (``disp_form="lerp"``) or the matrix
+    form (``"matmul"``).  Forward only; the differentiable face is
+    ``repro_torch.core.ffd.fused_warp_loss``.  Returns a 0-dim float32
+    tensor.
     """
     kind = sim_spec[0]
-    if kind == "lncc" or disp_form != "lerp":
-        what = ("the fused lncc kernel" if kind == "lncc"
-                else f"the fused kernel with disp_form={disp_form!r}")
-        raise NotImplementedError(f"{what} is not in the package yet ({_FUSED_NOT_YET})")
     if kind == "ssd":
-        return fused_ssd_loss(phi, moving, fixed, tile)
+        return fused_ssd_loss(phi, moving, fixed, tile, disp_form=disp_form)
+    if kind == "lncc":
+        _, window, eps = sim_spec
+        window = lncc_window(window, moving.shape)
+        acc = fused_lncc(phi, moving, fixed, tile, window=window, eps=eps,
+                         disp_form=disp_form)
+        npos = 1
+        for s in moving.shape:
+            npos *= int(s) - window + 1
+        return 1.0 - acc[0] / npos
     return two_pass_loss(sim_spec, phi, moving, fixed, tile, stats=fused_stats,
                          ncc_moments=fused_ncc_moments,
-                         nmi_histogram=fused_nmi_histogram)
+                         nmi_histogram=fused_nmi_histogram, disp_form=disp_form)
 
 
 def two_pass_loss(sim_spec, phi, moving, fixed, tile, *, stats, ncc_moments,
-                  nmi_histogram):
+                  nmi_histogram, disp_form="lerp"):
     """The fused ``ncc`` or ``nmi`` loss from its two passes.
 
     Pass one is ``stats`` of the warp; pass two ``ncc_moments`` or
@@ -220,7 +310,7 @@ def two_pass_loss(sim_spec, phi, moving, fixed, tile, *, stats, ncc_moments,
     device: nothing reads a value back to the host.  The passes are the
     dispatchers above or, to hold the kernels against them on the card, the
     kernels' plain versions (``kernels.bsi_fused``), which take the same
-    arguments.
+    arguments, ``disp_form`` among them.
     """
     kind = sim_spec[0]
     if kind not in ("ncc", "nmi"):
@@ -228,6 +318,9 @@ def two_pass_loss(sim_spec, phi, moving, fixed, tile, *, stats, ncc_moments,
     if moving.shape != fixed.shape:
         raise ValueError(
             f"shape mismatch: {tuple(fixed.shape)} vs {tuple(moving.shape)}")
+    stats, ncc_moments, nmi_histogram = (
+        functools.partial(f, disp_form=disp_form)
+        for f in (stats, ncc_moments, nmi_histogram))
     n = moving.numel()
     st = stats(phi, moving, tile)
     if kind == "ncc":
@@ -240,22 +333,3 @@ def two_pass_loss(sim_spec, phi, moving, fixed, tile, *, stats, ncc_moments,
     hist = nmi_histogram(phi, moving, fixed, scal, tile, bins=bins,
                          sigma=float(sigma_ratio) / (bins - 1), eps=float(eps))
     return entropy_loss(hist / n, float(eps))
-
-
-_DISPATCHERS = {"bsi_ttli": bsi_ttli, "bsi_adjoint": bsi_adjoint,
-                "bsi_fused": fused_ssd_loss, "bsi_fused_stats": fused_stats,
-                "bsi_fused_ncc": fused_ncc_moments, "bsi_fused_nmi": fused_nmi_histogram}
-
-
-def reset_launch_counts():
-    """Set every dispatcher's launch count to 0."""
-    for fn in _DISPATCHERS.values():
-        fn.launches = 0
-
-
-def launch_counts() -> dict:
-    """Kernel launches per kernel since the last reset."""
-    return {name: fn.launches for name, fn in _DISPATCHERS.items()}
-
-
-reset_launch_counts()

@@ -74,15 +74,23 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
     # per voxel: three products, five separable box sums of `window` adds per
     # axis, and the local cc (about a dozen ops)
     lncc_score = (3 + 5 * 3 * window + 12) * vox
+    # the fused variants: (bytes, operations besides the displacement's)
+    fused = {
+        "ssd": (grid_b + 2 * vol_b + 4, sample_score),
+        "stats": (grid_b + vol_b + 16, sample_score),
+        "ncc": (grid_b + 2 * vol_b + 8 + 12, sample_score + ncc_score),
+        "nmi": (grid_b + 2 * vol_b + 16 + 4 * bins + 4 * bins * bins,
+                sample_score + nmi_score),
+        "lncc": (grid_b + 2 * vol_b + 8, sample_score + lncc_score),
+    }
+    # the matrix form's displacement also reads the (d^3, 64) basis
+    basis_b = 4 * 64 * dx * dy * dz
     return {
         "bsi_ttli": (grid_b + field_b, ttli),
         "bsi_adjoint_separable": (field_b + grid_b, adjoint),
-        "bsi_fused_ssd": (grid_b + 2 * vol_b + 4, ttli + sample_score),
-        "bsi_fused_stats": (grid_b + vol_b + 16, ttli + sample_score),
-        "bsi_fused_ncc": (grid_b + 2 * vol_b + 8 + 12, ttli + sample_score + ncc_score),
-        "bsi_fused_nmi": (grid_b + 2 * vol_b + 16 + 4 * bins + 4 * bins * bins,
-                          ttli + sample_score + nmi_score),
-        "bsi_fused_lncc": (grid_b + 2 * vol_b + 8, ttli + sample_score + lncc_score),
+        **{f"bsi_fused_{k}": (b, ttli + f) for k, (b, f) in fused.items()},
+        **{f"bsi_fused_{k}_matmul": (b + basis_b, dense64 + f)
+           for k, (b, f) in fused.items()},
         "bsi_matmul": (grid_b + field_b, dense64),
         "bsi_adjoint_matmul": (field_b + grid_b, dense64),
         "bsi_separable": (grid_b + field_b, separable),

@@ -2,14 +2,18 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_ffd [--shape X Y Z]
         [--iters N] [--calls K] [--top T] [--similarity NAME] [--remap]
+        [--mode ttli|matmul] [--grad-impl cuda|matmul]
 
 Builds the kernels (printing the build seconds), makes ``make_pair(shape,
 seed=0)`` (default: the paper's phantom1, 512 x 228 x 385), with ``--remap``
 maps the moving volume's intensities through ``(1 - v)^1.5`` (a synthetic
 second modality), and traces the process's first ``ffd_register`` call with
-the default options (the kernels) and ``--similarity`` (default ``ssd``;
-``nmi`` and ``ncc`` run the two-pass fused kernels) under ``torch.profiler``, printing the host-side calls that took the most
-time (the first call pays one-off costs beyond the build).  Then it times
+the default options (the kernels), ``--similarity`` (default ``ssd``;
+``nmi`` and ``ncc`` run the two-pass fused kernels, ``lncc`` the one-pass
+halo kernel), ``--mode`` (``matmul``: the matrix-form forward and fused
+displacement) and ``--grad-impl`` (``matmul``: the transposed-matmul
+adjoint) under ``torch.profiler``, printing the host-side calls that took
+the most time (the first call pays one-off costs beyond the build).  Then it times
 ``--calls`` more calls, and traces one more warm call, printing the device
 time per kernel name, the package's CUDA kernels against PyTorch's own
 kernels (the plain glue), and the device's busy and idle share of the call.
@@ -66,6 +70,8 @@ def main(argv=None):
     ap.add_argument("--similarity", default="ssd")
     ap.add_argument("--remap", action="store_true",
                     help="moving volume through (1 - v)^1.5")
+    ap.add_argument("--mode", default="ttli", choices=["ttli", "matmul"])
+    ap.add_argument("--grad-impl", default="cuda", choices=["cuda", "matmul"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ffd: needs a CUDA device")
@@ -75,7 +81,8 @@ def main(argv=None):
     fixed, moving, _ = make_pair(tuple(args.shape), seed=0)
     if args.remap:
         moving = (1.0 - moving) ** 1.5
-    opts = RegistrationOptions(iters=args.iters, similarity=args.similarity)
+    opts = RegistrationOptions(iters=args.iters, similarity=args.similarity,
+                               mode=args.mode, grad_impl=args.grad_impl)
 
     def run():
         ffd_register(fixed, moving, options=opts)
@@ -85,7 +92,8 @@ def main(argv=None):
     host = sorted(cold.key_averages(), key=lambda a: -a.self_cpu_time_total)
     host_top = [[a.key, a.count, a.self_cpu_time_total / 1e3] for a in host[: args.top]]
     print(f"card: {card}; shape {tuple(args.shape)}, iters {args.iters}, "
-          f"similarity {args.similarity}, remap {args.remap}; "
+          f"similarity {args.similarity}, remap {args.remap}, mode {args.mode}, "
+          f"grad_impl {args.grad_impl}; "
           f"kernel build {build_s:.2f} s")
     print(f"first call (traced): wall {cold_wall * 1e3:.1f} ms; host self time by op:")
     for key, count, ms in host_top:
@@ -112,7 +120,8 @@ def main(argv=None):
         print(f"  {ms:10.2f} ms  {name[:110]}")
     print(json.dumps({
         "card": card, "shape": list(args.shape), "iters": args.iters,
-        "similarity": args.similarity, "remap": args.remap,
+        "similarity": args.similarity, "remap": args.remap, "mode": args.mode,
+        "grad_impl": args.grad_impl,
         "build_seconds": build_s, "peak_gib": peak,
         "first_call_traced_ms": cold_wall * 1e3, "first_call_host_top": host_top,
         "seconds_per_call": seconds, "profiled_wall_ms": wall * 1e3,

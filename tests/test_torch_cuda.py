@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch import RegistrationOptions, ffd_register, make_pair  # noqa: E402
 from repro_torch.core import ffd  # noqa: E402
 from repro_torch.core.interpolate import bsi_gather, interpolate  # noqa: E402
-from repro_torch.kernels import bsi_adjoint, bsi_fused, bsi_ttli, ops  # noqa: E402
+from repro_torch.kernels import (bsi_adjoint, bsi_fused, bsi_matmul,  # noqa: E402
+                                  bsi_ttli, ops)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,6 +33,15 @@ CASES = [
     ((22, 15, 30), (7, 7, 7)),
     ((11, 12, 45), (1, 1, 1)),
 ]
+
+
+def _launches(name):
+    return ops.launch_counts()[name]
+
+
+def _no_launches_but(**counts):
+    """Every kernel's count 0 except ``counts``."""
+    return {k: counts.get(k, 0) for k in ops.launch_counts()}
 
 
 @pytest.fixture
@@ -51,10 +61,10 @@ def _grid(vol, tile, c, seed, device):
 @pytest.mark.parametrize("c", [1, 3])
 def test_ttli_kernel_matches_plain(cuda, vol, tile, c):
     phi = _grid(vol, tile, c, 0, cuda)
-    before = ops.bsi_ttli.launches
+    before = _launches("bsi_ttli")
     out = ops.bsi_ttli(phi, tile, vol)
     torch.cuda.synchronize()
-    assert ops.bsi_ttli.launches == before + 1
+    assert _launches("bsi_ttli") == before + 1
     ref = bsi_ttli.plain(phi, tile, vol)
     assert out.shape == ref.shape == vol + (c,)
     assert (out - ref).abs().max().item() <= 1e-5
@@ -66,10 +76,10 @@ def test_adjoint_kernel_matches_plain(cuda, vol, tile, c):
     rng = np.random.default_rng(1)
     g = torch.from_numpy(rng.standard_normal(vol + (c,)).astype(np.float32)).to(cuda)
     gshape = ffd.grid_shape_for_volume(vol, tile)
-    before = ops.bsi_adjoint.launches
+    before = _launches("bsi_adjoint")
     out = ops.bsi_adjoint(g, tile, gshape)
     torch.cuda.synchronize()
-    assert ops.bsi_adjoint.launches == before + 1
+    assert _launches("bsi_adjoint") == before + 1
     ref = bsi_adjoint.plain(g, tile, gshape)
     assert out.shape == ref.shape == gshape + (c,)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
@@ -81,9 +91,9 @@ def test_fused_kernel_matches_plain(cuda, vol, tile):
     phi = _grid(vol, tile, 3, 3, cuda) * 2.0
     mov, fix = (torch.from_numpy(rng.uniform(0, 1, vol).astype(np.float32)).to(cuda)
                 for _ in range(2))
-    before = ops.fused_ssd_loss.launches
+    before = _launches("bsi_fused")
     out = ops.fused_ssd_loss(phi, mov, fix, tile)
-    assert ops.fused_ssd_loss.launches == before + 1
+    assert _launches("bsi_fused") == before + 1
     ref = bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
     assert abs(out.item() - ref.item()) <= 1e-5 * abs(ref.item())
 
@@ -100,9 +110,9 @@ def _fused_inputs(vol, tile, seed, device):
 @pytest.mark.parametrize("vol,tile", CASES)
 def test_stats_kernel_matches_plain(cuda, vol, tile):
     phi, mov, _ = _fused_inputs(vol, tile, 10, cuda)
-    before = ops.fused_stats.launches
+    before = _launches("bsi_fused_stats")
     out = ops.fused_stats(phi, mov, tile)
-    assert ops.fused_stats.launches == before + 1
+    assert _launches("bsi_fused_stats") == before + 1
     ref = bsi_fused.plain_stats(phi, mov, tile)
     assert out.shape == (4,)
     assert torch.equal(out[1:], ref[1:])  # min, max, count: exact
@@ -115,9 +125,9 @@ def test_ncc_kernel_matches_plain(cuda, vol, tile):
     phi, mov, fix = _fused_inputs(vol, tile, 11, cuda)
     st = bsi_fused.plain_stats(phi, mov, tile)
     scal = torch.stack([st[0] / mov.numel(), fix.mean()])
-    before = ops.fused_ncc_moments.launches
+    before = _launches("bsi_fused_ncc")
     out = ops.fused_ncc_moments(phi, mov, fix, scal, tile)
-    assert ops.fused_ncc_moments.launches == before + 1
+    assert _launches("bsi_fused_ncc") == before + 1
     ref = bsi_fused.plain_ncc(phi, mov, fix, scal, tile)
     assert out.shape == (3,)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
@@ -130,9 +140,9 @@ def test_nmi_kernel_matches_plain(cuda, vol, tile, bins):
     st = bsi_fused.plain_stats(phi, mov, tile)
     scal = torch.stack([st[1], st[2], fix.min(), fix.max()])
     kw = dict(bins=bins, sigma=0.5 / (bins - 1), eps=1e-8)
-    before = ops.fused_nmi_histogram.launches
+    before = _launches("bsi_fused_nmi")
     out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **kw)
-    assert ops.fused_nmi_histogram.launches == before + 1
+    assert _launches("bsi_fused_nmi") == before + 1
     ref = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **kw)
     assert out.shape == (bins, bins)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
@@ -216,8 +226,8 @@ def test_registration_on_card_matches_cpu(cuda):
     counts = ops.launch_counts()
     host = ffd_register(fixed, moving, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
-    assert counts == {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": steps,
-                      "bsi_fused_stats": 0, "bsi_fused_ncc": 0, "bsi_fused_nmi": 0}
+    assert counts == _no_launches_but(bsi_ttli=steps + 1, bsi_adjoint=steps,
+                                      bsi_fused=steps)
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
     np.testing.assert_allclose(card.params.cpu().numpy(), host.params.numpy(),
                                atol=1e-4)
@@ -235,8 +245,141 @@ def test_multimodal_registration_on_card_matches_cpu(cuda, similarity):
     counts = ops.launch_counts()
     host = ffd_register(fixed, remapped, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
-    assert counts == {"bsi_ttli": steps + 1, "bsi_adjoint": steps, "bsi_fused": 0,
-                      "bsi_fused_stats": steps,
-                      "bsi_fused_ncc": steps if similarity == "ncc" else 0,
-                      "bsi_fused_nmi": steps if similarity == "nmi" else 0}
+    assert counts == _no_launches_but(bsi_ttli=steps + 1, bsi_adjoint=steps,
+                                      bsi_fused_stats=steps,
+                                      **{f"bsi_fused_{similarity}": steps})
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
+
+
+# --- the matrix form and the fused LNCC
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_matmul_kernel_matches_plain(cuda, vol, tile, c):
+    phi = _grid(vol, tile, c, 20, cuda)
+    before = _launches("bsi_matmul")
+    out = ops.bsi_matmul(phi, tile, vol)
+    torch.cuda.synchronize()
+    assert _launches("bsi_matmul") == before + 1
+    ref = bsi_matmul.plain(phi, tile, vol)
+    assert out.shape == ref.shape == vol + (c,)
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert (out - bsi_ttli.plain(phi, tile, vol)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_adjoint_matmul_kernel_matches_plain(cuda, vol, tile, c):
+    rng = np.random.default_rng(21)
+    g = torch.from_numpy(rng.standard_normal(vol + (c,)).astype(np.float32)).to(cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    before = _launches("bsi_adjoint_matmul")
+    out = ops.bsi_adjoint_matmul(g, tile, gshape)
+    torch.cuda.synchronize()
+    assert _launches("bsi_adjoint_matmul") == before + 1
+    ref = bsi_adjoint.plain_matmul(g, tile, gshape)
+    assert out.shape == ref.shape == gshape + (c,)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("vol,tile", CASES)
+def test_fused_matmul_form_matches_plain(cuda, vol, tile):
+    """The four earlier variants with the matrix-form displacement; the warp
+    equals the plain version bit for bit, so stats' min, max and count are
+    exact."""
+    phi, mov, fix = _fused_inputs(vol, tile, 22, cuda)
+    kw = dict(disp_form="matmul")
+    out = ops.fused_stats(phi, mov, tile, **kw)
+    ref = bsi_fused.plain_stats(phi, mov, tile, **kw)
+    assert torch.equal(out[1:], ref[1:])
+    assert abs(out[0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
+    out = ops.fused_ssd_loss(phi, mov, fix, tile, **kw)
+    ref = bsi_fused.plain(phi, mov, fix, tile, **kw) / mov.numel()
+    assert abs(out.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    scal = torch.tensor([0.3, 0.5], device=cuda)
+    out = ops.fused_ncc_moments(phi, mov, fix, scal, tile, **kw)
+    ref = bsi_fused.plain_ncc(phi, mov, fix, scal, tile, **kw)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    st = bsi_fused.plain_stats(phi, mov, tile, **kw)
+    scal = torch.stack([st[1], st[2], fix.min(), fix.max()])
+    nmi = dict(bins=32, sigma=0.5 / 31, eps=1e-8, **kw)
+    out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **nmi)
+    ref = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **nmi)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("form", ["lerp", "matmul"])
+@pytest.mark.parametrize("window", [9, 5])
+@pytest.mark.parametrize("vol,tile", CASES)
+def test_lncc_kernel_matches_plain(cuda, vol, tile, window, form):
+    phi, mov, fix = _fused_inputs(vol, tile, 23, cuda)
+    w = ops.lncc_window(window, vol)
+    name = "bsi_fused_lncc" + ("_matmul" if form == "matmul" else "")
+    before = _launches(name)
+    out = ops.fused_lncc(phi, mov, fix, tile, window=window, eps=1e-5, disp_form=form)
+    assert _launches(name) == before + 1
+    ref = bsi_fused.plain_lncc(phi, mov, fix, tile, window=w, eps=1e-5, disp_form=form)
+    assert out.shape == (2,)
+    assert out[1].item() == ref[1].item() == np.prod([s - w + 1 for s in vol])
+    assert abs(out[0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
+
+
+def test_matmul_kernels_and_lncc_are_deterministic(cuda):
+    vol, tile = (40, 33, 47), (5, 5, 5)
+    phi, mov, fix = _fused_inputs(vol, tile, 24, cuda)
+    rng = np.random.default_rng(25)
+    g = torch.from_numpy(rng.standard_normal(vol + (3,)).astype(np.float32)).to(cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    runs = [(ops.bsi_matmul(phi, tile, vol), ops.bsi_adjoint_matmul(g, tile, gshape),
+             ops.fused_lncc(phi, mov, fix, tile, window=9, eps=1e-5),
+             ops.fused_lncc(phi, mov, fix, tile, window=9, eps=1e-5, disp_form="matmul"),
+             ops.fused_stats(phi, mov, tile, disp_form="matmul")) for _ in range(3)]
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0], runs[2]):
+        assert torch.equal(a, b)
+
+
+def test_matmul_kernel_gradient_matches_autograd_of_gather(cuda):
+    tile = (5, 4, 3)
+    phi = _grid((20, 12, 15), tile, 3, 26, cuda).requires_grad_(True)
+    rng = np.random.default_rng(27)
+    w = torch.from_numpy(rng.standard_normal((20, 12, 15, 3)).astype(np.float32))
+    w = w.to(cuda)
+    (g_kernel,) = torch.autograd.grad((interpolate(
+        phi, tile, mode="matmul", impl="cuda", grad_impl="matmul") * w).sum(), phi)
+    (g_ref,) = torch.autograd.grad((bsi_gather(phi, tile) * w).sum(), phi)
+    assert (g_kernel - g_ref).abs().max().item() <= 1e-5 * g_ref.abs().max().item()
+
+
+def test_matmul_dispatchers_refuse_what_the_kernels_do_not_take(cuda):
+    tile = (5, 5, 5)
+    phi = _grid((10, 10, 10), tile, 3, 28, cuda)
+    with pytest.raises(TypeError):
+        ops.bsi_matmul(phi.double(), tile)
+    with pytest.raises(ValueError):
+        ops.bsi_adjoint_matmul(phi.transpose(0, 1), tile, (6, 6, 6))
+    big = (10, 10, 10)  # a 256 KB basis: more than a block's shared memory
+    phi = _grid((20, 20, 20), big, 3, 29, cuda)
+    v = torch.zeros((20, 20, 20), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.bsi_matmul(phi, big)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.fused_lncc(phi, v, v, big, window=9, eps=1e-5, disp_form="matmul")
+
+
+def test_lncc_matmul_registration_on_card_matches_cpu(cuda):
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5, similarity="lncc", mode="matmul",
+                               grad_impl="matmul")
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, moving, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, moving, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == _no_launches_but(bsi_matmul=steps + 1, bsi_adjoint_matmul=steps,
+                                      bsi_fused_lncc_matmul=steps)
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
+    np.testing.assert_allclose(card.warped.cpu().numpy(), host.warped.numpy(),
+                               atol=1e-4)

@@ -144,19 +144,42 @@ def test_fused_multimodal_loss_and_gradient_equal_unfused(similarity, tile):
 
 
 def test_fused_lncc_is_not_ported_and_unfused_lncc_runs():
+    """Fused LNCC now runs: fused and unfused agree in loss and gradient, and
+    both equal the JAX package's unfused level loss."""
     phi = torch.zeros(ffd.grid_shape_for_volume(VOL, TILE) + (3,))
     vol = torch.from_numpy(_vol(18))
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-        ffd.fused_warp_loss(phi, vol, vol, TILE, similarity="lncc")
     fix = _vol(19)
-    loss = ffd_level_objective(torch.from_numpy(fix), vol, tile=TILE, bending_weight=5e-3,
-                               mode="ttli", impl="cuda", grad_impl="cuda",
-                               similarity="lncc", fused="off")
-    value, grad = loss.vg(phi)
+    kw = dict(tile=TILE, bending_weight=5e-3, mode="ttli", impl="cuda",
+              grad_impl="cuda", similarity="lncc")
+    lf, gf = ffd_level_objective(torch.from_numpy(fix), vol, fused="on", **kw).vg(phi)
+    lu, gu = ffd_level_objective(torch.from_numpy(fix), vol, fused="off", **kw).vg(phi)
     ref = float(ref_level_loss(jnp.asarray(fix), jnp.asarray(vol.numpy()), tile=TILE,
                                bending_weight=5e-3, mode="ttli", impl="jnp",
                                similarity="lncc")(jnp.asarray(phi.numpy())))
-    assert abs(value.item() - ref) <= 1e-5 * abs(ref) and torch.isfinite(grad).all()
+    assert abs(lu.item() - ref) <= 1e-5 * abs(ref) and torch.isfinite(gu).all()
+    assert abs(lf.item() - lu.item()) <= 1e-6 * abs(lu.item())
+    assert (gf - gu).abs().max().item() <= 1e-6 * gu.abs().max().item()
+
+
+@pytest.mark.parametrize("similarity", ["ssd", "ncc", "nmi", "lncc"])
+def test_fused_matmul_level_loss_and_gradient_equal_unfused(similarity):
+    """``mode="matmul", grad_impl="matmul"``: the fused step (matrix-form
+    displacement) equals the unfused one in loss and gradient, and both the
+    JAX package's unfused level loss in the matrix form."""
+    mov = np.clip(_vol(20) * 1.3 - 0.1, 0.0, 1.0)
+    fix = _vol(21)
+    phi = torch.from_numpy(_rand(ffd.grid_shape_for_volume(VOL, TILE) + (3,), 22, 1.5))
+    kw = dict(tile=TILE, bending_weight=5e-3, mode="matmul", impl="cuda",
+              grad_impl="matmul", similarity=similarity)
+    f, m = torch.from_numpy(fix), torch.from_numpy(mov)
+    lf, gf = ffd_level_objective(f, m, fused="on", **kw).vg(phi)
+    lu, gu = ffd_level_objective(f, m, fused="off", **kw).vg(phi)
+    assert abs(lf.item() - lu.item()) <= 1e-6 * abs(lu.item())
+    assert (gf - gu).abs().max().item() <= 1e-6 * gu.abs().max().item()
+    ref = float(ref_level_loss(jnp.asarray(fix), jnp.asarray(mov), tile=TILE,
+                               bending_weight=5e-3, mode="matmul", impl="jnp",
+                               similarity=similarity)(jnp.asarray(phi.numpy())))
+    assert abs(lu.item() - ref) <= 1e-5 * abs(ref)
 
 
 def test_fused_warp_loss_needs_a_fused_similarity():

@@ -47,12 +47,39 @@ def test_ttli_plain_matches_reference_kernel_and_gather(grid, tile):
     np.testing.assert_allclose(out, gather, atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["gather", "ttli", "separable"])
+@pytest.mark.parametrize("mode", ["gather", "ttli", "separable", "tt", "matmul"])
 @pytest.mark.parametrize("grid,tile", GRIDS[:2])
 def test_plain_forms_match_reference_gather(mode, grid, tile):
     phi = _phi(grid, 1)
     out = tint.MODES[mode](torch.from_numpy(phi), tile).numpy()
     ref = np.asarray(rint.bsi_gather(jnp.asarray(phi), tile))
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["kernel", "plain", "tt"])
+@pytest.mark.parametrize("grid,tile", GRIDS)
+def test_matmul_and_tt_plain_match_reference_kernel_and_gather(grid, tile, form):
+    """The matmul kernel's plain version (64 terms in order), the plain
+    matrix form and the plain TT form against the reference's matmul kernel
+    in interpret mode and its gather oracle."""
+    phi = _phi(grid, 11)
+    t = torch.from_numpy(phi)
+    out = {"kernel": lambda: ops.bsi_matmul(t, tile), "plain": lambda: tint.bsi_matmul(
+        t, tile), "tt": lambda: tint.bsi_tt(t, tile)}[form]().numpy()
+    pallas = np.asarray(rops.bsi_pallas(jnp.asarray(phi), tile, mode="matmul"))
+    gather = np.asarray(rint.bsi_gather(jnp.asarray(phi), tile))
+    assert out.shape == pallas.shape
+    np.testing.assert_allclose(out, pallas, atol=1e-5)
+    np.testing.assert_allclose(out, gather, atol=1e-5)
+
+
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_matmul_crop_matches_reference_dense_field(vol, tile):
+    phi = _phi(rffd.grid_shape_for_volume(vol, tile), 12)
+    out = ops.bsi_matmul(torch.from_numpy(phi), tile, vol).numpy()
+    ref = np.asarray(rffd.dense_field(jnp.asarray(phi), tile, vol, mode="matmul",
+                                      impl="pallas"))
+    assert out.shape == vol + (3,)
     np.testing.assert_allclose(out, ref, atol=1e-5)
 
 
@@ -87,6 +114,42 @@ def test_adjoint_of_cropped_field_masks_the_outside(vol, tile):
     out = ops.bsi_adjoint(torch.from_numpy(g), tile, grid).numpy()
     ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(padded), tile))
     assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("grid,tile", GRIDS)
+@pytest.mark.parametrize("c", [1, 3])
+def test_adjoint_matmul_plain_matches_reference_kernel_and_separable(grid, tile, c):
+    full = tuple((n - 3) * d for n, d in zip(grid, tile))
+    g = torch.from_numpy(_phi(full, 13, c))
+    out = ops.bsi_adjoint_matmul(g, tile, grid).numpy()
+    ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(g.numpy()), tile,
+                                             form="matmul"))
+    sep = ops.bsi_adjoint(g, tile, grid).numpy()
+    assert out.shape == ref.shape == tuple(grid) + (c,)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert np.abs(out - sep).max() <= 1e-5 * np.abs(sep).max()
+
+
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_adjoint_matmul_of_cropped_field_masks_the_outside(vol, tile):
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    g = _phi(vol, 14)
+    full = tuple((n - 3) * d for n, d in zip(grid, tile))
+    padded = np.zeros(full + (3,), np.float32)
+    padded[: vol[0], : vol[1], : vol[2]] = g
+    out = ops.bsi_adjoint_matmul(torch.from_numpy(g), tile, grid).numpy()
+    ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(padded), tile, form="matmul"))
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_transpose_identity_of_the_matmul_pair(vol, tile):
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    phi = torch.from_numpy(_phi(grid, 15))
+    g = torch.from_numpy(_phi(vol, 16))
+    lhs = torch.sum(ops.bsi_matmul(phi, tile, vol).double() * g.double())
+    rhs = torch.sum(phi.double() * ops.bsi_adjoint_matmul(g, tile, grid).double())
+    assert abs(lhs - rhs).item() <= 1e-5 * abs(lhs).item()
 
 
 @pytest.mark.parametrize("vol,tile", VOLUMES)
@@ -159,14 +222,88 @@ def test_fused_plain_passes_match_the_reference_warp(vol, tile):
     assert abs(hist.sum().item() - w.size) <= 1e-4 * w.size  # rows sum to 1
 
 
+MATMUL_SPECS = [("ssd",), ("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 9, 1e-5),
+                ("lncc", 5, 1e-5)]
+
+
+@pytest.mark.parametrize("spec", MATMUL_SPECS, ids=lambda s: "-".join(map(str, s[:2])))
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_fused_matmul_form_matches_reference_fused(vol, tile, spec):
+    """Every fused variant with the matrix-form displacement against the
+    reference's fused kernel with ``disp_form="matmul"``, 1e-5 relative."""
+    rng = np.random.default_rng(17)
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    phi = (rng.standard_normal(grid + (3,)) * 1.5).astype(np.float32)
+    mov, fix = (rng.uniform(0, 1, vol).astype(np.float32) for _ in range(2))
+    ref = float(rops.fused_similarity_loss(jnp.asarray(phi), jnp.asarray(mov),
+                                           jnp.asarray(fix), tile, sim_spec=spec,
+                                           interpret=True, disp_form="matmul"))
+    out = ops.fused_similarity_loss(torch.from_numpy(phi), torch.from_numpy(mov),
+                                    torch.from_numpy(fix), tile, sim_spec=spec,
+                                    disp_form="matmul")
+    assert out.dtype == torch.float32 and out.dim() == 0
+    assert abs(out.item() - ref) <= 1e-5 * abs(ref)
+
+
+# the last volume is smaller than a 9-voxel window: the window clamps to 7
+LNCC_VOLUMES = VOLUMES + [((7, 10, 12), (3, 4, 5))]
+
+
+@pytest.mark.parametrize("window", [9, 5])
+@pytest.mark.parametrize("vol,tile", LNCC_VOLUMES)
+def test_fused_plain_lncc_matches_reference_fused_lncc(vol, tile, window):
+    """The lncc kernel's plain version (lerp form) against the reference's
+    fused LNCC (separable form), 1e-5 relative; its count is the number of
+    VALID positions of the clamped window."""
+    rng = np.random.default_rng(18)
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    phi = (rng.standard_normal(grid + (3,)) * 1.5).astype(np.float32)
+    mov, fix = (rng.uniform(0, 1, vol).astype(np.float32) for _ in range(2))
+    spec = ("lncc", window, 1e-5)
+    ref = float(rops.fused_similarity_loss(jnp.asarray(phi), jnp.asarray(mov),
+                                           jnp.asarray(fix), tile, sim_spec=spec,
+                                           interpret=True, disp_form="separable"))
+    p, m, f = (torch.from_numpy(a) for a in (phi, mov, fix))
+    out = ops.fused_similarity_loss(p, m, f, tile, sim_spec=spec)
+    assert abs(out.item() - ref) <= 1e-5 * abs(ref)
+    w = ops.lncc_window(window, vol)
+    acc = bsi_fused.plain_lncc(p, m, f, tile, window=w, eps=1e-5)
+    assert acc[1].item() == np.prod([s - w + 1 for s in vol])
+    assert abs(1.0 - acc[0].item() / acc[1].item() - ref) <= 1e-5 * abs(ref)
+
+
+@pytest.mark.parametrize("vol,tile", VOLUMES)
+def test_fused_matmul_warp_matches_the_reference_warp(vol, tile):
+    """The matrix-form warp of the fused plain versions against the JAX
+    package's unfused warp with ``mode="matmul"``: min, max and count of the
+    stats pass, and the warped values themselves."""
+    rng = np.random.default_rng(19)
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    phi = (rng.standard_normal(grid + (3,)) * 1.5).astype(np.float32)
+    mov = np.clip(rng.uniform(-0.2, 1, vol), 0, 1).astype(np.float32)
+    w = np.asarray(rffd.warp_volume(jnp.asarray(mov), rffd.dense_field(
+        jnp.asarray(phi), tile, vol, mode="matmul")), np.float64)
+    p, m = torch.from_numpy(phi), torch.from_numpy(mov)
+    out = bsi_fused.warped(p, m, tile, "matmul").double().numpy()
+    assert np.abs(out - w).max() <= 1e-5
+    st = bsi_fused.plain_stats(p, m, tile, disp_form="matmul").double().numpy()
+    assert st[3] == w.size
+    assert np.abs(st[1:3] - [w.min(), w.max()]).max() <= 1e-6
+    assert abs(st[0] - w.sum()) <= 1e-5 * abs(w.sum())
+
+
 def test_fused_dispatcher_names_what_is_not_ported():
     vol, tile = (13, 11, 9), (5, 4, 3)
     phi = torch.from_numpy(_phi(rffd.grid_shape_for_volume(vol, tile)))
     v = torch.zeros(vol)
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("lncc", 9, 1e-5))
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("ncc",), disp_form="matmul")
+    for spec in (("lncc", 9, 1e-5), ("ncc",)):  # ported: both forms run
+        for form in bsi_fused.DISP_FORMS:
+            out = ops.fused_similarity_loss(phi, v + 0.5, v + 0.25, tile, sim_spec=spec,
+                                            disp_form=form)
+            assert torch.isfinite(out)
+    with pytest.raises(ValueError, match="disp_form"):
+        ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("ncc",),
+                                  disp_form="separable")
     with pytest.raises(ValueError, match="2 to 64 bins"):
         ops.fused_similarity_loss(phi, v, v, tile, sim_spec=("nmi", 65, 0.5, 1e-8))
     with pytest.raises(ValueError, match="no fused kernel"):
@@ -178,6 +315,10 @@ def test_fused_dispatcher_names_what_is_not_ported():
     ("ttli", "torch", "torch"),
     ("separable", "torch", "cuda"),
     ("gather", "torch", "autograd"),
+    ("matmul", "cuda", "matmul"),
+    ("matmul", "torch", "matmul"),
+    ("tt", "torch", "autograd"),
+    ("matmul", "torch", "autograd"),
 ])
 def test_interpolate_gradient_matches_autograd_of_gather(mode, impl, grad_impl):
     tile = (5, 4, 3)
@@ -195,14 +336,19 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     phi = torch.from_numpy(_phi((7, 6, 5)))
     vol = (10, 8, 6)
     g = ops.bsi_ttli(phi, (5, 4, 3), vol)
+    ops.bsi_matmul(phi, (5, 4, 3), vol)
     ops.bsi_adjoint(g, (5, 4, 3), (7, 6, 5))
+    ops.bsi_adjoint_matmul(g, (5, 4, 3), (7, 6, 5))
     m, f = g[..., 0].contiguous(), g[..., 1].contiguous()
-    ops.fused_ssd_loss(phi, m, f, (5, 4, 3))
-    for spec in (("ncc",), ("nmi", 32, 0.5, 1e-8)):
-        ops.fused_similarity_loss(phi, m, f, (5, 4, 3), sim_spec=spec)
-    assert ops.launch_counts() == {"bsi_ttli": 0, "bsi_adjoint": 0, "bsi_fused": 0,
-                                   "bsi_fused_stats": 0, "bsi_fused_ncc": 0,
-                                   "bsi_fused_nmi": 0}
+    for form in bsi_fused.DISP_FORMS:
+        ops.fused_ssd_loss(phi, m, f, (5, 4, 3), disp_form=form)
+        for spec in (("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
+            ops.fused_similarity_loss(phi, m, f, (5, 4, 3), sim_spec=spec,
+                                      disp_form=form)
+    fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul")
+             for k in ("", "_stats", "_ncc", "_nmi", "_lncc")]
+    assert ops.launch_counts() == dict.fromkeys(
+        ["bsi_ttli", "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul"] + fused, 0)
 
 
 def test_dispatchers_check_coverage():
@@ -211,3 +357,28 @@ def test_dispatchers_check_coverage():
         ops.bsi_ttli(phi, (5, 4, 3), (21, 12, 6))
     with pytest.raises(ValueError, match="does not cover"):
         ops.bsi_adjoint(torch.zeros(21, 12, 6, 3), (5, 4, 3), (7, 6, 5))
+    with pytest.raises(ValueError, match="does not cover"):
+        ops.bsi_matmul(phi, (5, 4, 3), (21, 12, 6))
+    with pytest.raises(ValueError, match="does not cover"):
+        ops.bsi_adjoint_matmul(torch.zeros(21, 12, 6, 3), (5, 4, 3), (7, 6, 5))
+
+
+def test_block_checks_raise_where_shared_memory_runs_out():
+    """A 10^3 tile's basis (256 KB) fits no block: the matrix-form kernels
+    refuse it before launching; the lncc kernel shrinks its owned block (to
+    fit a 1^3 tile's halo) before it refuses."""
+    from repro_torch.kernels import bsi_adjoint, bsi_matmul
+
+    big = (10, 10, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        bsi_matmul.check_blocks(big, bsi_matmul.block_tiles(big), 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        bsi_adjoint.check_blocks_matmul(big, (1, 1, 4), 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        bsi_fused.block_tiles(big, "matmul")
+    with pytest.raises(ValueError, match="shared memory"):
+        bsi_fused.lncc_blocks(big, 9, "matmul")
+    assert bsi_fused.lncc_blocks((5, 5, 5), 9, "matmul") == ((2, 2, 2), (2, 2, 2))
+    own, extra = bsi_fused.lncc_blocks((1, 1, 1), 9, "lerp")
+    assert extra == (8, 8, 8) and 1 <= min(own) and max(own) <= 10
+    bsi_fused.block_tiles((5, 5, 5), "matmul", bsi_fused.nmi_smem_bytes(64))

@@ -11,6 +11,13 @@ of the gradient by its own magnitude, so entries near its ``eps`` of 1e-8
 carry each package's float32 rounding into the step.  The level gradient of
 the JAX package is 1e-5 (NMI) and 3e-6 (NCC) of its largest entry from a
 float64 evaluation, this package's under 1e-6; a test pins that.
+
+LNCC in the matrix form (``mode="matmul", grad_impl="matmul"``) is held
+against the reference's ``mode="matmul", impl="jnp", grad_impl="jnp",
+fused="off"``: per-level losses and MAE at 1e-4.  Both packages' level
+gradients are within 2e-6 of float64 (a test pins it), yet after Adam's ten
+steps the control grids differ by up to 3.0e-4 of entries of magnitude 3.3,
+for the same reason; they are held at 1e-3.
 """
 
 import warnings
@@ -37,6 +44,7 @@ from repro_torch.convert import grid_from_numpy, options_from_reference  # noqa:
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core import similarity as tsim  # noqa: E402
 from repro_torch.engine.batch import ffd_level_loss, ffd_level_objective  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 
 SHAPE = (28, 24, 20)
 REF_FIELDS = dict(mode="ttli", impl="jnp", grad_impl="jnp", fused="off", levels=2,
@@ -153,14 +161,14 @@ def test_measure_bsi_time_reports_seconds(pair):
 @pytest.mark.parametrize("fields,error,match", [
     (dict(impl="auto"), NotImplementedError, "queue 1 item 13"),
     (dict(fused="auto"), NotImplementedError, "queue 1 item 13"),
-    (dict(similarity="lncc", fused="on"), NotImplementedError, "queue 2 item 8"),
+    (dict(mode="tt"), NotImplementedError, "queue 2 item 7"),
     (dict(transform="velocity"), NotImplementedError, "queue 1 item 11"),
     (dict(regularizer="bending"), NotImplementedError, "queue 1 item 11"),
     (dict(optimizer="lbfgs"), NotImplementedError, "queue 1 item 12"),
     (dict(compute_dtype="bfloat16"), NotImplementedError, "queue 1 item 18"),
     (dict(mode="separable"), NotImplementedError, "queue 2 item 6"),
-    (dict(grad_impl="matmul"), NotImplementedError, "queue 2 item 5"),
-    (dict(impl="torch", mode="tt"), NotImplementedError, "queue 1 item 2"),
+    (dict(mode="tt", grad_impl="matmul"), NotImplementedError, "queue 2 item 7"),
+    (dict(grad_impl="xla"), ValueError, "grad_impl must be one of"),
     (dict(mode="gather"), ValueError, "no kernel"),
     (dict(grad_impl="autograd"), ValueError, "autograd"),
     (dict(impl="pallas"), ValueError, "impl must be one of"),
@@ -169,6 +177,19 @@ def test_measure_bsi_time_reports_seconds(pair):
 def test_options_name_what_is_not_ported(fields, error, match):
     with pytest.raises(error, match=match):
         RegistrationOptions(**fields)
+
+
+@pytest.mark.parametrize("fields", [
+    dict(similarity="lncc"),
+    dict(mode="matmul"),
+    dict(grad_impl="matmul"),
+    dict(similarity="lncc", mode="matmul", grad_impl="matmul"),
+    dict(impl="torch", mode="tt", grad_impl="matmul"),
+], ids=lambda f: "-".join(f"{k}={v}" for k, v in f.items()))
+def test_options_accept_what_is_ported(fields):
+    opts = RegistrationOptions(**fields)
+    assert all(getattr(opts, k) == v for k, v in fields.items())
+    assert opts.fused == "on"
 
 
 def test_options_from_reference_maps_the_renamed_values():
@@ -181,6 +202,9 @@ def test_options_from_reference_maps_the_renamed_values():
     pallas = options_from_reference(dict(impl="pallas", grad_impl="pallas",
                                          fused=True))
     assert (pallas.impl, pallas.grad_impl, pallas.fused) == ("cuda", "cuda", "on")
+    matmul = options_from_reference(dict(mode="matmul", impl="pallas",
+                                         grad_impl="matmul"))
+    assert (matmul.mode, matmul.impl, matmul.grad_impl) == ("matmul", "cuda", "matmul")
     with pytest.raises(NotImplementedError):
         options_from_reference(dict(mode="auto"))
 
@@ -196,20 +220,18 @@ def test_options_from_reference_carries_similarity_callables():
     fields = {k: getattr(ref, k) for k in ref.__dataclass_fields__}
     assert options_from_reference(fields).similarity is tsim.nmi(bins=16)
     assert options_from_reference(dict(similarity="nmi")).similarity == "nmi"
-    with pytest.raises(NotImplementedError, match="queue 2 item 8"):
-        options_from_reference(dict(similarity=rsim.lncc(window=5), fused="on"))
+    fused = options_from_reference(dict(similarity=rsim.lncc(window=5), fused="on"))
+    assert fused.similarity is tsim.lncc(window=5) and fused.fused == "on"
 
 
 @pytest.mark.parametrize("similarity", ["ncc", "lncc", "nmi"])
 def test_similarity_reaches_the_level_loss_unchanged(remapped_pair, similarity):
-    """The fused and unfused level objectives of the options' similarity
-    equal the JAX package's level loss at ``phi = 0``, on the remapped pair
-    (on the mono-modal pair ``1 - NCC`` cancels to 0.078, where the JAX
-    package's float32 value is 1.6e-4 from float64 and this package's 4e-8)."""
+    """The fused level objective of the options' similarity equals the JAX
+    package's level loss at ``phi = 0``, on the remapped pair (on the
+    mono-modal pair ``1 - NCC`` cancels to 0.078, where the JAX package's
+    float32 value is 1.6e-4 from float64 and this package's 4e-8)."""
     fixed, moving = remapped_pair
-    fused = "off" if similarity == "lncc" else "on"
-    opts = RegistrationOptions(similarity=similarity, fused=fused, impl="torch",
-                               grad_impl="torch")
+    opts = RegistrationOptions(similarity=similarity, impl="torch", grad_impl="torch")
     kw = dict(tile=opts.tile, bending_weight=opts.bending_weight, mode="ttli")
     phi = np.zeros(rffd_grid_shape(fixed.shape, opts.tile) + (3,), np.float32)
     ref = float(ref_level_loss(jnp.asarray(fixed), jnp.asarray(moving), impl="jnp",
@@ -218,3 +240,56 @@ def test_similarity_reaches_the_level_loss_unchanged(remapped_pair, similarity):
                                impl=opts.impl, grad_impl=opts.grad_impl,
                                similarity=opts.similarity, fused=opts.fused, **kw)
     assert abs(loss.vg(torch.from_numpy(phi))[0].item() - ref) <= 1e-5 * abs(ref)
+
+
+LNCC_MATMUL = dict(similarity="lncc", mode="matmul", grad_impl="matmul")
+
+
+def test_lncc_matmul_ffd_register_matches_reference(pair):
+    """The slice: LNCC with the matrix-form forward, fused step and adjoint
+    against the reference's plain matrix form, unfused (module docstring)."""
+    fixed, moving, _ = pair
+    fields = dict(REF_FIELDS, mode="matmul", similarity="lncc")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = ref_register(fixed, moving, options=RefOptions(**fields))
+    ops.reset_launch_counts()
+    out = ffd_register(fixed, moving, options=RegistrationOptions(
+        levels=2, iters=5, **LNCC_MATMUL), device="cpu")
+    assert not any(ops.launch_counts().values())  # the plain versions ran
+    np.testing.assert_allclose(out.losses, ref.losses, rtol=1e-4)
+    ref_mae = float(rmetrics.mae(ref.warped, fixed))
+    mae = metrics.mae(out.warped, torch.from_numpy(fixed)).item()
+    assert abs(mae - ref_mae) <= 1e-4 * ref_mae
+    assert mae < float(rmetrics.mae(moving, fixed))
+    np.testing.assert_allclose(out.warped.numpy(), np.asarray(ref.warped), atol=1e-4)
+    np.testing.assert_allclose(out.params.numpy(), np.asarray(ref.params), atol=1e-3)
+
+
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+def test_lncc_matmul_level_gradient_against_float64(pair, coarse):
+    """At a random grid of each level: this package's fused LNCC gradient in
+    the matrix form and the JAX package's unfused one both within 2e-6 of a
+    float64 evaluation (of the largest entry), so within 4e-6 of each other."""
+    fixed, moving, _ = pair
+    if coarse:
+        fixed, moving = (np.asarray(rffd_downsample2(v)) for v in (fixed, moving))
+    rng = np.random.default_rng(3)
+    phi = (rng.standard_normal(rffd_grid_shape(fixed.shape, (5, 5, 5)) + (3,))
+           * 0.3).astype(np.float32)
+    kw = dict(tile=(5, 5, 5), bending_weight=5e-3, mode="matmul", similarity="lncc")
+    _, ref_g = jax.value_and_grad(ref_level_loss(
+        jnp.asarray(fixed), jnp.asarray(moving), impl="jnp", grad_impl="jnp", **kw))(
+            jnp.asarray(phi))
+    f, m = torch.from_numpy(fixed), torch.from_numpy(moving)
+    _, g = ffd_level_objective(f, m, impl="cuda", grad_impl="matmul", fused="on",
+                               **kw).vg(torch.from_numpy(phi))
+    p64 = torch.from_numpy(phi).double().requires_grad_(True)
+    loss64 = ffd_level_loss(f.double(), m.double(), impl="torch", grad_impl="autograd",
+                            fused="off", **kw)(p64)
+    (g64,) = torch.autograd.grad(loss64, p64)
+    scale = g64.abs().max().item()
+    ref_g = np.asarray(ref_g, np.float64)
+    assert (g.double() - g64).abs().max().item() <= 2e-6 * scale
+    assert np.abs(ref_g - g64.numpy()).max() <= 2e-6 * scale
+    assert np.abs(g.double().numpy() - ref_g).max() <= 4e-6 * scale
