@@ -12,7 +12,8 @@ Phases; any failure raises and the script exits nonzero:
 2. build the kernels from ``src/repro_torch/csrc`` with nvcc (build seconds,
    registers and spills from ``-Xptxas -v``);
 3. each kernel at the shapes of the paper's phantom1 volume (512, 228, 385),
-   tile 5^3, 3 channels: compared with its plain version, and timed with CUDA
+   tile 5^3, 3 channels (the four forward kernels cropped to the volume):
+   compared with its plain version, and timed with CUDA
    events beside the plain version, its byte/operation bound and, where one
    PyTorch call computes the same function, that call.  The stats, ncc and
    nmi kernels run on the multi-modal pair of phase 4; every fused variant
@@ -35,7 +36,15 @@ Phases; any failure raises and the script exits nonzero:
    beside the same call at a quarter and a half of phantom1's extent (see
    ``run_lncc_path``); at ``iters=5`` on the kernels and on the
    plain path: LNCC in the lerp and matrix forms, SSD, NCC and NMI in the
-   matrix form; and the LNCC matrix form on a small pair, card against CPU;
+   matrix form; and the LNCC matrix form on a small pair, card against CPU.
+   Then the separable and TT forward kernels' paths, ``mode="separable"``
+   and ``mode="tt"`` (each kernel with the adjoint and fused SSD kernels),
+   at full depth with their launch counts, and at ``iters=5`` against the
+   plain path.  Last, the JAX package's default call: all-``"auto"``
+   options, resolved first by the autotuner's race (every candidate's
+   median printed, all 12 kernel triples timed) with the disk cache in a
+   fresh temporary file, then run at full depth with the winner's launch
+   counts, then resolved again from the disk file with no race;
 5. the time of ``scaled_dot_product_attention`` at the shape of the JAX
    package's flash-attention kernel (not ported; its library time only);
 6. one JSON line of the kernels, the nvidia-smi line, and the result line.
@@ -46,8 +55,10 @@ Float32 convolutions and matrix products are pinned to full fp32
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -426,6 +437,47 @@ def check_matmul_kernels(torch, fixed, moving):
     return rows
 
 
+def check_forward_forms(torch, fixed):
+    """Phase 3: the separable and TT forward kernels at phantom1, cropped to
+    the volume, against their plain versions (1e-5 of the largest value)."""
+    from repro_torch.core import ffd
+    from repro_torch.kernels import bsi_separable, bsi_tt, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds
+
+    dev = fixed.device
+    vol = tuple(fixed.shape)
+    gshape = ffd.grid_shape_for_volume(vol, TILE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    phi = torch.randn(gshape + (3,), generator=gen, device=dev) * 2.5
+    library_fwd, _ = yardsticks(torch, phi, torch.empty(vol + (3,), device=dev), TILE)
+    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
+    rows = []
+    for name, module, replaces in (
+            ("bsi_separable", bsi_separable, "src/repro/kernels/bsi_separable.py:70"),
+            ("bsi_tt", bsi_tt, "src/repro/kernels/bsi_tt.py:58")):
+        kernel = ops.FORWARD_KERNELS[name[len("bsi_"):]]
+        out = kernel(phi, TILE, vol)
+        ref = module.plain(phi, TILE, vol)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        log(f"{name}: max |kernel - plain| = {err:.3e}, relative to the largest value "
+            f"{rel:.3e} (limit 1e-5); bit for bit: {torch.equal(out, ref)}")
+        assert math.isfinite(rel) and rel <= 1e-5, rel
+        b_ms, b_by = bounds[name]
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
+            replaces=replaces, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: kernel(phi, TILE, vol)),
+            plain_ms=cuda_ms(torch, lambda: module.plain(phi, TILE, vol), reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(torch, library_fwd)))
+    for r in rows:
+        log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            f"(conv_transpose3d) {r['library_ms']:.4f} ms")
+    return rows
+
+
 def run_main_path(torch, fixed, moving):
     """Phase 4: the port's ffd_register on the kernels, counted."""
     from repro_torch import RegistrationOptions, ffd_register
@@ -690,6 +742,165 @@ def compare_matmul_paths(torch, fixed, moving):
     return counts
 
 
+def level_falls(res):
+    """Each level's first and last loss of the Adam trace."""
+    return [(t[0].item(), t[-1].item()) for t in res.traces]
+
+
+def run_forward_form_paths(torch, fixed, moving):
+    """Phase 4: ``mode="separable"`` and ``mode="tt"`` on the kernels at
+    phantom1, full depth, counted; then each at ``iters=5`` on the kernels
+    and on the plain path.  Returns each path's launch counts and a summary
+    of its call."""
+    from repro_torch import RegistrationOptions, ffd_register
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+
+    counts, calls = {}, {}
+    mae0 = metrics.mae(moving, fixed).item()
+    for mode in ("separable", "tt"):
+        opts = RegistrationOptions(mode=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = ffd_register(fixed, moving, options=opts, measure_bsi_time=True)
+        counts[mode] = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = opts.levels * (opts.iters + 1)
+        expected = only(bsi_adjoint=steps, bsi_fused=steps,
+                        **{f"bsi_{mode}": steps + 1 + 4})
+        mae1 = metrics.mae(res.warped, fixed).item()
+        falls = level_falls(res)
+        log(f"{mode} path: {res.seconds:.3f} s, bsi_seconds {res.bsi_seconds:.4f}, "
+            f"peak device memory {peak:.2f} GiB; losses {res.losses} (each level "
+            f"first -> last step {falls}); MAE {mae0:.6f} -> {mae1:.6f}; launches "
+            f"{counts[mode]} (expected {expected})")
+        assert counts[mode] == expected, (mode, counts[mode], expected)
+        assert all(last < first for first, last in falls), falls
+        assert mae1 < mae0, (mae0, mae1)
+        assert torch.isfinite(res.warped).all() and torch.isfinite(res.params).all()
+        calls[mode] = dict(seconds=res.seconds, peak_gib=peak, mae=(mae0, mae1),
+                           losses=res.losses)
+
+        kern = ffd_register(fixed, moving, options=RegistrationOptions(iters=5,
+                                                                       mode=mode))
+        ops.reset_launch_counts()
+        plain = ffd_register(fixed, moving, options=RegistrationOptions(
+            iters=5, mode=mode, impl="torch", grad_impl="torch", fused="off"))
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(kern.losses, plain.losses))
+        log(f"{mode} iters=5: kernels {kern.losses} plain {plain.losses} max relative "
+            f"{rel:.3e} (limit 1e-4); {kern.seconds:.3f} s vs {plain.seconds:.3f} s")
+        assert rel <= 1e-4, rel
+    return counts, calls
+
+
+def expected_launches(opts, steps):
+    """The launch counts of an ``ffd_register`` call with resolved options
+    ``opts`` and ``steps`` gradient evaluations: per step the forward and
+    adjoint kernels of its axes and, fused, the fused SSD kernel; one more
+    forward for the final warp."""
+    counts = {}
+    if opts.impl == "cuda":
+        counts[f"bsi_{opts.mode}"] = steps + 1
+    if opts.grad_impl in ("cuda", "matmul"):
+        counts[{"cuda": "bsi_adjoint", "matmul": "bsi_adjoint_matmul"}[
+            opts.grad_impl]] = steps
+    if opts.fused == "on":
+        counts["bsi_fused_matmul" if opts.mode == "matmul" else "bsi_fused"] = steps
+    return only(**counts)
+
+
+def run_auto_path(torch, fixed, moving):
+    """Phase 4: the JAX package's default call, every axis ``"auto"``, at
+    phantom1 at full depth: the race (on a fresh disk cache), the call on the
+    winner, and a second resolve read from the disk file.  Returns the
+    call's launch counts and a summary."""
+    from repro_torch import RegistrationOptions
+    from repro_torch.engine import autotune
+
+    with tempfile.TemporaryDirectory(prefix="repro_torch_autotune_") as cache_dir:
+        cache = os.path.join(cache_dir, "bsi_autotune.json")
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = cache
+        try:
+            return _auto_path(torch, fixed, moving, autotune, cache, RegistrationOptions(
+                mode="auto", impl="auto", grad_impl="auto", fused="auto"))
+        finally:
+            del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+
+
+def _auto_path(torch, fixed, moving, autotune, cache, opts):
+    from repro_torch import ffd_register
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+
+    device = torch.device("cuda")
+    vol = tuple(fixed.shape)
+    autotune.RACES.clear()
+    autotune._MEM_CACHE.clear()
+    autotune.resolve_options.cache_clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resolved = autotune.resolve_options(opts, vol, device)
+    race_s = time.perf_counter() - t0
+    race_peak = torch.cuda.max_memory_allocated() / 2**30
+    races = list(autotune.RACES)
+    log(f"auto: resolve {race_s:.3f} s (peak device memory {race_peak:.2f} GiB), "
+        f"{len(races)} races")
+    for race in races:
+        log(f"  race {race.key[:120]}...: {race.seconds:.3f} s, winner {race.winner}")
+        for name, us in race.timings:
+            log(f"    {name:28s} " + ("did not fit" if us is None
+                                    else f"{us / 1e3:10.3f} ms"))
+    log(f"auto: resolved mode={resolved.mode} impl={resolved.impl} "
+        f"grad_impl={resolved.grad_impl} fused={resolved.fused} "
+        f"({resolved.fused_reason})")
+    # on the card "auto" races the 12 kernel triples and no plain form
+    timings = races[0].timings
+    assert len(timings) == 12 and all(
+        n.split("/")[1] == "cuda" and us for n, us in timings), timings
+    assert resolved.impl == "cuda", resolved
+    assert len(races) == 2 and "race" in resolved.fused_reason, races
+
+    steps = opts.levels * (opts.iters + 1)
+    expected = expected_launches(resolved, steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = ffd_register(fixed, moving, options=opts)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mae0 = metrics.mae(moving, fixed).item()
+    mae1 = metrics.mae(res.warped, fixed).item()
+    falls = level_falls(res)
+    log(f"auto path: {res.seconds:.3f} s, peak device memory {peak:.2f} GiB; "
+        f"losses {res.losses} (each level first -> last step {falls}); MAE "
+        f"{mae0:.6f} -> {mae1:.6f}; launches {counts} (expected {expected})")
+    assert counts == expected, (counts, expected)
+    assert counts[f"bsi_{resolved.mode}"] > 0, counts  # the winner's forward kernel
+    assert len(autotune.RACES) == len(races)  # the call raced nothing
+    assert all(last < first for first, last in falls), falls
+    assert mae1 < mae0, (mae0, mae1)
+
+    autotune._MEM_CACHE.clear()
+    autotune.resolve_options.cache_clear()
+    t0 = time.perf_counter()
+    again = autotune.resolve_options(opts, vol, device)
+    hit_s = time.perf_counter() - t0
+    with open(cache) as fh:
+        entries = json.load(fh)["entries"]
+    log(f"auto: second resolve from the disk file {hit_s * 1e3:.1f} ms, "
+        f"{len(entries)} entries, no race: {len(autotune.RACES) == len(races)}")
+    assert again == resolved and again.fused_reason == resolved.fused_reason
+    assert len(autotune.RACES) == len(races) and len(entries) == 2, entries
+    return counts, dict(
+        race_s=race_s, race_peak_gib=race_peak, seconds=res.seconds, peak_gib=peak,
+        mae=(mae0, mae1), resolved=(resolved.mode, resolved.impl, resolved.grad_impl,
+                                    resolved.fused),
+        races=[(race.seconds, race.timings) for race in races])
+
+
 def time_attention_library(torch):
     """Phase 5: ``scaled_dot_product_attention`` at the JAX package's flash
     kernel's shape (one causal GQA layer, 16 query and 8 key/value heads,
@@ -740,12 +951,15 @@ def main():
 
     rows = check_kernels(torch, fixed, moving)
     rows += check_matmul_kernels(torch, fixed, moving)
+    rows += check_forward_forms(torch, fixed)
     counts = run_main_path(torch, fixed, moving)
     compare_paths(torch, fixed, moving)
     nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)
     ncc_counts = compare_multimodal_paths(torch, fixed, moving)
     lncc_counts, lncc_call = run_lncc_path(torch, fixed, moving)
     matmul_counts = compare_matmul_paths(torch, fixed, moving)
+    form_counts, form_calls = run_forward_form_paths(torch, fixed, moving)
+    auto_counts, auto_call = run_auto_path(torch, fixed, moving)
     sdpa_ms = time_attention_library(torch)
     # each kernel's launches in the run of its own path: SSD, NMI, NCC, the
     # LNCC matrix form at full depth, and the iters=5 paths of the others
@@ -757,12 +971,17 @@ def main():
                    "bsi_fused_matmul": matmul_counts["ssd_matmul"],
                    "bsi_fused_stats_matmul": matmul_counts["ncc_matmul"],
                    "bsi_fused_ncc_matmul": matmul_counts["ncc_matmul"],
-                   "bsi_fused_nmi_matmul": matmul_counts["nmi_matmul"]}
+                   "bsi_fused_nmi_matmul": matmul_counts["nmi_matmul"],
+                   "bsi_separable": form_counts["separable"],
+                   "bsi_tt": form_counts["tt"]}
     for r in rows:
         r["launches"] = path_counts.get(r["name"], counts)[r["name"]]
         assert r["launches"] > 0, r
     log(f"nmi call at phantom1: {nmi_call}")
     log(f"lncc matmul call at phantom1: {lncc_call}")
+    for mode, call in form_calls.items():
+        log(f"{mode} call at phantom1: {call}")
+    log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
     log(f"scaled_dot_product_attention: {sdpa_ms:.4f} ms")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

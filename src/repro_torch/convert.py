@@ -2,8 +2,9 @@
 
 ``grid_from_numpy`` takes a control grid as the JAX package returns it
 (``RegistrationResult.params``, as a numpy array) and
-``options_from_reference`` maps its option values to this package's names,
-so both packages compute the same thing from the same numbers.
+``options_from_reference`` maps its option values to this package's names
+(``reference_fields`` maps the BSI axes back), so both packages compute the
+same thing from the same numbers.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from repro_torch.core.options import RegistrationOptions
 from repro_torch.core.similarity import _loss_from_spec
 from repro_torch.engine.optimizer import AdamOptimizer
 
-__all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "grid_from_numpy", "options_from_reference"]
+__all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "grid_from_numpy", "options_from_reference",
+           "reference_fields"]
 
 # The JAX package's value -> this package's value.
 IMPL_NAMES = {"jnp": "torch", "pallas": "cuda"}
@@ -55,8 +57,8 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
 
     ``fields`` maps field names to values as the JAX package spells them
     (names, or its frozen spec instances).  ``impl`` and ``grad_impl`` are
-    renamed by ``IMPL_NAMES`` and ``GRAD_IMPL_NAMES``; a value with no
-    counterpart yet (``"auto"``, ...) raises as the options do.
+    renamed by ``IMPL_NAMES`` and ``GRAD_IMPL_NAMES``; ``"auto"`` keeps its
+    name; a value with no counterpart yet raises as the options do.
     A similarity callable of the JAX package maps to this package's callable
     with the same ``_fused_spec``.  ``fused_reason`` is the JAX package's
     introspection field and is dropped.
@@ -78,3 +80,14 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
         else:
             kw["optimizer"] = _name(opt)
     return RegistrationOptions(**kw)
+
+
+def reference_fields(options) -> dict:
+    """``mode``, ``impl``, ``grad_impl`` and ``fused`` of ``options`` as the
+    JAX package spells them: the inverse of :func:`options_from_reference`
+    on those axes."""
+    impl = {v: k for k, v in IMPL_NAMES.items()}
+    grad_impl = {v: k for k, v in GRAD_IMPL_NAMES.items()}
+    return dict(mode=options.mode, impl=impl.get(options.impl, options.impl),
+                grad_impl=grad_impl.get(options.grad_impl, options.grad_impl),
+                fused=options.fused)

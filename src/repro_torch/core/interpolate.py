@@ -190,10 +190,11 @@ MODES = {
 MODE_NAMES = tuple(sorted(MODES))
 
 # Forward implementations: the plain tensor forms, or the hand-written
-# kernel of the mode (``ttli`` and ``matmul`` in this package so far).
+# kernel of the mode.
 IMPLS = ("torch", "cuda")
-# Modes with a forward kernel, and the dispatcher that launches it.
-KERNEL_MODES = ("ttli", "matmul")
+# Modes with a forward kernel (the JAX package's ``PALLAS_MODES``; ``gather``
+# is the oracle the kernels beat).
+KERNEL_MODES = ("tt", "ttli", "separable", "matmul")
 
 # "autograd" is plain autodiff of the forward; the others are the analytic
 # adjoint as a plain tensor form ("torch"), as the separable kernel ("cuda")
@@ -300,14 +301,11 @@ def bsi_adjoint(g, tile, grid_shape, *, impl="torch"):
 def _forward(phi, tile, vol_shape, mode, impl):
     if impl == "cuda":
         if mode not in KERNEL_MODES:
-            raise NotImplementedError(
-                f"no CUDA kernel for mode {mode!r} yet (ROADMAP.md queue 2 items "
-                f"6 and 7); impl='cuda' runs modes {KERNEL_MODES}"
-            )
+            raise ValueError(
+                f"mode {mode!r} has no kernel; impl='cuda' runs modes {KERNEL_MODES}")
         from repro_torch.kernels import ops  # kernels import this module
 
-        fn = ops.bsi_ttli if mode == "ttli" else ops.bsi_matmul
-        return fn(phi, tile, vol_shape)
+        return ops.FORWARD_KERNELS[mode](phi, tile, vol_shape)
     if impl != "torch":
         raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
     X, Y, Z = vol_shape
@@ -362,7 +360,7 @@ def interpolate(phi, tile, *, mode="separable", impl="torch", dtype=None,
       tile: ``(dx, dy, dz)`` control-point spacing in voxels.
       mode: one of ``MODE_NAMES``.
       impl: ``torch`` (the plain forms) or ``cuda`` (the mode's kernel, for
-        ``ttli`` and ``matmul``; its plain version on a CPU tensor).
+        every mode but ``gather``; its plain version on a CPU tensor).
       dtype: compute dtype; only float32 (or None) in this package so far.
       grad_impl: ``autograd``, ``torch``, ``cuda`` or ``matmul`` (module
         docstring).

@@ -6,18 +6,21 @@ The fields, defaults and validation follow the JAX package's
 =============  ===============================  ==========================
 field          JAX package                      this package
 =============  ===============================  ==========================
-``impl``       ``jnp``, ``pallas``, ``auto``    ``torch``, ``cuda``
+``impl``       ``jnp``, ``pallas``, ``auto``    ``torch``, ``cuda``, ``auto``
 ``grad_impl``  ``xla``, ``jnp``, ``pallas``,    ``autograd``, ``torch``,
-               ``matmul``, ``auto``             ``cuda``, ``matmul``
-``fused``      ``auto``, ``on``, ``off``        ``on``, ``off``
+               ``matmul``, ``auto``             ``cuda``, ``matmul``, ``auto``
+``fused``      ``auto``, ``on``, ``off``        ``auto``, ``on``, ``off``
 =============  ===============================  ==========================
 
 ``torch`` is the plain tensor form and ``cuda`` the hand-written kernel (its
 plain version on a CPU tensor); ``grad_impl="matmul"`` is the
-transposed-matmul adjoint kernel, as in the JAX package.  The defaults run the kernels: ``mode="ttli",
-impl="cuda", grad_impl="cuda", fused="on"``.  A value whose module or kernel
-is not in the package yet raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+transposed-matmul adjoint kernel, as in the JAX package.  ``"auto"`` on
+``mode``, ``impl``, ``grad_impl`` or ``fused`` leaves the axis to the
+autotuner (``engine.autotune.resolve_options``, which ``ffd_register``
+calls).  The defaults run the kernels: ``mode="ttli", impl="cuda",
+grad_impl="cuda", fused="on"`` (the JAX package's are all ``"auto"``).  A
+value whose module or kernel is not in the package yet raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -29,21 +32,15 @@ from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, KERNEL_MODES, MODE_N
 
 __all__ = ["RegistrationOptions"]
 
-_FUSED = ("on", "off")
+_FUSED = ("auto", "on", "off")
 
 # Values the JAX package accepts whose module or kernel is not ported yet,
 # with the ROADMAP.md item that ports them.
 _NOT_YET = {
-    "mode": {"auto": "queue 1 item 13"},
-    "impl": {"auto": "queue 1 item 13"},
-    "grad_impl": {"auto": "queue 1 item 13"},
-    "fused": {"auto": "queue 1 item 13"},
     "transform": {"velocity": "queue 1 item 11"},
     "regularizer": {"bending": "queue 1 item 11"},
     "optimizer": {"lbfgs": "queue 1 item 12", "gauss_newton": "queue 1 item 12"},
 }
-# Forward kernels of the other modes (impl="cuda").
-_KERNEL_NOT_YET = {"separable": "queue 2 item 6", "tt": "queue 2 item 7"}
 
 
 def _not_yet(what, item):
@@ -62,12 +59,13 @@ class RegistrationOptions:
     lr:              learning rate.
     bending_weight:  weight of the bending-energy proxy.
     mode:            BSI form (``gather`` | ``tt`` | ``ttli`` | ``separable``
-                     | ``matmul``); ``matmul`` also picks the fused step's
-                     matrix-form displacement.
-    impl:            forward: ``torch`` (plain form) or ``cuda`` (the kernel
-                     of ``ttli`` or ``matmul``).
+                     | ``matmul`` | ``auto``); ``matmul`` also picks the fused
+                     step's matrix-form displacement.
+    impl:            forward: ``torch`` (plain form), ``cuda`` (the mode's
+                     kernel; every mode but ``gather``) or ``auto``.
     grad_impl:       adjoint: ``autograd`` | ``torch`` | ``cuda`` (separable
-                     kernel) | ``matmul`` (transposed-matmul kernel).
+                     kernel) | ``matmul`` (transposed-matmul kernel) |
+                     ``auto``.
     compute_dtype:   None (float32 throughout).
     similarity:      ``"ssd"``, ``"ncc"``, ``"lncc"``, ``"nmi"``, a factory
                      variant (``nmi(bins=16)``) or a ``(warped, fixed) ->
@@ -76,8 +74,13 @@ class RegistrationOptions:
     regularizer:     ``"none"`` (the ``bending_weight`` proxy).
     stop:            None (a fixed ``iters`` per level).
     fused:           ``"on"``: the fused level-step kernel; ``"off"``: the
-                     unfused dense field -> warp -> similarity.
+                     unfused dense field -> warp -> similarity; ``"auto"``:
+                     the faster of the two on the card, ``"off"`` on the CPU.
     optimizer:       ``"adam"`` or an ``AdamOptimizer``.
+    fused_reason:    why ``fused`` resolved as it did, set by
+                     ``engine.autotune.resolve_options`` on its output; None
+                     on options built by hand.  Excluded from equality and
+                     the hash: it is introspection, not configuration.
     """
 
     tile: tuple = (5, 5, 5)
@@ -95,6 +98,7 @@ class RegistrationOptions:
     stop: Any = None
     fused: str = "on"
     optimizer: Any = "adam"
+    fused_reason: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         from repro_torch.core.regularizer import resolve_regularizer
@@ -126,17 +130,17 @@ class RegistrationOptions:
             raise _not_yet("compute_dtype", "queue 1 item 18")
         if self.stop is not None:
             raise _not_yet("stop=", "queue 1 item 9")
-        for name, allowed in (("mode", MODE_NAMES), ("impl", IMPLS),
-                              ("grad_impl", GRAD_IMPLS), ("fused", _FUSED)):
+        for name, allowed in (("mode", MODE_NAMES + ("auto",)),
+                              ("impl", IMPLS + ("auto",)),
+                              ("grad_impl", GRAD_IMPLS + ("auto",)), ("fused", _FUSED)):
             if getattr(self, name) not in allowed:
                 raise ValueError(
                     f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
-        if self.impl == "cuda" and self.mode not in KERNEL_MODES:
-            if self.mode not in _KERNEL_NOT_YET:
-                raise ValueError(f"mode={self.mode!r} has no kernel; use impl='torch'")
-            raise _not_yet(f"the CUDA kernel of mode={self.mode!r}",
-                           _KERNEL_NOT_YET[self.mode])
-        if self.grad_impl == "autograd" and self.impl != "torch":
+        # the checks below need concrete values; the autotuner's pool holds
+        # no candidate they would refuse
+        if self.impl == "cuda" and self.mode not in KERNEL_MODES + ("auto",):
+            raise ValueError(f"mode={self.mode!r} has no kernel; use impl='torch'")
+        if self.grad_impl == "autograd" and self.impl == "cuda":
             raise ValueError(
                 "grad_impl='autograd' differentiates the plain forward; "
                 "impl='cuda' needs grad_impl='cuda', 'matmul' or 'torch'")

@@ -21,6 +21,7 @@ from repro_torch.core import ffd
 from repro_torch.core.ffd import downsample2
 from repro_torch.core.options import RegistrationOptions
 from repro_torch.core.transform import dense_displacement
+from repro_torch.engine.autotune import resolve_options
 from repro_torch.engine.batch import ffd_level_objective
 from repro_torch.engine.loop import make_adam_runner
 
@@ -100,6 +101,8 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
 
     ``fixed`` and ``moving`` are ``(X, Y, Z)`` numpy arrays or tensors;
     ``options`` a ``RegistrationOptions`` (its defaults run the kernels).
+    Its ``"auto"`` axes are resolved once, for the finest volume on
+    ``device``, before the pyramid (``engine.autotune.resolve_options``).
     ``measure_bsi_time`` times the finest level's BSI expansion and reports
     two expansions per step (forward and adjoint) as ``bsi_seconds``.
     """
@@ -112,6 +115,7 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
         raise ValueError(
             f"fixed and moving must be (X, Y, Z) volumes of one shape, got "
             f"{tuple(fixed.shape)} and {tuple(moving.shape)}")
+    opts = resolve_options(opts, tuple(fixed.shape), device)  # autotune the "auto"s
     tile = opts.tile
 
     pyramid = [(fixed, moving)]

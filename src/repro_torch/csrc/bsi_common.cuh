@@ -1,15 +1,19 @@
-// Shared device code of the BSI kernels: the control window, the lerp staging
-// of the TTLI form and the 64-term sum of the matrix form.
+// Shared device code of the BSI kernels: the control window, the staged x and
+// y stages of the TTLI and separable forms, and the 64-term sum of the matrix
+// form.
 //
 // A thread block owns a block of (bx, by, bz) tiles and stages its
 // (bx+3, by+3, bz+3, C) control window in shared memory (the counterpart of
-// kernels/common.py:phi_window in the JAX package).  The lerp form also
-// stages the LUTs and runs the x and y lerp stages of bsi_ttli once per
-// (x voxel, y voxel, z control point) into shared memory; the z stage, per
-// voxel, is left to the kernel: bsi_ttli writes the field, bsi_fused warps
-// and scores it.  Every value is the same a + t*(b-a) chain as
-// repro.core.interpolate.bsi_ttli, stage for stage.  The matrix form sums
-// B[v, k] * window[tile + (l, m, n)] over k = (l*4 + m)*4 + n in that order.
+// kernels/common.py:phi_window in the JAX package).  The staged forms also
+// stage their LUTs and run the x and y stages once per (x voxel, y voxel,
+// z control point) into shared memory; the z stage, per voxel, is left to
+// the kernel: bsi_ttli and bsi_separable write the field, bsi_fused warps and
+// scores it.  A stage collapses the four neighbours of one axis either by
+// three lerps (LerpStage: the same a + t*(b-a) chain as
+// repro.core.interpolate.bsi_ttli, stage for stage) or by a 4-term weighted
+// sum against the (d, 4) weight LUT (WeightStage: the sweeps of
+// bsi_separable).  The matrix form sums B[v, k] * window[tile + (l, m, n)]
+// over k = (l*4 + m)*4 + n in that order.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,15 +34,38 @@ __device__ __forceinline__ float lerp4(float p0, float p1, float p2, float p3,
   return lerp(lerp(p0, p1, t0), lerp(p2, p3, t1), s);
 }
 
+// The x, y and z stages of bsi_ttli: per axis the LUTs t0, t1, s, each
+// (d,), one after the other; three lerps per output value.
+struct LerpStage {
+  static constexpr int kLutRows = 3;
+  __device__ static float apply(const float* lut, int d, int a, float p0, float p1,
+                                float p2, float p3) {
+    return lerp4(p0, p1, p2, p3, lut[a], lut[d + a], lut[2 * d + a]);
+  }
+};
+
+// The sweeps of bsi_separable: per axis the (d, 4) weight LUT, row-major; a
+// 4-term weighted sum per output value.
+struct WeightStage {
+  static constexpr int kLutRows = 4;
+  __device__ static float apply(const float* lut, int, int a, float p0, float p1,
+                                float p2, float p3) {
+    const float* w = lut + 4 * a;
+    return w[0] * p0 + w[1] * p1 + w[2] * p2 + w[3] * p3;
+  }
+};
+
 struct TileBlock {
   int nx, ny, nz, c;  // stored control points per axis, channels
   int dx, dy, dz;     // tile: voxels per control interval
   int bx, by, bz;     // tiles per thread block
 };
 
-// Shared-memory layout, in floats: [LUTs | control window | y-stage values].
+// Shared-memory layout, in floats: [LUTs | control window | y-stage values];
+// the LUTs of x, then y, then z, kLutRows * d floats each.
+template <class S = LerpStage>
 __host__ __device__ inline int lut_floats(const TileBlock& g) {
-  return 3 * (g.dx + g.dy + g.dz);
+  return S::kLutRows * (g.dx + g.dy + g.dz);
 }
 __host__ __device__ inline int window_floats(const TileBlock& g) {
   return (g.bx + 3) * (g.by + 3) * (g.bz + 3) * g.c;
@@ -46,8 +73,9 @@ __host__ __device__ inline int window_floats(const TileBlock& g) {
 __host__ __device__ inline int hy_floats(const TileBlock& g) {
   return g.bx * g.dx * g.by * g.dy * (g.bz + 3) * g.c;
 }
+template <class S = LerpStage>
 __host__ __device__ inline size_t stage_smem_bytes(const TileBlock& g) {
-  return sizeof(float) * (size_t)(lut_floats(g) + window_floats(g) + hy_floats(g));
+  return sizeof(float) * (size_t)(lut_floats<S>(g) + window_floats(g) + hy_floats(g));
 }
 
 // The block's control window, (bx+3, by+3, bz+3, c) with channels fastest;
@@ -80,29 +108,26 @@ __host__ __device__ inline int basis_floats(const TileBlock& g) {
   return 64 * tile_voxels(g);
 }
 
-// luts: (t0, t1, s) for x, then for y, then for z; 3*(dx+dy+dz) floats.
-// After the call, hy(xl, yl, kz, ch) = smem[lut + window + ((xl*BY + yl)*(bz+3)
-// + kz)*c + ch] with BY = by*dy, for the block's local voxels xl, yl and its
-// local z control points kz.  Ends with __syncthreads().
+// luts: the LUTs of S for x, then y, then z (lut_floats<S> floats).  After
+// the call, hy(xl, yl, kz, ch) = smem[lut + window + ((xl*BY + yl)*(bz+3) + kz)*c
+// + ch] with BY = by*dy, for the block's local voxels xl, yl and its local z
+// control points kz.  Ends with __syncthreads().
+template <class S = LerpStage>
 __device__ inline void stage_xy(const float* __restrict__ phi,
                                 const float* __restrict__ luts,
                                 const TileBlock& g, int ti0, int tj0, int tk0,
                                 float* smem) {
   float* s_lut = smem;
-  float* s_win = smem + lut_floats(g);
+  float* s_win = smem + lut_floats<S>(g);
   float* s_hy = s_win + window_floats(g);
   const int wy = g.by + 3, wz = g.bz + 3;
 
-  for (int i = threadIdx.x; i < lut_floats(g); i += blockDim.x) s_lut[i] = luts[i];
+  for (int i = threadIdx.x; i < lut_floats<S>(g); i += blockDim.x) s_lut[i] = luts[i];
   stage_window(phi, g, ti0, tj0, tk0, s_win);
   __syncthreads();
 
-  const float* t0x = s_lut;
-  const float* t1x = t0x + g.dx;
-  const float* sx = t1x + g.dx;
-  const float* t0y = sx + g.dx;
-  const float* t1y = t0y + g.dy;
-  const float* sy = t1y + g.dy;
+  const float* lx = s_lut;
+  const float* ly = lx + S::kLutRows * g.dx;
   const int BY = g.by * g.dy;
   const int nhy = hy_floats(g);
   const int xstep = wy * wz * g.c;  // window stride of one x control point
@@ -119,11 +144,40 @@ __device__ inline void stage_xy(const float* __restrict__ phi,
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const float* p = s_win + ((size_t)(tx * wy + ty + m) * wz + kz) * g.c + ch;
-      h[m] = lerp4(p[0], p[xstep], p[2 * xstep], p[3 * xstep], t0x[a], t1x[a], sx[a]);
+      h[m] = S::apply(lx, g.dx, a, p[0], p[xstep], p[2 * xstep], p[3 * xstep]);
     }
-    s_hy[i] = lerp4(h[0], h[1], h[2], h[3], t0y[b], t1y[b], sy[b]);
+    s_hy[i] = S::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
   }
   __syncthreads();
+}
+
+// The z stage of a staged form: writes the block's voxels inside (X, Y, Z) of
+// the channels-last field, channel fastest, then z, so a warp writes
+// contiguous runs.  Call after stage_xy<S>.
+template <class S>
+__device__ inline void write_z_stage(const float* smem, const TileBlock& g, int ti0,
+                                     int tj0, int tk0, float* __restrict__ out, int X,
+                                     int Y, int Z) {
+  const float* lz = smem + S::kLutRows * (g.dx + g.dy);
+  const float* s_hy = smem + lut_floats<S>(g) + window_floats(g);
+  const int wz = g.bz + 3;
+  const int BX = g.bx * g.dx, BY = g.by * g.dy, BZ = g.bz * g.dz;
+  const int x0 = ti0 * g.dx, y0 = tj0 * g.dy, z0 = tk0 * g.dz;
+  const int n = BX * BY * BZ * g.c;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int ch = i % g.c;
+    int r = i / g.c;
+    const int zl = r % BZ;
+    r /= BZ;
+    const int yl = r % BY;
+    const int xl = r / BY;
+    const int x = x0 + xl, y = y0 + yl, z = z0 + zl;
+    if (x >= X || y >= Y || z >= Z) continue;
+    const int tz = zl / g.dz, cz = zl - tz * g.dz;
+    const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * g.c + ch;
+    out[(((size_t)x * Y + y) * Z + z) * g.c + ch] =
+        S::apply(lz, g.dz, cz, p[0], p[g.c], p[2 * g.c], p[3 * g.c]);
+  }
 }
 
 // Grid of thread blocks covering the tiles that hold voxels of (X, Y, Z).

@@ -25,30 +25,8 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ out, TileBlock g, int X, int Y, int Z) {
   extern __shared__ float smem[];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_xy(phi, luts, g, ti0, tj0, tk0, smem);
-
-  const float* t0z = smem + 3 * (g.dx + g.dy);
-  const float* t1z = t0z + g.dz;
-  const float* sz = t1z + g.dz;
-  const float* s_hy = smem + lut_floats(g) + window_floats(g);
-  const int wz = g.bz + 3;
-  const int BX = g.bx * g.dx, BY = g.by * g.dy, BZ = g.bz * g.dz;
-  const int x0 = ti0 * g.dx, y0 = tj0 * g.dy, z0 = tk0 * g.dz;
-  const int n = BX * BY * BZ * g.c;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int ch = i % g.c;
-    int r = i / g.c;
-    const int zl = r % BZ;
-    r /= BZ;
-    const int yl = r % BY;
-    const int xl = r / BY;
-    const int x = x0 + xl, y = y0 + yl, z = z0 + zl;
-    if (x >= X || y >= Y || z >= Z) continue;
-    const int tz = zl / g.dz, cz = zl - tz * g.dz;
-    const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * g.c + ch;
-    out[(((size_t)x * Y + y) * Z + z) * g.c + ch] =
-        lerp4(p[0], p[g.c], p[2 * g.c], p[3 * g.c], t0z[cz], t1z[cz], sz[cz]);
-  }
+  stage_xy<LerpStage>(phi, luts, g, ti0, tj0, tk0, smem);
+  write_z_stage<LerpStage>(smem, g, ti0, tj0, tk0, out, X, Y, Z);
 }
 
 }  // namespace repro_torch
@@ -60,7 +38,7 @@ extern "C" int bsi_ttli_f32(const float* phi, const float* luts, float* out, int
                             int Z, int bx, int by, int bz, void* stream) {
   using namespace repro_torch;
   const TileBlock g{nx, ny, nz, c, dx, dy, dz, bx, by, bz};
-  const size_t smem = stage_smem_bytes(g);
+  const size_t smem = stage_smem_bytes<LerpStage>(g);
   cudaError_t err = allow_smem(bsi_ttli_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   bsi_ttli_kernel<<<tile_grid(g, X, Y, Z), kThreads, smem, (cudaStream_t)stream>>>(

@@ -31,11 +31,12 @@ def block_tiles(tile) -> tuple:
     return (max(1, 10 // dx), max(1, 10 // dy), max(1, 40 // dz))
 
 
-def stage_smem_bytes(tile, blocks, channels) -> int:
+def stage_smem_bytes(tile, blocks, channels, lut_rows=3) -> int:
     """Shared memory of the staging in ``csrc/bsi_common.cuh``: LUTs, control
-    window and y-stage values."""
+    window and y-stage values; ``lut_rows`` LUT values per voxel offset and
+    axis (3 lerp LUTs here, 4 weights in ``kernels.bsi_separable``)."""
     (dx, dy, dz), (bx, by, bz), c = tile, blocks, channels
-    floats = (3 * (dx + dy + dz) + (bx + 3) * (by + 3) * (bz + 3) * c
+    floats = (lut_rows * (dx + dy + dz) + (bx + 3) * (by + 3) * (bz + 3) * c
               + bx * dx * by * dy * (bz + 3) * c)
     return 4 * floats
 

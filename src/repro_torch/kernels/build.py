@@ -25,7 +25,8 @@ from pathlib import Path
 __all__ = ["BuildInfo", "Library", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("bsi_ttli.cu", "bsi_matmul.cu", "bsi_adjoint.cu", "bsi_fused.cu")
+SOURCES = ("bsi_ttli.cu", "bsi_separable.cu", "bsi_tt.cu", "bsi_matmul.cu",
+           "bsi_adjoint.cu", "bsi_fused.cu")
 HEADERS = ("bsi_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = (
@@ -36,7 +37,8 @@ FLAGS = (
 # warp as the plain version does (no contraction into FMAs), so their warped
 # samples, and the stats kernel's min and max, equal the plain version's bit
 # for bit; where an FMA is wanted (the NMI histogram) the source says fmaf.
-SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",)}
+# The TT kernel likewise equals the plain ``bsi_tt`` bit for bit.
+SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",), "bsi_tt.cu": ("-fmad=false",)}
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
@@ -44,6 +46,8 @@ _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 # int, f: float); each ends with the stream and returns a cudaError_t.
 _SIGNATURES = {
     "bsi_ttli_f32": "ppp" + "i" * 13,
+    "bsi_separable_f32": "ppp" + "i" * 13,
+    "bsi_tt_f32": "ppp" + "i" * 13,
     "bsi_matmul_f32": "ppp" + "i" * 13,
     "bsi_adjoint_f32": "p" * 7 + "i" * 10,
     "bsi_adjoint_matmul_f32": "pppp" + "i" * 13,

@@ -11,7 +11,8 @@ fallback: a CUDA tensor runs the kernel or raises.
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
-block sizes from shared memory (``kernels.bsi_ttli.block_tiles``,
+block sizes from shared memory (``kernels.bsi_ttli.block_tiles``, shared by
+``kernels.bsi_separable``; ``kernels.bsi_tt.block_tiles``,
 ``kernels.bsi_matmul.block_tiles``, ``kernels.bsi_fused.lncc_blocks``).
 """
 
@@ -25,10 +26,15 @@ from repro_torch.kernels import bsi_adjoint as _adjoint
 from repro_torch.kernels import bsi_fused as _fused
 from repro_torch.kernels import bsi_matmul as _matmul
 from repro_torch.core.similarity import entropy_loss
+from repro_torch.kernels import bsi_separable as _separable
+from repro_torch.kernels import bsi_tt as _tt
 from repro_torch.kernels import bsi_ttli as _ttli
 
 __all__ = [
+    "FORWARD_KERNELS",
     "bsi_ttli",
+    "bsi_separable",
+    "bsi_tt",
     "bsi_matmul",
     "bsi_adjoint",
     "bsi_adjoint_matmul",
@@ -51,7 +57,8 @@ def _fused_name(kind, disp_form):
 
 
 # Launches per kernel since the last reset.
-_KERNELS = ("bsi_ttli", "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul") + tuple(
+_KERNELS = ("bsi_ttli", "bsi_separable", "bsi_tt", "bsi_matmul", "bsi_adjoint",
+            "bsi_adjoint_matmul") + tuple(
     _fused_name(kind, form) for form in _fused.DISP_FORMS
     for kind in ("ssd", "stats", "ncc", "nmi", "lncc"))
 _LAUNCHES = dict.fromkeys(_KERNELS, 0)
@@ -123,10 +130,27 @@ def bsi_ttli(phi, tile, vol_shape=None):
     return _forward("bsi_ttli", _ttli, phi, tile, vol_shape)
 
 
+def bsi_separable(phi, tile, vol_shape=None):
+    """Forward BSI, separable form (three per-axis sweeps), cropped to
+    ``vol_shape`` (default: whole tiles); as :func:`bsi_ttli`."""
+    return _forward("bsi_separable", _separable, phi, tile, vol_shape)
+
+
+def bsi_tt(phi, tile, vol_shape=None):
+    """Forward BSI, TT form (64-term weighted sum per voxel), cropped to
+    ``vol_shape`` (default: whole tiles); as :func:`bsi_ttli`."""
+    return _forward("bsi_tt", _tt, phi, tile, vol_shape)
+
+
 def bsi_matmul(phi, tile, vol_shape=None):
     """Forward BSI, matrix form, cropped to ``vol_shape`` (default: whole
     tiles); as :func:`bsi_ttli`."""
     return _forward("bsi_matmul", _matmul, phi, tile, vol_shape)
+
+
+# The forward kernel of each mode of ``core.interpolate.KERNEL_MODES``.
+FORWARD_KERNELS = {"tt": bsi_tt, "ttli": bsi_ttli, "separable": bsi_separable,
+                   "matmul": bsi_matmul}
 
 
 def _adjoint_inputs(g, tile, grid_shape, name):

@@ -6,7 +6,10 @@
 For a volume and tile (default: the paper's phantom1, 512 x 228 x 385, tile
 5^3, 3 channels) it counts, from the shapes alone, the bytes each kernel must
 move (each input read once, each output written once) and the float32
-operations its algorithm does, and prints the larger of bytes / 3.35 TB/s and
+operations the function it computes needs: the least among the forms that
+compute it (the forward BSI's four forms and the two adjoints each compute
+one function, so a form's own cost, such as the 64 multiply-adds per output
+of the TT and matrix forms, is not its bound), and prints the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM fp32 outside the tensor cores) with which
 of the two bounds it; and the same for one bf16 attention layer (989 TFLOP/s
 on the tensor cores) of a config of the JAX package at ``--seq`` tokens.  ``chip_smoke.py`` uses the same counts for the
@@ -83,18 +86,21 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
                 sample_score + nmi_score),
         "lncc": (grid_b + 2 * vol_b + 8, sample_score + lncc_score),
     }
+    # every form of one function is bound by the least work among them
+    forward = min(ttli, separable, dense64)
+    backward = min(adjoint, dense64)
     # the matrix form's displacement also reads the (d^3, 64) basis
     basis_b = 4 * 64 * dx * dy * dz
     return {
-        "bsi_ttli": (grid_b + field_b, ttli),
-        "bsi_adjoint_separable": (field_b + grid_b, adjoint),
-        **{f"bsi_fused_{k}": (b, ttli + f) for k, (b, f) in fused.items()},
-        **{f"bsi_fused_{k}_matmul": (b + basis_b, dense64 + f)
+        "bsi_ttli": (grid_b + field_b, forward),
+        "bsi_adjoint_separable": (field_b + grid_b, backward),
+        **{f"bsi_fused_{k}": (b, forward + f) for k, (b, f) in fused.items()},
+        **{f"bsi_fused_{k}_matmul": (b + basis_b, forward + f)
            for k, (b, f) in fused.items()},
-        "bsi_matmul": (grid_b + field_b, dense64),
-        "bsi_adjoint_matmul": (field_b + grid_b, dense64),
-        "bsi_separable": (grid_b + field_b, separable),
-        "bsi_tt": (grid_b + field_b, dense64),
+        "bsi_matmul": (grid_b + field_b, forward),
+        "bsi_adjoint_matmul": (field_b + grid_b, backward),
+        "bsi_separable": (grid_b + field_b, forward),
+        "bsi_tt": (grid_b + field_b, forward),
     }
 
 

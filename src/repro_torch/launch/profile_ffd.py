@@ -2,7 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_ffd [--shape X Y Z]
         [--iters N] [--calls K] [--top T] [--similarity NAME] [--remap]
-        [--mode ttli|matmul] [--grad-impl cuda|matmul]
+        [--mode ttli|separable|tt|matmul|auto] [--grad-impl cuda|matmul|auto]
+        [--fused on|off|auto]
 
 Builds the kernels (printing the build seconds), makes ``make_pair(shape,
 seed=0)`` (default: the paper's phantom1, 512 x 228 x 385), with ``--remap``
@@ -10,10 +11,14 @@ maps the moving volume's intensities through ``(1 - v)^1.5`` (a synthetic
 second modality), and traces the process's first ``ffd_register`` call with
 the default options (the kernels), ``--similarity`` (default ``ssd``;
 ``nmi`` and ``ncc`` run the two-pass fused kernels, ``lncc`` the one-pass
-halo kernel), ``--mode`` (``matmul``: the matrix-form forward and fused
-displacement) and ``--grad-impl`` (``matmul``: the transposed-matmul
-adjoint) under ``torch.profiler``, printing the host-side calls that took
-the most time (the first call pays one-off costs beyond the build).  Then it times
+halo kernel), ``--mode`` (the forward kernel; ``matmul`` also the fused
+step's matrix-form displacement), ``--grad-impl`` (``matmul``: the
+transposed-matmul adjoint) and ``--fused`` under ``torch.profiler``,
+printing the host-side calls that took the most time (the first call pays
+one-off costs beyond the build).  ``auto`` on ``--mode`` (with ``impl``
+then ``auto`` too), ``--grad-impl`` or ``--fused`` is resolved by the
+autotuner before the first traced call, and its race's seconds and result
+are printed.  Then it times
 ``--calls`` more calls, and traces one more warm call, printing the device
 time per kernel name, the package's CUDA kernels against PyTorch's own
 kernels (the plain glue), and the device's busy and idle share of the call.
@@ -31,6 +36,7 @@ import time
 import torch
 
 from repro_torch import PAPER_VOLUMES, RegistrationOptions, ffd_register, make_pair
+from repro_torch.engine.autotune import RACES, resolve_options
 from repro_torch.kernels.build import load_library
 
 _ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
@@ -70,8 +76,10 @@ def main(argv=None):
     ap.add_argument("--similarity", default="ssd")
     ap.add_argument("--remap", action="store_true",
                     help="moving volume through (1 - v)^1.5")
-    ap.add_argument("--mode", default="ttli", choices=["ttli", "matmul"])
-    ap.add_argument("--grad-impl", default="cuda", choices=["cuda", "matmul"])
+    ap.add_argument("--mode", default="ttli",
+                    choices=["ttli", "separable", "tt", "matmul", "auto"])
+    ap.add_argument("--grad-impl", default="cuda", choices=["cuda", "matmul", "auto"])
+    ap.add_argument("--fused", default="on", choices=["on", "off", "auto"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ffd: needs a CUDA device")
@@ -82,7 +90,23 @@ def main(argv=None):
     if args.remap:
         moving = (1.0 - moving) ** 1.5
     opts = RegistrationOptions(iters=args.iters, similarity=args.similarity,
-                               mode=args.mode, grad_impl=args.grad_impl)
+                               mode=args.mode, grad_impl=args.grad_impl,
+                               impl="auto" if args.mode == "auto" else "cuda",
+                               fused=args.fused)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resolved = resolve_options(opts, tuple(fixed.shape), torch.device("cuda"))
+    resolve_s = time.perf_counter() - t0
+    resolve_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"resolved mode={resolved.mode} impl={resolved.impl} "
+          f"grad_impl={resolved.grad_impl} fused={resolved.fused} "
+          f"({resolved.fused_reason}) in {resolve_s:.3f} s, peak device memory "
+          f"{resolve_peak:.2f} GiB")
+    races = [[race.seconds, list(race.timings)] for race in RACES]
+    for race_s, timings in races:
+        print(f"  race of {race_s:.3f} s, median ms per gradient (None: did not fit): "
+              + ", ".join(f"{n} {'None' if us is None else format(us / 1e3, '.3f')}"
+                          for n, us in timings))
 
     def run():
         ffd_register(fixed, moving, options=opts)
@@ -121,7 +145,9 @@ def main(argv=None):
     print(json.dumps({
         "card": card, "shape": list(args.shape), "iters": args.iters,
         "similarity": args.similarity, "remap": args.remap, "mode": args.mode,
-        "grad_impl": args.grad_impl,
+        "grad_impl": args.grad_impl, "fused": args.fused,
+        "resolved": [resolved.mode, resolved.impl, resolved.grad_impl, resolved.fused],
+        "resolve_seconds": resolve_s, "resolve_peak_gib": resolve_peak, "races": races,
         "build_seconds": build_s, "peak_gib": peak,
         "first_call_traced_ms": cold_wall * 1e3, "first_call_host_top": host_top,
         "seconds_per_call": seconds, "profiled_wall_ms": wall * 1e3,

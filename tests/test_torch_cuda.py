@@ -20,7 +20,7 @@ from repro_torch import RegistrationOptions, ffd_register, make_pair  # noqa: E4
 from repro_torch.core import ffd  # noqa: E402
 from repro_torch.core.interpolate import bsi_gather, interpolate  # noqa: E402
 from repro_torch.kernels import (bsi_adjoint, bsi_fused, bsi_matmul,  # noqa: E402
-                                  bsi_ttli, ops)
+                                  bsi_separable, bsi_tt, bsi_ttli, ops)
 
 pytestmark = pytest.mark.gpu
 
@@ -383,3 +383,111 @@ def test_lncc_matmul_registration_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
     np.testing.assert_allclose(card.warped.cpu().numpy(), host.warped.numpy(),
                                atol=1e-4)
+
+
+# --- the separable and TT forward kernels
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_separable_and_tt_kernels_match_plain(cuda, vol, tile, c, mode):
+    """Within 1e-5 of the largest value; the TT kernel, built without FMA
+    contraction, equals its plain version bit for bit."""
+    module = {"separable": bsi_separable, "tt": bsi_tt}[mode]
+    phi = _grid(vol, tile, c, 40, cuda)
+    before = _launches(f"bsi_{mode}")
+    out = ops.FORWARD_KERNELS[mode](phi, tile, vol)
+    torch.cuda.synchronize()
+    assert _launches(f"bsi_{mode}") == before + 1
+    ref = module.plain(phi, tile, vol)
+    assert out.shape == ref.shape == vol + (c,)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if mode == "tt":
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+def test_separable_and_tt_kernels_at_phantom1(cuda, mode):
+    """At the grid of the paper's phantom1 volume, cropped to it."""
+    module = {"separable": bsi_separable, "tt": bsi_tt}[mode]
+    vol, tile = (512, 228, 385), (5, 5, 5)
+    phi = _grid(vol, tile, 3, 41, cuda) * 2.5
+    out = ops.FORWARD_KERNELS[mode](phi, tile, vol)
+    ref = module.plain(phi, tile, vol)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+def test_separable_and_tt_kernel_gradients_match_autograd_of_gather(cuda, mode):
+    tile = (5, 4, 3)
+    phi = _grid((20, 12, 15), tile, 3, 42, cuda).requires_grad_(True)
+    rng = np.random.default_rng(43)
+    w = torch.from_numpy(rng.standard_normal((20, 12, 15, 3)).astype(np.float32))
+    w = w.to(cuda)
+    (g_kernel,) = torch.autograd.grad((interpolate(
+        phi, tile, mode=mode, impl="cuda", grad_impl="cuda") * w).sum(), phi)
+    (g_ref,) = torch.autograd.grad((bsi_gather(phi, tile) * w).sum(), phi)
+    assert (g_kernel - g_ref).abs().max().item() <= 1e-5 * g_ref.abs().max().item()
+
+
+def test_separable_and_tt_kernels_are_deterministic(cuda):
+    vol, tile = (40, 33, 47), (5, 5, 5)
+    phi = _grid(vol, tile, 3, 44, cuda)
+    for mode in ("separable", "tt"):
+        a, b = (ops.FORWARD_KERNELS[mode](phi, tile, vol) for _ in range(2))
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+def test_separable_and_tt_registration_on_card_matches_cpu(cuda, mode):
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5, mode=mode)
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, moving, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, moving, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == _no_launches_but(bsi_adjoint=steps, bsi_fused=steps,
+                                      **{f"bsi_{mode}": steps + 1})
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
+    np.testing.assert_allclose(card.warped.cpu().numpy(), host.warped.numpy(),
+                               atol=1e-4)
+
+
+def test_auto_options_on_card_race_the_kernels(cuda, tmp_path, monkeypatch):
+    """All-"auto" options on a small pair: the race times all 12 kernel
+    triples, the call runs the winner's kernels only, and a fresh resolve
+    reads the disk cache without a race."""
+    from repro_torch.engine import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5, mode="auto", impl="auto",
+                               grad_impl="auto", fused="auto")
+    autotune.RACES.clear()
+    resolved = autotune.resolve_options(opts, (28, 24, 20), cuda)
+    (bsi_race, *_) = autotune.RACES
+    # the card's pool is the kernel triples: no plain form is timed
+    assert len(bsi_race.timings) == 12
+    assert all(name.split("/")[1] == "cuda" and us is not None and us > 0
+               for name, us in bsi_race.timings)
+    assert resolved.impl == "cuda"
+    assert resolved.fused in ("on", "off") and "race" in resolved.fused_reason
+    ops.reset_launch_counts()
+    ffd_register(fixed, moving, options=opts, device=cuda)
+    steps = opts.levels * (opts.iters + 1)
+    # each step's forward, and the final warp's
+    expected = {f"bsi_{resolved.mode}": steps + 1}
+    if resolved.grad_impl in ("cuda", "matmul"):
+        expected[{"cuda": "bsi_adjoint", "matmul": "bsi_adjoint_matmul"}[
+            resolved.grad_impl]] = steps
+    if resolved.fused == "on":
+        fused = "bsi_fused_matmul" if resolved.mode == "matmul" else "bsi_fused"
+        expected[fused] = steps
+    assert ops.launch_counts() == _no_launches_but(**expected)
+    n_races = len(autotune.RACES)
+    autotune._MEM_CACHE.clear()
+    autotune.resolve_options.cache_clear()
+    assert autotune.resolve_options(opts, (28, 24, 20), cuda) == resolved
+    assert len(autotune.RACES) == n_races

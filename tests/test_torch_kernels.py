@@ -17,7 +17,7 @@ from repro.core import ffd as rffd  # noqa: E402
 from repro.core import interpolate as rint  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.core import interpolate as tint  # noqa: E402
-from repro_torch.kernels import bsi_fused, ops  # noqa: E402
+from repro_torch.kernels import bsi_fused, bsi_separable, bsi_tt, ops  # noqa: E402
 
 # (control grid points, tile): non-cubic tiles, the paper's 5^3
 GRIDS = [
@@ -319,6 +319,9 @@ def test_fused_dispatcher_names_what_is_not_ported():
     ("matmul", "torch", "matmul"),
     ("tt", "torch", "autograd"),
     ("matmul", "torch", "autograd"),
+    ("separable", "cuda", "cuda"),
+    ("tt", "cuda", "matmul"),
+    ("tt", "cuda", "torch"),
 ])
 def test_interpolate_gradient_matches_autograd_of_gather(mode, impl, grad_impl):
     tile = (5, 4, 3)
@@ -336,6 +339,8 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     phi = torch.from_numpy(_phi((7, 6, 5)))
     vol = (10, 8, 6)
     g = ops.bsi_ttli(phi, (5, 4, 3), vol)
+    ops.bsi_separable(phi, (5, 4, 3), vol)
+    ops.bsi_tt(phi, (5, 4, 3), vol)
     ops.bsi_matmul(phi, (5, 4, 3), vol)
     ops.bsi_adjoint(g, (5, 4, 3), (7, 6, 5))
     ops.bsi_adjoint_matmul(g, (5, 4, 3), (7, 6, 5))
@@ -348,7 +353,8 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul")
              for k in ("", "_stats", "_ncc", "_nmi", "_lncc")]
     assert ops.launch_counts() == dict.fromkeys(
-        ["bsi_ttli", "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul"] + fused, 0)
+        ["bsi_ttli", "bsi_separable", "bsi_tt", "bsi_matmul", "bsi_adjoint",
+         "bsi_adjoint_matmul"] + fused, 0)
 
 
 def test_dispatchers_check_coverage():
@@ -382,3 +388,87 @@ def test_block_checks_raise_where_shared_memory_runs_out():
     own, extra = bsi_fused.lncc_blocks((1, 1, 1), 9, "lerp")
     assert extra == (8, 8, 8) and 1 <= min(own) and max(own) <= 10
     bsi_fused.block_tiles((5, 5, 5), "matmul", bsi_fused.nmi_smem_bytes(64))
+
+
+# --- the separable and TT forward kernels' plain versions
+
+# (tiles per axis, tile): grids of 2 to 6 tiles per axis; the paper's 5^3, a
+# non-cubic tile and a tile of one voxel
+FORM_GRIDS = [((2, 5, 3), (5, 5, 5)), ((6, 2, 4), (5, 5, 5)),
+              ((2, 5, 3), (3, 4, 2)), ((6, 2, 4), (3, 4, 2)),
+              ((2, 5, 3), (1, 1, 1)), ((6, 2, 4), (1, 1, 1))]
+FORM_MODULES = {"separable": bsi_separable, "tt": bsi_tt}
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+@pytest.mark.parametrize("tiles,tile", FORM_GRIDS)
+@pytest.mark.parametrize("c", [1, 3])
+def test_separable_and_tt_plain_match_reference_kernel(mode, tiles, tile, c):
+    """Each kernel's plain version against the reference's Pallas kernel of
+    the same mode in interpret mode, 1e-5 of the largest value."""
+    phi = _phi(tuple(t + 3 for t in tiles), 30, c)
+    full = tuple(t * d for t, d in zip(tiles, tile))
+    out = FORM_MODULES[mode].plain(torch.from_numpy(phi), tile, full).numpy()
+    ref = np.asarray(rops.bsi_pallas(jnp.asarray(phi), tile, mode=mode, interpret=True))
+    assert out.shape == ref.shape == full + (c,)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+@pytest.mark.parametrize("vol,tile", VOLUMES + [((9, 4, 13), (1, 1, 1))])
+def test_separable_and_tt_crop_matches_reference_dense_field(mode, vol, tile):
+    """The dispatchers on CPU tensors, cropped to volumes off the tile grid,
+    against the reference's kernel path of ``dense_field``."""
+    phi = _phi(rffd.grid_shape_for_volume(vol, tile), 31)
+    out = ops.FORWARD_KERNELS[mode](torch.from_numpy(phi), tile, vol).numpy()
+    ref = np.asarray(rffd.dense_field(jnp.asarray(phi), tile, vol, mode=mode,
+                                      impl="pallas"))
+    assert out.shape == vol + (3,)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("mode", ["separable", "tt"])
+def test_separable_and_tt_dispatchers_check_coverage_and_count_no_launch(mode):
+    ops.reset_launch_counts()
+    phi = torch.from_numpy(_phi((7, 6, 5)))
+    with pytest.raises(ValueError, match="does not cover"):
+        ops.FORWARD_KERNELS[mode](phi, (5, 4, 3), (21, 12, 6))
+    out = ops.FORWARD_KERNELS[mode](phi, (5, 4, 3))
+    assert out.shape == (20, 12, 6, 3)
+    assert not any(ops.launch_counts().values())
+
+
+def test_tt_plain_rounds_as_the_kernel():
+    """The TT kernel (built without FMA contraction) adds ``acc + p * w`` with
+    ``w = (wx * wy) * wz``, one term at a time in ``l, m, n`` order; its plain
+    version must round the same way, so the two agree bit for bit on the
+    card.  A float32 loop of the kernel's arithmetic over one tile checks it."""
+    from repro_torch.core.bspline import weight_lut
+
+    tile = (3, 4, 2)
+    phi = torch.from_numpy(_phi((4, 4, 4), 32, 1))
+    out = bsi_tt.plain(phi, tile, (3, 4, 2))
+    wx, wy, wz = (weight_lut(d, torch.float32, "cpu") for d in tile)
+    for a in range(3):
+        for b in range(4):
+            for c in range(2):
+                acc = torch.zeros((), dtype=torch.float32)
+                for k in range(64):
+                    l, m, n = k >> 4, (k >> 2) & 3, k & 3
+                    w = (wx[a, l] * wy[b, m]) * wz[c, n]
+                    acc = acc + phi[l, m, n, 0] * w
+                assert torch.equal(acc, out[a, b, c, 0])
+
+
+def test_separable_staging_fits_the_blocks_of_the_ttli_kernel():
+    """The separable kernel stages 4 weights per voxel offset and axis where
+    the TTLI kernel stages 3 lerp values: 4 (dx + dy + dz) bytes more, in the
+    same blocks, at every tile the tests use."""
+    from repro_torch.kernels import bsi_ttli
+
+    for tile in ((5, 5, 5), (3, 4, 2), (1, 1, 1), (7, 7, 7)):
+        blocks = bsi_separable.block_tiles(tile)
+        bsi_separable.check_blocks(tile, blocks, 3)
+        assert (bsi_ttli.stage_smem_bytes(tile, blocks, 3, lut_rows=4)
+                - bsi_ttli.stage_smem_bytes(tile, blocks, 3)) == 4 * sum(tile)
+        bsi_tt.check_blocks(tile, bsi_tt.block_tiles(tile), 3)

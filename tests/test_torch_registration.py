@@ -40,7 +40,8 @@ from repro.core.ffd import grid_shape_for_volume as rffd_grid_shape  # noqa: E40
 from repro.engine.batch import ffd_level_loss as ref_level_loss  # noqa: E402
 from repro_torch import (RegistrationOptions, ffd_register,  # noqa: E402
                          make_pair)
-from repro_torch.convert import grid_from_numpy, options_from_reference  # noqa: E402
+from repro_torch.convert import (grid_from_numpy, options_from_reference,  # noqa: E402
+                                 reference_fields)
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core import similarity as tsim  # noqa: E402
 from repro_torch.engine.batch import ffd_level_loss, ffd_level_objective  # noqa: E402
@@ -159,20 +160,18 @@ def test_measure_bsi_time_reports_seconds(pair):
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    (dict(impl="auto"), NotImplementedError, "queue 1 item 13"),
-    (dict(fused="auto"), NotImplementedError, "queue 1 item 13"),
-    (dict(mode="tt"), NotImplementedError, "queue 2 item 7"),
     (dict(transform="velocity"), NotImplementedError, "queue 1 item 11"),
     (dict(regularizer="bending"), NotImplementedError, "queue 1 item 11"),
     (dict(optimizer="lbfgs"), NotImplementedError, "queue 1 item 12"),
     (dict(compute_dtype="bfloat16"), NotImplementedError, "queue 1 item 18"),
-    (dict(mode="separable"), NotImplementedError, "queue 2 item 6"),
-    (dict(mode="tt", grad_impl="matmul"), NotImplementedError, "queue 2 item 7"),
     (dict(grad_impl="xla"), ValueError, "grad_impl must be one of"),
     (dict(mode="gather"), ValueError, "no kernel"),
     (dict(grad_impl="autograd"), ValueError, "autograd"),
     (dict(impl="pallas"), ValueError, "impl must be one of"),
     (dict(iters=0), ValueError, "iters"),
+    (dict(mode="auto", grad_impl="autograd"), ValueError, "autograd"),
+    (dict(fused="sideways"), ValueError, "fused must be one of"),
+    (dict(similarity=lambda w, f: (w - f).abs().mean()), ValueError, "no fused kernel"),
 ])
 def test_options_name_what_is_not_ported(fields, error, match):
     with pytest.raises(error, match=match):
@@ -185,11 +184,20 @@ def test_options_name_what_is_not_ported(fields, error, match):
     dict(grad_impl="matmul"),
     dict(similarity="lncc", mode="matmul", grad_impl="matmul"),
     dict(impl="torch", mode="tt", grad_impl="matmul"),
-], ids=lambda f: "-".join(f"{k}={v}" for k, v in f.items()))
+    dict(impl="auto"),
+    dict(fused="auto"),
+    dict(mode="tt"),
+    dict(mode="separable"),
+    dict(mode="tt", grad_impl="matmul"),
+    dict(mode="auto", impl="auto", grad_impl="auto", fused="auto"),
+    dict(mode="gather", impl="auto", grad_impl="autograd"),
+    dict(similarity=lambda w, f: (w - f).abs().mean(), fused="auto"),
+], ids=lambda f: "-".join(f"{k}={v if isinstance(v, str) else 'fn'}"
+                          for k, v in f.items()))
 def test_options_accept_what_is_ported(fields):
     opts = RegistrationOptions(**fields)
     assert all(getattr(opts, k) == v for k, v in fields.items())
-    assert opts.fused == "on"
+    assert opts.fused == fields.get("fused", "on") and opts.fused_reason is None
 
 
 def test_options_from_reference_maps_the_renamed_values():
@@ -205,8 +213,17 @@ def test_options_from_reference_maps_the_renamed_values():
     matmul = options_from_reference(dict(mode="matmul", impl="pallas",
                                          grad_impl="matmul"))
     assert (matmul.mode, matmul.impl, matmul.grad_impl) == ("matmul", "cuda", "matmul")
+    # the JAX package's defaults are all "auto", and map through
+    default = RefOptions()
+    auto = options_from_reference({k: getattr(default, k)
+                                   for k in default.__dataclass_fields__})
+    assert (auto.mode, auto.impl, auto.grad_impl, auto.fused) == ("auto",) * 4
+    assert reference_fields(auto) == dict(mode="auto", impl="auto", grad_impl="auto",
+                                          fused="auto")
+    assert reference_fields(opts) == {k: REF_FIELDS[k] for k in (
+        "mode", "impl", "grad_impl", "fused")}
     with pytest.raises(NotImplementedError):
-        options_from_reference(dict(mode="auto"))
+        options_from_reference(dict(optimizer="lbfgs"))
 
 
 def test_options_from_reference_carries_similarity_callables():
