@@ -45,9 +45,19 @@ Phases; any failure raises and the script exits nonzero:
    median printed, all 12 kernel triples timed) with the disk cache in a
    fresh temporary file, then run at full depth with the winner's launch
    counts, then resolved again from the disk file with no race;
-5. the time of ``scaled_dot_product_attention`` at the shape of the JAX
-   package's flash-attention kernel (not ported; its library time only);
-6. one JSON line of the kernels, the nvidia-smi line, and the result line.
+5. the flash-attention kernel at gemma2-2b's layer (batch 4, 8160 tokens, 8
+   query and 4 key/value heads, head dim 256, softcap 50), global and local
+   (window 4096) in bf16 and global in float32, against its plain version
+   and timed beside it and its bound; the global layer with softcap 0 too,
+   beside ``scaled_dot_product_attention``, and that case is the kernels
+   line's row;
+6. the serving path: ``generate`` of gemma2-2b at full width and depth,
+   batch 4, 8160-token prompts, 32 greedy tokens, bf16, cold and warm, with
+   its launch counts (26 ``flash_attention``, no other kernel); then, in
+   float32 at batch 1, the kernel path against the plain path (prefill and
+   4 decode steps fed the prompt's next tokens: logits within 1e-4 of the
+   largest, the greedy picks equal);
+7. one JSON line of the kernels, the nvidia-smi line, and the result line.
 
 Float32 convolutions and matrix products are pinned to full fp32
 (``allow_tf32 = False``) so the library yardsticks compute in fp32 too.
@@ -901,27 +911,236 @@ def _auto_path(torch, fixed, moving, autotune, cache, opts):
         races=[(race.seconds, race.timings) for race in races])
 
 
-def time_attention_library(torch):
-    """Phase 5: ``scaled_dot_product_attention`` at the JAX package's flash
-    kernel's shape (one causal GQA layer, 16 query and 8 key/value heads,
-    head dim 128, sequence 4096, bf16, batch 1): its library time."""
+SERVE_ARCH = "gemma2-2b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 8160, 32  # 8160: not a multiple of 64
+
+
+def flash_close(torch, out, ref):
+    """``(max |kernel - plain|, values more than one bf16 rounding step
+    apart)``; asserts float32 within 2e-5 and bf16 within one step (the
+    float32 values differ by rounding only: the sums run in another order)."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs().max().item()
+    if out.dtype == torch.float32:
+        assert math.isfinite(err) and err <= 2e-5, err
+        return err, 0
+    far = int(((o - r).abs() > 2.0**-7 * torch.maximum(o.abs(), r.abs()) + 1e-5).sum())
+    assert far == 0 and math.isfinite(err), (err, far)
+    return err, int((o != r).sum())
+
+
+def check_flash(torch):
+    """Phase 5: the flash-attention kernel against its plain version at
+    gemma2-2b's layer (batch 4, 8160 tokens, 8 query and 4 key/value heads,
+    head dim 256, softcap 50): bf16 for a global layer (window 0) and a
+    local one (window 4096), float32 for a global layer, bf16 for a global
+    layer at softcap 0 with ``scaled_dot_product_attention`` (causal, GQA)
+    beside it, the same function, and a small non-causal MQA case at head
+    dim 64; each timed beside its plain version and its bound.  Returns the
+    kernel's row (the softcap-0 case, so that its ``ms`` and ``library_ms``
+    time one function) and every case."""
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.launch.bounds import (ATTENTION_LAYER, BF16_FLOP_PER_S,
+                                           FP32_FLOP_PER_S, GEMMA_WINDOW,
+                                           attention_bound, bound_ms)
+
+    H, KV, hd = (ATTENTION_LAYER[k] for k in ("heads", "kv_heads", "head_dim"))
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def inputs(dtype, b=B, s=S, h=H, kv=KV, d=hd):
+        return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+
+    cases = {}
+    for name, dtype, window, cap in (("bf16 global", torch.bfloat16, 0, 50.0),
+                                     ("bf16 local", torch.bfloat16, GEMMA_WINDOW, 50.0),
+                                     ("fp32 global", torch.float32, 0, 50.0),
+                                     ("bf16 global softcap 0", torch.bfloat16, 0, 0.0)):
+        q, k, v = inputs(dtype)
+        kw = dict(window=window, softcap=cap)
+        out = ops.flash_attention(q, k, v, **kw)
+        ref = flash_attention.plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err, differ = flash_close(torch, out, ref)
+        b, f = attention_bound(S, **ATTENTION_LAYER, window=window, batch=B,
+                               itemsize=q.element_size())
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        b_ms, b_by = bound_ms(b, f, rate)
+        ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw))
+        plain_ms = cuda_ms(torch, lambda: flash_attention.plain(q, k, v, **kw), reps=3)
+        cases[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           tflops=f / ms / 1e9)
+        log(f"flash_attention {name} ({B}, {S}, {H}|{KV}, {hd}), window {window}, "
+            f"softcap {cap:g}: max |kernel - plain| {err:.3e} ({differ} values one bf16 "
+            f"step apart); kernel {ms:.3f} ms ({f / ms / 1e9:.2f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {f / 1e12:.4f} TFLOP, "
+            f"{b / 1e6:.1f} MB)")
+        if cap == 0.0:
+            library_ms, lib_err = sdpa_yardstick(torch, q, k, v, out)
+            cases[name].update(library_ms=library_ms, library_err=lib_err)
+            log(f"flash_attention {name}: scaled_dot_product_attention (causal, GQA) "
+                f"{library_ms:.4f} ms, the kernel {ms / library_ms:.1f}x that; max "
+                f"|kernel - sdpa| {lib_err:.3e} (limit 5e-2)")
+        del q, k, v, out, ref
+
+    q, k, v = inputs(torch.float32, b=2, s=1000, h=8, kv=1, d=64)
+    out = ops.flash_attention(q, k, v, causal=False, softcap=30.0)
+    err, _ = flash_close(torch, out, flash_attention.plain(q, k, v, causal=False,
+                                                           softcap=30.0))
+    log(f"flash_attention fp32 (2, 1000, 8|1, 64), not causal, softcap 30: max "
+        f"|kernel - plain| {err:.3e} (limit 2e-5)")
+    # the row: the bf16 global layer at softcap 0, the function the library
+    # call computes, so that ms and library_ms compare like with like
+    g = cases["bf16 global softcap 0"]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:90", max_abs_err=g["err"],
+                ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
+                bound_by=g["bound_by"], library_ms=g["library_ms"]), cases
+
+
+def sdpa_yardstick(torch, q, k, v, out):
+    """``(ms, max |out - library|)`` of ``scaled_dot_product_attention``
+    (causal, GQA) on the kernel's inputs, ``out`` the kernel's output at
+    softcap 0 and no window."""
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q = torch.randn((1, 16, 4096, 128), generator=gen, device="cuda",
-                    dtype=torch.bfloat16)
-    k, v = (torch.randn((1, 8, 4096, 128), generator=gen, device="cuda",
-                        dtype=torch.bfloat16) for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
-    out = sdpa()
-    assert out.shape == q.shape and torch.isfinite(out.float()).all()
-    ms = cuda_ms(torch, sdpa)
-    log(f"flash_attention (not ported): scaled_dot_product_attention {ms:.4f} ms at "
-        "(1, 16|8, 4096, 128) bf16, causal, GQA")
-    return ms
+    lib = sdpa().transpose(1, 2)
+    torch.cuda.synchronize()
+    # the library rounds its probabilities to bf16 for PV: a yardstick of
+    # the function (the bf16 tolerance of tests/test_kernels_flash.py), not
+    # a reference of the kernel's rounding
+    lib_err = (out.float() - lib.float()).abs().max().item()
+    assert math.isfinite(lib_err) and lib_err <= 5e-2, lib_err
+    return cuda_ms(torch, sdpa), lib_err
+
+
+def run_serve_path(torch):
+    """Phase 6: the port's ``generate`` at gemma2-2b's full width and depth
+    (26 layers, the port's own init, seed 0) on the card: batch 4, prompts
+    of 8160 tokens from a seeded generator, 32 greedy tokens, bf16 weights
+    and cache; cold, then warm, each with the launch counts set to 0 just
+    before and read just after.  Returns the counts, the float32 masters and
+    a summary."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, make_generate_steps
+    from repro_torch.models import model as M
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = M.init_model(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), generator=gen,
+                            device="cuda")
+    max_len = SERVE_PROMPT + SERVE_GEN + 1
+    torch.cuda.reset_peak_memory_stats()
+    steps = make_generate_steps(cfg, model, max_len)
+    prefill, decode = steps
+    runs = {}
+    for name in ("cold", "warm"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        tok = torch.argmax(logits, -1)[:, None]
+        t1 = time.perf_counter()
+        for _ in range(SERVE_GEN):
+            step_logits, cache = decode(cache, tok)
+            tok = torch.argmax(step_logits[:, -1], -1)[:, None]
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        assert counts == only(flash_attention=cfg.num_layers), counts
+        assert torch.isfinite(logits).all() and torch.isfinite(step_logits).all()
+        total = t_prefill + t_decode
+        runs[name] = dict(prefill_s=t_prefill, decode_ms_per_step=t_decode / SERVE_GEN * 1e3,
+                          total_s=total, tokens_per_s=SERVE_BATCH * SERVE_GEN / total,
+                          prefill_tokens_per_s=SERVE_BATCH * SERVE_PROMPT / t_prefill)
+        log(f"serve {name}: prefill {t_prefill:.3f} s "
+            f"({SERVE_BATCH * SERVE_PROMPT / t_prefill:.0f} prompt tokens/s), decode "
+            f"{t_decode / SERVE_GEN * 1e3:.2f} ms/step over {SERVE_GEN} steps, "
+            f"{SERVE_BATCH * SERVE_GEN / total:.1f} generated tokens/s over the call; "
+            f"launches {counts}")
+        del logits, cache, step_logits
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # generate itself, on the same steps: the same tokens as the timed loop's
+    ops.reset_launch_counts()
+    toks, cache = generate(cfg, model, prompts, max_len, SERVE_GEN, steps=steps)
+    counts = ops.launch_counts()
+    assert counts == only(flash_attention=cfg.num_layers), counts
+    assert toks.shape == (SERVE_BATCH, SERVE_GEN) and cache["pos"] == max_len - 1
+    log(f"serve: gemma2-2b, {n_params / 1e9:.3f} B parameters (init {init_s:.2f} s), "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_GEN} tokens, bf16 cache; "
+        f"peak device memory {peak:.2f} GiB; generate's launches {counts}; tokens "
+        f"{toks[0, :8].tolist()}")
+    del steps, prefill, decode, cache
+    return counts, model, dict(runs=runs, peak_gib=peak, params=n_params)
+
+
+def compare_serve_paths(torch, model):
+    """Phase 7: at full width and depth in float32 (weights and cache),
+    batch 1, an 8160-token prompt and 4 decode steps, the kernel path
+    against the plain path (the same model with the kernel's plain version
+    in its place): the prefill logits and each step's logits within 1e-4 of
+    the largest, the greedy picks equal.  The decode steps are fed the
+    prompt's own next 4 tokens (teacher forcing), so that each step attends
+    with another query: with random weights greedy decoding repeats one
+    token."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.training.steps import make_decode_step, make_prefill_step
+
+    n_dec = 4
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), dtype="float32",
+                              kv_cache_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT + n_dec), generator=gen,
+                           device="cuda")
+
+    def run():
+        prefill = make_prefill_step(cfg, model, SERVE_PROMPT + n_dec + 1)
+        decode = make_decode_step(cfg, model)
+        t0 = time.perf_counter()
+        logits, cache = prefill({"tokens": tokens[:, :SERVE_PROMPT]})
+        out, picks = [logits], [torch.argmax(logits, -1)]
+        for i in range(n_dec):
+            logits, cache = decode(cache, tokens[:, SERVE_PROMPT + i][:, None])
+            out.append(logits[:, -1])
+            picks.append(torch.argmax(logits[:, -1], -1))
+        torch.cuda.synchronize()
+        return out, torch.stack(picks, 1), time.perf_counter() - t0
+
+    ops.reset_launch_counts()
+    kern, kern_picks, kern_s = run()
+    assert ops.launch_counts() == only(flash_attention=cfg.num_layers)
+    ops.reset_launch_counts()
+    with mock.patch.object(ops, "flash_attention", flash_attention.plain):
+        plain, plain_picks, plain_s = run()
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(kern, plain)]
+    log(f"fp32 kernel vs plain path, gemma2-2b full depth, prompt {SERVE_PROMPT}, "
+        f"{n_dec} decode steps fed the prompt's next tokens: logits max |diff| / max "
+        f"|logit| per step {['%.2e' % r for r in rel]} (limit 1e-4); greedy picks "
+        f"kernel {kern_picks.tolist()} plain {plain_picks.tolist()}; "
+        f"{kern_s:.3f} s vs {plain_s:.3f} s")
+    assert all(math.isfinite(r) and r <= 1e-4 for r in rel), rel
+    assert torch.equal(kern_picks, plain_picks)
+    return dict(rel=rel, kernel_s=kern_s, plain_s=plain_s)
 
 
 def main():
@@ -960,7 +1179,12 @@ def main():
     matmul_counts = compare_matmul_paths(torch, fixed, moving)
     form_counts, form_calls = run_forward_form_paths(torch, fixed, moving)
     auto_counts, auto_call = run_auto_path(torch, fixed, moving)
-    sdpa_ms = time_attention_library(torch)
+    del fixed, moving
+    torch.cuda.empty_cache()  # the NMI backward's ~44 GiB stay cached otherwise
+    flash_row, flash_call = check_flash(torch)
+    rows.append(flash_row)
+    serve_counts, model, serve_call = run_serve_path(torch)
+    serve_compare = compare_serve_paths(torch, model)
     # each kernel's launches in the run of its own path: SSD, NMI, NCC, the
     # LNCC matrix form at full depth, and the iters=5 paths of the others
     path_counts = {"bsi_fused_stats": nmi_counts, "bsi_fused_nmi": nmi_counts,
@@ -973,7 +1197,8 @@ def main():
                    "bsi_fused_ncc_matmul": matmul_counts["ncc_matmul"],
                    "bsi_fused_nmi_matmul": matmul_counts["nmi_matmul"],
                    "bsi_separable": form_counts["separable"],
-                   "bsi_tt": form_counts["tt"]}
+                   "bsi_tt": form_counts["tt"],
+                   "flash_attention": serve_counts}
     for r in rows:
         r["launches"] = path_counts.get(r["name"], counts)[r["name"]]
         assert r["launches"] > 0, r
@@ -982,7 +1207,9 @@ def main():
     for mode, call in form_calls.items():
         log(f"{mode} call at phantom1: {call}")
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
-    log(f"scaled_dot_product_attention: {sdpa_ms:.4f} ms")
+    log(f"flash_attention at gemma2-2b's layer: {flash_call}")
+    log(f"serve call: {serve_call}")
+    log(f"fp32 serve paths: {serve_compare}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,9 @@
 (``RegistrationResult.params``, as a numpy array) and
 ``options_from_reference`` maps its option values to this package's names
 (``reference_fields`` maps the BSI axes back), so both packages compute the
-same thing from the same numbers.
+same thing from the same numbers.  ``model_from_numpy`` and
+``cache_from_numpy`` carry a language model's parameters and its KV cache
+across.
 """
 
 from __future__ import annotations
@@ -14,10 +16,12 @@ import torch
 
 from repro_torch.core.options import RegistrationOptions
 from repro_torch.core.similarity import _loss_from_spec
+from repro_torch.device import resolve_device
 from repro_torch.engine.optimizer import AdamOptimizer
+from repro_torch.models.model import DecoderLM, map_tree
 
-__all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "grid_from_numpy", "options_from_reference",
-           "reference_fields"]
+__all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "cache_from_numpy", "grid_from_numpy",
+           "model_from_numpy", "options_from_reference", "reference_fields"]
 
 # The JAX package's value -> this package's value.
 IMPL_NAMES = {"jnp": "torch", "pallas": "cuda"}
@@ -91,3 +95,33 @@ def reference_fields(options) -> dict:
     return dict(mode=options.mode, impl=impl.get(options.impl, options.impl),
                 grad_impl=grad_impl.get(options.grad_impl, options.grad_impl),
                 fused=options.fused)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype; bfloat16 arrays (``ml_dtypes``,
+    which torch does not read) go through float32, exactly.  A copy: numpy
+    views of JAX arrays are read-only."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def model_from_numpy(cfg, params, device="cuda") -> DecoderLM:
+    """The JAX package's parameter tree (``repro.models.model.init_model``,
+    as numpy arrays; block leaves stacked ``(L, ...)``) as this package's
+    model, each parameter in its array's dtype.  On the card unless the
+    caller passes ``device="cpu"``."""
+    device = resolve_device(device, "the model")
+    return DecoderLM.from_stacked(cfg, map_tree(lambda a: _tensor(a, device), params))
+
+
+def cache_from_numpy(cache, device="cuda") -> dict:
+    """The JAX package's KV cache (``prefill`` / ``decode_step``; numpy
+    arrays, ``pos`` a 0-d integer) as this package's: the same stacked
+    tensors and ``pos`` as a Python int.  On the card unless the caller
+    passes ``device="cpu"``."""
+    device = resolve_device(device, "the model")
+    out = {k: _tensor(v, device) for k, v in cache.items() if k != "pos"}
+    out["pos"] = int(cache["pos"])
+    return out

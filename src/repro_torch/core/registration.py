@@ -21,6 +21,7 @@ from repro_torch.core import ffd
 from repro_torch.core.ffd import downsample2
 from repro_torch.core.options import RegistrationOptions
 from repro_torch.core.transform import dense_displacement
+from repro_torch.device import resolve_device
 from repro_torch.engine.autotune import resolve_options
 from repro_torch.engine.batch import ffd_level_objective
 from repro_torch.engine.loop import make_adam_runner
@@ -36,19 +37,6 @@ class RegistrationResult:
     seconds: float  # wall time, ending in a device synchronisation
     bsi_seconds: float = 0.0  # time inside BSI (paper Figs. 8-9 breakdown)
     traces: list = dataclasses.field(default_factory=list)  # per level: (iters,) losses
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a ``torch.device``; raises for CUDA on a host without a card.
-
-    There is no silent CPU path: the CPU runs only when the caller asks.
-    """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the registration runs on the card; pass "
-            "device='cpu' to run the kernels' plain versions on the CPU")
-    return device
 
 
 def _volume(x, device):

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ffd
-from repro_torch.core.registration import resolve_device
+from repro_torch.device import resolve_device
 
 __all__ = ["PAPER_VOLUMES", "make_phantom", "make_pair"]
 

@@ -1,0 +1,60 @@
+"""Device helpers shared by the registration and the serving code.
+
+``resolve_device`` turns a caller's ``device`` into a ``torch.device`` and
+refuses CUDA on a host without a card; ``card_name`` is the card's name and
+power limit as ``nvidia-smi`` prints them; ``traced`` and
+``device_ms_by_name`` run a call under ``torch.profiler`` and sum its device
+time per kernel name, for the profiling scripts.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import time
+
+import torch
+
+__all__ = ["card_name", "device_ms_by_name", "resolve_device", "traced"]
+
+_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+
+
+def resolve_device(device, what="the registration") -> torch.device:
+    """``device`` as a ``torch.device``; raises for CUDA on a host without a
+    card, naming ``what`` runs there.
+
+    There is no silent CPU path: the CPU runs only when the caller asks.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device: {what} runs on the card; pass "
+            "device='cpu' to run the kernels' plain versions on the CPU")
+    return device
+
+
+def card_name():
+    """``"<name>, <power limit>"`` of the first card, from ``nvidia-smi``."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def traced(fn):
+    """``(profile, wall seconds)`` of one call of ``fn``."""
+    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def device_ms_by_name(prof):
+    """Device milliseconds of a profile, summed per kernel name."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out

@@ -26,7 +26,7 @@ __all__ = ["BuildInfo", "Library", "load_library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bsi_ttli.cu", "bsi_separable.cu", "bsi_tt.cu", "bsi_matmul.cu",
-           "bsi_adjoint.cu", "bsi_fused.cu")
+           "bsi_adjoint.cu", "bsi_fused.cu", "flash_attention.cu")
 HEADERS = ("bsi_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = (
@@ -56,6 +56,9 @@ _SIGNATURES = {
     "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,
     "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iff",
     "bsi_fused_lncc_f32": "ppppp" + "ip" + _DIMS + "iiii" + "ff",
+    # q, k, v, out; B, S, H, KV, hd, causal, window; scale, softcap
+    "flash_attention_f32": "pppp" + "i" * 7 + "ff",
+    "flash_attention_bf16": "pppp" + "i" * 7 + "ff",
 }
 
 

@@ -1,8 +1,9 @@
 """Dispatchers of the hand-written kernels: checks, allocation, launch, count.
 
-Each dispatcher takes tensors in the JAX package's channels-last layout.  On a
-CPU tensor it runs its kernel's plain PyTorch version; on a CUDA tensor it
-checks device, dtype (float32), shape and contiguity, allocates the outputs
+Each dispatcher takes tensors in the JAX package's layouts (channels last;
+attention's ``(B, S, heads, head dim)``).  On a CPU tensor it runs its
+kernel's plain PyTorch version; on a CUDA tensor it checks device, dtype
+(float32; attention also bfloat16), shape and contiguity, allocates the outputs
 with ``torch.empty``, launches the kernel on the current stream, raises if
 the launch failed, and adds one to its kernel's launch count
 (:func:`launch_counts`; the fused variants count apart per displacement
@@ -22,13 +23,14 @@ import functools
 
 import torch
 
+from repro_torch.core.similarity import entropy_loss
 from repro_torch.kernels import bsi_adjoint as _adjoint
 from repro_torch.kernels import bsi_fused as _fused
 from repro_torch.kernels import bsi_matmul as _matmul
-from repro_torch.core.similarity import entropy_loss
 from repro_torch.kernels import bsi_separable as _separable
 from repro_torch.kernels import bsi_tt as _tt
 from repro_torch.kernels import bsi_ttli as _ttli
+from repro_torch.kernels import flash_attention as _flash
 
 __all__ = [
     "FORWARD_KERNELS",
@@ -38,6 +40,7 @@ __all__ = [
     "bsi_matmul",
     "bsi_adjoint",
     "bsi_adjoint_matmul",
+    "flash_attention",
     "fused_lncc",
     "fused_ncc_moments",
     "fused_nmi_histogram",
@@ -60,7 +63,7 @@ def _fused_name(kind, disp_form):
 _KERNELS = ("bsi_ttli", "bsi_separable", "bsi_tt", "bsi_matmul", "bsi_adjoint",
             "bsi_adjoint_matmul") + tuple(
     _fused_name(kind, form) for form in _fused.DISP_FORMS
-    for kind in ("ssd", "stats", "ncc", "nmi", "lncc"))
+    for kind in ("ssd", "stats", "ncc", "nmi", "lncc")) + ("flash_attention",)
 _LAUNCHES = dict.fromkeys(_KERNELS, 0)
 
 
@@ -84,9 +87,9 @@ def _on_card(t, name) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
-def _check(t, name, ndim, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+def _check(t, name, ndim, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if t.device != device:
@@ -357,3 +360,38 @@ def two_pass_loss(sim_spec, phi, moving, fixed, tile, *, stats, ncc_moments,
     hist = nmi_histogram(phi, moving, fixed, scal, tile, bins=bins,
                          sigma=float(sigma_ratio) / (bins - 1), eps=float(eps))
     return entropy_loss(hist / n, float(eps))
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """Causal / windowed / softcapped GQA attention by online softmax.
+
+    q: ``(B, S, H, hd)``; k, v: ``(B, S, KV, hd)``, ``H % KV == 0``, all of
+    one dtype (float32 or bfloat16); query and key positions are
+    ``arange(S)``.  ``window > 0`` keeps the keys ``k > q - window``;
+    ``softcap > 0`` caps the scores at ``tanh(s / softcap) * softcap``.
+    Returns ``(B, S, H, hd)`` in q's dtype.  On the card the kernel takes
+    head dims ``kernels.flash_attention.HEAD_DIMS`` and contiguous tensors.
+    """
+    B, S, H, hd = q.shape
+    if k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (B, S) or k.shape[3] != hd:
+        raise ValueError(f"k and v must be (B, S, KV, hd) = ({B}, {S}, KV, {hd}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if H % k.shape[2]:
+        raise ValueError(f"{H} query heads do not split into {k.shape[2]} key/value heads")
+    if not _on_card(q, "flash_attention"):
+        return _flash.plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, 4, q.device, q.dtype)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if hd not in _flash.HEAD_DIMS:
+        raise ValueError(f"the flash_attention kernel takes head dims {_flash.HEAD_DIMS}, "
+                         f"got {hd}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _flash.launch(q, k, v, out, causal=causal, window=window, softcap=softcap)
+    _LAUNCHES["flash_attention"] += 1
+    return out

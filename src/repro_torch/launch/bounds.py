@@ -1,7 +1,7 @@
 """The least time an H100 could take for each BSI kernel of the JAX package.
 
     PYTHONPATH=src python -m repro_torch.launch.bounds [--shape X Y Z] [--tile D D D]
-        [--bins B] [--seq S]
+        [--bins B] [--batch B] [--seq S]
 
 For a volume and tile (default: the paper's phantom1, 512 x 228 x 385, tile
 5^3, 3 channels) it counts, from the shapes alone, the bytes each kernel must
@@ -11,8 +11,9 @@ compute it (the forward BSI's four forms and the two adjoints each compute
 one function, so a form's own cost, such as the 64 multiply-adds per output
 of the TT and matrix forms, is not its bound), and prints the larger of bytes / 3.35 TB/s and
 operations / 67 TFLOP/s (H100 SXM fp32 outside the tensor cores) with which
-of the two bounds it; and the same for one bf16 attention layer (989 TFLOP/s
-on the tensor cores) of a config of the JAX package at ``--seq`` tokens.  ``chip_smoke.py`` uses the same counts for the
+of the two bounds it; and the same for gemma2-2b's global and local
+attention layers (989 TFLOP/s bf16 on the tensor cores) at ``--batch``
+prompts of ``--seq`` tokens.  ``chip_smoke.py`` uses the same counts for the
 ported kernels.  Pure arithmetic: it needs no card.
 """
 
@@ -24,11 +25,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 PHANTOM1 = (512, 228, 385)
-# One attention layer of the JAX package's src/repro/configs/internlm2_1_8b.py
-# (16 query heads, 8 key/value heads, head dim 128, causal), batch 1.
-ATTENTION_LAYER = dict(heads=16, kv_heads=8, head_dim=128, causal=True)
+# gemma2-2b's attention layer (src/repro_torch/configs/gemma2_2b.py): 8 query
+# heads, 4 key/value heads, head dim 256, causal; global layers attend to
+# every earlier token, local ones to a 4096-token window.  The serving
+# cell's prefill: 4 prompts of 8160 tokens.
+ATTENTION_LAYER = dict(heads=8, kv_heads=4, head_dim=256, causal=True)
+GEMMA_WINDOW = 4096
+SERVE_BATCH, SERVE_SEQ = 4, 8160
 
-__all__ = ["attention_bound", "kernel_bounds", "bound_ms"]
+__all__ = ["attention_bound", "attention_pairs", "kernel_bounds", "bound_ms"]
 
 
 def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
@@ -38,13 +43,25 @@ def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_bound(seq, *, heads, kv_heads, head_dim, causal, itemsize=2):
-    """``(bytes, flops)`` of one attention layer, batch 1, over ``seq`` tokens:
-    q, k, v read and the output written once; ``QK^T`` and ``PV`` at 2 flops
-    per multiply-add, halved when causal."""
-    moved = itemsize * seq * head_dim * (2 * heads + 2 * kv_heads)
-    flops = 4 * seq * seq * head_dim * heads
-    return moved, flops // 2 if causal else flops
+def attention_pairs(seq, *, causal, window=0) -> int:
+    """The (query, key) pairs over ``seq`` positions that the mask keeps:
+    causal ``k <= q``; a window ``k > q - window`` (0: none)."""
+    total = 0
+    for q in range(seq):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        total += (q + 1 if causal else seq) - lo
+    return total
+
+
+def attention_bound(seq, *, heads, kv_heads, head_dim, causal, window=0, batch=1,
+                    itemsize=2):
+    """``(bytes, flops)`` of one attention layer over ``batch`` sequences of
+    ``seq`` tokens: q, k, v read and the output written once; ``QK^T`` and
+    ``PV`` at 2 flops per multiply-add for each pair of
+    :func:`attention_pairs`."""
+    moved = itemsize * batch * seq * head_dim * (2 * heads + 2 * kv_heads)
+    pairs = attention_pairs(seq, causal=causal, window=window)
+    return moved, 4 * head_dim * heads * batch * pairs
 
 
 def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
@@ -110,7 +127,8 @@ def main(argv=None):
     ap.add_argument("--tile", type=int, nargs=3, default=(5, 5, 5))
     ap.add_argument("--channels", type=int, default=3)
     ap.add_argument("--bins", type=int, default=32, help="NMI histogram width")
-    ap.add_argument("--seq", type=int, default=4096, help="attention sequence length")
+    ap.add_argument("--batch", type=int, default=SERVE_BATCH, help="attention batch")
+    ap.add_argument("--seq", type=int, default=SERVE_SEQ, help="attention sequence length")
     args = ap.parse_args(argv)
     print(f"volume {tuple(args.shape)}, tile {tuple(args.tile)}, "
           f"{args.channels} channels, {args.bins} NMI bins; H100 SXM 3.35 TB/s, "
@@ -120,12 +138,15 @@ def main(argv=None):
         ms, by = bound_ms(b, f)
         print(f"{name:24s} {b / 1e6:9.1f} MB {f / 1e9:8.2f} GFLOP  "
               f"bound {ms:.4f} ms ({by})")
-    b, f = attention_bound(args.seq, **ATTENTION_LAYER)
-    ms, by = bound_ms(b, f, BF16_FLOP_PER_S)
-    print(f"{'flash_attention':24s} {b / 1e6:9.1f} MB {f / 1e9:8.2f} GFLOP  "
-          f"bound {ms:.4f} ms ({by}); internlm2_1_8b layer {ATTENTION_LAYER}, "
-          f"sequence {args.seq}, bf16, 989 TFLOP/s")
-
+    for layer, window in (("global", 0), ("local", GEMMA_WINDOW)):
+        b, f = attention_bound(args.seq, **ATTENTION_LAYER, window=window,
+                               batch=args.batch)
+        ms, by = bound_ms(b, f, BF16_FLOP_PER_S)
+        pairs = attention_pairs(args.seq, causal=True, window=window)
+        print(f"{'flash_attention ' + layer:24s} {b / 1e6:9.1f} MB {f / 1e9:8.2f} GFLOP  "
+              f"bound {ms:.4f} ms ({by}); gemma2-2b {layer} layer {ATTENTION_LAYER}, "
+              f"window {window}, batch {args.batch}, sequence {args.seq}, {pairs} pairs "
+              "per head, bf16, 989 TFLOP/s")
 
 if __name__ == "__main__":
     main()

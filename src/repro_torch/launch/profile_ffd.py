@@ -30,42 +30,14 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 
 import torch
 
 from repro_torch import PAPER_VOLUMES, RegistrationOptions, ffd_register, make_pair
+from repro_torch.device import card_name, device_ms_by_name, traced
 from repro_torch.engine.autotune import RACES, resolve_options
 from repro_torch.kernels.build import load_library
-
-_ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
-               torch.profiler.ProfilerActivity.CUDA]
-
-
-def _card():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _traced(fn):
-    """``(profile, wall seconds)`` of one call of ``fn``."""
-    with torch.profiler.profile(activities=_ACTIVITIES) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t0
-    return prof, wall
-
-
-def _device_ms_by_name(prof):
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return out
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -84,7 +56,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_ffd: needs a CUDA device")
 
-    card = _card()
+    card = card_name()
     build_s = load_library().info.seconds
     fixed, moving, _ = make_pair(tuple(args.shape), seed=0)
     if args.remap:
@@ -111,8 +83,8 @@ def main(argv=None):
     def run():
         ffd_register(fixed, moving, options=opts)
 
-    _traced(lambda: torch.ones(1, device="cuda").sum().item())  # profiler start-up
-    cold, cold_wall = _traced(run)
+    traced(lambda: torch.ones(1, device="cuda").sum().item())  # profiler start-up
+    cold, cold_wall = traced(run)
     host = sorted(cold.key_averages(), key=lambda a: -a.self_cpu_time_total)
     host_top = [[a.key, a.count, a.self_cpu_time_total / 1e3] for a in host[: args.top]]
     print(f"card: {card}; shape {tuple(args.shape)}, iters {args.iters}, "
@@ -132,8 +104,8 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"later calls, seconds each: {seconds}; peak device memory {peak:.2f} GiB")
 
-    warm, wall = _traced(run)
-    by_name = _device_ms_by_name(warm)
+    warm, wall = traced(run)
+    by_name = device_ms_by_name(warm)
     busy = sum(by_name.values())
     ours = sum(t for n, t in by_name.items() if "repro_torch" in n)
     print(f"warm call (traced): wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "

@@ -20,7 +20,8 @@ from repro_torch import RegistrationOptions, ffd_register, make_pair  # noqa: E4
 from repro_torch.core import ffd  # noqa: E402
 from repro_torch.core.interpolate import bsi_gather, interpolate  # noqa: E402
 from repro_torch.kernels import (bsi_adjoint, bsi_fused, bsi_matmul,  # noqa: E402
-                                  bsi_separable, bsi_tt, bsi_ttli, ops)
+                                  bsi_separable, bsi_tt, bsi_ttli, flash_attention,
+                                  ops)
 
 pytestmark = pytest.mark.gpu
 
@@ -491,3 +492,98 @@ def test_auto_options_on_card_race_the_kernels(cuda, tmp_path, monkeypatch):
     autotune.resolve_options.cache_clear()
     assert autotune.resolve_options(opts, (28, 24, 20), cuda) == resolved
     assert len(autotune.RACES) == n_races
+
+
+# ------------------------------------------------------------ flash attention
+
+# (B, S, H, KV, hd): MHA, GQA 4:1 and 2:1, MQA; ragged S (not a multiple of 64)
+FLASH_SHAPES = [
+    (2, 128, 4, 4, 16),
+    (1, 200, 8, 2, 64),
+    (2, 96, 4, 1, 128),
+    (1, 330, 8, 4, 256),
+]
+FLASH_MASKS = [dict(causal=True), dict(causal=False), dict(causal=True, window=40),
+               dict(causal=False, window=40), dict(causal=True, softcap=50.0),
+               dict(causal=True, window=64, softcap=30.0)]
+
+
+def _flash_inputs(shape, dtype, device, seed=0):
+    B, S, H, KV, hd = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device=device).to(dtype)
+                 for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+
+
+def _flash_close(out, ref):
+    """float32: 2e-5 (the reference's own flash tolerance); bf16: the float32
+    results differ by rounding only, so each value is at most one bf16
+    rounding step from the plain version's."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    o, r = out.float(), ref.float()
+    if out.dtype == torch.float32:
+        assert (o - r).abs().max().item() <= 2e-5
+    else:
+        step = 2.0**-7 * torch.maximum(o.abs(), r.abs()) + 1e-5
+        assert ((o - r).abs() <= step).all(), (o - r).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", FLASH_MASKS, ids=lambda m: "-".join(
+    f"{k}{v}" for k, v in m.items()))
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_kernel_matches_plain(cuda, shape, mask, dtype):
+    q, k, v = _flash_inputs(shape, dtype, cuda)
+    before = _launches("flash_attention")
+    out = ops.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert _launches("flash_attention") == before + 1
+    _flash_close(out, flash_attention.plain(q, k, v, **mask))
+
+
+def test_flash_kernel_is_deterministic(cuda):
+    q, k, v = _flash_inputs((2, 300, 8, 4, 256), torch.bfloat16, cuda, seed=1)
+    a, b = (ops.flash_attention(q, k, v, window=64, softcap=50.0) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+def test_flash_dispatcher_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs((1, 64, 4, 2, 48), torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _flash_inputs((1, 64, 4, 2, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+
+
+def test_generate_on_card_matches_cpu(cuda):
+    """gemma2-2b's smoke config in float32 with a float32 cache: the card
+    (flash kernel in prefill) against the CPU (its plain version), 48-token
+    prompts."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.training.steps import make_prefill_step
+
+    cfg = dataclasses.replace(get_config("gemma2-2b", smoke=True), dtype="float32",
+                              kv_cache_dtype="float32")
+    host = M.init_model(cfg, seed=0, device="cpu")
+    card = M.DecoderLM(cfg, M.map_tree(lambda t: t.to(cuda), host.tree()))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 48))
+    ops.reset_launch_counts()
+    toks, cache = serve.generate(cfg, card, prompts, 60, 8)
+    assert ops.launch_counts() == _no_launches_but(flash_attention=cfg.num_layers)
+    ref_toks, ref_cache = serve.generate(cfg, host, prompts, 60, 8)
+    np.testing.assert_array_equal(toks.cpu().numpy(), ref_toks.numpy())
+    np.testing.assert_allclose(cache["k"].cpu().numpy(), ref_cache["k"].numpy(),
+                               atol=1e-4)
+    batch = {"tokens": torch.as_tensor(prompts)}
+    logits, _ = make_prefill_step(cfg, card)({"tokens": batch["tokens"].to(cuda)})
+    ref, _ = make_prefill_step(cfg, host)(batch)
+    np.testing.assert_allclose(logits.cpu().numpy(), ref.numpy(), atol=1e-4, rtol=1e-4)

@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,6 +15,11 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402, F401  (the suite's other files import both packages)
 
 from repro_torch import ffd_register, make_pair  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.convert import cache_from_numpy, model_from_numpy  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -36,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_reference(path):
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch, repro_torch.convert, repro_torch.kernels.ops, "
+            "repro_torch.launch.serve; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
@@ -50,6 +57,31 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         ffd_register(vol, vol)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_pair((10, 10, 10))
+    cfg = get_config("gemma2-2b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_decode_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        A.init_cache(cfg, 1, 8)
+    # the JAX package's parameters and cache carried across land on the card
+    tree = M.map_tree(lambda t: t.numpy(), M.init_model(cfg, device="cpu").tree())
+    blocks = tree.pop("blocks")
+    params = dict(tree, blocks={
+        k: {n: np.stack([b[k][n] for b in blocks]) for n in blocks[0][k]}
+        for k in blocks[0]})
+    assert M.map_tree(lambda t: t.shape, model_from_numpy(cfg, params, "cpu").tree()) \
+        == M.map_tree(lambda t: t.shape, M.init_model(cfg, device="cpu").tree())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_from_numpy(cfg, params)
+    cache = {k: (v.float().numpy() if k != "pos" else v)
+             for k, v in M.init_decode_cache(cfg, 1, 8, device="cpu").items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cache_from_numpy(cache)
+    # generate runs where its model lies; serving from the command line
+    # builds the model on the card unless --device cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "gemma2-2b", "--smoke", "--gen", "1"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -350,11 +350,13 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         for spec in (("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
             ops.fused_similarity_loss(phi, m, f, (5, 4, 3), sim_spec=spec,
                                       disp_form=form)
+    q = torch.ones((1, 8, 2, 16))
+    ops.flash_attention(q, q[:, :, :1], q[:, :, :1], window=4, softcap=30.0)
     fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul")
              for k in ("", "_stats", "_ncc", "_nmi", "_lncc")]
     assert ops.launch_counts() == dict.fromkeys(
         ["bsi_ttli", "bsi_separable", "bsi_tt", "bsi_matmul", "bsi_adjoint",
-         "bsi_adjoint_matmul"] + fused, 0)
+         "bsi_adjoint_matmul"] + fused + ["flash_attention"], 0)
 
 
 def test_dispatchers_check_coverage():
