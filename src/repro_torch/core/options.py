@@ -17,10 +17,11 @@ plain version on a CPU tensor); ``grad_impl="matmul"`` is the
 transposed-matmul adjoint kernel, as in the JAX package.  ``"auto"`` on
 ``mode``, ``impl``, ``grad_impl`` or ``fused`` leaves the axis to the
 autotuner (``engine.autotune.resolve_options``, which ``ffd_register``
-calls).  The defaults run the kernels: ``mode="ttli", impl="cuda",
-grad_impl="cuda", fused="on"`` (the JAX package's are all ``"auto"``).  A
-value whose module or kernel is not in the package yet raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+calls).  The defaults run the kernels, ``mode="ttli", impl="cuda",
+grad_impl="cuda"``, with ``fused="auto"`` as in the JAX package (whose
+defaults are all ``"auto"``).  A value whose module or kernel is not in
+the package yet raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
@@ -73,9 +74,12 @@ class RegistrationOptions:
     transform:       ``"displacement"``.
     regularizer:     ``"none"`` (the ``bending_weight`` proxy).
     stop:            None (a fixed ``iters`` per level).
-    fused:           ``"on"``: the fused level-step kernel; ``"off"``: the
-                     unfused dense field -> warp -> similarity; ``"auto"``:
-                     the faster of the two on the card, ``"off"`` on the CPU.
+    fused:           ``"auto"`` (the default): the faster of the fused and
+                     unfused level step on the card, ``"off"`` on the CPU
+                     and for a similarity with no fused kernel; ``"on"``:
+                     the fused level-step kernel (raises for a similarity
+                     with none); ``"off"``: the unfused dense field -> warp
+                     -> similarity.
     optimizer:       ``"adam"`` or an ``AdamOptimizer``.
     fused_reason:    why ``fused`` resolved as it did, set by
                      ``engine.autotune.resolve_options`` on its output; None
@@ -96,7 +100,7 @@ class RegistrationOptions:
     transform: Any = "displacement"
     regularizer: Any = "none"
     stop: Any = None
-    fused: str = "on"
+    fused: str = "auto"
     optimizer: Any = "adam"
     fused_reason: Any = dataclasses.field(default=None, compare=False)
 

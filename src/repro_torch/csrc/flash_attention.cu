@@ -1,23 +1,23 @@
-// Flash attention: causal / sliding-window / logit-softcapped GQA attention by
-// online softmax, float32 inside.
+// Flash attention in float32 on the CUDA cores: causal / sliding-window /
+// logit-softcapped GQA attention by online softmax.  bf16 inputs run on the
+// tensor cores instead (flash_attention_sm90.cu).
 //
 // Replaces: the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (_kernel), the fused counterpart of the JAX
 // package's repro/models/attention.py:attend_blockwise.  Per query row and
-// key block: s = (q * 1/sqrt(hd)) . k in float32 from q and k upcast;
+// key block: s = (q * 1/sqrt(hd)) . k;
 // s = tanh(s / softcap) * softcap; masked (k > q when causal, k <= q - window
 // when window > 0, k >= S) to NEG_INF = -2e30; then m' = max(m, max s),
 // p = exp(s - m'), l = l * exp(m - m') + sum p, acc = acc * exp(m - m') + p v,
-// m from -inf; out = acc / max(l, 1e-30) in q's dtype.
+// m from -inf; out = acc / max(l, 1e-30).
 //
 // What bounds it on an H100: the operations.  QK^T and PV are 4 * hd flops per
 // (query, key) pair the mask keeps: at gemma2-2b's layer (batch 4, 8160
 // tokens, 8 query and 4 key/value heads, head dim 256) 1.09 TFLOP for a global
-// layer, 1.10 ms at the 989 TFLOP/s of bf16 tensor cores, against 401 MB of
-// q, k, v and o (0.12 ms at 3.35 TB/s).
+// layer, 16.3 ms at the 67 TFLOP/s of float32 on the CUDA cores, against 802
+// MB of q, k, v and o (0.24 ms at 3.35 TB/s).
 //
-// What the design does about it, for now: the simple form, on the CUDA cores
-// in float32 (the tensor cores, wgmma and TMA are later work).  One thread
+// What the design does about it: the simple form, float32 FMAs.  One thread
 // block of 256 threads owns kBlockQ = 64 query rows of one (batch, head) and
 // walks the kBlockK = 64-key blocks its rows can see: the blocks wholly past
 // the diagonal (causal) and wholly left of the window are skipped, which
@@ -32,7 +32,6 @@
 // or value is copied.  Keys past S are masked (their K and V read as 0) and
 // rows past S are not written, so any sequence length runs.  No atomics:
 // two launches on the same inputs write the same bits.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -47,19 +46,10 @@ constexpr int kBlockQ = 64;   // query rows per block
 constexpr int kBlockK = 64;   // keys per step of a block's loop
 constexpr float kNegInf = -2.0e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// 32 bytes of row `row` from element d0 as floats; zeros past the sequence.
-template <typename T>
-__device__ __forceinline__ void load_chunk(const T* __restrict__ base, size_t row_stride,
-                                           int row, int S, int d0,
-                                           float (&f)[32 / sizeof(T)]) {
-  constexpr int n = 32 / sizeof(T);
+// 32 bytes (8 floats) of row `row` from element d0; zeros past the sequence.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ base, size_t row_stride,
+                                           int row, int S, int d0, float (&f)[8]) {
+  constexpr int n = 8;
   if (row >= S) {
 #pragma unroll
     for (int e = 0; e < n; ++e) f[e] = 0.f;
@@ -69,9 +59,9 @@ __device__ __forceinline__ void load_chunk(const T* __restrict__ base, size_t ro
   uint4 raw[2];
   raw[0] = __ldg(src);
   raw[1] = __ldg(src + 1);
-  const T* t = reinterpret_cast<const T*>(raw);
+  const float* t = reinterpret_cast<const float*>(raw);
 #pragma unroll
-  for (int e = 0; e < n; ++e) f[e] = to_float(t[e]);
+  for (int e = 0; e < n; ++e) f[e] = t[e];
 }
 
 template <int HD>
@@ -110,13 +100,13 @@ __device__ __forceinline__ void load_cols(const float* __restrict__ row, int tc,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-    flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H, int KV,
+    flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int S, int H, int KV,
                  int causal, int window, float scale, float softcap) {
   using L = Layout<HD>;
-  constexpr int CH = 32 / sizeof(T);  // elements per 32-byte chunk
+  constexpr int CH = 8;  // elements per 32-byte chunk
   constexpr int NCH = HD / CH;        // chunks per row
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // (HD, kBlockQ): q * scale, d-major
@@ -132,10 +122,10 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int g = h / (H / KV);
   const size_t q_row = (size_t)H * HD, kv_row = (size_t)KV * HD;
-  const T* qb = q + (size_t)b * S * q_row + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * kv_row + (size_t)g * HD;
-  const T* vb = v + (size_t)b * S * kv_row + (size_t)g * HD;
-  T* ob = o + (size_t)b * S * q_row + (size_t)h * HD;
+  const float* qb = q + (size_t)b * S * q_row + (size_t)h * HD;
+  const float* kb = k + (size_t)b * S * kv_row + (size_t)g * HD;
+  const float* vb = v + (size_t)b * S * kv_row + (size_t)g * HD;
+  float* ob = o + (size_t)b * S * q_row + (size_t)h * HD;
 
   for (int c = tid; c < kBlockQ * NCH; c += kThreads) {
     const int r = c % kBlockQ, d0 = (c / kBlockQ) * CH;
@@ -272,21 +262,21 @@ __global__ void __launch_bounds__(kThreads)
     const int row = tr * L::RM + i, qpos = q0 + row;
     if (qpos >= S) continue;
     const float l = fmaxf(l_s[row], 1e-30f);
-    T* orow = ob + (size_t)qpos * q_row;
+    float* orow = ob + (size_t)qpos * q_row;
 #pragma unroll
     for (int j = 0; j < L::CN / L::VW; ++j)
 #pragma unroll
       for (int e = 0; e < L::VW; ++e)
-        store(orow + L::VW * tc + L::VW * L::TC * j + e, acc[i][j * L::VW + e] / l);
+        orow[L::VW * tc + L::VW * L::TC * j + e] = acc[i][j * L::VW + e] / l;
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch_hd(const T* q, const T* k, const T* v, T* o, int B, int S, int H,
-                      int KV, int causal, int window, float scale, float softcap,
+template <int HD>
+cudaError_t launch_hd(const float* q, const float* k, const float* v, float* o, int B, int S,
+                      int H, int KV, int causal, int window, float scale, float softcap,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * Layout<HD>::smem_floats;
-  auto kernel = flash_kernel<T, HD>;
+  auto kernel = flash_kernel<HD>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -294,28 +284,6 @@ cudaError_t launch_hd(const T* q, const T* k, const T* v, T* o, int B, int S, in
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, S, H, KV, causal, window, scale,
                                            softcap);
   return cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const T* q, const T* k, const T* v, T* o, int B, int S, int H, int KV,
-             int hd, int causal, int window, float scale, float softcap, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 16:
-      return (int)launch_hd<T, 16>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
-    case 32:
-      return (int)launch_hd<T, 32>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
-    case 64:
-      return (int)launch_hd<T, 64>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
-    case 128:
-      return (int)launch_hd<T, 128>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap,
-                                    st);
-    case 256:
-      return (int)launch_hd<T, 256>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap,
-                                    st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -328,14 +296,20 @@ extern "C" int flash_attention_f32(const float* q, const float* k, const float* 
                                    float* o, int B, int S, int H, int KV, int hd,
                                    int causal, int window, float scale, float softcap,
                                    void* stream) {
-  return repro_torch::dispatch<float>(q, k, v, o, B, S, H, KV, hd, causal, window, scale,
-                                      softcap, stream);
-}
-
-extern "C" int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                                    const __nv_bfloat16* v, __nv_bfloat16* o, int B, int S,
-                                    int H, int KV, int hd, int causal, int window,
-                                    float scale, float softcap, void* stream) {
-  return repro_torch::dispatch<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal, window,
-                                              scale, softcap, stream);
+  using namespace repro_torch;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (hd) {
+    case 16:
+      return (int)launch_hd<16>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
+    case 32:
+      return (int)launch_hd<32>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
+    case 64:
+      return (int)launch_hd<64>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
+    case 128:
+      return (int)launch_hd<128>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
+    case 256:
+      return (int)launch_hd<256>(q, k, v, o, B, S, H, KV, causal, window, scale, softcap, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -22,11 +22,12 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["BuildInfo", "Library", "load_library", "nvcc_path"]
+__all__ = ["BuildInfo", "Library", "load_library", "nvcc_path", "sass_counts"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bsi_ttli.cu", "bsi_separable.cu", "bsi_tt.cu", "bsi_matmul.cu",
-           "bsi_adjoint.cu", "bsi_fused.cu", "flash_attention.cu")
+           "bsi_adjoint.cu", "bsi_fused.cu", "flash_attention.cu",
+           "flash_attention_sm90.cu")
 HEADERS = ("bsi_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = (
@@ -57,8 +58,8 @@ _SIGNATURES = {
     "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iff",
     "bsi_fused_lncc_f32": "ppppp" + "ip" + _DIMS + "iiii" + "ff",
     # q, k, v, out; B, S, H, KV, hd, causal, window; scale, softcap
-    "flash_attention_f32": "pppp" + "i" * 7 + "ff",
-    "flash_attention_bf16": "pppp" + "i" * 7 + "ff",
+    "flash_attention_f32": "pppp" + "i" * 7 + "ff",  # flash_attention.cu
+    "flash_attention_bf16": "pppp" + "i" * 7 + "ff",  # flash_attention_sm90.cu
 }
 
 
@@ -66,7 +67,9 @@ _SIGNATURES = {
 class BuildInfo:
     path: Path
     seconds: float  # 0.0 when the library was already built
-    ptxas: tuple  # one "kernel: N registers, M bytes spill" line per kernel
+    # one "kernel: N registers, M bytes spill" line per kernel, and ptxas's
+    # "Potential Performance Loss" notes (a wgmma serialised) as they stand
+    ptxas: tuple
 
 
 class Library:
@@ -111,9 +114,13 @@ def _digest() -> str:
 
 
 def _ptxas_summary(log: str) -> tuple:
-    """One line per kernel from ``-Xptxas -v``: registers, spills, smem."""
+    """One line per kernel from ``-Xptxas -v``: registers, spills, smem; and
+    each "Potential Performance Loss" note."""
     lines, kernel, spills = [], None, "spills not reported"
     for line in log.splitlines():
+        if "Performance Loss" in line:
+            lines.append(line.strip())
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             kernel = m.group(1)
@@ -158,6 +165,25 @@ def _build(out: Path) -> BuildInfo:
         subprocess.run(link, check=True, capture_output=True, text=True)
         os.replace(tmp_lib, out)
     return BuildInfo(out, time.perf_counter() - t0, _ptxas_summary("\n".join(log)))
+
+
+def sass_counts(path, function_part, opcode) -> dict:
+    """``{function: n}``: the SASS instructions whose opcode starts with
+    ``opcode`` (``HGMMA``: wgmma) in each function of the library at ``path``
+    whose mangled name holds ``function_part``, by ``cuobjdump -sass``."""
+    cuobjdump = str(Path(nvcc_path()).parent / "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if function_part in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?" + opcode, line):
+            counts[fn] += 1
+    return counts
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,17 +1,23 @@
-"""Flash attention: the CUDA kernel's launch and its plain version.
+"""Flash attention: the CUDA kernels' launch and their plain version.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
-kernel ``repro/kernels/flash_attention.py:flash_attention_pallas``: causal,
+The kernels replace the JAX package's Pallas kernel
+``repro/kernels/flash_attention.py:flash_attention_pallas``: causal,
 sliding-window, logit-softcapped GQA attention by online softmax, with the
-scores, the running max and sum and the accumulator in float32 from q, k and
-v upcast.  A thread block owns 64 query rows of one (batch, head) and
-walks the 64-key blocks the mask can reach; it reads the ``(B, S, H, hd)``
-and ``(B, S, KV, hd)`` layouts in place (query head ``h`` reads key/value
-head ``h // (H // KV)``), masks the keys past ``S`` and writes no row past
-``S``, so any sequence length runs.  :func:`plain` computes the same function
-in tensor ops, block by block over the same key range, and
-``kernels.ops.flash_attention`` picks between the two by the tensor's
-device.
+scores, the running max and sum and the accumulator in float32.  They read
+the ``(B, S, H, hd)`` and ``(B, S, KV, hd)`` layouts in place (query head
+``h`` reads key/value head ``h // (H // KV)``), mask the keys past ``S`` and
+write no row past ``S``, so any sequence length runs.
+
+- bfloat16: ``csrc/flash_attention_sm90.cu``, on the tensor cores (wgmma,
+  TMA, a producer and two consumer warpgroups over 128 query rows, 64-key
+  blocks).  It rounds ``p`` to bf16 for the PV product, as
+  ``plain(..., p_dtype=torch.bfloat16)`` does; ``l`` sums the float32 ``p``.
+- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores (64
+  query rows a block), ``p`` in float32 as :func:`plain`.
+
+:func:`plain` computes the function in tensor ops, block by block over the
+same key range, and ``kernels.ops.flash_attention`` picks between kernel and
+plain version by the tensor's device.
 """
 
 from __future__ import annotations
@@ -22,10 +28,15 @@ import torch
 
 from repro_torch.kernels.build import load_library
 
-__all__ = ["HEAD_DIMS", "NEG_INF", "key_range", "launch", "plain", "scale_of"]
+__all__ = ["HEAD_DIMS", "KEY_BLOCK", "NEG_INF", "key_range", "launch", "plain",
+           "scale_of"]
 
 NEG_INF = -2.0e30
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernel is built for
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the kernels are built for
+# The bf16 kernel's key block, and its rows per consumer warpgroup: with
+# ``block=KEY_BLOCK``, ``plain(..., p_dtype=torch.bfloat16)`` walks the same
+# blocks with the same running max, so it rounds the same ``p``.
+KEY_BLOCK = 64
 _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
 
 
@@ -43,22 +54,31 @@ def key_range(q0, q1, S, *, causal, window, block):
     return k0, k1
 
 
-def plain(q, k, v, *, causal=True, window=0, softcap=0.0, block=256):
-    """The kernel's function in tensor ops, float32 inside.
+def plain(q, k, v, *, causal=True, window=0, softcap=0.0, block=256, p_dtype=None):
+    """The kernels' function in tensor ops, float32 inside.
 
     q: ``(B, S, H, hd)``; k, v: ``(B, S, KV, hd)`` with ``H % KV == 0``;
     query and key positions are ``arange(S)``.  ``window = 0`` is full
     attention, ``softcap = 0`` no cap.  Returns ``(B, S, H, hd)`` in q's
     dtype.  Blocks of ``block`` query rows each run an online softmax over
-    ``block``-key steps of :func:`key_range`, as the kernel does (masked
-    scores ``NEG_INF``, the running max from ``-inf``).
+    ``block``-key steps of :func:`key_range`, as the kernels do (masked
+    scores ``NEG_INF``, the running max from ``-inf``).  ``p_dtype``: None
+    multiplies the float32 probabilities by ``v``, as the TPU kernel and the
+    float32 kernel do.  ``torch.bfloat16`` rounds as the bf16 kernel does:
+    the scale multiplies the product ``q . k`` (not ``q``), the softcap
+    divides by multiplying with its reciprocal, and the probabilities are
+    rounded to bf16 for the PV product (``l`` still sums the float32 ones).
+    That rounding moves each output by at most ``2^-8 * max|v|``:
+    ``|sum p_i d_i v_i| / l`` with ``|d_i| <= 2^-8`` and ``l = sum p_i``.
     """
     B, S, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
     scale = scale_of(hd)
+    twin = p_dtype is not None
     # (B, KV, rep, S, hd): query head h = g * rep + r reads key/value head g
-    qf = (q.float() * scale).reshape(B, S, KV, rep, hd).permute(0, 2, 3, 1, 4)
+    qf = (q.float() if twin else q.float() * scale).reshape(
+        B, S, KV, rep, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)  # (B, KV, S, hd)
     vf = v.float().permute(0, 2, 1, 3)
     out = torch.empty((B, KV, rep, S, hd), dtype=torch.float32, device=q.device)
@@ -74,8 +94,10 @@ def plain(q, k, v, *, causal=True, window=0, softcap=0.0, block=256):
         for k0 in range(k_lo, k_hi, block):
             k1 = min(S, k0 + block)
             s = torch.einsum("bgrqd,bgkd->bgrqk", qb, kf[:, :, k0:k1])
+            if twin:
+                s = s * scale
             if softcap:
-                s = torch.tanh(s / softcap) * softcap
+                s = torch.tanh(s * (1.0 / softcap) if twin else s / softcap) * softcap
             kp = pos[None, k0:k1]
             ok = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=q.device)
             if causal:
@@ -87,7 +109,8 @@ def plain(q, k, v, *, causal=True, window=0, softcap=0.0, block=256):
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1)
-            acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", p,
+            pv = p.to(p_dtype).float() if twin else p
+            acc = acc * corr[..., None] + torch.einsum("bgrqk,bgkd->bgrqd", pv,
                                                        vf[:, :, k0:k1])
             m = m_new
         out[:, :, :, q0:q1] = acc / torch.clamp_min(l, 1e-30)[..., None]
@@ -95,7 +118,8 @@ def plain(q, k, v, *, causal=True, window=0, softcap=0.0, block=256):
 
 
 def launch(q, k, v, out, *, causal, window, softcap):
-    """Launch the kernel on the current stream: ``(q, k, v)`` -> ``out``."""
+    """Launch the kernel of q's dtype on the current stream: ``(q, k, v)`` ->
+    ``out``."""
     B, S, H, hd = q.shape
     lib = load_library()
     with torch.cuda.device(q.device):

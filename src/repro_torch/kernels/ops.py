@@ -369,8 +369,10 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     one dtype (float32 or bfloat16); query and key positions are
     ``arange(S)``.  ``window > 0`` keeps the keys ``k > q - window``;
     ``softcap > 0`` caps the scores at ``tanh(s / softcap) * softcap``.
-    Returns ``(B, S, H, hd)`` in q's dtype.  On the card the kernel takes
-    head dims ``kernels.flash_attention.HEAD_DIMS`` and contiguous tensors.
+    Returns ``(B, S, H, hd)`` in q's dtype.  On the card bf16 runs the
+    tensor-core kernel, float32 the CUDA-core one (``kernels.flash_attention``);
+    both take head dims ``kernels.flash_attention.HEAD_DIMS`` and contiguous
+    tensors.
     """
     B, S, H, hd = q.shape
     if k.shape != v.shape or k.dim() != 4 or k.shape[:2] != (B, S) or k.shape[3] != hd:

@@ -168,6 +168,53 @@ def test_flash_dispatcher_refuses_mismatched_shapes():
         ops.flash_attention(q[:, :, :3], k, v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plain_p_dtype_none_is_the_float32_product(dtype):
+    """``p_dtype=None`` is the default and keeps the function bit for bit;
+    the bf16 twin rounds otherwise."""
+    import inspect
+
+    assert inspect.signature(flash_attention.plain).parameters["p_dtype"].default is None
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(2, 100, 4, 2, 32, seed=7))
+    kw = dict(window=24, softcap=30.0, block=32)
+    ref = flash_attention.plain(q, k, v, **kw)
+    assert torch.equal(flash_attention.plain(q, k, v, p_dtype=None, **kw), ref)
+    np.testing.assert_allclose(ref.float().numpy(), _oracle(
+        *(t.float().numpy() for t in (q, k, v)), window=24, softcap=30.0),
+        atol=2e-5 if dtype == torch.float32 else 5e-2, rtol=2e-5)
+    assert not torch.equal(flash_attention.plain(q, k, v, p_dtype=torch.bfloat16, **kw),
+                           ref)
+
+
+# The card tests' cases (tests/test_torch_cuda.py: FLASH_SHAPES, FLASH_MASKS)
+TWIN_SHAPES = [(2, 128, 4, 4, 16), (1, 200, 8, 2, 64), (2, 96, 4, 1, 128),
+               (1, 330, 8, 4, 256)]
+TWIN_MASKS = [dict(causal=True), dict(causal=False), dict(causal=True, window=40),
+              dict(causal=False, window=40), dict(causal=True, softcap=50.0),
+              dict(causal=True, window=64, softcap=30.0)]
+
+
+@pytest.mark.parametrize("mask", TWIN_MASKS, ids=lambda m: "-".join(
+    f"{k}{v}" for k, v in m.items()))
+@pytest.mark.parametrize("shape", TWIN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_bf16_rounding_twin_within_derived_bound(shape, mask):
+    """The bf16 kernel's rounding twin (``p`` rounded to bf16 for PV, at the
+    kernel's 64-key blocks) against the TPU kernel's function (float32 ``p``),
+    on bf16 inputs: within ``2^-7 max(|o|, |r|) + 2^-8 max|v| + 1e-5``, the
+    bound the card tests hold the kernel to.  ``2^-8 max|v|`` bounds
+    ``|sum p_i d_i v_i| / l`` for rounding errors ``|d_i| <= 2^-8``; the
+    first term is one bf16 step of the outputs."""
+    B, S, H, KV, hd = shape
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(B, S, H, KV, hd))
+    twin = flash_attention.plain(q, k, v, block=flash_attention.KEY_BLOCK,
+                                 p_dtype=torch.bfloat16, **mask).float()
+    ref = flash_attention.plain(q, k, v, **mask).float()
+    bound = (2.0**-7 * torch.maximum(twin.abs(), ref.abs())
+             + 2.0**-8 * v.float().abs().max() + 1e-5)
+    assert ((twin - ref).abs() <= bound).all(), (twin - ref).abs().max().item()
+    assert not torch.equal(twin, ref)  # the rounding is there to bound
+
+
 def test_flash_key_range():
     kr = flash_attention.key_range
     assert kr(128, 192, 500, causal=True, window=0, block=64) == (0, 192)

@@ -340,7 +340,7 @@ def test_fused_auto_resolves_off_on_cpu():
 
 
 def test_resolve_options_passes_concrete_options_through():
-    opts = RegistrationOptions()
+    opts = RegistrationOptions(fused="on")
     resolved = autotune.resolve_options(opts, (20, 20, 20), CPU)
     assert resolved == opts and resolved.fused_reason == "forced on"
     assert autotune.resolve_options(opts, (20, 20, 20), CPU) is resolved  # cached

@@ -221,7 +221,7 @@ def test_dispatchers_refuse_what_the_kernels_do_not_take(cuda):
 
 def test_registration_on_card_matches_cpu(cuda):
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    opts = RegistrationOptions(levels=2, iters=5)
+    opts = RegistrationOptions(levels=2, iters=5, fused="on")
     ops.reset_launch_counts()
     card = ffd_register(fixed, moving, options=opts, device=cuda)
     counts = ops.launch_counts()
@@ -240,7 +240,7 @@ def test_registration_on_card_matches_cpu(cuda):
 def test_multimodal_registration_on_card_matches_cpu(cuda, similarity):
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
     remapped = (1.0 - moving) ** 1.5
-    opts = RegistrationOptions(levels=2, iters=5, similarity=similarity)
+    opts = RegistrationOptions(levels=2, iters=5, similarity=similarity, fused="on")
     ops.reset_launch_counts()
     card = ffd_register(fixed, remapped, options=opts, device=cuda)
     counts = ops.launch_counts()
@@ -373,7 +373,7 @@ def test_matmul_dispatchers_refuse_what_the_kernels_do_not_take(cuda):
 def test_lncc_matmul_registration_on_card_matches_cpu(cuda):
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
     opts = RegistrationOptions(levels=2, iters=5, similarity="lncc", mode="matmul",
-                               grad_impl="matmul")
+                               grad_impl="matmul", fused="on")
     ops.reset_launch_counts()
     card = ffd_register(fixed, moving, options=opts, device=cuda)
     counts = ops.launch_counts()
@@ -443,7 +443,7 @@ def test_separable_and_tt_kernels_are_deterministic(cuda):
 @pytest.mark.parametrize("mode", ["separable", "tt"])
 def test_separable_and_tt_registration_on_card_matches_cpu(cuda, mode):
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    opts = RegistrationOptions(levels=2, iters=5, mode=mode)
+    opts = RegistrationOptions(levels=2, iters=5, mode=mode, fused="on")
     ops.reset_launch_counts()
     card = ffd_register(fixed, moving, options=opts, device=cuda)
     counts = ops.launch_counts()
@@ -508,24 +508,60 @@ FLASH_MASKS = [dict(causal=True), dict(causal=False), dict(causal=True, window=4
                dict(causal=True, window=64, softcap=30.0)]
 
 
-def _flash_inputs(shape, dtype, device, seed=0):
+def _flash_inputs(shape, dtype, device, seed=0, exact_scores=False):
+    """Normal q, k, v; with ``exact_scores``, q and k on the quarter-integers
+    of [-4, 4] (exact in bf16), where every partial sum of ``q . k`` is exact
+    in float32, so the kernel's tensor cores and the twin's einsum, which sum
+    in other orders, give the same scores bit for bit."""
     B, S, H, KV, hd = shape
     g = torch.Generator(device=device).manual_seed(seed)
-    return tuple(torch.randn(s, generator=g, device=device).to(dtype)
-                 for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    q, k, v = (torch.randn(s, generator=g, device=device)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    if exact_scores:
+        q, k = ((4 * t).round().clamp(-16, 16) / 4 for t in (q, k))
+    return tuple(t.to(dtype) for t in (q, k, v))
 
 
-def _flash_close(out, ref):
-    """float32: 2e-5 (the reference's own flash tolerance); bf16: the float32
-    results differ by rounding only, so each value is at most one bf16
-    rounding step from the plain version's."""
+def _flash_close(out, ref, kind, v):
+    """float32: 2e-5 (the reference's own flash tolerance), whatever ``kind``.
+    bf16 against the rounding twin (``kind="twin"``, ``plain(...,
+    block=KEY_BLOCK, p_dtype=torch.bfloat16)``, which rounds as the kernel
+    does): on inputs whose scores are exact (``_flash_inputs(...,
+    exact_scores=True)``) the float32 results differ by the order of the
+    sums of ``l`` and ``P V`` only, so each value is at most one bf16 step
+    from the twin's.  bf16 against ``plain`` (``kind="plain"``, float32 ``p``
+    as the TPU kernel): one step and ``2^-8 max|v|``, the most that rounding
+    ``p`` to bf16 can move an output (``|sum p_i d_i v_i| / l`` with
+    ``|d_i| <= 2^-8``)."""
     assert out.shape == ref.shape and out.dtype == ref.dtype
     o, r = out.float(), ref.float()
     if out.dtype == torch.float32:
         assert (o - r).abs().max().item() <= 2e-5
+        return
+    bound = 2.0**-7 * torch.maximum(o.abs(), r.abs()) + 1e-5
+    if kind == "plain":
+        bound = bound + 2.0**-8 * v.float().abs().max()
     else:
-        step = 2.0**-7 * torch.maximum(o.abs(), r.abs()) + 1e-5
-        assert ((o - r).abs() <= step).all(), (o - r).abs().max().item()
+        assert kind == "twin", kind
+    assert ((o - r).abs() <= bound).all(), (kind, (o - r).abs().max().item())
+
+
+def _flash_check(shape, dtype, device, seed=0, **mask):
+    """The kernel on normal inputs against ``plain``, counted; in bf16 also
+    on exact-score inputs against the rounding twin and ``plain``."""
+    q, k, v = _flash_inputs(shape, dtype, device, seed)
+    before = _launches("flash_attention")
+    out = ops.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert _launches("flash_attention") == before + 1
+    _flash_close(out, flash_attention.plain(q, k, v, **mask), "plain", v)
+    if dtype == torch.bfloat16:
+        q, k, v = _flash_inputs(shape, dtype, device, seed, exact_scores=True)
+        out = ops.flash_attention(q, k, v, **mask)
+        _flash_close(out, flash_attention.plain(
+            q, k, v, block=flash_attention.KEY_BLOCK, p_dtype=torch.bfloat16, **mask),
+            "twin", v)
+        _flash_close(out, flash_attention.plain(q, k, v, **mask), "plain", v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -533,12 +569,57 @@ def _flash_close(out, ref):
     f"{k}{v}" for k, v in m.items()))
 @pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_flash_kernel_matches_plain(cuda, shape, mask, dtype):
-    q, k, v = _flash_inputs(shape, dtype, cuda)
-    before = _launches("flash_attention")
-    out = ops.flash_attention(q, k, v, **mask)
-    torch.cuda.synchronize()
-    assert _launches("flash_attention") == before + 1
-    _flash_close(out, flash_attention.plain(q, k, v, **mask))
+    _flash_check(shape, dtype, cuda, **mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_ragged_second_query_block(cuda, dtype):
+    """200 rows at head dim 256: the bf16 kernel's second 128-row block holds
+    72 rows, so its second consumer warpgroup has 8 rows and the TMA store
+    clips 56."""
+    _flash_check((1, 200, 8, 2, 256), dtype, cuda, seed=2, causal=True, window=40,
+                 softcap=30.0)
+
+
+@pytest.mark.parametrize("S", [130, 257])
+def test_flash_bf16_kernel_idle_consumer_and_head_dim_32(cuda, S):
+    """A last 128-row block of 2 or 1 rows: its second consumer warpgroup has
+    no rows and only releases the key blocks; head dim 32 (the 64-byte
+    swizzle)."""
+    _flash_check((2, S, 4, 2, 32), torch.bfloat16, cuda, seed=3, causal=True)
+    _flash_check((2, S, 4, 2, 32), torch.bfloat16, cuda, seed=4, causal=False, window=70)
+
+
+@pytest.fixture(scope="module")
+def fresh_build(tmp_path_factory):
+    """The kernels built anew into a temporary library: ptxas's lines are
+    kept only by the build that ran in this process."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels import build
+
+    return build._build(tmp_path_factory.mktemp("kernels") / "librepro_torch_kernels.so")
+
+
+def test_flash_bf16_kernel_does_not_spill(fresh_build):
+    """ptxas's line for each head dim of the bf16 entry: no spill stores or
+    loads (the consumers hold the 64 x hd float32 accumulator in registers)."""
+    lines = [ln for ln in fresh_build.ptxas if "flash_sm90_kernel" in ln
+             and "registers" in ln]
+    assert len(lines) == len(flash_attention.HEAD_DIMS), fresh_build.ptxas
+    assert all("0/0 B spill stores/loads" in ln for ln in lines), lines
+    assert not [ln for ln in fresh_build.ptxas if "Performance Loss" in ln
+                and "flash_sm90_kernel" in ln]  # no wgmma serialised
+
+
+def test_flash_bf16_kernel_runs_on_the_tensor_cores(fresh_build):
+    """``cuobjdump -sass``: each head dim of the bf16 entry holds HGMMA
+    (wgmma) instructions; the float32 CUDA-core kernel none."""
+    from repro_torch.kernels.build import sass_counts
+
+    hgmma = sass_counts(fresh_build.path, "flash_sm90_kernel", "HGMMA")
+    assert len(hgmma) == len(flash_attention.HEAD_DIMS) and all(hgmma.values()), hgmma
+    assert not any(sass_counts(fresh_build.path, "flash_kernel", "HGMMA").values())
 
 
 def test_flash_kernel_is_deterministic(cuda):

@@ -1,8 +1,9 @@
 """The whole slice: the port's ``ffd_register`` against the JAX package's.
 
 The reference is pinned to ``mode="ttli", impl="jnp", grad_impl="jnp",
-fused="off"``; the port runs its defaults (fused level step, the TTLI and
-adjoint kernels) on the CPU, where the kernels' plain versions run.
+fused="off"``; the port runs its defaults with ``fused="on"`` (fused level
+step, the TTLI and adjoint kernels) on the CPU, where the kernels' plain
+versions run.
 Registration outputs are held at 1e-4, as the reference holds its own paths.
 
 The multi-modal paths (NCC, NMI) hold per-level losses and the result's MAE
@@ -74,7 +75,8 @@ def test_make_pair_matches_reference(pair):
 
 def test_ffd_register_matches_reference(pair, ref_result):
     fixed, moving, _ = pair
-    out = ffd_register(fixed, moving, options=RegistrationOptions(levels=2, iters=5),
+    out = ffd_register(fixed, moving, options=RegistrationOptions(levels=2, iters=5,
+                                                                  fused="on"),
                        device="cpu")
     assert out.params.dtype == torch.float32
     np.testing.assert_allclose(out.losses, ref_result.losses, rtol=1e-4)
@@ -117,7 +119,7 @@ def test_multimodal_ffd_register_matches_reference(remapped_pair, similarity,
         ref = ref_register(fixed, remapped, options=RefOptions(
             similarity=similarity, **REF_FIELDS))
     out = ffd_register(fixed, remapped, options=RegistrationOptions(
-        levels=2, iters=5, similarity=similarity), device="cpu")
+        levels=2, iters=5, similarity=similarity, fused="on"), device="cpu")
     np.testing.assert_allclose(out.losses, ref.losses, rtol=1e-4)
     ref_mae = float(rmetrics.mae(ref.warped, fixed))
     mae = metrics.mae(out.warped, torch.from_numpy(fixed)).item()
@@ -171,7 +173,8 @@ def test_measure_bsi_time_reports_seconds(pair):
     (dict(iters=0), ValueError, "iters"),
     (dict(mode="auto", grad_impl="autograd"), ValueError, "autograd"),
     (dict(fused="sideways"), ValueError, "fused must be one of"),
-    (dict(similarity=lambda w, f: (w - f).abs().mean()), ValueError, "no fused kernel"),
+    (dict(similarity=lambda w, f: (w - f).abs().mean(), fused="on"), ValueError,
+     "no fused kernel"),
 ])
 def test_options_name_what_is_not_ported(fields, error, match):
     with pytest.raises(error, match=match):
@@ -197,7 +200,30 @@ def test_options_name_what_is_not_ported(fields, error, match):
 def test_options_accept_what_is_ported(fields):
     opts = RegistrationOptions(**fields)
     assert all(getattr(opts, k) == v for k, v in fields.items())
-    assert opts.fused == fields.get("fused", "on") and opts.fused_reason is None
+    assert opts.fused == fields.get("fused", "auto") and opts.fused_reason is None
+
+
+def test_default_fused_is_auto():
+    assert RegistrationOptions().fused == "auto"
+    assert RegistrationOptions(similarity=lambda w, f: ((w - f) ** 2).mean()).fused == "auto"
+
+
+def test_callable_similarity_with_default_options_matches_reference(pair):
+    """A loss callable with the default options registers on the CPU
+    (``fused="auto"`` resolves ``"off"``: the callable has no fused kernel),
+    as the JAX package's default call does with the same callable."""
+    fixed, moving, _ = pair
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ref = ref_register(fixed, moving, options=RefOptions(
+            similarity=lambda w, f: jnp.mean(jnp.abs(w - f)), mode="ttli", impl="jnp",
+            grad_impl="jnp", levels=2, iters=5))
+    out = ffd_register(fixed, moving, options=RegistrationOptions(
+        similarity=lambda w, f: (w - f).abs().mean(), levels=2, iters=5), device="cpu")
+    np.testing.assert_allclose(out.losses, ref.losses, rtol=1e-4)
+    ref_mae = float(rmetrics.mae(ref.warped, fixed))
+    mae = metrics.mae(out.warped, torch.from_numpy(fixed)).item()
+    assert abs(mae - ref_mae) <= 1e-4 * ref_mae
 
 
 def test_options_from_reference_maps_the_renamed_values():
@@ -248,7 +274,8 @@ def test_similarity_reaches_the_level_loss_unchanged(remapped_pair, similarity):
     mono-modal pair ``1 - NCC`` cancels to 0.078, where the JAX package's
     float32 value is 1.6e-4 from float64 and this package's 4e-8)."""
     fixed, moving = remapped_pair
-    opts = RegistrationOptions(similarity=similarity, impl="torch", grad_impl="torch")
+    opts = RegistrationOptions(similarity=similarity, impl="torch", grad_impl="torch",
+                               fused="on")
     kw = dict(tile=opts.tile, bending_weight=opts.bending_weight, mode="ttli")
     phi = np.zeros(rffd_grid_shape(fixed.shape, opts.tile) + (3,), np.float32)
     ref = float(ref_level_loss(jnp.asarray(fixed), jnp.asarray(moving), impl="jnp",
@@ -272,7 +299,7 @@ def test_lncc_matmul_ffd_register_matches_reference(pair):
         ref = ref_register(fixed, moving, options=RefOptions(**fields))
     ops.reset_launch_counts()
     out = ffd_register(fixed, moving, options=RegistrationOptions(
-        levels=2, iters=5, **LNCC_MATMUL), device="cpu")
+        levels=2, iters=5, fused="on", **LNCC_MATMUL), device="cpu")
     assert not any(ops.launch_counts().values())  # the plain versions ran
     np.testing.assert_allclose(out.losses, ref.losses, rtol=1e-4)
     ref_mae = float(rmetrics.mae(ref.warped, fixed))
