@@ -18,7 +18,8 @@ Phases; any failure raises and the script exits nonzero:
    events beside the plain version, its byte/operation bound and, where one
    PyTorch call computes the same function, that call.  The stats, ncc and
    nmi kernels run on the multi-modal pair of phase 4; every fused variant
-   runs in both displacement forms (the matrix form's rows end ``_matmul``);
+   runs in both displacement forms (the matrix form's rows end ``_matmul``;
+   the fused LNCC's beside the halo-cube kernel it replaced);
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -33,8 +34,10 @@ Phases; any failure raises and the script exits nonzero:
    in the matrix form, ``RegistrationOptions(similarity="lncc",
    mode="matmul", grad_impl="matmul")`` (the fused LNCC, matmul and
    matmul-adjoint kernels), cold and warm, with its peak memory, per-level
-   losses, MAE and launch counts, against the plain path at full depth and
-   beside the same call at a quarter and a half of phantom1's extent (see
+   losses, MAE and launch counts, against the plain path at full depth,
+   what ``fused="auto"`` resolves to for its options (the race's two
+   timings, on a fresh temporary disk cache), and beside the same call at a
+   quarter and a half of phantom1's extent (see
    ``run_lncc_path``); at ``iters=5`` on the kernels and on the
    plain path: LNCC in the lerp and matrix forms, SSD, NCC and NMI in the
    matrix form; and the LNCC matrix form on a small pair, card against CPU.
@@ -432,7 +435,10 @@ def check_matmul_kernels(torch, fixed, moving):
         cuda_ms(torch, lambda: bsi_fused.plain_nmi(phi_f, rem, fixed, scal, TILE, **kw),
                 reps=3), "bsi_fused_nmi_matmul")
 
-    # --- the fused LNCC, both forms, on the mono-modal pair (window 9)
+    # --- the fused LNCC, both forms, on the mono-modal pair (window 9): the
+    # marching column, beside the halo-cube kernel it replaced (PERF.md row
+    # 3e: 18.43 and 21.57 ms on an H100 80GB HBM3 at 700 W)
+    halo_cube_ms = {"lerp": 18.43, "matmul": 21.57}
     for form, name in (("lerp", "bsi_fused_lncc"), ("matmul", "bsi_fused_lncc_matmul")):
         lk = dict(window=9, eps=1e-5, disp_form=form)
         out = ops.fused_lncc(phi_f, moving, fixed, TILE, **lk)
@@ -449,6 +455,10 @@ def check_matmul_kernels(torch, fixed, moving):
             cuda_ms(torch, lambda: ops.fused_lncc(phi_f, moving, fixed, TILE, **lk)),
             cuda_ms(torch, lambda: bsi_fused.plain_lncc(phi_f, moving, fixed, TILE, **lk),
                     reps=3), "bsi_fused_lncc" + ("_matmul" if form == "matmul" else ""))
+        own, _ = bsi_fused.lncc_blocks(TILE, 9, form, vol)
+        log(f"{name}: column {own} tiles, {bsi_fused.num_partials(vol, TILE, own)} "
+            f"blocks; {rows[-1]['ms']:.4f} ms (the halo-cube kernel it replaced: "
+            f"{halo_cube_ms[form]} ms, {halo_cube_ms[form] / rows[-1]['ms']:.2f}x)")
     for r in rows:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -692,6 +702,8 @@ def run_lncc_path(torch, fixed, moving):
     # the kernels apart from a change of the MAE by the registration itself
     assert abs(mae1 - mae_plain) <= 1e-2 * mae_plain, (mae1, mae_plain)
 
+    auto_fused = log_lncc_fused_resolution(torch, tuple(fixed.shape))
+
     trend = []
     for shape in ((128, 57, 96), (256, 114, 192)):
         f, m, _ = make_pair(shape, seed=0)
@@ -705,7 +717,34 @@ def run_lncc_path(torch, fixed, moving):
     assert trend[0][2] < trend[0][1], trend[0]
     return counts, dict(cold_s=res.seconds, warm_s=warm.seconds, peak_gib=peak,
                         losses=res.losses, mae=(mae0, mae1), plain_s=plain.seconds,
-                        trend=[t[:3] for t in trend])
+                        fused_auto=auto_fused, trend=[t[:3] for t in trend])
+
+
+def log_lncc_fused_resolution(torch, vol):
+    """Phase 4: what ``fused="auto"`` resolves to for the LNCC matrix-form
+    options at ``vol``: the fused level step's race against the unfused
+    one, once, on a fresh temporary disk cache."""
+    from repro_torch import RegistrationOptions
+    from repro_torch.engine import autotune
+
+    opts = RegistrationOptions(**dict(LNCC_MATMUL, fused="auto"))
+    with tempfile.TemporaryDirectory(prefix="repro_torch_autotune_") as cache_dir:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "lncc.json")
+        try:
+            autotune._MEM_CACHE.clear()
+            autotune.resolve_options.cache_clear()
+            n_races = len(autotune.RACES)
+            t0 = time.perf_counter()
+            r = autotune.resolve_options(opts, vol, torch.device("cuda"))
+            race_s = time.perf_counter() - t0
+        finally:
+            del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    assert len(autotune.RACES) == n_races + 1 and "race" in r.fused_reason, r
+    log(f"lncc matmul options, fused='auto' at {vol}: fused={r.fused} "
+        f"({r.fused_reason}); resolve {race_s:.3f} s, race: "
+        + ", ".join(f"{n} " + ("did not fit" if us is None else f"{us / 1e3:.3f} ms")
+                    for n, us in autotune.RACES[-1].timings))
+    return r.fused
 
 
 def compare_matmul_paths(torch, fixed, moving):

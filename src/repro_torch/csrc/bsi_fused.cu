@@ -48,17 +48,32 @@
 // consecutive banks; each thread sums its voxel's 64 terms per channel in the
 // order k = 0..63, as bsi_matmul.cu does.
 //
-// The lncc kernel recomputes a halo: a block owns bt tiles per axis (E =
-// bt*d voxels) and warps E + w - 1 voxels per axis into shared memory, the
-// fixed volume beside it; at bt = 2, d = 5 and w = 9 that is 18^3 warped
-// voxels for 10^3 owned, (18/10)^3 = 5.8x the warp work of the other
-// variants.  It forms the five VALID box sums (w, f, w^2, f^2, wf) axis by
-// axis, x then y then z, each a sum of the w terms in order (the slice order
-// of core/similarity.py:uniform_filter), scales them by 1/w^3 and computes
+// The lncc kernel is a marching column.  A block owns a column of tiles, an
+// Ey x Ez footprint in y and z and a chunk of Ex voxels along x, and marches
+// along x through the Ex + w - 1 slices its windows reach, warping each y-z
+// slice of (Ey + w - 1) x (Ez + w - 1) voxels once.  It marches along x, not
+// z, because the volumes are stored z fastest: a y-z slice's rows are
+// contiguous, so a warp's trilinear taps and fixed-volume reads coalesce,
+// where an x-y slice would put every thread's taps in its own cache line.
+// The warped and fixed values of the last w slices stay in a ring in shared
+// memory; once w are in, each position's five moments (w, f, w^2, f^2, wf)
+// are summed over the ring in x order, then over y, then over z, each a
+// fold of the w terms in order (the order of
+// core/similarity.py:uniform_filter), scaled by 1/w^3 into
 // cc = cross^2 / (var_w var_f + eps) with the reference's formula
-// (repro/kernels/bsi_fused.py:221-226), then sums cc over the positions that
-// are its own and VALID in the true volume.  The x sums reuse the staging's
-// shared memory and the y sums the warped values'.
+// (repro/kernels/bsi_fused.py:221-226); the block sums cc over its own
+// positions that are VALID in the true volume.  So every position's cc is
+// the float the plain version computes; only the order of the final sum
+// over positions differs.  The displacement rounds as the other variants':
+// the lerp form stages each slice's x stage two slices ahead and its x-y
+// stage one slice ahead (double-buffered, so one barrier a slice separates
+// them), the matrix form the basis and the control window.  The window of 9
+// (the LNCC default) is a compile-time constant, so the sums unroll.
+// kernels/bsi_fused.py:lncc_blocks sizes the column: two blocks an SM, at
+// phantom1 (Ex + w - 1)(Ey + w - 1)(Ez + w - 1) / (Ex Ey Ez) = 2.2 warps
+// per owned voxel (lerp; 2.7 matrix), where a cube of 10^3 owned voxels
+// recomputing its halo on every axis would warp 5.8.  The matrix form's
+// 64-term sum, 256 shared loads a warped voxel, is half its time.
 //
 // The nmi kernel stages 128 voxels at a time: one thread per voxel and
 // volume computes the voxel's normalised intensity, its `bins` Gaussian
@@ -106,6 +121,18 @@ __host__ __device__ inline size_t disp_smem_bytes(const TileBlock& g) {
   return sizeof(float) * (size_t)(basis_floats(g) + window_floats(g));
 }
 
+// The (d^3, 64) basis, transposed to (64, d^3) so that the threads of a
+// warp, at consecutive voxel offsets, read consecutive banks.  Does not
+// synchronise.
+__device__ inline void stage_basis(const float* __restrict__ tabs, const TileBlock& g,
+                                   float* s_bt) {
+  const int nv = tile_voxels(g);
+  for (int i = threadIdx.x; i < 64 * nv; i += blockDim.x) {
+    const int v = i / 64, k = i % 64;
+    s_bt[k * nv + v] = tabs[i];
+  }
+}
+
 // Stage what the displacement of the block's voxels needs; tabs: the lerp
 // LUTs (kLerp) or the (d^3, 64) basis (kMatmul).  Ends with __syncthreads().
 template <int F>
@@ -116,13 +143,43 @@ __device__ inline void stage_disp(const float* __restrict__ phi,
     stage_xy(phi, tabs, g, ti0, tj0, tk0, smem);
     return;
   }
-  const int nv = tile_voxels(g);
-  for (int i = threadIdx.x; i < 64 * nv; i += blockDim.x) {
-    const int v = i / 64, k = i % 64;
-    smem[k * nv + v] = tabs[i];
-  }
+  stage_basis(tabs, g, smem);
   stage_window(phi, g, ti0, tj0, tk0, smem + basis_floats(g));
   __syncthreads();
+}
+
+// The z stage of the lerp form: the displacement at z offset cz of its tile,
+// from p = hy(xl, yl, tz, 0), the 4 z control points' x-y stage values of
+// the 3 channels (channels fastest).
+__device__ __forceinline__ void lerp_z(const float* p, const float* t0z, const float* t1z,
+                                       const float* sz, int cz, float* u) {
+  u[0] = lerp4(p[0], p[3], p[6], p[9], t0z[cz], t1z[cz], sz[cz]);
+  u[1] = lerp4(p[1], p[4], p[7], p[10], t0z[cz], t1z[cz], sz[cz]);
+  u[2] = lerp4(p[2], p[5], p[8], p[11], t0z[cz], t1z[cz], sz[cz]);
+}
+
+// The matrix form's displacement of local voxel (xl, yl, zl): per channel
+// the 64 terms B[v, k] * window[tile + (l, m, n)] summed in the order
+// k = (l*4 + m)*4 + n, as bsi_matmul.cu sums them; s_bt: the (64, nv)
+// basis, s_win: the (wx, wy, wz, 3) control window.
+__device__ __forceinline__ void matmul_disp(const float* s_bt, const float* s_win, int nv,
+                                            int wy, int wz, int dx, int dy, int dz,
+                                            int xl, int yl, int zl, float* u) {
+  const int tx = xl / dx, ty = yl / dy, tz = zl / dz;
+  const int v = ((xl - tx * dx) * dy + yl - ty * dy) * dz + zl - tz * dz;
+  const float* w0 = s_win + ((tx * wy + ty) * wz + tz) * 3;
+  float u0 = 0.f, u1 = 0.f, u2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < 64; ++k) {
+    const float b = s_bt[k * nv + v];
+    const float* p = w0 + (((k >> 4) * wy + ((k >> 2) & 3)) * wz + (k & 3)) * 3;
+    u0 = u0 + b * p[0];
+    u1 = u1 + b * p[1];
+    u2 = u2 + b * p[2];
+  }
+  u[0] = u0;
+  u[1] = u1;
+  u[2] = u2;
 }
 
 // The block's voxels after stage_disp: local voxel i -> warped sample.
@@ -177,27 +234,10 @@ struct WarpBlock {
   __device__ __forceinline__ void disp(int xl, int yl, int zl, float* u) const {
     if (F == kLerp) {
       const int tz = zl / dz, cz = zl - tz * dz;
-      const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * 3;
-      u[0] = lerp4(p[0], p[3], p[6], p[9], t0z[cz], t1z[cz], sz[cz]);
-      u[1] = lerp4(p[1], p[4], p[7], p[10], t0z[cz], t1z[cz], sz[cz]);
-      u[2] = lerp4(p[2], p[5], p[8], p[11], t0z[cz], t1z[cz], sz[cz]);
+      lerp_z(s_hy + ((size_t)(xl * BY + yl) * wz + tz) * 3, t0z, t1z, sz, cz, u);
       return;
     }
-    const int tx = xl / dx, ty = yl / dy, tz = zl / dz;
-    const int v = ((xl - tx * dx) * dy + yl - ty * dy) * dz + zl - tz * dz;
-    const float* w0 = s_win + ((tx * wy + ty) * wz + tz) * 3;
-    float u0 = 0.f, u1 = 0.f, u2 = 0.f;
-#pragma unroll
-    for (int k = 0; k < 64; ++k) {
-      const float b = s_bt[k * nv + v];
-      const float* p = w0 + (((k >> 4) * wy + ((k >> 2) & 3)) * wz + (k & 3)) * 3;
-      u0 = u0 + b * p[0];
-      u1 = u1 + b * p[1];
-      u2 = u2 + b * p[2];
-    }
-    u[0] = u0;
-    u[1] = u1;
-    u[2] = u2;
+    matmul_disp(s_bt, s_win, nv, wy, wz, dx, dy, dz, xl, yl, zl, u);
   }
 
   // The moving volume sampled at identity + displacement of a local voxel.
@@ -439,132 +479,218 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The lncc kernel's shared memory, in floats: region A holds the
-// displacement staging, then the x sums; region W the warped and fixed
-// values, then the y sums.  g holds the staged (extended) tiles per block,
-// (ox, oy, oz) the owned tiles per block.
-struct LnccLayout {
-  int Ex, Ey, Ez;  // owned voxels per axis
-  int Sx, Sy, Sz;  // staged voxels per axis: owned + window - 1
-  size_t a_floats, w_floats;
+// The lncc kernel's column: a block owns (ox, oy, oz) tiles, E voxels per
+// axis, and stages S = E + win - 1 per axis.  Its shared memory, in floats:
+// the displacement's constants (disp_floats), then the ring of the last
+// `win` warped and fixed y-z slices (win * P floats each, P = Sy * Sz), the
+// slice's x sums of the five moments (5 * P) and their y sums (5 * Ey * Sz).
+// The lerp form's constants are its LUTs, the control window of the staged
+// tiles, two x-stage planes (by + 3, bz + 3, 3) and two x-y stage planes
+// (Sy, bz + 3, 3); the matrix form's the (64, d^3) basis and the control
+// window.  g: the staged tiles per block.
+struct LnccColumn {
+  int Ex, Ey, Ez, Sy, Sz, P;
+  size_t hx_floats, hy_floats, disp_floats, floats;
 
   template <int F>
-  __host__ __device__ static LnccLayout make(const TileBlock& g, int ox, int oy, int oz,
+  __host__ __device__ static LnccColumn make(const TileBlock& g, int ox, int oy, int oz,
                                              int win) {
-    LnccLayout L;
+    LnccColumn L;
     L.Ex = ox * g.dx;
     L.Ey = oy * g.dy;
     L.Ez = oz * g.dz;
-    L.Sx = L.Ex + win - 1;
     L.Sy = L.Ey + win - 1;
     L.Sz = L.Ez + win - 1;
-    const size_t stage = disp_smem_bytes<F>(g) / sizeof(float);
-    const size_t xs = 5 * (size_t)L.Ex * L.Sy * L.Sz;
-    const size_t wf = 2 * (size_t)L.Sx * L.Sy * L.Sz;
-    const size_t ys = 5 * (size_t)L.Ex * L.Ey * L.Sz;
-    L.a_floats = stage > xs ? stage : xs;
-    L.w_floats = wf > ys ? wf : ys;
+    L.P = L.Sy * L.Sz;
+    L.hx_floats = (size_t)(g.by + 3) * (g.bz + 3) * 3;
+    L.hy_floats = (size_t)L.Sy * (g.bz + 3) * 3;
+    L.disp_floats =
+        F == kLerp ? lut_floats(g) + window_floats(g) + 2 * (L.hx_floats + L.hy_floats)
+                   : (size_t)basis_floats(g) + window_floats(g);
+    L.floats = L.disp_floats + (size_t)(2 * win + 5) * L.P + 5 * (size_t)L.Ey * L.Sz;
     return L;
   }
 };
 
-// Moment m of the staged values at offset i: w, f, w^2, f^2, w f.
-__device__ __forceinline__ float lncc_term(const float* s_w, const float* s_f, int m,
-                                           size_t i) {
-  const float w = s_w[i], f = s_f[i];
-  switch (m) {
-    case 0: return w;
-    case 1: return f;
-    case 2: return w * w;
-    case 3: return f * f;
-    default: return w * f;
-  }
-}
-
 // inv: 1 / win^3 in float32.  partials row: (sum cc, count) of the block's
 // own VALID positions.
-template <int F>
-__global__ void __launch_bounds__(kThreads)
+//
+// The block marches along x through its staged slices.  Each step warps one
+// y-z slice, the rows of which lie along z in memory, into the ring, the
+// same thread per position every step.  Once `win` slices are in, the thread
+// sums the ring in x order for its positions, a = 0..win-1; then the y sums
+// and the z sums of the slice's own positions follow, each a fold of `win`
+// terms in order, as core/similarity.py:uniform_filter sums them.  The lerp
+// form stages the x stage two slices ahead and the x-y stage one slice
+// ahead, each double-buffered, so one barrier a step separates them.  W: the
+// window where it is a compile-time constant (the sums' loops unroll and
+// their loads go out together), else 0 and the window is win_arg.
+template <int F, int W>
+__global__ void __launch_bounds__(kThreads, 2)
     bsi_fused_lncc_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
                           const float* __restrict__ mov, const float* __restrict__ fix,
                           float* __restrict__ partials, TileBlock g, int ox, int oy,
-                          int oz, int X, int Y, int Z, int win, float inv, float eps) {
+                          int oz, int X, int Y, int Z, int win_arg, float inv, float eps) {
+  const int win = W > 0 ? W : win_arg;
   extern __shared__ float smem[];
   __shared__ float red[kThreads];
+  const LnccColumn L = LnccColumn::make<F>(g, ox, oy, oz, win);
   const int ti0 = blockIdx.x * ox, tj0 = blockIdx.y * oy, tk0 = blockIdx.z * oz;
-  const LnccLayout L = LnccLayout::make<F>(g, ox, oy, oz, win);
-  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
-  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
-  float* s_w = smem + L.a_floats;
-  const size_t s3 = (size_t)L.Sx * L.Sy * L.Sz;
-  float* s_f = s_w + s3;
-
-  // the warp and the fixed volume over the staged extent; 0 outside the
-  // volume, where no VALID window of an own position reaches
-  for (int i = threadIdx.x; i < (int)s3; i += blockDim.x) {
-    const int zl = i % L.Sz, r = i / L.Sz;
-    const int yl = r % L.Sy, xl = r / L.Sy;
-    const int x = b.x0 + xl, y = b.y0 + yl, z = b.z0 + zl;
-    float w = 0.f, f = 0.f;
-    if (x < X && y < Y && z < Z) {
-      w = b.warp(mov, X, Y, Z, xl, yl, zl);
-      f = __ldg(fix + ((size_t)x * Y + y) * Z + z);
-    }
-    s_w[i] = w;
-    s_f[i] = f;
-  }
-  __syncthreads();
-
-  // x sums: (5, Ex, Sy, Sz) over the staging's memory
-  float* xs = smem;
-  const int nxs = 5 * L.Ex * L.Sy * L.Sz;
-  const size_t sxs = (size_t)L.Sy * L.Sz;  // x stride of the staged values
-  for (int i = threadIdx.x; i < nxs; i += blockDim.x) {
-    const int jk = i % (L.Sy * L.Sz), r = i / (L.Sy * L.Sz);
-    const int xi = r % L.Ex, m = r / L.Ex;
-    const size_t at = (size_t)xi * sxs + jk;
-    float acc = lncc_term(s_w, s_f, m, at);
-    for (int a = 1; a < win; ++a) acc = acc + lncc_term(s_w, s_f, m, at + a * sxs);
-    xs[i] = acc;
-  }
-  __syncthreads();
-
-  // y sums: (5, Ex, Ey, Sz) over the warped values' memory
-  float* ys = s_w;
-  const int nys = 5 * L.Ex * L.Ey * L.Sz;
-  for (int i = threadIdx.x; i < nys; i += blockDim.x) {
-    const int k = i % L.Sz, r = i / L.Sz;
-    const int yi = r % L.Ey, mx = r / L.Ey;  // mx = m * Ex + xi
-    const float* src = xs + ((size_t)mx * L.Sy + yi) * L.Sz + k;
-    float acc = src[0];
-    for (int a = 1; a < win; ++a) acc = acc + src[(size_t)a * L.Sz];
-    ys[i] = acc;
-  }
-  __syncthreads();
-
-  // z sums and the local cc of the own positions VALID in the volume
-  const int vx = X - win + 1, vy = Y - win + 1, vz = Z - win + 1;
-  const size_t mstride = (size_t)L.Ex * L.Ey * L.Sz;
+  const int x0 = ti0 * g.dx, y0 = tj0 * g.dy, z0 = tk0 * g.dz;
+  // the own VALID positions: nout slices of yv x zv; the staged ny x nz
+  // positions of a slice all lie in the volume
+  const int nout = min(L.Ex, X - win + 1 - x0);
+  const int yv = min(L.Ey, Y - win + 1 - y0);
+  const int zv = min(L.Ez, Z - win + 1 - z0);
   float acc = 0.f, cnt = 0.f;
-  for (int i = threadIdx.x; i < L.Ex * L.Ey * L.Ez; i += blockDim.x) {
-    const int zi = i % L.Ez, r = i / L.Ez;
-    const int yi = r % L.Ey, xi = r / L.Ey;
-    if (b.x0 + xi >= vx || b.y0 + yi >= vy || b.z0 + zi >= vz) continue;
-    const float* src = ys + ((size_t)xi * L.Ey + yi) * L.Sz + zi;
-    float sm[5];
-#pragma unroll
-    for (int m = 0; m < 5; ++m) {
-      const float* q = src + m * mstride;
-      float t = q[0];
-      for (int a = 1; a < win; ++a) t = t + q[a];
-      sm[m] = t;
+  if (nout > 0 && yv > 0 && zv > 0) {
+    const int ny = yv + win - 1, nz = zv + win - 1, np = ny * nz;
+    const int wy = g.by + 3, wz = g.bz + 3, nv = tile_voxels(g);
+    // the lerp form's constants and its x- and x-y-stage planes, each
+    // double-buffered; the matrix form's window follows its basis
+    const float* lx = smem;
+    const float* ly = lx + 3 * g.dx;
+    const float* t0z = ly + 3 * g.dy;
+    const float* t1z = t0z + g.dz;
+    const float* sz = t1z + g.dz;
+    float* s_win = smem + (F == kLerp ? lut_floats(g) : basis_floats(g));
+    float* hx0 = s_win + window_floats(g);
+    float* hx1 = hx0 + L.hx_floats;
+    float* hy0 = hx1 + L.hx_floats;
+    float* hy1 = hy0 + L.hy_floats;
+    if (F == kLerp) {
+      for (int i = threadIdx.x; i < lut_floats(g); i += blockDim.x) smem[i] = tabs[i];
+    } else {
+      stage_basis(tabs, g, smem);
     }
-    const float mu_w = sm[0] * inv, mu_f = sm[1] * inv;
-    const float var_w = sm[2] * inv - mu_w * mu_w;
-    const float var_f = sm[3] * inv - mu_f * mu_f;
-    const float cross = sm[4] * inv - mu_w * mu_f;
-    acc += cross * cross / (var_w * var_f + eps);
-    cnt += 1.f;  // at most a block's positions: exact
+    stage_window(phi, g, ti0, tj0, tk0, s_win);
+    float* ring_w = smem + L.disp_floats;
+    float* ring_f = ring_w + (size_t)win * L.P;
+    float* xs = ring_f + (size_t)win * L.P;
+    float* ys = xs + 5 * (size_t)L.P;
+    const size_t ysm = (size_t)L.Ey * L.Sz;  // moment stride of the y sums
+
+    // the lerp form's stages of slice s, as stage_xy computes them: the x
+    // stage hx(ky, kz, ch) of the y and z control points, then the y stage
+    // hy(yl, kz, ch) of the staged y voxels
+    const int nky = (ny - 1) / g.dy + 4, nkz = (nz - 1) / g.dz + 4;
+    auto stage_hx = [&](int s, float* out) {
+      const int tx = s / g.dx, a = s - tx * g.dx;
+      const int xstep = wy * wz * 3;
+      for (int j = threadIdx.x; j < nky * nkz * 3; j += blockDim.x) {
+        const int ch = j % 3, r = j / 3;
+        const int kz = r % nkz, ky = r / nkz;
+        const float* p = s_win + ((tx * wy + ky) * wz + kz) * 3 + ch;
+        out[(ky * wz + kz) * 3 + ch] =
+            LerpStage::apply(lx, g.dx, a, p[0], p[xstep], p[2 * xstep], p[3 * xstep]);
+      }
+    };
+    auto stage_hy = [&](const float* in, float* out) {
+      const int ystep = wz * 3;
+      for (int j = threadIdx.x; j < ny * nkz * 3; j += blockDim.x) {
+        const int ch = j % 3, r = j / 3;
+        const int kz = r % nkz, yl = r / nkz;
+        const int ty = yl / g.dy, b = yl - ty * g.dy;
+        const float* p = in + (ty * wz + kz) * 3 + ch;
+        out[(yl * wz + kz) * 3 + ch] =
+            LerpStage::apply(ly, g.dy, b, p[0], p[ystep], p[2 * ystep], p[3 * ystep]);
+      }
+    };
+    const int nsl = nout + win - 1;
+    __syncthreads();
+    if (F == kLerp) {
+      stage_hx(0, hx0);
+      if (nsl > 1) stage_hx(1, hx1);
+      __syncthreads();
+      stage_hy(hx0, hy0);
+      __syncthreads();
+    }
+
+    for (int s = 0; s < nsl; ++s) {
+      const int slot = s % win;
+      const bool out = s >= win - 1;  // slice s completes output slice s - win + 1
+      float* rw = ring_w + (size_t)slot * L.P;
+      float* rf = ring_f + (size_t)slot * L.P;
+      const float* hys = (s & 1) ? hy1 : hy0;
+      const size_t row = (size_t)(x0 + s) * Y + y0;
+      for (int i = threadIdx.x; i < np; i += blockDim.x) {
+        const int yl = i / nz, zl = i - yl * nz;
+        float u[3];
+        if (F == kLerp) {
+          const int tz = zl / g.dz;
+          lerp_z(hys + (yl * wz + tz) * 3, t0z, t1z, sz, zl - tz * g.dz, u);
+        } else {
+          matmul_disp(smem, s_win, nv, wy, wz, g.dx, g.dy, g.dz, s, yl, zl, u);
+        }
+        rw[i] = sample_clamped(mov, X, Y, Z, (float)(x0 + s) + u[0], (float)(y0 + yl) + u[1],
+                               (float)(z0 + zl) + u[2]);
+        rf[i] = __ldg(fix + (row + yl) * Z + z0 + zl);
+      }
+      if (out) {
+        // x sums of the five moments over slices s - win + 1 .. s, in order;
+        // the ring slots of position i are this thread's own
+        for (int i = threadIdx.x; i < np; i += blockDim.x) {
+          int sl = slot + 1 == win ? 0 : slot + 1;
+          float a = ring_w[(size_t)sl * L.P + i], b = ring_f[(size_t)sl * L.P + i];
+          float m0 = a, m1 = b, m2 = a * a, m3 = b * b, m4 = a * b;
+#pragma unroll
+          for (int t = 1; t < win; ++t) {
+            sl = sl + 1 == win ? 0 : sl + 1;
+            a = ring_w[(size_t)sl * L.P + i];
+            b = ring_f[(size_t)sl * L.P + i];
+            m0 = m0 + a;
+            m1 = m1 + b;
+            m2 = m2 + a * a;
+            m3 = m3 + b * b;
+            m4 = m4 + a * b;
+          }
+          xs[i] = m0;
+          xs[L.P + i] = m1;
+          xs[2 * L.P + i] = m2;
+          xs[3 * L.P + i] = m3;
+          xs[4 * L.P + i] = m4;
+        }
+      }
+      if (F == kLerp) {
+        if (s + 1 < nsl) stage_hy((s & 1) ? hx0 : hx1, (s & 1) ? hy0 : hy1);
+        if (s + 2 < nsl) stage_hx(s + 2, (s & 1) ? hx1 : hx0);
+      }
+      __syncthreads();
+      if (!out) continue;
+
+      // y sums: (5, yv, nz), position (y, z) at y * nz + z
+      for (int j = threadIdx.x; j < yv * nz; j += blockDim.x) {
+#pragma unroll
+        for (int m = 0; m < 5; ++m) {
+          const float* q = xs + (size_t)m * L.P + j;
+          float t = q[0];
+#pragma unroll
+          for (int c = 1; c < win; ++c) t = t + q[c * nz];
+          ys[m * ysm + j] = t;
+        }
+      }
+      __syncthreads();
+
+      // z sums and the local cc of the slice's own VALID positions
+      for (int j = threadIdx.x; j < yv * zv; j += blockDim.x) {
+        const int y = j / zv, z = j - y * zv;
+        float sm[5];
+#pragma unroll
+        for (int m = 0; m < 5; ++m) {
+          const float* q = ys + m * ysm + y * nz + z;
+          float t = q[0];
+#pragma unroll
+          for (int c = 1; c < win; ++c) t = t + q[c];
+          sm[m] = t;
+        }
+        const float mu_w = sm[0] * inv, mu_f = sm[1] * inv;
+        const float var_w = sm[2] * inv - mu_w * mu_w;
+        const float var_f = sm[3] * inv - mu_f * mu_f;
+        const float cross = sm[4] * inv - mu_w * mu_f;
+        acc += cross * cross / (var_w * var_f + eps);
+        cnt += 1.f;  // at most a block's positions: exact
+      }
+    }
   }
   float* row = partials + 2 * block_index();
   const float s0 = block_reduce<kThreads>(acc, red, SumOp());
@@ -651,6 +777,21 @@ inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, i
   return (int)reduce_partials(partials, n_partials, K, mode, out, s);
 }
 
+// The lncc kernel on the column grid of `own`; the window of 9 (the LNCC
+// default) runs the instantiation with the window fixed at compile time.
+template <int F>
+inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, int Z,
+                       int win, int n_partials, float* partials, float* out, void* stream,
+                       const float* phi, const float* tabs, const float* mov,
+                       const float* fix, float inv, float eps) {
+  const size_t smem =
+      sizeof(float) * LnccColumn::make<F>(g, own.bx, own.by, own.bz, win).floats;
+  auto kernel = win == 9 ? bsi_fused_lncc_kernel<F, 9> : bsi_fused_lncc_kernel<F, 0>;
+  return launch_fused(kernel, tile_grid(own, X, Y, Z), smem, n_partials, 2, 2, partials,
+                      out, stream, phi, tabs, mov, fix, partials, g, own.bx, own.by,
+                      own.bz, X, Y, Z, win, inv, eps);
+}
+
 }  // namespace repro_torch
 
 // Launch variant kernel K<kLerp> or K<kMatmul> on the tile-block grid of g
@@ -728,10 +869,12 @@ extern "C" int bsi_fused_nmi_f32(const float* phi, const float* tabs, const floa
                             centres, partials, g, X, Y, Z, bins, sigma, eps);
 }
 
-// (bx, by, bz): owned tiles per block; (ex, ey, ez): the halo tiles staged
-// beyond them, ceil((win - 1) / d).  1 <= win <= min(X, Y, Z); inv: 1 / win^3.
-// out: 2 floats, the sum of the local cc^2 over the VALID window positions
-// and their count.
+// (bx, by, bz): the tiles a block owns, its column's march along x and its
+// y-z footprint (grid: ceil(tiles / owned) blocks per axis, n_partials of
+// them); (ex, ey, ez): the halo tiles staged beyond them, ceil((win - 1) /
+// d) per axis.  1 <= win <= min(X, Y, Z); inv: 1 / win^3.  out: 2 floats,
+// the sum of the local cc^2 over the VALID window positions and their
+// count.
 extern "C" int bsi_fused_lncc_f32(const float* phi, const float* tabs, const float* mov,
                                   const float* fix, float* partials, int n_partials,
                                   float* out, int nx, int ny, int nz, int dx, int dy,
@@ -745,17 +888,9 @@ extern "C" int bsi_fused_lncc_f32(const float* phi, const float* tabs, const flo
     return (int)cudaErrorInvalidValue;
   const TileBlock own{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx + ex, by + ey, bz + ez};
-  const dim3 grid = tile_grid(own, X, Y, Z);
-  if (form == kMatmul) {
-    const LnccLayout L = LnccLayout::make<kMatmul>(g, bx, by, bz, win);
-    return launch_fused(bsi_fused_lncc_kernel<kMatmul>, grid,
-                        sizeof(float) * (L.a_floats + L.w_floats), n_partials, 2, 2,
-                        partials, out, stream, phi, tabs, mov, fix, partials, g, bx, by,
-                        bz, X, Y, Z, win, inv, eps);
-  }
-  const LnccLayout L = LnccLayout::make<kLerp>(g, bx, by, bz, win);
-  return launch_fused(bsi_fused_lncc_kernel<kLerp>, grid,
-                      sizeof(float) * (L.a_floats + L.w_floats), n_partials, 2, 2,
-                      partials, out, stream, phi, tabs, mov, fix, partials, g, bx, by, bz,
-                      X, Y, Z, win, inv, eps);
+  if (form == kMatmul)
+    return launch_lncc<kMatmul>(g, own, X, Y, Z, win, n_partials, partials, out, stream,
+                                phi, tabs, mov, fix, inv, eps);
+  return launch_lncc<kLerp>(g, own, X, Y, Z, win, n_partials, partials, out, stream, phi,
+                            tabs, mov, fix, inv, eps);
 }

@@ -22,8 +22,10 @@ variant    result                                                 lanes
            ``sum_v wa(v) wb(v)^T`` of the min-max normalised
            intensities, lo/hi from ``scal``
 ``lncc``   the sum of the local ``cc^2`` over the VALID window     2
-           positions, and their count; a block warps its tiles
-           plus a halo of ``window - 1`` voxels per axis
+           positions, and their count; a block owns a column
+           of tiles and marches along x, warping each y-z
+           slice of its tiles plus a ``window - 1`` halo once
+           into a ring of ``window`` slices, summed x, y, z
 =========  =====================================================  ===========
 
 The ``plain_*`` functions compute the same results in tensor ops, without
@@ -35,6 +37,8 @@ sums.  ``kernels.ops`` picks between the two by the tensor's device.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -50,6 +54,9 @@ DISP_FORMS = ("lerp", "matmul")
 LANES = {"ssd": 1, "stats": 4, "ncc": 3, "lncc": 2}
 MAX_BINS = 64  # histogram width the nmi kernel takes (csrc: kNmiMaxBins)
 _NMI_CHUNK_STRIDE = 129  # csrc: kNmiStride
+# shared memory of each of two blocks on one SM: 228 KB less 1 KB reserved a block
+_TWO_BLOCKS_SMEM_BYTES = 233_472 // 2 - 1024
+_H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def num_partials(vol_shape, tile, blocks) -> int:
@@ -86,31 +93,80 @@ def block_tiles(tile, disp_form, extra_bytes=0) -> tuple:
     return blocks
 
 
-def _lncc_smem_bytes(tile, own, extra, window, disp_form) -> int:
-    """Shared memory of the lncc kernel (csrc: LnccLayout, plus the static
-    reduce buffer)."""
-    ext = tuple(b + e for b, e in zip(own, extra))
-    E = [b * d for b, d in zip(own, tile)]
-    S = [e + window - 1 for e in E]
-    a = max(_disp_smem_bytes(tile, ext, disp_form) // 4, 5 * E[0] * S[1] * S[2])
-    w = max(2 * S[0] * S[1] * S[2], 5 * E[0] * E[1] * S[2])
-    return 4 * (a + w + bsi_ttli.KERNEL_THREADS)
+def _lncc_smem_bytes(tile, own, window, disp_form) -> int:
+    """Shared memory of the lncc kernel (csrc: LnccColumn, plus the static
+    reduce buffer): the displacement's constants, the ring of ``window``
+    warped and fixed y-z slices, their x sums and y sums."""
+    g = [o + -(-(window - 1) // d) for o, d in zip(own, tile)]  # staged tiles
+    E = [o * d for o, d in zip(own, tile)]
+    sy, sz = E[1] + window - 1, E[2] + window - 1
+    win = 3 * (g[0] + 3) * (g[1] + 3) * (g[2] + 3)
+    if disp_form == "lerp":  # LUTs, window, two x- and two x-y-stage planes
+        disp = 3 * sum(tile) + win + 2 * 3 * (g[1] + 3 + sy) * (g[2] + 3)
+    else:  # basis, window
+        disp = 64 * math.prod(tile) + win
+    floats = disp + (2 * window + 5) * sy * sz + 5 * E[1] * sz
+    return 4 * (floats + bsi_ttli.KERNEL_THREADS)
 
 
-def lncc_blocks(tile, window, disp_form) -> tuple:
-    """``(own, extra)`` tiles per block of the lncc kernel: the halo tiles
-    ``ceil((window - 1) / d)`` staged beyond the owned ones, and about 10
-    owned voxels per axis, fewer where the shared memory would not fit a
-    block; raises if one owned tile does not fit."""
-    own = [max(1, 10 // d) for d in tile]
-    extra = tuple(-(-(window - 1) // d) for d in tile)
-    while (_lncc_smem_bytes(tile, own, extra, window, disp_form)
-           > bsi_ttli.MAX_SMEM_BYTES and max(own) > 1):
-        own[own.index(max(own))] -= 1
+def _lncc_work(vol_shape, tile, own, window) -> int:
+    """Thread slots the lncc blocks spend warping over ``vol_shape``: each
+    block stages its own VALID positions + ``window - 1`` per axis and warps
+    each staged y-z slice in rounds of the block's threads."""
+    axes = []  # per axis: (blocks, staged voxels) of the full blocks and the last
+    for n, d, o in zip(vol_shape, tile, own):
+        valid, e = n - window + 1, o * d
+        axes.append([(valid // e, e + window - 1), (1, valid % e + window - 1)]
+                    if valid % e else [(valid // e, e + window - 1)])
+    t = bsi_ttli.KERNEL_THREADS
+    return sum(bx * by * bz * sx * -(-(sy * sz) // t) * t
+               for bx, sx in axes[0] for by, sy in axes[1] for bz, sz in axes[2])
+
+
+@functools.lru_cache(maxsize=None)
+def lncc_blocks(tile, window, disp_form, vol_shape) -> tuple:
+    """``(own, extra)`` tiles per block of the lncc kernel: the column a block
+    owns (its march along x, its y-z footprint) and the halo tiles
+    ``ceil((window - 1) / d)`` staged beyond them.
+
+    Of the columns of at most 128 voxels along x and 64 along y and z whose
+    shared memory lets two blocks share an SM (else one): those whose blocks
+    fill the card's SMs twice over where any do (with fewer, SMs idle or run
+    one block alone), then the one that spends the fewest thread slots
+    warping ``vol_shape`` (:func:`_lncc_work`: each block recomputes its
+    halo), then the one with the least shared memory.  Raises if a column of
+    one tile does not fit."""
     bsi_ttli.check_smem(f"the fused lncc kernel at tile {tile}, window {window} "
                         f"(disp_form={disp_form!r})",
-                        _lncc_smem_bytes(tile, own, extra, window, disp_form))
-    return tuple(own), extra
+                        _lncc_smem_bytes(tile, (1, 1, 1), window, disp_form))
+    tiles = [-(-s // d) for s, d in zip(vol_shape, tile)]
+    caps = [min(t, max(1, c // d)) for t, d, c in zip(tiles, tile, (128, 64, 64))]
+    extra = tuple(-(-(window - 1) // d) for d in tile)
+
+    def most(ok, hi):
+        """The largest x tiles in 1..hi for which ok holds (it holds up to
+        some point, then fails), else 0."""
+        lo = 0
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if ok(mid) else (lo, mid - 1)
+        return lo
+
+    candidates = []
+    for per_sm, budget in ((2, _TWO_BLOCKS_SMEM_BYTES), (1, bsi_ttli.MAX_SMEM_BYTES)):
+        full = 2 * _H100_SMS * per_sm  # blocks of two full waves
+        for oy in range(1, caps[1] + 1):
+            for oz in range(1, caps[2] + 1):
+                fits = most(lambda ox: _lncc_smem_bytes(tile, (ox, oy, oz), window,
+                                                        disp_form) <= budget, caps[0])
+                waves = most(lambda ox: num_partials(vol_shape, tile,
+                                                     (ox, oy, oz)) >= full, fits)
+                for own in {(ox, oy, oz) for ox in (fits, waves) if ox}:
+                    candidates.append((
+                        per_sm == 1, num_partials(vol_shape, tile, own) < full,
+                        _lncc_work(vol_shape, tile, own, window),
+                        _lncc_smem_bytes(tile, own, window, disp_form), own))
+    return min(candidates)[-1], extra
 
 
 def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=None,

@@ -293,7 +293,8 @@ def fused_lncc(phi, moving, fixed, tile, *, window, eps, disp_form="lerp"):
     if not _fused_inputs(phi, moving, fixed, tile, "fused_lncc", disp_form):
         return _fused.plain_lncc(phi, moving, fixed, tile, window=window, eps=eps,
                                  disp_form=disp_form)
-    own, extra = _fused.lncc_blocks(tile, window, disp_form)
+    own, extra = _fused.lncc_blocks(tile, window, disp_form,
+                                    tuple(int(s) for s in moving.shape))
     out = _fused.launch("lncc", phi, moving, fixed, tile, own, disp_form=disp_form,
                         eps=float(eps), window=window, extra=extra)
     _LAUNCHES[_fused_name("lncc", disp_form)] += 1

@@ -11,7 +11,7 @@ maps the moving volume's intensities through ``(1 - v)^1.5`` (a synthetic
 second modality), and traces the process's first ``ffd_register`` call with
 the default options (the kernels), ``--similarity`` (default ``ssd``;
 ``nmi`` and ``ncc`` run the two-pass fused kernels, ``lncc`` the one-pass
-halo kernel), ``--mode`` (the forward kernel; ``matmul`` also the fused
+marching-column kernel), ``--mode`` (the forward kernel; ``matmul`` also the fused
 step's matrix-form displacement), ``--grad-impl`` (``matmul``: the
 transposed-matmul adjoint) and ``--fused`` under ``torch.profiler``,
 printing the host-side calls that took the most time (the first call pays
@@ -21,7 +21,9 @@ autotuner before the first traced call, and its race's seconds and result
 are printed.  Then it times
 ``--calls`` more calls, and traces one more warm call, printing the device
 time per kernel name, the package's CUDA kernels against PyTorch's own
-kernels (the plain glue), and the device's busy and idle share of the call.
+kernels (the plain glue), the device time of each package kernel per
+pyramid level (:func:`per_level_ms`), and the device's busy and idle share
+of the call.
 The last line is one JSON object with the same numbers.  Needs a CUDA device;
 there is no CPU path.
 """
@@ -38,6 +40,27 @@ from repro_torch import PAPER_VOLUMES, RegistrationOptions, ffd_register, make_p
 from repro_torch.device import card_name, device_ms_by_name, traced
 from repro_torch.engine.autotune import RACES, resolve_options
 from repro_torch.kernels.build import load_library
+
+def per_level_ms(prof, levels):
+    """Device milliseconds of each package kernel per pyramid level, coarse
+    first: its launches in time order, cut into ``levels`` equal runs.  Only
+    for a kernel launched as often on every level (the fused step and the
+    adjoint, once a step each); the others are left out."""
+    starts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "repro_torch" in e.name:
+            starts.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.elapsed_us() / 1e3))
+    out = {}
+    for name, launches in starts.items():
+        if len(launches) % levels:
+            continue
+        launches.sort()
+        n = len(launches) // levels
+        out[name] = [sum(ms for _, ms in launches[i * n:(i + 1) * n])
+                     for i in range(levels)]
+    return out
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -114,6 +137,10 @@ def main(argv=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[: args.top]
     for name, ms in top:
         print(f"  {ms:10.2f} ms  {name[:110]}")
+    levels = per_level_ms(warm, opts.levels)
+    print("package kernels per level, coarse first (launches split evenly):")
+    for name, split in sorted(levels.items(), key=lambda kv: -sum(kv[1])):
+        print("  " + " + ".join(f"{ms:.2f}" for ms in split) + f" ms  {name[:100]}")
     print(json.dumps({
         "card": card, "shape": list(args.shape), "iters": args.iters,
         "similarity": args.similarity, "remap": args.remap, "mode": args.mode,
@@ -125,7 +152,8 @@ def main(argv=None):
         "seconds_per_call": seconds, "profiled_wall_ms": wall * 1e3,
         "device_busy_ms": busy, "busy_share": busy / (wall * 1e3),
         "package_kernels_ms": ours, "pytorch_kernels_ms": busy - ours,
-        "top": [[n[:200], ms] for n, ms in top]}))
+        "top": [[n[:200], ms] for n, ms in top],
+        "per_level_ms": {n[:200]: split for n, split in levels.items()}}))
 
 
 if __name__ == "__main__":

@@ -310,9 +310,14 @@ def test_fused_matmul_form_matches_plain(cuda, vol, tile):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+# the lncc kernel marches along x in chunks of at most 128 voxels: volumes
+# whose x spans 2 to 5 chunks (the CASES are shorter than one)
+LNCC_MARCH_CASES = [((300, 20, 24), (5, 5, 5)), ((260, 13, 21), (5, 4, 3))]
+
+
 @pytest.mark.parametrize("form", ["lerp", "matmul"])
-@pytest.mark.parametrize("window", [9, 5])
-@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("window", [9, 5, 1])
+@pytest.mark.parametrize("vol,tile", CASES + LNCC_MARCH_CASES)
 def test_lncc_kernel_matches_plain(cuda, vol, tile, window, form):
     phi, mov, fix = _fused_inputs(vol, tile, 23, cuda)
     w = ops.lncc_window(window, vol)

@@ -373,8 +373,9 @@ def test_dispatchers_check_coverage():
 
 def test_block_checks_raise_where_shared_memory_runs_out():
     """A 10^3 tile's basis (256 KB) fits no block: the matrix-form kernels
-    refuse it before launching; the lncc kernel shrinks its owned block (to
-    fit a 1^3 tile's halo) before it refuses."""
+    refuse it before launching; the lncc kernel sizes its column to what
+    fits (a 1^3 tile's halo of 8 voxels a side) and refuses only where a
+    column of one tile does not."""
     from repro_torch.kernels import bsi_adjoint, bsi_matmul
 
     big = (10, 10, 10)
@@ -385,10 +386,12 @@ def test_block_checks_raise_where_shared_memory_runs_out():
     with pytest.raises(ValueError, match="shared memory"):
         bsi_fused.block_tiles(big, "matmul")
     with pytest.raises(ValueError, match="shared memory"):
-        bsi_fused.lncc_blocks(big, 9, "matmul")
-    assert bsi_fused.lncc_blocks((5, 5, 5), 9, "matmul") == ((2, 2, 2), (2, 2, 2))
-    own, extra = bsi_fused.lncc_blocks((1, 1, 1), 9, "lerp")
-    assert extra == (8, 8, 8) and 1 <= min(own) and max(own) <= 10
+        bsi_fused.lncc_blocks(big, 9, "matmul", (40, 40, 40))
+    phantom1 = (512, 228, 385)
+    assert bsi_fused.lncc_blocks((5, 5, 5), 9, "matmul", phantom1) == ((25, 2, 4),
+                                                                       (2, 2, 2))
+    own, extra = bsi_fused.lncc_blocks((1, 1, 1), 9, "lerp", (40, 33, 47))
+    assert extra == (8, 8, 8) and 1 <= min(own) and max(own) <= 128
     bsi_fused.block_tiles((5, 5, 5), "matmul", bsi_fused.nmi_smem_bytes(64))
 
 
