@@ -19,7 +19,16 @@ Phases; any failure raises and the script exits nonzero:
    PyTorch call computes the same function, that call.  The stats, ncc and
    nmi kernels run on the multi-modal pair of phase 4; every fused variant
    runs in both displacement forms (the matrix form's rows end ``_matmul``;
-   the fused LNCC's beside the halo-cube kernel it replaced);
+   the fused LNCC's beside the halo-cube kernel it replaced).  The nmi
+   kernel's rows are bound by the least form of their function
+   (``launch/bounds.py:nmi_bound``: the histogram as one dense TF32 product
+   or as the products of the non-zero weights this run's data has, the
+   Parzen weights at the bins the kernel evaluates); its three TF32
+   products and the fp32-pipe bound of every bin are printed beside.  Each
+   form prints its split, its time with the weights or the histogram stage
+   left out (two measurement builds, ``-DREPRO_NMI_STAGES``), its resident
+   blocks an SM, registers and HMMA instructions (``cuobjdump -sass``,
+   asserted);
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -28,7 +37,9 @@ Phases; any failure raises and the script exits nonzero:
    the multi-modal path: the moving volume remapped by ``(1 - v)^1.5`` and
    registered with ``similarity="nmi"`` (the stats, nmi, TTLI and adjoint
    kernels), scored by the MAE of the original moving volume warped by the
-   recovered field, beside an SSD run on the same pair; the NCC and NMI
+   recovered field, beside an SSD run on the same pair, and what
+   ``fused="auto"`` resolves to for ``RegistrationOptions(similarity="nmi")``
+   (its race, once, on a fresh temporary disk cache); the NCC and NMI
    paths at ``iters=5`` on the kernels and on the plain path; and a small
    remapped pair with NMI on the card against the CPU.  Then the LNCC path
    in the matrix form, ``RegistrationOptions(similarity="lncc",
@@ -176,8 +187,120 @@ def plain_passes():
                 nmi_histogram=bsi_fused.plain_nmi)
 
 
-def check_kernels(torch, fixed, moving):
-    """Phase 3: every kernel against its plain version at phantom1 shapes."""
+# the nmi kernel's stages left out in its measurement builds (csrc:
+# REPRO_NMI_STAGES; bit 0 the weights, bit 1 the histogram)
+NMI_STAGES = {"weights only": "REPRO_NMI_STAGES=1", "histogram only": "REPRO_NMI_STAGES=2"}
+
+
+def nmi_stage_builds():
+    """The kernels built once for each entry of ``NMI_STAGES``, the builds
+    in parallel: ``{label: Library}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.build import load_library
+
+    with ThreadPoolExecutor(len(NMI_STAGES)) as pool:
+        libs = pool.map(lambda d: load_library((d,)), NMI_STAGES.values())
+        return dict(zip(NMI_STAGES, libs))
+
+
+def resident_blocks(registers, smem_bytes, threads):
+    """Blocks of ``threads`` threads that an H100 SM holds at ``registers``
+    a thread and ``smem_bytes`` of shared memory a block (sm_90: 65536
+    registers, allocated 256 a warp; 228 KB of shared memory, 1 KB of it
+    reserved a block; 2048 threads, 32 blocks)."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-registers * 32 // 256) * 256 * warps)
+    return min(by_regs, 233_472 // (smem_bytes + 1024), 2048 // threads, 32)
+
+
+def nmi_work(torch, phi, moving, fixed, scal, bins, sigma, form, chunk=1 << 22):
+    """What this run's data makes the nmi kernel's function need: the
+    Parzen weights the kernel evaluates (those within ``nmi_support`` of
+    the nearest centre, over both volumes) and the voxels' products of
+    non-zero weights (``parzen_weights``, the plain version's weights)."""
+    from repro_torch.core.similarity import parzen_centres, parzen_weights
+    from repro_torch.kernels import bsi_fused
+
+    support = bsi_fused.nmi_support(bins, sigma * (bins - 1))
+    centres = parzen_centres(bins, fixed.device)
+    s = fixed.new_full((), sigma)
+    evaluated = products = 0
+    with torch.no_grad():
+        w = bsi_fused.warped(phi, moving, TILE, form).reshape(-1)
+        f = fixed.reshape(-1)
+        for i in range(0, w.numel(), chunk):
+            nonzero = 1
+            for v, lo, hi in ((w[i:i + chunk], scal[0], scal[1]),
+                              (f[i:i + chunk], scal[2], scal[3])):
+                x = (v - lo) / torch.clamp(hi - lo, min=1e-8)
+                k_lo, k_hi = bsi_fused.nmi_support_range(x, bins, support)
+                evaluated += int((k_hi - k_lo + 1).sum())
+                nonzero = nonzero * (parzen_weights(x, centres, s, 1e-8) != 0).sum(1)
+            products += int(nonzero.sum())
+    return support, evaluated, products
+
+
+def nmi_report(torch, lib, stage_libs, phi, moving, fixed, scal, bins, sigma, eps, form):
+    """The nmi kernel in ``form`` at this run's inputs: its time in full and
+    with a stage left out (the split), resident blocks an SM, registers and
+    HMMA instructions (asserted: the histogram runs on the tensor cores);
+    the work this run's data needs and the bound it gives.  Returns
+    ``(bound_ms, bound_by, summary)``."""
+    from repro_torch.kernels import bsi_fused
+    from repro_torch.kernels.build import sass_counts
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds, nmi_bound
+
+    vol = tuple(fixed.shape)
+    name = "bsi_fused_nmi" + ("_matmul" if form == "matmul" else "")
+    blocks = bsi_fused.block_tiles(TILE, form, bsi_fused.nmi_smem_bytes(bins))
+    kw = dict(disp_form=form, scal=scal, bins=bins, sigma=sigma, eps=eps)
+    split = {"full": cuda_ms(torch, lambda: bsi_fused.launch(
+        "nmi", phi, moving, fixed, TILE, blocks, **kw))}
+    for label, stage_lib in stage_libs.items():
+        split[label] = cuda_ms(torch, lambda: bsi_fused.launch(
+            "nmi", phi, moving, fixed, TILE, blocks, lib=stage_lib, **kw))
+    weights = split["full"] - split["histogram only"]
+    histogram = split["full"] - split["weights only"]
+    rest = split["full"] - weights - histogram
+
+    tag = f"ILi{bsi_fused.DISP_FORMS.index(form)}ELi{bsi_fused.nmi_padded_bins(bins)}E"
+    regs = [ln for ln in lib.info.ptxas if "bsi_fused_nmi_kernel" in ln and tag in ln]
+    assert len(regs) == 1 and "0/0 B spill" in regs[0], regs
+    smem = bsi_fused._disp_smem_bytes(TILE, blocks, form) + bsi_fused.nmi_smem_bytes(bins)
+    per_sm = resident_blocks(int(re.search(r"(\d+) registers", regs[0]).group(1)), smem,
+                             256)
+    hmma = {fn: n for fn, n in sass_counts(lib.info.path, "bsi_fused_nmi_kernel",
+                                           "HMMA").items() if tag in fn}
+    assert len(hmma) == 1 and all(hmma.values()), hmma
+
+    support, evaluated, products = nmi_work(torch, phi, moving, fixed, scal, bins, sigma,
+                                            form)
+    nb = nmi_bound(vol, TILE, bins, evaluated=evaluated, products=products)
+    old_ms, old_by = bound_ms(*kernel_bounds(vol, TILE, 3, bins)[name])
+    n = moving.numel()
+    log(f"{name}: {split['full']:.4f} ms; a stage left out: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in split.items() if k != "full")
+        + f" -> the weights stage ~{weights:.4f} ms, the histogram ~{histogram:.4f} ms, "
+        f"the rest ~{rest:.4f} ms; {per_sm} blocks an SM of tiles {blocks} ({smem} B of "
+        f"shared memory); {regs}; HMMA {list(hmma.values())}; support +-{support} bins, "
+        f"{evaluated} weights evaluated ({evaluated / (2 * n):.3f} a voxel and volume of "
+        f"{bins}), {products} products of non-zero weights ({products / n:.2f} a voxel); "
+        f"bound {nb['ms']:.4f} ms ({nb['by']}, {nb['form']}; " + ", ".join(
+            f"{k} {ms:.4f} ms" for k, (ms, _) in nb["forms"].items())
+        + f"); the kernel's three TF32 products {nb['work_tf32_ms']:.4f} ms; the fp32-pipe "
+        f"bound of every bin {old_ms:.4f} ms ({old_by})")
+    return nb["ms"], nb["by"], dict(
+        split=split, weights_ms=weights, histogram_ms=histogram, rest_ms=rest,
+        blocks_per_sm=per_sm, registers=regs, hmma=list(hmma.values()),
+        evaluated=evaluated, products=products, bound_ms=nb["ms"], bound_form=nb["form"],
+        forms_ms={k: ms for k, (ms, _) in nb["forms"].items()},
+        work_tf32_ms=nb["work_tf32_ms"], fp32_pipe_bound_ms=old_ms)
+
+
+def check_kernels(torch, fixed, moving, lib, stage_libs):
+    """Phase 3: every kernel against its plain version at phantom1 shapes;
+    ``lib`` the kernels, ``stage_libs`` the nmi kernel's measurement builds."""
     from repro_torch.core import ffd
     from repro_torch.kernels import bsi_adjoint, bsi_fused, bsi_ttli, ops
     from repro_torch.launch.bounds import bound_ms, kernel_bounds
@@ -302,7 +425,8 @@ def check_kernels(torch, fixed, moving):
         f"largest cell {rel_cell:.3e} (limit 1e-5)")
     assert math.isfinite(rel_cell) and rel_cell <= 1e-5, rel_cell
     loss_check("bsi_fused_nmi", ("nmi", 32, 0.5, 1e-8))
-    b_ms, b_by = bounds["bsi_fused_nmi"]
+    b_ms, b_by, nmi = nmi_report(torch, lib, stage_libs, phi_f, rem, fixed, scal, 32,
+                                 0.5 / 31, 1e-8, "lerp")
     rows.append(dict(
         name="bsi_fused_nmi", route="cuda", source="src/repro_torch/csrc/bsi_fused.cu",
         replaces="src/repro/kernels/bsi_fused.py:291", max_abs_err=err,
@@ -310,7 +434,7 @@ def check_kernels(torch, fixed, moving):
                                                           **kw)),
         plain_ms=cuda_ms(torch, lambda: bsi_fused.plain_nmi(phi_f, rem, fixed, scal,
                                                             TILE, **kw), reps=3),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, nmi=nmi))
     for r in rows:
         log(f"{r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
@@ -318,7 +442,7 @@ def check_kernels(torch, fixed, moving):
     return rows
 
 
-def check_matmul_kernels(torch, fixed, moving):
+def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     """Phase 3: the matrix-form kernels, the fused variants in the matrix
     form and the fused LNCC in both forms, against their plain versions at
     phantom1 shapes."""
@@ -336,11 +460,12 @@ def check_matmul_kernels(torch, fixed, moving):
     bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
     rows = []
 
-    def row(name, source, replaces, err, ms, plain_ms, bound_key, library_ms=None):
-        b_ms, b_by = bounds[bound_key]
+    def row(name, source, replaces, err, ms, plain_ms, bound_key, library_ms=None,
+            bound=None, **extra):
+        b_ms, b_by = bound or bounds[bound_key]
         rows.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=library_ms))
+                         bound_by=b_by, library_ms=library_ms, **extra))
 
     # --- bsi_matmul
     out = ops.bsi_matmul(phi, TILE, vol)
@@ -429,11 +554,13 @@ def check_matmul_kernels(torch, fixed, moving):
     log(f"bsi_fused_nmi_matmul: histogram max |kernel - plain| {err:.3e}, relative to "
         f"the largest cell {rel:.3e} (limit 1e-5)")
     assert math.isfinite(rel) and rel <= 1e-5, rel
+    b_ms, b_by, nmi = nmi_report(torch, lib, stage_libs, phi_f, rem, fixed, scal, 32,
+                                 0.5 / 31, 1e-8, "matmul")
     row("bsi_fused_nmi_matmul", fused_src, fused_rep + " (disp_form=matmul)", err,
         cuda_ms(torch, lambda: ops.fused_nmi_histogram(phi_f, rem, fixed, scal, TILE,
                                                        **kw)),
         cuda_ms(torch, lambda: bsi_fused.plain_nmi(phi_f, rem, fixed, scal, TILE, **kw),
-                reps=3), "bsi_fused_nmi_matmul")
+                reps=3), "bsi_fused_nmi_matmul", bound=(b_ms, b_by), nmi=nmi)
 
     # --- the fused LNCC, both forms, on the mono-modal pair (window 9): the
     # marching column, beside the halo-cube kernel it replaced (PERF.md row
@@ -581,6 +708,7 @@ def run_multimodal(torch, fixed, moving):
     steps = opts.levels * (opts.iters + 1)
     expected = only(bsi_ttli=steps + 1 + 4, bsi_adjoint=steps, bsi_fused_stats=steps,
                     bsi_fused_nmi=steps)
+    res_s = res.seconds
     log(f"nmi path: losses {res.losses}, {res.seconds:.3f} s, bsi_seconds "
         f"{res.bsi_seconds:.4f}, peak device memory {peak:.2f} GiB, launches "
         f"{counts} (expected {expected})")
@@ -602,7 +730,11 @@ def run_multimodal(torch, fixed, moving):
         f"{mae_nmi:.6f}, ssd on the same remapped pair {mae_ssd:.6f} "
         f"({ssd.seconds:.3f} s)")
     assert mae_nmi < mae0, (mae0, mae_nmi)
-    return counts, dict(seconds=res.seconds, peak_gib=peak)
+    del res, ssd
+    auto_fused = log_fused_resolution(torch, tuple(fixed.shape), "nmi options",
+                                      similarity="nmi")
+    return counts, dict(seconds=res_s, peak_gib=peak, mae=(mae0, mae_nmi),
+                        fused_auto=auto_fused)
 
 
 def compare_multimodal_paths(torch, fixed, moving):
@@ -702,7 +834,8 @@ def run_lncc_path(torch, fixed, moving):
     # the kernels apart from a change of the MAE by the registration itself
     assert abs(mae1 - mae_plain) <= 1e-2 * mae_plain, (mae1, mae_plain)
 
-    auto_fused = log_lncc_fused_resolution(torch, tuple(fixed.shape))
+    auto_fused = log_fused_resolution(torch, tuple(fixed.shape), "lncc matmul options",
+                                      **dict(LNCC_MATMUL, fused="auto"))
 
     trend = []
     for shape in ((128, 57, 96), (256, 114, 192)):
@@ -720,16 +853,17 @@ def run_lncc_path(torch, fixed, moving):
                         fused_auto=auto_fused, trend=[t[:3] for t in trend])
 
 
-def log_lncc_fused_resolution(torch, vol):
-    """Phase 4: what ``fused="auto"`` resolves to for the LNCC matrix-form
-    options at ``vol``: the fused level step's race against the unfused
-    one, once, on a fresh temporary disk cache."""
+def log_fused_resolution(torch, vol, label, **fields):
+    """Phase 4: what ``fused="auto"`` resolves to for
+    ``RegistrationOptions(**fields)`` at ``vol``: the fused level step's race
+    against the unfused one, once, on a fresh temporary disk cache."""
     from repro_torch import RegistrationOptions
     from repro_torch.engine import autotune
 
-    opts = RegistrationOptions(**dict(LNCC_MATMUL, fused="auto"))
+    opts = RegistrationOptions(**fields)
+    assert opts.fused == "auto", opts
     with tempfile.TemporaryDirectory(prefix="repro_torch_autotune_") as cache_dir:
-        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "lncc.json")
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "fused.json")
         try:
             autotune._MEM_CACHE.clear()
             autotune.resolve_options.cache_clear()
@@ -740,7 +874,7 @@ def log_lncc_fused_resolution(torch, vol):
         finally:
             del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
     assert len(autotune.RACES) == n_races + 1 and "race" in r.fused_reason, r
-    log(f"lncc matmul options, fused='auto' at {vol}: fused={r.fused} "
+    log(f"{label}, fused='auto' at {vol}: fused={r.fused} "
         f"({r.fused_reason}); resolve {race_s:.3f} s, race: "
         + ", ".join(f"{n} " + ("did not fit" if us is None else f"{us / 1e3:.3f} ms")
                     for n, us in autotune.RACES[-1].timings))
@@ -1305,13 +1439,17 @@ def main():
     assert len(hgmma) == 5 and all(hgmma.values()), hgmma
     assert all("0/0 B spill" in ln for ln in lib.info.ptxas
                if "flash_sm90_kernel" in ln and "registers" in ln), lib.info.ptxas
+    t0 = time.perf_counter()
+    stage_libs = nmi_stage_builds()
+    log(f"nmi measurement builds ({', '.join(NMI_STAGES.values())}): "
+        f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     fixed, moving, _ = make_pair(PAPER_VOLUMES["phantom1"], seed=0)
     log(f"make_pair(phantom1 {tuple(fixed.shape)}): {time.perf_counter() - t0:.1f} s")
 
-    rows = check_kernels(torch, fixed, moving)
-    rows += check_matmul_kernels(torch, fixed, moving)
+    rows = check_kernels(torch, fixed, moving, lib, stage_libs)
+    rows += check_matmul_kernels(torch, fixed, moving, lib, stage_libs)
     rows += check_forward_forms(torch, fixed)
     counts = run_main_path(torch, fixed, moving)
     compare_paths(torch, fixed, moving)
@@ -1345,6 +1483,8 @@ def main():
         r["launches"] = path_counts.get(r["name"], counts)[r["name"]]
         assert r["launches"] > 0, r
     log(f"nmi call at phantom1: {nmi_call}")
+    log("nmi kernel at phantom1: " + "; ".join(f"{r['name']}: {r['nmi']}" for r in rows
+                                                if "nmi" in r))
     log(f"lncc matmul call at phantom1: {lncc_call}")
     for mode, call in form_calls.items():
         log(f"{mode} call at phantom1: {call}")

@@ -21,15 +21,18 @@
 // What bounds it on an H100: for ssd, stats and ncc, reading the volumes once
 // (at phantom1, (512, 228, 385), 180 MB each: 0.05-0.11 ms at 3.35 TB/s).
 // For nmi, the operations: the histogram is 2 bins^2 flops per voxel (2048 at
-// 32 bins, 92 GFLOP at phantom1, 1.4 ms at 67 TFLOP/s fp32) plus 2 bins
-// Gaussian weights and their normalisation per voxel.  For lncc, the
+// 32 bins, 92 GFLOP at phantom1: 0.19 ms as one dense TF32 product at 495
+// TFLOP/s, the least of its forms, launch/bounds.py:nmi_bound; 1.4 ms at 67
+// TFLOP/s fp32; this kernel's three TF32 products take 0.56 ms) plus, per
+// voxel and volume, the Gaussian weights of the bins within reach and their
+// normalisation (at most 17 of 32 at the default sigma).  For lncc, the
 // operations of five 3-axis box sums of w terms per voxel (9.1 GFLOP at
 // window 9, 0.14 ms).  The matrix form adds 64 multiply-adds per voxel and
 // channel (17.3 GFLOP, 0.26 ms).
 //
 // Built with -fmad=false (kernels/build.py): every multiply and add of the
 // displacement and the warp rounds as in the plain version, so the warped
-// samples equal it bit for bit; the histogram's multiply-adds are fmaf.
+// samples equal it bit for bit; the NMI histogram runs on the tensor cores.
 //
 // What the design does about it: one thread block per block of tiles
 // evaluates its displacement in the lerp form of bsi_ttli (bsi_common.cuh;
@@ -75,14 +78,29 @@
 // recomputing its halo on every axis would warp 5.8.  The matrix form's
 // 64-term sum, 256 shared loads a warped voxel, is half its time.
 //
-// The nmi kernel stages 128 voxels at a time: one thread per voxel and
-// volume computes the voxel's normalised intensity, its `bins` Gaussian
-// weights (true divisions and expf, the operation order of
-// repro/core/similarity.py:nmi) and their normalisation, into bin-major
-// shared memory; then each thread accumulates a 4 x 4 tile of histogram
-// cells over its group's share of those voxels, in voxel order.  The groups
-// are combined in a fixed order at the end.  It runs on the fp32 pipes;
-// tensor cores and truncated Parzen support are later work.
+// The nmi kernel: a block is two teams of 128 threads with barriers of
+// their own, so that one team's weights stage can run beside the other's
+// histogram stage; a team stages 64 voxels a round.  One thread per voxel
+// and volume computes the voxel's normalised intensity and its Gaussian
+// weights (the operation order of repro/core/similarity.py:nmi) and their
+// normalisation, into bin-major shared memory, for the bins within
+// kernels/bsi_fused.py:nmi_support of the nearest centre only (at most 17
+// of 32 at the default sigma of half a bin).  The weights equal the
+// untruncated kernel's bit for bit where two things hold.  (1) Every
+// skipped weight is 0.0f: its exponent is below -104 (below -111 at a sigma
+// of two bins), where a correctly rounded expf is 0.0f; tested on the CPU
+// with torch's expf, and on the card it rests on CUDA's expf doing the
+// same.  (2) Each of its two divisions, by markstein_div, is the true
+// division's: checked, not proven (see markstein_div).  Then the team's
+// warps form the round's (bins x 64) . (64 x bins) product Wa^T Wb on the
+// tensor cores, mma.m16n8k8 TF32 with the 3xTF32 split (each weight as hi +
+// lo tf32, the lo lo product dropped; the tf32 rounding in integer
+// operations), each warp 2 of the 8 16 x 8 tiles at 32 bins, into float32
+// sums per round; the teams' partial histograms are combined in a fixed
+// order at the end.  The stride of the staged weights is 4 mod 32, so the
+// fragment loads are free of bank conflicts.  At phantom1 the weights
+// stage, the histogram stage and the warp with its staging still add up
+// rather than overlap (PERF.md).
 #include <math_constants.h>
 
 #include "bsi_common.cuh"
@@ -372,110 +390,307 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) row[2] = s2;
 }
 
-constexpr int kNmiChunk = 128;             // voxels staged per round
-constexpr int kNmiStride = kNmiChunk + 1;  // row stride of the staged weights
+// An nmi block is two teams of kNmiTeam threads, each with its own staged
+// rounds of kNmiChunk voxels and its own barriers, so that one team's
+// weights stage runs beside the other's histogram stage.
+constexpr int kNmiTeam = kThreads / 2;
+constexpr int kNmiChunk = kNmiTeam / 2;     // voxels a team stages per round
+constexpr int kNmiSteps = kNmiChunk / 8;    // mma k-steps of a round
+// Row stride of the staged weights: = 4 (mod 32), so the 32 lanes of an mma
+// fragment load, at rows g = lane / 4 and columns t = lane % 4, fall on 32
+// distinct banks.
+constexpr int kNmiStride = kNmiChunk + 4;
 constexpr int kNmiMaxBins = 64;
 
-__host__ __device__ inline int nmi_padded_bins(int bins) { return (bins + 3) / 4 * 4; }
+// REPRO_NMI_STAGES: the nmi kernel's stages that run, bit 0 the Parzen
+// weights (with bit 0 clear each evaluated weight is x itself: no expf, no
+// division), bit 1 the histogram.  The library is built with both; only a
+// measurement build (kernels/build.py:load_library(defines)) leaves one
+// out, to time the other (chip_smoke.py).
+#ifndef REPRO_NMI_STAGES
+#define REPRO_NMI_STAGES 3
+#endif
 
-// Shared floats after the displacement staging: centres, then the two (BP, stride)
-// weight matrices, which the group combine reuses (16 floats per thread).
+// bins padded to the mma tiles: the (BP, BP) histogram is MT x NT tiles of
+// 16 x 8 cells.  Each of a team's 4 warps owns MTW row tiles (row slice ms
+// of MS) and NTW = 2 column tiles (column slice ns of NS) over all k-steps
+// of the team's rounds; the two teams' partial histograms are combined in
+// a fixed order at the end.  At 32 bins a warp's tiles are 1 x 2 (16
+// accumulators, so that four blocks share an SM), at 64 bins 4 x 2.
+__host__ __device__ constexpr int nmi_padded_bins(int bins) { return bins <= 32 ? 32 : 64; }
+
+template <int BP>
+struct NmiLayout {
+  static constexpr int MT = BP / 16, NT = BP / 8;
+  static constexpr int MTW = BP > 32 ? MT : 1, NTW = 2;
+  static constexpr int MS = MT / MTW, NS = NT / NTW;
+  static_assert(MS * NS == kNmiTeam / 32, "one (row, column slice) a warp of a team");
+};
+
+// Shared floats after the displacement staging: kNmiMaxBins centres, then
+// per team the two (BP, kNmiStride) weight matrices; the teams' combine
+// reuses them (2 BP * BP floats).
 __host__ __device__ inline int nmi_extra_floats(int bins) {
-  const int bp = nmi_padded_bins(bins);
-  const int weights = 2 * bp * kNmiStride;
-  return bp + (weights > 16 * kThreads ? weights : 16 * kThreads);
+  return kNmiMaxBins + 2 * 2 * nmi_padded_bins(bins) * kNmiStride;
 }
 
-// scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats.
-template <int F>
-__global__ void __launch_bounds__(kThreads)
+// The team's barrier (ids 1 and 2; 0 is __syncthreads).
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "r"(kNmiTeam) : "memory");
+}
+
+// The bins whose Parzen weight can be non-zero: those within `support` bins
+// of the centre nearest x (kernels/bsi_fused.py:nmi_support_range); every
+// bin for a NaN x.
+__device__ __forceinline__ void nmi_support_range(float x, int bins, int support, int* lo,
+                                                  int* hi) {
+  if (x != x) {
+    *lo = 0;
+    *hi = bins - 1;
+    return;
+  }
+  const float t = fminf(fmaxf(x * (float)(bins - 1), 0.f), (float)(bins - 1));
+  const int k0 = __float2int_rn(t);
+  *lo = max(k0 - support, 0);
+  *hi = min(k0 + support, bins - 1);
+}
+
+// n / y as q0 = n r, q = q0 + (n - q0 y) r with r = 1/y correctly rounded:
+// two FMAs and no reciprocal.  Markstein's theorem makes q the correctly
+// rounded quotient, the true division's, when q0 is within an ulp of n / y
+// and the steps stay normal; q0 = n r can be up to 1.5 ulps off, so for
+// these uses it is checked, not proven (tests/test_torch_nmi_support.py, in
+// exact arithmetic): for every float32 numerator of a weight that is
+// neither 0 nor 1 at the default sigma of 0.5 / 31, and on samples for
+// other sigmas and for the normalisation.
+__device__ __forceinline__ float markstein_div(float n, float y, float r) {
+  const float q0 = __fmul_rn(n, r);
+  return __fmaf_rn(__fmaf_rn(-q0, y, n), r, q0);
+}
+
+// expf(-d^2 / 2) with d = (x - c) / sigma by markstein_div, for |x| <= 2^20
+// and sigma in [2^-20, 2^20] (the caller's test), where its steps stay
+// normal wherever |d| >= 2^-75; below, the weight is 1 either way.
+__device__ __forceinline__ float parzen_exp(float x, float c, float sigma, float rcp) {
+  const float d = markstein_div(x - c, sigma, rcp);
+  return expf(-0.5f * (d * d));
+}
+
+// Weights at or above this are normalised by markstein_div with sum + eps
+// in [2^-20, 2^20], where its steps stay normal; smaller ones by the true
+// division.  The weights at or above it are the bins nearest x, one run of
+// k.
+constexpr float kNmiMarksteinMin = 0x1p-100f;
+
+// cvt.rna.tf32.f32 of a finite x in two integer operations: the float
+// rounded to 10 mantissa bits, ties away from zero, the low 13 bits
+// cleared.  On sm_90 the conversion instruction runs at a quarter of the
+// integer rate.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// The 3xTF32 split: hi the nearest tf32 of x, lo the nearest tf32 of the
+// rest (exact in float32); hi + lo holds x to about 2^-22.
+__device__ __forceinline__ void split_tf32(float x, unsigned* hi, unsigned* lo) {
+  *hi = tf32_rna(x);
+  *lo = tf32_rna(x - __uint_as_float(*hi));
+}
+
+// d += a b on the tensor cores: a the 16 x 8 row-major fragment, b the 8 x 8
+// column-major one, d the 16 x 8 float32 accumulator.
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; support: the
+// half-width of the evaluated bins (kernels/bsi_fused.py:nmi_support).
+//
+// The block's voxels are dealt to its two teams in rounds of kNmiChunk,
+// alternately.  Per round, the weights stage: one thread per (voxel,
+// volume) computes the voxel's normalised intensity x and, over the bins
+// within `support` of the centre nearest x only, its Gaussian weights with
+// the operations of repro/core/similarity.py:nmi in their order and
+// rounding (the division by sigma, expf, the row sum in increasing k from
+// 0, the normalising division by sum + eps; both divisions by
+// markstein_div within its ranges, the true division outside them), into
+// bin-major shared memory; it
+// zeroes the rows of its column that the last round wrote and this one does
+// not.  Outside the support every weight is 0.0f in the untruncated
+// computation too (see the header), and a +0.0f changes neither the row sum
+// nor a histogram cell.  Then the
+// histogram stage: each of the team's warps forms its tiles of Wa^T Wb over
+// the round's k-steps with mma.m16n8k8 TF32 in the 3xTF32 split (lo hi + hi
+// lo + hi hi), each round from zero into its float32 sums: the tensor cores
+// round their accumulation down, which over a block's voxels in one
+// accumulator biases the histogram by about 1e-5.
+template <int F, int BP>
+__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
     bsi_fused_nmi_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
                          const float* __restrict__ mov, const float* __restrict__ fix,
                          const float* __restrict__ scal,
                          const float* __restrict__ centres, float* __restrict__ partials,
-                         TileBlock g, int X, int Y, int Z, int bins, float sigma,
-                         float eps) {
+                         TileBlock g, int X, int Y, int Z, int bins, int support,
+                         float sigma, float eps) {
+  using L = NmiLayout<BP>;
   extern __shared__ float smem[];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
   stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
   const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
 
-  const int bp = nmi_padded_bins(bins);
+  const int team = threadIdx.x / kNmiTeam, tt = threadIdx.x % kNmiTeam;
   float* s_c = smem + disp_smem_bytes<F>(g) / sizeof(float);
-  float* sa = s_c + bp;             // (bp, kNmiStride): wa, bin-major
-  float* sb = sa + bp * kNmiStride;  // (bp, kNmiStride): wb
+  float* sa = s_c + kNmiMaxBins + team * 2 * BP * kNmiStride;  // (BP, kNmiStride): wa
+  float* sb = sa + BP * kNmiStride;  // (BP, kNmiStride): wb, both bin-major
   for (int k = threadIdx.x; k < bins; k += blockDim.x) s_c[k] = centres[k];
+  for (int k = tt; k < 2 * BP * kNmiStride; k += kNmiTeam) sa[k] = 0.f;
 
   const float lo_w = scal[0], lo_f = scal[2];
   const float rw = fmaxf(scal[1] - scal[0], 1e-8f);
   const float rf = fmaxf(scal[3] - scal[2], 1e-8f);
+  const float rcp = __frcp_rn(sigma);
+  const bool fast_sigma = sigma >= 0x1p-20f && sigma <= 0x1p20f;
 
-  // the weights stage: one thread per (voxel of the chunk, volume)
-  const int side = threadIdx.x / kNmiChunk;  // 0: warped moving, 1: fixed
-  const int v = threadIdx.x % kNmiChunk;
+  // the weights stage: one thread per (voxel of the round, volume); lo1..hi1
+  // the rows its column holds from the last round
+  const int side = tt / kNmiChunk;  // 0: warped moving, 1: fixed
+  const int v = tt % kNmiChunk;
   float* col = (side == 0 ? sa : sb) + v;
-  // the histogram stage: groups of (bp/4)^2 threads, each a 4 x 4 tile of
-  // cells; group q takes voxels q, q + G, ... of each chunk
-  const int nb = bp / 4, tg = nb * nb, groups = kThreads / tg;
-  const int grp = threadIdx.x / tg, r = threadIdx.x % tg;
-  const int i0 = 4 * (r / nb), j0 = 4 * (r % nb);
-  float acc[4][4] = {};
-  __syncthreads();  // centres staged
+  int lo1 = 0, hi1 = -1;
+  // the histogram stage: fragment row g, column t; row slice ms, column
+  // slice ns
+  const int warp = tt / 32, lane = tt % 32;
+  const int gr = lane / 4, t = lane % 4;
+  const int ms = warp / L::NS, ns = warp % L::NS;
+  float acc[L::MTW][L::NTW][4] = {};
+  // this thread's local voxel (xl, yl, zl), index c0 + v of the block's
+  // voxels in the round at c0, stepped 2 kNmiChunk voxels (the other team's
+  // round between) without divisions
+  const int i0 = team * kNmiChunk + v, step = 2 * kNmiChunk;
+  int zl = i0 % b.BZ, yl = i0 / b.BZ % b.BY, xl = i0 / (b.BZ * b.BY);
+  const int dz = step % b.BZ, dy = step / b.BZ % b.BY, dx = step / (b.BZ * b.BY);
+  __syncthreads();  // centres staged, weights zeroed
 
-  for (int cb = 0; cb < b.n; cb += kNmiChunk) {
-    const int i = cb + v;
-    int xl, yl, zl;
-    size_t at;
-    if (i < b.n && b.locate(X, Y, Z, i, &xl, &yl, &zl, &at)) {
-      const float x = side == 0 ? (b.warp(mov, X, Y, Z, xl, yl, zl) - lo_w) / rw
-                                : (__ldg(fix + at) - lo_f) / rf;
-      float sum = 0.f;
-      for (int k = 0; k < bins; ++k) {
-        const float d = (x - s_c[k]) / sigma;
-        const float e = expf(-0.5f * (d * d));
-        col[k * kNmiStride] = e;
-        sum += e;
+  for (int c0 = team * kNmiChunk; c0 < b.n; c0 += step) {
+    int lo = 0, hi = -1;
+    const int xg = b.x0 + xl, yg = b.y0 + yl, zg = b.z0 + zl;
+    if (xl < b.BX && xg < X && yg < Y && zg < Z) {
+      const float x = side == 0
+                          ? (b.warp(mov, X, Y, Z, xl, yl, zl) - lo_w) / rw
+                          : (__ldg(fix + ((size_t)xg * Y + yg) * Z + zg) - lo_f) / rf;
+      nmi_support_range(x, bins, support, &lo, &hi);
+      if (REPRO_NMI_STAGES & 1) {
+        float sum = 0.f;
+        // ka..kb: the run of weights >= kNmiMarksteinMin; split: not one run
+        int ka = hi + 1, kb = lo - 1;
+        bool below = false, split = false;
+        if (fast_sigma && fabsf(x) <= 0x1p20f) {
+#pragma unroll 2
+          for (int k = lo; k <= hi; ++k) {
+            const float e = parzen_exp(x, s_c[k], sigma, rcp);
+            col[k * kNmiStride] = e;
+            sum += e;
+            if (e >= kNmiMarksteinMin) {
+              split = split || below;
+              ka = min(ka, k);
+              kb = k;
+            } else {
+              below = below || kb >= lo;
+            }
+          }
+        } else {
+          for (int k = lo; k <= hi; ++k) {
+            const float d = (x - s_c[k]) / sigma;
+            const float e = expf(-0.5f * (d * d));
+            col[k * kNmiStride] = e;
+            sum += e;
+          }
+        }
+        const float den = sum + eps;
+        if (split || !(den >= 0x1p-20f && den <= 0x1p20f)) ka = hi + 1, kb = hi;
+        const float rd = __frcp_rn(den);
+        for (int k = lo; k < ka; ++k) col[k * kNmiStride] = col[k * kNmiStride] / den;
+#pragma unroll 2
+        for (int k = ka; k <= kb; ++k)
+          col[k * kNmiStride] = markstein_div(col[k * kNmiStride], den, rd);
+        for (int k = max(kb + 1, ka); k <= hi; ++k)
+          col[k * kNmiStride] = col[k * kNmiStride] / den;
+      } else {
+        for (int k = lo; k <= hi; ++k) col[k * kNmiStride] = x;
       }
-      const float den = sum + eps;
-      for (int k = 0; k < bins; ++k) col[k * kNmiStride] = col[k * kNmiStride] / den;
-      for (int k = bins; k < bp; ++k) col[k * kNmiStride] = 0.f;
-    } else {
-      for (int k = 0; k < bp; ++k) col[k * kNmiStride] = 0.f;
     }
-    __syncthreads();
-    if (grp < groups) {
-      for (int u = grp; u < kNmiChunk; u += groups) {
-        float a[4], c[4];
+    // zero the rows the last round wrote and this one does not
+    for (int k = lo1; k <= hi1 && k < lo; ++k) col[k * kNmiStride] = 0.f;
+    for (int k = max(lo1, hi + 1); k <= hi1; ++k) col[k * kNmiStride] = 0.f;
+    lo1 = lo;
+    hi1 = hi;
+    zl += dz;
+    if (zl >= b.BZ) zl -= b.BZ, ++yl;
+    yl += dy;
+    if (yl >= b.BY) yl -= b.BY, ++xl;
+    xl += dx;
+    team_sync(team);
+    if (REPRO_NMI_STAGES & 2) {
+      float c[L::MTW][L::NTW][4] = {};
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          a[q] = sa[(i0 + q) * kNmiStride + u];
-          c[q] = sb[(j0 + q) * kNmiStride + u];
+      for (int ks = 0; ks < kNmiSteps; ++ks) {
+        const int k0 = ks * 8 + t;
+        unsigned ah[L::MTW][4], al[L::MTW][4];
+#pragma unroll
+        for (int ii = 0; ii < L::MTW; ++ii) {
+          const float* p = sa + ((ms * L::MTW + ii) * 16 + gr) * kNmiStride + k0;
+          split_tf32(p[0], &ah[ii][0], &al[ii][0]);
+          split_tf32(p[8 * kNmiStride], &ah[ii][1], &al[ii][1]);
+          split_tf32(p[4], &ah[ii][2], &al[ii][2]);
+          split_tf32(p[8 * kNmiStride + 4], &ah[ii][3], &al[ii][3]);
         }
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+        for (int j = 0; j < L::NTW; ++j) {
+          const float* q = sb + ((ns * L::NTW + j) * 8 + gr) * kNmiStride + k0;
+          unsigned bh[2], bl[2];
+          split_tf32(q[0], &bh[0], &bl[0]);
+          split_tf32(q[4], &bh[1], &bl[1]);
 #pragma unroll
-          for (int p = 0; p < 4; ++p) acc[q][p] = fmaf(a[q], c[p], acc[q][p]);
+          for (int ii = 0; ii < L::MTW; ++ii) {
+            mma_tf32(c[ii][j], al[ii], bh);
+            mma_tf32(c[ii][j], ah[ii], bl);
+            mma_tf32(c[ii][j], ah[ii], bh);
+          }
+        }
       }
+#pragma unroll
+      for (int ii = 0; ii < L::MTW; ++ii)
+#pragma unroll
+        for (int j = 0; j < L::NTW; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[ii][j][r] = acc[ii][j][r] + c[ii][j][r];
     }
-    __syncthreads();
+    team_sync(team);
   }
 
-  // combine the groups in a fixed order; cells past `bins` are dropped
-  float* comb = sa;  // (groups * tg, 16)
-  if (grp < groups) {
+  // combine the teams in a fixed order; cells past `bins` are dropped.
+  // Accumulator r of tile (ii, j) holds cell ((ms*MTW + ii)*16 + g +
+  // 8*(r/2), (ns*NTW + j)*8 + 2t + r%2).
+  __syncthreads();
+  float* comb = s_c + kNmiMaxBins;  // (2, BP, BP), over both teams' weights
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
+  for (int ii = 0; ii < L::MTW; ++ii)
 #pragma unroll
-      for (int p = 0; p < 4; ++p) comb[threadIdx.x * 16 + q * 4 + p] = acc[q][p];
-  }
+    for (int j = 0; j < L::NTW; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int ci = (ms * L::MTW + ii) * 16 + gr + 8 * (r / 2);
+        const int cj = (ns * L::NTW + j) * 8 + 2 * t + r % 2;
+        comb[(team * BP + ci) * BP + cj] = acc[ii][j][r];
+      }
   __syncthreads();
   float* out = partials + block_index() * bins * bins;
   for (int cell = threadIdx.x; cell < bins * bins; cell += blockDim.x) {
     const int ci = cell / bins, cj = cell % bins;
-    const int slot = ((ci / 4) * nb + cj / 4) * 16 + (ci % 4) * 4 + cj % 4;
-    float s = 0.f;
-    for (int q = 0; q < groups; ++q) s += comb[q * tg * 16 + slot];
-    out[cell] = s;
+    out[cell] = comb[ci * BP + cj] + comb[(BP + ci) * BP + cj];
   }
 }
 
@@ -727,6 +942,7 @@ __global__ void __launch_bounds__(kReduceThreads)
   float acc = op == kMin ? CUDART_INF_F : op == kMax ? -CUDART_INF_F : 0.f;
   long long cnt = 0;
   if (lane < K) {
+#pragma unroll 4
     for (int row = phase; row < n; row += R) {
       const float v = partials[(size_t)row * K + lane];
       if (op == kSum) acc += v;
@@ -792,6 +1008,21 @@ inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, i
                       own.bz, X, Y, Z, win, inv, eps);
 }
 
+// The nmi kernel for `bins` (padded to 32 or 64) on the tile-block grid of g.
+template <int F>
+inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
+                      float* partials, float* out, void* stream, const float* phi,
+                      const float* tabs, const float* mov, const float* fix,
+                      const float* scal, const float* centres, int bins, int support,
+                      float sigma, float eps) {
+  const size_t smem = disp_smem_bytes<F>(g) + sizeof(float) * nmi_extra_floats(bins);
+  auto kernel = nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_kernel<F, 32>
+                                            : bsi_fused_nmi_kernel<F, 64>;
+  return launch_fused(kernel, tile_grid(g, X, Y, Z), smem, n_partials, bins * bins, 0,
+                      partials, out, stream, phi, tabs, mov, fix, scal, centres, partials,
+                      g, X, Y, Z, bins, support, sigma, eps);
+}
+
 }  // namespace repro_torch
 
 // Launch variant kernel K<kLerp> or K<kMatmul> on the tile-block grid of g
@@ -852,21 +1083,25 @@ extern "C" int bsi_fused_ncc_f32(const float* phi, const float* tabs, const floa
 }
 
 // scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; 2 <= bins <= 64;
-// out: bins * bins floats, the joint histogram (row: moving bin).
+// support: the half-width in bins of the evaluated Parzen weights
+// (kernels/bsi_fused.py:nmi_support), >= 0.  out: bins * bins floats, the
+// joint histogram (row: moving bin).
 extern "C" int bsi_fused_nmi_f32(const float* phi, const float* tabs, const float* mov,
                                  const float* fix, const float* scal,
                                  const float* centres, float* partials, int n_partials,
                                  float* out, int nx, int ny, int nz, int dx, int dy,
                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
-                                 int form, int bins, float sigma, float eps,
+                                 int form, int bins, int support, float sigma, float eps,
                                  void* stream) {
   using namespace repro_torch;
   if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
-  if (bins < 2 || bins > kNmiMaxBins) return (int)cudaErrorInvalidValue;
+  if (bins < 2 || bins > kNmiMaxBins || support < 0) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return REPRO_LAUNCH_FUSED(bsi_fused_nmi_kernel, form, nmi_extra_floats(bins),
-                            n_partials, bins * bins, 0, phi, tabs, mov, fix, scal,
-                            centres, partials, g, X, Y, Z, bins, sigma, eps);
+  if (form == kMatmul)
+    return launch_nmi<kMatmul>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs,
+                               mov, fix, scal, centres, bins, support, sigma, eps);
+  return launch_nmi<kLerp>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs, mov,
+                           fix, scal, centres, bins, support, sigma, eps);
 }
 
 // (bx, by, bz): the tiles a block owns, its column's march along x and its

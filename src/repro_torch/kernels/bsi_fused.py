@@ -20,7 +20,10 @@ variant    result                                                 lanes
            ``b = f - mu_f``, the means from ``scal``
 ``nmi``    the ``(bins, bins)`` joint Parzen histogram            ``bins^2``
            ``sum_v wa(v) wb(v)^T`` of the min-max normalised
-           intensities, lo/hi from ``scal``
+           intensities, lo/hi from ``scal``; the weights of
+           the bins within :func:`nmi_support` of the nearest
+           centre only (the rest are exactly 0), the product
+           on the tensor cores in a 3xTF32 split
 ``lncc``   the sum of the local ``cc^2`` over the VALID window     2
            positions, and their count; a block owns a column
            of tiles and marches along x, warping each y-z
@@ -46,14 +49,19 @@ from repro_torch.core.similarity import local_cc, parzen_centres, parzen_weights
 from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "block_tiles", "launch", "lncc_blocks",
-           "num_partials", "nmi_smem_bytes", "plain", "plain_lncc", "plain_ncc",
+__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "NMI_STRIDE", "block_tiles", "launch",
+           "lncc_blocks", "nmi_padded_bins", "nmi_smem_bytes", "nmi_support",
+           "nmi_support_range", "num_partials", "plain", "plain_lncc", "plain_ncc",
            "plain_nmi", "plain_stats", "warped"]
 
 DISP_FORMS = ("lerp", "matmul")
 LANES = {"ssd": 1, "stats": 4, "ncc": 3, "lncc": 2}
 MAX_BINS = 64  # histogram width the nmi kernel takes (csrc: kNmiMaxBins)
-_NMI_CHUNK_STRIDE = 129  # csrc: kNmiStride
+NMI_CHUNK = 64  # voxels a team of the nmi kernel stages a round (csrc: kNmiChunk)
+NMI_STRIDE = NMI_CHUNK + 4  # row stride of the staged weights, 4 mod 32 (csrc)
+# expf(-d^2 / 2) is exactly 0.0f in float32 for d^2 above about 207.9 (below
+# half the least denormal, 2^-150 = e^-103.97)
+PARZEN_ZERO_D2 = 208.0
 # shared memory of each of two blocks on one SM: 228 KB less 1 KB reserved a block
 _TWO_BLOCKS_SMEM_BYTES = 233_472 // 2 - 1024
 _H100_SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -68,11 +76,41 @@ def num_partials(vol_shape, tile, blocks) -> int:
     return n
 
 
+def nmi_padded_bins(bins) -> int:
+    """The histogram's side padded to the kernel's mma tiles (csrc:
+    nmi_padded_bins): 32 or 64."""
+    return 32 if bins <= 32 else 64
+
+
 def nmi_smem_bytes(bins) -> int:
-    """Shared memory the nmi kernel adds to the staging: centres, the two
-    staged weight matrices (or the group combine, whichever is larger)."""
-    bp = -(-bins // 4) * 4
-    return 4 * (bp + max(2 * bp * _NMI_CHUNK_STRIDE, 16 * 256))
+    """Shared memory the nmi kernel adds to the staging (csrc:
+    nmi_extra_floats): ``MAX_BINS`` centres, then for each of its two teams
+    the two staged ``(bp, NMI_STRIDE)`` weight matrices (which the teams'
+    partial histograms reuse)."""
+    return 4 * (MAX_BINS + 2 * 2 * nmi_padded_bins(bins) * NMI_STRIDE)
+
+
+def nmi_support(bins, sigma_ratio) -> int:
+    """Half-width, in bins from the centre nearest a value, of the Parzen
+    weights the nmi kernel evaluates: every centre within ``sqrt(208)``
+    sigmas of the value (farther, the float32 weight is exactly 0), which the
+    nearest centre puts up to half a bin farther off.  The least ``K`` with
+    ``K - 1/2 > sqrt(208) sigma_ratio``, clipped to ``[0, bins)``; 8 at the
+    default ``sigma_ratio`` of 0.5."""
+    k = math.floor(math.sqrt(PARZEN_ZERO_D2) * sigma_ratio + 0.5) + 1
+    return max(0, min(k, bins - 1))
+
+
+def nmi_support_range(x, bins, support):
+    """``(lo, hi)``: the bins the nmi kernel evaluates for each float32 value
+    of ``x`` (csrc: nmi_support_range), those within ``support`` of the
+    nearest centre (``x (bins - 1)`` clamped to the bins and rounded half to
+    even); every bin for a NaN."""
+    k0 = torch.round(torch.clamp(x * (bins - 1), 0, bins - 1)).long()
+    lo = torch.clamp(k0 - support, min=0)
+    hi = torch.clamp(k0 + support, max=bins - 1)
+    nan = torch.isnan(x)
+    return torch.where(nan, 0, lo), torch.where(nan, bins - 1, hi)
 
 
 def _disp_smem_bytes(tile, blocks, disp_form) -> int:
@@ -170,17 +208,19 @@ def lncc_blocks(tile, window, disp_form, vol_shape) -> tuple:
 
 
 def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=None,
-           bins=None, sigma=None, eps=None, window=None, extra=None):
+           bins=None, sigma=None, eps=None, window=None, extra=None, lib=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
     (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  For ``lncc``,
-    ``blocks`` are the owned tiles per block and ``extra`` the halo tiles."""
+    ``blocks`` are the owned tiles per block and ``extra`` the halo tiles.
+    ``lib``: the loaded kernels (default :func:`load_library`'s; a
+    measurement build's, ``load_library(defines)``, to time a variant)."""
     nx, ny, nz, _ = phi.shape
     X, Y, Z = moving.shape
     n = num_partials(moving.shape, tile, blocks)
     k = bins * bins if kind == "nmi" else LANES[kind]
     partials = torch.empty(n * k, dtype=torch.float32, device=phi.device)
     out = torch.empty(k, dtype=torch.float32, device=phi.device)
-    lib = load_library()
+    lib = lib or load_library()
     dims = (nx, ny, nz, *tile, X, Y, Z, *blocks, DISP_FORMS.index(disp_form))
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
@@ -205,8 +245,8 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
             rc = lib.bsi_fused_nmi_f32(
                 phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 scal.data_ptr(), centres.data_ptr(), partials.data_ptr(), n,
-                out.data_ptr(), *dims, bins, ctypes.c_float(sigma),
-                ctypes.c_float(eps), stream)
+                out.data_ptr(), *dims, bins, nmi_support(bins, sigma * (bins - 1)),
+                ctypes.c_float(sigma), ctypes.c_float(eps), stream)
         elif kind == "lncc":
             rc = lib.bsi_fused_lncc_f32(
                 phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),

@@ -5,7 +5,10 @@ include PyTorch's headers, so each compiles in seconds.  One ``nvcc`` per
 source runs in parallel; the objects are then linked into one library under
 ``build/`` at the root of the checkout, named by a hash of the sources and
 flags, so an unchanged library is reused and a changed one is rebuilt.  The
-build happens at the first launch, never at import.
+build happens at the first launch, never at import.  A measurement build,
+``load_library(defines)``, compiles the same sources with extra ``-D``
+defines into a library of its own beside it (``chip_smoke.py`` times the
+nmi kernel's stages so).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ FLAGS = (
 # The fused kernels round every multiply and add of the displacement and the
 # warp as the plain version does (no contraction into FMAs), so their warped
 # samples, and the stats kernel's min and max, equal the plain version's bit
-# for bit; where an FMA is wanted (the NMI histogram) the source says fmaf.
+# for bit.
 # The TT kernel likewise equals the plain ``bsi_tt`` bit for bit.
 SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",), "bsi_tt.cu": ("-fmad=false",)}
 
@@ -55,7 +58,7 @@ _SIGNATURES = {
     "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,
     "bsi_fused_stats_f32": "pppp" + "ip" + _DIMS,
     "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,
-    "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iff",
+    "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iiff",
     "bsi_fused_lncc_f32": "ppppp" + "ip" + _DIMS + "iiii" + "ff",
     # q, k, v, out; B, S, H, KV, hd, causal, window; scale, softcap
     "flash_attention_f32": "pppp" + "i" * 7 + "ff",  # flash_attention.cu
@@ -104,8 +107,8 @@ def nvcc_path() -> str:
     )
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+def _digest(defines) -> str:
+    h = hashlib.sha256(" ".join(FLAGS + defines).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
@@ -140,7 +143,7 @@ def _ptxas_summary(log: str) -> tuple:
     return tuple(lines)
 
 
-def _build(out: Path) -> BuildInfo:
+def _build(out: Path, defines=()) -> BuildInfo:
     nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -148,8 +151,8 @@ def _build(out: Path) -> BuildInfo:
         procs = []
         for name in SOURCES:  # one nvcc per source, all started together
             obj = Path(tmp) / (name + ".o")
-            cmd = [nvcc, *FLAGS, *SOURCE_FLAGS.get(name, ()), "-c", str(CSRC / name),
-                   "-o", str(obj)]
+            cmd = [nvcc, *FLAGS, *SOURCE_FLAGS.get(name, ()),
+                   *(f"-D{d}" for d in defines), "-c", str(CSRC / name), "-o", str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         log, failed = [], []
@@ -187,8 +190,11 @@ def sass_counts(path, function_part, opcode) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> Library:
-    """Build the kernels if needed and load them (once per process)."""
-    out = BUILD_ROOT / f"librepro_torch_kernels-{_digest()}.so"
-    info = _build(out) if not out.exists() else BuildInfo(out, 0.0, ())
+def load_library(defines=()) -> Library:
+    """Build the kernels if needed and load them (once per process).
+    ``defines`` (``"NAME=VALUE"``, passed to every ``nvcc`` as ``-D``) give a
+    measurement build, a library of its own."""
+    defines = tuple(defines)
+    out = BUILD_ROOT / f"librepro_torch_kernels-{_digest(defines)}.so"
+    info = _build(out, defines) if not out.exists() else BuildInfo(out, 0.0, ())
     return Library(info)

@@ -13,8 +13,13 @@ of the TT and matrix forms, is not its bound), and prints the larger of bytes / 
 operations / 67 TFLOP/s (H100 SXM fp32 outside the tensor cores) with which
 of the two bounds it; and the same for gemma2-2b's global and local
 attention layers (989 TFLOP/s bf16 on the tensor cores) at ``--batch``
-prompts of ``--seq`` tokens.  ``chip_smoke.py`` uses the same counts for the
-ported kernels.  Pure arithmetic: it needs no card.
+prompts of ``--seq`` tokens.  The fused NMI kernel's histogram is also
+bound by the least of its forms (:func:`nmi_bound`): one dense product on
+the tensor cores (495 TFLOP/s TF32) or the products of the non-zero Parzen
+weights only, the weights at the bins it evaluates; and its work as the
+kernel does it, three TF32 products, is printed beside.  ``chip_smoke.py``
+uses the same counts for the ported kernels.  Pure arithmetic: it needs no
+card.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import argparse
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12  # H100 SXM TF32 tensor cores, dense
 PHANTOM1 = (512, 228, 385)
 # gemma2-2b's attention layer (src/repro_torch/configs/gemma2_2b.py): 8 query
 # heads, 4 key/value heads, head dim 256, causal; global layers attend to
@@ -32,14 +38,20 @@ PHANTOM1 = (512, 228, 385)
 ATTENTION_LAYER = dict(heads=8, kv_heads=4, head_dim=256, causal=True)
 GEMMA_WINDOW = 4096
 SERVE_BATCH, SERVE_SEQ = 4, 8160
+# a Parzen weight: subtract, divide, square, scale, exp, its share of the
+# row sum and its normalising divide
+NMI_WEIGHT_OPS = 7
 
-__all__ = ["attention_bound", "attention_pairs", "kernel_bounds", "bound_ms"]
+__all__ = ["attention_bound", "attention_pairs", "kernel_bounds", "bound_ms",
+           "nmi_bound"]
 
 
-def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S):
-    """``(ms, "bytes" | "operations")``: the larger of the two times."""
+def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S, tf32_flops=0):
+    """``(ms, "bytes" | "operations")``: the larger of the bytes' time and
+    the operations' (``flops`` at ``flop_per_s``; ``tf32_flops`` on the
+    tensor cores, whose time may overlap the other pipes')."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_per_s * 1e3
+    t_ops = max(flops / flop_per_s, tf32_flops / TF32_FLOP_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -62,6 +74,44 @@ def attention_bound(seq, *, heads, kv_heads, head_dim, causal, window=0, batch=1
     moved = itemsize * batch * seq * head_dim * (2 * heads + 2 * kv_heads)
     pairs = attention_pairs(seq, causal=causal, window=window)
     return moved, 4 * head_dim * heads * batch * pairs
+
+
+def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channels=3,
+              support=8) -> dict:
+    """The fused NMI kernel's bound, the least over the forms that compute
+    its function.  Each form moves the bytes of :func:`kernel_bounds`'
+    ``bsi_fused_nmi`` and does its displacement, sample and normalisation,
+    and 7 fp32 operations for each Parzen weight evaluated (``evaluated`` of
+    them over both volumes; default ``2 min(bins, 2 support + 1)`` a voxel,
+    the most at the half-width ``support`` of
+    ``kernels.bsi_fused.nmi_support``, 8 at the default sigma).  Its
+    histogram is either one dense ``(bins, V) . (V, bins)`` product on the
+    tensor cores (``2 bins^2`` flops a voxel at 495 TFLOP/s TF32, beside the
+    fp32 pipes) or the multiply-adds of the non-zero weight pairs only
+    (``products`` of them, counted from the data; default ``min(bins, 2
+    support + 1)^2`` a voxel) on the fp32 pipes.
+
+    Returns ``ms``, ``by`` (``"bytes"`` or ``"operations"``) and ``form``
+    (``"dense TF32"`` or ``"non-zero fp32"``) of the least form, each
+    form's ``(ms, by)``, the counts, and ``work_tf32_ms``: the three TF32
+    products of the kernel's 3xTF32 split at 495 TFLOP/s, the work it does
+    rather than a bound."""
+    vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
+    moved, old = kernel_bounds(vol_shape, tile, channels, bins)["bsi_fused_nmi"]
+    width = min(bins, 2 * support + 1)
+    evaluated = 2 * width * vox if evaluated is None else evaluated
+    products = width * width * vox if products is None else products
+    # kernel_bounds' count less its weights (2 bins a voxel) and histogram
+    rest = (old - (2 * NMI_WEIGHT_OPS * bins + 2 * bins * bins) * vox
+            + NMI_WEIGHT_OPS * evaluated)
+    dense_tf32 = 2 * bins * bins * vox
+    forms = {"dense TF32": bound_ms(moved, rest, tf32_flops=dense_tf32),
+             "non-zero fp32": bound_ms(moved, rest + 2 * products)}
+    form = min(forms, key=lambda k: forms[k][0])
+    return dict(ms=forms[form][0], by=forms[form][1], form=form, forms=forms,
+                bytes=moved, fp32_flops=rest, dense_tf32_flops=dense_tf32,
+                products=products, evaluated=evaluated,
+                work_tf32_ms=3 * dense_tf32 / TF32_FLOP_PER_S * 1e3)
 
 
 def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
@@ -87,10 +137,8 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
     sample_score = 30 * vox  # clamp, 8 taps, 7 lerps, squared difference
     ncc_score = 8 * vox  # two centrings, three multiply-adds
     # per voxel: both intensities normalised (2 ops each); per volume and bin a
-    # Parzen weight (subtract, divide, square, scale, exp), its share of the
-    # row sum and its normalising divide (7 ops); the bins^2 multiply-adds of
-    # the histogram
-    nmi_score = (4 + 2 * 7 * bins + 2 * bins * bins) * vox
+    # Parzen weight; the bins^2 multiply-adds of the histogram
+    nmi_score = (4 + 2 * NMI_WEIGHT_OPS * bins + 2 * bins * bins) * vox
     # per voxel: three products, five separable box sums of `window` adds per
     # axis, and the local cc (about a dozen ops)
     lncc_score = (3 + 5 * 3 * window + 12) * vox
@@ -138,6 +186,14 @@ def main(argv=None):
         ms, by = bound_ms(b, f)
         print(f"{name:24s} {b / 1e6:9.1f} MB {f / 1e9:8.2f} GFLOP  "
               f"bound {ms:.4f} ms ({by})")
+    nb = nmi_bound(args.shape, args.tile, args.bins, channels=args.channels)
+    print(f"{'bsi_fused_nmi (least)':24s} {nb['bytes'] / 1e6:9.1f} MB "
+          f"{nb['fp32_flops'] / 1e9:8.2f} GFLOP  bound {nb['ms']:.4f} ms ({nb['by']}, "
+          f"{nb['form']}); the weights at 2 x {min(args.bins, 17)} bins a voxel (the "
+          "default sigma), the histogram by the least of: " + ", ".join(
+              f"{k} {ms:.4f} ms" for k, (ms, _) in nb["forms"].items())
+          + f" (at most {nb['products'] / 1e9:.2f} G non-zero pairs); the kernel's "
+          f"three TF32 products {nb['work_tf32_ms']:.4f} ms")
     for layer, window in (("global", 0), ("local", GEMMA_WINDOW)):
         b, f = attention_bound(args.seq, **ATTENTION_LAYER, window=window,
                                batch=args.batch)

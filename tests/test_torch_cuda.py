@@ -134,16 +134,26 @@ def test_ncc_kernel_matches_plain(cuda, vol, tile):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
-@pytest.mark.parametrize("vol,tile", CASES)
-@pytest.mark.parametrize("bins", [32, 16, 10])
-def test_nmi_kernel_matches_plain(cuda, vol, tile, bins):
+# the nmi kernel stages 128 voxels a round: (21, 17, 13) holds 4641 voxels,
+# its blocks of 2 x 2 x 8 tiles 4000 or fewer, none a multiple of 128
+NMI_CASES = CASES + [((21, 17, 13), (5, 5, 5))]
+
+
+@pytest.mark.parametrize("vol,tile", NMI_CASES)
+@pytest.mark.parametrize("bins", [32, 16, 10, 2, 64])
+@pytest.mark.parametrize("sigma_ratio", [0.5, 2.0])
+@pytest.mark.parametrize("form", bsi_fused.DISP_FORMS)
+def test_nmi_kernel_matches_plain(cuda, vol, tile, bins, sigma_ratio, form):
+    """The histogram within 1e-5 of its largest cell: at sigma_ratio 0.5 the
+    kernel evaluates 17 of 32 bins a voxel, at 2.0 all but the farthest."""
     phi, mov, fix = _fused_inputs(vol, tile, 12, cuda)
-    st = bsi_fused.plain_stats(phi, mov, tile)
+    st = bsi_fused.plain_stats(phi, mov, tile, disp_form=form)
     scal = torch.stack([st[1], st[2], fix.min(), fix.max()])
-    kw = dict(bins=bins, sigma=0.5 / (bins - 1), eps=1e-8)
-    before = _launches("bsi_fused_nmi")
+    kw = dict(bins=bins, sigma=sigma_ratio / (bins - 1), eps=1e-8, disp_form=form)
+    name = "bsi_fused_nmi" + ("_matmul" if form == "matmul" else "")
+    before = _launches(name)
     out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **kw)
-    assert _launches("bsi_fused_nmi") == before + 1
+    assert _launches(name) == before + 1
     ref = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **kw)
     assert out.shape == (bins, bins)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
