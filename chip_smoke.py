@@ -28,7 +28,11 @@ Phases; any failure raises and the script exits nonzero:
    form prints its split, its time with the weights or the histogram stage
    left out (two measurement builds, ``-DREPRO_NMI_STAGES``), its resident
    blocks an SM, registers and HMMA instructions (``cuobjdump -sass``,
-   asserted);
+   asserted).  The matmul adjoint's row prints its two launches' device
+   times (box contraction, seam sum), its box kernel's registers (no spills,
+   asserted) and blocks an SM, and the device memory one call allocates
+   beyond its output (asserted at most 64 MB), and asserts two calls
+   bit-equal;
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -298,6 +302,40 @@ def nmi_report(torch, lib, stage_libs, phi, moving, fixed, scal, bins, sigma, ep
         work_tf32_ms=nb["work_tf32_ms"], fp32_pipe_bound_ms=old_ms)
 
 
+# the device memory one matmul-adjoint call may allocate beyond its output at
+# phantom1: its partials (the band sums of an earlier design took 280 MB)
+ADJOINT_EXTRA_BYTES = 64e6
+
+
+def adjoint_matmul_summary(lib, g, gshape):
+    """The matmul adjoint at this run's inputs: its time and each launch's
+    device time (``launch/profile_adjoint.py``), its box kernel's registers
+    (asserted: no spills) and resident blocks an SM, and the device memory
+    one call allocates beyond its output (asserted at most 64 MB); two calls
+    asserted bit-equal."""
+    from repro_torch.kernels import bsi_adjoint
+    from repro_torch.launch.profile_adjoint import adjoint_matmul_report
+
+    geo = bsi_adjoint.matmul_blocks(TILE, g.shape[3], tuple(g.shape[:3]))
+    rep = adjoint_matmul_report(g, TILE, gshape)
+    regs = [ln for ln in lib.info.ptxas
+            if "adjoint_matmul_box_kernel" in ln and f"ILi{geo.cols}E" in ln]
+    assert len(regs) == 1 and "0/0 B spill" in regs[0], regs
+    per_sm = resident_blocks(int(re.search(r"(\d+) registers", regs[0]).group(1)),
+                             geo.smem, 2 * geo.cols)
+    log(f"bsi_adjoint_matmul: {rep['ms']:.4f} ms; launches " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in rep["stages"].items())
+        + f"; {math.prod(geo.boxes)} boxes of {geo.box} tiles, {2 * geo.cols} threads and "
+        f"{geo.smem} B of shared memory a block, {per_sm} blocks an SM; {regs[0]}; "
+        f"{rep['extra_bytes'] / 1e6:.1f} MB beyond the output (the partials "
+        f"{4 * geo.partial_floats / 1e6:.1f} MB; limit {ADJOINT_EXTRA_BYTES / 1e6:.0f} "
+        f"MB); two calls bit-equal: {rep['bit_equal']}")
+    assert rep["bit_equal"], rep
+    assert rep["extra_bytes"] <= ADJOINT_EXTRA_BYTES, rep
+    return dict(rep, box=geo.box, boxes=geo.boxes, blocks_per_sm=per_sm,
+                registers=regs[0])
+
+
 def check_kernels(torch, fixed, moving, lib, stage_libs):
     """Phase 3: every kernel against its plain version at phantom1 shapes;
     ``lib`` the kernels, ``stage_libs`` the nmi kernel's measurement builds."""
@@ -493,11 +531,11 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     assert math.isfinite(rel) and rel <= 1e-5, rel
     lib_err = (library_adj() - ref).abs().max().item()
     log(f"bsi_adjoint_matmul: library yardstick (conv3d) max |diff| = {lib_err:.3e}")
+    adj = adjoint_matmul_summary(lib, g, gshape)
     row("bsi_adjoint_matmul", "src/repro_torch/csrc/bsi_adjoint.cu",
-        "src/repro/kernels/bsi_adjoint.py:194", err,
-        cuda_ms(torch, lambda: ops.bsi_adjoint_matmul(g, TILE, gshape)),
+        "src/repro/kernels/bsi_adjoint.py:194", err, adj["ms"],
         cuda_ms(torch, lambda: bsi_adjoint.plain_matmul(g, TILE, gshape), reps=3),
-        "bsi_adjoint_matmul", cuda_ms(torch, library_adj))
+        "bsi_adjoint_matmul", cuda_ms(torch, library_adj), adjoint=adj)
 
     # --- the fused variants in the matrix form; stats, ncc and nmi on the
     # remapped pair, as in check_kernels

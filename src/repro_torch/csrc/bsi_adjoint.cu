@@ -24,24 +24,32 @@
 // repro/kernels/bsi_adjoint.py:bsi_adjoint_matmul_pallas (_kernel_matmul),
 // dispatched by repro/kernels/ops.py:bsi_adjoint_pallas(form="matmul").
 //
-// What bounds it on an H100: the operations, 64 multiply-adds per cotangent
-// value (17.3 GFLOP at phantom1 with 3 channels, 0.26 ms at 67 TFLOP/s fp32);
-// reading the 539 MB cotangent takes 0.16 ms.
+// What bounds it on an H100: reading the cotangent once, 539 MB at phantom1
+// (512, 228, 385) x 3 channels, 0.16 ms at 3.35 TB/s; the form's own 64
+// multiply-adds a value (8.76 G at a 5^3 tile) take 0.26 ms on the fp32
+// pipes.  An earlier design wrote every tile's 64 band sums to device memory
+// (280 MB at phantom1) and gathered them back, and its contraction read two
+// shared-memory words per multiply-add: 4.0 + 0.5 ms on an H100.
 //
-// What the design does about it: two launches.  The JAX kernel stages a
-// ((bc+3)*d)^3 x C cotangent window per block of control points; at bc = 2,
-// d = 5 and 3 channels that is 188 KB, which with the 32 KB basis leaves no
-// room on an H100 block (227 KB) and only 8 control points of work per
-// block.  Here the first launch contracts each tile of the volume against
-// the basis, c4[t, ch, k] = sum_v B[v, k] * g[t, v, ch] in the fixed order
-// v = 0..d^3-1: a block stages its tiles' cotangents (zero outside the
-// volume: masked, not padded) and the basis in shared memory, and a thread
-// owns one (tile, channel, k), so a warp reads 32 consecutive basis columns
-// (no bank conflicts) and one broadcast cotangent.  The c4 scratch is 64 x
-// tiles x C floats (280 MB at phantom1).  The second launch is the 64-band
-// overlap-add as a gather: control point p sums c4[p - (l, m, n), k] over
-// k = (l*4 + m)*4 + n in order, tiles outside the volume counting zero.  No
-// atomics: the result is deterministic.
+// What the design does about it: the band sums never leave the chip.  A
+// persistent block (two an SM at phantom1) stages the (d^3, 64) basis once
+// and walks over boxes of (bx, by, bz) tiles, kernels/bsi_adjoint.py:
+// matmul_blocks picking the box.  A box is contracted plane by plane, a
+// plane being its tiles' voxels at one x offset: the planes stream through a
+// ring of shared-memory slots by 16-byte cp.async (4-byte copies straight
+// into place were slower), so the next planes load while one is contracted,
+// across boxes too; each plane is then moved into U's layout, (dy*dz, cols)
+// with a column per (tile, channel), zero outside the volume (masked, not
+// padded).  The block forms B^T U register-blocked like an SGEMM, each of
+// its 2*cols threads 8 bands x 4 columns read as 16-byte vectors (3 shared
+// loads per 32 multiply-adds), the sum over v in the order v = 0..d^3-1 as
+// before.  After a box's last plane its bands go to shared memory and each
+// control point of the (bx+3)(by+3)(bz+3) the box touches is owned by one
+// thread, which sums the bands that land on it in the order
+// k = (l*4 + m)*4 + n and writes one partial a channel (32 MB at phantom1,
+// read back from L2).  A small second launch sums, for each control point,
+// the partials of the boxes that hold it, in box order.  No atomics: the
+// result is deterministic.
 #include "bsi_common.cuh"
 
 namespace repro_torch {
@@ -87,79 +95,306 @@ inline cudaError_t sweep(const float* in, const float* w, float* out, long long 
   return cudaGetLastError();
 }
 
-// c4[((tile)*c + ch)*64 + k] = sum_v B[v, k] * g[tile, v, ch] over the tiles
-// that hold voxels of (X, Y, Z), tile-linear in (Tx, Ty, Tz).
-__global__ void __launch_bounds__(kThreads)
-    adjoint_matmul_c4_kernel(const float* __restrict__ g_in,
-                             const float* __restrict__ basis, float* __restrict__ c4,
-                             TileBlock g, int X, int Y, int Z) {
+#ifndef REPRO_ADJ_SKIP  // measurement builds: 1 leaves out the staging, 2 the
+#define REPRO_ADJ_SKIP 0  // contraction, 4 the owner sums (launch/profile_adjoint.py)
+#endif
+
+constexpr int kAdjStages = 3;   // ring slots of the box kernel's staging
+constexpr int kLaneFloats = 4;  // a lane's floats of a row of up to 128
+
+// The matmul adjoint's geometry: the volume, its tiles and the boxes of
+// tiles a block contracts at a time (kernels/bsi_adjoint.py:MatmulBlocks).
+struct AdjointBoxes {
+  int X, Y, Z, c;     // volume, channels
+  int dx, dy, dz;     // tile
+  int Tx, Ty, Tz;     // tiles that hold voxels of the volume
+  int bx, by, bz;     // tiles per box
+  int nbx, nby, nbz;  // boxes per axis
+};
+
+// Floats of one box's partial: its (bx+3, by+3, bz+3) control points, c each.
+__host__ __device__ inline int box_partial_floats(const AdjointBoxes& a) {
+  return (a.bx + 3) * (a.by + 3) * (a.bz + 3) * a.c;
+}
+
+// A plane of a box: its voxels at one x offset of its tiles, bx*by*dy rows
+// along z of bz*dz*c floats (channels fastest), each staged as the 16-byte
+// chunks that cover it, (row + 6) / 4 of them at most.
+__host__ __device__ inline int plane_rows(const AdjointBoxes& a) {
+  return a.bx * a.by * a.dy;
+}
+__host__ __device__ inline int raw_row_floats(const AdjointBoxes& a) {
+  return 4 * ((a.bz * a.dz * a.c + 6) / 4);
+}
+
+// Shared memory of the box kernel, in 4-byte words: the (nv, 64) basis; a
+// ring of kAdjStages raw planes; one plane of U, (dy*dz, cols + 4), whose
+// room takes the (64, cols + 4) bands after a box's last plane; and the
+// tables, a row's (z, channel) places (bz*dz*c) and each plane row's place
+// (2 a row).  kernels/bsi_adjoint.py:matmul_smem_bytes is the same sum.
+inline size_t adjoint_box_smem(const AdjointBoxes& a, int cols) {
+  const int nvp = a.dy * a.dz;
+  return 4 * ((size_t)64 * a.dx * nvp + (size_t)kAdjStages * plane_rows(a) * raw_row_floats(a) +
+              (size_t)(nvp > 64 ? nvp : 64) * (cols + 4) + a.bz * a.dz * a.c +
+              2 * plane_rows(a));
+}
+
+// A 16-byte asynchronous copy into shared memory (through L2 only) of the
+// first `bytes` bytes at src, the rest zero-filled.
+__device__ __forceinline__ void cp_async_16(unsigned dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// partials[box][((qx*(by+3) + qy)*(bz+3) + qz)*c + ch]: the bands of the box's
+// tiles that land on its local control point q, summed in band order.
+//
+// A block walks over boxes blockIdx.x, + gridDim.x, ...; each box is dx
+// planes, contracted in order.  The planes stream through a ring of
+// kAdjStages slots by 16-byte cp.async, so the next planes load while one is
+// contracted, across boxes too; each is then moved into U's layout, a
+// (dy*dz, cols) slice, a column per (tile, channel), zero outside the volume
+// (masked, not padded).  2*COLS threads, each 8 bands x 4 columns of B^T U:
+// bands bg*4 + i and 32 + bg*4 + i (i < 4), columns cg*4 .. cg*4 + 3; a warp
+// is 2 band groups x 16 column groups, so its 16-byte loads of one v read
+// two and sixteen contiguous vectors.
+// After a box's last plane the bands go to shared memory and each control
+// point of the box is owned by one thread, which sums its channels.
+template <int COLS>
+__global__ void __launch_bounds__(2 * COLS)
+    adjoint_matmul_box_kernel(const float* __restrict__ g, const float* __restrict__ basis,
+                              float* __restrict__ partials, AdjointBoxes a) {
+  constexpr int LD = COLS + 4;   // a row of U; the pad turns the banks by 4 a row
+  constexpr int NT = 2 * COLS;   // threads
+  constexpr int NW = NT / 32;    // warps
   extern __shared__ float smem[];
-  const int nv = tile_voxels(g);
-  float* s_b = smem;            // (nv, 64)
-  float* s_g = smem + 64 * nv;  // (block tiles, nv, c)
-  const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  for (int i = threadIdx.x; i < 64 * nv; i += blockDim.x) s_b[i] = basis[i];
-  const int BX = g.bx * g.dx, BY = g.by * g.dy, BZ = g.bz * g.dz;
-  const int x0 = ti0 * g.dx, y0 = tj0 * g.dy, z0 = tk0 * g.dz;
-  const int nstage = BX * BY * BZ * g.c;
-  for (int i = threadIdx.x; i < nstage; i += blockDim.x) {  // channel, then z fastest
-    const int ch = i % g.c;
-    int r = i / g.c;
-    const int zl = r % BZ;
-    r /= BZ;
-    const int yl = r % BY;
-    const int xl = r / BY;
-    const int x = x0 + xl, y = y0 + yl, z = z0 + zl;
-    float v = 0.f;  // outside the volume: masked
-    if (x < X && y < Y && z < Z) v = g_in[(((size_t)x * Y + y) * Z + z) * g.c + ch];
-    const int lt = ((xl / g.dx) * g.by + yl / g.dy) * g.bz + zl / g.dz;
-    const int vo = ((xl % g.dx) * g.dy + yl % g.dy) * g.dz + zl % g.dz;
-    s_g[((size_t)lt * nv + vo) * g.c + ch] = v;
+  const int nv = a.dx * a.dy * a.dz, nvp = a.dy * a.dz;  // voxels of a tile, a plane
+  const int row_len = a.bz * a.dz * a.c, RS = raw_row_floats(a);
+  const int BY = a.by * a.dy, nrows = plane_rows(a);
+  float* s_b = smem;                               // (nv, 64)
+  float* s_ring = s_b + 64 * nv;                   // kAdjStages x (nrows, RS)
+  float* s_u = s_ring + kAdjStages * nrows * RS;   // (max(nvp, 64), LD)
+  int* s_zoff = (int*)(s_u + (nvp > 64 ? nvp : 64) * LD);  // (row_len,): (z, ch) -> U
+  int* s_rdst = s_zoff + row_len;                  // (nrows,): plane row -> U
+  int* s_rxy = s_rdst + nrows;                     // (nrows,): lx*dx << 16 | y offset
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < 64 * nv; i += NT) s_b[i] = basis[i];
+  for (int e = tid; e < row_len; e += NT) {
+    const int zl = e / a.c, tz = zl / a.dz;
+    s_zoff[e] = (zl - tz * a.dz) * LD + tz * a.c + (e - zl * a.c);
+  }
+  for (int r = tid; r < nrows; r += NT) {
+    const int lx = r / BY, yl = r - lx * BY, ly = yl / a.dy;
+    s_rdst[r] = (yl - ly * a.dy) * a.dz * LD + (lx * a.by + ly) * a.bz * a.c;
+    s_rxy[r] = (lx * a.dx) << 16 | yl;
   }
   __syncthreads();
 
-  const int Tx = (X + g.dx - 1) / g.dx, Ty = (Y + g.dy - 1) / g.dy,
-            Tz = (Z + g.dz - 1) / g.dz;
-  const int items = g.bx * g.by * g.bz * g.c * 64;
-  for (int w = threadIdx.x; w < items; w += blockDim.x) {
-    const int k = w & 63;
-    int r = w >> 6;
-    const int ch = r % g.c;
-    const int lt = r / g.c;
-    const int lz = lt % g.bz, ly = (lt / g.bz) % g.by, lx = lt / (g.bz * g.by);
-    const int tx = ti0 + lx, ty = tj0 + ly, tz = tk0 + lz;
-    if (tx >= Tx || ty >= Ty || tz >= Tz) continue;
-    const float* col = s_g + (size_t)lt * nv * g.c + ch;
-    float acc = 0.f;
-    for (int v = 0; v < nv; ++v) acc = acc + s_b[v * 64 + k] * col[v * g.c];
-    c4[((((size_t)tx * Ty + ty) * Tz + tz) * g.c + ch) * 64 + k] = acc;
+  const int nboxes = a.nbx * a.nby * a.nbz;
+  const int nplanes =
+      blockIdx.x < nboxes ? ((nboxes - 1 - blockIdx.x) / gridDim.x + 1) * a.dx : 0;
+  const int zrow = a.Z * a.c;
+  const float* g_end = g + (size_t)a.X * a.Y * zrow;
+  const unsigned ring = (unsigned)__cvta_generic_to_shared(s_ring);
+
+  // Plane t's box and its first voxel (x0, y0, and zc0 in a row); row r
+  // starts lx*dx and its y offset further on (s_rxy).
+  auto plane = [&](int t, int& box, int& x0, int& y0, int& zc0) {
+    box = blockIdx.x + (t / a.dx) * gridDim.x;
+    const int bk = box % a.nbz, bj = (box / a.nbz) % a.nby, bi = box / (a.nbz * a.nby);
+    x0 = bi * a.bx * a.dx + t % a.dx;
+    y0 = bj * a.by * a.dy;
+    zc0 = bk * row_len;
+  };
+  // Plane t's rows into ring slot t % kAdjStages, as the 16-byte chunks that
+  // cover them: none for rows outside the volume, and nothing past g's end.
+  // A chunk may begin up to 12 bytes before g, inside its allocation: torch
+  // aligns allocations to 512 bytes, and a view's earlier bytes are its
+  // storage's.
+  auto stage = [&](int t) {
+    if (REPRO_ADJ_SKIP & 1) return;
+    int box, x0, y0, zc0;
+    plane(t, box, x0, y0, zc0);
+    const unsigned slot = ring + 4u * (t % kAdjStages) * nrows * RS;
+    for (int r = warp; r < nrows; r += NW) {
+      const int x = x0 + (s_rxy[r] >> 16), y = y0 + (s_rxy[r] & 0xffff);
+      if (x >= a.X || y >= a.Y) continue;
+      const float* src = g + ((size_t)x * a.Y + y) * zrow + zc0;
+      const float* lo = (const float*)((size_t)src & ~(size_t)15);
+      const int chunks = (int)((src - lo + row_len + 3) / 4);
+      for (int i = lane; i < chunks; i += 32) {
+        const float* p = lo + 4 * i;
+        const long long left = g_end - p;
+        const int bytes = left >= 4 ? 16 : (left > 0 ? 4 * (int)left : 0);
+        cp_async_16(slot + 4u * (r * RS + 4 * i), bytes ? p : g, bytes);
+      }
+    }
+  };
+
+  for (int t = 0; t < kAdjStages - 1; ++t) {
+    if (t < nplanes) stage(t);
+    cp_async_commit();
   }
+  int zoff[kLaneFloats];  // U places of this lane's floats of a row (-1: none)
+#pragma unroll
+  for (int j = 0; j < kLaneFloats; ++j)
+    zoff[j] = lane + 32 * j < row_len ? s_zoff[lane + 32 * j] : -1;
+  const int bg = (warp % 4) * 2 + lane / 16, cg = (warp / 4) * 16 + lane % 16;
+  float acc[8][4];
+  for (int t = 0; t < nplanes; ++t) {
+    const int cx = t % a.dx;
+    if (cx == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    }
+    cp_async_wait<kAdjStages - 2>();  // plane t has landed (this thread's copies)
+    __syncthreads();  // ... everyone's; plane t - 1's slot and U are free again
+    if (t + kAdjStages - 1 < nplanes) stage(t + kAdjStages - 1);
+    cp_async_commit();
+
+    int box, x0, y0, zc0;
+    plane(t, box, x0, y0, zc0);
+    if (!(REPRO_ADJ_SKIP & 1)) {  // plane t into U's layout, masked
+      const float* raw = s_ring + (t % kAdjStages) * nrows * RS;
+      const int zlim = min(row_len, zrow - zc0);  // a row's floats in the volume
+#pragma unroll 2
+      for (int r = warp; r < nrows; r += NW) {
+        const int x = x0 + (s_rxy[r] >> 16), y = y0 + (s_rxy[r] & 0xffff);
+        const int n = x < a.X && y < a.Y ? zlim : 0;
+        const float* row = g + ((size_t)x * a.Y + y) * zrow + zc0;  // as staged
+        const float* src = raw + r * RS + (int)(((size_t)row >> 2) & 3);
+        float* dst = s_u + s_rdst[r];
+        if (row_len <= 32 * kLaneFloats) {  // a lane's places held in registers
+          float val[kLaneFloats];
+#pragma unroll
+          for (int j = 0; j < kLaneFloats; ++j)
+            val[j] = lane + 32 * j < n ? src[lane + 32 * j] : 0.f;
+#pragma unroll
+          for (int j = 0; j < kLaneFloats; ++j)
+            if (zoff[j] >= 0) dst[zoff[j]] = val[j];
+        } else {
+          for (int e = lane; e < row_len; e += 32) dst[s_zoff[e]] = e < n ? src[e] : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+
+    const float* pb = s_b + cx * nvp * 64 + bg * 4;
+    const float* pu = s_u + cg * 4;
+#pragma unroll 2
+    for (int v = 0; v < ((REPRO_ADJ_SKIP & 2) ? 0 : nvp); ++v) {  // v = cx*nvp .. in order
+      const float4 b0 = *(const float4*)(pb + v * 64);
+      const float4 b1 = *(const float4*)(pb + v * 64 + 32);
+      const float4 u0 = *(const float4*)(pu + v * LD);
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+      const float u[4] = {u0.x, u0.y, u0.z, u0.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(b[i], u[j], acc[i][j]);
+    }
+    if (cx != a.dx - 1) continue;
+
+    __syncthreads();  // every read of U before the bands take its room
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* dst = s_u + (i < 4 ? bg * 4 + i : 32 + bg * 4 + i - 4) * LD + cg * 4;
+      *(float4*)dst = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+    __syncthreads();
+
+    // one owner a control point, its channels four at a time; the tiles past
+    // the volume's are skipped
+    const int bk = box % a.nbz, bj = (box / a.nbz) % a.nby, bi = box / (a.nbz * a.nby);
+    const int ox = min(a.bx, a.Tx - bi * a.bx), oy = min(a.by, a.Ty - bj * a.by),
+              oz = min(a.bz, a.Tz - bk * a.bz);
+    const int wy = a.by + 3, wz = a.bz + 3, npts = (a.bx + 3) * wy * wz;
+    float* part = partials + (size_t)box * npts * a.c;
+    for (int q = tid; q < npts; q += NT) {
+      const int qz = q % wz, qy = (q / wz) % wy, qx = q / (wz * wy);
+      for (int ch0 = 0; ch0 < a.c; ch0 += 4) {
+        const int nch = min(4, a.c - ch0);
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!(REPRO_ADJ_SKIP & 4))
+          for (int l = max(0, qx - ox + 1); l <= min(3, qx); ++l)
+            for (int m = max(0, qy - oy + 1); m <= min(3, qy); ++m)
+              for (int n = max(0, qz - oz + 1); n <= min(3, qz); ++n) {
+                const int lt = ((qx - l) * a.by + qy - m) * a.bz + qz - n;
+                const float* p = s_u + ((l * 4 + m) * 4 + n) * LD + lt * a.c + ch0;
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  if (j < nch) sum[j] += p[j];
+              }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nch) part[q * a.c + ch0 + j] = sum[j];
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
-// out[p, ch] = sum over k = (l*4 + m)*4 + n of c4[p - (l, m, n), ch, k], tiles
-// outside [0, T) counting zero; out: (nx, ny, nz, c).
+// out[p, ch] = the sum over the boxes whose partial holds control point p, in
+// box order; 0 where none does.  out: (nx, ny, nz, c).
 __global__ void __launch_bounds__(kThreads)
-    adjoint_matmul_overlap_kernel(const float* __restrict__ c4, float* __restrict__ out,
-                                  int nx, int ny, int nz, int c, int Tx, int Ty,
-                                  int Tz) {
-  const long long total = (long long)nx * ny * nz * c;
+    adjoint_matmul_seam_kernel(const float* __restrict__ partials, float* __restrict__ out,
+                               AdjointBoxes a, int nx, int ny, int nz) {
+  const long long total = (long long)nx * ny * nz * a.c;
   const long long stride = (long long)gridDim.x * blockDim.x;
+  const int wy = a.by + 3, wz = a.bz + 3;
+  const int P = box_partial_floats(a);
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += stride) {
-    const int ch = (int)(i % c);
-    long long r = i / c;
+    const int ch = (int)(i % a.c);
+    long long r = i / a.c;
     const int pz = (int)(r % nz);
     r /= nz;
     const int py = (int)(r % ny);
     const int px = (int)(r / ny);
+    // box b holds the points [b*bx, b*bx + bx + 3) of an axis
+    const int i1 = min(a.nbx - 1, px / a.bx), j1 = min(a.nby - 1, py / a.by),
+              k1 = min(a.nbz - 1, pz / a.bz);
     float acc = 0.f;
-    for (int k = 0; k < 64; ++k) {
-      const int tx = px - (k >> 4), ty = py - ((k >> 2) & 3), tz = pz - (k & 3);
-      if (tx < 0 || ty < 0 || tz < 0 || tx >= Tx || ty >= Ty || tz >= Tz) continue;
-      acc = acc + __ldg(c4 + ((((size_t)tx * Ty + ty) * Tz + tz) * c + ch) * 64 + k);
-    }
+    for (int bi = px >= 3 ? (px - 3) / a.bx : 0; bi <= i1; ++bi)
+      for (int bj = py >= 3 ? (py - 3) / a.by : 0; bj <= j1; ++bj)
+        for (int bk = pz >= 3 ? (pz - 3) / a.bz : 0; bk <= k1; ++bk) {
+          const int q = ((px - bi * a.bx) * wy + py - bj * a.by) * wz + pz - bk * a.bz;
+          acc += partials[((size_t)(bi * a.nby + bj) * a.nbz + bk) * P + q * a.c + ch];
+        }
     out[i] = acc;
   }
+}
+
+// The persistent box launch: as many blocks as the card holds at once.
+template <int COLS>
+inline cudaError_t launch_boxes(const float* g, const float* basis, float* partials,
+                                const AdjointBoxes& a, cudaStream_t stream) {
+  const size_t smem = adjoint_box_smem(a, COLS);
+  cudaError_t err = allow_smem(adjoint_matmul_box_kernel<COLS>, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, adjoint_matmul_box_kernel<COLS>, 2 * COLS, smem);
+  if (err != cudaSuccess) return err;
+  const long long nboxes = (long long)a.nbx * a.nby * a.nbz;
+  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const unsigned grid = (unsigned)(nboxes < slots ? nboxes : slots);
+  adjoint_matmul_box_kernel<COLS><<<grid, 2 * COLS, smem, stream>>>(g, basis, partials, a);
+  return cudaGetLastError();
 }
 
 }  // namespace repro_torch
@@ -182,27 +417,30 @@ extern "C" int bsi_adjoint_f32(const float* g, const float* wx, const float* wy,
 }
 
 // g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume;
-// basis: (dx*dy*dz, 64); c4: ceil(X/dx)*ceil(Y/dy)*ceil(Z/dz)*c*64 floats of
-// scratch; out: (nx, ny, nz, c).  (bx, by, bz): tiles per block of the
-// first launch.  Returns the first cudaError_t.
-extern "C" int bsi_adjoint_matmul_f32(const float* g, const float* basis, float* c4,
+// basis: (dx*dy*dz, 64); partials: nbx*nby*nbz*(bx+3)*(by+3)*(bz+3)*c floats
+// of scratch, nb = ceil(ceil(X/dx)/bx) and so on; out: (nx, ny, nz, c).
+// (bx, by, bz): tiles per box; cols: the box kernel's columns (128 or 64;
+// at least bx*by*bz*c), half its threads.  Returns the first cudaError_t.
+extern "C" int bsi_adjoint_matmul_f32(const float* g, const float* basis, float* partials,
                                       float* out, int X, int Y, int Z, int c, int nx,
                                       int ny, int nz, int dx, int dy, int dz, int bx,
-                                      int by, int bz, void* stream) {
+                                      int by, int bz, int cols, void* stream) {
   using namespace repro_torch;
   cudaStream_t s = (cudaStream_t)stream;
-  const TileBlock tb{nx, ny, nz, c, dx, dy, dz, bx, by, bz};
-  const size_t smem =
-      sizeof(float) * (size_t)(basis_floats(tb) + bx * by * bz * tile_voxels(tb) * c);
-  cudaError_t err = allow_smem(adjoint_matmul_c4_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  adjoint_matmul_c4_kernel<<<tile_grid(tb, X, Y, Z), kThreads, smem, s>>>(g, basis, c4,
-                                                                         tb, X, Y, Z);
-  err = cudaGetLastError();
+  const int Tx = (X + dx - 1) / dx, Ty = (Y + dy - 1) / dy, Tz = (Z + dz - 1) / dz;
+  const AdjointBoxes a{X,  Y,  Z,  c,  dx, dy, dz, Tx, Ty, Tz, bx, by, bz,
+                       (Tx + bx - 1) / bx, (Ty + by - 1) / by, (Tz + bz - 1) / bz};
+  if (bx * by * bz * c > cols) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (cols) {
+    case 128: err = launch_boxes<128>(g, basis, partials, a, s); break;
+    case 64: err = launch_boxes<64>(g, basis, partials, a, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
   const long long total = (long long)nx * ny * nz * c;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  adjoint_matmul_overlap_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      c4, out, nx, ny, nz, c, (X + dx - 1) / dx, (Y + dy - 1) / dy, (Z + dz - 1) / dz);
+  adjoint_matmul_seam_kernel<<<(unsigned)(blocks < (1LL << 30) ? blocks : (1LL << 30)),
+                               kThreads, 0, s>>>(partials, out, a, nx, ny, nz);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,10 @@ volume instead of padding:
 ``bsi_adjoint_matmul_pallas``  each tile's cotangent contracted against the
     ``(d^3, 64)`` Kronecker basis into 64 bands, then the bands overlap-added
     onto the control points (:func:`launch_matmul`, :func:`plain_matmul`).
+    A block contracts a box of tiles at a time and overlap-adds its bands
+    into one partial per control point it touches; a second launch sums the
+    partials of the boxes that share a point (:func:`matmul_blocks` is the
+    geometry, :func:`plain_matmul_blocked` the same reduction in tensor ops).
 
 ``kernels.ops.bsi_adjoint`` and ``kernels.ops.bsi_adjoint_matmul`` pick
 between a kernel and its plain version by the tensor's device.
@@ -18,6 +22,8 @@ between a kernel and its plain version by the tensor's device.
 from __future__ import annotations
 
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -27,8 +33,13 @@ from repro_torch.core.interpolate import _pad_to_tiles
 from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["weight_luts", "launch", "plain", "check_blocks_matmul", "launch_matmul",
-           "plain_matmul"]
+__all__ = ["weight_luts", "launch", "plain", "MatmulBlocks", "matmul_smem_bytes",
+           "matmul_blocks", "launch_matmul", "plain_matmul", "plain_matmul_blocked"]
+
+# the box kernel's instantiations (csrc: adjoint_matmul_box_kernel<COLS>):
+# columns a block contracts at once, two threads each
+MATMUL_COLS = (128, 64)
+MATMUL_STAGES = 3  # ring slots of its staging (csrc: kAdjStages)
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,31 +77,92 @@ def plain(g, tile, grid_shape):
     return bsi_adjoint(g, tile, grid_shape, impl="torch")
 
 
-def check_blocks_matmul(tile, blocks, channels):
-    """Raise if the first matmul launch's basis and staged cotangents exceed
-    what a block may use."""
-    nv = tile[0] * tile[1] * tile[2]
+class MatmulBlocks(NamedTuple):
+    """The matmul adjoint's launch geometry (csrc: ``AdjointBoxes``)."""
+
+    box: tuple  # tiles per box, (bx, by, bz)
+    cols: int  # the box kernel's columns (box tiles x channels, padded), two threads each
+    boxes: tuple  # boxes per axis: ceil(tiles / box)
+    channels: int
+    smem: int  # bytes of shared memory a block
+
+    @property
+    def partial_floats(self) -> int:
+        """Floats of the partials: each box's ``b + 3`` control points per axis,
+        ``channels`` each (csrc: ``box_partial_floats``)."""
+        return math.prod(self.boxes) * math.prod(b + 3 for b in self.box) * self.channels
+
+
+def matmul_smem_bytes(tile, cols, box, channels) -> int:
+    """Shared memory of the box kernel (csrc: ``adjoint_box_smem``): the
+    ``(d^3, 64)`` basis; a ring of :data:`MATMUL_STAGES` planes of ``bx * by
+    * dy`` rows along z, each the 16-byte chunks covering ``bz * dz *
+    channels`` floats; one plane of U, ``max(dy * dz, 64)`` rows of ``cols +
+    4`` (the bands' room too); and the tables (a row's and a plane's)."""
+    (dx, dy, dz), (bx, by, bz) = tile, box
+    row, rows = bz * dz * channels, bx * by * dy
+    return 4 * (64 * dx * dy * dz + MATMUL_STAGES * rows * 4 * ((row + 6) // 4)
+                + max(dy * dz, 64) * (cols + 4) + row + 2 * rows)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_blocks(tile, channels, vol_shape) -> MatmulBlocks:
+    """The box kernel's geometry for a ``vol_shape`` cotangent of ``channels``
+    channels at ``tile``.
+
+    The most columns of :data:`MATMUL_COLS` for which a block fits its shared
+    memory; then, of the boxes of at most that many (tile, channel) columns,
+    the one that costs the fewest thread instructions a launch, by the
+    kernel's count: a box takes ``64 d^3`` multiply-adds a column, about 8
+    a lane of its staging and transposition (a warp a row of ``bz * dz *
+    channels`` floats) and about 200 a float of its partial (the owner's
+    sum, its write and the seam's read); then the smallest partial.  Raises if no block holds the
+    basis and one tile."""
+    tile, vol_shape = tuple(int(d) for d in tile), tuple(int(s) for s in vol_shape)
+    if channels > MATMUL_COLS[0]:
+        raise ValueError(f"the matmul adjoint takes at most {MATMUL_COLS[0]} channels, "
+                         f"not {channels}")
+    least = min(c for c in MATMUL_COLS if c >= channels)
     bsi_ttli.check_smem(f"the matmul adjoint at tile {tile} with {channels} channels",
-                        4 * nv * (64 + blocks[0] * blocks[1] * blocks[2] * channels))
+                        matmul_smem_bytes(tile, least, (1, 1, 1), channels))
+    nv = math.prod(tile)
+    tiles = [-(-s // d) for s, d in zip(vol_shape, tile)]
+    for cols in MATMUL_COLS:
+        best = None
+        for bx in range(1, min(tiles[0], cols // channels) + 1):
+            for by in range(1, min(tiles[1], cols // (channels * bx)) + 1):
+                for bz in range(1, min(tiles[2], cols // (channels * bx * by)) + 1):
+                    box = (bx, by, bz)
+                    smem = matmul_smem_bytes(tile, cols, box, channels)
+                    if smem > bsi_ttli.MAX_SMEM_BYTES:
+                        continue
+                    boxes = tuple(-(-t // b) for t, b in zip(tiles, box))
+                    partial = math.prod(b + 3 for b in box) * channels
+                    row = bz * tile[2] * channels
+                    lanes = bx * tile[0] * by * tile[1] * 32 * -(-row // 32)
+                    cost = math.prod(boxes) * (64 * nv * cols + 8 * lanes + 200 * partial)
+                    cand = (cost, partial, box, MatmulBlocks(box, cols, boxes, channels, smem))
+                    best = cand if best is None else min(best, cand)
+        if best is not None:
+            return best[-1]
+    raise AssertionError("unreachable: the least block fits")
 
 
-def launch_matmul(g, out, tile):
-    """Launch the two matmul-adjoint passes on the current stream: ``g`` ->
-    ``out``.  The ``(tiles, C, 64)`` band scratch is allocated here."""
+def launch_matmul(g, out, tile, lib=None):
+    """Launch the box kernel and the seam pass on the current stream: ``g``
+    -> ``out``.  The partials (:attr:`MatmulBlocks.partial_floats`) are
+    allocated here."""
     X, Y, Z, c = g.shape
     nx, ny, nz, _ = out.shape
-    blocks = bsi_ttli.block_tiles(tile)
-    check_blocks_matmul(tile, blocks, c)
-    tiles = 1  # tiles that hold voxels of the volume
-    for s, d in zip((X, Y, Z), tile):
-        tiles *= -(-s // d)
-    c4 = torch.empty(tiles * c * 64, dtype=torch.float32, device=g.device)
-    lib = load_library()
+    geo = matmul_blocks(tile, c, (X, Y, Z))
+    partials = torch.empty(geo.partial_floats, dtype=torch.float32, device=g.device)
+    lib = lib or load_library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = lib.bsi_adjoint_matmul_f32(
-            g.data_ptr(), bsi_matmul.basis(tile, g.device).data_ptr(), c4.data_ptr(),
-            out.data_ptr(), X, Y, Z, c, nx, ny, nz, *tile, *blocks, stream)
+            g.data_ptr(), bsi_matmul.basis(tile, g.device).data_ptr(),
+            partials.data_ptr(), out.data_ptr(), X, Y, Z, c, nx, ny, nz, *tile,
+            *geo.box, geo.cols, stream)
     if rc:
         raise RuntimeError(f"bsi_adjoint_matmul kernel launch failed: cudaError_t {rc}")
 
@@ -100,3 +172,36 @@ def plain_matmul(g, tile, grid_shape):
     then :func:`repro_torch.core.interpolate.bsi_adjoint_matmul`."""
     with torch.no_grad():
         return bsi_adjoint_matmul(_pad_to_tiles(g, tile, grid_shape), tile)
+
+
+def plain_matmul_blocked(g, tile, grid_shape):
+    """The kernels' blocked reduction in tensor ops: each tile's 64 bands
+    (as :func:`plain_matmul`), overlap-added per box of :func:`matmul_blocks`
+    into its partial in band order, then each control point's partials
+    summed in box order.  The tiles past the volume add zeros where the
+    kernel skips them."""
+    X, Y, Z, c = g.shape
+    geo = matmul_blocks(tile, c, (X, Y, Z))
+    (bx, by, bz), (nbx, nby, nbz) = geo.box, geo.boxes
+    tiles = (nbx * bx, nby * by, nbz * bz)  # the boxes' tiles, past the volume too
+    span = [max(n, t + 3) for n, t in zip(grid_shape, tiles)]
+    with torch.no_grad():
+        u = g.new_zeros(tuple(t * d for t, d in zip(tiles, tile)) + (c,))
+        u[:X, :Y, :Z] = g
+        u = u.reshape(tiles[0], tile[0], tiles[1], tile[1], tiles[2], tile[2], c)
+        u = u.permute(0, 2, 4, 1, 3, 5, 6).reshape(*tiles, math.prod(tile), c)
+        bands = torch.einsum("vk,xyzvc->xyzck", bsi_matmul.basis(tile, g.device), u)
+        bands = bands.reshape(nbx, bx, nby, by, nbz, bz, c, 4, 4, 4)
+        bands = bands.permute(0, 2, 4, 1, 3, 5, 6, 7, 8, 9)
+        part = g.new_zeros((nbx, nby, nbz, bx + 3, by + 3, bz + 3, c))
+        for l in range(4):
+            for m in range(4):
+                for n in range(4):
+                    part[:, :, :, l:l + bx, m:m + by, n:n + bz] += bands[..., l, m, n]
+        out = g.new_zeros(tuple(span) + (c,))
+        for i in range(nbx):
+            for j in range(nby):
+                for k in range(nbz):
+                    out[i * bx:i * bx + bx + 3, j * by:j * by + by + 3,
+                        k * bz:k * bz + bz + 3] += part[i, j, k]
+        return out[:grid_shape[0], :grid_shape[1], :grid_shape[2]].contiguous()

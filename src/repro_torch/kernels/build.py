@@ -54,7 +54,7 @@ _SIGNATURES = {
     "bsi_tt_f32": "ppp" + "i" * 13,
     "bsi_matmul_f32": "ppp" + "i" * 13,
     "bsi_adjoint_f32": "p" * 7 + "i" * 10,
-    "bsi_adjoint_matmul_f32": "pppp" + "i" * 13,
+    "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,
     "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,
     "bsi_fused_stats_f32": "pppp" + "ip" + _DIMS,
     "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,

@@ -294,6 +294,70 @@ def test_adjoint_matmul_kernel_matches_plain(cuda, vol, tile, c):
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+# a grid of several boxes in every axis, ragged at the volume's edge
+SPANNING = ((83, 61, 97), (5, 4, 3))
+
+
+def _adjoint_input(vol, c, seed, device):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(vol + (c,)).astype(np.float32)).to(device)
+
+
+def test_adjoint_matmul_kernel_spans_boxes(cuda):
+    (vol, tile), c = SPANNING, 3
+    geo = bsi_adjoint.matmul_blocks(tile, c, vol)
+    tiles = [-(-s // d) for s, d in zip(vol, tile)]
+    assert min(geo.boxes) >= 2 and any(n * b > t for n, b, t in
+                                       zip(geo.boxes, geo.box, tiles)), geo
+    g = _adjoint_input(vol, c, 30, cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    out = ops.bsi_adjoint_matmul(g, tile, gshape)
+    torch.cuda.synchronize()
+    for ref in (bsi_adjoint.plain_matmul(g, tile, gshape),
+                bsi_adjoint.plain_matmul_blocked(g, tile, gshape)):
+        assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_adjoint_matmul_kernel_reads_an_unaligned_view(cuda):
+    """The kernel stages the cotangent in 16-byte chunks: a contiguous view
+    that starts off a 16-byte boundary, and whose last row ends off one."""
+    (vol, tile), c = SPANNING, 3
+    big = _adjoint_input((vol[0] + 2,) + vol[1:], c, 33, cuda)
+    g = big[2:]  # ends where its allocation ends
+    assert g.is_contiguous() and g.data_ptr() % 16 and (g.data_ptr() + 4 * g.numel()) % 16
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    out = ops.bsi_adjoint_matmul(g, tile, gshape)
+    ref = bsi_adjoint.plain_matmul(g, tile, gshape)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("vol,tile", [SPANNING, CASES[1]])
+def test_adjoint_matmul_kernel_is_deterministic(cuda, vol, tile):
+    g = _adjoint_input(vol, 3, 31, cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    a, b = (ops.bsi_adjoint_matmul(g, tile, gshape) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("vol,tile", [SPANNING, CASES[1]])
+def test_adjoint_matmul_kernel_allocates_less_than_the_bands(cuda, vol, tile):
+    """Beyond its output a call allocates its partials, less than the
+    ``tiles x C x 64`` band sums an earlier design kept in device memory."""
+    c = 3
+    g = _adjoint_input(vol, c, 32, cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    ops.bsi_adjoint_matmul(g, tile, gshape)  # the basis, cached on the card
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.bsi_adjoint_matmul(g, tile, gshape)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - 4 * out.numel()
+    tiles = np.prod([-(-s // d) for s, d in zip(vol, tile)])
+    assert extra < tiles * c * 64 * 4
+    assert extra >= 4 * bsi_adjoint.matmul_blocks(tile, c, vol).partial_floats
+
+
 @pytest.mark.parametrize("vol,tile", CASES)
 def test_fused_matmul_form_matches_plain(cuda, vol, tile):
     """The four earlier variants with the matrix-form displacement; the warp

@@ -142,6 +142,41 @@ def test_adjoint_matmul_of_cropped_field_masks_the_outside(vol, tile):
     assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("grid,tile", GRIDS)
+@pytest.mark.parametrize("c", [1, 3])
+def test_blocked_matmul_adjoint_twin_matches_reference_kernel_and_plain(grid, tile, c):
+    """The matmul adjoint kernel's reduction in tensor ops (box partials, then
+    the seam sum) against the reference's Pallas kernel and ``plain_matmul``."""
+    from repro_torch.kernels import bsi_adjoint
+
+    full = tuple((n - 3) * d for n, d in zip(grid, tile))
+    g = torch.from_numpy(_phi(full, 17, c))
+    out = bsi_adjoint.plain_matmul_blocked(g, tile, grid).numpy()
+    ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(g.numpy()), tile,
+                                             form="matmul"))
+    plain = bsi_adjoint.plain_matmul(g, tile, grid).numpy()
+    assert out.shape == ref.shape == tuple(grid) + (c,)
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert np.abs(out - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
+@pytest.mark.parametrize("vol,tile", VOLUMES + [((40, 33, 47), (5, 5, 5))])
+def test_blocked_matmul_adjoint_twin_masks_the_outside(vol, tile):
+    """Cropped volumes, the last spanning several boxes along y."""
+    from repro_torch.kernels import bsi_adjoint
+
+    grid = rffd.grid_shape_for_volume(vol, tile)
+    g = _phi(vol, 18)
+    full = tuple((n - 3) * d for n, d in zip(grid, tile))
+    padded = np.zeros(full + (3,), np.float32)
+    padded[: vol[0], : vol[1], : vol[2]] = g
+    out = bsi_adjoint.plain_matmul_blocked(torch.from_numpy(g), tile, grid).numpy()
+    ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(padded), tile, form="matmul"))
+    plain = bsi_adjoint.plain_matmul(torch.from_numpy(g), tile, grid).numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert np.abs(out - plain).max() <= 1e-5 * np.abs(plain).max()
+
+
 @pytest.mark.parametrize("vol,tile", VOLUMES)
 def test_transpose_identity_of_the_matmul_pair(vol, tile):
     grid = rffd.grid_shape_for_volume(vol, tile)
@@ -382,7 +417,7 @@ def test_block_checks_raise_where_shared_memory_runs_out():
     with pytest.raises(ValueError, match="shared memory"):
         bsi_matmul.check_blocks(big, bsi_matmul.block_tiles(big), 3)
     with pytest.raises(ValueError, match="shared memory"):
-        bsi_adjoint.check_blocks_matmul(big, (1, 1, 4), 3)
+        bsi_adjoint.matmul_blocks(big, 3, (40, 40, 40))
     with pytest.raises(ValueError, match="shared memory"):
         bsi_fused.block_tiles(big, "matmul")
     with pytest.raises(ValueError, match="shared memory"):
