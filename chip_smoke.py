@@ -28,11 +28,14 @@ Phases; any failure raises and the script exits nonzero:
    form prints its split, its time with the weights or the histogram stage
    left out (two measurement builds, ``-DREPRO_NMI_STAGES``), its resident
    blocks an SM, registers and HMMA instructions (``cuobjdump -sass``,
-   asserted).  The matmul adjoint's row prints its two launches' device
-   times (box contraction, seam sum), its box kernel's registers (no spills,
-   asserted) and blocks an SM, and the device memory one call allocates
-   beyond its output (asserted at most 64 MB), and asserts two calls
-   bit-equal;
+   asserted).  The ``bsi_ttli`` and ``bsi_separable`` rows print their
+   registers (no spills, asserted), shared memory, resident blocks an SM
+   and blocks (``kernels.bsi_ttli.forward_blocks``; their split is
+   ``launch/profile_forward.py``'s).  The matmul adjoint's row prints its
+   two launches' device times (box contraction, seam sum), its box kernel's
+   registers (no spills, asserted) and blocks an SM, and the device memory
+   one call allocates beyond its output (asserted at most 64 MB), and
+   asserts two calls bit-equal;
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -208,16 +211,6 @@ def nmi_stage_builds():
         return dict(zip(NMI_STAGES, libs))
 
 
-def resident_blocks(registers, smem_bytes, threads):
-    """Blocks of ``threads`` threads that an H100 SM holds at ``registers``
-    a thread and ``smem_bytes`` of shared memory a block (sm_90: 65536
-    registers, allocated 256 a warp; 228 KB of shared memory, 1 KB of it
-    reserved a block; 2048 threads, 32 blocks)."""
-    warps = -(-threads // 32)
-    by_regs = 65536 // (-(-registers * 32 // 256) * 256 * warps)
-    return min(by_regs, 233_472 // (smem_bytes + 1024), 2048 // threads, 32)
-
-
 def nmi_work(torch, phi, moving, fixed, scal, bins, sigma, form, chunk=1 << 22):
     """What this run's data makes the nmi kernel's function need: the
     Parzen weights the kernel evaluates (those within ``nmi_support`` of
@@ -251,6 +244,7 @@ def nmi_report(torch, lib, stage_libs, phi, moving, fixed, scal, bins, sigma, ep
     HMMA instructions (asserted: the histogram runs on the tensor cores);
     the work this run's data needs and the bound it gives.  Returns
     ``(bound_ms, bound_by, summary)``."""
+    from repro_torch.device import resident_blocks
     from repro_torch.kernels import bsi_fused
     from repro_torch.kernels.build import sass_counts
     from repro_torch.launch.bounds import bound_ms, kernel_bounds, nmi_bound
@@ -313,6 +307,7 @@ def adjoint_matmul_summary(lib, g, gshape):
     (asserted: no spills) and resident blocks an SM, and the device memory
     one call allocates beyond its output (asserted at most 64 MB); two calls
     asserted bit-equal."""
+    from repro_torch.device import resident_blocks
     from repro_torch.kernels import bsi_adjoint
     from repro_torch.launch.profile_adjoint import adjoint_matmul_report
 
@@ -364,6 +359,7 @@ def check_kernels(torch, fixed, moving, lib, stage_libs):
     assert math.isfinite(err) and err <= 1e-5, err
     lib_err = (library_fwd() - ref).abs().max().item()
     log(f"bsi_ttli: library yardstick (conv_transpose3d) max |diff| = {lib_err:.3e}")
+    log_forward_occupancy(lib, "bsi_ttli", vol)
     b_ms, b_by = bounds["bsi_ttli"]
     rows.append(dict(
         name="bsi_ttli", route="cuda", source="src/repro_torch/csrc/bsi_ttli.cu",
@@ -631,9 +627,22 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     return rows
 
 
-def check_forward_forms(torch, fixed):
+def log_forward_occupancy(lib, name, vol):
+    """The staged forward kernel ``name``'s registers (asserted: no spills),
+    shared memory and resident blocks an SM, and its blocks at ``vol``
+    (``launch/profile_forward.py``)."""
+    from repro_torch.launch.profile_forward import occupancy
+
+    occ = occupancy(lib, name, TILE, 3, vol)
+    log(f"{name}: {occ['registers']}; {occ['smem']} B of shared memory a block, "
+        f"{occ['blocks_per_sm']} blocks an SM; {occ['bz']} tiles along z a block, grid "
+        f"{occ['grid']}")
+
+
+def check_forward_forms(torch, fixed, lib):
     """Phase 3: the separable and TT forward kernels at phantom1, cropped to
-    the volume, against their plain versions (1e-5 of the largest value)."""
+    the volume, against their plain versions (1e-5 of the largest value);
+    ``lib`` the kernels as built."""
     from repro_torch.core import ffd
     from repro_torch.kernels import bsi_separable, bsi_tt, ops
     from repro_torch.launch.bounds import bound_ms, kernel_bounds
@@ -658,6 +667,8 @@ def check_forward_forms(torch, fixed):
         log(f"{name}: max |kernel - plain| = {err:.3e}, relative to the largest value "
             f"{rel:.3e} (limit 1e-5); bit for bit: {torch.equal(out, ref)}")
         assert math.isfinite(rel) and rel <= 1e-5, rel
+        if name == "bsi_separable":
+            log_forward_occupancy(lib, name, vol)
         b_ms, b_by = bounds[name]
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",
@@ -1488,7 +1499,7 @@ def main():
 
     rows = check_kernels(torch, fixed, moving, lib, stage_libs)
     rows += check_matmul_kernels(torch, fixed, moving, lib, stage_libs)
-    rows += check_forward_forms(torch, fixed)
+    rows += check_forward_forms(torch, fixed, lib)
     counts = run_main_path(torch, fixed, moving)
     compare_paths(torch, fixed, moving)
     nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)

@@ -4,12 +4,13 @@
 //
 // A thread block owns a block of (bx, by, bz) tiles and stages its
 // (bx+3, by+3, bz+3, C) control window in shared memory (the counterpart of
-// kernels/common.py:phi_window in the JAX package).  The staged forms also
+// kernels/common.py:phi_window in the JAX package).  The fused kernels also
 // stage their LUTs and run the x and y stages once per (x voxel, y voxel,
-// z control point) into shared memory; the z stage, per voxel, is left to
-// the kernel: bsi_ttli and bsi_separable write the field, bsi_fused warps and
-// scores it.  A stage collapses the four neighbours of one axis either by
-// three lerps (LerpStage: the same a + t*(b-a) chain as
+// z control point) into shared memory (stage_xy); the z stage, per voxel,
+// is left to the kernel, which warps and scores.  The forward kernels
+// bsi_ttli and bsi_separable run the same stages with their own blocks
+// (bsi_forward.cuh).  A stage collapses the four neighbours of one axis
+// either by three lerps (LerpStage: the same a + t*(b-a) chain as
 // repro.core.interpolate.bsi_ttli, stage for stage) or by a 4-term weighted
 // sum against the (d, 4) weight LUT (WeightStage: the sweeps of
 // bsi_separable).  The matrix form sums B[v, k] * window[tile + (l, m, n)]
@@ -149,35 +150,6 @@ __device__ inline void stage_xy(const float* __restrict__ phi,
     s_hy[i] = S::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
   }
   __syncthreads();
-}
-
-// The z stage of a staged form: writes the block's voxels inside (X, Y, Z) of
-// the channels-last field, channel fastest, then z, so a warp writes
-// contiguous runs.  Call after stage_xy<S>.
-template <class S>
-__device__ inline void write_z_stage(const float* smem, const TileBlock& g, int ti0,
-                                     int tj0, int tk0, float* __restrict__ out, int X,
-                                     int Y, int Z) {
-  const float* lz = smem + S::kLutRows * (g.dx + g.dy);
-  const float* s_hy = smem + lut_floats<S>(g) + window_floats(g);
-  const int wz = g.bz + 3;
-  const int BX = g.bx * g.dx, BY = g.by * g.dy, BZ = g.bz * g.dz;
-  const int x0 = ti0 * g.dx, y0 = tj0 * g.dy, z0 = tk0 * g.dz;
-  const int n = BX * BY * BZ * g.c;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int ch = i % g.c;
-    int r = i / g.c;
-    const int zl = r % BZ;
-    r /= BZ;
-    const int yl = r % BY;
-    const int xl = r / BY;
-    const int x = x0 + xl, y = y0 + yl, z = z0 + zl;
-    if (x >= X || y >= Y || z >= Z) continue;
-    const int tz = zl / g.dz, cz = zl - tz * g.dz;
-    const float* p = s_hy + ((size_t)(xl * BY + yl) * wz + tz) * g.c + ch;
-    out[(((size_t)x * Y + y) * Z + z) * g.c + ch] =
-        S::apply(lz, g.dz, cz, p[0], p[g.c], p[2 * g.c], p[3 * g.c]);
-  }
 }
 
 // Grid of thread blocks covering the tiles that hold voxels of (X, Y, Z).

@@ -4,7 +4,8 @@
 refuses CUDA on a host without a card; ``card_name`` is the card's name and
 power limit as ``nvidia-smi`` prints them; ``traced`` and
 ``device_ms_by_name`` run a call under ``torch.profiler`` and sum its device
-time per kernel name, for the profiling scripts.
+time per kernel name, and ``resident_blocks`` a kernel's occupancy, for the
+profiling scripts.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import time
 
 import torch
 
-__all__ = ["card_name", "device_ms_by_name", "resolve_device", "traced"]
+__all__ = ["card_name", "device_ms_by_name", "resident_blocks", "resolve_device",
+           "traced"]
 
 _ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
                torch.profiler.ProfilerActivity.CUDA]
@@ -58,3 +60,13 @@ def device_ms_by_name(prof):
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return out
+
+
+def resident_blocks(registers, smem_bytes, threads):
+    """Blocks of ``threads`` threads that an H100 SM holds at ``registers``
+    a thread and ``smem_bytes`` of shared memory a block (sm_90: 65536
+    registers, allocated 256 a warp; 228 KB of shared memory, 1 KB of it
+    reserved a block; 2048 threads, 32 blocks)."""
+    warps = -(-threads // 32)
+    by_regs = 65536 // (-(-registers * 32 // 256) * 256 * warps)
+    return min(by_regs, 233_472 // (smem_bytes + 1024), 2048 // threads, 32)

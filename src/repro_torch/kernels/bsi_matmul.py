@@ -46,10 +46,13 @@ def check_blocks(tile, blocks, channels):
     check_smem(f"the matmul kernel at tile {tile}", smem_bytes(tile, blocks, channels))
 
 
-def launch(phi, out, tile, blocks):
-    """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped)."""
+def launch(phi, out, tile):
+    """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped);
+    raises if its blocks do not fit."""
     nx, ny, nz, c = phi.shape
     X, Y, Z, _ = out.shape
+    blocks = block_tiles(tile)
+    check_blocks(tile, blocks, c)
     lib = load_library()
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream

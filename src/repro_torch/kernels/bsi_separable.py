@@ -1,9 +1,10 @@
 """Forward BSI in the separable form: the CUDA kernel's launch and its plain version.
 
 The kernel (``csrc/bsi_separable.cu``) replaces the JAX package's Pallas
-kernel ``repro/kernels/bsi_separable.py:bsi_separable_pallas``.  A thread
-block owns a block of tiles, stages its control window and the three
-``(d, 4)`` weight LUTs in shared memory and runs the x, y and z sweeps of
+kernel ``repro/kernels/bsi_separable.py:bsi_separable_pallas``.  It is the
+TTLI kernel's device code (``csrc/bsi_forward.cuh``) and blocks
+(``kernels.bsi_ttli.forward_blocks``) with the three ``(d, 4)`` weight LUTs
+in place of the lerp LUTs: the x, y and z sweeps of
 :func:`repro_torch.core.interpolate.bsi_separable`, each output a 4-term
 weighted sum of the previous stage, writing only the voxels inside the
 volume.  :func:`plain` is the same function in tensor ops;
@@ -19,13 +20,8 @@ import torch
 from repro_torch.core.bspline import weight_lut
 from repro_torch.core.interpolate import bsi_separable
 from repro_torch.kernels import bsi_ttli
-from repro_torch.kernels.build import load_library
 
-__all__ = ["block_tiles", "check_blocks", "launch", "plain", "weight_luts"]
-
-# The staging of the TTLI kernel, with the weight LUTs in place of its lerp
-# LUTs: the same tiles per block.
-block_tiles = bsi_ttli.block_tiles
+__all__ = ["launch", "plain", "weight_luts"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -35,24 +31,11 @@ def weight_luts(tile, device) -> torch.Tensor:
     return torch.cat([weight_lut(d, torch.float32, device).reshape(-1) for d in tile])
 
 
-def check_blocks(tile, blocks, channels):
-    """Raise if the staging of a block exceeds what a block may use."""
-    bsi_ttli.check_smem(f"the separable kernel at tile {tile} with {channels} channels",
-                        bsi_ttli.stage_smem_bytes(tile, blocks, channels, lut_rows=4))
-
-
-def launch(phi, out, tile, blocks):
-    """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped)."""
-    nx, ny, nz, c = phi.shape
-    X, Y, Z, _ = out.shape
-    lib = load_library()
-    with torch.cuda.device(phi.device):
-        stream = torch.cuda.current_stream(phi.device).cuda_stream
-        rc = lib.bsi_separable_f32(
-            phi.data_ptr(), weight_luts(tile, phi.device).data_ptr(), out.data_ptr(),
-            nx, ny, nz, c, *tile, X, Y, Z, *blocks, stream)
-    if rc:
-        raise RuntimeError(f"bsi_separable kernel launch failed: cudaError_t {rc}")
+def launch(phi, out, tile, lib=None):
+    """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped);
+    ``lib`` a measurement build (default: the kernels as built)."""
+    bsi_ttli.launch_forward("bsi_separable", phi, weight_luts(tuple(tile), phi.device),
+                            out, tile, lib)
 
 
 def plain(phi, tile, vol_shape):

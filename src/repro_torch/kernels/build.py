@@ -8,7 +8,7 @@ flags, so an unchanged library is reused and a changed one is rebuilt.  The
 build happens at the first launch, never at import.  A measurement build,
 ``load_library(defines)``, compiles the same sources with extra ``-D``
 defines into a library of its own beside it (``chip_smoke.py`` times the
-nmi kernel's stages so).
+nmi kernel's stages so, ``launch/profile_forward.py`` the forward kernels').
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("bsi_ttli.cu", "bsi_separable.cu", "bsi_tt.cu", "bsi_matmul.cu",
            "bsi_adjoint.cu", "bsi_fused.cu", "flash_attention.cu",
            "flash_attention_sm90.cu")
-HEADERS = ("bsi_common.cuh",)
+HEADERS = ("bsi_common.cuh", "bsi_forward.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -49,8 +49,8 @@ _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 # C signature of each entry point, one letter per argument (p: pointer, i:
 # int, f: float); each ends with the stream and returns a cudaError_t.
 _SIGNATURES = {
-    "bsi_ttli_f32": "ppp" + "i" * 13,
-    "bsi_separable_f32": "ppp" + "i" * 13,
+    "bsi_ttli_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, bz
+    "bsi_separable_f32": "ppp" + "i" * 11,
     "bsi_tt_f32": "ppp" + "i" * 13,
     "bsi_matmul_f32": "ppp" + "i" * 13,
     "bsi_adjoint_f32": "p" * 7 + "i" * 10,
@@ -71,7 +71,8 @@ class BuildInfo:
     path: Path
     seconds: float  # 0.0 when the library was already built
     # one "kernel: N registers, M bytes spill" line per kernel, and ptxas's
-    # "Potential Performance Loss" notes (a wgmma serialised) as they stand
+    # "Potential Performance Loss" notes (a wgmma serialised) as they stand;
+    # kept beside the library, so a build reused from disk has them too
     ptxas: tuple
 
 
@@ -166,8 +167,14 @@ def _build(out: Path, defines=()) -> BuildInfo:
         tmp_lib = Path(tmp) / out.name
         link = [nvcc, "-shared", *(str(o) for _, o, _ in procs), "-o", str(tmp_lib)]
         subprocess.run(link, check=True, capture_output=True, text=True)
+        ptxas = _ptxas_summary("\n".join(log))
+        _ptxas_file(out).write_text("\n".join(ptxas))  # before the library: see load_library
         os.replace(tmp_lib, out)
-    return BuildInfo(out, time.perf_counter() - t0, _ptxas_summary("\n".join(log)))
+    return BuildInfo(out, time.perf_counter() - t0, ptxas)
+
+
+def _ptxas_file(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
 
 
 def sass_counts(path, function_part, opcode) -> dict:
@@ -196,5 +203,8 @@ def load_library(defines=()) -> Library:
     measurement build, a library of its own."""
     defines = tuple(defines)
     out = BUILD_ROOT / f"librepro_torch_kernels-{_digest(defines)}.so"
-    info = _build(out, defines) if not out.exists() else BuildInfo(out, 0.0, ())
+    if out.exists():  # built earlier: its ptxas summary was kept beside it
+        info = BuildInfo(out, 0.0, tuple(_ptxas_file(out).read_text().splitlines()))
+    else:
+        info = _build(out, defines)
     return Library(info)

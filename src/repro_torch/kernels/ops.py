@@ -12,7 +12,7 @@ fallback: a CUDA tensor runs the kernel or raises.
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
-block sizes from shared memory (``kernels.bsi_ttli.block_tiles``, shared by
+block sizes from shared memory (``kernels.bsi_ttli.forward_blocks``, shared by
 ``kernels.bsi_separable``; ``kernels.bsi_tt.block_tiles``,
 ``kernels.bsi_matmul.block_tiles``, ``kernels.bsi_fused.lncc_blocks``).
 """
@@ -115,11 +115,9 @@ def _forward(name, module, phi, tile, vol_shape):
     if not _on_card(phi, name):
         return module.plain(phi, tile, vol_shape)
     _check(phi, "phi", 4, phi.device)
-    blocks = module.block_tiles(tile)
-    module.check_blocks(tile, blocks, phi.shape[3])
     out = torch.empty(vol_shape + (phi.shape[3],), dtype=torch.float32,
                       device=phi.device)
-    module.launch(phi, out, tile, blocks)
+    module.launch(phi, out, tile)
     _LAUNCHES[name] += 1
     return out
 

@@ -535,6 +535,68 @@ def test_separable_and_tt_registration_on_card_matches_cpu(cuda, mode):
                                atol=1e-4)
 
 
+# --- the staged forward kernels' blocks (kernels.bsi_ttli.forward_blocks)
+
+# odd volumes at the tiles of tests/test_torch_forward_geometry.py: z off the
+# block, one-tile volumes, several blocks along z, threads split into groups
+FORWARD_CASES = [
+    ((13, 11, 9), (5, 5, 5)),
+    ((22, 15, 30), (5, 4, 3)),
+    ((12, 11, 9), (3, 3, 3)),
+    ((11, 12, 45), (7, 6, 5)),
+    ((5, 4, 3), (5, 4, 3)),
+    ((1, 1, 1), (3, 3, 3)),
+    ((7, 6, 700), (5, 5, 5)),
+    ((6, 7, 1500), (3, 3, 3)),
+]
+
+
+@pytest.mark.parametrize("name", ["bsi_ttli", "bsi_separable"])
+@pytest.mark.parametrize("vol,tile", FORWARD_CASES)
+@pytest.mark.parametrize("c", [1, 3, 2])
+def test_forward_kernels_match_plain_at_odd_shapes(cuda, name, vol, tile, c):
+    """Within 1e-5 of the largest value, one launch, every voxel written
+    (the output starts as NaN), two calls bit-equal; 3 channels run the
+    kernels' fixed-channel instantiation, 1 and 2 the general one."""
+    module = {"bsi_ttli": bsi_ttli, "bsi_separable": bsi_separable}[name]
+    phi = _grid(vol, tile, c, 45, cuda)
+    out = torch.full(vol + (c,), float("nan"), device=cuda)
+    before = _launches(name)
+    module.launch(phi, out, tile)
+    again = getattr(ops, name)(phi, tile, vol)
+    torch.cuda.synchronize()
+    assert _launches(name) == before + 1
+    ref = module.plain(phi, tile, vol)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("name", ["bsi_ttli", "bsi_separable"])
+def test_forward_kernels_at_phantom1_are_deterministic(cuda, name):
+    """At phantom1's grid, cropped to it: within 1e-5 of the largest plain
+    value, two calls bit-equal."""
+    module = {"bsi_ttli": bsi_ttli, "bsi_separable": bsi_separable}[name]
+    vol, tile = (512, 228, 385), (5, 5, 5)
+    phi = _grid(vol, tile, 3, 46, cuda) * 2.5
+    a, b = (getattr(ops, name)(phi, tile, vol) for _ in range(2))
+    ref = module.plain(phi, tile, vol)
+    assert (a - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(a, b)
+
+
+def test_forward_kernels_refuse_a_tile_that_does_not_fit(cuda):
+    """A 70 x 70 tile's y-stage values exceed a block's shared memory: both
+    dispatchers raise before launching."""
+    tile, vol = (70, 70, 5), (140, 140, 40)
+    phi = _grid(vol, tile, 3, 47, cuda)
+    counts = ops.launch_counts()
+    for name in ("bsi_ttli", "bsi_separable"):
+        with pytest.raises(ValueError, match="shared memory"):
+            getattr(ops, name)(phi, tile, vol)
+    assert ops.launch_counts() == counts
+
+
 def test_auto_options_on_card_race_the_kernels(cuda, tmp_path, monkeypatch):
     """All-"auto" options on a small pair: the race times all 12 kernel
     triples, the call runs the winner's kernels only, and a fresh resolve

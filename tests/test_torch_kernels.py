@@ -501,14 +501,16 @@ def test_tt_plain_rounds_as_the_kernel():
 
 
 def test_separable_staging_fits_the_blocks_of_the_ttli_kernel():
-    """The separable kernel stages 4 weights per voxel offset and axis where
-    the TTLI kernel stages 3 lerp values: 4 (dx + dy + dz) bytes more, in the
-    same blocks, at every tile the tests use."""
+    """The separable kernel runs the TTLI kernel's device code in the TTLI
+    kernel's blocks (``bsi_ttli.forward_blocks``), with 4 weights per voxel
+    offset and axis where the TTLI kernel has 3 lerp values: ``sum(tile)``
+    floats more of LUTs, read from device memory, and the same shared
+    memory, within its budget at every tile the tests use."""
     from repro_torch.kernels import bsi_ttli
 
     for tile in ((5, 5, 5), (3, 4, 2), (1, 1, 1), (7, 7, 7)):
-        blocks = bsi_separable.block_tiles(tile)
-        bsi_separable.check_blocks(tile, blocks, 3)
-        assert (bsi_ttli.stage_smem_bytes(tile, blocks, 3, lut_rows=4)
-                - bsi_ttli.stage_smem_bytes(tile, blocks, 3)) == 4 * sum(tile)
+        geo = bsi_ttli.forward_blocks(tile, 3, (40, 33, 47))
+        assert geo.smem <= bsi_ttli.FORWARD_SMEM_BYTES
+        assert (bsi_separable.weight_luts(tile, "cpu").numel()
+                - bsi_ttli.stage_luts(tile, "cpu").numel()) == sum(tile)
         bsi_tt.check_blocks(tile, bsi_tt.block_tiles(tile), 3)
