@@ -31,11 +31,19 @@ Phases; any failure raises and the script exits nonzero:
    asserted).  The ``bsi_ttli`` and ``bsi_separable`` rows print their
    registers (no spills, asserted), shared memory, resident blocks an SM
    and blocks (``kernels.bsi_ttli.forward_blocks``; their split is
-   ``launch/profile_forward.py``'s).  The matmul adjoint's row prints its
-   two launches' device times (box contraction, seam sum), its box kernel's
-   registers (no spills, asserted) and blocks an SM, and the device memory
-   one call allocates beyond its output (asserted at most 64 MB), and
-   asserts two calls bit-equal;
+   ``launch/profile_forward.py``'s).  The separable adjoint's row prints
+   its two launches' device times (the streaming z-y kernel, the x sweep),
+   each kernel's registers (no spills, asserted) and blocks an SM, the
+   streaming block's shared memory and geometry
+   (``kernels.bsi_adjoint.stream_blocks``) and the device memory one call
+   allocates beyond its output (asserted at most 32 MB), and asserts two
+   calls bit-equal (``launch/profile_adjoint.py`` has its split); the
+   kernel is also held to its plain version at the main path's coarse
+   level, where its geometry splits each x plane into runs of y tiles.  The
+   matmul adjoint's row prints its two launches' device times (box
+   contraction, seam sum), its box kernel's registers (no spills, asserted)
+   and blocks an SM, and the device memory one call allocates beyond its
+   output (asserted at most 64 MB), and asserts two calls bit-equal;
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -309,10 +317,10 @@ def adjoint_matmul_summary(lib, g, gshape):
     asserted bit-equal."""
     from repro_torch.device import resident_blocks
     from repro_torch.kernels import bsi_adjoint
-    from repro_torch.launch.profile_adjoint import adjoint_matmul_report
+    from repro_torch.launch.profile_adjoint import adjoint_report
 
     geo = bsi_adjoint.matmul_blocks(TILE, g.shape[3], tuple(g.shape[:3]))
-    rep = adjoint_matmul_report(g, TILE, gshape)
+    rep = adjoint_report("matmul", g, TILE, gshape)
     regs = [ln for ln in lib.info.ptxas
             if "adjoint_matmul_box_kernel" in ln and f"ILi{geo.cols}E" in ln]
     assert len(regs) == 1 and "0/0 B spill" in regs[0], regs
@@ -329,6 +337,66 @@ def adjoint_matmul_summary(lib, g, gshape):
     assert rep["extra_bytes"] <= ADJOINT_EXTRA_BYTES, rep
     return dict(rep, box=geo.box, boxes=geo.boxes, blocks_per_sm=per_sm,
                 registers=regs[0])
+
+
+# the device memory one separable-adjoint call may allocate beyond its
+# output at phantom1: the runs' partials of hy, 24 MB (an earlier design's
+# intermediates took 136 MB)
+SEPARABLE_EXTRA_BYTES = 32e6
+
+
+def adjoint_separable_summary(lib, g, gshape):
+    """The separable adjoint at this run's inputs: each launch's device time
+    (``launch/profile_adjoint.py``), each kernel's registers (asserted: no
+    spills), the streaming kernel's shared memory and geometry
+    (``kernels.bsi_adjoint.stream_blocks``), blocks an SM, and the device
+    memory one call allocates beyond its output (asserted at most 32 MB);
+    two calls asserted bit-equal."""
+    from repro_torch.kernels import bsi_adjoint
+    from repro_torch.launch.profile_adjoint import adjoint_report, kernel_occupancy
+
+    vol = tuple(g.shape[:3])
+    geo = bsi_adjoint.stream_blocks(TILE, g.shape[3], vol, bsi_adjoint.card_sms(g.device))
+    rep = adjoint_report("separable", g, TILE, gshape)
+    occ = kernel_occupancy(lib, TILE, g.shape[3], vol)
+    log(f"bsi_adjoint: {rep['ms']:.4f} ms; launches " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in rep["stages"].items())
+        + f"; {geo.zparts * geo.runs * vol[0]} blocks of {geo.threads} threads ({geo.runs} "
+        f"runs of {geo.run} y tiles, {geo.zparts} z parts), {geo.smem} B of shared memory a "
+        f"streaming block; " + "; ".join(f"{line}, {per_sm} blocks an SM"
+                                          for line, per_sm in occ.values())
+        + f"; {rep['extra_bytes'] / 1e6:.1f} MB beyond the output (the partials "
+        f"{4 * geo.partial_floats / 1e6:.1f} MB; limit {SEPARABLE_EXTRA_BYTES / 1e6:.0f} MB); "
+        f"two calls bit-equal: {rep['bit_equal']}")
+    assert rep["bit_equal"], rep
+    assert rep["extra_bytes"] <= SEPARABLE_EXTRA_BYTES, rep
+
+
+def check_coarse_adjoint(torch, fixed):
+    """The separable adjoint at the main path's coarse level (the pyramid's
+    ``downsample2`` of phantom1), where its geometry splits each x plane
+    into runs of y tiles (asserted) and the x sweep sums each seam's two
+    partials: held to its plain version at 1e-5 of the largest value, two
+    calls bit-equal."""
+    from repro_torch.core import ffd
+    from repro_torch.kernels import bsi_adjoint, ops
+
+    dev = fixed.device
+    vol = tuple(ffd.downsample2(fixed).shape)
+    gshape = ffd.grid_shape_for_volume(vol, TILE)
+    geo = bsi_adjoint.stream_blocks(TILE, 3, vol, bsi_adjoint.card_sms(dev))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn(vol + (3,), generator=gen, device=dev) * 1e-3
+    out = ops.bsi_adjoint(g, TILE, gshape)
+    ref = bsi_adjoint.plain(g, TILE, gshape)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    equal = torch.equal(out, ops.bsi_adjoint(g, TILE, gshape))
+    log(f"bsi_adjoint at the coarse level {vol}: {geo.runs} runs of {geo.run} y tiles a "
+        f"plane; max |kernel - plain| relative {rel:.3e} (limit 1e-5); two calls "
+        f"bit-equal: {equal}")
+    assert geo.runs > 1, geo
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    assert equal
 
 
 def check_kernels(torch, fixed, moving, lib, stage_libs):
@@ -379,6 +447,8 @@ def check_kernels(torch, fixed, moving, lib, stage_libs):
     assert math.isfinite(rel) and rel <= 1e-5, rel
     lib_err = (library_adj() - ref).abs().max().item()
     log(f"bsi_adjoint: library yardstick (conv3d) max |diff| = {lib_err:.3e}")
+    check_coarse_adjoint(torch, fixed)
+    adjoint_separable_summary(lib, g, gshape)
     b_ms, b_by = bounds["bsi_adjoint_separable"]
     rows.append(dict(
         name="bsi_adjoint", route="cuda", source="src/repro_torch/csrc/bsi_adjoint.cu",

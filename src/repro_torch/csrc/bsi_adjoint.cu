@@ -6,19 +6,45 @@
 //
 // What bounds it on an H100: reading the cotangent of the dense field once.
 // At phantom1 (512, 228, 385) x 3 channels that is 539 MB, about 0.16 ms at
-// 3.35 TB/s.  The arithmetic is 4*d multiply-adds per intermediate value,
-// far below the fp32 rate.
+// 3.35 TB/s; the y-reduced intermediate hy, (X, Ny, Nz, C), adds 24 MB
+// written and 24 MB read back (mostly from L2), 48 MB.  The arithmetic is
+// 4*d multiply-adds per intermediate value, far below the fp32 rate.  An
+// earlier design ran the z, y and x sweeps as three launches of one gather
+// kernel, a thread per output decoding its place with 64-bit divisions and
+// a z-reduced intermediate (X, Y, Nz, C) of 112 MB written and read back:
+// 0.99 ms at phantom1 on an NVIDIA H100 80GB HBM3 at 700 W.
 //
-// What the design does about it: the three per-axis sweeps of the JAX
-// kernel (z, then y, then x) run as three launches of one gather kernel.
-// Each sweep writes one float per (outer, control point, inner) position: a
-// weighted sum over the 4*d voxels of its four bands, in a fixed order, so
-// the result is deterministic and needs no atomics.  The z sweep reads the
-// cotangent once from device memory (its 4x band overlap hits L1 and L2) and
-// shrinks it by d; the intermediates (X, Y, Nz, C) and (X, Ny, Nz, C) are 21%
-// and 4.5% of the cotangent at a 5^3 tile.  Voxels outside the cropped
-// volume count as zero: they are masked, and no padded copy of the cotangent
-// is made (the JAX dispatcher pads by 3 tiles per side instead).
+// What the design does about it: one streaming launch does the z and y
+// sweeps, and the cotangent is read once.  A block owns one x plane, a run
+// of its y tiles and a span of z control points (all of them at phantom1:
+// kernels/bsi_adjoint.py:stream_blocks picks the geometry).  Its rows, each
+// the z voxels its control points reach, stream through a ring of
+// kStreamStages shared-memory slots by the bulk copy engine: one thread
+// issues a row as one cp.async.bulk of the whole aligned 16-byte chunks
+// from its start rounded down (a row is Z*C floats, 4620 bytes at phantom1,
+// so rows start anywhere), completing on the slot's mbarrier, and the
+// row's shift modulo 4 floats tells where its data begins in the slot; the
+// next rows load while one is reduced.  A lane owns one z tile of one
+// channel, its place decoded once: it loads the tile's dz voxels of each
+// row (a warp's loads fall on distinct banks when dz*C is odd, 15 at
+// phantom1) and forms the tile's four band sums with the z LUT in registers
+// (the paper's tile, 5, with 3 channels; shared memory for any other
+// tile); a control point takes one band from its own lane and one from each
+// of the three lanes to its left by warp shuffles, so each voxel is loaded
+// once, not four times, and no division is left in the loop over rows.  The
+// y sweep runs in registers: a row at offset b of y tile ty adds
+// wy[b, m] * hz to control point ty + m (m < 4), four rolling accumulators;
+// when a y tile ends, point ty is complete and is written to the run's
+// partial of hy, and the accumulators shift.  A second launch does the x
+// sweep: a thread owns four x control points of one (y point, z point,
+// channel), threads coalesced along (z point, channel), its place decoded
+// once in 32-bit arithmetic; it reads the seven x tiles those points reach
+// once, its taps unrolled (the paper's tile) so their loads are in flight
+// together; hy(x, j) is the sum of the partials of the runs holding j (one
+// run at phantom1).  No atomics: every sum is taken in a fixed order (z in
+// band-then-voxel order, y in row order, the runs in run order, x in voxel
+// order within a band and the bands from the last), so two calls give the
+// same bits.
 //
 // Transposed-matmul form.  Replaces: the Pallas TPU kernel
 // repro/kernels/bsi_adjoint.py:bsi_adjoint_matmul_pallas (_kernel_matmul),
@@ -54,44 +80,289 @@
 
 namespace repro_torch {
 
-// in: (outer, n_in, inner) -> out: (outer, n_ctrl, inner) with
-// out[o, k, r] = sum_n sum_a w[a, n] * in[o, (k - n)*d + a, r], taps outside
-// [0, n_in) being zero.  w is the (d, 4) weight LUT of the axis.
-__global__ void __launch_bounds__(kThreads)
-    adjoint_sweep_kernel(const float* __restrict__ in, const float* __restrict__ w,
-                         float* __restrict__ out, long long outer, int n_in,
-                         int n_ctrl, long long inner, int d) {
-  const long long total = outer * n_ctrl * inner;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const long long r = i % inner;
-    const long long q = i / inner;
-    const int k = (int)(q % n_ctrl);
-    const long long o = q / n_ctrl;
-    const float* src = in + o * n_in * inner + r;
-    float acc = 0.f;
-    for (int band = 0; band < 4; ++band) {
-      const int v0 = (k - band) * d;
-      float part = 0.f;
-      for (int a = 0; a < d; ++a) {
-        const int v = v0 + a;
-        if (v >= 0 && v < n_in) part += __ldg(w + a * 4 + band) * __ldg(src + (long long)v * inner);
+__device__ __forceinline__ int chunk_shift(const float* src) {
+  return (int)(((size_t)src >> 2) & 3);
+}
+
+__device__ __forceinline__ const float* align16(const float* p) {
+  return (const float*)((size_t)p & ~(size_t)15);
+}
+
+__device__ __forceinline__ void bar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// One thread's copy of the 16-byte chunks that cover `floats` floats from
+// src into shared memory at dst (dst_p its generic address) by the bulk
+// copy engine, completing on the mbarrier bar: the chunks from src rounded
+// down, cut at the tensor's last whole chunk before `end`; the floats past
+// that cut (the tensor's last row only) by plain loads.
+__device__ __forceinline__ void stage_bulk(unsigned dst, float* dst_p, unsigned bar,
+                                           const float* src, int floats, const float* end) {
+  const float* lo = align16(src);
+  const float* hi = lo + 4 * ((src - lo + floats + 3) / 4);
+  const float* cut = hi < align16(end) ? hi : align16(end);
+  const unsigned bytes = cut > lo ? 4u * (unsigned)(cut - lo) : 0u;
+  bar_expect_tx(bar, bytes);
+  if (bytes)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];\n" ::"r"(dst),
+        "l"(lo), "r"(bytes), "r"(bar)
+        : "memory");
+  for (const float* p = cut > src ? cut : src; p < src + floats && p < end; ++p)
+    dst_p[p - lo] = *p;
+}
+
+#ifndef REPRO_SEP_SKIP  // measurement builds: 1 leaves out the row loads, 2 the
+#define REPRO_SEP_SKIP 0  // z arithmetic, 4 the partials' stores (launch/profile_adjoint.py)
+#endif
+#ifndef REPRO_SEP_GENERAL  // measurement builds: 1 launches the streaming kernel built
+#define REPRO_SEP_GENERAL 0  // for any tile and channels, 2 the x sweep built for any
+#endif                       // tile (launch/profile_adjoint.py)
+
+constexpr int kStreamStages = 4;  // ring slots of the streaming kernel: 3 rows in flight
+constexpr int kStreamBarFloats = 4 * ((kStreamStages + 1) / 2);  // its mbarriers, 16-byte whole
+constexpr int kStreamOutputs = 29;  // control points a warp of the streaming kernel owns
+constexpr int kStreamThreads = 9 * 32;  // its threads a block, at most
+constexpr int kXsweepPoints = 4;  // x control points a thread of the x sweep owns
+
+// The separable adjoint's geometry (kernels/bsi_adjoint.py:StreamBlocks).
+struct StreamGeo {
+  int X, Y, Z, c;    // volume, channels
+  int dy, dz;        // tile along y and z
+  int Ty, nzh;       // y tiles; z control points the volume reaches, Tz + 3
+  int span, cb;      // z control points and channels a block owns
+  int nzp;           // blocks along z of one channel group: ceil(nzh / span)
+  int run, runs;     // y tiles a block streams; runs: ceil(Ty / run)
+  int slot;          // floats of a ring slot
+};
+
+// Floats of a row a block stages, at most: the z voxels of span + 3 tiles,
+// all channels; a slot holds it as the 16-byte chunks that cover it.
+__host__ __device__ inline int stream_segment(const StreamGeo& s) {
+  const int z = (s.span + 3) * s.dz;
+  return (z < s.Z ? z : s.Z) * s.c;
+}
+__host__ __device__ inline int stream_slot(const StreamGeo& s) {
+  return 4 * ((stream_segment(s) + 6) / 4);
+}
+// Shared memory: an 8-byte mbarrier a slot (rounded up to 16 bytes), the
+// ring, the y LUT and the z LUT (4 floats a voxel offset each).
+// kernels/bsi_adjoint.py:stream_smem_bytes is the same sum.
+inline size_t stream_smem(const StreamGeo& s) {
+  return 4 * (kStreamBarFloats + (size_t)kStreamStages * s.slot + 4 * s.dy + 4 * s.dz);
+}
+
+// hyp[((x*runs + r)*(run + 3) + jl)*nzh*c + kz*c + ch]: the y-reduced
+// cotangent of control point j = r*run + jl from the rows of run r's tiles
+// (their bands that land on j, summed in row order), zero where none does.
+//
+// Block (x, r, part): plane x, y tiles [r*run, r*run + run), z control
+// points [kz0, kz0 + nk) and channels [ch0, ch0 + ncb) of blockIdx.z's part.
+// A lane owns one z tile of one channel: the block's lanes run over the
+// channels, each as nk + 3 tiles t = kz0 - 3 .. kz0 + nk - 1 (the first
+// three a halo), warp w taking entries 29w .. 29w + 31.  A row's lane loads
+// its tile's dz voxels and forms the tile's four band sums p[n] (band n
+// lands on control point t + n); control point kz = t then sums p[0] of its
+// own lane and p[n] of the lane n to its left (shuffled up), n = 1..3: the
+// same sums, in the same order, as hz = sum_n sum_a wz[a, n] * row[z = (kz -
+// n)*dz + a], with the voxels outside the volume read as zeros.  Lanes 3..31
+// whose tile is not a halo own that control point.  The rows stream through
+// the ring: thread 0 issues row t's copy kStreamStages - 1 rows ahead of its
+// reduction, behind a barrier that frees the slot it fills.
+template <int C, int D>
+__global__ void __launch_bounds__(kStreamThreads, 4)
+    adjoint_stream_kernel(const float* __restrict__ g, const float* __restrict__ wy,
+                          const float* __restrict__ wz, float* __restrict__ hyp,
+                          StreamGeo s) {
+  extern __shared__ float smem[];
+  const int c = C ? C : s.c, dz = D ? D : s.dz;
+  const int x = blockIdx.x, r = blockIdx.y;
+  const int zp = blockIdx.z % s.nzp, cp = blockIdx.z / s.nzp;
+  const int kz0 = zp * s.span, nk = min(s.span, s.nzh - kz0);
+  const int ch0 = cp * s.cb, ncb = min(s.cb, c - ch0);
+  const int zs0 = max(0, (kz0 - 3) * dz), zs1 = min(s.Z, (kz0 + nk) * dz);
+  const int seg = (zs1 - zs0) * c;  // > 0: kz0 < Tz + 3 reaches the volume
+  const int t0 = r * s.run, nt = min(s.run, s.Ty - t0);  // the run's y tiles
+  const int nrows = min(s.Y, (t0 + nt) * s.dy) - t0 * s.dy;
+  float* ring = smem + kStreamBarFloats;  // after the slots' mbarriers
+  float* s_wy = ring + kStreamStages * s.slot;
+  float* s_wz = s_wy + 4 * s.dy;
+  for (int i = threadIdx.x; i < 4 * s.dy; i += blockDim.x) s_wy[i] = wy[i];
+  if (!D)
+    for (int i = threadIdx.x; i < 4 * dz; i += blockDim.x) s_wz[i] = wz[i];
+  const unsigned bars = (unsigned)__cvta_generic_to_shared(smem);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStreamStages; ++i) bar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // this lane's tile and control point, decoded once; its voxels in the
+  // volume and the part (na of them) start at place in a staged row
+  const int lane = threadIdx.x & 31;
+  const int u = (threadIdx.x >> 5) * kStreamOutputs + lane, per = nk + 3;
+  const int ch = ch0 + u / per, e = u % per, kz = kz0 - 3 + e;
+  const bool owner = lane >= 3 && e >= 3 && u < ncb * per;
+  const int na = u < ncb * per && kz >= 0 ? max(0, min(dz, zs1 - kz * dz)) : 0;
+  const int place = (kz * dz - zs0) * c + ch;
+  float w[D ? 4 * D : 1];
+#pragma unroll
+  for (int i = 0; i < (D ? 4 * D : 0); ++i) w[i] = __ldg(wz + i);
+
+  const size_t zrow = (size_t)s.Z * c;
+  const float* rows = g + ((size_t)x * s.Y + t0 * s.dy) * zrow + (size_t)zs0 * c;
+  const float* g_end = g + (size_t)s.X * s.Y * zrow;
+  const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
+  auto stage = [&](int t) {  // thread 0 issues row t into slot t % kStreamStages
+    const int k = t % kStreamStages;
+    if (REPRO_SEP_SKIP & 1)
+      bar_expect_tx(bars + 8 * k, 0);
+    else
+      stage_bulk(ring_s + 4u * k * s.slot, ring + k * s.slot, bars + 8 * k,
+                 rows + (size_t)t * zrow, seg, g_end);
+  };
+  if (threadIdx.x == 0)
+    for (int t = 0; t < kStreamStages - 1 && t < nrows; ++t) stage(t);
+
+  const int stride = s.nzh * c;  // floats of one control point's partial row
+  float* part = hyp + ((size_t)x * s.runs + r) * (s.run + 3) * stride + kz * c + ch;
+  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f, acc3 = 0.f;
+  int b = 0, jl = 0;  // the row's offset in its y tile; the run's tile
+  for (int t = 0; t < nrows; ++t) {
+    bar_wait(bars + 8 * (t % kStreamStages), (t / kStreamStages) & 1);  // row t has landed
+    __syncthreads();  // every thread is past row t - 1: its slot is free again
+    if (threadIdx.x == 0 && t + kStreamStages - 1 < nrows) stage(t + kStreamStages - 1);
+    float hz;
+    if (REPRO_SEP_SKIP & 2) {
+      hz = (float)t;
+    } else {
+      const float* row = ring + (t % kStreamStages) * s.slot +
+                         chunk_shift(rows + (size_t)t * zrow) + place;
+      float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;  // the tile's band sums
+#pragma unroll
+      for (int a = 0; a < (D ? D : dz); ++a) {
+        const float v = a < na ? row[a * c] : 0.f;
+        const float* wa = D ? w + 4 * a : s_wz + 4 * a;
+        p0 = fmaf(wa[0], v, p0);
+        p1 = fmaf(wa[1], v, p1);
+        p2 = fmaf(wa[2], v, p2);
+        p3 = fmaf(wa[3], v, p3);
       }
-      acc += part;
+      hz = p0 + __shfl_up_sync(0xffffffffu, p1, 1);
+      hz += __shfl_up_sync(0xffffffffu, p2, 2);
+      hz += __shfl_up_sync(0xffffffffu, p3, 3);
     }
-    out[i] = acc;
+    const float4 wb = reinterpret_cast<const float4*>(s_wy)[b];
+    acc0 = fmaf(wb.x, hz, acc0);
+    acc1 = fmaf(wb.y, hz, acc1);
+    acc2 = fmaf(wb.z, hz, acc2);
+    acc3 = fmaf(wb.w, hz, acc3);
+    if (++b == s.dy || t == nrows - 1) {  // y tile jl ends: control point jl is complete
+#if REPRO_SEP_SKIP & 4
+      if (acc0 == -1.25e-30f)  // never true here: keeps the sums, drops the store
+#endif
+        if (owner) part[(size_t)jl * stride] = acc0;
+      acc0 = acc1, acc1 = acc2, acc2 = acc3, acc3 = 0.f;
+      b = 0, ++jl;
+    }
+  }
+  if (owner && !(REPRO_SEP_SKIP & 4)) {  // the run's last three points, and zeros past them
+    part[(size_t)nt * stride] = acc0;
+    part[(size_t)(nt + 1) * stride] = acc1;
+    part[(size_t)(nt + 2) * stride] = acc2;
+    for (int j = nt + 3; j < s.run + 3; ++j) part[(size_t)j * stride] = 0.f;
   }
 }
 
-inline cudaError_t sweep(const float* in, const float* w, float* out, long long outer,
-                         int n_in, int n_ctrl, long long inner, int d,
-                         cudaStream_t stream) {
-  const long long total = outer * n_ctrl * inner;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  const unsigned grid = (unsigned)(blocks < (1LL << 30) ? blocks : (1LL << 30));
-  adjoint_sweep_kernel<<<grid, kThreads, 0, stream>>>(in, w, out, outer, n_in, n_ctrl,
-                                                      inner, d);
+// out[i, j, q] = sum_l sum_a wx[a, l] * hy(x = (i - l)*dx + a, j, q) for q
+// = kz*c + ch, the taps outside [0, X) skipped: each band's sum over a in
+// voxel order, the bands added in descending order (l = 3 first); hy(x, j,
+// q) is the sum of the partials of the runs holding j, in run order: run r
+// holds [r*run, r*run + run + 3), and run >= 3 (or one run), so at most runs
+// rlo and rlo + 1 do.  0 where q is past the points the volume reaches.  A
+// thread owns kXsweepPoints points i0 .. i0 + P - 1 of one (j, q): it walks
+// the x tiles i0 - 3 .. i0 + P - 1 once, forming each tile's four band sums
+// and adding band l to point t + l, so a tile is read once for all P.
+// Block (i0 / P * ny + j, q / blockDim.x), its place decoded once.  D > 0:
+// the tile along x fixed, the x LUT in registers and the taps unrolled, so
+// a thread's loads are in flight together; else the LUT, 4*dx floats, in
+// dynamic shared memory.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    adjoint_xsweep_kernel(const float* __restrict__ hyp, const float* __restrict__ wx,
+                          float* __restrict__ out, StreamGeo s, int dx, int nx, int ny,
+                          int nz) {
+  extern __shared__ float s_wx[];
+  if (!D) {
+    for (int k = threadIdx.x; k < 4 * dx; k += blockDim.x) s_wx[k] = wx[k];
+    __syncthreads();
+  }
+  const int nq = nz * s.c, hq = s.nzh * s.c;
+  const int q = blockIdx.y * blockDim.x + threadIdx.x;
+  if (q >= nq) return;
+  const int ib = blockIdx.x / ny, j = blockIdx.x - ib * ny, i0 = ib * kXsweepPoints;
+  const int rlo = j >= 3 ? (j - 3) / s.run : 0, rhi = min(s.runs - 1, j / s.run);
+  const int d = D ? D : dx;
+  float acc[kXsweepPoints] = {};
+  if (q < hq && rlo <= rhi) {
+    // point j of run rlo's partial at plane 0; run rlo + 1's is 3 rows on
+    const float* p0 = hyp + ((size_t)rlo * (s.run + 3) + j - rlo * s.run) * hq + q;
+    const bool two = rhi > rlo;
+    const size_t plane = (size_t)s.runs * (s.run + 3) * hq;  // floats of a plane's partials
+    float w[D ? 4 * D : 1];
+#pragma unroll
+    for (int k = 0; k < (D ? 4 * D : 0); ++k) w[k] = __ldg(wx + k);
+#pragma unroll
+    for (int k = 0; k < kXsweepPoints + 3; ++k) {  // tile i0 - 3 + k
+      const int x0 = (i0 - 3 + k) * d;
+      float p[4] = {};
+#pragma unroll
+      for (int a = 0; a < d; ++a) {
+        const int x = x0 + a;
+        if (x < 0 || x >= s.X) continue;
+        const float* h = p0 + (size_t)x * plane;
+        const float v = two ? h[0] + h[3 * hq] : h[0];
+#pragma unroll
+        for (int l = 0; l < 4; ++l) p[l] = fmaf(D ? w[a * 4 + l] : s_wx[a * 4 + l], v, p[l]);
+      }
+#pragma unroll
+      for (int l = 0; l < 4; ++l)  // band l of tile i0 - 3 + k lands on point i0 + k - 3 + l
+        if (k - 3 + l >= 0 && k - 3 + l < kXsweepPoints) acc[k - 3 + l] += p[l];
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < kXsweepPoints; ++o)
+    if (i0 + o < nx) out[((size_t)(i0 + o) * ny + j) * nq + q] = acc[o];
+}
+
+template <int C, int D>
+inline cudaError_t launch_stream(const float* g, const float* wy, const float* wz,
+                                 float* hyp, const StreamGeo& s, int threads, int ncp,
+                                 cudaStream_t stream) {
+  const size_t smem = stream_smem(s);
+  cudaError_t err = allow_smem(adjoint_stream_kernel<C, D>, smem);
+  if (err != cudaSuccess) return err;
+  adjoint_stream_kernel<C, D><<<dim3(s.X, s.runs, s.nzp * ncp), threads, smem, stream>>>(
+      g, wy, wz, hyp, s);
   return cudaGetLastError();
 }
 
@@ -399,21 +670,42 @@ inline cudaError_t launch_boxes(const float* g, const float* basis, float* parti
 
 }  // namespace repro_torch
 
-// g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume.
-// hz: (X, Y, nz, c) and hy: (X, ny, nz, c) scratch; out: (nx, ny, nz, c).
-// wx, wy, wz: the (d, 4) weight LUTs.  Returns the first cudaError_t.
+// g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume;
+// wx, wy, wz: the (d, 4) weight LUTs; hyp: X*runs*(run + 3)*(Tz + 3)*c floats
+// of scratch, runs = ceil(ceil(Y/dy)/run); out: (nx, ny, nz, c).  (span,
+// cb): z control points and channels a block owns, cb * (span + 3) lanes
+// of `threads` (29 owners a warp); run: y tiles a block streams, at least 3
+// or all of them (kernels/bsi_adjoint.py:stream_blocks).  Returns the first
+// cudaError_t.
 extern "C" int bsi_adjoint_f32(const float* g, const float* wx, const float* wy,
-                               const float* wz, float* hz, float* hy, float* out,
-                               int X, int Y, int Z, int c, int nx, int ny, int nz,
-                               int dx, int dy, int dz, void* stream) {
+                               const float* wz, float* hyp, float* out, int X, int Y,
+                               int Z, int c, int nx, int ny, int nz, int dx, int dy, int dz,
+                               int span, int cb, int run, int threads, void* stream) {
   using namespace repro_torch;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = sweep(g, wz, hz, (long long)X * Y, Z, nz, c, dz, s);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int Ty = (Y + dy - 1) / dy, Tz = (Z + dz - 1) / dz;
+  if (span < 1 || cb < 1 || run < (Ty < 3 ? Ty : 3) || threads > kStreamThreads ||
+      threads % 32 || cb * (span + 3) > kStreamOutputs * (threads / 32) + 3 ||
+      nz < Tz + 3 || ny < Ty + 3)
+    return (int)cudaErrorInvalidValue;
+  StreamGeo s{X, Y, Z, c, dy, dz, Ty, Tz + 3, span, cb, (Tz + 3 + span - 1) / span, run,
+              (Ty + run - 1) / run, 0};
+  s.slot = stream_slot(s);
+  const int ncp = (c + cb - 1) / cb;
+  cudaError_t err = !(REPRO_SEP_GENERAL & 1) && c == 3 && dz == 5
+                        ? launch_stream<3, 5>(g, wy, wz, hyp, s, threads, ncp, st)
+                        : launch_stream<0, 0>(g, wy, wz, hyp, s, threads, ncp, st);
   if (err != cudaSuccess) return (int)err;
-  err = sweep(hz, wy, hy, X, Y, ny, (long long)nz * c, dy, s);
-  if (err != cudaSuccess) return (int)err;
-  err = sweep(hy, wx, out, 1, X, nx, (long long)ny * nz * c, dx, s);
-  return (int)err;
+  const dim3 grid((nx + kXsweepPoints - 1) / kXsweepPoints * ny,
+                  (nz * c + kThreads - 1) / kThreads);
+  if (!(REPRO_SEP_GENERAL & 2) && dx == 5) {
+    adjoint_xsweep_kernel<5><<<grid, kThreads, 0, st>>>(hyp, wx, out, s, dx, nx, ny, nz);
+  } else {
+    const size_t lut = 16 * (size_t)dx;
+    if ((err = allow_smem(adjoint_xsweep_kernel<0>, lut)) != cudaSuccess) return (int)err;
+    adjoint_xsweep_kernel<0><<<grid, kThreads, lut, st>>>(hyp, wx, out, s, dx, nx, ny, nz);
+  }
+  return (int)cudaGetLastError();
 }
 
 // g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume;

@@ -4,9 +4,13 @@ The kernels (``csrc/bsi_adjoint.cu``) replace the JAX package's Pallas
 kernels in ``repro/kernels/bsi_adjoint.py``, masking the voxels outside the
 volume instead of padding:
 
-``bsi_adjoint_separable_pallas``  three gather sweeps (z, then y, then x)
-    contract the cotangent of the dense field against the ``(d, 4)`` weight
-    LUTs (:func:`launch`, :func:`plain`);
+``bsi_adjoint_separable_pallas``  the z, y and x sweeps contract the
+    cotangent of the dense field against the ``(d, 4)`` weight LUTs
+    (:func:`launch`, :func:`plain`): one launch streams each x plane's rows
+    through shared memory and runs the z and y sweeps, writing the y-reduced
+    intermediate as one partial per run of y tiles; a second launch sums
+    the runs' partials and runs the x sweep (:func:`stream_blocks` is the
+    geometry);
 ``bsi_adjoint_matmul_pallas``  each tile's cotangent contracted against the
     ``(d^3, 64)`` Kronecker basis into 64 bands, then the bands overlap-added
     onto the control points (:func:`launch_matmul`, :func:`plain_matmul`).
@@ -33,8 +37,22 @@ from repro_torch.core.interpolate import _pad_to_tiles
 from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["weight_luts", "launch", "plain", "MatmulBlocks", "matmul_smem_bytes",
-           "matmul_blocks", "launch_matmul", "plain_matmul", "plain_matmul_blocked"]
+__all__ = ["weight_luts", "StreamBlocks", "stream_smem_bytes", "stream_geometry",
+           "stream_blocks", "card_sms", "launch",
+           "plain", "MatmulBlocks", "matmul_smem_bytes", "matmul_blocks", "launch_matmul",
+           "plain_matmul", "plain_matmul_blocked"]
+
+# the streaming kernel (csrc: adjoint_stream_kernel): ring slots, one row
+# each (kStreamStages); a lane a z tile, the 29 lanes 3..31 of a warp
+# owning control points (kStreamOutputs), at most 9 warps a block
+# (kStreamThreads); and the warps a launch aims to put in flight on each
+# SM before it splits a plane's y tiles into runs
+STREAM_STAGES = 4
+STREAM_OUTPUTS = 29
+STREAM_MAX_WARPS = 9
+STREAM_FILL_WARPS_PER_SM = 16
+_STREAM_LANES = STREAM_OUTPUTS * STREAM_MAX_WARPS + 3  # z tiles a block's warps hold
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM, the geometry's default
 
 # the box kernel's instantiations (csrc: adjoint_matmul_box_kernel<COLS>):
 # columns a block contracts at once, two threads each
@@ -48,25 +66,113 @@ def weight_luts(tile, device) -> tuple:
     return tuple(weight_lut(d, torch.float32, device) for d in tile)
 
 
-def launch(g, out, tile):
-    """Launch the three sweeps on the current stream: ``g`` -> ``out``.
+class StreamBlocks(NamedTuple):
+    """The separable adjoint's launch geometry (csrc: ``StreamGeo``).  A block
+    streams the rows of one x plane, a run of ``run`` y tiles, and owns
+    ``span`` z control points of ``channels`` channels: a lane a z tile,
+    ``span + 3`` a channel (three of them a halo)."""
 
-    The two intermediates, ``(X, Y, Nz, C)`` and ``(X, Ny, Nz, C)``, are
-    allocated here; PyTorch's caching allocator reuses their memory only for
-    work queued after these launches on the same stream.
-    """
+    span: int  # z control points a block owns
+    channels: int  # channels a block owns (all, unless more than 66)
+    zparts: int  # blocks along z and channels: ceil((Tz + 3) / span) * ceil(C / channels)
+    run: int  # y tiles a block streams: at least 3, or all of them
+    runs: int  # ceil(Ty / run)
+    threads: int  # warps whose lanes 3..31 follow on: ceil((channels (span + 3) - 3) / 29)
+    segment: int  # floats of a row a block stages, at most: min(Z, (span + 3) dz) C
+    slot: int  # floats of a ring slot: the 16-byte chunks covering a segment
+    smem: int  # bytes of shared memory a block
+    partial_floats: int  # X * runs * (run + 3) * (Tz + 3) * C: the runs' partials of hy
+
+
+def stream_segment(tile, span, channels, Z) -> int:
+    """Floats of a row a block stages, at most (csrc: ``stream_segment``):
+    the z voxels its ``span`` control points reach, ``span + 3`` tiles, cut
+    at the volume's ``Z``; all ``channels`` channels of the row."""
+    return min(Z, (span + 3) * tile[2]) * channels
+
+
+def stream_smem_bytes(tile, span, channels, Z) -> int:
+    """Shared memory of the streaming kernel (csrc: ``stream_smem``): an
+    8-byte mbarrier a slot, rounded up to 16 bytes; a ring of
+    :data:`STREAM_STAGES` slots, each the 16-byte chunks that cover a
+    segment shifted by up to 3 floats, ``4 * ((segment + 6) // 4)`` floats;
+    then the y and z LUTs, ``4 * dy`` and ``4 * dz`` floats."""
+    slot = 4 * ((stream_segment(tile, span, channels, Z) + 6) // 4)
+    bars = 16 * -(-STREAM_STAGES // 2)
+    return bars + 4 * (STREAM_STAGES * slot + 4 * tile[1] + 4 * tile[2])
+
+
+def stream_geometry(tile, channels, vol_shape, span, run) -> StreamBlocks:
+    """The streaming kernel's geometry for a ``vol_shape`` cotangent of
+    ``channels`` channels at ``tile`` with blocks of ``span`` z control
+    points (at most those the volume reaches) and runs of ``run`` y tiles
+    (at least 3, or all of them: a point's partials lie in two runs at
+    most).  The channels a block owns are all of them unless four lanes
+    each would not fit :data:`STREAM_MAX_WARPS` warps."""
+    tile, vol_shape = tuple(int(d) for d in tile), tuple(int(s) for s in vol_shape)
+    (X, Y, Z), (_, dy, dz) = vol_shape, tile
+    Ty, nzh = -(-Y // dy), -(-Z // dz) + 3
+    cb = min(channels, _STREAM_LANES // 4)
+    span = min(span, nzh)
+    run = min(Ty, max(run, 3))
+    runs = -(-Ty // run)
+    segment = stream_segment(tile, span, channels, Z)
+    return StreamBlocks(span, cb, -(-nzh // span) * -(-channels // cb), run, runs,
+                        32 * -(-(cb * (span + 3) - 3) // STREAM_OUTPUTS), segment,
+                        4 * ((segment + 6) // 4), stream_smem_bytes(tile, span, channels, Z),
+                        X * runs * (run + 3) * nzh * channels)
+
+
+@functools.lru_cache(maxsize=None)
+def stream_blocks(tile, channels, vol_shape, sms=H100_SMS) -> StreamBlocks:
+    """The streaming kernel's geometry for a ``vol_shape`` cotangent of
+    ``channels`` channels at ``tile`` on a card of ``sms`` SMs.
+
+    A block owns every z control point the volume reaches, ``Tz + 3``, of
+    every channel, if their lanes fit :data:`STREAM_MAX_WARPS` warps; else
+    spans of as many as fit (fewer channels a block only past 66 channels),
+    halved until its ring fits its shared memory.  The y tiles of a plane
+    are split into runs, of 3 tiles at least, only when the planes and parts
+    give fewer than :data:`STREAM_FILL_WARPS_PER_SM` warps an SM.  Raises if
+    no block fits."""
+    tile, vol_shape = tuple(int(d) for d in tile), tuple(int(s) for s in vol_shape)
+    (X, Y, Z), (_, dy, dz) = vol_shape, tile
+    Ty, nzh = -(-Y // dy), -(-Z // dz) + 3
+    span = min(nzh, _STREAM_LANES // min(channels, _STREAM_LANES // 4) - 3)
+    while span > 1 and stream_smem_bytes(tile, span, channels, Z) > bsi_ttli.MAX_SMEM_BYTES:
+        span = -(-span // 2)
+    bsi_ttli.check_smem(f"the separable adjoint at tile {tile} with {channels} channels",
+                        stream_smem_bytes(tile, span, channels, Z))
+    one = stream_geometry(tile, channels, vol_shape, span, Ty)
+    warps = X * one.zparts * one.threads // 32
+    runs = min(Ty, max(1, -(-STREAM_FILL_WARPS_PER_SM * sms // warps)))
+    return stream_geometry(tile, channels, vol_shape, span, -(-Ty // runs))
+
+
+def card_sms(device) -> int:
+    """Streaming multiprocessors of the card ``device`` lies on."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(g, out, tile, lib=None, geo=None):
+    """Launch the streaming z-y kernel and the x sweep on the current
+    stream: ``g`` -> ``out``, with the geometry ``geo`` (by default
+    :func:`stream_blocks` for the card's SMs).  The runs' partials of hy
+    (:attr:`StreamBlocks.partial_floats`) are allocated here; PyTorch's
+    caching allocator reuses their memory only for work queued after these
+    launches on the same stream."""
     X, Y, Z, c = g.shape
     nx, ny, nz, _ = out.shape
-    hz = torch.empty((X, Y, nz, c), dtype=torch.float32, device=g.device)
-    hy = torch.empty((X, ny, nz, c), dtype=torch.float32, device=g.device)
+    geo = geo or stream_blocks(tile, c, (X, Y, Z), card_sms(g.device))
+    hyp = torch.empty(geo.partial_floats, dtype=torch.float32, device=g.device)
     wx, wy, wz = weight_luts(tile, g.device)
-    lib = load_library()
+    lib = lib or load_library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         rc = lib.bsi_adjoint_f32(
-            g.data_ptr(), wx.data_ptr(), wy.data_ptr(), wz.data_ptr(),
-            hz.data_ptr(), hy.data_ptr(), out.data_ptr(),
-            X, Y, Z, c, nx, ny, nz, *tile, stream)
+            g.data_ptr(), wx.data_ptr(), wy.data_ptr(), wz.data_ptr(), hyp.data_ptr(),
+            out.data_ptr(), X, Y, Z, c, nx, ny, nz, *tile, geo.span, geo.channels, geo.run,
+            geo.threads, stream)
     if rc:
         raise RuntimeError(f"bsi_adjoint kernel launch failed: cudaError_t {rc}")
 

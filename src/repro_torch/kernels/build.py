@@ -53,7 +53,7 @@ _SIGNATURES = {
     "bsi_separable_f32": "ppp" + "i" * 11,
     "bsi_tt_f32": "ppp" + "i" * 13,
     "bsi_matmul_f32": "ppp" + "i" * 13,
-    "bsi_adjoint_f32": "p" * 7 + "i" * 10,
+    "bsi_adjoint_f32": "p" * 6 + "i" * 14,
     "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,
     "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,
     "bsi_fused_stats_f32": "pppp" + "ip" + _DIMS,

@@ -72,7 +72,7 @@ def test_ttli_kernel_matches_plain(cuda, vol, tile, c):
 
 
 @pytest.mark.parametrize("vol,tile", CASES)
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 4])
 def test_adjoint_kernel_matches_plain(cuda, vol, tile, c):
     rng = np.random.default_rng(1)
     g = torch.from_numpy(rng.standard_normal(vol + (c,)).astype(np.float32)).to(cuda)
@@ -84,6 +84,65 @@ def test_adjoint_kernel_matches_plain(cuda, vol, tile, c):
     ref = bsi_adjoint.plain(g, tile, gshape)
     assert out.shape == ref.shape == gshape + (c,)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# rows of Z*C floats and x planes of Y*Z*C floats that are not whole 16-byte
+# chunks (39 and 273 floats at 3 channels), on the paper's tile (the
+# kernel's build for it) and on another; and a volume whose z outputs, Nz*C,
+# outnumber a block's threads (603 * 3 at tile (5, 5, 2))
+UNALIGNED = [((21, 7, 13), (5, 5, 5)), ((21, 7, 13), (3, 4, 2))]
+LONG_Z = ((6, 40, 1200), (5, 5, 2))
+
+
+@pytest.mark.parametrize("vol,tile", UNALIGNED + [LONG_Z])
+def test_adjoint_kernel_streams_unaligned_rows_and_long_z(cuda, vol, tile):
+    c = 3
+    geo = bsi_adjoint.stream_blocks(tile, c, vol, bsi_adjoint.card_sms(cuda))
+    if (vol, tile) == LONG_Z:
+        assert geo.zparts > 1 and geo.threads == 32 * bsi_adjoint.STREAM_MAX_WARPS
+    else:
+        assert vol[2] * c % 4 and vol[1] * vol[2] * c % 4
+    g = _adjoint_input(vol, c, 34, cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    out = ops.bsi_adjoint(g, tile, gshape)
+    torch.cuda.synchronize()
+    ref = bsi_adjoint.plain(g, tile, gshape)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    assert torch.equal(out, ops.bsi_adjoint(g, tile, gshape))
+
+
+@pytest.mark.parametrize("vol,tile", UNALIGNED)
+def test_adjoint_kernel_reads_an_unaligned_view(cuda, vol, tile):
+    """A contiguous view that starts off a 16-byte boundary and ends where
+    its allocation ends: the row copies may begin before it, never after."""
+    c = 3
+    big = _adjoint_input((vol[0] + 1,) + vol[1:], c, 35, cuda)
+    g = big[1:]
+    assert g.is_contiguous() and g.data_ptr() % 16
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    out = ops.bsi_adjoint(g, tile, gshape)
+    ref = bsi_adjoint.plain(g, tile, gshape)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("vol,tile", [CASES[1], LONG_Z])
+def test_adjoint_kernel_allocates_only_the_partials(cuda, vol, tile):
+    """Beyond its output a call allocates the runs' partials of hy, and no
+    (X, Y, Nz, C) intermediate."""
+    c = 3
+    g = _adjoint_input(vol, c, 36, cuda)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    ops.bsi_adjoint(g, tile, gshape)  # the LUTs, cached on the card
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.bsi_adjoint(g, tile, gshape)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - 4 * out.numel()
+    geo = bsi_adjoint.stream_blocks(tile, c, vol, bsi_adjoint.card_sms(cuda))
+    partials = 4 * geo.partial_floats
+    assert partials <= extra < partials + 1024
+    assert extra < 4 * vol[0] * vol[1] * gshape[2] * c
 
 
 @pytest.mark.parametrize("vol,tile", CASES)
