@@ -28,10 +28,13 @@ Phases; any failure raises and the script exits nonzero:
    form prints its split, its time with the weights or the histogram stage
    left out (two measurement builds, ``-DREPRO_NMI_STAGES``), its resident
    blocks an SM, registers and HMMA instructions (``cuobjdump -sass``,
-   asserted).  The ``bsi_ttli`` and ``bsi_separable`` rows print their
-   registers (no spills, asserted), shared memory, resident blocks an SM
-   and blocks (``kernels.bsi_ttli.forward_blocks``; their split is
-   ``launch/profile_forward.py``'s).  The separable adjoint's row prints
+   asserted).  The ``bsi_ttli``, ``bsi_separable`` and ``bsi_tt`` rows
+   print their registers (no spills, asserted), shared memory, resident
+   blocks an SM and grid (``kernels.bsi_ttli.forward_blocks``,
+   ``kernels.bsi_tt.tt_blocks``; their split is
+   ``launch/profile_forward.py``'s); ``bsi_tt`` is asserted equal to its
+   plain version bit for bit, and two calls equal, at phantom1 and at the
+   main path's coarse level.  The separable adjoint's row prints
    its two launches' device times (the streaming z-y kernel, the x sweep),
    each kernel's registers (no spills, asserted) and blocks an SM, the
    streaming block's shared memory and geometry
@@ -698,21 +701,36 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
 
 
 def log_forward_occupancy(lib, name, vol):
-    """The staged forward kernel ``name``'s registers (asserted: no spills),
-    shared memory and resident blocks an SM, and its blocks at ``vol``
+    """The forward kernel ``name``'s registers (asserted: no spills), shared
+    memory and resident blocks an SM, and its grid at ``vol``
     (``launch/profile_forward.py``)."""
     from repro_torch.launch.profile_forward import occupancy
 
     occ = occupancy(lib, name, TILE, 3, vol)
+    assert "0/0 B spill" in occ["registers"], occ["registers"]
+    along_z = f"{occ['bz']} tiles along z a block, " if "bz" in occ else ""
     log(f"{name}: {occ['registers']}; {occ['smem']} B of shared memory a block, "
-        f"{occ['blocks_per_sm']} blocks an SM; {occ['bz']} tiles along z a block, grid "
-        f"{occ['grid']}")
+        f"{occ['blocks_per_sm']} blocks an SM; {along_z}grid {occ['grid']}")
+
+
+def check_tt_bits(torch, phi, vol):
+    """``bsi_tt`` at ``vol``: equal to its plain version bit for bit, and
+    two calls equal (asserted)."""
+    from repro_torch.kernels import bsi_tt, ops
+
+    a, b = ops.bsi_tt(phi, TILE, vol), ops.bsi_tt(phi, TILE, vol)
+    ref = bsi_tt.plain(phi, TILE, vol)
+    torch.cuda.synchronize()
+    same, again = torch.equal(a, ref), torch.equal(a, b)
+    log(f"bsi_tt at {vol}: bit for bit with plain: {same}; two calls bit-equal: {again}")
+    assert same and again, (vol, (a - ref).abs().max().item())
 
 
 def check_forward_forms(torch, fixed, lib):
     """Phase 3: the separable and TT forward kernels at phantom1, cropped to
-    the volume, against their plain versions (1e-5 of the largest value);
-    ``lib`` the kernels as built."""
+    the volume, against their plain versions (1e-5 of the largest value;
+    TT bit for bit, there and at the main path's coarse level, and two
+    calls bit-equal); ``lib`` the kernels as built."""
     from repro_torch.core import ffd
     from repro_torch.kernels import bsi_separable, bsi_tt, ops
     from repro_torch.launch.bounds import bound_ms, kernel_bounds
@@ -737,8 +755,15 @@ def check_forward_forms(torch, fixed, lib):
         log(f"{name}: max |kernel - plain| = {err:.3e}, relative to the largest value "
             f"{rel:.3e} (limit 1e-5); bit for bit: {torch.equal(out, ref)}")
         assert math.isfinite(rel) and rel <= 1e-5, rel
-        if name == "bsi_separable":
-            log_forward_occupancy(lib, name, vol)
+        del out, ref
+        log_forward_occupancy(lib, name, vol)
+        if name == "bsi_tt":
+            check_tt_bits(torch, phi, vol)
+            coarse = tuple(ffd.downsample2(fixed).shape)
+            phi_c = torch.randn(ffd.grid_shape_for_volume(coarse, TILE) + (3,),
+                                generator=gen, device=dev) * 2.5
+            check_tt_bits(torch, phi_c, coarse)
+            log_forward_occupancy(lib, name, coarse)
         b_ms, b_by = bounds[name]
         rows.append(dict(
             name=name, route="cuda", source=f"src/repro_torch/csrc/{name}.cu",

@@ -51,7 +51,7 @@ _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 _SIGNATURES = {
     "bsi_ttli_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, bz
     "bsi_separable_f32": "ppp" + "i" * 11,
-    "bsi_tt_f32": "ppp" + "i" * 13,
+    "bsi_tt_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, columns a block
     "bsi_matmul_f32": "ppp" + "i" * 13,
     "bsi_adjoint_f32": "p" * 6 + "i" * 14,
     "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,

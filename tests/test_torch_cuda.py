@@ -555,6 +555,8 @@ def test_separable_and_tt_kernels_at_phantom1(cuda, mode):
     out = ops.FORWARD_KERNELS[mode](phi, tile, vol)
     ref = module.plain(phi, tile, vol)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    if mode == "tt":
+        assert torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("mode", ["separable", "tt"])
@@ -592,6 +594,36 @@ def test_separable_and_tt_registration_on_card_matches_cpu(cuda, mode):
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-4)
     np.testing.assert_allclose(card.warped.cpu().numpy(), host.warped.numpy(),
                                atol=1e-4)
+
+
+# --- the TT kernel's blocks (kernels.bsi_tt.tt_blocks): slots of several
+# rows a block, column parts at the coarse level, many slots a row, and past
+# 256 channels each thread's own stores
+
+
+@pytest.mark.parametrize("vol,tile,c", [
+    ((256, 114, 192), (5, 5, 5), 3),  # the main path's coarse level: 4 column parts
+    ((13, 11, 9), (5, 4, 3), 3),
+    ((22, 15, 30), (5, 4, 3), 2),
+    ((7, 6, 700), (5, 5, 5), 4),  # 560 slots a row, more than a block's threads
+    ((6, 7, 1500), (3, 3, 3), 1),
+    ((11, 12, 45), (7, 6, 5), 1),
+    ((1, 1, 1), (3, 3, 3), 3),
+    ((12, 11, 9), (2, 2, 10), 3),  # z offsets summed in chunks of 8
+    ((13, 11, 9), (5, 4, 3), 300),  # more channels than threads: direct stores
+])
+def test_tt_kernel_equals_plain_at_odd_shapes(cuda, vol, tile, c):
+    """Bit for bit equal to the plain version, every value written (the
+    output starts as NaN), one launch counted, two calls bit-equal."""
+    phi = _grid(vol, tile, c, 48, cuda) * 2.5
+    out = torch.full(vol + (c,), float("nan"), device=cuda)
+    before = _launches("bsi_tt")
+    bsi_tt.launch(phi, out, tile)
+    again = ops.bsi_tt(phi, tile, vol)
+    torch.cuda.synchronize()
+    assert _launches("bsi_tt") == before + 1
+    assert torch.equal(out, bsi_tt.plain(phi, tile, vol))
+    assert torch.equal(out, again)
 
 
 # --- the staged forward kernels' blocks (kernels.bsi_ttli.forward_blocks)

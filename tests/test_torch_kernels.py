@@ -513,4 +513,5 @@ def test_separable_staging_fits_the_blocks_of_the_ttli_kernel():
         assert geo.smem <= bsi_ttli.FORWARD_SMEM_BYTES
         assert (bsi_separable.weight_luts(tile, "cpu").numel()
                 - bsi_ttli.stage_luts(tile, "cpu").numel()) == sum(tile)
-        bsi_tt.check_blocks(tile, bsi_tt.block_tiles(tile), 3)
+        tt = bsi_tt.tt_blocks(tile, 3, (40, 33, 47))
+        assert tt.smem <= bsi_tt.TT_SMEM_BYTES and tt.slots == 63
