@@ -46,7 +46,13 @@ Phases; any failure raises and the script exits nonzero:
    matmul adjoint's row prints its two launches' device times (box
    contraction, seam sum), its box kernel's registers (no spills, asserted)
    and blocks an SM, and the device memory one call allocates beyond its
-   output (asserted at most 64 MB), and asserts two calls bit-equal;
+   output (asserted at most 64 MB), and asserts two calls bit-equal.  The
+   ``bsi_matmul`` row (the tensor-core kernel, 3xTF32) is held to its plain
+   version at 1e-5 at phantom1 and at the main path's coarse level, two
+   calls bit-equal (asserted), and prints both its and plain's largest
+   error against the float64 function, its registers (no spills,
+   asserted), shared memory, blocks an SM and grid, and the time of its
+   three TF32 products at 495 TFLOP/s;
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -375,6 +381,29 @@ def adjoint_separable_summary(lib, g, gshape):
     assert rep["extra_bytes"] <= SEPARABLE_EXTRA_BYTES, rep
 
 
+def check_matmul_forward(torch, phi, vol):
+    """``bsi_matmul`` at ``vol``: within 1e-5 of its plain version and two
+    calls bit-equal (asserted); its largest error and plain's against the
+    float64 function (``bsi_matmul.exact``), logged.  Returns the error
+    against plain and ``{kernel_f64, plain_f64}``."""
+    from repro_torch.kernels import bsi_matmul, ops
+
+    out = ops.bsi_matmul(phi, TILE, vol)
+    ref = bsi_matmul.plain(phi, TILE, vol)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    equal = torch.equal(out, ops.bsi_matmul(phi, TILE, vol))
+    exact = bsi_matmul.exact(phi, TILE, vol)
+    f64 = dict(kernel_f64=(out.double() - exact).abs().max().item(),
+               plain_f64=(ref.double() - exact).abs().max().item())
+    log(f"bsi_matmul at {vol}: max |kernel - plain| = {err:.3e} (limit 1e-5); two "
+        f"calls bit-equal: {equal}; max |kernel - f64| {f64['kernel_f64']:.3e}, max "
+        f"|plain - f64| {f64['plain_f64']:.3e}")
+    assert math.isfinite(err) and err <= 1e-5, (vol, err)
+    assert equal, vol
+    return err, f64
+
+
 def check_coarse_adjoint(torch, fixed):
     """The separable adjoint at the main path's coarse level (the pyramid's
     ``downsample2`` of phantom1), where its geometry splits each x plane
@@ -555,7 +584,7 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     phantom1 shapes."""
     from repro_torch.core import ffd
     from repro_torch.kernels import bsi_adjoint, bsi_fused, bsi_matmul, ops
-    from repro_torch.launch.bounds import bound_ms, kernel_bounds
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds, matmul_tf32_ms
 
     dev = fixed.device
     vol = tuple(fixed.shape)
@@ -575,19 +604,24 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
                          bound_by=b_by, library_ms=library_ms, **extra))
 
     # --- bsi_matmul
-    out = ops.bsi_matmul(phi, TILE, vol)
-    ref = bsi_matmul.plain(phi, TILE, vol)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    log(f"bsi_matmul: max |kernel - plain| = {err:.3e} (limit 1e-5)")
-    assert math.isfinite(err) and err <= 1e-5, err
-    lib_err = (library_fwd() - ref).abs().max().item()
+    err, f64 = check_matmul_forward(torch, phi, vol)
+    lib_err = (library_fwd() - bsi_matmul.plain(phi, TILE, vol)).abs().max().item()
     log(f"bsi_matmul: library yardstick (conv_transpose3d) max |diff| = {lib_err:.3e}")
+    log_forward_occupancy(lib, "bsi_matmul", vol)
+    coarse = tuple(ffd.downsample2(fixed).shape)
+    phi_c = torch.randn(ffd.grid_shape_for_volume(coarse, TILE) + (3,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(2)) * 2.5
+    check_matmul_forward(torch, phi_c, coarse)
+    log_forward_occupancy(lib, "bsi_matmul", coarse)
+    del phi_c
+    mma, gflop, tf32_ms = matmul_tf32_ms(vol, TILE, 3)
+    log(f"bsi_matmul: its three TF32 products {mma / 1e6:.2f} M mma.sync, {gflop:.2f} "
+        f"GFLOP, {tf32_ms:.4f} ms at 495 TFLOP/s")
     row("bsi_matmul", "src/repro_torch/csrc/bsi_matmul.cu",
         "src/repro/kernels/bsi_matmul.py:91", err,
         cuda_ms(torch, lambda: ops.bsi_matmul(phi, TILE, vol)),
         cuda_ms(torch, lambda: bsi_matmul.plain(phi, TILE, vol), reps=3), "bsi_matmul",
-        cuda_ms(torch, library_fwd))
+        cuda_ms(torch, library_fwd), tf32_ms=tf32_ms, **f64)
 
     # --- bsi_adjoint_matmul
     out = ops.bsi_adjoint_matmul(g, TILE, gshape)

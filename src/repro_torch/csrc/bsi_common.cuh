@@ -13,8 +13,9 @@
 // either by three lerps (LerpStage: the same a + t*(b-a) chain as
 // repro.core.interpolate.bsi_ttli, stage for stage) or by a 4-term weighted
 // sum against the (d, 4) weight LUT (WeightStage: the sweeps of
-// bsi_separable).  The matrix form sums B[v, k] * window[tile + (l, m, n)]
-// over k = (l*4 + m)*4 + n in that order.
+// bsi_separable).  Also the tensor cores' 3xTF32 split and product (the
+// fused nmi histogram, bsi_matmul.cu) and the bulk store of a staged run
+// (bsi_tt.cu, bsi_matmul.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -150,6 +151,38 @@ __device__ inline void stage_xy(const float* __restrict__ phi,
     s_hy[i] = S::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
   }
   __syncthreads();
+}
+
+// cvt.rna.tf32.f32 of a finite x in two integer operations: the float
+// rounded to 10 mantissa bits, ties away from zero, the low 13 bits
+// cleared.  On sm_90 the conversion instruction runs at a quarter of the
+// integer rate.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// The 3xTF32 split: hi the nearest tf32 of x, lo the nearest tf32 of the
+// rest (exact in float32); hi + lo holds x to about 2^-22.
+__device__ __forceinline__ void split_tf32(float x, unsigned* hi, unsigned* lo) {
+  *hi = tf32_rna(x);
+  *lo = tf32_rna(x - __uint_as_float(*hi));
+}
+
+// d += a b on the tensor cores: a the 16 x 8 row-major fragment, b the 8 x 8
+// column-major one, d the 16 x 8 float32 accumulator.
+__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The bulk copy engine (TMA) stores a staged run: [gdst, gdst + bytes) from
+// shared memory, both 16-byte aligned, bytes a multiple of 16.
+__device__ __forceinline__ void bulk_store(float* gdst, const float* ssrc, int bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gdst),
+               "r"((unsigned)__cvta_generic_to_shared(ssrc)), "r"(bytes)
+               : "memory");
 }
 
 // Grid of thread blocks covering the tiles that hold voxels of (X, Y, Z).

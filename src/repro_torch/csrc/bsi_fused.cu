@@ -49,7 +49,7 @@
 // The matrix form stages the control window and the basis, transposed to
 // (64, d^3) so that the threads of a warp, at consecutive voxel offsets, read
 // consecutive banks; each thread sums its voxel's 64 terms per channel in the
-// order k = 0..63, as bsi_matmul.cu does.
+// order k = 0..63, as kernels/bsi_matmul.py:plain does.
 //
 // The lncc kernel is a marching column.  A block owns a column of tiles, an
 // Ey x Ez footprint in y and z and a chunk of Ex voxels along x, and marches
@@ -178,8 +178,8 @@ __device__ __forceinline__ void lerp_z(const float* p, const float* t0z, const f
 
 // The matrix form's displacement of local voxel (xl, yl, zl): per channel
 // the 64 terms B[v, k] * window[tile + (l, m, n)] summed in the order
-// k = (l*4 + m)*4 + n, as bsi_matmul.cu sums them; s_bt: the (64, nv)
-// basis, s_win: the (wx, wy, wz, 3) control window.
+// k = (l*4 + m)*4 + n, as kernels/bsi_matmul.py:plain sums them; s_bt: the
+// (64, nv) basis, s_win: the (wx, wy, wz, 3) control window.
 __device__ __forceinline__ void matmul_disp(const float* s_bt, const float* s_win, int nv,
                                             int wy, int wz, int dx, int dy, int dz,
                                             int xl, int yl, int zl, float* u) {
@@ -481,30 +481,6 @@ __device__ __forceinline__ float parzen_exp(float x, float c, float sigma, float
 // division.  The weights at or above it are the bins nearest x, one run of
 // k.
 constexpr float kNmiMarksteinMin = 0x1p-100f;
-
-// cvt.rna.tf32.f32 of a finite x in two integer operations: the float
-// rounded to 10 mantissa bits, ties away from zero, the low 13 bits
-// cleared.  On sm_90 the conversion instruction runs at a quarter of the
-// integer rate.
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-}
-
-// The 3xTF32 split: hi the nearest tf32 of x, lo the nearest tf32 of the
-// rest (exact in float32); hi + lo holds x to about 2^-22.
-__device__ __forceinline__ void split_tf32(float x, unsigned* hi, unsigned* lo) {
-  *hi = tf32_rna(x);
-  *lo = tf32_rna(x - __uint_as_float(*hi));
-}
-
-// d += a b on the tensor cores: a the 16 x 8 row-major fragment, b the 8 x 8
-// column-major one, d the 16 x 8 float32 accumulator.
-__device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsigned* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; support: the
 // half-width of the evaluated bins (kernels/bsi_fused.py:nmi_support).

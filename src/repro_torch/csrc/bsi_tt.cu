@@ -95,14 +95,6 @@ __host__ __device__ inline size_t tt_smem_bytes(const TTBlock& g) {
          ((size_t)g.pc * tt_slice_floats(g) + (size_t)kGroups * 2 * tt_stage_floats(g));
 }
 
-// The bulk copy engine (TMA) stores a staged run: [gdst, gdst + bytes) from
-// shared memory, both 16-byte aligned, bytes a multiple of 16.
-__device__ __forceinline__ void bulk_store(float* gdst, const float* ssrc, int bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gdst),
-               "r"((unsigned)__cvta_generic_to_shared(ssrc)), "r"(bytes)
-               : "memory");
-}
-
 inline dim3 tt_grid(const TTBlock& g) {
   const int tx = (g.X + g.dx - 1) / g.dx, ty = (g.Y + g.dy - 1) / g.dy,
             tz = (g.Z + g.dz - 1) / g.dz;

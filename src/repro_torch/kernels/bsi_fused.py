@@ -117,7 +117,10 @@ def _disp_smem_bytes(tile, blocks, disp_form) -> int:
     """Shared memory of the displacement stage (csrc: disp_smem_bytes)."""
     if disp_form == "lerp":
         return bsi_ttli.stage_smem_bytes(tile, blocks, 3)
-    return bsi_matmul.smem_bytes(tile, blocks, 3)
+    # the (d^3, 64) basis and the control window (csrc: basis_floats,
+    # window_floats)
+    (dx, dy, dz), (bx, by, bz) = tile, blocks
+    return 4 * (64 * dx * dy * dz + (bx + 3) * (by + 3) * (bz + 3) * 3)
 
 
 def block_tiles(tile, disp_form, extra_bytes=0) -> tuple:

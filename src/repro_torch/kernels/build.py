@@ -52,7 +52,7 @@ _SIGNATURES = {
     "bsi_ttli_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, bz
     "bsi_separable_f32": "ppp" + "i" * 11,
     "bsi_tt_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, columns a block
-    "bsi_matmul_f32": "ppp" + "i" * 13,
+    "bsi_matmul_f32": "ppp" + "i" * 12,  # ..., X, Y, Z, z tiles a unit, blocks
     "bsi_adjoint_f32": "p" * 6 + "i" * 14,
     "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,
     "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,

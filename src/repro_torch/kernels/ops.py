@@ -14,7 +14,7 @@ The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
 block sizes from shared memory (``kernels.bsi_ttli.forward_blocks``, shared by
 ``kernels.bsi_separable``; ``kernels.bsi_tt.tt_blocks``,
-``kernels.bsi_matmul.block_tiles``, ``kernels.bsi_fused.lncc_blocks``).
+``kernels.bsi_matmul.matmul_blocks``, ``kernels.bsi_fused.lncc_blocks``).
 """
 
 from __future__ import annotations

@@ -43,7 +43,7 @@ SERVE_BATCH, SERVE_SEQ = 4, 8160
 NMI_WEIGHT_OPS = 7
 
 __all__ = ["attention_bound", "attention_pairs", "kernel_bounds", "bound_ms",
-           "nmi_bound"]
+           "matmul_tf32_ms", "nmi_bound"]
 
 
 def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S, tf32_flops=0):
@@ -112,6 +112,22 @@ def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channe
                 bytes=moved, fp32_flops=rest, dense_tf32_flops=dense_tf32,
                 products=products, evaluated=evaluated,
                 work_tf32_ms=3 * dense_tf32 / TF32_FLOP_PER_S * 1e3)
+
+
+def matmul_tf32_ms(vol_shape, tile, channels=3, max_columns=48) -> tuple:
+    """``(mma, GFLOP, ms)``: the matrix-form kernel's own three TF32
+    products (``csrc/bsi_matmul.cu``) at 495 TFLOP/s: m16n8k8 ``mma.sync``
+    over ``d^3`` padded to whole m16 tiles, each unit's ``zt * c`` columns
+    padded to whole n8 tiles, 8 k-steps, 3 products each; ``zt`` as
+    ``kernels.bsi_matmul.matmul_blocks`` takes it where the staging fits
+    (``max_columns // c`` z tiles)."""
+    dx, dy, dz = tile
+    tx, ty, tz = (-(-s // d) for s, d in zip(vol_shape, tile))
+    zt = min(tz, max(1, max_columns // channels))
+    n_tiles = sum(-(-min(zt, tz - k) * channels // 8) for k in range(0, tz, zt))
+    mma = tx * ty * n_tiles * -(-dx * dy * dz // 16) * 8 * 3
+    flops = mma * 2 * 16 * 8 * 8
+    return mma, flops / 1e9, flops / TF32_FLOP_PER_S * 1e3
 
 
 def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
@@ -194,6 +210,9 @@ def main(argv=None):
               f"{k} {ms:.4f} ms" for k, (ms, _) in nb["forms"].items())
           + f" (at most {nb['products'] / 1e9:.2f} G non-zero pairs); the kernel's "
           f"three TF32 products {nb['work_tf32_ms']:.4f} ms")
+    mma, gflop, ms = matmul_tf32_ms(args.shape, args.tile, args.channels)
+    print(f"{'bsi_matmul (own work)':24s} three TF32 products: {mma / 1e6:.2f} M "
+          f"mma.sync m16n8k8, {gflop:.2f} GFLOP, {ms:.4f} ms at 495 TFLOP/s")
     for layer, window in (("global", 0), ("local", GEMMA_WINDOW)):
         b, f = attention_bound(args.seq, **ATTENTION_LAYER, window=window,
                                batch=args.batch)

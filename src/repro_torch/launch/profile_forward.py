@@ -6,19 +6,21 @@
 Builds the kernels, makes a random ``(nx, ny, nz, C)`` control grid for the
 volume (default: the paper's phantom1, 512 x 228 x 385, tile 5^3, 3
 channels; seed 3, scaled by 2.5 as in ``chip_smoke.py``) and reports
-``ops.bsi_ttli``, ``ops.bsi_separable`` and ``ops.bsi_tt`` on it (or the
-kernels ``--kernels`` names; :func:`forward_report`): milliseconds a call
-by CUDA events, device milliseconds a call from ``torch.profiler``, the
-largest difference from the plain version and whether the two are equal bit
-for bit, whether two calls are bit-equal, the kernel's registers, shared
-memory and resident blocks an SM (:func:`occupancy`), the SM clock under
-load (:func:`sm_clock_under_load`) and, for TT, its static FMUL, FADD, FFMA
-and LDS instructions (``cuobjdump -sass``); beside them, one ``fill_`` of
-a tensor of the field's shape, the card's own time to write those bytes.
-``--split`` also times each kernel with a part left out
+``ops.bsi_ttli``, ``ops.bsi_separable``, ``ops.bsi_tt`` and
+``ops.bsi_matmul`` on it (or the kernels ``--kernels`` names;
+:func:`forward_report`): milliseconds a call by CUDA events, device
+milliseconds a call from ``torch.profiler``, the largest difference from the
+plain version and whether the two are equal bit for bit, whether two calls
+are bit-equal, the kernel's registers, shared memory and resident blocks an
+SM (:func:`occupancy`), the SM clock under load
+(:func:`sm_clock_under_load`) and, for TT and the matrix form, its static
+instructions of :data:`SASS_OPS` (``cuobjdump -sass``); beside them, one
+``fill_`` of a tensor of the field's shape, the card's own time to write
+those bytes.  ``--split`` also times each kernel with a part left out
 (:func:`stage_split`: measurement builds, ``-DREPRO_FWD_SKIP`` for the
-staged kernels, ``-DREPRO_TT_SKIP`` for TT).  The last line is one JSON
-object with the numbers.  Needs a CUDA device; there is no CPU path.
+staged kernels, ``-DREPRO_TT_SKIP`` for TT, ``-DREPRO_MM_SKIP`` for the
+matrix form).  The last line is one JSON object with the numbers.  Needs a
+CUDA device; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -34,14 +36,15 @@ import torch
 from repro_torch import PAPER_VOLUMES
 from repro_torch.core import ffd
 from repro_torch.device import card_name, device_ms_by_name, resident_blocks, traced
-from repro_torch.kernels import bsi_separable, bsi_tt, bsi_ttli, ops
+from repro_torch.kernels import bsi_matmul, bsi_separable, bsi_tt, bsi_ttli, ops
 from repro_torch.kernels.bsi_adjoint import card_sms
 from repro_torch.kernels.build import load_library, sass_counts
 from repro_torch.launch.profile_adjoint import cuda_ms
 
 __all__ = ["KERNELS", "MODULES", "SKIPS", "forward_report", "occupancy", "stage_split"]
 
-MODULES = {"bsi_ttli": bsi_ttli, "bsi_separable": bsi_separable, "bsi_tt": bsi_tt}
+MODULES = {"bsi_ttli": bsi_ttli, "bsi_separable": bsi_separable, "bsi_tt": bsi_tt,
+           "bsi_matmul": bsi_matmul}
 KERNELS = tuple(MODULES)
 # the parts left out in the measurement builds, per kernel.  The staged
 # kernels (csrc/bsi_forward.cuh: REPRO_FWD_SKIP): 1 the x-y stage, 2 the z
@@ -50,7 +53,10 @@ KERNELS = tuple(MODULES)
 # stage.  TT (csrc/bsi_tt.cu: REPRO_TT_SKIP): 1 the stores, 2 the weights
 # (each term's weight a constant), 4 the sums (a constant is stored), 8 all
 # but the sums (no barrier, nothing stored but the staging); 16 one fused
-# multiply-add a term (a rounding the form may not have).
+# multiply-add a term (a rounding the form may not have).  The matrix form
+# (csrc/bsi_matmul.cu: REPRO_MM_SKIP): 1 the stores, 2 the products (a
+# constant is stored at the same positions), 4 the window's copy and W^T's
+# build; 6 the stores alone.
 STAGED_SKIPS = {"no x-y stage": "REPRO_FWD_SKIP=1", "no z arithmetic": "REPRO_FWD_SKIP=2",
                 "no stores": "REPRO_FWD_SKIP=4", "floor": "REPRO_FWD_SKIP=7",
                 "store only": "REPRO_FWD_SKIP=8"}
@@ -59,7 +65,12 @@ SKIPS = {"bsi_ttli": STAGED_SKIPS, "bsi_separable": STAGED_SKIPS,
                     "constant weights, no stores": "REPRO_TT_SKIP=3",
                     "store only": "REPRO_TT_SKIP=4", "sums alone": "REPRO_TT_SKIP=8",
                     "constant weights, sums alone": "REPRO_TT_SKIP=10",
-                    "fused multiply-adds, sums alone": "REPRO_TT_SKIP=24"}}
+                    "fused multiply-adds, sums alone": "REPRO_TT_SKIP=24"},
+         "bsi_matmul": {"no stores": "REPRO_MM_SKIP=1", "no products": "REPRO_MM_SKIP=2",
+                        "stores alone": "REPRO_MM_SKIP=6"}}
+# the static SASS instructions reported per kernel (cuobjdump -sass)
+SASS_OPS = {"bsi_tt": ("FMUL", "FADD", "FFMA", "LDS"),
+            "bsi_matmul": ("FFMA", "HGMMA", "LDS", "STS", "UBLKCP")}
 
 
 def _call(name, phi, tile, vol):
@@ -100,9 +111,9 @@ def occupancy(lib, name, tile, channels, vol) -> dict:
     tiles along z a block too (``kernels.bsi_ttli.forward_blocks``), TT's
     geometry from ``kernels.bsi_tt.occupancy_key``."""
     tile, vol = tuple(tile), tuple(vol)
-    if name == "bsi_tt":
-        symbol, smem, grid = bsi_tt.occupancy_key(tile, channels, vol,
-                                                   card_sms(torch.device("cuda")))
+    if name in ("bsi_tt", "bsi_matmul"):
+        symbol, smem, grid = MODULES[name].occupancy_key(tile, channels, vol,
+                                                         card_sms(torch.device("cuda")))
         extra = {}
     else:
         symbol = f"{name}_kernelILi{3 if channels == 3 else 0}E"
@@ -191,10 +202,10 @@ def main(argv=None):
               f"{rep['smem']} B of shared memory a block, {rep['blocks_per_sm']} "
               f"blocks an SM; under load: {rep['clock']} (SM clock, its maximum, "
               f"power)")
-        if name == "bsi_tt":  # the sums' instructions, as compiled
+        if name in SASS_OPS:  # the sums' instructions, as compiled
             fn = rep["registers"].split(":")[0]
             rep["sass"] = {op: sass_counts(lib.info.path, fn, op)[fn]
-                           for op in ("FMUL", "FADD", "FFMA", "LDS")}
+                           for op in SASS_OPS[name]}
             print(f"{name} SASS, static instructions: {rep['sass']}")
         result[name] = rep
     if args.split:

@@ -336,6 +336,45 @@ def test_matmul_kernel_matches_plain(cuda, vol, tile, c):
     assert out.shape == ref.shape == vol + (c,)
     assert (out - ref).abs().max().item() <= 1e-5
     assert (out - bsi_ttli.plain(phi, tile, vol)).abs().max().item() <= 1e-5
+    assert torch.equal(out, ops.bsi_matmul(phi, tile, vol))  # two calls bit-equal
+
+
+# the matrix-form kernel's other geometries: phantom1's coarse level (3
+# chunks of z tiles a row), 5 and 40 channels (9 and 1 z tiles a unit, the
+# any-channel build), a 10^3 tile (63 m tiles: A reloaded per unit) and a
+# 1^3 tile at 7 channels (8 warps share its one m tile)
+MATMUL_GEOMETRIES = [((256, 114, 192), (5, 5, 5), 3), ((40, 33, 47), (5, 5, 5), 5),
+                     ((13, 11, 9), (5, 4, 3), 40), ((23, 20, 31), (10, 10, 10), 3),
+                     ((11, 12, 45), (1, 1, 1), 7)]
+
+
+@pytest.mark.parametrize("vol,tile,c", MATMUL_GEOMETRIES)
+def test_matmul_kernel_geometries_match_plain(cuda, vol, tile, c):
+    geo = bsi_matmul.matmul_blocks(tile, c, vol)
+    if c == 5:
+        assert geo.z_tiles == 9 < 16
+    phi = _grid(vol, tile, c, 30, cuda) * 2.5
+    out = ops.bsi_matmul(phi, tile, vol)
+    ref = bsi_matmul.plain(phi, tile, vol)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == vol + (c,)
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert torch.equal(out, ops.bsi_matmul(phi, tile, vol))
+
+
+@pytest.mark.parametrize("vol,tile", [((40, 33, 47), (5, 5, 5)), ((256, 114, 192), (5, 5, 5))])
+def test_matmul_kernel_error_against_float64(cuda, vol, tile, record_property):
+    """The kernel's largest error against the float64 function beside
+    plain's own (3xTF32 on the tensor cores against 64 rounded float32
+    products and adds), each within the 1e-5 the kernel is held to."""
+    phi = _grid(vol, tile, 3, 31, cuda) * 2.5
+    exact = bsi_matmul.exact(phi, tile, vol)
+    k_err = (ops.bsi_matmul(phi, tile, vol).double() - exact).abs().max().item()
+    p_err = (bsi_matmul.plain(phi, tile, vol).double() - exact).abs().max().item()
+    record_property("kernel_f64_err", k_err)
+    record_property("plain_f64_err", p_err)
+    print(f"{vol}: max |kernel - f64| {k_err:.3e}, max |plain - f64| {p_err:.3e}")
+    assert k_err <= 1e-5 and p_err <= 1e-5
 
 
 @pytest.mark.parametrize("vol,tile", CASES)
@@ -499,11 +538,12 @@ def test_matmul_dispatchers_refuse_what_the_kernels_do_not_take(cuda):
         ops.bsi_matmul(phi.double(), tile)
     with pytest.raises(ValueError):
         ops.bsi_adjoint_matmul(phi.transpose(0, 1), tile, (6, 6, 6))
-    big = (10, 10, 10)  # a 256 KB basis: more than a block's shared memory
+    big = (10, 10, 10)  # 40 channels: one z tile's runs exceed a block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.bsi_matmul(_grid((20, 20, 20), big, 40, 29, cuda), big)
+    # the fused kernel's 256 KB basis: more than a block's shared memory
     phi = _grid((20, 20, 20), big, 3, 29, cuda)
     v = torch.zeros((20, 20, 20), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.bsi_matmul(phi, big)
     with pytest.raises(ValueError, match="shared memory"):
         ops.fused_lncc(phi, v, v, big, window=9, eps=1e-5, disp_form="matmul")
 

@@ -407,15 +407,18 @@ def test_dispatchers_check_coverage():
 
 
 def test_block_checks_raise_where_shared_memory_runs_out():
-    """A 10^3 tile's basis (256 KB) fits no block: the matrix-form kernels
-    refuse it before launching; the lncc kernel sizes its column to what
+    """A 10^3 tile's basis (256 KB) fits no block: the matrix-form adjoint
+    and fused kernels refuse it before launching; the forward matrix-form
+    kernel keeps the basis in registers and refuses where one z tile's runs
+    of 40 channels exceed a block; the lncc kernel sizes its column to what
     fits (a 1^3 tile's halo of 8 voxels a side) and refuses only where a
     column of one tile does not."""
     from repro_torch.kernels import bsi_adjoint, bsi_matmul
 
     big = (10, 10, 10)
     with pytest.raises(ValueError, match="shared memory"):
-        bsi_matmul.check_blocks(big, bsi_matmul.block_tiles(big), 3)
+        bsi_matmul.matmul_blocks(big, 40, (40, 40, 40))
+    assert bsi_matmul.matmul_blocks(big, 3, (40, 40, 40)).smem <= 232_448
     with pytest.raises(ValueError, match="shared memory"):
         bsi_adjoint.matmul_blocks(big, 3, (40, 40, 40))
     with pytest.raises(ValueError, match="shared memory"):
