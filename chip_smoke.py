@@ -52,7 +52,12 @@ Phases; any failure raises and the script exits nonzero:
    calls bit-equal (asserted), and prints both its and plain's largest
    error against the float64 function, its registers (no spills,
    asserted), shared memory, blocks an SM and grid, and the time of its
-   three TF32 products at 495 TFLOP/s;
+   three TF32 products at 495 TFLOP/s.  The ``bsi_fused`` and
+   ``bsi_fused_stats`` rows (the lerp form's column walks on the forward
+   kernels' blocks, ``kernels.bsi_fused.moment_blocks``) print their
+   registers (no spills, asserted), shared memory, blocks an SM and grid,
+   and assert two calls bit-equal (``launch/profile_fused.py`` has their
+   split);
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -498,6 +503,8 @@ def check_kernels(torch, fixed, moving, lib, stage_libs):
     log(f"bsi_fused: kernel {out.item():.9g} plain {ref.item():.9g} relative "
         f"{rel:.3e} (limit 1e-5 relative)")
     assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused", lambda: ops.fused_ssd_loss(phi_f, moving, fixed, TILE),
+             vol)
     b_ms, b_by = bounds["bsi_fused_ssd"]
     rows.append(dict(
         name="bsi_fused", route="cuda", source="src/repro_torch/csrc/bsi_fused.cu",
@@ -518,6 +525,7 @@ def check_kernels(torch, fixed, moving, lib, stage_libs):
         f"{torch.equal(out[1:], ref[1:])}")
     assert torch.equal(out[1:], ref[1:]) and out[3].item() == n, (out, ref)
     assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_stats", lambda: ops.fused_stats(phi_f, rem, TILE), vol)
     b_ms, b_by = bounds["bsi_fused_stats"]
     rows.append(dict(
         name="bsi_fused_stats", route="cuda", source="src/repro_torch/csrc/bsi_fused.cu",
@@ -745,6 +753,22 @@ def log_forward_occupancy(lib, name, vol):
     along_z = f"{occ['bz']} tiles along z a block, " if "bz" in occ else ""
     log(f"{name}: {occ['registers']}; {occ['smem']} B of shared memory a block, "
         f"{occ['blocks_per_sm']} blocks an SM; {along_z}grid {occ['grid']}")
+
+
+def log_walk(torch, lib, name, call, vol):
+    """The lerp form's fused ssd or stats kernel ``name``: its registers
+    (asserted: no spills), shared memory, resident blocks an SM and grid
+    (``launch/profile_fused.py``), and two calls of ``call`` bit-equal
+    (asserted)."""
+    from repro_torch.launch.profile_fused import occupancy
+
+    occ = occupancy(lib, name, TILE, vol)
+    assert "0/0 B spill" in occ["registers"], occ["registers"]
+    same = torch.equal(call(), call())
+    log(f"{name}: {occ['registers']}; {occ['smem']} B of shared memory a block, "
+        f"{occ['blocks_per_sm']} blocks an SM, grid {occ['grid']}; two calls "
+        f"bit-equal: {same}")
+    assert same
 
 
 def check_tt_bits(torch, phi, vol):

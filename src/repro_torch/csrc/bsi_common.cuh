@@ -4,12 +4,13 @@
 //
 // A thread block owns a block of (bx, by, bz) tiles and stages its
 // (bx+3, by+3, bz+3, C) control window in shared memory (the counterpart of
-// kernels/common.py:phi_window in the JAX package).  The fused kernels also
-// stage their LUTs and run the x and y stages once per (x voxel, y voxel,
-// z control point) into shared memory (stage_xy); the z stage, per voxel,
-// is left to the kernel, which warps and scores.  The forward kernels
-// bsi_ttli and bsi_separable run the same stages with their own blocks
-// (bsi_forward.cuh).  A stage collapses the four neighbours of one axis
+// kernels/common.py:phi_window in the JAX package).  The fused ncc and nmi
+// kernels also stage their LUTs and run the x and y lerp stages once per
+// (x voxel, y voxel, z control point) into shared memory (stage_xy); the z
+// stage, per voxel, is left to the kernel, which warps and scores.  The
+// forward kernels bsi_ttli and bsi_separable, and the fused ssd and stats
+// kernels, run the same stages with their own blocks (bsi_forward.cuh).  A
+// stage collapses the four neighbours of one axis
 // either by three lerps (LerpStage: the same a + t*(b-a) chain as
 // repro.core.interpolate.bsi_ttli, stage for stage) or by a 4-term weighted
 // sum against the (d, 4) weight LUT (WeightStage: the sweeps of
@@ -63,11 +64,11 @@ struct TileBlock {
   int bx, by, bz;     // tiles per thread block
 };
 
-// Shared-memory layout, in floats: [LUTs | control window | y-stage values];
-// the LUTs of x, then y, then z, kLutRows * d floats each.
-template <class S = LerpStage>
+// Shared-memory layout of the fused kernels' staging, in floats: [LUTs |
+// control window | y-stage values]; the lerp LUTs of x, then y, then z, 3 * d
+// floats each.
 __host__ __device__ inline int lut_floats(const TileBlock& g) {
-  return S::kLutRows * (g.dx + g.dy + g.dz);
+  return LerpStage::kLutRows * (g.dx + g.dy + g.dz);
 }
 __host__ __device__ inline int window_floats(const TileBlock& g) {
   return (g.bx + 3) * (g.by + 3) * (g.bz + 3) * g.c;
@@ -75,9 +76,8 @@ __host__ __device__ inline int window_floats(const TileBlock& g) {
 __host__ __device__ inline int hy_floats(const TileBlock& g) {
   return g.bx * g.dx * g.by * g.dy * (g.bz + 3) * g.c;
 }
-template <class S = LerpStage>
 __host__ __device__ inline size_t stage_smem_bytes(const TileBlock& g) {
-  return sizeof(float) * (size_t)(lut_floats<S>(g) + window_floats(g) + hy_floats(g));
+  return sizeof(float) * (size_t)(lut_floats(g) + window_floats(g) + hy_floats(g));
 }
 
 // The block's control window, (bx+3, by+3, bz+3, c) with channels fastest;
@@ -110,26 +110,26 @@ __host__ __device__ inline int basis_floats(const TileBlock& g) {
   return 64 * tile_voxels(g);
 }
 
-// luts: the LUTs of S for x, then y, then z (lut_floats<S> floats).  After
-// the call, hy(xl, yl, kz, ch) = smem[lut + window + ((xl*BY + yl)*(bz+3) + kz)*c
-// + ch] with BY = by*dy, for the block's local voxels xl, yl and its local z
-// control points kz.  Ends with __syncthreads().
-template <class S = LerpStage>
+// The x and y lerp stages of the fused kernels' blocks; luts: the lerp LUTs
+// of x, then y, then z (lut_floats floats).  After the call, hy(xl, yl, kz,
+// ch) = smem[lut + window + ((xl*BY + yl)*(bz+3) + kz)*c + ch] with BY =
+// by*dy, for the block's local voxels xl, yl and its local z control points
+// kz.  Ends with __syncthreads().
 __device__ inline void stage_xy(const float* __restrict__ phi,
                                 const float* __restrict__ luts,
                                 const TileBlock& g, int ti0, int tj0, int tk0,
                                 float* smem) {
   float* s_lut = smem;
-  float* s_win = smem + lut_floats<S>(g);
+  float* s_win = smem + lut_floats(g);
   float* s_hy = s_win + window_floats(g);
   const int wy = g.by + 3, wz = g.bz + 3;
 
-  for (int i = threadIdx.x; i < lut_floats<S>(g); i += blockDim.x) s_lut[i] = luts[i];
+  for (int i = threadIdx.x; i < lut_floats(g); i += blockDim.x) s_lut[i] = luts[i];
   stage_window(phi, g, ti0, tj0, tk0, s_win);
   __syncthreads();
 
   const float* lx = s_lut;
-  const float* ly = lx + S::kLutRows * g.dx;
+  const float* ly = lx + LerpStage::kLutRows * g.dx;
   const int BY = g.by * g.dy;
   const int nhy = hy_floats(g);
   const int xstep = wy * wz * g.c;  // window stride of one x control point
@@ -146,9 +146,9 @@ __device__ inline void stage_xy(const float* __restrict__ phi,
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const float* p = s_win + ((size_t)(tx * wy + ty + m) * wz + kz) * g.c + ch;
-      h[m] = S::apply(lx, g.dx, a, p[0], p[xstep], p[2 * xstep], p[3 * xstep]);
+      h[m] = LerpStage::apply(lx, g.dx, a, p[0], p[xstep], p[2 * xstep], p[3 * xstep]);
     }
-    s_hy[i] = S::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
+    s_hy[i] = LerpStage::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
   }
   __syncthreads();
 }

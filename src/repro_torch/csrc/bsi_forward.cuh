@@ -24,6 +24,10 @@
 // 128-byte line (a column's run starts anywhere: rows are Z * c floats,
 // 4620 bytes at phantom1).
 //
+// The fused ssd and stats kernels (bsi_fused.cu) run the same x-y stage
+// (fwd_xy_stage) on the same blocks, and build their z table with the same
+// stepping (fwd_z_positions, one position a voxel).
+//
 // Measurement builds (-DREPRO_FWD_SKIP=mask, launch/profile_forward.py):
 // 1 leaves out the x-y stage, 2 the z stage's arithmetic and table (a
 // constant is stored), 4 the stores; 8 the stores alone (1 and 2 together).
@@ -78,6 +82,70 @@ __device__ __forceinline__ float z_value(const int* s_tab, const float* s_lz,
   return S::apply(s_lz, dz, e & 0xffff, hp[0], hp[c], hp[2 * c], hp[3 * c]);
 }
 
+// Each of this thread's positions of a run of P positions, c channels
+// fastest, i = (z, ch) = threadIdx.x, + kThreads, ...: f(i, k, ch, r) with
+// k = z / dz and r = z % dz, the first position decoded once and the rest
+// stepped with carries, so no division runs in the loop.
+template <typename F>
+__device__ __forceinline__ void fwd_z_positions(int P, int c, int dz, F f) {
+  const int zs = kThreads / c, cs = kThreads - zs * c;
+  const int ks = zs / dz, rs = zs - ks * dz;
+  int z = threadIdx.x / c, ch = threadIdx.x - z * c;
+  int k = z / dz, r = z - k * dz;
+  for (int i = threadIdx.x; i < P; i += kThreads) {
+    f(i, k, ch, r);
+    ch += cs;
+    const int carry = ch >= c;  // cs < c: at most one z
+    ch -= carry * c;
+    r += rs + carry;
+    k += ks;
+    if (r >= dz) r -= dz, ++k;  // rs + carry <= dz: at most one tile
+  }
+}
+
+// The z table of a run of P positions, c channels fastest: position (z, ch)
+// holds (z / dz * c + ch) << 16 | z % dz.  Does not synchronise.
+__device__ __forceinline__ void fwd_z_table(int* s_tab, int P, int c, int dz) {
+  fwd_z_positions(P, c, dz, [=](int i, int k, int ch, int r) {
+    s_tab[i] = (k * c + ch) << 16 | r;
+  });
+}
+
+// The x-y stage of the block on x tile ti, y tile tj and the bz tiles along
+// z from tk0: slot q = (z control point tk0 + q / c, channel q % c) of
+// column (a, b) to s_hy[(a * dy + b) * fwd_column_floats(g) + q], with c = C
+// ? C : g.c.  The grid's x and y strides fit an int (the grid is small).
+// Does not synchronise.
+template <class S, int C>
+__device__ __forceinline__ void fwd_xy_stage(const float* __restrict__ phi,
+                                             const float* __restrict__ luts,
+                                             const FwdBlock& g, int ti, int tj, int tk0,
+                                             float* s_hy) {
+  const int c = C ? C : g.c;
+  const int Q = fwd_column_floats(g);
+  const float* lx = luts;
+  const float* ly = lx + S::kLutRows * g.dx;
+  const int ys = g.nz * c, xs = g.ny * ys;
+  const int qmax = (g.nz - tk0) * c;  // slots inside the grid
+  const float* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk0 * c;
+  for (int q = threadIdx.x; q < Q; q += blockDim.x) {
+    float w[4][4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+#pragma unroll
+      for (int m = 0; m < 4; ++m) w[l][m] = q < qmax ? src[l * xs + m * ys + q] : 0.f;
+    float* dst = s_hy + q;
+    for (int a = 0; a < g.dx; ++a) {
+      float h[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        h[m] = S::apply(lx, g.dx, a, w[0][m], w[1][m], w[2][m], w[3][m]);
+      for (int b = 0; b < g.dy; ++b, dst += Q)
+        *dst = S::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
+    }
+  }
+}
+
 // luts: the LUTs of S for x, then y, then z, in device memory.  Needs
 // fwd_smem_bytes(g) of shared memory.  C: the channels, fixed at compile
 // time (3), or 0 to read g.c.
@@ -94,52 +162,12 @@ __device__ inline void forward_block(const float* __restrict__ phi,
   float* s_hy = smem + fwd_head_floats(g);
 #if !(REPRO_FWD_SKIP & 10)
   const float* lz = luts + S::kLutRows * (g.dx + g.dy);
-  {
-    // the z table: a thread's first position p = (k * dz + r, ch) decoded
-    // once, then stepped kThreads positions at a time with carries
-    const int zs = kThreads / c, cs = kThreads - zs * c;
-    const int ks = zs / g.dz, rs = zs - ks * g.dz;
-    int z = threadIdx.x / c, ch = threadIdx.x - z * c;
-    int k = z / g.dz, r = z - k * g.dz;
-    for (int i = threadIdx.x; i < P; i += kThreads) {
-      s_tab[i] = (k * c + ch) << 16 | r;
-      ch += cs;
-      const int carry = ch >= c;  // cs < c: at most one z
-      ch -= carry * c;
-      r += rs + carry;
-      k += ks;
-      if (r >= g.dz) r -= g.dz, ++k;  // rs + carry <= dz: at most one tile
-    }
-  }
+  fwd_z_table(s_tab, P, c, g.dz);
   for (int i = threadIdx.x; i < S::kLutRows * g.dz; i += blockDim.x) s_lz[i] = lz[i];
 #endif
 
 #if !(REPRO_FWD_SKIP & 9)
-  {
-    // x-y stage: slot q = (z control point tk0 + q / c, channel q % c); the
-    // grid's x and y strides fit an int (the grid is small)
-    const float* lx = luts;
-    const float* ly = lx + S::kLutRows * g.dx;
-    const int ys = g.nz * c, xs = g.ny * ys;
-    const int qmax = (g.nz - tk0) * c;  // slots inside the grid
-    const float* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk0 * c;
-    for (int q = threadIdx.x; q < Q; q += blockDim.x) {
-      float w[4][4];
-#pragma unroll
-      for (int l = 0; l < 4; ++l)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) w[l][m] = q < qmax ? src[l * xs + m * ys + q] : 0.f;
-      float* dst = s_hy + q;
-      for (int a = 0; a < g.dx; ++a) {
-        float h[4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          h[m] = S::apply(lx, g.dx, a, w[0][m], w[1][m], w[2][m], w[3][m]);
-        for (int b = 0; b < g.dy; ++b, dst += Q)
-          *dst = S::apply(ly, g.dy, b, h[0], h[1], h[2], h[3]);
-      }
-    }
-  }
+  fwd_xy_stage<S, C>(phi, luts, g, ti, tj, tk0, s_hy);
 #endif
   __syncthreads();
 

@@ -34,10 +34,10 @@
 // displacement and the warp rounds as in the plain version, so the warped
 // samples equal it bit for bit; the NMI histogram runs on the tensor cores.
 //
-// What the design does about it: one thread block per block of tiles
-// evaluates its displacement in the lerp form of bsi_ttli (bsi_common.cuh;
-// the JAX kernel uses the separable form, the same function to fp32
-// rounding), samples the moving volume at identity + displacement with fp32
+// What the design does about it: a thread block evaluates the displacement
+// of its voxels in the lerp form of bsi_ttli (the JAX kernel uses the
+// separable form, the same function to fp32 rounding) or the matrix form,
+// samples the moving volume at identity + displacement with fp32
 // coordinates clamped to the volume exactly as core/ffd.py:trilinear_sample
 // does, and reduces its voxels to one partial row.  The JAX kernel
 // accumulates into one output block because TPU grid cells run in order;
@@ -45,6 +45,29 @@
 // launch combines the rows lane by lane in a fixed order.  Every reduction
 // is a fixed tree or a fixed loop: the results are deterministic and no
 // float atomics are used.
+//
+// The lerp form's ssd and stats kernels (bsi_fused_walk_kernel) run on the
+// blocks of the forward kernels (bsi_forward.cuh): a block owns one (x
+// tile, y tile) and a run of bz tiles along z, the whole z at phantom1
+// (kernels/bsi_fused.py:moment_blocks).  It stages the y-stage values of its
+// dx * dy voxel columns with the forward kernels' x-y stage (fwd_xy_stage:
+// each value once, no division) and a z table, one float4 a voxel of a
+// column's run: its tile's offset into the column's y-stage values and the
+// z LUT's three weights at z % dz (built by fwd_z_positions' stepping, no
+// division).  Then it walks its columns in lines of 32 voxels: line l of
+// column (a, b) is the voxels z = 32 l + lane - s, s the column's start in
+// the streamed volume (the fixed one for ssd, the moving one for stats)
+// modulo 32 floats, so each warp's reads of that volume are one aligned
+// 128-byte line and its trilinear taps neighbours across the warp.  The
+// block's lines, column after column, are dealt to its 8 warps in 8
+// contiguous shares, none more than a line longer than another.  A voxel
+// costs one 16-byte and twelve 4-byte shared loads and its nine z lerps,
+// the clamped 8-tap sample and its sums; no loop over voxels divides.  At
+// phantom1 the 8 taps' cache lines set the pace (PERF.md).  The sums'
+// order: each thread folds its voxels in walk order, each warp its lanes by
+// a fixed shuffle tree (lane i takes lane i + 16, then + 8, + 4, + 2, + 1),
+// then thread 0 the warps in order, one barrier; stats' min, max and count
+// are exact in any order.
 //
 // The matrix form stages the control window and the basis, transposed to
 // (64, d^3) so that the threads of a warp, at consecutive voxel offsets, read
@@ -103,7 +126,17 @@
 // rather than overlap (PERF.md).
 #include <math_constants.h>
 
-#include "bsi_common.cuh"
+#include "bsi_forward.cuh"
+
+// REPRO_FUSED_SKIP: the parts of the lerp form's ssd and stats kernels left
+// out in a measurement build (launch/profile_fused.py; the library is built
+// with none): 1 the x-y stage, 2 the displacement (each voxel sampled at
+// identity), 4 the gathers (the sample is the sum of the voxel's
+// coordinates: the displacement stays, the moving volume is not read); 8
+// all but the reduction (each thread's sums a constant).
+#ifndef REPRO_FUSED_SKIP
+#define REPRO_FUSED_SKIP 0
+#endif
 
 namespace repro_torch {
 
@@ -169,11 +202,16 @@ __device__ inline void stage_disp(const float* __restrict__ phi,
 // The z stage of the lerp form: the displacement at z offset cz of its tile,
 // from p = hy(xl, yl, tz, 0), the 4 z control points' x-y stage values of
 // the 3 channels (channels fastest).
+// t0, t1, s: the z LUT's weights at the voxel's offset.
+__device__ __forceinline__ void lerp_z(const float* p, float t0, float t1, float s,
+                                       float* u) {
+  u[0] = lerp4(p[0], p[3], p[6], p[9], t0, t1, s);
+  u[1] = lerp4(p[1], p[4], p[7], p[10], t0, t1, s);
+  u[2] = lerp4(p[2], p[5], p[8], p[11], t0, t1, s);
+}
 __device__ __forceinline__ void lerp_z(const float* p, const float* t0z, const float* t1z,
                                        const float* sz, int cz, float* u) {
-  u[0] = lerp4(p[0], p[3], p[6], p[9], t0z[cz], t1z[cz], sz[cz]);
-  u[1] = lerp4(p[1], p[4], p[7], p[10], t0z[cz], t1z[cz], sz[cz]);
-  u[2] = lerp4(p[2], p[5], p[8], p[11], t0z[cz], t1z[cz], sz[cz]);
+  lerp_z(p, t0z[cz], t1z[cz], sz[cz], u);
 }
 
 // The matrix form's displacement of local voxel (xl, yl, zl): per channel
@@ -304,6 +342,140 @@ __device__ __forceinline__ size_t block_index() {
   return ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
 
+enum Moments { kSsd = 0, kStats = 1 };
+constexpr int kWarps = kThreads / 32;
+
+// The walk's shared memory: [z table (a float4 a voxel of a column's run) |
+// y-stage values of the dx * dy columns (fwd_column_floats floats each)];
+// g.c is 3.
+__host__ __device__ inline int walk_run(const FwdBlock& g) { return g.bz * g.dz; }
+__host__ __device__ inline size_t walk_smem_bytes(const FwdBlock& g) {
+  return sizeof(float4) * (size_t)walk_run(g) +
+         sizeof(float) * (size_t)g.dx * g.dy * fwd_column_floats(g);
+}
+
+// The lerp form's ssd (K = kSsd; partials row: the sum of (w - f)^2) and
+// stats (K = kStats; row: sum, min, max, count of w) kernels on the forward
+// kernels' blocks (see the header); luts: the lerp LUTs of x, then y, then z.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    bsi_fused_walk_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
+                          const float* __restrict__ mov, const float* __restrict__ fix,
+                          float* __restrict__ partials, FwdBlock g) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[3][kWarps];
+  __shared__ int redc[kWarps];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float sum = 0.f, lo = CUDART_INF_F, hi = -CUDART_INF_F;
+  int cnt = 0;
+#if REPRO_FUSED_SKIP & 8
+  sum = lo = hi = (float)threadIdx.x;
+  cnt = threadIdx.x;
+#else
+  const int tj = blockIdx.x, ti = blockIdx.y, tk0 = blockIdx.z * g.bz;
+  const int R = walk_run(g), Q = fwd_column_floats(g);
+  float* s_hy = smem + 4 * R;
+  {
+    // the z table: voxel z of a run -> (its tile's offset into the column's
+    // y-stage values, as int bits; the z LUT's t0, t1, s at z % dz)
+    const float* lz = luts + 3 * (g.dx + g.dy);
+    const int dz = g.dz;
+    fwd_z_positions(R, 1, dz, [=](int i, int k, int, int r) {
+      smem4[i] = make_float4(__int_as_float(3 * k), lz[r], lz[dz + r], lz[2 * dz + r]);
+    });
+  }
+#if !(REPRO_FUSED_SKIP & 1)
+  fwd_xy_stage<LerpStage, 3>(phi, luts, g, ti, tj, tk0, s_hy);
+#endif
+  __syncthreads();
+
+  // the block's columns (xl, yl) inside the volume, yl fastest, each L
+  // lines; warp w walks lines [w * total / 8, (w + 1) * total / 8) of them
+  const int x0 = ti * g.dx, y0 = tj * g.dy, z0 = tk0 * g.dz;
+  const int run = min(R, g.Z - z0);  // voxels of a column inside the volume
+  const int nyl = min(g.dy, g.Y - y0);
+  const int L = (run + 62) / 32;  // the lines a run can touch, whatever its start
+  const int total = min(g.dx, g.X - x0) * nyl * L;
+  const int end = (warp + 1) * total / kWarps;
+  const float* aligned = K == kSsd ? fix : mov;
+  int line = warp * total / kWarps;
+  int l = line % L, xl = line / L / nyl, yl = line / L % nyl;
+  while (line < end) {
+    const int n = min(L - l, end - line);  // lines of this column
+    const size_t at = ((size_t)(x0 + xl) * g.Y + y0 + yl) * g.Z + z0;
+    const float* h = s_hy + (xl * g.dy + yl) * Q;
+    const int s = (int)(reinterpret_cast<size_t>(aligned + at) / sizeof(float) & 31);
+    const float fx = (float)(x0 + xl), fy = (float)(y0 + yl);
+    for (int p = 32 * l + lane - s, i = 0; i < n; ++i, p += 32) {
+      if ((unsigned)p >= (unsigned)run) continue;  // before the start or past the end
+#if REPRO_FUSED_SKIP & 2
+      float u[3] = {0.f, 0.f, 0.f};
+#else
+      const float4 e = smem4[p];
+      float u[3];
+      lerp_z(h + __float_as_int(e.x), e.y, e.z, e.w, u);
+#endif
+      const float cx = fx + u[0], cy = fy + u[1], cz = (float)(z0 + p) + u[2];
+#if REPRO_FUSED_SKIP & 4
+      const float w = cx + cy + cz;
+#else
+      const float w = sample_clamped(mov, g.X, g.Y, g.Z, cx, cy, cz);
+#endif
+      if (K == kSsd) {
+        const float d = w - __ldg(fix + at + p);
+        sum += d * d;
+      } else {
+        sum += w;
+        lo = fminf(lo, w);
+        hi = fmaxf(hi, w);
+        ++cnt;
+      }
+    }
+    line += n;
+    l = 0;
+    if (++yl == nyl) yl = 0, ++xl;
+  }
+#endif
+
+  // the warp's lanes by a fixed shuffle tree, then the warps in order
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sum += __shfl_down_sync(0xffffffffu, sum, o);
+    if (K == kStats) {
+      lo = fminf(lo, __shfl_down_sync(0xffffffffu, lo, o));
+      hi = fmaxf(hi, __shfl_down_sync(0xffffffffu, hi, o));
+      cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+    }
+  }
+  if (lane == 0) {
+    red[0][warp] = sum;
+    red[1][warp] = lo;
+    red[2][warp] = hi;
+    redc[warp] = cnt;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    sum = red[0][0], lo = red[1][0], hi = red[2][0], cnt = redc[0];
+    for (int w = 1; w < kWarps; ++w) {
+      sum += red[0][w];
+      lo = fminf(lo, red[1][w]);
+      hi = fmaxf(hi, red[2][w]);
+      cnt += redc[w];
+    }
+    if (K == kSsd) {
+      partials[block_index()] = sum;
+    } else {
+      float* row = partials + 4 * block_index();
+      row[0] = sum;
+      row[1] = lo;
+      row[2] = hi;
+      row[3] = (float)cnt;  // at most a block's voxels: exact
+    }
+  }
+}
+
+// The matrix form's ssd kernel (the lerp form's is bsi_fused_walk_kernel).
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     bsi_fused_ssd_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
@@ -326,6 +498,7 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) partials[block_index()] = total;
 }
 
+// The matrix form's stats kernel (the lerp form's is bsi_fused_walk_kernel).
 template <int F>
 __global__ void __launch_bounds__(kThreads)
     bsi_fused_stats_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
@@ -969,6 +1142,17 @@ inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, i
   return (int)reduce_partials(partials, n_partials, K, mode, out, s);
 }
 
+// The lerp form's ssd or stats kernel on the forward kernels' grid of g.
+template <int K>
+inline int launch_walk(const FwdBlock& g, int n_partials, float* partials, float* out,
+                       void* stream, const float* phi, const float* luts,
+                       const float* mov, const float* fix) {
+  if (g.bz < 1) return (int)cudaErrorInvalidValue;
+  return launch_fused(bsi_fused_walk_kernel<K>, fwd_grid(g), walk_smem_bytes(g), n_partials,
+                      K == kSsd ? 1 : 4, K == kSsd ? 0 : 1, partials, out, stream, phi, luts,
+                      mov, fix, partials, g);
+}
+
 // The lncc kernel on the column grid of `own`; the window of 9 (the LNCC
 // default) runs the instantiation with the window fixed at compile time.
 template <int F>
@@ -1015,9 +1199,11 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
 // Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all float32 and
 // contiguous.  tabs: the lerp LUTs (form 0) or the (dx*dy*dz, 64) basis
 // (form 1).  partials: n_partials rows of K floats, one row per thread
-// block (the caller sizes it with the same tile-block grid); out: K floats.
-// Each returns the first cudaError_t, or cudaErrorInvalidValue on a size
-// mismatch or an unknown form.
+// block (the caller sizes it with the same grid); out: K floats.  Each
+// returns the first cudaError_t, or cudaErrorInvalidValue on a size
+// mismatch or an unknown form.  (bx, by, bz): the tiles a block owns; the
+// lerp form's ssd and stats take (1, 1, bz), the forward kernels' blocks
+// (kernels/bsi_fused.py:moment_blocks).
 
 // out: 1 float, the sum of squared differences.
 extern "C" int bsi_fused_ssd_f32(const float* phi, const float* tabs, const float* mov,
@@ -1026,10 +1212,16 @@ extern "C" int bsi_fused_ssd_f32(const float* phi, const float* tabs, const floa
                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
                                  int form, void* stream) {
   using namespace repro_torch;
-  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
+  if (form == kLerp) {
+    if (bx != 1 || by != 1) return (int)cudaErrorInvalidValue;
+    const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
+    return launch_walk<kSsd>(g, n_partials, partials, out, stream, phi, tabs, mov, fix);
+  }
+  if (form != kMatmul) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return REPRO_LAUNCH_FUSED(bsi_fused_ssd_kernel, form, 0, n_partials, 1, 0, phi, tabs,
-                            mov, fix, partials, g, X, Y, Z);
+  return launch_fused(bsi_fused_ssd_kernel<kMatmul>, tile_grid(g, X, Y, Z),
+                      disp_smem_bytes<kMatmul>(g), n_partials, 1, 0, partials, out, stream,
+                      phi, tabs, mov, fix, partials, g, X, Y, Z);
 }
 
 // out: 4 floats, the sum, min, max and count of the warped volume.
@@ -1039,10 +1231,17 @@ extern "C" int bsi_fused_stats_f32(const float* phi, const float* tabs, const fl
                                    int Z, int bx, int by, int bz, int form,
                                    void* stream) {
   using namespace repro_torch;
-  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
+  if (form == kLerp) {
+    if (bx != 1 || by != 1) return (int)cudaErrorInvalidValue;
+    const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
+    return launch_walk<kStats>(g, n_partials, partials, out, stream, phi, tabs, mov,
+                               (const float*)nullptr);
+  }
+  if (form != kMatmul) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return REPRO_LAUNCH_FUSED(bsi_fused_stats_kernel, form, 0, n_partials, 4, 1, phi,
-                            tabs, mov, partials, g, X, Y, Z);
+  return launch_fused(bsi_fused_stats_kernel<kMatmul>, tile_grid(g, X, Y, Z),
+                      disp_smem_bytes<kMatmul>(g), n_partials, 4, 1, partials, out, stream,
+                      phi, tabs, mov, partials, g, X, Y, Z);
 }
 
 // scal: (mu_w, mu_f); out: 3 floats, sum ab, sum aa, sum bb.

@@ -31,6 +31,12 @@ variant    result                                                 lanes
            into a ring of ``window`` slices, summed x, y, z
 =========  =====================================================  ===========
 
+The lerp form's ``ssd`` and ``stats`` run on the forward kernels' blocks
+(:func:`moment_blocks`): a block stages the x-y stage of one (x tile, y tile)
+and walks its voxel columns in aligned lines of 32 voxels.  The other
+variants, and every variant in the matrix form, run on blocks of
+:func:`block_tiles` (``lncc``: :func:`lncc_blocks`).
+
 The ``plain_*`` functions compute the same results in tensor ops, without
 autograd: the displacement (``bsi_ttli.plain`` or ``bsi_matmul.plain``, both
 rounding each operation as the kernels do), the clamped 8-tap sample and the
@@ -40,6 +46,7 @@ sums.  ``kernels.ops`` picks between the two by the tensor's device.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -49,10 +56,10 @@ from repro_torch.core.similarity import local_cc, parzen_centres, parzen_weights
 from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "NMI_STRIDE", "block_tiles", "launch",
-           "lncc_blocks", "nmi_padded_bins", "nmi_smem_bytes", "nmi_support",
-           "nmi_support_range", "num_partials", "plain", "plain_lncc", "plain_ncc",
-           "plain_nmi", "plain_stats", "warped"]
+__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "NMI_STRIDE", "MomentBlocks", "block_tiles",
+           "launch", "lncc_blocks", "moment_blocks", "nmi_padded_bins", "nmi_smem_bytes",
+           "nmi_support", "nmi_support_range", "num_partials", "occupancy_key", "plain",
+           "plain_lncc", "plain_ncc", "plain_nmi", "plain_stats", "warped"]
 
 DISP_FORMS = ("lerp", "matmul")
 LANES = {"ssd": 1, "stats": 4, "ncc": 3, "lncc": 2}
@@ -124,14 +131,61 @@ def _disp_smem_bytes(tile, blocks, disp_form) -> int:
 
 
 def block_tiles(tile, disp_form, extra_bytes=0) -> tuple:
-    """Tiles per block of the ssd, stats, ncc and nmi kernels (those of the
-    TTLI kernel); raises if the displacement stage plus a variant's
-    ``extra_bytes`` does not fit a block."""
+    """Tiles per block of the ncc and nmi kernels, and of the matrix form's
+    ssd and stats (those of ``bsi_ttli.block_tiles``); raises if the
+    displacement stage plus a variant's ``extra_bytes`` does not fit a
+    block."""
     blocks = bsi_ttli.block_tiles(tile)
     smem = _disp_smem_bytes(tile, blocks, disp_form) + extra_bytes
     bsi_ttli.check_smem(f"the fused kernel at tile {tile} (disp_form={disp_form!r})",
                         smem)
     return blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class MomentBlocks:
+    """The blocks of the lerp form's ssd and stats kernels for one volume
+    (``csrc/bsi_fused.cu``: ``bsi_fused_walk_kernel``).
+
+    Those of the forward kernels for a 3-channel field
+    (:func:`repro_torch.kernels.bsi_ttli.forward_blocks`): a block owns one
+    (x tile, y tile), so ``dx * dy`` columns of voxels, and ``bz`` tiles
+    along z, ``tiles = (1, 1, bz)``; ``grid`` is the launch's grid, blocks
+    along (y, x, z).  A column's run in a block is ``run = bz * dz`` voxels,
+    walked in lines of 32.  ``smem``: the z table (16 bytes a voxel of a
+    run: its tile's offset into the column's y-stage values and its three z
+    lerp weights) and the y-stage values, ``dx * dy * (bz + 3) * 3``
+    floats."""
+
+    bz: int
+    grid: tuple
+    run: int
+    smem: int
+
+    @property
+    def tiles(self) -> tuple:
+        return (1, 1, self.bz)
+
+
+@functools.lru_cache(maxsize=None)
+def moment_blocks(tile, vol_shape) -> MomentBlocks:
+    """The blocks of the lerp form's ssd and stats kernels at ``tile`` for
+    ``vol_shape``; raises if they do not fit (as ``forward_blocks``, whose
+    blocks hold more)."""
+    tile = tuple(int(d) for d in tile)
+    geo = bsi_ttli.forward_blocks(tile, 3, tuple(int(s) for s in vol_shape))
+    dx, dy, dz = tile
+    run = geo.bz * dz
+    return MomentBlocks(bz=geo.bz, grid=geo.grid, run=run,
+                        smem=16 * run + 4 * dx * dy * (geo.bz + 3) * 3)
+
+
+def occupancy_key(kind, tile, vol_shape) -> tuple:
+    """``(symbol, smem, grid)`` of the lerp form's ``kind`` kernel (``ssd``
+    or ``stats``): the part of its instantiation's name in its ``-Xptxas
+    -v`` line, its dynamic shared memory a block and its grid."""
+    geo = moment_blocks(tuple(tile), tuple(vol_shape))
+    return f"bsi_fused_walk_kernelILi{('ssd', 'stats').index(kind)}E", geo.smem, geo.grid
 
 
 def _lncc_smem_bytes(tile, own, window, disp_form) -> int:
@@ -213,8 +267,10 @@ def lncc_blocks(tile, window, disp_form, vol_shape) -> tuple:
 def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=None,
            bins=None, sigma=None, eps=None, window=None, extra=None, lib=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
-    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  For ``lncc``,
-    ``blocks`` are the owned tiles per block and ``extra`` the halo tiles.
+    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  ``blocks``: the
+    tiles a block owns, ``moment_blocks(...).tiles`` for the lerp form's
+    ``ssd`` and ``stats``; for ``lncc`` the owned tiles and ``extra`` the
+    halo tiles.
     ``lib``: the loaded kernels (default :func:`load_library`'s; a
     measurement build's, ``load_library(defines)``, to time a variant)."""
     nx, ny, nz, _ = phi.shape

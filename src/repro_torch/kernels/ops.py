@@ -14,7 +14,8 @@ The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
 block sizes from shared memory (``kernels.bsi_ttli.forward_blocks``, shared by
 ``kernels.bsi_separable``; ``kernels.bsi_tt.tt_blocks``,
-``kernels.bsi_matmul.matmul_blocks``, ``kernels.bsi_fused.lncc_blocks``).
+``kernels.bsi_matmul.matmul_blocks``, ``kernels.bsi_fused.lncc_blocks``,
+``kernels.bsi_fused.moment_blocks``).
 """
 
 from __future__ import annotations
@@ -211,6 +212,13 @@ def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     return True
 
 
+def _moment_blocks(tile, moving, disp_form):
+    """The blocks of the ssd and stats kernels in ``disp_form``."""
+    if disp_form == "lerp":
+        return _fused.moment_blocks(tile, tuple(int(s) for s in moving.shape)).tiles
+    return _fused.block_tiles(tile, disp_form)
+
+
 def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
     """``mean((warp(moving, bsi(phi)) - fixed)**2)`` without a dense field.
 
@@ -224,7 +232,7 @@ def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
     if not _fused_inputs(phi, moving, fixed, tile, "fused_ssd_loss", disp_form):
         return _fused.plain(phi, moving, fixed, tile, disp_form=disp_form) / n
     total = _fused.launch("ssd", phi, moving, fixed, tile,
-                          _fused.block_tiles(tile, disp_form), disp_form=disp_form)
+                          _moment_blocks(tile, moving, disp_form), disp_form=disp_form)
     _LAUNCHES[_fused_name("ssd", disp_form)] += 1
     return total[0] / n
 
@@ -236,7 +244,7 @@ def fused_stats(phi, moving, tile, *, disp_form="lerp"):
     if not _fused_inputs(phi, moving, None, tile, "fused_stats", disp_form):
         return _fused.plain_stats(phi, moving, tile, disp_form=disp_form)
     out = _fused.launch("stats", phi, moving, None, tile,
-                        _fused.block_tiles(tile, disp_form), disp_form=disp_form)
+                        _moment_blocks(tile, moving, disp_form), disp_form=disp_form)
     _LAUNCHES[_fused_name("stats", disp_form)] += 1
     return out
 

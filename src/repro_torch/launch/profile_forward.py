@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.profile_forward [--shape X Y Z]
         [--tile D D D] [--channels C] [--reps N] [--kernels NAME ...] [--split]
+        [--against LIB]
 
 Builds the kernels, makes a random ``(nx, ny, nz, C)`` control grid for the
 volume (default: the paper's phantom1, 512 x 228 x 385, tile 5^3, 3
@@ -19,8 +20,11 @@ instructions of :data:`SASS_OPS` (``cuobjdump -sass``); beside them, one
 those bytes.  ``--split`` also times each kernel with a part left out
 (:func:`stage_split`: measurement builds, ``-DREPRO_FWD_SKIP`` for the
 staged kernels, ``-DREPRO_TT_SKIP`` for TT, ``-DREPRO_MM_SKIP`` for the
-matrix form).  The last line is one JSON object with the numbers.  Needs a
-CUDA device; there is no CPU path.
+matrix form).  ``--against LIB`` runs each kernel as built and as in the
+library at ``LIB`` (another build, as the parent commit's) on the same
+inputs, compares the outputs bit for bit and times both in turns
+(:func:`against`).  The last line is one JSON object with the numbers.
+Needs a CUDA device; there is no CPU path.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import json
 import re
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -38,10 +43,11 @@ from repro_torch.core import ffd
 from repro_torch.device import card_name, device_ms_by_name, resident_blocks, traced
 from repro_torch.kernels import bsi_matmul, bsi_separable, bsi_tt, bsi_ttli, ops
 from repro_torch.kernels.bsi_adjoint import card_sms
-from repro_torch.kernels.build import load_library, sass_counts
+from repro_torch.kernels.build import BuildInfo, Library, load_library, sass_counts
 from repro_torch.launch.profile_adjoint import cuda_ms
 
-__all__ = ["KERNELS", "MODULES", "SKIPS", "forward_report", "occupancy", "stage_split"]
+__all__ = ["KERNELS", "MODULES", "SKIPS", "against", "forward_report", "kernel_occupancy",
+           "occupancy", "stage_split"]
 
 MODULES = {"bsi_ttli": bsi_ttli, "bsi_separable": bsi_separable, "bsi_tt": bsi_tt,
            "bsi_matmul": bsi_matmul}
@@ -119,11 +125,19 @@ def occupancy(lib, name, tile, channels, vol) -> dict:
         symbol = f"{name}_kernelILi{3 if channels == 3 else 0}E"
         geo = bsi_ttli.forward_blocks(tile, channels, vol)
         smem, grid, extra = geo.smem, geo.grid, dict(bz=geo.bz)
+    return dict(kernel_occupancy(lib, symbol, smem, grid), **extra)
+
+
+def kernel_occupancy(lib, symbol, smem, grid) -> dict:
+    """The ``-Xptxas -v`` line of the one kernel of ``lib`` whose name holds
+    ``symbol`` (``registers``, with its spills), ``smem`` (its shared memory
+    a block, in bytes), its resident blocks an SM at 256 threads a block and
+    ``grid``."""
     regs = [ln for ln in lib.info.ptxas if symbol in ln and "registers" in ln]
     assert len(regs) == 1, regs
     per_sm = resident_blocks(int(re.search(r"(\d+) registers", regs[0]).group(1)),
                              smem, bsi_ttli.KERNEL_THREADS)
-    return dict(registers=regs[0], smem=smem, blocks_per_sm=per_sm, grid=grid, **extra)
+    return dict(registers=regs[0], smem=smem, blocks_per_sm=per_sm, grid=grid)
 
 
 def sm_clock_under_load(fn, n=400) -> str:
@@ -158,6 +172,23 @@ def stage_split(phi, tile, vol, names=KERNELS, reps=20) -> dict:
     return split
 
 
+def against(phi, tile, vol, other, names=KERNELS, reps=20) -> dict:
+    """Each kernel of ``names`` as built and as in ``other`` (another
+    build's library, as the parent commit's) on the same inputs:
+    ``{kernel: {"bit_equal": the two outputs equal, "ms": [this, other,
+    other, this]}}``, the four timed in turns."""
+    out = {}
+    for n in names:
+        a, b = (torch.empty(tuple(vol) + (phi.shape[3],), device=phi.device)
+                for _ in range(2))
+        MODULES[n].launch(phi, a, tile)
+        MODULES[n].launch(phi, b, tile, lib=other)
+        out[n] = {"bit_equal": bool(torch.equal(a, b))}
+        out[n]["ms"] = [cuda_ms(lambda: MODULES[n].launch(phi, a, tile, lib=lib), reps)
+                        for lib in (load_library(), other, other, load_library())]
+    return out
+
+
 def _grid(vol, tile, channels):
     gshape = ffd.grid_shape_for_volume(vol, tile)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -173,6 +204,9 @@ def main(argv=None):
     ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     ap.add_argument("--split", action="store_true",
                     help="time each kernel with a part left out")
+    ap.add_argument("--against", metavar="LIB",
+                    help="another build of the kernels: outputs compared bit for bit, "
+                         "both timed in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: needs a CUDA device")
@@ -213,6 +247,12 @@ def main(argv=None):
         for name, split in result["split"].items():
             for k, ms in split.items():
                 print(f"  {name} {k}: {', '.join(f'{t:.4f}' for t in ms)} ms")
+    if args.against:
+        other = Library(BuildInfo(Path(args.against), 0.0, ()))
+        result["against"] = against(phi, tile, vol, other, args.kernels, args.reps)
+        for name, r in result["against"].items():
+            print(f"{name} against {args.against}: bit-equal {r['bit_equal']}; ms this, "
+                  f"other, other, this: {', '.join(f'{t:.4f}' for t in r['ms'])}")
     print(json.dumps(result))
 
 

@@ -241,6 +241,39 @@ def test_stats_and_nmi_are_deterministic(cuda):
     assert torch.equal(h[0], h[1]) and torch.equal(h[0], h[2])
 
 
+# the lerp form's ssd and stats walk the forward kernels' blocks
+# (tests/test_torch_fused_geometry.py): z off the tile, one-tile volumes,
+# tall z over several blocks along z, fewer lines than warps
+WALK_CASES = [((13, 11, 9), (5, 5, 5)), ((12, 11, 9), (5, 4, 3)), ((22, 15, 30), (3, 3, 3)),
+              ((11, 12, 45), (7, 6, 5)), ((5, 4, 3), (5, 4, 3)), ((1, 1, 1), (5, 5, 5)),
+              ((7, 6, 700), (5, 5, 5)), ((6, 7, 1500), (3, 3, 3))]
+
+
+@pytest.mark.parametrize("vol,tile", WALK_CASES)
+def test_walk_kernels_at_odd_volumes(cuda, vol, tile):
+    """ssd and stats: two calls bit-equal, min, max and count equal to the
+    plain version's, the sums within 1e-5 relative; ncc and nmi on the
+    same inputs still within their limits of their plain versions."""
+    phi, mov, fix = _fused_inputs(vol, tile, 16, cuda)
+    ssd = [ops.fused_ssd_loss(phi, mov, fix, tile) for _ in range(2)]
+    st = [ops.fused_stats(phi, mov, tile) for _ in range(2)]
+    assert torch.equal(ssd[0], ssd[1]) and torch.equal(st[0], st[1])
+    ref = bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
+    assert abs(ssd[0].item() - ref.item()) <= 1e-5 * abs(ref.item())
+    ref = bsi_fused.plain_stats(phi, mov, tile)
+    assert torch.equal(st[0][1:], ref[1:]) and st[0][3].item() == mov.numel()
+    assert abs(st[0][0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
+    scal = torch.stack([ref[0] / mov.numel(), fix.mean()])
+    out = ops.fused_ncc_moments(phi, mov, fix, scal, tile)
+    want = bsi_fused.plain_ncc(phi, mov, fix, scal, tile)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    scal = torch.stack([ref[1], ref[2], fix.min(), fix.max()])
+    kw = dict(bins=32, sigma=0.5 / 31, eps=1e-8)
+    out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **kw)
+    want = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **kw)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
 def test_nmi_dispatcher_refuses_more_bins_than_the_kernel_takes(cuda):
     vol, tile = (13, 11, 9), (5, 4, 3)
     phi, mov, fix = _fused_inputs(vol, tile, 15, cuda)
