@@ -52,12 +52,14 @@ Phases; any failure raises and the script exits nonzero:
    calls bit-equal (asserted), and prints both its and plain's largest
    error against the float64 function, its registers (no spills,
    asserted), shared memory, blocks an SM and grid, and the time of its
-   three TF32 products at 495 TFLOP/s.  The ``bsi_fused`` and
-   ``bsi_fused_stats`` rows (the lerp form's column walks on the forward
-   kernels' blocks, ``kernels.bsi_fused.moment_blocks``) print their
-   registers (no spills, asserted), shared memory, blocks an SM and grid,
-   and assert two calls bit-equal (``launch/profile_fused.py`` has their
-   split);
+   three TF32 products at 495 TFLOP/s.  The ``bsi_fused``,
+   ``bsi_fused_stats`` and ``bsi_fused_ncc`` rows, in both forms (the
+   column walks on the forward kernels' blocks,
+   ``kernels.bsi_fused.moment_blocks``), are held to their plain versions
+   (the sums at 1e-5 relative, stats' min, max and count exact), print
+   their registers (no spills, asserted), shared memory, blocks an SM and
+   grid, and assert two calls bit-equal (``launch/profile_fused.py`` has
+   their split);
 4. the paths, each with the launch counts set to 0 just before and read just
    after: ``ffd_register`` with the default options and ``fused="on"`` (the
    fused SSD, TTLI and adjoint kernels) on ``make_pair(phantom1, seed=0)``; the same pair at
@@ -548,6 +550,14 @@ def check_kernels(torch, fixed, moving, lib, stage_libs):
         return abs(out - ref)
 
     scal = torch.stack([ref[0] / n, fixed.mean()])
+    out = ops.fused_ncc_moments(phi_f, rem, fixed, scal, TILE)
+    mom = bsi_fused.plain_ncc(phi_f, rem, fixed, scal, TILE)
+    rel = ((out - mom).abs().max() / mom.abs().max()).item()
+    log(f"bsi_fused_ncc: moments kernel {out.tolist()} plain {mom.tolist()}; relative "
+        f"{rel:.3e} (limit 1e-5)")
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_ncc",
+             lambda: ops.fused_ncc_moments(phi_f, rem, fixed, scal, TILE), vol)
     err = loss_check("bsi_fused_ncc", ("ncc",))
     b_ms, b_by = bounds["bsi_fused_ncc"]
     rows.append(dict(
@@ -592,7 +602,8 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     phantom1 shapes."""
     from repro_torch.core import ffd
     from repro_torch.kernels import bsi_adjoint, bsi_fused, bsi_matmul, ops
-    from repro_torch.launch.bounds import bound_ms, kernel_bounds, matmul_tf32_ms
+    from repro_torch.launch.bounds import (bound_ms, kernel_bounds, matmul_tf32_ms,
+                                           unfused_floor_ms)
 
     dev = fixed.device
     vol = tuple(fixed.shape)
@@ -655,6 +666,9 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     n = rem.numel()
     fused_src, fused_rep = "src/repro_torch/csrc/bsi_fused.cu", "src/repro/kernels/bsi_fused.py:291"
     mm = dict(disp_form="matmul")
+    # the matrix form's floor under its rounding, beside its byte bound
+    floor = unfused_floor_ms(vol)
+    log(f"fused matrix form: 384 unfused fp32 instructions a voxel, floor {floor:.4f} ms")
     out = ops.fused_ssd_loss(phi_f, moving, fixed, TILE, **mm)
     ref = bsi_fused.plain(phi_f, moving, fixed, TILE, **mm) / n
     err = abs(out.item() - ref.item())
@@ -662,6 +676,8 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     log(f"bsi_fused_matmul: kernel {out.item():.9g} plain {ref.item():.9g} relative "
         f"{rel:.3e} (limit 1e-5 relative)")
     assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_matmul",
+             lambda: ops.fused_ssd_loss(phi_f, moving, fixed, TILE, **mm), vol)
     row("bsi_fused_matmul", fused_src, fused_rep + " (disp_form=matmul, :87-89)", err,
         cuda_ms(torch, lambda: ops.fused_ssd_loss(phi_f, moving, fixed, TILE, **mm)),
         cuda_ms(torch, lambda: bsi_fused.plain(phi_f, moving, fixed, TILE, **mm), reps=3),
@@ -675,6 +691,8 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
         f"{torch.equal(out[1:], st[1:])}")
     assert torch.equal(out[1:], st[1:]) and out[3].item() == n, (out, st)
     assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_stats_matmul",
+             lambda: ops.fused_stats(phi_f, rem, TILE, **mm), vol)
     row("bsi_fused_stats_matmul", fused_src, fused_rep + " (disp_form=matmul)",
         (out - st).abs().max().item(),
         cuda_ms(torch, lambda: ops.fused_stats(phi_f, rem, TILE, **mm)),
@@ -689,6 +707,8 @@ def check_matmul_kernels(torch, fixed, moving, lib, stage_libs):
     log(f"bsi_fused_ncc_matmul: moments max |kernel - plain| {err:.3e}, relative "
         f"{rel:.3e} (limit 1e-5)")
     assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_ncc_matmul",
+             lambda: ops.fused_ncc_moments(phi_f, rem, fixed, scal, TILE, **mm), vol)
     row("bsi_fused_ncc_matmul", fused_src, fused_rep + " (disp_form=matmul)", err,
         cuda_ms(torch, lambda: ops.fused_ncc_moments(phi_f, rem, fixed, scal, TILE, **mm)),
         cuda_ms(torch, lambda: bsi_fused.plain_ncc(phi_f, rem, fixed, scal, TILE, **mm),
@@ -756,9 +776,9 @@ def log_forward_occupancy(lib, name, vol):
 
 
 def log_walk(torch, lib, name, call, vol):
-    """The lerp form's fused ssd or stats kernel ``name``: its registers
-    (asserted: no spills), shared memory, resident blocks an SM and grid
-    (``launch/profile_fused.py``), and two calls of ``call`` bit-equal
+    """The fused ssd, stats or ncc kernel ``name`` (either form): its
+    registers (asserted: no spills), shared memory, resident blocks an SM and
+    grid (``launch/profile_fused.py``), and two calls of ``call`` bit-equal
     (asserted)."""
     from repro_torch.launch.profile_fused import occupancy
 

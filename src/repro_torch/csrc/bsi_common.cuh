@@ -4,12 +4,13 @@
 //
 // A thread block owns a block of (bx, by, bz) tiles and stages its
 // (bx+3, by+3, bz+3, C) control window in shared memory (the counterpart of
-// kernels/common.py:phi_window in the JAX package).  The fused ncc and nmi
-// kernels also stage their LUTs and run the x and y lerp stages once per
-// (x voxel, y voxel, z control point) into shared memory (stage_xy); the z
-// stage, per voxel, is left to the kernel, which warps and scores.  The
-// forward kernels bsi_ttli and bsi_separable, and the fused ssd and stats
-// kernels, run the same stages with their own blocks (bsi_forward.cuh).  A
+// kernels/common.py:phi_window in the JAX package).  The fused nmi kernel
+// also stages its LUTs and runs the x and y lerp stages once per (x voxel,
+// y voxel, z control point) into shared memory (stage_xy); the z stage, per
+// voxel, is left to the kernel, which warps and scores.  The forward
+// kernels bsi_ttli and bsi_separable, and the fused ssd, stats and ncc
+// kernels in the lerp form, run the same stages with their own blocks
+// (bsi_forward.cuh).  A
 // stage collapses the four neighbours of one axis
 // either by three lerps (LerpStage: the same a + t*(b-a) chain as
 // repro.core.interpolate.bsi_ttli, stage for stage) or by a 4-term weighted

@@ -24,9 +24,10 @@
 // 128-byte line (a column's run starts anywhere: rows are Z * c floats,
 // 4620 bytes at phantom1).
 //
-// The fused ssd and stats kernels (bsi_fused.cu) run the same x-y stage
-// (fwd_xy_stage) on the same blocks, and build their z table with the same
-// stepping (fwd_z_positions, one position a voxel).
+// The fused ssd, stats and ncc kernels (bsi_fused.cu) run on the same
+// blocks; in the lerp form they run the same x-y stage (fwd_xy_stage) and
+// build their z table with the same stepping (fwd_z_positions, one position
+// a voxel).
 //
 // Measurement builds (-DREPRO_FWD_SKIP=mask, launch/profile_forward.py):
 // 1 leaves out the x-y stage, 2 the z stage's arithmetic and table (a

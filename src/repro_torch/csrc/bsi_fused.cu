@@ -46,33 +46,51 @@
 // is a fixed tree or a fixed loop: the results are deterministic and no
 // float atomics are used.
 //
-// The lerp form's ssd and stats kernels (bsi_fused_walk_kernel) run on the
-// blocks of the forward kernels (bsi_forward.cuh): a block owns one (x
-// tile, y tile) and a run of bz tiles along z, the whole z at phantom1
-// (kernels/bsi_fused.py:moment_blocks).  It stages the y-stage values of its
-// dx * dy voxel columns with the forward kernels' x-y stage (fwd_xy_stage:
-// each value once, no division) and a z table, one float4 a voxel of a
-// column's run: its tile's offset into the column's y-stage values and the
-// z LUT's three weights at z % dz (built by fwd_z_positions' stepping, no
-// division).  Then it walks its columns in lines of 32 voxels: line l of
-// column (a, b) is the voxels z = 32 l + lane - s, s the column's start in
-// the streamed volume (the fixed one for ssd, the moving one for stats)
-// modulo 32 floats, so each warp's reads of that volume are one aligned
-// 128-byte line and its trilinear taps neighbours across the warp.  The
-// block's lines, column after column, are dealt to its 8 warps in 8
-// contiguous shares, none more than a line longer than another.  A voxel
-// costs one 16-byte and twelve 4-byte shared loads and its nine z lerps,
-// the clamped 8-tap sample and its sums; no loop over voxels divides.  At
-// phantom1 the 8 taps' cache lines set the pace (PERF.md).  The sums'
-// order: each thread folds its voxels in walk order, each warp its lanes by
-// a fixed shuffle tree (lane i takes lane i + 16, then + 8, + 4, + 2, + 1),
-// then thread 0 the warps in order, one barrier; stats' min, max and count
-// are exact in any order.
+// The ssd, stats and ncc kernels, in both forms (bsi_fused_walk_kernel<F,
+// K>), run on the blocks of the forward kernels (bsi_forward.cuh): a block
+// owns one (x tile, y tile) and a run of bz tiles along z, the whole z at
+// phantom1 (kernels/bsi_fused.py:moment_blocks), and walks its voxel
+// columns in lines of 32 voxels (walk_lines): line l of column (a, b) is
+// the voxels z = 32 l + lane - s, s the column's start in the streamed
+// volume (the fixed one for ssd and ncc, the moving one for stats) modulo 32
+// floats, so each warp's reads of that volume are one aligned 128-byte line
+// and its trilinear taps neighbours across the warp.  The block's lines,
+// column after column, are dealt to its 8 warps in 8 contiguous shares, none
+// more than a line longer than another.  A voxel's displacement, then the
+// clamped 8-tap sample and its sums; no loop over voxels divides.
 //
-// The matrix form stages the control window and the basis, transposed to
-// (64, d^3) so that the threads of a warp, at consecutive voxel offsets, read
-// consecutive banks; each thread sums its voxel's 64 terms per channel in the
-// order k = 0..63, as kernels/bsi_matmul.py:plain does.
+// The lerp form stages the y-stage values of its dx * dy columns with the
+// forward kernels' x-y stage (fwd_xy_stage: each value once, no division)
+// and a z table, one float4 a voxel of a column's run, by fwd_z_positions'
+// stepping (no division): the tile's offset into the column's y-stage
+// values and the z LUT's three weights at z % dz; a voxel costs one 16-byte
+// and twelve 4-byte shared loads and its nine z lerps, and the run is
+// walked in one pass.
+//
+// The matrix form's 64 x 3 products and sums a voxel, unfused as plain
+// rounds them (384 instructions: 0.516 ms at phantom1 and 1.98 GHz,
+// launch/bounds.py:unfused_floor_ms), would, summed by the thread that
+// samples the voxel, load 1 KB of basis and window a voxel from shared
+// memory, more than the shared memory delivers in that time (the kernel it
+// replaced spent 1.31 ms of 1.84 there).  So the block stages the (d^3, 64)
+// basis once, a row every 17 float4, and takes its run in chunks of z
+// tiles.  For a chunk it sums the displacement of the chunk's voxels into
+// shared memory, a thread an item of two z tiles of a column
+// (walk_chunk_disp: a basis quad loaded serves both tiles and a window
+// point up to ten voxels, about 256 bytes a voxel), from the chunk's
+// control window, its z points split by parity so that a warp's loads hit
+// distinct banks, the next chunk's copied by cp.async meanwhile; then it
+// walks the chunk's voxels, two lines of a column at a time, reading each
+// displacement back (walk_smem_bytes).  The sums' order: each thread folds
+// its voxels in walk order, each warp its lanes by a fixed shuffle tree
+// (lane i takes lane i + 16, then + 8, + 4, + 2, + 1), then thread 0 the
+// warps in order, one barrier; stats' min, max and count are exact in any
+// order.
+//
+// The nmi and lncc kernels stage the matrix form's basis transposed to (64,
+// d^3) so that the threads of a warp, at consecutive voxel offsets, read
+// consecutive banks; each thread sums its voxel's 64 terms per channel in
+// the order k = 0..63, as kernels/bsi_matmul.py:plain does.
 //
 // The lncc kernel is a marching column.  A block owns a column of tiles, an
 // Ey x Ez footprint in y and z and a chunk of Ex voxels along x, and marches
@@ -128,12 +146,15 @@
 
 #include "bsi_forward.cuh"
 
-// REPRO_FUSED_SKIP: the parts of the lerp form's ssd and stats kernels left
-// out in a measurement build (launch/profile_fused.py; the library is built
-// with none): 1 the x-y stage, 2 the displacement (each voxel sampled at
-// identity), 4 the gathers (the sample is the sum of the voxel's
-// coordinates: the displacement stays, the moving volume is not read); 8
-// all but the reduction (each thread's sums a constant).
+// REPRO_FUSED_SKIP: the parts of the ssd, stats and ncc walks left out in a
+// measurement build (launch/profile_fused.py; the library is built with
+// none): 1 the staging (the x-y stage; the matrix form's basis and window),
+// 2 the displacement (each voxel sampled at identity), 4 the gathers (the
+// sample is the sum of the voxel's coordinates: the displacement stays, the
+// moving volume is not read); 8 all but the reduction (each thread's sums a
+// constant); the matrix form's 64-term sum with 16 its basis weights as
+// constants (no basis loads), 32 its window values as constants (no window
+// loads).
 #ifndef REPRO_FUSED_SKIP
 #define REPRO_FUSED_SKIP 0
 #endif
@@ -273,19 +294,6 @@ struct WarpBlock {
     n = BX * BY * BZ;
   }
 
-  // False outside the volume; else the voxel's local coordinates and offset.
-  __device__ __forceinline__ bool locate(int X, int Y, int Z, int i, int* xl, int* yl,
-                                         int* zl, size_t* at) const {
-    *zl = i % BZ;
-    const int r = i / BZ;
-    *yl = r % BY;
-    *xl = r / BY;
-    const int x = x0 + *xl, y = y0 + *yl, z = z0 + *zl;
-    if (x >= X || y >= Y || z >= Z) return false;
-    *at = ((size_t)x * Y + y) * Z + z;
-    return true;
-  }
-
   // The displacement of a local voxel.
   __device__ __forceinline__ void disp(int xl, int yl, int zl, float* u) const {
     if (F == kLerp) {
@@ -304,25 +312,10 @@ struct WarpBlock {
     return sample_clamped(mov, X, Y, Z, (float)(x0 + xl) + u[0], (float)(y0 + yl) + u[1],
                           (float)(z0 + zl) + u[2]);
   }
-
-  // False outside the volume; else the warped sample and the voxel's offset.
-  __device__ __forceinline__ bool sample(const float* __restrict__ mov, int X, int Y,
-                                         int Z, int i, float* w, size_t* at) const {
-    int xl, yl, zl;
-    if (!locate(X, Y, Z, i, &xl, &yl, &zl, at)) return false;
-    *w = warp(mov, X, Y, Z, xl, yl, zl);
-    return true;
-  }
 };
 
 struct SumOp {
   __device__ __forceinline__ float operator()(float a, float b) const { return a + b; }
-};
-struct MinOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fminf(a, b); }
-};
-struct MaxOp {
-  __device__ __forceinline__ float operator()(float a, float b) const { return fmaxf(a, b); }
 };
 
 // Fixed-order tree reduction of one value per thread; valid in thread 0.
@@ -342,225 +335,372 @@ __device__ __forceinline__ size_t block_index() {
   return ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
 
-enum Moments { kSsd = 0, kStats = 1 };
+enum Moments { kSsd = 0, kStats = 1, kNcc = 2 };
 constexpr int kWarps = kThreads / 32;
+// The matrix form's item: kWalkTiles z tiles of a column, whose voxels a
+// thread sums kWalkOffsets offsets along z at a time (a tile of more takes
+// several passes), the most its registers hold.
+constexpr int kWalkTiles = 2;
+constexpr int kWalkOffsets = 5;
 
-// The walk's shared memory: [z table (a float4 a voxel of a column's run) |
-// y-stage values of the dx * dy columns (fwd_column_floats floats each)];
-// g.c is 3.
+// The walk's run along z of a column, in voxels.
 __host__ __device__ inline int walk_run(const FwdBlock& g) { return g.bz * g.dz; }
+// The matrix form's chunk: the z tiles of a run whose displacement the
+// block computes at once, one item a thread.
+__host__ __device__ inline int walk_chunk(const FwdBlock& g) {
+  return min(g.bz, kWalkTiles * max(1, kThreads / (g.dx * g.dy)));
+}
+// Its staged rows, in float4: a basis row of 16 quads over k every 17, and
+// a part of a row of a chunk's window (its z points kz = j mod kWalkTiles,
+// one part for each j), so that a warp's loads from distinct rows, or from
+// the z points t + m of its items' first tiles t, fall on distinct banks.
+constexpr int kBasisRow = 17;
+__host__ __device__ inline int walk_window_part(const FwdBlock& g) {
+  return (walk_chunk(g) + 2 * kWalkTiles + 1) / kWalkTiles;
+}
+// The walk's shared memory.  The lerp form: [z table (a float4 a voxel of a
+// column's run) | y-stage values of the dx * dy columns (fwd_column_floats
+// floats each)].  The matrix form: [(d^3, 64) basis, a row of 16 quads over
+// k every kBasisRow float4 | two chunk windows (the next chunk's copied
+// while the block sums this one's), 4 x 4 x kWalkTiles wq points of one
+// float4 (x, y, z, 0) each, wq = walk_window_part, point (l, m, kz) at ((l *
+// 4 + m) * kWalkTiles + kz % kWalkTiles) * wq + kz / kWalkTiles | the
+// chunk's displacement, x, y and z each dx * dy columns of chunk * dz
+// floats].  g.c is 3.
+template <int F>
 __host__ __device__ inline size_t walk_smem_bytes(const FwdBlock& g) {
-  return sizeof(float4) * (size_t)walk_run(g) +
-         sizeof(float) * (size_t)g.dx * g.dy * fwd_column_floats(g);
+  if (F == kLerp)
+    return sizeof(float4) * (size_t)walk_run(g) +
+           sizeof(float) * (size_t)g.dx * g.dy * fwd_column_floats(g);
+  return sizeof(float4) * (kBasisRow * (size_t)g.dx * g.dy * g.dz +
+                           2 * 16 * kWalkTiles * (size_t)walk_window_part(g)) +
+         sizeof(float) * 3 * (size_t)g.dx * g.dy * walk_chunk(g) * g.dz;
 }
 
-// The lerp form's ssd (K = kSsd; partials row: the sum of (w - f)^2) and
-// stats (K = kStats; row: sum, min, max, count of w) kernels on the forward
-// kernels' blocks (see the header); luts: the lerp LUTs of x, then y, then z.
+// The moments of a block's voxels, each thread's, in walk order: ssd the sum
+// of (w - f)^2, stats the sum, min, max and count of w, ncc the sums of ab,
+// aa and bb with a = w - mu_w, b = f - mu_f.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
-    bsi_fused_walk_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
-                          const float* __restrict__ mov, const float* __restrict__ fix,
-                          float* __restrict__ partials, FwdBlock g) {
-  extern __shared__ float4 smem4[];
-  __shared__ float red[3][kWarps];
-  __shared__ int redc[kWarps];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float sum = 0.f, lo = CUDART_INF_F, hi = -CUDART_INF_F;
+struct WalkSums {
+  float acc[3];
   int cnt = 0;
-#if REPRO_FUSED_SKIP & 8
-  sum = lo = hi = (float)threadIdx.x;
-  cnt = threadIdx.x;
-#else
-  const int tj = blockIdx.x, ti = blockIdx.y, tk0 = blockIdx.z * g.bz;
-  const int R = walk_run(g), Q = fwd_column_floats(g);
-  float* s_hy = smem + 4 * R;
-  {
-    // the z table: voxel z of a run -> (its tile's offset into the column's
-    // y-stage values, as int bits; the z LUT's t0, t1, s at z % dz)
-    const float* lz = luts + 3 * (g.dx + g.dy);
-    const int dz = g.dz;
-    fwd_z_positions(R, 1, dz, [=](int i, int k, int, int r) {
-      smem4[i] = make_float4(__int_as_float(3 * k), lz[r], lz[dz + r], lz[2 * dz + r]);
-    });
-  }
-#if !(REPRO_FUSED_SKIP & 1)
-  fwd_xy_stage<LerpStage, 3>(phi, luts, g, ti, tj, tk0, s_hy);
-#endif
-  __syncthreads();
+  const float* fix;  // ssd and ncc
+  float mu_w = 0.f, mu_f = 0.f;
 
-  // the block's columns (xl, yl) inside the volume, yl fastest, each L
-  // lines; warp w walks lines [w * total / 8, (w + 1) * total / 8) of them
-  const int x0 = ti * g.dx, y0 = tj * g.dy, z0 = tk0 * g.dz;
-  const int run = min(R, g.Z - z0);  // voxels of a column inside the volume
+  __device__ WalkSums(const float* f) : fix(f) {
+    acc[0] = 0.f;
+    acc[1] = K == kStats ? CUDART_INF_F : 0.f;
+    acc[2] = K == kStats ? -CUDART_INF_F : 0.f;
+  }
+
+  // w: the warped sample of voxel i (a flat index).
+  __device__ __forceinline__ void add(float w, size_t i) {
+    if (K == kSsd) {
+      const float d = w - __ldg(fix + i);
+      acc[0] += d * d;
+    } else if (K == kStats) {
+      acc[0] += w;
+      acc[1] = fminf(acc[1], w);
+      acc[2] = fmaxf(acc[2], w);
+      ++cnt;
+    } else {
+      const float a = w - mu_w, b = __ldg(fix + i) - mu_f;
+      acc[0] += a * b;
+      acc[1] += a * a;
+      acc[2] += b * b;
+    }
+  }
+
+  // The block's row: the warp's lanes by a fixed shuffle tree, then the
+  // warps in order by thread 0; stats' lanes 1 and 2 are a min and a max,
+  // every other lane a sum.
+  __device__ __forceinline__ void store(float* partials) {
+    __shared__ float red[3][kWarps];
+    __shared__ int redc[kWarps];
+    constexpr int kLanes = K == kSsd ? 1 : 3;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      acc[0] += __shfl_down_sync(0xffffffffu, acc[0], o);
+      if (K == kStats) {
+        acc[1] = fminf(acc[1], __shfl_down_sync(0xffffffffu, acc[1], o));
+        acc[2] = fmaxf(acc[2], __shfl_down_sync(0xffffffffu, acc[2], o));
+        cnt += __shfl_down_sync(0xffffffffu, cnt, o);
+      } else if (K == kNcc) {
+        acc[1] += __shfl_down_sync(0xffffffffu, acc[1], o);
+        acc[2] += __shfl_down_sync(0xffffffffu, acc[2], o);
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) red[j][warp] = acc[j];
+      redc[warp] = cnt;
+    }
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) acc[j] = red[j][0];
+    cnt = redc[0];
+    for (int w = 1; w < kWarps; ++w) {
+      acc[0] += red[0][w];
+      if (K == kStats) {
+        acc[1] = fminf(acc[1], red[1][w]);
+        acc[2] = fmaxf(acc[2], red[2][w]);
+        cnt += redc[w];
+      } else if (K == kNcc) {
+        acc[1] += red[1][w];
+        acc[2] += red[2][w];
+      }
+    }
+    float* row = partials + (K == kSsd ? 1 : K == kStats ? 4 : 3) * block_index();
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) row[j] = acc[j];
+    if (K == kStats) row[3] = (float)cnt;  // at most a block's voxels: exact
+  }
+};
+
+// The block's columns (xl, yl) inside the volume, yl fastest, each walked
+// over its voxels [za, zb) of the run in lines of 32: line l of a column is
+// the voxels p = za + 32 l + lane - s, s the start of [za, zb) in `aligned`
+// modulo 32 floats, so a warp's reads of it are one aligned 128-byte line.
+// The lines, column after column, are dealt to the 8 warps in 8 contiguous
+// shares, none more than a line longer than another.  Each voxel's
+// displacement by disp(xl, yl, p, u), the moving volume sampled at identity
+// + u, clamped, and the sample added to the thread's sums; U lines of a
+// column at a time.
+template <int U, int K, typename Disp>
+__device__ __forceinline__ void walk_lines(const FwdBlock& g, int x0, int y0, int z0,
+                                           int za, int zb, const float* aligned,
+                                           const float* __restrict__ mov, WalkSums<K>& sums,
+                                           Disp disp) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nyl = min(g.dy, g.Y - y0);
-  const int L = (run + 62) / 32;  // the lines a run can touch, whatever its start
+  const int L = (zb - za + 62) / 32;  // the lines [za, zb) can touch, whatever its start
   const int total = min(g.dx, g.X - x0) * nyl * L;
   const int end = (warp + 1) * total / kWarps;
-  const float* aligned = K == kSsd ? fix : mov;
   int line = warp * total / kWarps;
   int l = line % L, xl = line / L / nyl, yl = line / L % nyl;
   while (line < end) {
     const int n = min(L - l, end - line);  // lines of this column
     const size_t at = ((size_t)(x0 + xl) * g.Y + y0 + yl) * g.Z + z0;
-    const float* h = s_hy + (xl * g.dy + yl) * Q;
-    const int s = (int)(reinterpret_cast<size_t>(aligned + at) / sizeof(float) & 31);
+    const int s = (int)(reinterpret_cast<size_t>(aligned + at + za) / sizeof(float) & 31);
     const float fx = (float)(x0 + xl), fy = (float)(y0 + yl);
-    for (int p = 32 * l + lane - s, i = 0; i < n; ++i, p += 32) {
-      if ((unsigned)p >= (unsigned)run) continue;  // before the start or past the end
-#if REPRO_FUSED_SKIP & 2
+#pragma unroll U
+    for (int p = za + 32 * l + lane - s, i = 0; i < n; ++i, p += 32) {
+      if ((unsigned)(p - za) >= (unsigned)(zb - za)) continue;  // outside [za, zb)
       float u[3] = {0.f, 0.f, 0.f};
-#else
-      const float4 e = smem4[p];
-      float u[3];
-      lerp_z(h + __float_as_int(e.x), e.y, e.z, e.w, u);
+#if !(REPRO_FUSED_SKIP & 2)
+      disp(xl, yl, p, u);
 #endif
       const float cx = fx + u[0], cy = fy + u[1], cz = (float)(z0 + p) + u[2];
 #if REPRO_FUSED_SKIP & 4
-      const float w = cx + cy + cz;
+      sums.add(cx + cy + cz, at + p);
 #else
-      const float w = sample_clamped(mov, g.X, g.Y, g.Z, cx, cy, cz);
+      sums.add(sample_clamped(mov, g.X, g.Y, g.Z, cx, cy, cz), at + p);
 #endif
-      if (K == kSsd) {
-        const float d = w - __ldg(fix + at + p);
-        sum += d * d;
-      } else {
-        sum += w;
-        lo = fminf(lo, w);
-        hi = fmaxf(hi, w);
-        ++cnt;
-      }
     }
     line += n;
     l = 0;
     if (++yl == nyl) yl = 0, ++xl;
   }
-#endif
+}
 
-  // the warp's lanes by a fixed shuffle tree, then the warps in order
+// cp.async of 4 bytes, or of zeros where !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n\tcp.async.wait_all;" ::: "memory");
+}
+
+// The matrix form's window of a chunk of zt tiles of the block on x tile ti
+// and y tile tj from z tile tk, by cp.async (the layout of
+// walk_smem_bytes): points (l, m, tk + kz), kz < zt + 3; past them and past
+// the grid along z, 0 (only voxels outside the volume use them).  Does not
+// wait.
+__device__ inline void walk_stage_window(const float* __restrict__ phi, const FwdBlock& g,
+                                         int ti, int tj, int tk, int zt, int wq,
+                                         float4* s_win) {
+  const int ys = g.nz * 3, xs = g.ny * ys, row = kWalkTiles * wq;
+  const float* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk * 3;
+  for (int i = threadIdx.x; i < 16 * row; i += kThreads) {
+    const int lm = i / row, e = i - row * lm, kz = e % wq * kWalkTiles + e / wq;
+    const bool valid = kz < zt + 3 && tk + kz < g.nz;
+    const float* q = valid ? src + (lm >> 2) * xs + (lm & 3) * ys + kz * 3 : phi;
+    float* d = reinterpret_cast<float*>(s_win + i);
+    cp_async4(d, q, valid);
+    cp_async4(d + 1, q + 1, valid);
+    cp_async4(d + 2, q + 2, valid);
+  }
+}
+
+// The matrix form's displacement of one chunk of the block: item (column c,
+// tiles t .. t + kWalkTiles - 1, t = kWalkTiles k) -> the voxels t * dz + r
+// of column c, r < kWalkTiles dz, into s_u (x, y and z each of ncols
+// columns of cv floats).  s_basis: the basis, row v at kBasisRow v; s_win:
+// the chunk's window, point (l, m, kz) at ((l * 4 + m) * kWalkTiles + kz %
+// kWalkTiles) * wq + kz / kWalkTiles.  A thread takes items i, i + 256,
+// ...; each sums up to kWalkOffsets voxel offsets of all its tiles at once,
+// so a basis quad loaded serves kWalkTiles voxels and a window point up to
+// 4 kWalkOffsets: per channel the 64 terms B[v, k] * window[tile + (l, m,
+// n)] in the order k = (l*4 + m)*4 + n, each product rounded and then added,
+// as kernels/bsi_matmul.py:plain sums them.  The tiles of an item past the
+// chunk are computed from the room past its points and not stored.
+__device__ inline void walk_chunk_disp(const float4* s_basis, const float4* s_win,
+                                       float* s_u, int ncols, int nyl, int zt, int wq,
+                                       int cv, int dy, int dz) {
+  constexpr int T = kWalkTiles;
+  const int su = ncols * cv, items = (zt + T - 1) / T;
+  for (int i = threadIdx.x; i < ncols * items; i += kThreads) {
+    const int c = i / items, k = i - c * items, t = T * k;
+    const int xl = c / nyl, yl = c - xl * nyl;
+    const float4* rows = s_basis + (xl * dy + yl) * dz * kBasisRow;
+    const float4* w = s_win + k;  // z point t + m at w[(m % T) * wq + m / T]
+    float* u = s_u + c * cv + t * dz;
+    const int real = min(T, zt - t);  // tiles of the item inside the chunk
+    for (int r0 = 0; r0 < dz; r0 += kWalkOffsets) {
+      float acc[T][kWalkOffsets][3] = {};
+#pragma unroll 2  // further, it keeps the loads of later terms and spills
+      for (int q = 0; q < 16; ++q) {  // q = l * 4 + m
+        float4 p[T + 3];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sum += __shfl_down_sync(0xffffffffu, sum, o);
-    if (K == kStats) {
-      lo = fminf(lo, __shfl_down_sync(0xffffffffu, lo, o));
-      hi = fmaxf(hi, __shfl_down_sync(0xffffffffu, hi, o));
-      cnt += __shfl_down_sync(0xffffffffu, cnt, o);
-    }
-  }
-  if (lane == 0) {
-    red[0][warp] = sum;
-    red[1][warp] = lo;
-    red[2][warp] = hi;
-    redc[warp] = cnt;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    sum = red[0][0], lo = red[1][0], hi = red[2][0], cnt = redc[0];
-    for (int w = 1; w < kWarps; ++w) {
-      sum += red[0][w];
-      lo = fminf(lo, red[1][w]);
-      hi = fmaxf(hi, red[2][w]);
-      cnt += redc[w];
-    }
-    if (K == kSsd) {
-      partials[block_index()] = sum;
-    } else {
-      float* row = partials + 4 * block_index();
-      row[0] = sum;
-      row[1] = lo;
-      row[2] = hi;
-      row[3] = (float)cnt;  // at most a block's voxels: exact
+        for (int m = 0; m < T + 3; ++m) {
+#if REPRO_FUSED_SKIP & 32
+          p[m] = make_float4(1.f + (4 * q + m) * 0x1p-9f, 1.f + (4 * q + m) * 0x1p-8f,
+                             1.f + (4 * q + m) * 0x1p-7f, 0.f);
+#else
+          p[m] = w[(q * T + m % T) * wq + m / T];
+#endif
+        }
+#pragma unroll
+        for (int r = 0; r < kWalkOffsets; ++r) {
+          if (r0 + r >= dz) break;
+#if REPRO_FUSED_SKIP & 16
+          const float b[4] = {1.f + (4 * q) * 0x1p-10f, 1.f + (4 * q + 1) * 0x1p-10f,
+                              1.f + (4 * q + 2) * 0x1p-10f, 1.f + (4 * q + 3) * 0x1p-10f};
+#else
+          const float4 bq = rows[(r0 + r) * kBasisRow + q];
+          const float b[4] = {bq.x, bq.y, bq.z, bq.w};
+#endif
+#pragma unroll
+          for (int j = 0; j < T; ++j)
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              acc[j][r][0] = acc[j][r][0] + b[n] * p[j + n].x;
+              acc[j][r][1] = acc[j][r][1] + b[n] * p[j + n].y;
+              acc[j][r][2] = acc[j][r][2] + b[n] * p[j + n].z;
+            }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < T; ++j)
+#pragma unroll
+        for (int r = 0; r < kWalkOffsets; ++r) {
+          if (r0 + r >= dz || j >= real) break;
+          float* v = u + j * dz + r0 + r;
+          v[0] = acc[j][r][0];
+          v[su] = acc[j][r][1];
+          v[2 * su] = acc[j][r][2];
+        }
     }
   }
 }
 
-// The matrix form's ssd kernel (the lerp form's is bsi_fused_walk_kernel).
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-    bsi_fused_ssd_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
-                         const float* __restrict__ mov, const float* __restrict__ fix,
-                         float* __restrict__ partials, TileBlock g, int X, int Y, int Z) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
-  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
-  float acc = 0.f;
-  for (int i = threadIdx.x; i < b.n; i += blockDim.x) {
-    float w;
-    size_t at;
-    if (!b.sample(mov, X, Y, Z, i, &w, &at)) continue;
-    const float e = w - __ldg(fix + at);
-    acc += e * e;
+// The ssd (K = kSsd; partials row: the sum of (w - f)^2), stats (K =
+// kStats; row: sum, min, max, count of w) and ncc (K = kNcc; row: sums of
+// ab, aa, bb with a = w - mu_w, b = f - mu_f, scal = (mu_w, mu_f)) kernels
+// of displacement form F on the forward kernels' blocks (see the header);
+// tabs: the lerp LUTs of x, then y, then z (kLerp) or the (d^3, 64) basis
+// (kMatmul).
+template <int F, int K>
+__global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
+    bsi_fused_walk_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
+                          const float* __restrict__ mov, const float* __restrict__ fix,
+                          const float* __restrict__ scal, float* __restrict__ partials,
+                          FwdBlock g) {
+  extern __shared__ float4 smem4[];
+  WalkSums<K> sums(fix);
+#if REPRO_FUSED_SKIP & 8
+  sums.acc[0] = sums.acc[1] = sums.acc[2] = (float)threadIdx.x;
+  sums.cnt = threadIdx.x;
+#else
+  if (K == kNcc) sums.mu_w = scal[0], sums.mu_f = scal[1];
+  const int tj = blockIdx.x, ti = blockIdx.y, tk0 = blockIdx.z * g.bz;
+  const int x0 = ti * g.dx, y0 = tj * g.dy, z0 = tk0 * g.dz;
+  const int R = walk_run(g);
+  const int run = min(R, g.Z - z0);  // voxels of a column inside the volume
+  const float* aligned = K == kStats ? mov : fix;
+  if (F == kLerp) {
+    const int Q = fwd_column_floats(g);
+    float* s_hy = reinterpret_cast<float*>(smem4 + R);
+    {
+      // the z table: voxel z of a run -> (its tile's offset into the
+      // column's y-stage values, as int bits; the z LUT's t0, t1, s at z %
+      // dz)
+      const float* lz = tabs + 3 * (g.dx + g.dy);
+      const int dz = g.dz;
+      fwd_z_positions(R, 1, dz, [=](int i, int k, int, int r) {
+        smem4[i] = make_float4(__int_as_float(3 * k), lz[r], lz[dz + r], lz[2 * dz + r]);
+      });
+    }
+#if !(REPRO_FUSED_SKIP & 1)
+    fwd_xy_stage<LerpStage, 3>(phi, tabs, g, ti, tj, tk0, s_hy);
+#endif
+    __syncthreads();
+    walk_lines<1>(g, x0, y0, z0, 0, run, aligned, mov, sums,
+                  [&](int xl, int yl, int p, float* u) {
+                 const float4 e = smem4[p];
+                 lerp_z(s_hy + (xl * g.dy + yl) * Q + __float_as_int(e.x), e.y, e.z, e.w, u);
+               });
+  } else {
+    // chunk by chunk: the displacement of its tiles (the next chunk's
+    // window copied meanwhile), then the walk of their voxels
+    const int nyl = min(g.dy, g.Y - y0), ncols = min(g.dx, g.X - x0) * nyl;
+    const int chunk = walk_chunk(g), wq = walk_window_part(g), cv = chunk * g.dz;
+    const int tiles = (run + g.dz - 1) / g.dz;  // tiles of a column inside the volume
+    const int nv = g.dx * g.dy * g.dz, wf = 16 * kWalkTiles * wq;  // float4 a window
+    float4* s_basis = smem4;
+    float4* s_win = s_basis + kBasisRow * nv;  // two windows
+    float* s_u = reinterpret_cast<float*>(s_win + 2 * wf);
+    const int su = ncols * cv;
+#if !(REPRO_FUSED_SKIP & 1)
+    {
+      const float4* b4 = reinterpret_cast<const float4*>(tabs);
+      for (int i = threadIdx.x; i < 16 * nv; i += kThreads)
+        s_basis[(i >> 4) * kBasisRow + (i & 15)] = __ldg(b4 + i);
+    }
+    walk_stage_window(phi, g, ti, tj, tk0, min(chunk, tiles), wq, s_win);
+    cp_async_wait_all();
+#endif
+    __syncthreads();
+    for (int c0 = 0, b = 0; c0 < tiles; c0 += chunk, b ^= 1) {
+      const int zt = min(chunk, tiles - c0);
+#if !(REPRO_FUSED_SKIP & 1)
+      if (c0 + chunk < tiles)  // the next chunk's window, into the other buffer
+        walk_stage_window(phi, g, ti, tj, tk0 + c0 + chunk, min(chunk, tiles - c0 - chunk),
+                          wq, s_win + (b ^ 1) * wf);
+#endif
+#if !(REPRO_FUSED_SKIP & 2)
+      walk_chunk_disp(s_basis, s_win + b * wf, s_u, ncols, nyl, zt, wq, cv, g.dy, g.dz);
+#endif
+      cp_async_wait_all();
+      __syncthreads();  // the chunk's displacement and the next window are in
+      const int za = c0 * g.dz;
+      walk_lines<2>(g, x0, y0, z0, za, min(run, za + zt * g.dz), aligned, mov, sums,
+                    [&](int xl, int yl, int p, float* u) {
+                      const float* up = s_u + (xl * nyl + yl) * cv + p - za;
+                      u[0] = up[0];
+                      u[1] = up[su];
+                      u[2] = up[2 * su];
+                    });
+      __syncthreads();  // the walk has read s_u
+    }
   }
-  const float total = block_reduce<kThreads>(acc, red, SumOp());
-  if (threadIdx.x == 0) partials[block_index()] = total;
-}
-
-// The matrix form's stats kernel (the lerp form's is bsi_fused_walk_kernel).
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-    bsi_fused_stats_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
-                           const float* __restrict__ mov, float* __restrict__ partials,
-                           TileBlock g, int X, int Y, int Z) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
-  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
-  float sum = 0.f, lo = CUDART_INF_F, hi = -CUDART_INF_F, cnt = 0.f;
-  for (int i = threadIdx.x; i < b.n; i += blockDim.x) {
-    float w;
-    size_t at;
-    if (!b.sample(mov, X, Y, Z, i, &w, &at)) continue;
-    sum += w;
-    lo = fminf(lo, w);
-    hi = fmaxf(hi, w);
-    cnt += 1.f;  // at most a block's voxels: exact
-  }
-  float* row = partials + 4 * block_index();
-  const float s = block_reduce<kThreads>(sum, red, SumOp());
-  if (threadIdx.x == 0) row[0] = s;
-  const float mn = block_reduce<kThreads>(lo, red, MinOp());
-  if (threadIdx.x == 0) row[1] = mn;
-  const float mx = block_reduce<kThreads>(hi, red, MaxOp());
-  if (threadIdx.x == 0) row[2] = mx;
-  const float c = block_reduce<kThreads>(cnt, red, SumOp());
-  if (threadIdx.x == 0) row[3] = c;
-}
-
-// scal: (mu_w, mu_f).
-template <int F>
-__global__ void __launch_bounds__(kThreads)
-    bsi_fused_ncc_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
-                         const float* __restrict__ mov, const float* __restrict__ fix,
-                         const float* __restrict__ scal, float* __restrict__ partials,
-                         TileBlock g, int X, int Y, int Z) {
-  extern __shared__ float smem[];
-  __shared__ float red[kThreads];
-  const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
-  stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
-  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
-  const float mu_w = scal[0], mu_f = scal[1];
-  float ab = 0.f, aa = 0.f, bb = 0.f;
-  for (int i = threadIdx.x; i < b.n; i += blockDim.x) {
-    float w;
-    size_t at;
-    if (!b.sample(mov, X, Y, Z, i, &w, &at)) continue;
-    const float a = w - mu_w;
-    const float c = __ldg(fix + at) - mu_f;
-    ab += a * c;
-    aa += a * a;
-    bb += c * c;
-  }
-  float* row = partials + 3 * block_index();
-  const float s0 = block_reduce<kThreads>(ab, red, SumOp());
-  if (threadIdx.x == 0) row[0] = s0;
-  const float s1 = block_reduce<kThreads>(aa, red, SumOp());
-  if (threadIdx.x == 0) row[1] = s1;
-  const float s2 = block_reduce<kThreads>(bb, red, SumOp());
-  if (threadIdx.x == 0) row[2] = s2;
+#endif
+  sums.store(partials);
 }
 
 // An nmi block is two teams of kNmiTeam threads, each with its own staged
@@ -1142,15 +1282,25 @@ inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, i
   return (int)reduce_partials(partials, n_partials, K, mode, out, s);
 }
 
-// The lerp form's ssd or stats kernel on the forward kernels' grid of g.
+// The walk of moment K in either form on the forward kernels' grid; (bx, by)
+// must be (1, 1).
 template <int K>
-inline int launch_walk(const FwdBlock& g, int n_partials, float* partials, float* out,
-                       void* stream, const float* phi, const float* luts,
-                       const float* mov, const float* fix) {
-  if (g.bz < 1) return (int)cudaErrorInvalidValue;
-  return launch_fused(bsi_fused_walk_kernel<K>, fwd_grid(g), walk_smem_bytes(g), n_partials,
-                      K == kSsd ? 1 : 4, K == kSsd ? 0 : 1, partials, out, stream, phi, luts,
-                      mov, fix, partials, g);
+inline int launch_moment(int form, int nx, int ny, int nz, int dx, int dy, int dz, int X,
+                         int Y, int Z, int bx, int by, int bz, int n_partials,
+                         float* partials, float* out, void* stream, const float* phi,
+                         const float* tabs, const float* mov, const float* fix,
+                         const float* scal) {
+  if (bx != 1 || by != 1 || bz < 1 || (form != kLerp && form != kMatmul))
+    return (int)cudaErrorInvalidValue;
+  const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
+  const int lanes = K == kSsd ? 1 : K == kStats ? 4 : 3, mode = K == kStats ? 1 : 0;
+  return form == kLerp
+             ? launch_fused(bsi_fused_walk_kernel<kLerp, K>, fwd_grid(g),
+                            walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials,
+                            out, stream, phi, tabs, mov, fix, scal, partials, g)
+             : launch_fused(bsi_fused_walk_kernel<kMatmul, K>, fwd_grid(g),
+                            walk_smem_bytes<kMatmul>(g), n_partials, lanes, mode, partials,
+                            out, stream, phi, tabs, mov, fix, scal, partials, g);
 }
 
 // The lncc kernel on the column grid of `own`; the window of 9 (the LNCC
@@ -1185,25 +1335,31 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
 
 }  // namespace repro_torch
 
-// Launch variant kernel K<kLerp> or K<kMatmul> on the tile-block grid of g
-// with the displacement staging plus `extra_floats` of shared memory.
-#define REPRO_LAUNCH_FUSED(K, form, extra_floats, n_partials, lanes, mode, ...)      \
-  ((form) == kMatmul                                                                 \
-       ? launch_fused(K<kMatmul>, tile_grid(g, X, Y, Z),                             \
-                      disp_smem_bytes<kMatmul>(g) + sizeof(float) * (extra_floats),  \
-                      n_partials, lanes, mode, partials, out, stream, __VA_ARGS__)   \
-       : launch_fused(K<kLerp>, tile_grid(g, X, Y, Z),                               \
-                      disp_smem_bytes<kLerp>(g) + sizeof(float) * (extra_floats),    \
-                      n_partials, lanes, mode, partials, out, stream, __VA_ARGS__))
-
 // Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all float32 and
 // contiguous.  tabs: the lerp LUTs (form 0) or the (dx*dy*dz, 64) basis
 // (form 1).  partials: n_partials rows of K floats, one row per thread
 // block (the caller sizes it with the same grid); out: K floats.  Each
 // returns the first cudaError_t, or cudaErrorInvalidValue on a size
 // mismatch or an unknown form.  (bx, by, bz): the tiles a block owns; the
-// lerp form's ssd and stats take (1, 1, bz), the forward kernels' blocks
+// ssd, stats and ncc walks take (1, 1, bz), the forward kernels' blocks
 // (kernels/bsi_fused.py:moment_blocks).
+
+// The walk's layout for the dims the entry points take (bx, by and the
+// partials aside): out[0] its chunk (the matrix form's; the lerp form's is
+// bz), out[1] its dynamic shared memory a block in bytes; the layout the
+// launches use, for kernels/bsi_fused.py:moment_blocks to check its own
+// against.
+extern "C" int bsi_fused_walk_layout(int nx, int ny, int nz, int dx, int dy, int dz,
+                                     int X, int Y, int Z, int bx, int by, int bz,
+                                     int form, long long* out) {
+  using namespace repro_torch;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
+  const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
+  out[0] = form == kLerp ? bz : walk_chunk(g);
+  out[1] = (long long)(form == kLerp ? walk_smem_bytes<kLerp>(g)
+                                     : walk_smem_bytes<kMatmul>(g));
+  return 0;
+}
 
 // out: 1 float, the sum of squared differences.
 extern "C" int bsi_fused_ssd_f32(const float* phi, const float* tabs, const float* mov,
@@ -1211,17 +1367,9 @@ extern "C" int bsi_fused_ssd_f32(const float* phi, const float* tabs, const floa
                                  float* out, int nx, int ny, int nz, int dx, int dy,
                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
                                  int form, void* stream) {
-  using namespace repro_torch;
-  if (form == kLerp) {
-    if (bx != 1 || by != 1) return (int)cudaErrorInvalidValue;
-    const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
-    return launch_walk<kSsd>(g, n_partials, partials, out, stream, phi, tabs, mov, fix);
-  }
-  if (form != kMatmul) return (int)cudaErrorInvalidValue;
-  const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return launch_fused(bsi_fused_ssd_kernel<kMatmul>, tile_grid(g, X, Y, Z),
-                      disp_smem_bytes<kMatmul>(g), n_partials, 1, 0, partials, out, stream,
-                      phi, tabs, mov, fix, partials, g, X, Y, Z);
+  return repro_torch::launch_moment<repro_torch::kSsd>(
+      form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out, stream,
+      phi, tabs, mov, fix, nullptr);
 }
 
 // out: 4 floats, the sum, min, max and count of the warped volume.
@@ -1230,18 +1378,9 @@ extern "C" int bsi_fused_stats_f32(const float* phi, const float* tabs, const fl
                                    int ny, int nz, int dx, int dy, int dz, int X, int Y,
                                    int Z, int bx, int by, int bz, int form,
                                    void* stream) {
-  using namespace repro_torch;
-  if (form == kLerp) {
-    if (bx != 1 || by != 1) return (int)cudaErrorInvalidValue;
-    const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
-    return launch_walk<kStats>(g, n_partials, partials, out, stream, phi, tabs, mov,
-                               (const float*)nullptr);
-  }
-  if (form != kMatmul) return (int)cudaErrorInvalidValue;
-  const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return launch_fused(bsi_fused_stats_kernel<kMatmul>, tile_grid(g, X, Y, Z),
-                      disp_smem_bytes<kMatmul>(g), n_partials, 4, 1, partials, out, stream,
-                      phi, tabs, mov, partials, g, X, Y, Z);
+  return repro_torch::launch_moment<repro_torch::kStats>(
+      form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out, stream,
+      phi, tabs, mov, nullptr, nullptr);
 }
 
 // scal: (mu_w, mu_f); out: 3 floats, sum ab, sum aa, sum bb.
@@ -1250,11 +1389,9 @@ extern "C" int bsi_fused_ncc_f32(const float* phi, const float* tabs, const floa
                                  int n_partials, float* out, int nx, int ny, int nz,
                                  int dx, int dy, int dz, int X, int Y, int Z, int bx,
                                  int by, int bz, int form, void* stream) {
-  using namespace repro_torch;
-  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
-  const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  return REPRO_LAUNCH_FUSED(bsi_fused_ncc_kernel, form, 0, n_partials, 3, 0, phi, tabs,
-                            mov, fix, scal, partials, g, X, Y, Z);
+  return repro_torch::launch_moment<repro_torch::kNcc>(
+      form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out, stream,
+      phi, tabs, mov, fix, scal);
 }
 
 // scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; 2 <= bins <= 64;

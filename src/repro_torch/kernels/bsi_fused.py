@@ -31,11 +31,14 @@ variant    result                                                 lanes
            into a ring of ``window`` slices, summed x, y, z
 =========  =====================================================  ===========
 
-The lerp form's ``ssd`` and ``stats`` run on the forward kernels' blocks
-(:func:`moment_blocks`): a block stages the x-y stage of one (x tile, y tile)
-and walks its voxel columns in aligned lines of 32 voxels.  The other
-variants, and every variant in the matrix form, run on blocks of
-:func:`block_tiles` (``lncc``: :func:`lncc_blocks`).
+``ssd``, ``stats`` and ``ncc``, in both forms, run on the forward kernels'
+blocks (:func:`moment_blocks`) and walk a block's voxel columns in aligned
+lines of 32 voxels: the lerp form from the x-y stage of its (x tile, y
+tile), the whole run in one pass; the matrix form chunk by chunk of z
+tiles, each chunk's displacement first summed into shared memory from the
+staged basis and control window, a thread two tiles of a column at a time.
+``nmi`` runs on blocks of :func:`block_tiles`, ``lncc`` on
+:func:`lncc_blocks`.
 
 The ``plain_*`` functions compute the same results in tensor ops, without
 autograd: the displacement (``bsi_ttli.plain`` or ``bsi_matmul.plain``, both
@@ -57,9 +60,10 @@ from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
 __all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "NMI_STRIDE", "MomentBlocks", "block_tiles",
-           "launch", "lncc_blocks", "moment_blocks", "nmi_padded_bins", "nmi_smem_bytes",
-           "nmi_support", "nmi_support_range", "num_partials", "occupancy_key", "plain",
-           "plain_lncc", "plain_ncc", "plain_nmi", "plain_stats", "warped"]
+           "check_walk_layout", "launch", "lncc_blocks", "moment_blocks", "nmi_padded_bins",
+           "nmi_smem_bytes", "nmi_support", "nmi_support_range", "num_partials",
+           "occupancy_key", "plain", "plain_lncc", "plain_ncc", "plain_nmi", "plain_stats",
+           "warped"]
 
 DISP_FORMS = ("lerp", "matmul")
 LANES = {"ssd": 1, "stats": 4, "ncc": 3, "lncc": 2}
@@ -71,6 +75,8 @@ NMI_STRIDE = NMI_CHUNK + 4  # row stride of the staged weights, 4 mod 32 (csrc)
 PARZEN_ZERO_D2 = 208.0
 # shared memory of each of two blocks on one SM: 228 KB less 1 KB reserved a block
 _TWO_BLOCKS_SMEM_BYTES = 233_472 // 2 - 1024
+BASIS_ROW = 17  # float4 between the matrix-form walk's staged basis rows (csrc: kBasisRow)
+WALK_TILES = 2  # z tiles of a column in an item of the matrix-form walk (csrc: kWalkTiles)
 _H100_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -131,10 +137,9 @@ def _disp_smem_bytes(tile, blocks, disp_form) -> int:
 
 
 def block_tiles(tile, disp_form, extra_bytes=0) -> tuple:
-    """Tiles per block of the ncc and nmi kernels, and of the matrix form's
-    ssd and stats (those of ``bsi_ttli.block_tiles``); raises if the
-    displacement stage plus a variant's ``extra_bytes`` does not fit a
-    block."""
+    """Tiles per block of the nmi kernel (those of ``bsi_ttli.block_tiles``);
+    raises if the displacement stage plus the variant's ``extra_bytes`` does
+    not fit a block."""
     blocks = bsi_ttli.block_tiles(tile)
     smem = _disp_smem_bytes(tile, blocks, disp_form) + extra_bytes
     bsi_ttli.check_smem(f"the fused kernel at tile {tile} (disp_form={disp_form!r})",
@@ -144,22 +149,30 @@ def block_tiles(tile, disp_form, extra_bytes=0) -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class MomentBlocks:
-    """The blocks of the lerp form's ssd and stats kernels for one volume
-    (``csrc/bsi_fused.cu``: ``bsi_fused_walk_kernel``).
+    """The blocks of the ssd, stats and ncc kernels for one volume in one
+    displacement form (``csrc/bsi_fused.cu``: ``bsi_fused_walk_kernel``).
 
-    Those of the forward kernels for a 3-channel field
-    (:func:`repro_torch.kernels.bsi_ttli.forward_blocks`): a block owns one
-    (x tile, y tile), so ``dx * dy`` columns of voxels, and ``bz`` tiles
-    along z, ``tiles = (1, 1, bz)``; ``grid`` is the launch's grid, blocks
-    along (y, x, z).  A column's run in a block is ``run = bz * dz`` voxels,
-    walked in lines of 32.  ``smem``: the z table (16 bytes a voxel of a
-    run: its tile's offset into the column's y-stage values and its three z
-    lerp weights) and the y-stage values, ``dx * dy * (bz + 3) * 3``
-    floats."""
+    Those of the forward kernels (:func:`repro_torch.kernels.bsi_ttli.
+    forward_blocks`): a block owns one (x tile, y tile), so ``dx * dy``
+    columns of voxels, and ``bz`` tiles along z, ``tiles = (1, 1, bz)``;
+    ``grid`` is the launch's grid, blocks along (y, x, z).  A column's run
+    in a block is ``run = bz * dz`` voxels, walked in lines of 32.  The lerp
+    form walks the run in one pass (``chunk = bz``).  The matrix form takes
+    it ``chunk`` z tiles at a time (the most that give each thread one item
+    of :data:`WALK_TILES` tiles of a column, at most ``bz``): it computes the
+    chunk's displacement, then walks it.  ``smem``: the lerp form's z table
+    (16 bytes a voxel of a run) and y-stage values, ``dx * dy * (bz + 3) *
+    3`` floats; the matrix form's ``(d^3, 64)`` basis (a row every
+    :data:`BASIS_ROW` float4), two chunks' control windows (``16 *
+    WALK_TILES * window_part(chunk)`` float4 each: each row's z points in
+    ``WALK_TILES`` parts by their remainder; the next chunk's copied while
+    the block computes this one's) and the chunk's displacement (``3 * dx *
+    dy * chunk * dz`` floats)."""
 
     bz: int
     grid: tuple
     run: int
+    chunk: int
     smem: int
 
     @property
@@ -167,25 +180,59 @@ class MomentBlocks:
         return (1, 1, self.bz)
 
 
+def window_part(chunk) -> int:
+    """Float4 of a part of a staged window row of the matrix-form walk
+    (csrc: walk_window_part): the z points of one remainder mod
+    :data:`WALK_TILES` that a chunk's items read."""
+    return (chunk + 2 * WALK_TILES + 1) // WALK_TILES
+
+
 @functools.lru_cache(maxsize=None)
-def moment_blocks(tile, vol_shape) -> MomentBlocks:
-    """The blocks of the lerp form's ssd and stats kernels at ``tile`` for
-    ``vol_shape``; raises if they do not fit (as ``forward_blocks``, whose
-    blocks hold more)."""
-    tile = tuple(int(d) for d in tile)
-    geo = bsi_ttli.forward_blocks(tile, 3, tuple(int(s) for s in vol_shape))
+def moment_blocks(tile, vol_shape, disp_form="lerp") -> MomentBlocks:
+    """The blocks of the ssd, stats and ncc kernels at ``tile`` for
+    ``vol_shape`` in ``disp_form``: the forward kernels' (see
+    :class:`MomentBlocks`); raises if they do not fit (the lerp form: as
+    ``forward_blocks``, whose blocks hold more; the matrix form: its basis
+    and chunk)."""
+    tile, vol_shape = tuple(int(d) for d in tile), tuple(int(s) for s in vol_shape)
+    if disp_form not in DISP_FORMS:
+        raise ValueError(f"unknown disp_form {disp_form!r}; choose from {DISP_FORMS}")
+    geo = bsi_ttli.forward_blocks(tile, 3, vol_shape)
     dx, dy, dz = tile
-    run = geo.bz * dz
-    return MomentBlocks(bz=geo.bz, grid=geo.grid, run=run,
-                        smem=16 * run + 4 * dx * dy * (geo.bz + 3) * 3)
+    if disp_form == "lerp":
+        chunk, smem = geo.bz, 16 * geo.bz * dz + 4 * dx * dy * (geo.bz + 3) * 3
+    else:
+        chunk = min(geo.bz, WALK_TILES * max(1, bsi_ttli.KERNEL_THREADS // (dx * dy)))
+        part = window_part(chunk)
+        smem = (16 * (BASIS_ROW * dx * dy * dz + 2 * 16 * WALK_TILES * part)
+                + 12 * dx * dy * chunk * dz)
+        bsi_ttli.check_smem(f"the fused matrix-form walk at tile {tile}", smem)
+    return MomentBlocks(bz=geo.bz, grid=geo.grid, run=geo.bz * dz, chunk=chunk, smem=smem)
 
 
-def occupancy_key(kind, tile, vol_shape) -> tuple:
-    """``(symbol, smem, grid)`` of the lerp form's ``kind`` kernel (``ssd``
-    or ``stats``): the part of its instantiation's name in its ``-Xptxas
-    -v`` line, its dynamic shared memory a block and its grid."""
-    geo = moment_blocks(tuple(tile), tuple(vol_shape))
-    return f"bsi_fused_walk_kernelILi{('ssd', 'stats').index(kind)}E", geo.smem, geo.grid
+@functools.lru_cache(maxsize=None)
+def check_walk_layout(lib, dims) -> None:
+    """Raise unless ``lib``'s walk (its ``bsi_fused_walk_layout``) lays out a
+    block for ``dims``, the entry points' ``(nx, ny, nz, dx, dy, dz, X, Y, Z,
+    bx, by, bz, form)``, as :func:`moment_blocks` does: the same chunk and
+    dynamic shared memory, so that ``check_smem`` and :func:`occupancy_key`
+    speak of the block the card runs."""
+    out = (ctypes.c_longlong * 2)()
+    rc = lib.bsi_fused_walk_layout(*dims, out)
+    geo = moment_blocks(dims[3:6], dims[6:9], DISP_FORMS[dims[12]])
+    if rc or (out[0], out[1]) != (geo.chunk, geo.smem):
+        raise RuntimeError(
+            f"the walk's layout in csrc (chunk {out[0]}, {out[1]} B; cudaError_t {rc}) is "
+            f"not moment_blocks' (chunk {geo.chunk}, {geo.smem} B) for {dims}")
+
+
+def occupancy_key(kind, disp_form, tile, vol_shape) -> tuple:
+    """``(symbol, smem, grid)`` of the ``kind`` kernel (``ssd``, ``stats`` or
+    ``ncc``) in ``disp_form``: the part of its instantiation's name in its
+    ``-Xptxas -v`` line, its dynamic shared memory a block and its grid."""
+    geo = moment_blocks(tuple(tile), tuple(vol_shape), disp_form)
+    form, moment = DISP_FORMS.index(disp_form), ("ssd", "stats", "ncc").index(kind)
+    return f"bsi_fused_walk_kernelILi{form}ELi{moment}EE", geo.smem, geo.grid
 
 
 def _lncc_smem_bytes(tile, own, window, disp_form) -> int:
@@ -268,9 +315,9 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
            bins=None, sigma=None, eps=None, window=None, extra=None, lib=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
     (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  ``blocks``: the
-    tiles a block owns, ``moment_blocks(...).tiles`` for the lerp form's
-    ``ssd`` and ``stats``; for ``lncc`` the owned tiles and ``extra`` the
-    halo tiles.
+    tiles a block owns, ``moment_blocks(...).tiles`` for ``ssd``, ``stats``
+    and ``ncc``; for ``lncc`` the owned tiles and ``extra`` the halo
+    tiles.
     ``lib``: the loaded kernels (default :func:`load_library`'s; a
     measurement build's, ``load_library(defines)``, to time a variant)."""
     nx, ny, nz, _ = phi.shape
@@ -281,6 +328,8 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
     out = torch.empty(k, dtype=torch.float32, device=phi.device)
     lib = lib or load_library()
     dims = (nx, ny, nz, *tile, X, Y, Z, *blocks, DISP_FORMS.index(disp_form))
+    if kind in ("ssd", "stats", "ncc"):
+        check_walk_layout(lib, dims)
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         if disp_form == "lerp":

@@ -10,9 +10,9 @@ the block decodes once, writing whole rows of the field and only the voxels
 inside the volume.  :func:`plain` is the same function in
 tensor ops; ``kernels.ops.bsi_ttli`` picks between the two by the tensor's
 device.  :func:`block_tiles` and :func:`stage_smem_bytes` size the fused
-ncc and nmi kernels' staging (``csrc/bsi_common.cuh``), which runs the same
-x and y stages; the fused ssd and stats kernels run on
-:func:`forward_blocks` (``kernels.bsi_fused.moment_blocks``).
+nmi kernel's staging (``csrc/bsi_common.cuh``), which runs the same x and y
+stages; the fused ssd, stats and ncc kernels run on :func:`forward_blocks`
+(``kernels.bsi_fused.moment_blocks``).
 """
 
 from __future__ import annotations

@@ -47,7 +47,8 @@ SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",), "bsi_tt.cu": ("-fmad=false",)}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 # C signature of each entry point, one letter per argument (p: pointer, i:
-# int, f: float); each ends with the stream and returns a cudaError_t.
+# int, f: float); each ends with the stream (the layout query with its
+# output) and returns a cudaError_t.
 _SIGNATURES = {
     "bsi_ttli_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, bz
     "bsi_separable_f32": "ppp" + "i" * 11,
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,
     "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iiff",
     "bsi_fused_lncc_f32": "ppppp" + "ip" + _DIMS + "iiii" + "ff",
+    "bsi_fused_walk_layout": _DIMS,  # ..., form; out: chunk, smem (2 long long)
     # q, k, v, out; B, S, H, KV, hd, causal, window; scale, softcap
     "flash_attention_f32": "pppp" + "i" * 7 + "ff",  # flash_attention.cu
     "flash_attention_bf16": "pppp" + "i" * 7 + "ff",  # flash_attention_sm90.cu

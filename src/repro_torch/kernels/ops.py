@@ -213,10 +213,8 @@ def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
 
 
 def _moment_blocks(tile, moving, disp_form):
-    """The blocks of the ssd and stats kernels in ``disp_form``."""
-    if disp_form == "lerp":
-        return _fused.moment_blocks(tile, tuple(int(s) for s in moving.shape)).tiles
-    return _fused.block_tiles(tile, disp_form)
+    """The blocks of the ssd, stats and ncc kernels in ``disp_form``."""
+    return _fused.moment_blocks(tile, tuple(int(s) for s in moving.shape), disp_form).tiles
 
 
 def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
@@ -257,7 +255,7 @@ def fused_ncc_moments(phi, moving, fixed, scal, tile, *, disp_form="lerp"):
         return _fused.plain_ncc(phi, moving, fixed, scal, tile, disp_form=disp_form)
     _check(scal, "scal", 1, phi.device)
     out = _fused.launch("ncc", phi, moving, fixed, tile,
-                        _fused.block_tiles(tile, disp_form), disp_form=disp_form,
+                        _moment_blocks(tile, moving, disp_form), disp_form=disp_form,
                         scal=scal)
     _LAUNCHES[_fused_name("ncc", disp_form)] += 1
     return out

@@ -17,9 +17,13 @@ prompts of ``--seq`` tokens.  The fused NMI kernel's histogram is also
 bound by the least of its forms (:func:`nmi_bound`): one dense product on
 the tensor cores (495 TFLOP/s TF32) or the products of the non-zero Parzen
 weights only, the weights at the bins it evaluates; and its work as the
-kernel does it, three TF32 products, is printed beside.  ``chip_smoke.py``
-uses the same counts for the ported kernels.  Pure arithmetic: it needs no
-card.
+kernel does it, three TF32 products, is printed beside.  The TT and matrix
+forms that round as their plain versions, each product and sum apart
+(``bsi_tt`` and the fused matrix-form ssd, stats and ncc), are printed with
+their own floor beside: their fp32 instructions issued at one warp
+instruction a clock on each scheduler (:func:`unfused_floor_ms`).
+``chip_smoke.py`` uses the same counts for the ported kernels.  Pure
+arithmetic: it needs no card.
 """
 
 from __future__ import annotations
@@ -41,9 +45,14 @@ SERVE_BATCH, SERVE_SEQ = 4, 8160
 # a Parzen weight: subtract, divide, square, scale, exp, its share of the
 # row sum and its normalising divide
 NMI_WEIGHT_OPS = 7
+H100_SMS, SCHEDULERS_PER_SM = 132, 4
+SM_CLOCK_HZ = 1.98e9  # the SM clock under load of the cards measured (nvidia-smi)
+# the TT and matrix forms unfused: a product and a sum for each of 64 terms
+# and 3 channels, a voxel
+UNFUSED_INSTRUCTIONS = 2 * 64 * 3
 
 __all__ = ["attention_bound", "attention_pairs", "kernel_bounds", "bound_ms",
-           "matmul_tf32_ms", "nmi_bound"]
+           "matmul_tf32_ms", "nmi_bound", "unfused_floor_ms"]
 
 
 def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S, tf32_flops=0):
@@ -112,6 +121,17 @@ def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channe
                 bytes=moved, fp32_flops=rest, dense_tf32_flops=dense_tf32,
                 products=products, evaluated=evaluated,
                 work_tf32_ms=3 * dense_tf32 / TF32_FLOP_PER_S * 1e3)
+
+
+def unfused_floor_ms(vol_shape) -> float:
+    """The least time of the TT and matrix forms rounded as their plain
+    versions, no multiply-add fused: :data:`UNFUSED_INSTRUCTIONS` fp32
+    instructions a voxel, each voxel's own, at one warp instruction a clock
+    on each scheduler of the H100's SMs at :data:`SM_CLOCK_HZ`.  Not a bound
+    of the function (another form needs less): the floor of the form that
+    keeps the plain version's bits."""
+    vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
+    return vox * UNFUSED_INSTRUCTIONS / 32 / (H100_SMS * SCHEDULERS_PER_SM) / SM_CLOCK_HZ * 1e3
 
 
 def matmul_tf32_ms(vol_shape, tile, channels=3, max_columns=48) -> tuple:
@@ -210,6 +230,10 @@ def main(argv=None):
               f"{k} {ms:.4f} ms" for k, (ms, _) in nb["forms"].items())
           + f" (at most {nb['products'] / 1e9:.2f} G non-zero pairs); the kernel's "
           f"three TF32 products {nb['work_tf32_ms']:.4f} ms")
+    floor = unfused_floor_ms(args.shape)
+    print(f"{'bsi_tt, fused *_matmul':24s} the form unfused: {UNFUSED_INSTRUCTIONS} fp32 "
+          f"instructions a voxel, {floor:.4f} ms at one warp instruction a clock a "
+          f"scheduler, {H100_SMS} SMs, {SM_CLOCK_HZ / 1e9:.2f} GHz")
     mma, gflop, ms = matmul_tf32_ms(args.shape, args.tile, args.channels)
     print(f"{'bsi_matmul (own work)':24s} three TF32 products: {mma / 1e6:.2f} M "
           f"mma.sync m16n8k8, {gflop:.2f} GFLOP, {ms:.4f} ms at 495 TFLOP/s")

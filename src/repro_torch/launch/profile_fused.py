@@ -1,4 +1,4 @@
-"""Where the time of the fused ssd and stats kernels goes, on the card.
+"""Where the time of the fused moment kernels goes, on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_fused [--shape X Y Z]
         [--tile D D D] [--reps N] [--kernels NAME ...] [--split]
@@ -7,23 +7,27 @@
 Builds the kernels, makes ``make_pair(shape, seed=0)`` (default: the paper's
 phantom1, 512 x 228 x 385) and the control grid of ``chip_smoke.py``'s phase
 3 (seed 0, scaled by 2.5 and then by 0.4, the level's own scale), and
-reports ``ops.fused_ssd_loss`` (``bsi_fused``) on the pair and
-``ops.fused_stats`` (``bsi_fused_stats``) on the moving volume remapped by
-``(1 - v)^1.5``, as ``chip_smoke.py`` runs them (:func:`fused_report`):
-milliseconds a call by CUDA events, the device milliseconds a call of the
-fused kernel and of the lane-wise reduce after it (``torch.profiler``), the
-difference from the plain version relative to it (of the sum; for stats also
-whether min, max and count equal the plain version's), whether two calls are
-bit-equal, the kernel's registers, shared memory, resident blocks an SM and
-grid (``kernels.bsi_fused.occupancy_key``), and the SM clock under load.
-Beside them, a ``sum`` of each volume: the card's own time to read those
-bytes.  ``--split`` also times each kernel with a part left out
-(:func:`fused_split`: measurement builds, ``-DREPRO_FUSED_SKIP``).
-``--sass-against LIB`` compares the SASS (``cuobjdump -sass``) of this
-build's kernels of :data:`SASS_SAME` with that of the library at ``LIB``
-(another build of the kernels, as the parent commit's), function by
-function.  The last line is one JSON object with the numbers.  Needs a CUDA
-device; there is no CPU path.
+reports the fused ssd, stats and ncc kernels in both displacement forms
+(:data:`KERNELS`) through their dispatchers, as ``chip_smoke.py`` runs them:
+``ops.fused_ssd_loss`` on the pair, ``ops.fused_stats`` on the moving volume
+remapped by ``(1 - v)^1.5`` and ``ops.fused_ncc_moments`` on the remapped
+pair, centred by the plain stats' mean and the fixed volume's
+(:func:`fused_report`): milliseconds a call by CUDA events, the device
+milliseconds a call of the fused kernel and of the lane-wise reduce after it
+(``torch.profiler``), the difference of the sums from the plain version
+relative to it (for stats also whether min, max and count equal the plain
+version's), whether two calls are bit-equal, the kernel's registers, shared
+memory, resident blocks an SM and grid (``kernels.bsi_fused.occupancy_key``),
+and the SM clock under load.  Beside them, a ``sum`` of each volume: the
+card's own time to read those bytes.  ``--split`` also times each kernel
+with a part left out (:func:`fused_split`: measurement builds,
+``-DREPRO_FUSED_SKIP``).  ``--sass-against LIB`` compares the SASS
+(``cuobjdump -sass``) of this build's kernels of :data:`SASS_SAME` with that
+of the library at ``LIB`` (another build of the kernels, as the parent
+commit's), function by function.  The last line is one JSON object with the
+numbers.  Needs a CUDA device; there is no CPU path.  To time another
+commit's kernels beside these, run that commit's own copy of the script
+from its tree, in turns with this one.
 """
 
 from __future__ import annotations
@@ -48,20 +52,31 @@ from repro_torch.launch.profile_forward import kernel_occupancy, sm_clock_under_
 __all__ = ["KERNELS", "SASS_SAME", "SKIPS", "fused_report", "fused_split", "inputs",
            "sass_compare"]
 
-KERNELS = {"bsi_fused": "ssd", "bsi_fused_stats": "stats"}
+# launch-count name -> (moment, displacement form)
+KERNELS = {"bsi_fused": ("ssd", "lerp"), "bsi_fused_stats": ("stats", "lerp"),
+           "bsi_fused_ncc": ("ncc", "lerp"), "bsi_fused_matmul": ("ssd", "matmul"),
+           "bsi_fused_stats_matmul": ("stats", "matmul"),
+           "bsi_fused_ncc_matmul": ("ncc", "matmul")}
+# the leading lanes of each moment's row that are sums (the rest of stats'
+# row, min, max and count, is exact)
+SUM_LANES = {"ssd": 1, "stats": 1, "ncc": 3}
 # the parts left out in the measurement builds (csrc/bsi_fused.cu:
-# REPRO_FUSED_SKIP): 1 the x-y stage, 2 the displacement (each voxel sampled
-# at identity), 4 the gathers (the sample is the sum of the voxel's
-# coordinates: the displacement stays, the moving volume is not read); 7 all
-# three; 8 all but the reduction (each thread's sums a constant)
-SKIPS = {"no x-y stage": "REPRO_FUSED_SKIP=1", "identity sample": "REPRO_FUSED_SKIP=2",
+# REPRO_FUSED_SKIP): 1 the staging (the x-y stage; the matrix form's basis
+# and control window), 2 the displacement (each voxel sampled at identity),
+# 4 the gathers (the sample is the sum of the voxel's coordinates: the
+# displacement stays, the moving volume is not read); 7 all three; 8 all but
+# the reduction (each thread's sums a constant); the matrix form's 64-term
+# sum with 16 its basis weights as constants (no basis loads), 32 its
+# window values as constants (no window loads)
+SKIPS = {"no staging": "REPRO_FUSED_SKIP=1", "identity sample": "REPRO_FUSED_SKIP=2",
          "no gathers": "REPRO_FUSED_SKIP=4", "floor": "REPRO_FUSED_SKIP=7",
-         "reduction alone": "REPRO_FUSED_SKIP=8"}
-# the kernels --sass-against compares: every fused kernel but the lerp form's
-# ssd and stats, the lane-wise reduce and the staged forward kernels
-SASS_SAME = ("bsi_fused_ncc_kernel", "bsi_fused_nmi_kernel", "bsi_fused_lncc_kernel",
-             "bsi_fused_ssd_kernelILi1E", "bsi_fused_stats_kernelILi1E",
-             "reduce_partials_kernel", "bsi_ttli_kernel", "bsi_separable_kernel")
+         "reduction alone": "REPRO_FUSED_SKIP=8",
+         "no basis loads": "REPRO_FUSED_SKIP=16", "no window loads": "REPRO_FUSED_SKIP=32"}
+MATMUL_ONLY = ("no basis loads", "no window loads")
+# the kernels --sass-against compares: the fused kernels the walk does not
+# carry, the lane-wise reduce and the staged forward kernels
+SASS_SAME = ("bsi_fused_nmi_kernel", "bsi_fused_lncc_kernel", "reduce_partials_kernel",
+             "bsi_ttli_kernel", "bsi_separable_kernel")
 
 
 def inputs(shape, tile):
@@ -74,31 +89,40 @@ def inputs(shape, tile):
     return phi * 0.4, moving, fixed, (1.0 - moving) ** 1.5
 
 
-def _launch(kind, phi, mov, fix, tile, lib):
-    blocks = bsi_fused.moment_blocks(tile, tuple(mov.shape)).tiles
-    return bsi_fused.launch(kind, phi, mov, fix, tile, blocks, lib=lib)
+def _calls(name, phi, mov, fix, rem, tile, lib=None):
+    """``(call, plain)``: kernel ``name`` on its inputs, through its
+    dispatcher (``lib`` None) or launched from ``lib`` (a measurement build)
+    on the dispatcher's blocks, and its plain version on the same."""
+    kind, form = KERNELS[name]
+    kw = dict(disp_form=form)
+    scal = None
+    if kind == "ssd":
+        vols = (mov, fix)
+        call = lambda: ops.fused_ssd_loss(phi, mov, fix, tile, **kw)
+        plain = lambda: bsi_fused.plain(phi, mov, fix, tile, **kw) / mov.numel()
+    elif kind == "stats":
+        vols = (rem, None)
+        call = lambda: ops.fused_stats(phi, rem, tile, **kw)
+        plain = lambda: bsi_fused.plain_stats(phi, rem, tile, **kw)
+    else:
+        st = bsi_fused.plain_stats(phi, rem, tile, **kw)
+        vols, scal = (rem, fix), torch.stack([st[0] / rem.numel(), fix.mean()])
+        call = lambda: ops.fused_ncc_moments(phi, rem, fix, scal, tile, **kw)
+        plain = lambda: bsi_fused.plain_ncc(phi, rem, fix, scal, tile, **kw)
+    if lib is not None:
+        blocks = bsi_fused.moment_blocks(tile, tuple(mov.shape), form).tiles
+        call = lambda: bsi_fused.launch(kind, phi, *vols, tile, blocks, scal=scal, lib=lib,
+                                        **kw)
+    return call, plain
 
 
-def fused_report(name, phi, mov, fix, tile, reps=20) -> dict:
-    """Kernel ``name`` through its dispatcher on the card: ``ms`` (CUDA
+def fused_report(name, call, plain, reps=20) -> dict:
+    """Kernel ``name`` by ``call``, its dispatcher, on the card: ``ms`` (CUDA
     events), ``kernel_ms`` and ``reduce_ms`` (device time a call of the
     fused kernel and of the reduce, from ``reps`` traced calls),
-    ``rel_err`` (of the sum against the plain version), ``exact`` (stats:
-    min, max and count equal the plain version's), ``bit_equal`` (two calls)
-    and ``plain_ms``."""
-    if KERNELS[name] == "ssd":
-        def call():
-            return ops.fused_ssd_loss(phi, mov, fix, tile)
-
-        def plain():
-            return bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
-    else:
-        def call():
-            return ops.fused_stats(phi, mov, tile)
-
-        def plain():
-            return bsi_fused.plain_stats(phi, mov, tile)
-
+    ``rel_err`` (of the sums against ``plain``, relative to its largest),
+    ``exact`` (the lanes that are not sums equal plain's), ``bit_equal``
+    (two calls) and ``plain_ms``."""
     def calls():
         for _ in range(reps):
             call()
@@ -110,35 +134,38 @@ def fused_report(name, phi, mov, fix, tile, reps=20) -> dict:
     kernel_ms = sum(t for k, t in by_name.items() if "bsi_fused" in k) / reps
     reduce_ms = sum(t for k, t in by_name.items() if "reduce_partials" in k) / reps
     a, b, ref = (v.reshape(-1) for v in (call(), call(), plain()))
-    rel = abs(a[0].item() - ref[0].item()) / abs(ref[0].item())
+    n = SUM_LANES[KERNELS[name][0]]
+    rel = ((a[:n] - ref[:n]).abs().max() / ref[:n].abs().max()).item()
     return dict(ms=ms, kernel_ms=kernel_ms, reduce_ms=reduce_ms, rel_err=rel,
-                exact=bool(torch.equal(a[1:], ref[1:])), bit_equal=bool(torch.equal(a, b)),
+                exact=bool(torch.equal(a[n:], ref[n:])), bit_equal=bool(torch.equal(a, b)),
                 value=a.tolist(), plain=ref.tolist(), plain_ms=cuda_ms(plain, reps=3))
 
 
 def occupancy(lib, name, tile, vol) -> dict:
     """The kernel's ptxas line, its shared memory a block (dynamic and
     static), resident blocks an SM and grid."""
-    symbol, smem, grid = bsi_fused.occupancy_key(KERNELS[name], tile, vol)
+    symbol, smem, grid = bsi_fused.occupancy_key(*KERNELS[name], tile, vol)
     line = [ln for ln in lib.info.ptxas if symbol in ln and "registers" in ln]
     static = int(re.search(r"(\d+) B static smem", line[0]).group(1)) if line else 0
     return kernel_occupancy(lib, symbol, smem + static, grid)
 
 
-def fused_split(phi, mov, fix, rem, tile, names, reps=20) -> dict:
-    """Milliseconds a call of each kernel of ``names`` as built (``full``)
-    and in each measurement build of :data:`SKIPS` (all built in parallel),
-    timed in turns, twice: ``{kernel: {label: [ms, ms]}}``."""
+def fused_split(tensors, tile, names, reps=20) -> dict:
+    """Milliseconds a call of each kernel of ``names`` on ``tensors`` (those of
+    :func:`inputs`), launched from the library as built (``full``) and from
+    each measurement build of :data:`SKIPS` (all built in parallel; the matrix
+    form's parts for its kernels only), timed in turns, twice:
+    ``{kernel: {label: [ms, ms]}}``."""
     with ThreadPoolExecutor(len(SKIPS)) as pool:
         built = list(pool.map(lambda d: load_library((d,)), SKIPS.values()))
     libs = {"full": load_library(), **dict(zip(SKIPS, built))}
-    args = {"bsi_fused": (mov, fix), "bsi_fused_stats": (rem, None)}
-    split = {n: {k: [] for k in libs} for n in names}
+    calls = {n: {k: _calls(n, *tensors, tile, lib)[0] for k, lib in libs.items()
+                 if KERNELS[n][1] == "matmul" or k not in MATMUL_ONLY} for n in names}
+    split = {n: {k: [] for k in calls[n]} for n in names}
     for _ in range(2):
         for n in names:
-            for k, lib in libs.items():
-                split[n][k].append(cuda_ms(
-                    lambda: _launch(KERNELS[n], phi, *args[n], tile, lib), reps))
+            for k, call in calls[n].items():
+                split[n][k].append(cuda_ms(call, reps))
     return split
 
 
@@ -199,21 +226,21 @@ def main(argv=None):
               "library": str(lib.info.path), "build_seconds": lib.info.seconds,
               "sum_ms": sums}
     for name in args.kernels:
-        m, f = (mov, fix) if name == "bsi_fused" else (rem, None)
-        rep = fused_report(name, phi, m, f, tile, args.reps)
+        call, plain = _calls(name, phi, mov, fix, rem, tile)
+        rep = fused_report(name, call, plain, args.reps)
         rep.update(occupancy(lib, name, tile, vol))
-        rep["clock"] = sm_clock_under_load(
-            lambda: _launch(KERNELS[name], phi, m, f, tile, lib))
+        rep["clock"] = sm_clock_under_load(call)
+        occ = (f"{rep['registers']}; {rep['smem']} B of shared memory a block, "
+               f"{rep['blocks_per_sm']} blocks an SM, grid {rep['grid']}; ")
         print(f"{name}: {rep['ms']:.4f} ms a call (device: kernel {rep['kernel_ms']:.4f} "
               f"ms, reduce {rep['reduce_ms']:.4f} ms; plain {rep['plain_ms']:.3f} ms); "
-              f"{rep['value']} against plain {rep['plain']}, relative "
-              f"{rep['rel_err']:.3e}; min, max, count exact: {rep['exact']}; two calls "
-              f"bit-equal: {rep['bit_equal']}; {rep['registers']}; {rep['smem']} B of "
-              f"shared memory a block, {rep['blocks_per_sm']} blocks an SM, grid "
-              f"{rep['grid']}; under load: {rep['clock']} (SM clock, its maximum, power)")
+              f"{rep['value']} against plain {rep['plain']}, sums relative "
+              f"{rep['rel_err']:.3e}; other lanes exact: {rep['exact']}; two calls "
+              f"bit-equal: {rep['bit_equal']}; {occ}under load: {rep['clock']} (SM "
+              "clock, its maximum, power)")
         result[name] = rep
     if args.split:
-        result["split"] = fused_split(phi, mov, fix, rem, tile, args.kernels, args.reps)
+        result["split"] = fused_split((phi, mov, fix, rem), tile, args.kernels, args.reps)
         for name, split in result["split"].items():
             for k, ms in split.items():
                 print(f"  {name} {k}: {', '.join(f'{t:.4f}' for t in ms)} ms")

@@ -241,37 +241,61 @@ def test_stats_and_nmi_are_deterministic(cuda):
     assert torch.equal(h[0], h[1]) and torch.equal(h[0], h[2])
 
 
-# the lerp form's ssd and stats walk the forward kernels' blocks
-# (tests/test_torch_fused_geometry.py): z off the tile, one-tile volumes,
-# tall z over several blocks along z, fewer lines than warps
+# the ssd, stats and ncc kernels walk the forward kernels' blocks in both
+# forms (tests/test_torch_fused_geometry.py): z off the tile, one-tile
+# volumes, tall z over several blocks along z, fewer lines than warps
 WALK_CASES = [((13, 11, 9), (5, 5, 5)), ((12, 11, 9), (5, 4, 3)), ((22, 15, 30), (3, 3, 3)),
               ((11, 12, 45), (7, 6, 5)), ((5, 4, 3), (5, 4, 3)), ((1, 1, 1), (5, 5, 5)),
               ((7, 6, 700), (5, 5, 5)), ((6, 7, 1500), (3, 3, 3))]
 
 
+@pytest.mark.parametrize("form", bsi_fused.DISP_FORMS)
 @pytest.mark.parametrize("vol,tile", WALK_CASES)
-def test_walk_kernels_at_odd_volumes(cuda, vol, tile):
-    """ssd and stats: two calls bit-equal, min, max and count equal to the
-    plain version's, the sums within 1e-5 relative; ncc and nmi on the
-    same inputs still within their limits of their plain versions."""
+def test_walk_kernels_at_odd_volumes(cuda, vol, tile, form):
+    """ssd, stats and ncc in ``form``: two calls bit-equal, min, max and count
+    equal to the plain version's, the sums within 1e-5 relative; nmi on the
+    same inputs still within its limit of its plain version."""
     phi, mov, fix = _fused_inputs(vol, tile, 16, cuda)
-    ssd = [ops.fused_ssd_loss(phi, mov, fix, tile) for _ in range(2)]
-    st = [ops.fused_stats(phi, mov, tile) for _ in range(2)]
+    kw = dict(disp_form=form)
+    name = "" if form == "lerp" else "_matmul"
+    before = {k: _launches(k + name) for k in ("bsi_fused", "bsi_fused_stats",
+                                                "bsi_fused_ncc")}
+    ssd = [ops.fused_ssd_loss(phi, mov, fix, tile, **kw) for _ in range(2)]
+    st = [ops.fused_stats(phi, mov, tile, **kw) for _ in range(2)]
     assert torch.equal(ssd[0], ssd[1]) and torch.equal(st[0], st[1])
-    ref = bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
+    ref = bsi_fused.plain(phi, mov, fix, tile, **kw) / mov.numel()
     assert abs(ssd[0].item() - ref.item()) <= 1e-5 * abs(ref.item())
-    ref = bsi_fused.plain_stats(phi, mov, tile)
+    ref = bsi_fused.plain_stats(phi, mov, tile, **kw)
     assert torch.equal(st[0][1:], ref[1:]) and st[0][3].item() == mov.numel()
     assert abs(st[0][0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
     scal = torch.stack([ref[0] / mov.numel(), fix.mean()])
-    out = ops.fused_ncc_moments(phi, mov, fix, scal, tile)
-    want = bsi_fused.plain_ncc(phi, mov, fix, scal, tile)
-    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    ncc = [ops.fused_ncc_moments(phi, mov, fix, scal, tile, **kw) for _ in range(2)]
+    assert torch.equal(ncc[0], ncc[1])
+    want = bsi_fused.plain_ncc(phi, mov, fix, scal, tile, **kw)
+    assert (ncc[0] - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert {k: _launches(k + name) - n for k, n in before.items()} == dict.fromkeys(before, 2)
     scal = torch.stack([ref[1], ref[2], fix.min(), fix.max()])
-    kw = dict(bins=32, sigma=0.5 / 31, eps=1e-8)
-    out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **kw)
-    want = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **kw)
+    nmi = dict(bins=32, sigma=0.5 / 31, eps=1e-8, **kw)
+    out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **nmi)
+    want = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **nmi)
     assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("form", bsi_fused.DISP_FORMS)
+def test_walk_layout_is_moment_blocks(cuda, form):
+    """The library's walk lays a block out (its chunk and shared memory) as
+    ``moment_blocks`` does, at the walk's odd volumes, phantom1 and its
+    coarse level, at every tile the matrix form fits."""
+    from repro_torch.kernels.build import load_library
+
+    lib = load_library()
+    cases = WALK_CASES + [((512, 228, 385), t) for t in ((5, 5, 5), (3, 3, 3), (7, 6, 5))]
+    cases += [((256, 114, 193), (5, 5, 5))]
+    for vol, tile in cases:
+        grid = ffd.grid_shape_for_volume(vol, tile)
+        blocks = bsi_fused.moment_blocks(tile, vol, form).tiles
+        bsi_fused.check_walk_layout(
+            lib, (*grid, *tile, *vol, *blocks, bsi_fused.DISP_FORMS.index(form)))
 
 
 def test_nmi_dispatcher_refuses_more_bins_than_the_kernel_takes(cuda):
@@ -904,6 +928,17 @@ def fresh_build(tmp_path_factory):
     from repro_torch.kernels import build
 
     return build._build(tmp_path_factory.mktemp("kernels") / "librepro_torch_kernels.so")
+
+
+def test_walk_kernels_do_not_spill(fresh_build):
+    """ptxas's line for each (form, moment) instantiation of the walk, named
+    by ``bsi_fused.occupancy_key``: no spill stores or loads."""
+    for form in bsi_fused.DISP_FORMS:
+        for kind in ("ssd", "stats", "ncc"):
+            symbol, _, _ = bsi_fused.occupancy_key(kind, form, (5, 5, 5), (512, 228, 385))
+            lines = [ln for ln in fresh_build.ptxas if symbol in ln and "registers" in ln]
+            assert len(lines) == 1, (symbol, fresh_build.ptxas)
+            assert "0/0 B spill stores/loads" in lines[0], lines
 
 
 def test_flash_bf16_kernel_does_not_spill(fresh_build):
