@@ -11,7 +11,8 @@ Phases; any failure raises and the script exits nonzero:
 1. the card's name and power limit (nvidia-smi) and the device count;
 2. build the kernels from ``src/repro_torch/csrc`` with nvcc (build seconds,
    registers and spills from ``-Xptxas -v``; the bf16 flash kernel's HGMMA
-   instructions from ``cuobjdump -sass``, asserted, and no spills);
+   instructions from ``cuobjdump -sass``, asserted, and no spills; the
+   float32 flash kernel's HMMA instructions, asserted);
 3. each kernel at the shapes of the paper's phantom1 volume (512, 228, 385),
    tile 5^3, 3 channels (the four forward kernels cropped to the volume):
    compared with its plain version, and timed with CUDA
@@ -96,12 +97,14 @@ Phases; any failure raises and the script exits nonzero:
    ``fused="on"``;
 5. the flash-attention kernels at gemma2-2b's layer (batch 4, 8160 tokens, 8
    query and 4 key/value heads, head dim 256, softcap 50), global and local
-   (window 4096) in bf16 (the tensor-core kernel) and global in float32
-   (the CUDA-core kernel), against their plain version and timed beside it
-   and the bound; the bf16 global layer with softcap 0 too, beside
-   ``scaled_dot_product_attention``, and that case is the kernels line's
-   row.  bf16 is held to ``plain`` at one bf16 step + ``2^-8 max|v|`` and,
-   on exact-score inputs, to its rounding twin at one step (``check_flash``);
+   (window 4096) in bf16 (wgmma) and global in float32 (mma.sync, 3xTF32),
+   against their plain version and timed beside it and the bound; the
+   global layer with softcap 0 too in both, beside
+   ``scaled_dot_product_attention`` (float32 on a pinned backend, named,
+   held to the kernel at 2e-5), and those cases are the kernels line's two
+   rows.  bf16 is held to ``plain`` at one bf16 step + ``2^-8 max|v|`` and,
+   on exact-score inputs, to its rounding twin at one step; float32 at 2e-5,
+   two calls bit-equal (``check_flash``);
 6. the serving path: ``generate`` of gemma2-2b at full width and depth,
    batch 4, 8160-token prompts, 32 greedy tokens, bf16, cold and warm, with
    its launch counts (26 ``flash_attention``, no other kernel); then, at
@@ -109,7 +112,9 @@ Phases; any failure raises and the script exits nonzero:
    steps fed the prompt's next tokens): in float32, logits within 1e-4 of
    the largest and the greedy picks equal; in bf16, logits within twice the
    bf16 plain path's gap to the float32 plain logits (``compare_serve_paths``);
-7. one JSON line of the kernels, the nvidia-smi line, and the result line.
+7. one JSON line of the kernels (the float32 flash row's launches are the
+   float32 serving path's of phase 6), the nvidia-smi line, and the result
+   line.
 
 Float32 convolutions and matrix products are pinned to full fp32
 (``allow_tf32 = False``) so the library yardsticks compute in fp32 too.
@@ -1381,20 +1386,25 @@ def exact_scores(torch, q, k):
 def check_flash(torch):
     """Phase 5: the flash-attention kernels against their plain version at
     gemma2-2b's layer (batch 4, 8160 tokens, 8 query and 4 key/value heads,
-    head dim 256): bf16 (the tensor-core kernel) for a global layer at
-    softcap 50 and 0 and a local one (window 4096, softcap 50), float32
-    (the CUDA-core kernel) for a global layer at softcap 50, and a small
-    non-causal MQA case at head dim 64; each timed beside its plain version
-    and its bound, the softcap-0 layer beside ``scaled_dot_product_attention``
-    (causal, GQA), the same function.  bf16 is held to ``plain`` (float32
-    ``p``) on normal inputs at the derived bound, and on exact-score inputs
-    to the rounding twin (``plain(..., p_dtype=bfloat16)``) at one bf16 step
-    and to ``plain`` again.  Returns the kernel's row (the softcap-0 case,
-    so that its ``ms`` and ``library_ms`` time one function) and every case."""
+    head dim 256): bf16 (wgmma) for a global layer at softcap 50 and 0 and a
+    local one (window 4096, softcap 50), float32 (mma.sync, 3xTF32) for a
+    global layer at softcap 50 and 0, and a small non-causal MQA case at
+    head dim 64 in float32; each timed beside its plain version and its
+    bound, the softcap-0 layers beside ``scaled_dot_product_attention``
+    (causal, GQA), the same function: bf16 as the library picks its backend,
+    float32 on the backend ``launch.profile_flash.sdpa_f32`` pins (named on
+    the line) and held to the kernel at 2e-5, the float32 limit.  bf16 is
+    held to ``plain`` (float32 ``p``) on normal inputs at the derived bound,
+    and on exact-score inputs to the rounding twin (``plain(...,
+    p_dtype=bfloat16)``) at one bf16 step and to ``plain`` again; float32 to
+    ``plain`` at 2e-5, two calls bit-equal.  Returns the kernels' rows (each
+    the softcap-0 case, so that its ``ms`` and ``library_ms`` time one
+    function; the float32 row also its ms at softcap 50) and every case."""
     from repro_torch.kernels import flash_attention, ops
     from repro_torch.launch.bounds import (ATTENTION_LAYER, BF16_FLOP_PER_S,
-                                           FP32_FLOP_PER_S, GEMMA_WINDOW,
-                                           attention_bound, bound_ms)
+                                           GEMMA_WINDOW, attention_bound,
+                                           attention_fp32_bound, bound_ms)
+    from repro_torch.launch.profile_flash import sdpa_f32
 
     H, KV, hd = (ATTENTION_LAYER[k] for k in ("heads", "kv_heads", "head_dim"))
     B, S = SERVE_BATCH, SERVE_PROMPT
@@ -1412,17 +1422,27 @@ def check_flash(torch):
     for name, dtype, window, cap in (("bf16 global", torch.bfloat16, 0, 50.0),
                                      ("bf16 local", torch.bfloat16, GEMMA_WINDOW, 50.0),
                                      ("fp32 global", torch.float32, 0, 50.0),
-                                     ("bf16 global softcap 0", torch.bfloat16, 0, 0.0)):
+                                     ("bf16 global softcap 0", torch.bfloat16, 0, 0.0),
+                                     ("fp32 global softcap 0", torch.float32, 0, 0.0)):
         q, k, v = inputs(dtype)
         kw = dict(window=window, softcap=cap)
         out = ops.flash_attention(q, k, v, **kw)
         ref = flash_attention.plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err, far = flash_close(torch, out, ref, "plain", v)
-        b, f = attention_bound(S, **ATTENTION_LAYER, window=window, batch=B,
-                               itemsize=q.element_size())
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
-        b_ms, b_by = bound_ms(b, f, rate)
+        if dtype == torch.bfloat16:
+            b, f = attention_bound(S, **ATTENTION_LAYER, window=window, batch=B)
+            b_ms, b_by = bound_ms(b, f, BF16_FLOP_PER_S)
+            beside = "bf16"
+        else:
+            # one dense TF32 product; the kernel's own three beside, and the
+            # float32 CUDA cores' time for the same flops
+            fb = attention_fp32_bound(S, **ATTENTION_LAYER, window=window, batch=B)
+            b, f, b_ms, b_by = fb["bytes"], fb["flops"], fb["ms"], fb["by"]
+            beside = (f"one dense TF32 product; the kernel's three TF32 products "
+                      f"{fb['work_tf32_ms']:.4f} ms, the fp32 CUDA cores "
+                      f"{fb['fp32_ms']:.4f} ms")
+            assert torch.equal(out, ops.flash_attention(q, k, v, **kw))  # two calls
         ms = cuda_ms(torch, lambda: ops.flash_attention(q, k, v, **kw))
         plain_ms = cuda_ms(torch, lambda: flash_attention.plain(q, k, v, **kw), reps=3)
         cases[name] = dict(err=err, far=far, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1431,8 +1451,19 @@ def check_flash(torch):
             f"softcap {cap:g}: max |kernel - plain| {err:.3e} ({far} values more than "
             f"one bf16 step apart); kernel {ms:.3f} ms ({f / ms / 1e9:.2f} TFLOP/s), "
             f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, {f / 1e12:.4f} "
-            f"TFLOP, {b / 1e6:.1f} MB)")
-        if cap == 0.0:
+            f"TFLOP, {b / 1e6:.1f} MB; {beside})")
+        if cap == 0.0 and dtype == torch.float32:
+            sdpa, backend = sdpa_f32(q, k, v)
+            lib_err = (out - sdpa()).abs().max().item()
+            library_ms = cuda_ms(torch, sdpa, reps=5)
+            cases[name].update(library_ms=library_ms, library_err=lib_err,
+                               library_backend=backend)
+            log(f"flash_attention {name}: scaled_dot_product_attention float32 (causal, "
+                f"key/value heads repeated, {backend} backend) {library_ms:.4f} ms, the "
+                f"kernel {ms / library_ms:.2f}x that; max |kernel - sdpa| {lib_err:.3e} "
+                "(limit 2e-5)")
+            assert math.isfinite(lib_err) and lib_err <= 2e-5, lib_err
+        elif cap == 0.0:
             library_ms, lib_err = sdpa_yardstick(torch, q, k, v, out)
             cases[name].update(library_ms=library_ms, library_err=lib_err)
             log(f"flash_attention {name}: scaled_dot_product_attention (causal, GQA) "
@@ -1463,14 +1494,22 @@ def check_flash(torch):
                                                            softcap=30.0), "plain", v)
     log(f"flash_attention fp32 (2, 1000, 8|1, 64), not causal, softcap 30: max "
         f"|kernel - plain| {err:.3e} (limit 2e-5)")
-    # the row: the bf16 global layer at softcap 0, the function the library
-    # call computes, so that ms and library_ms compare like with like
-    g = cases["bf16 global softcap 0"]
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention_sm90.cu",
-                replaces="src/repro/kernels/flash_attention.py:90", max_abs_err=g["err"],
-                ms=g["ms"], plain_ms=g["plain_ms"], bound_ms=g["bound_ms"],
-                bound_by=g["bound_by"], library_ms=g["library_ms"]), cases
+    # the rows: the global layer at softcap 0, the function the library call
+    # computes, so that ms and library_ms compare like with like; the float32
+    # kernel's launches are those of the float32 serving comparison
+    rows = []
+    for name, source, dtype in (("flash_attention", "flash_attention_sm90.cu", "bf16"),
+                                ("flash_attention_f32", "flash_attention.cu", "fp32")):
+        g = cases[f"{dtype} global softcap 0"]
+        rows.append(dict(name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+                         replaces="src/repro/kernels/flash_attention.py:90",
+                         max_abs_err=g["err"], ms=g["ms"], plain_ms=g["plain_ms"],
+                         bound_ms=g["bound_ms"], bound_by=g["bound_by"],
+                         library_ms=g["library_ms"], count="flash_attention"))
+    rows[1]["more"] = dict(ms_softcap_50=cases["fp32 global"]["ms"],
+                           plain_ms_softcap_50=cases["fp32 global"]["plain_ms"],
+                           library_backend=cases["fp32 global softcap 0"]["library_backend"])
+    return rows, cases
 
 
 def sdpa_yardstick(torch, q, k, v, out):
@@ -1604,12 +1643,13 @@ def compare_serve_paths(torch, model):
                 picks.append(torch.argmax(logits[:, -1], -1))
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
         expected = only() if plain else only(flash_attention=cfg.num_layers)
-        assert ops.launch_counts() == expected, ops.launch_counts()
-        return out, torch.stack(picks, 1), seconds
+        assert counts == expected, counts
+        return out, torch.stack(picks, 1), seconds, counts
 
-    kern, kern_picks, kern_s = run("float32", plain=False)
-    plain, plain_picks, plain_s = run("float32", plain=True)
+    kern, kern_picks, kern_s, fp32_counts = run("float32", plain=False)
+    plain, plain_picks, plain_s, _ = run("float32", plain=True)
     rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(kern, plain)]
     log(f"fp32 kernel vs plain path, gemma2-2b full depth, prompt {SERVE_PROMPT}, "
         f"{n_dec} decode steps fed the prompt's next tokens: logits max |diff| / max "
@@ -1619,8 +1659,8 @@ def compare_serve_paths(torch, model):
     assert all(math.isfinite(r) and r <= 1e-4 for r in rel), rel
     assert torch.equal(kern_picks, plain_picks)
 
-    kern16, _, kern16_s = run("bfloat16", plain=False)
-    plain16, _, plain16_s = run("bfloat16", plain=True)
+    kern16, _, kern16_s, _ = run("bfloat16", plain=False)
+    plain16, _, plain16_s, _ = run("bfloat16", plain=True)
     errs = [(a - c).abs().max().item() for a, c in zip(kern16, plain)]
     gaps = [(b - c).abs().max().item() for b, c in zip(plain16, plain)]
     log(f"bf16 kernel vs plain path, same prompt and steps: max |logits - fp32 plain| "
@@ -1630,7 +1670,7 @@ def compare_serve_paths(torch, model):
     assert all(math.isfinite(e) and 0 < g and e <= 2 * g for e, g in zip(errs, gaps)), (
         errs, gaps)
     return dict(rel=rel, kernel_s=kern_s, plain_s=plain_s, bf16_err=errs, bf16_gap=gaps,
-                bf16_kernel_s=kern16_s, bf16_plain_s=plain16_s)
+                bf16_kernel_s=kern16_s, bf16_plain_s=plain16_s, fp32_counts=fp32_counts)
 
 
 def main():
@@ -1661,6 +1701,12 @@ def main():
     assert len(hgmma) == 5 and all(hgmma.values()), hgmma
     assert all("0/0 B spill" in ln for ln in lib.info.ptxas
                if "flash_sm90_kernel" in ln and "registers" in ln), lib.info.ptxas
+    # the float32 flash kernel on the tensor cores too: mma.sync TF32 (HMMA)
+    hmma = sass_counts(lib.info.path, "flash_tf32_kernel", "HMMA")
+    head_dims = (re.search(r"ILi(\d+)E", fn).group(1) for fn in hmma)
+    log("flash_attention_f32 SASS: " + ", ".join(
+        f"hd {hd} {n} HMMA" for hd, n in zip(head_dims, hmma.values())))
+    assert len(hmma) == 5 and all(hmma.values()), hmma
     t0 = time.perf_counter()
     stage_libs = nmi_stage_builds()
     log(f"nmi measurement builds ({', '.join(NMI_STAGES.values())}): "
@@ -1683,8 +1729,8 @@ def main():
     auto_counts, auto_call = run_auto_path(torch, fixed, moving)
     del fixed, moving
     torch.cuda.empty_cache()  # the NMI backward's ~44 GiB stay cached otherwise
-    flash_row, flash_call = check_flash(torch)
-    rows.append(flash_row)
+    flash_rows, flash_call = check_flash(torch)
+    rows += flash_rows
     serve_counts, model, serve_call = run_serve_path(torch)
     serve_compare = compare_serve_paths(torch, model)
     # each kernel's launches in the run of its own path: SSD, NMI, NCC, the
@@ -1700,9 +1746,10 @@ def main():
                    "bsi_fused_nmi_matmul": matmul_counts["nmi_matmul"],
                    "bsi_separable": form_counts["separable"],
                    "bsi_tt": form_counts["tt"],
-                   "flash_attention": serve_counts}
+                   "flash_attention": serve_counts,
+                   "flash_attention_f32": serve_compare["fp32_counts"]}
     for r in rows:
-        r["launches"] = path_counts.get(r["name"], counts)[r["name"]]
+        r["launches"] = path_counts.get(r["name"], counts)[r.get("count", r["name"])]
         assert r["launches"] > 0, r
     log(f"nmi call at phantom1: {nmi_call}")
     log("nmi kernel at phantom1: " + "; ".join(f"{r['name']}: {r['nmi']}" for r in rows
@@ -1717,7 +1764,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **r.get("more", {})}
+                                  for r in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

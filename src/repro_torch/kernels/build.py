@@ -42,7 +42,11 @@ FLAGS = (
 # samples, and the stats kernel's min and max, equal the plain version's bit
 # for bit.
 # The TT kernel likewise equals the plain ``bsi_tt`` bit for bit.
-SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",), "bsi_tt.cu": ("-fmad=false",)}
+# The float32 flash kernel at ptxas -O1: at -O3 its scheduler hoists loads
+# past the 255 registers and spills accumulator values (80 bytes at head dim
+# 256), 5% faster on the card but not spill-free (PERF.md, section 6).
+SOURCE_FLAGS = {"bsi_fused.cu": ("-fmad=false",), "bsi_tt.cu": ("-fmad=false",),
+                "flash_attention.cu": ("-Xptxas", "-O1")}
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form

@@ -12,8 +12,11 @@ write no row past ``S``, so any sequence length runs.
   TMA, a producer and two consumer warpgroups over 128 query rows, 64-key
   blocks).  It rounds ``p`` to bf16 for the PV product, as
   ``plain(..., p_dtype=torch.bfloat16)`` does; ``l`` sums the float32 ``p``.
-- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores (64
-  query rows a block), ``p`` in float32 as :func:`plain`.
+- float32: ``csrc/flash_attention.cu``, on the tensor cores too: both
+  products as three TF32 products (mma.sync, 3xTF32: lo.hi + hi.lo + hi.hi,
+  the small ones summed apart), 64 query rows a block in two halves of four
+  warps that take the even and the odd 32-key blocks and merge at the end;
+  ``p`` in float32 as :func:`plain`, held to it at 2e-5.
 
 :func:`plain` computes the function in tensor ops, block by block over the
 same key range, and ``kernels.ops.flash_attention`` picks between kernel and

@@ -13,7 +13,9 @@ of the TT and matrix forms, is not its bound), and prints the larger of bytes / 
 operations / 67 TFLOP/s (H100 SXM fp32 outside the tensor cores) with which
 of the two bounds it; and the same for gemma2-2b's global and local
 attention layers (989 TFLOP/s bf16 on the tensor cores) at ``--batch``
-prompts of ``--seq`` tokens.  The fused NMI kernel's histogram is also
+prompts of ``--seq`` tokens, and in float32 (:func:`attention_fp32_bound`:
+one dense TF32 product at 495 TFLOP/s, the kernel's three TF32 products and
+the float32 CUDA cores' time printed beside).  The fused NMI kernel's histogram is also
 bound by the least of its forms (:func:`nmi_bound`): one dense product on
 the tensor cores (495 TFLOP/s TF32) or the products of the non-zero Parzen
 weights only, the weights at the bins it evaluates; and its work as the
@@ -51,8 +53,8 @@ SM_CLOCK_HZ = 1.98e9  # the SM clock under load of the cards measured (nvidia-sm
 # and 3 channels, a voxel
 UNFUSED_INSTRUCTIONS = 2 * 64 * 3
 
-__all__ = ["attention_bound", "attention_pairs", "kernel_bounds", "bound_ms",
-           "matmul_tf32_ms", "nmi_bound", "unfused_floor_ms"]
+__all__ = ["attention_bound", "attention_fp32_bound", "attention_pairs", "kernel_bounds",
+           "bound_ms", "matmul_tf32_ms", "nmi_bound", "unfused_floor_ms"]
 
 
 def bound_ms(bytes_moved, flops, flop_per_s=FP32_FLOP_PER_S, tf32_flops=0):
@@ -83,6 +85,25 @@ def attention_bound(seq, *, heads, kv_heads, head_dim, causal, window=0, batch=1
     moved = itemsize * batch * seq * head_dim * (2 * heads + 2 * kv_heads)
     pairs = attention_pairs(seq, causal=causal, window=window)
     return moved, 4 * head_dim * heads * batch * pairs
+
+
+def attention_fp32_bound(seq, *, heads, kv_heads, head_dim, causal, window=0,
+                         batch=1) -> dict:
+    """The float32 attention layer's bound, as the nmi kernel's: its two
+    products as one dense TF32 product on the tensor cores (the flops of
+    :func:`attention_bound` at 495 TFLOP/s) against the float32 q, k, v and
+    output read and written once.  Returns ``ms`` and ``by`` (``"bytes"`` or
+    ``"operations"``), ``bytes`` and ``flops``, and beside them
+    ``work_tf32_ms``, the three TF32 products of the kernel's 3xTF32 split
+    at 495 TFLOP/s (the work it does rather than a bound), and
+    ``fp32_ms``, the flops on the float32 CUDA cores at 67 TFLOP/s (the
+    floor of a kernel without the tensor cores)."""
+    moved, flops = attention_bound(seq, heads=heads, kv_heads=kv_heads, head_dim=head_dim,
+                                   causal=causal, window=window, batch=batch, itemsize=4)
+    ms, by = bound_ms(moved, 0, tf32_flops=flops)
+    return dict(ms=ms, by=by, bytes=moved, flops=flops,
+                work_tf32_ms=3 * flops / TF32_FLOP_PER_S * 1e3,
+                fp32_ms=flops / FP32_FLOP_PER_S * 1e3)
 
 
 def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channels=3,
@@ -246,6 +267,12 @@ def main(argv=None):
               f"bound {ms:.4f} ms ({by}); gemma2-2b {layer} layer {ATTENTION_LAYER}, "
               f"window {window}, batch {args.batch}, sequence {args.seq}, {pairs} pairs "
               "per head, bf16, 989 TFLOP/s")
+        fb = attention_fp32_bound(args.seq, **ATTENTION_LAYER, window=window,
+                                  batch=args.batch)
+        print(f"{'  float32':24s} {fb['bytes'] / 1e6:9.1f} MB {fb['flops'] / 1e9:8.2f} GFLOP  "
+              f"bound {fb['ms']:.4f} ms ({fb['by']}, one dense TF32 product at 495 "
+              f"TFLOP/s); the kernel's three TF32 products {fb['work_tf32_ms']:.4f} ms; "
+              f"on the fp32 CUDA cores {fb['fp32_ms']:.4f} ms")
 
 if __name__ == "__main__":
     main()

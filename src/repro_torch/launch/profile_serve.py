@@ -29,9 +29,9 @@ from repro_torch.models import model as M
 def _summary(name, prof, wall, top):
     by_name = device_ms_by_name(prof)
     busy = sum(by_name.values())
-    # the bf16 (tensor-core) and float32 (CUDA-core) flash kernels
+    # the bf16 (wgmma) and float32 (mma.sync 3xTF32) flash kernels
     flash = sum(t for n, t in by_name.items()
-                if "flash_sm90_kernel" in n or "flash_kernel" in n)
+                if "flash_sm90_kernel" in n or "flash_tf32_kernel" in n)
     print(f"{name} (traced): wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
           f"({busy / (wall * 1e3):.1%}), flash_attention kernel {flash:.1f} ms")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]

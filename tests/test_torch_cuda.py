@@ -952,18 +952,30 @@ def test_flash_bf16_kernel_does_not_spill(fresh_build):
                 and "flash_sm90_kernel" in ln]  # no wgmma serialised
 
 
+def test_flash_f32_kernel_does_not_spill(fresh_build):
+    """ptxas's line for each head dim of the float32 entry: no spill stores
+    or loads (the warps hold the 16 x hd float32 accumulator in registers)."""
+    lines = [ln for ln in fresh_build.ptxas if "flash_tf32_kernel" in ln
+             and "registers" in ln]
+    assert len(lines) == len(flash_attention.HEAD_DIMS), fresh_build.ptxas
+    assert all("0/0 B spill stores/loads" in ln for ln in lines), lines
+
+
 def test_flash_bf16_kernel_runs_on_the_tensor_cores(fresh_build):
     """``cuobjdump -sass``: each head dim of the bf16 entry holds HGMMA
-    (wgmma) instructions; the float32 CUDA-core kernel none."""
+    (wgmma) instructions, and each head dim of the float32 entry HMMA
+    (mma.sync TF32) instructions: both kernels compute on the tensor cores."""
     from repro_torch.kernels.build import sass_counts
 
     hgmma = sass_counts(fresh_build.path, "flash_sm90_kernel", "HGMMA")
     assert len(hgmma) == len(flash_attention.HEAD_DIMS) and all(hgmma.values()), hgmma
-    assert not any(sass_counts(fresh_build.path, "flash_kernel", "HGMMA").values())
+    hmma = sass_counts(fresh_build.path, "flash_tf32_kernel", "HMMA")
+    assert len(hmma) == len(flash_attention.HEAD_DIMS) and all(hmma.values()), hmma
 
 
-def test_flash_kernel_is_deterministic(cuda):
-    q, k, v = _flash_inputs((2, 300, 8, 4, 256), torch.bfloat16, cuda, seed=1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_deterministic(cuda, dtype):
+    q, k, v = _flash_inputs((2, 300, 8, 4, 256), dtype, cuda, seed=1)
     a, b = (ops.flash_attention(q, k, v, window=64, softcap=50.0) for _ in range(2))
     assert torch.equal(a, b)
 
