@@ -94,7 +94,22 @@ Phases; any failure raises and the script exits nonzero:
    counts, then resolved again from the disk file with no race; and what
    the default options (``fused="auto"``) resolve to, with the race's
    seconds.  Every run above that counts the fused kernels passes
-   ``fused="on"``;
+   ``fused="on"``.  Then the single-pair workflow beyond the defaults
+   (``check_jvp``, ``run_workflow_paths``, ``compare_workflow_paths``):
+   ``torch.func.jvp`` through the forward kernel against the plain form's;
+   ``affine_register`` with its defaults (SSD, Adam, 60 steps), cold and
+   warm; ``ffd_register`` of the affine warp with ``transform="velocity",
+   regularizer="bending", optimizer="lbfgs", stop=ConvergenceConfig()`` at
+   full depth, cold and warm (steps per level, losses, MAE, peak memory,
+   whether the two calls' grids are bit-equal, the least Jacobian
+   determinant of the field, asserted > 0); Gauss-Newton with the bending
+   energy at ``iters=5``, its forward and adjoint launches asserted equal
+   to their count (``gauss_newton_launches``: each CG iteration one forward
+   on the tangent and one adjoint, the primal linearised once a step); the
+   kernels against the plain path at ``iters=5`` for velocity + bending +
+   Adam, L-BFGS, Gauss-Newton and Adam under ``stop=`` (losses at 1e-4,
+   ``steps`` equal); a small pair with velocity, bending, L-BFGS and
+   ``stop``, card against CPU;
 5. the flash-attention kernels at gemma2-2b's layer (batch 4, 8160 tokens, 8
    query and 4 key/value heads, head dim 256, softcap 50), global and local
    (window 4096) in bf16 (wgmma) and global in float32 (mma.sync, 3xTF32),
@@ -113,8 +128,9 @@ Phases; any failure raises and the script exits nonzero:
    the largest and the greedy picks equal; in bf16, logits within twice the
    bf16 plain path's gap to the float32 plain logits (``compare_serve_paths``);
 7. one JSON line of the kernels (the float32 flash row's launches are the
-   float32 serving path's of phase 6), the nvidia-smi line, and the result
-   line.
+   float32 serving path's of phase 6; the ``bsi_ttli`` and ``bsi_adjoint``
+   rows add their launches on phase 4's velocity and Gauss-Newton paths),
+   the nvidia-smi line, and the result line.
 
 Float32 convolutions and matrix products are pinned to full fp32
 (``allow_tf32 = False``) so the library yardsticks compute in fp32 too.
@@ -1347,6 +1363,182 @@ def _auto_path(torch, fixed, moving, autotune, cache, opts):
         races=[(race.seconds, race.timings) for race in races])
 
 
+def gauss_newton_launches(opts, cg_iters=10):
+    """``bsi_ttli`` and ``bsi_adjoint`` launches of a Gauss-Newton
+    ``ffd_register`` on the kernels: per level one value-and-grad, then per
+    step the linearisation (one forward), ``cg_iters`` products ``J^T J v``
+    (the forward on the tangent, then the adjoint), the LM trial (forward)
+    and a value-and-grad; one forward more for the final warp."""
+    per_step_fwd = 1 + cg_iters + 1 + 1
+    per_step_adj = cg_iters + 1
+    return (opts.levels * (1 + opts.iters * per_step_fwd) + 1,
+            opts.levels * (1 + opts.iters * per_step_adj))
+
+
+def check_jvp(torch, fixed):
+    """Phase 4b: ``torch.func.jvp`` through the analytic BSI on the kernel
+    (two ``bsi_ttli`` launches: the grid and the tangent) against the plain
+    TTLI form's JVP at phantom1, 1e-5 of the largest value."""
+    from repro_torch.core import ffd
+    from repro_torch.kernels import ops
+
+    vol = tuple(fixed.shape)
+    gen = torch.Generator(device=fixed.device).manual_seed(1)
+    gshape = ffd.grid_shape_for_volume(vol, TILE) + (3,)
+    phi = torch.randn(gshape, generator=gen, device=fixed.device)
+    tangent = torch.randn(gshape, generator=gen, device=fixed.device)
+
+    def field(impl, grad_impl):
+        return lambda p: ffd.dense_field(p, TILE, vol, mode="ttli", impl=impl,
+                                         grad_impl=grad_impl)
+
+    ops.reset_launch_counts()
+    _, jv = torch.func.jvp(field("cuda", "cuda"), (phi,), (tangent,))
+    counts = ops.launch_counts()
+    _, ref = torch.func.jvp(field("torch", "autograd"), (phi,), (tangent,))
+    rel = ((jv - ref).abs().max() / ref.abs().max()).item()
+    log(f"jvp through the kernel at {vol}: relative to the plain form's {rel:.3e} "
+        f"(limit 1e-5); launches {counts}")
+    assert counts == only(bsi_ttli=2), counts
+    assert rel <= 1e-5, rel
+
+
+def run_workflow_paths(torch, fixed, moving):
+    """Phase 4b: the single-pair workflow beyond the defaults at phantom1.
+    ``affine_register`` (SSD, Adam, 60 steps) cold and warm; then
+    ``ffd_register`` of its warp with the velocity transform, the bending
+    energy, L-BFGS and early stopping at full depth, cold and warm, its
+    field's least Jacobian determinant; Gauss-Newton with the bending energy
+    at ``iters=5``, its launches counted exactly.  Returns the launch counts
+    of both paths and a summary."""
+    from repro_torch import (ConvergenceConfig, RegistrationOptions, affine_register,
+                             ffd_register, jacobian_determinant)
+    from repro_torch.core import metrics
+    from repro_torch.core.transform import dense_displacement
+    from repro_torch.kernels import ops
+
+    vol = tuple(fixed.shape)
+    out = {}
+    mae0 = metrics.mae(moving, fixed).item()
+    ssd0 = ((moving - fixed) ** 2).mean().item()
+    for label in ("cold", "warm"):
+        aff = affine_register(fixed, moving)
+        mae = metrics.mae(aff.warped, fixed).item()
+        log(f"affine ({label}): {aff.seconds:.3f} s, losses {aff.losses} (SSD at theta "
+            f"= 0: {ssd0:.6f}), MAE {mae0:.6f} -> {mae:.6f}, theta "
+            f"{aff.params.cpu().numpy().round(5).tolist()}")
+        out[f"affine_{label}_s"] = aff.seconds
+    assert aff.losses[-1] < ssd0 and torch.isfinite(aff.params).all()
+    out.update(affine_losses=aff.losses, affine_mae=(mae0, mae))
+
+    opts = RegistrationOptions(transform="velocity", regularizer="bending",
+                               optimizer="lbfgs", stop=ConvergenceConfig())
+    runs = []
+    for label in ("cold", "warm"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = ffd_register(fixed, aff.warped, options=opts)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs.append(res)
+        mae = metrics.mae(res.warped, fixed).item()
+        log(f"velocity + bending + lbfgs + stop ({label}): {res.seconds:.3f} s, steps "
+            f"{res.steps}, losses {res.losses} (each level first -> last step "
+            f"{level_falls(res)}), MAE {mae0:.6f} -> {mae:.6f} (after affine "
+            f"{out['affine_mae'][1]:.6f}), peak device memory {peak:.2f} GiB, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        out[f"velocity_{label}_s"] = res.seconds
+        assert counts["bsi_ttli"] > 0 and counts["bsi_adjoint"] > 0, counts
+        assert counts == only(bsi_ttli=counts["bsi_ttli"],
+                              bsi_adjoint=counts["bsi_adjoint"]), counts
+        assert peak < 80, peak
+    bit_equal = torch.equal(runs[0].params, runs[1].params)
+    log(f"velocity: the two calls' grids bit-equal: {bit_equal}; max |diff| "
+        f"{(runs[0].params - runs[1].params).abs().max().item():.3e}")
+    with torch.no_grad():
+        disp = dense_displacement(opts.transform, res.params, TILE, vol, mode="ttli",
+                                  impl="cuda", grad_impl="cuda")
+        jmin = jacobian_determinant(disp).min().item()
+        del disp
+    log(f"velocity: least Jacobian determinant of the returned field {jmin:.6f}")
+    assert jmin > 0, jmin
+    assert all(math.isfinite(x) for x in res.losses) and mae < mae0, (mae0, mae)
+    vel_counts = counts
+    out.update(velocity_steps=res.steps, velocity_losses=res.losses, velocity_peak_gib=peak,
+               velocity_mae=mae, velocity_jmin=jmin, velocity_bit_equal=bit_equal,
+               velocity_counts={k: v for k, v in counts.items() if v})
+    del runs, res
+
+    gn = RegistrationOptions(optimizer="gauss_newton", regularizer="bending", iters=5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = ffd_register(fixed, moving, options=gn)
+    gn_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd, adj = gauss_newton_launches(gn)
+    vg_only = gn.levels * (gn.iters + 1) + 1
+    log(f"gauss_newton + bending iters=5: {res.seconds:.3f} s, losses {res.losses}, "
+        f"peak device memory {peak:.2f} GiB, launches "
+        f"{ {k: v for k, v in gn_counts.items() if v} } (expected bsi_ttli {fwd}, "
+        f"bsi_adjoint {adj}; the value-and-grads alone {vg_only})")
+    assert gn_counts == only(bsi_ttli=fwd, bsi_adjoint=adj), gn_counts
+    assert gn_counts["bsi_ttli"] > vg_only
+    out.update(gn_s=res.seconds, gn_losses=res.losses, gn_peak_gib=peak,
+               gn_counts={k: v for k, v in gn_counts.items() if v})
+    return vel_counts, gn_counts, out
+
+
+def compare_workflow_paths(torch, fixed, moving):
+    """Phase 4b: the kernels against the plain path at ``iters=5`` for
+    velocity + bending + Adam, L-BFGS, Gauss-Newton and Adam under
+    ``stop=``: the kernel runs launch the forward and adjoint kernels, the
+    plain runs none, per-level losses at 1e-4 and ``steps`` equal; then a small
+    pair with velocity, bending, L-BFGS and ``stop``, the card against the
+    CPU."""
+    from repro_torch import ConvergenceConfig, RegistrationOptions, ffd_register, make_pair
+    from repro_torch.kernels import ops
+
+    paths = {"velocity-bending-adam": dict(transform="velocity", regularizer="bending"),
+             "lbfgs": dict(optimizer="lbfgs"),
+             "gauss_newton": dict(optimizer="gauss_newton"),
+             "adam-stop": dict(stop=ConvergenceConfig(tol=1e-3, patience=2))}
+    for name, fields in paths.items():
+        ops.reset_launch_counts()
+        kern = ffd_register(fixed, moving, options=RegistrationOptions(
+            iters=5, fused="off", **fields))
+        counts = ops.launch_counts()
+        # the race of "auto" may pick any forward form; each runs a kernel
+        forward = sum(counts[k] for k in ("bsi_ttli", "bsi_separable", "bsi_tt",
+                                          "bsi_matmul"))
+        adjoint = counts["bsi_adjoint"] + counts["bsi_adjoint_matmul"]
+        assert forward > 0 and adjoint > 0, (name, counts)
+        ops.reset_launch_counts()
+        plain = ffd_register(fixed, moving, options=RegistrationOptions(
+            iters=5, impl="torch", grad_impl="torch", fused="off", **fields))
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(kern.losses, plain.losses))
+        log(f"{name} iters=5: kernels {kern.losses} steps {kern.steps}, plain "
+            f"{plain.losses} steps {plain.steps}, max relative {rel:.3e} (limit 1e-4); "
+            f"{kern.seconds:.3f} s vs {plain.seconds:.3f} s; kernel launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert rel <= 1e-4 and kern.steps == plain.steps, (rel, kern.steps, plain.steps)
+
+    f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(iters=10, transform="velocity", regularizer="bending",
+                               optimizer="lbfgs",
+                               stop=ConvergenceConfig(tol=5e-2, patience=1))
+    card = ffd_register(f, m, options=opts)
+    host = ffd_register(f, m, options=opts, device="cpu")
+    err = (card.params.cpu() - host.params).abs().max().item()
+    log(f"small pair, velocity + bending + lbfgs + stop: card {card.losses} steps "
+        f"{card.steps}, cpu {host.losses} steps {host.steps}, params max |diff| "
+        f"{err:.3e}")
+    assert card.steps == host.steps
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card.losses, host.losses))
+
+
 SERVE_ARCH = "gemma2-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 8160, 32  # 8160: not a multiple of 64
 
@@ -1727,6 +1919,9 @@ def main():
     matmul_counts = compare_matmul_paths(torch, fixed, moving)
     form_counts, form_calls = run_forward_form_paths(torch, fixed, moving)
     auto_counts, auto_call = run_auto_path(torch, fixed, moving)
+    check_jvp(torch, fixed)
+    vel_counts, gn_counts, workflow = run_workflow_paths(torch, fixed, moving)
+    compare_workflow_paths(torch, fixed, moving)
     del fixed, moving
     torch.cuda.empty_cache()  # the NMI backward's ~44 GiB stay cached otherwise
     flash_rows, flash_call = check_flash(torch)
@@ -1751,6 +1946,11 @@ def main():
     for r in rows:
         r["launches"] = path_counts.get(r["name"], counts)[r.get("count", r["name"])]
         assert r["launches"] > 0, r
+        if r["name"] in ("bsi_ttli", "bsi_adjoint"):
+            # the same kernels' launches on the velocity + L-BFGS path and
+            # on the Gauss-Newton path (phase 4b)
+            r["more"] = dict(r.get("more", {}), launches_velocity_lbfgs=vel_counts[
+                r["name"]], launches_gauss_newton=gn_counts[r["name"]])
     log(f"nmi call at phantom1: {nmi_call}")
     log("nmi kernel at phantom1: " + "; ".join(f"{r['name']}: {r['nmi']}" for r in rows
                                                 if "nmi" in r))
@@ -1758,6 +1958,7 @@ def main():
     for mode, call in form_calls.items():
         log(f"{mode} call at phantom1: {call}")
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
+    log(f"workflow at phantom1: {workflow}")
     log(f"flash_attention at gemma2-2b's layer: {flash_call}")
     log(f"serve call: {serve_call}")
     log(f"serve paths, kernel vs plain: {serve_compare}")

@@ -7,14 +7,28 @@ PyTorch version in the same module, which runs for CPU tensors.
 """
 
 from repro_torch.core.options import RegistrationOptions
-from repro_torch.core.registration import RegistrationResult, ffd_register
+from repro_torch.core.registration import (RegistrationResult, affine_register,
+                                           ffd_register)
+from repro_torch.core.regularizer import bending
+from repro_torch.core.transform import displacement, jacobian_determinant, velocity
 from repro_torch.data.volumes import PAPER_VOLUMES, make_pair, make_phantom
+from repro_torch.engine.convergence import ConvergenceConfig
+from repro_torch.engine.optimizer import adam, gauss_newton, lbfgs
 
 __all__ = [
+    "ConvergenceConfig",
     "PAPER_VOLUMES",
     "RegistrationOptions",
     "RegistrationResult",
+    "adam",
+    "affine_register",
+    "bending",
+    "displacement",
     "ffd_register",
+    "gauss_newton",
+    "jacobian_determinant",
+    "lbfgs",
     "make_pair",
     "make_phantom",
+    "velocity",
 ]

@@ -1,8 +1,9 @@
 """Carry the JAX package's state into this package.
 
 ``grid_from_numpy`` takes a control grid as the JAX package returns it
-(``RegistrationResult.params``, as a numpy array) and
-``options_from_reference`` maps its option values to this package's names
+(``RegistrationResult.params``, as a numpy array), ``theta_from_numpy`` an
+affine ``(3, 4)``, and ``options_from_reference`` maps its option values to
+this package's names and specs, every spec's fields carried over
 (``reference_fields`` maps the BSI axes back), so both packages compute the
 same thing from the same numbers.  ``model_from_numpy`` and
 ``cache_from_numpy`` carry a language model's parameters and its KV cache
@@ -11,17 +12,22 @@ across.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core import regularizer, transform
 from repro_torch.core.options import RegistrationOptions
 from repro_torch.core.similarity import _loss_from_spec
 from repro_torch.device import resolve_device
-from repro_torch.engine.optimizer import AdamOptimizer
+from repro_torch.engine import optimizer
+from repro_torch.engine.convergence import ConvergenceConfig
 from repro_torch.models.model import DecoderLM, map_tree
 
 __all__ = ["IMPL_NAMES", "GRAD_IMPL_NAMES", "cache_from_numpy", "grid_from_numpy",
-           "model_from_numpy", "options_from_reference", "reference_fields"]
+           "model_from_numpy", "options_from_reference", "reference_fields",
+           "theta_from_numpy"]
 
 # The JAX package's value -> this package's value.
 IMPL_NAMES = {"jnp": "torch", "pallas": "cuda"}
@@ -38,11 +44,44 @@ def grid_from_numpy(phi, device) -> torch.Tensor:
     return torch.from_numpy(np.array(phi, dtype=np.float32)).to(device)
 
 
-def _name(value):
-    """A registry name for a value given as a name or as the JAX package's spec."""
-    if isinstance(value, str) or callable(value) or value is None:
+def theta_from_numpy(theta, device) -> torch.Tensor:
+    """A ``(3, 4)`` affine as a contiguous float32 tensor."""
+    if np.shape(theta) != (3, 4):
+        raise ValueError(f"expected a (3, 4) affine, got {np.shape(theta)}")
+    return torch.from_numpy(np.array(theta, dtype=np.float32)).to(device)
+
+
+# The JAX package's spec names -> this package's spec classes, per axis.
+_SPECS = {
+    "transform": {"displacement": transform.DisplacementTransform,
+                  "velocity": transform.VelocityTransform},
+    "regularizer": {"none": regularizer.NoRegularizer,
+                    "bending": regularizer.BendingRegularizer},
+    "optimizer": {"adam": optimizer.AdamOptimizer, "lbfgs": optimizer.LbfgsOptimizer,
+                  "gauss_newton": optimizer.GaussNewtonOptimizer},
+}
+
+
+def _spec(axis, value):
+    """A name passes through; a spec of the JAX package becomes this
+    package's spec of the same name with the same fields."""
+    if isinstance(value, str) or value is None:
         return value
-    return getattr(value, "name", value)
+    cls = _SPECS[axis].get(getattr(value, "name", None))
+    if cls is None:
+        return value  # the options refuse it with the valid names
+    return cls(**{f.name: getattr(value, f.name) for f in dataclasses.fields(cls)})
+
+
+def _stop(value):
+    """The JAX package's ``ConvergenceConfig`` as this package's; anything
+    else passes through for the options to refuse."""
+    if value is None or isinstance(value, ConvergenceConfig):
+        return value
+    if type(value).__name__ != "ConvergenceConfig":
+        return value
+    return ConvergenceConfig(tol=value.tol, patience=value.patience,
+                             max_iters=value.max_iters)
 
 
 def _similarity(value):
@@ -64,8 +103,10 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
     renamed by ``IMPL_NAMES`` and ``GRAD_IMPL_NAMES``; ``"auto"`` keeps its
     name; a value with no counterpart yet raises as the options do.
     A similarity callable of the JAX package maps to this package's callable
-    with the same ``_fused_spec``.  ``fused_reason`` is the JAX package's
-    introspection field and is dropped.
+    with the same ``_fused_spec``; a transform, regularizer or optimizer
+    spec, and a ``ConvergenceConfig``, to this package's with the same
+    fields.  ``fused_reason`` is the JAX package's introspection field and
+    is dropped.
     """
     kw = {k: v for k, v in fields.items() if k != "fused_reason"}
     if "impl" in kw:
@@ -74,15 +115,11 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
         kw["grad_impl"] = GRAD_IMPL_NAMES.get(kw["grad_impl"], kw["grad_impl"])
     if "similarity" in kw:
         kw["similarity"] = _similarity(kw["similarity"])
-    for k in ("transform", "regularizer"):
+    for k in _SPECS:
         if k in kw:
-            kw[k] = _name(kw[k])
-    opt = kw.get("optimizer")
-    if opt is not None and not isinstance(opt, str):
-        if _name(opt) == "adam":
-            kw["optimizer"] = AdamOptimizer(b1=opt.b1, b2=opt.b2, eps=opt.eps)
-        else:
-            kw["optimizer"] = _name(opt)
+            kw[k] = _spec(k, kw[k])
+    if "stop" in kw:
+        kw["stop"] = _stop(kw["stop"])
     return RegistrationOptions(**kw)
 
 

@@ -16,6 +16,8 @@ from repro_torch.core.interpolate import crop_interpolate
 __all__ = [
     "grid_shape_for_volume",
     "dense_field",
+    "identity_grid",
+    "sample_with_gradient",
     "fused_warp_loss",
     "trilinear_sample",
     "warp_volume",
@@ -57,8 +59,7 @@ def upsample_grid(phi, new_shape):
     old = phi.shape[:3]
     axes = [_linspace(0.0, o - 1.0, n, phi.device) for o, n in zip(old, new_shape)]
     coords = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
-    comps = [trilinear_sample(phi[..., k], coords) for k in range(phi.shape[3])]
-    return torch.stack(comps, dim=-1) * 2.0
+    return trilinear_sample(phi, coords) * 2.0
 
 
 def dense_field(phi, tile, vol_shape, *, mode="separable", impl="torch",
@@ -127,17 +128,26 @@ def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separab
                             mode, impl, grad_impl)
 
 
+def identity_grid(shape, dtype=torch.float32, device=None):
+    """The voxel coordinates of an ``(X, Y, Z)`` volume, ``(X, Y, Z, 3)``."""
+    axes = [torch.arange(s, dtype=dtype, device=device) for s in shape]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
 def trilinear_sample(vol, coords):
-    """Sample ``vol`` (X, Y, Z) at continuous voxel coords ``(..., 3)``.
+    """Sample ``vol`` (X, Y, Z, *C) at continuous voxel coords ``(..., 3)``.
 
     Border policy: clamp.  The clamp is ``minimum(maximum(c, 0), n - 1)``, whose
     gradient at a bound is 0.5 as ``jnp.clip``'s is (``torch.clamp`` gives 1):
-    at ``phi = 0`` every border voxel sits exactly on a bound.  Only the
-    coordinates carry a gradient when ``vol`` does not require one, so the
-    backward has no scatter into the volume.
+    at ``phi = 0`` every border voxel sits exactly on a bound.  A corner
+    gathers every channel at once, so a field's channels share the corner
+    indices (and, under autograd, their saved copies).  Only the coordinates
+    carry a gradient when ``vol`` does not require one, so the backward then
+    has no scatter into the volume.
     """
+    chans = vol.dim() - 3
     # bounds built on the device: a host-to-device copy would synchronise
-    hi = torch.stack([coords.new_full((), s - 1.0) for s in vol.shape])
+    hi = torch.stack([coords.new_full((), s - 1.0) for s in vol.shape[:3]])
     c = torch.minimum(torch.maximum(coords, coords.new_zeros(())), hi)
     f = torch.floor(c)
     t = c - f
@@ -146,7 +156,7 @@ def trilinear_sample(vol, coords):
 
     x0, y0, z0 = i0.unbind(-1)
     x1, y1, z1 = i1.unbind(-1)
-    tx, ty, tz = t.unbind(-1)
+    tx, ty, tz = (a.reshape(a.shape + (1,) * chans) for a in t.unbind(-1))
     c00 = vol[x0, y0, z0] * (1 - tx) + vol[x1, y0, z0] * tx
     c01 = vol[x0, y0, z1] * (1 - tx) + vol[x1, y0, z1] * tx
     c10 = vol[x0, y1, z0] * (1 - tx) + vol[x1, y1, z0] * tx
@@ -156,6 +166,18 @@ def trilinear_sample(vol, coords):
     return c0 * (1 - tz) + c1 * tz
 
 
+def sample_with_gradient(vol, coords):
+    """``trilinear_sample(vol, coords)`` of a volume and its derivative in the
+    coordinates, ``(..., 3)``.  A sample depends on its own coordinates
+    alone, so one backward with a unit cotangent gives every sample's
+    gradient, the clamp's 0.5 at a bound included."""
+    with torch.enable_grad():
+        c = coords.detach().requires_grad_(True)
+        values = trilinear_sample(vol.detach(), c)
+        (grad,) = torch.autograd.grad(values, c, torch.ones_like(values))
+    return values.detach(), grad
+
+
 def warp_volume(moving, disp):
     """Resample ``moving`` at identity + displacement (both in voxel units).
 
@@ -163,9 +185,7 @@ def warp_volume(moving, disp):
     """
     coord_dtype = torch.promote_types(disp.dtype, torch.float32)
     disp = disp.to(coord_dtype)
-    axes = [torch.arange(s, dtype=coord_dtype, device=disp.device)
-            for s in moving.shape]
-    ident = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+    ident = identity_grid(moving.shape, coord_dtype, disp.device)
     return trilinear_sample(moving, ident + disp)
 
 

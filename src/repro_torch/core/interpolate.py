@@ -27,7 +27,8 @@ Gradient path
               version, :func:`bsi_adjoint_matmul`, on a CPU tensor).
 
 BSI is linear, so the Function saves no tensors: the backward needs only the
-cotangent, accumulates in fp32 and casts back to the primal dtype.
+cotangent, accumulates in fp32 and casts back to the primal dtype; its
+forward-mode derivative is the forward, kernel or plain, on the tangent.
 """
 
 from __future__ import annotations
@@ -313,18 +314,34 @@ def _forward(phi, tile, vol_shape, mode, impl):
 
 
 class _AnalyticBsi(torch.autograd.Function):
-    """BSI with the analytic adjoint as its backward; saves no tensors."""
+    """BSI with the analytic adjoint as its backward; saves no tensors.
+
+    BSI is linear in the grid, so its forward-mode derivative (``jvp``, for
+    ``torch.func.jvp`` and dual tensors) is the same Function, kernel or
+    plain, applied to the tangent.  It goes through ``apply`` again:
+    ``torch.func`` hands the rule a wrapped tangent with no storage of its
+    own, which only a Function call unwraps for the kernel.
+    """
 
     @staticmethod
-    def forward(ctx, phi, tile, vol_shape, mode, impl, grad_impl):
-        ctx.conf = (tile, tuple(phi.shape[:3]), grad_impl, phi.dtype)
+    def forward(phi, tile, vol_shape, mode, impl, grad_impl):
         return _forward(phi, tile, vol_shape, mode, impl)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        phi, tile, vol_shape, mode, impl, grad_impl = inputs
+        ctx.conf = (tile, tuple(phi.shape[:3]), grad_impl, phi.dtype)
+        ctx.fwd = (tile, vol_shape, mode, impl, grad_impl)
 
     @staticmethod
     def backward(ctx, g):
         tile, grid_shape, grad_impl, dtype = ctx.conf
         dphi = bsi_adjoint(g.contiguous(), tile, grid_shape, impl=grad_impl)
         return dphi.to(dtype), None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, phi_t, *_):
+        return _AnalyticBsi.apply(phi_t.contiguous(), *ctx.fwd)
 
 
 def crop_interpolate(phi, tile, vol_shape, *, mode="separable", impl="torch",

@@ -19,9 +19,12 @@ transposed-matmul adjoint kernel, as in the JAX package.  ``"auto"`` on
 autotuner (``engine.autotune.resolve_options``, which ``ffd_register``
 calls).  The defaults run the kernels, ``mode="ttli", impl="cuda",
 grad_impl="cuda"``, with ``fused="auto"`` as in the JAX package (whose
-defaults are all ``"auto"``).  A value whose module or kernel is not in
-the package yet raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.
+defaults are all ``"auto"``).  ``transform``, ``regularizer``,
+``optimizer`` and ``stop`` take every value the JAX package takes and
+refuse what it refuses: ``fused="on"`` with the velocity transform or with
+Gauss-Newton, Gauss-Newton with a similarity other than SSD, a ``stop``
+that is not a ``ConvergenceConfig``.  ``compute_dtype`` other than None
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -34,15 +37,6 @@ from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, KERNEL_MODES, MODE_N
 __all__ = ["RegistrationOptions"]
 
 _FUSED = ("auto", "on", "off")
-
-# Values the JAX package accepts whose module or kernel is not ported yet,
-# with the ROADMAP.md item that ports them.
-_NOT_YET = {
-    "transform": {"velocity": "queue 1 item 11"},
-    "regularizer": {"bending": "queue 1 item 11"},
-    "optimizer": {"lbfgs": "queue 1 item 12", "gauss_newton": "queue 1 item 12"},
-}
-
 
 def _not_yet(what, item):
     return NotImplementedError(f"{what} is not in the package yet (ROADMAP.md {item})")
@@ -71,16 +65,22 @@ class RegistrationOptions:
     similarity:      ``"ssd"``, ``"ncc"``, ``"lncc"``, ``"nmi"``, a factory
                      variant (``nmi(bins=16)``) or a ``(warped, fixed) ->
                      scalar`` callable.
-    transform:       ``"displacement"``.
-    regularizer:     ``"none"`` (the ``bending_weight`` proxy).
-    stop:            None (a fixed ``iters`` per level).
+    transform:       ``"displacement"`` or ``"velocity"`` (a stationary
+                     velocity field, scaling and squaring), or a spec
+                     (``velocity(squarings=4)``).
+    regularizer:     ``"none"`` (the ``bending_weight`` proxy) or
+                     ``"bending"`` (the analytic energy, in place of the
+                     proxy), or a spec (``bending(weight=5e-3)``).
+    stop:            None (a fixed ``iters`` per level) or an
+                     ``engine.convergence.ConvergenceConfig``.
     fused:           ``"auto"`` (the default): the faster of the fused and
                      unfused level step on the card, ``"off"`` on the CPU
                      and for a similarity with no fused kernel; ``"on"``:
                      the fused level-step kernel (raises for a similarity
                      with none); ``"off"``: the unfused dense field -> warp
                      -> similarity.
-    optimizer:       ``"adam"`` or an ``AdamOptimizer``.
+    optimizer:       ``"adam"``, ``"lbfgs"`` or ``"gauss_newton"`` (needs
+                     ``similarity="ssd"`` and an unfused step), or a spec.
     fused_reason:    why ``fused`` resolved as it did, set by
                      ``engine.autotune.resolve_options`` on its output; None
                      on options built by hand.  Excluded from equality and
@@ -107,8 +107,9 @@ class RegistrationOptions:
     def __post_init__(self):
         from repro_torch.core.regularizer import resolve_regularizer
         from repro_torch.core.similarity import fused_spec, resolve_similarity
-        from repro_torch.core.transform import resolve_transform
-        from repro_torch.engine.optimizer import resolve_optimizer
+        from repro_torch.core.transform import VelocityTransform, resolve_transform
+        from repro_torch.engine.convergence import ConvergenceConfig
+        from repro_torch.engine.optimizer import GaussNewtonOptimizer, resolve_optimizer
 
         tile = tuple(int(t) for t in self.tile)
         if len(tile) != 3 or any(t < 1 for t in tile):
@@ -126,14 +127,8 @@ class RegistrationOptions:
             object.__setattr__(self, name, v)
         if self.fused in (True, False):  # bool spelling
             object.__setattr__(self, "fused", "on" if self.fused else "off")
-        for name, later in _NOT_YET.items():
-            v = getattr(self, name)
-            if isinstance(v, str) and v in later:
-                raise _not_yet(f"{name}={v!r}", later[v])
         if self.compute_dtype is not None:
             raise _not_yet("compute_dtype", "queue 1 item 18")
-        if self.stop is not None:
-            raise _not_yet("stop=", "queue 1 item 9")
         for name, allowed in (("mode", MODE_NAMES + ("auto",)),
                               ("impl", IMPLS + ("auto",)),
                               ("grad_impl", GRAD_IMPLS + ("auto",)), ("fused", _FUSED)):
@@ -160,3 +155,50 @@ class RegistrationOptions:
         object.__setattr__(self, "transform", resolve_transform(self.transform))
         object.__setattr__(self, "regularizer", resolve_regularizer(self.regularizer))
         object.__setattr__(self, "optimizer", resolve_optimizer(self.optimizer))
+        if self.fused == "on" and isinstance(self.transform, VelocityTransform):
+            raise ValueError(
+                "fused='on' is incompatible with transform='velocity': the fused "
+                "level step cannot interleave the scaling-and-squaring compositions; "
+                "use fused='auto' or 'off'")
+        if isinstance(self.optimizer, GaussNewtonOptimizer):
+            sim_key, _ = resolve_similarity(self.similarity)
+            if sim_key != "ssd":
+                raise ValueError(
+                    "optimizer='gauss_newton' needs the least-squares residual form "
+                    f"only similarity='ssd' provides, got similarity={self.similarity!r}; "
+                    "use optimizer='lbfgs' for other similarities")
+            if self.fused == "on":
+                raise ValueError(
+                    "fused='on' is incompatible with optimizer='gauss_newton': the "
+                    "fused level step never forms the residual volume Gauss-Newton "
+                    "linearises; use fused='auto' or 'off'")
+        if self.stop is not None and not isinstance(self.stop, ConvergenceConfig):
+            raise TypeError(
+                f"stop must be a ConvergenceConfig or None, got {self.stop!r}; "
+                "e.g. stop=ConvergenceConfig(tol=1e-4)")
+
+    def replace(self, **changes) -> "RegistrationOptions":
+        """A copy with the given fields replaced (validated again)."""
+        return dataclasses.replace(self, **changes)
+
+    def normalized(self) -> "RegistrationOptions":
+        """The canonical copy: ``similarity`` as its registry key and ``stop``
+        with ``max_iters`` resolved against ``iters``."""
+        from repro_torch.core.similarity import resolve_similarity
+        from repro_torch.engine.convergence import check_stop
+
+        sim_key, _ = resolve_similarity(self.similarity)
+        return dataclasses.replace(self, similarity=sim_key,
+                                   stop=check_stop(self.stop, self.iters))
+
+    def for_affine(self) -> "RegistrationOptions":
+        """The options of the affine path: it reads only ``iters``, ``lr``,
+        ``similarity``, ``stop`` and ``optimizer``, so every FFD field is
+        pinned to this package's default, and ``fused`` to ``"off"`` (the
+        affine model has no level step to fuse)."""
+        base = RegistrationOptions()
+        return self.normalized().replace(
+            tile=base.tile, levels=base.levels, bending_weight=base.bending_weight,
+            mode=base.mode, impl=base.impl, grad_impl=base.grad_impl,
+            compute_dtype=base.compute_dtype, transform=base.transform,
+            regularizer=base.regularizer, fused="off")

@@ -8,7 +8,8 @@ the caller may leave any of them ``"auto"``: the tuner times the candidate
 forms on the workload the registration loop runs and caches the winner:
 
 * in-process, keyed by ``device|grid|tile`` and what else changes
-  the measurement (the similarity, the candidate list);
+  the measurement (the similarity, the velocity transform, a non-default
+  optimiser, the candidate list);
 * on disk as JSON, at ``$REPRO_TORCH_AUTOTUNE_CACHE`` or
   ``~/.cache/repro_torch/bsi_autotune.json``.  The file is versioned
   (``SCHEMA_VERSION``, entries under ``{"__schema__": N, "entries": {...}}``)
@@ -229,7 +230,8 @@ def _tensor(values, device):
 
 
 def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
-                 reps=3, cache_path=None, stop=None) -> BsiChoice:
+                 reps=3, cache_path=None, stop=None, transform=None,
+                 optimizer=None) -> BsiChoice:
     """Time one registration-step gradient of each candidate BSI form on
     ``device`` and return (and cache) the fastest.
 
@@ -250,12 +252,21 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
       stop: must be None.  The workload is one fixed step: early stopping
         changes how many steps run, not the per-step cost a form is ranked
         on.
+      transform: the options' transform; under ``velocity`` the workload
+        integrates the field by scaling and squaring before the warp, and
+        the key gains ``|tf=...``.
+      optimizer: the options' optimiser.  The workload stays the one
+        forward and backward step every optimiser runs, but a non-default
+        optimiser keys its entry apart (``|opt=...``).
     """
     if stop is not None:
         raise ValueError(
             "autotune_bsi times a fixed-iteration workload; stop= must be None "
             "(early stopping changes step count, not per-step cost)")
     from repro_torch.core.ffd import warp_volume
+    from repro_torch.core.transform import (VelocityTransform, resolve_transform,
+                                            scaling_and_squaring, transform_token)
+    from repro_torch.engine.optimizer import optimizer_token
 
     device = torch.device(device)
     grid_shape = tuple(int(g) for g in grid_shape)
@@ -264,7 +275,12 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
              if candidates is None else tuple(tuple(c) for c in candidates))
     if not cands:
         raise ValueError(f"no BSI candidate to time among {candidates}")
+    tspec = None if transform is None else resolve_transform(transform)
+    velocity = isinstance(tspec, VelocityTransform)
+    opt_token = None if optimizer is None else optimizer_token(optimizer)
     key = (_key(device, grid_shape, tile) + f"|grad|sim={similarity_token(similarity)}"
+           + (f"|tf={transform_token(tspec)}" if velocity else "")
+           + ("" if opt_token in (None, "adam") else f"|opt={opt_token}")
            + "|" + ",".join("/".join(c) for c in cands))
     cache_path = default_cache_path() if cache_path is None else cache_path
     choice = _cached(cache_path, key)
@@ -283,6 +299,8 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
         def fn():
             p = phi.detach().requires_grad_(True)
             out = interpolate(p, tile, mode=mode, impl=impl, grad_impl=grad_impl)
+            if velocity:
+                out = scaling_and_squaring(out, tspec.squarings)
             torch.autograd.grad(sim_fn(warp_volume(mov, out), fix), p)
         return fn
 
@@ -418,7 +436,8 @@ def resolve_options(options, vol_shape, device):
     unfused winner on the volume (:func:`autotune_fused`); on the CPU it
     resolves ``"off"`` without a race (the kernels' plain versions run
     there, and their time says nothing of the card); a similarity with no
-    fused kernel resolves ``"off"``.  Cached on ``(options, vol_shape,
+    fused kernel, the velocity transform and Gauss-Newton resolve ``"off"``
+    without a race.  Cached on ``(options, vol_shape,
     device)``; ``fused_reason`` is left out of the options' equality, so it
     never splits that cache.
     """
@@ -431,12 +450,24 @@ def resolve_options(options, vol_shape, device):
     device = torch.device(device)
     vol_shape = tuple(int(s) for s in vol_shape)
     grid_shape = ffd.grid_shape_for_volume(vol_shape, options.tile)
+    from repro_torch.core.transform import VelocityTransform
+    from repro_torch.engine.optimizer import GaussNewtonOptimizer
+
     mode, impl, grad_impl = resolve_bsi(
         options.mode, options.impl, grid_shape, options.tile, device=device,
-        grad_impl=options.grad_impl, similarity=options.similarity)
+        grad_impl=options.grad_impl, similarity=options.similarity,
+        transform=options.transform, optimizer=options.optimizer)
+    is_velocity = isinstance(options.transform, VelocityTransform)
+    is_gn = isinstance(options.optimizer, GaussNewtonOptimizer)
     fused, reason = options.fused, f"forced {options.fused}"
     if fused == "auto":
-        if fused_spec(options.similarity) is None:
+        if is_velocity:
+            fused, reason = "off", ("velocity transform: the fused level step has "
+                                    "no scaling-and-squaring composition")
+        elif is_gn:
+            fused, reason = "off", ("gauss_newton optimiser: the fused level step "
+                                    "never materialises the residual volume")
+        elif fused_spec(options.similarity) is None:
             fused, reason = "off", "unsupported: similarity has no fused kernel"
         elif device.type != "cuda":
             fused, reason = "off", (

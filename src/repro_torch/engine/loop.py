@@ -2,7 +2,8 @@
 
 JAX's ``lax.scan`` over optimiser steps becomes a Python loop: PyTorch runs
 eagerly, so each step's kernels are queued on the stream as the loop runs,
-and the trace stays on the device until the caller reads it.
+and the trace stays on the device until the caller reads it.  With
+``stop=`` the loop is ``engine.convergence.optimize_until``.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.options import RegistrationOptions
+from repro_torch.engine.convergence import check_stop, optimize_until
 from repro_torch.engine.optimizer import (Objective, init_state, make_objective,
                                           opt_step, resolve_optimizer)
 
@@ -20,8 +22,9 @@ def optimize_scan(obj, params, *, optimizer, iters, lr):
     """Run ``iters`` optimiser steps from ``params``.
 
     One value-and-grad at ``params`` seeds the first step; each step then
-    updates and evaluates at the new params.  Returns ``(params, trace)``
-    where ``trace[k]`` is the loss after ``k+1`` steps.
+    updates and evaluates at the new params (a rejected second-order step
+    leaves them in place).  Returns ``(params, trace)`` where ``trace[k]``
+    is the loss after ``k+1`` steps.
     """
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
@@ -30,7 +33,7 @@ def optimize_scan(obj, params, *, optimizer, iters, lr):
     loss, g = obj.vg(params)
     p, trace = params.detach(), []
     for k in range(iters):
-        p, opt, g, loss = opt_step(spec, obj, k, p, opt, g, loss, lr=lr)
+        p, opt, g, loss, _ = opt_step(spec, obj, k, p, opt, g, loss, lr=lr)
         trace.append(loss)
     return p, torch.stack(trace)
 
@@ -40,17 +43,22 @@ def make_adam_runner(loss_builder, *, options):
 
     ``loss_builder(*data)`` returns the scalar loss of the params or an
     :class:`~repro_torch.engine.optimizer.Objective`; ``options`` supplies
-    ``iters``, ``lr`` and ``optimizer`` (whose spec carries Adam's ``b1``,
-    ``b2`` and ``eps``).
+    ``iters``, ``lr``, ``optimizer`` (whose spec carries its own
+    hyperparameters) and ``stop``.  With a ``ConvergenceConfig`` the runner
+    returns ``(params, trace, steps_taken)``, the trace padded to
+    ``stop.max_iters`` (``engine.convergence``).
     """
     if not isinstance(options, RegistrationOptions):
         raise TypeError(f"options must be a RegistrationOptions, got {options!r}")
     spec = resolve_optimizer(options.optimizer)
+    stop = check_stop(options.stop, options.iters)
 
     def run(p, *data):
         built = loss_builder(*data)
         obj = built if isinstance(built, Objective) else make_objective(built)
-        return optimize_scan(obj, p, optimizer=spec, iters=options.iters,
-                             lr=options.lr)
+        if stop is None:
+            return optimize_scan(obj, p, optimizer=spec, iters=options.iters,
+                                 lr=options.lr)
+        return optimize_until(obj, p, optimizer=spec, stop=stop, lr=options.lr)
 
     return run

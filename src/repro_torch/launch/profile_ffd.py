@@ -3,7 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_ffd [--shape X Y Z]
         [--iters N] [--calls K] [--top T] [--similarity NAME] [--remap]
         [--mode ttli|separable|tt|matmul|auto] [--grad-impl cuda|matmul|auto]
-        [--fused on|off|auto]
+        [--fused on|off|auto] [--transform displacement|velocity]
+        [--regularizer none|bending] [--optimizer adam|lbfgs|gauss_newton]
+        [--stop TOL]
 
 Builds the kernels (printing the build seconds), makes ``make_pair(shape,
 seed=0)`` (default: the paper's phantom1, 512 x 228 x 385), with ``--remap``
@@ -13,7 +15,9 @@ the default options (the kernels), ``--similarity`` (default ``ssd``;
 ``nmi`` and ``ncc`` run the two-pass fused kernels, ``lncc`` the one-pass
 marching-column kernel), ``--mode`` (the forward kernel; ``matmul`` also the fused
 step's matrix-form displacement), ``--grad-impl`` (``matmul``: the
-transposed-matmul adjoint) and ``--fused`` under ``torch.profiler``,
+transposed-matmul adjoint), ``--fused``, ``--transform``,
+``--regularizer``, ``--optimizer`` and ``--stop`` (early stopping at that
+relative tolerance, ``ConvergenceConfig(tol=TOL)``) under ``torch.profiler``,
 printing the host-side calls that took the most time (the first call pays
 one-off costs beyond the build).  ``auto`` on ``--mode`` (with ``impl``
 then ``auto`` too), ``--grad-impl`` or ``--fused`` is resolved by the
@@ -36,7 +40,8 @@ import time
 
 import torch
 
-from repro_torch import PAPER_VOLUMES, RegistrationOptions, ffd_register, make_pair
+from repro_torch import (PAPER_VOLUMES, ConvergenceConfig, RegistrationOptions,
+                         ffd_register, make_pair)
 from repro_torch.device import card_name, device_ms_by_name, traced
 from repro_torch.engine.autotune import RACES, resolve_options
 from repro_torch.kernels.build import load_library
@@ -75,6 +80,12 @@ def main(argv=None):
                     choices=["ttli", "separable", "tt", "matmul", "auto"])
     ap.add_argument("--grad-impl", default="cuda", choices=["cuda", "matmul", "auto"])
     ap.add_argument("--fused", default="on", choices=["on", "off", "auto"])
+    ap.add_argument("--transform", default="displacement",
+                    choices=["displacement", "velocity"])
+    ap.add_argument("--regularizer", default="none", choices=["none", "bending"])
+    ap.add_argument("--optimizer", default="adam",
+                    choices=["adam", "lbfgs", "gauss_newton"])
+    ap.add_argument("--stop", type=float, default=None, metavar="TOL")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ffd: needs a CUDA device")
@@ -87,7 +98,10 @@ def main(argv=None):
     opts = RegistrationOptions(iters=args.iters, similarity=args.similarity,
                                mode=args.mode, grad_impl=args.grad_impl,
                                impl="auto" if args.mode == "auto" else "cuda",
-                               fused=args.fused)
+                               fused=args.fused, transform=args.transform,
+                               regularizer=args.regularizer, optimizer=args.optimizer,
+                               stop=None if args.stop is None
+                               else ConvergenceConfig(tol=args.stop))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     resolved = resolve_options(opts, tuple(fixed.shape), torch.device("cuda"))
@@ -112,7 +126,8 @@ def main(argv=None):
     host_top = [[a.key, a.count, a.self_cpu_time_total / 1e3] for a in host[: args.top]]
     print(f"card: {card}; shape {tuple(args.shape)}, iters {args.iters}, "
           f"similarity {args.similarity}, remap {args.remap}, mode {args.mode}, "
-          f"grad_impl {args.grad_impl}; "
+          f"grad_impl {args.grad_impl}, transform {args.transform}, regularizer "
+          f"{args.regularizer}, optimizer {args.optimizer}, stop {args.stop}; "
           f"kernel build {build_s:.2f} s")
     print(f"first call (traced): wall {cold_wall * 1e3:.1f} ms; host self time by op:")
     for key, count, ms in host_top:
@@ -144,7 +159,8 @@ def main(argv=None):
     print(json.dumps({
         "card": card, "shape": list(args.shape), "iters": args.iters,
         "similarity": args.similarity, "remap": args.remap, "mode": args.mode,
-        "grad_impl": args.grad_impl, "fused": args.fused,
+        "grad_impl": args.grad_impl, "fused": args.fused, "transform": args.transform,
+        "regularizer": args.regularizer, "optimizer": args.optimizer, "stop": args.stop,
         "resolved": [resolved.mode, resolved.impl, resolved.grad_impl, resolved.fused],
         "resolve_seconds": resolve_s, "resolve_peak_gib": resolve_peak, "races": races,
         "build_seconds": build_s, "peak_gib": peak,

@@ -355,6 +355,45 @@ def test_resolve_options_passes_concrete_options_through():
         autotune.resolve_options("ttli", (20, 20, 20), CPU)
 
 
+@pytest.mark.parametrize("fields", [dict(transform="velocity"),
+                                    dict(optimizer="gauss_newton")],
+                         ids=["velocity", "gauss_newton"])
+def test_fused_auto_resolves_off_without_a_race_for_velocity_and_gauss_newton(fields):
+    """Neither has a fused level step: ``"auto"`` resolves ``"off"`` with the
+    reference's reason, on any device, and nothing is raced."""
+    opts = RegistrationOptions(mode="ttli", impl="torch", grad_impl="torch", **fields)
+    resolved = autotune.resolve_options(opts, (20, 20, 20), CPU)
+    ref = rautotune.resolve_options(RefOptions(
+        mode="ttli", impl="jnp", grad_impl="jnp", **fields), (20, 20, 20))
+    assert resolved.fused == ref.fused == "off"
+    assert resolved.fused_reason == ref.fused_reason
+    assert autotune.RACES == []
+    with pytest.raises(ValueError, match="fused='on'"):
+        RegistrationOptions(fused="on", **fields)
+
+
+def test_velocity_and_optimizer_key_their_races_apart(tmp_path):
+    """Velocity times scaling and squaring before the warp and keys
+    ``|tf=``; a non-default optimiser keys ``|opt=``; the defaults add
+    neither, so their entries stay valid."""
+    cache = tmp_path / "bsi_autotune.json"
+    for kw in (dict(), dict(transform="velocity"), dict(optimizer="lbfgs"),
+               dict(transform="displacement", optimizer="adam")):
+        autotune_bsi(GRID, TILE, device=CPU, reps=1, cache_path=str(cache),
+                     candidates=PAIR, **kw)
+    keys = sorted(json.loads(cache.read_text())["entries"])
+    assert len(keys) == 3 and len(autotune.RACES) == 3  # the defaults hit
+    assert sum("|tf=velocity(squarings=6)|" in k for k in keys) == 1
+    assert sum("|opt=lbfgs(history=10,max_ls=10)|" in k for k in keys) == 1
+    plain = [k for k in keys if "|tf=" not in k and "|opt=" not in k]
+    assert plain == ["cpu|g7x7x7|t2x2x2|c3|grad|sim=ssd|"
+                     "ttli/torch/torch,separable/torch/torch"]
+    ref_key_parts = ("|tf=velocity(squarings=6)", "|opt=lbfgs(history=10,max_ls=10)")
+    from repro.core.transform import transform_token as rtoken
+    from repro.engine.optimizer import optimizer_token as rotoken
+    assert ref_key_parts == (f"|tf={rtoken('velocity')}", f"|opt={rotoken('lbfgs')}")
+
+
 def test_autotune_rejects_stop():
     with pytest.raises(ValueError, match="stop"):
         autotune_bsi((8, 8, 8), (3, 3, 3), device=CPU, stop=object())

@@ -1020,3 +1020,115 @@ def test_generate_on_card_matches_cpu(cuda):
     logits, _ = make_prefill_step(cfg, card)({"tokens": batch["tokens"].to(cuda)})
     ref, _ = make_prefill_step(cfg, host)(batch)
     np.testing.assert_allclose(logits.cpu().numpy(), ref.numpy(), atol=1e-4, rtol=1e-4)
+
+
+# --- the single-pair workflow beyond the defaults
+
+
+@pytest.mark.parametrize("mode", ["ttli", "separable", "matmul"])
+def test_bsi_jvp_runs_the_forward_kernel(cuda, mode):
+    """``torch.func.jvp`` through the analytic BSI launches the forward
+    kernel on the tangent and equals the plain form's JVP at 1e-5."""
+    vol, tile = (40, 33, 47), (5, 5, 5)
+    phi, tangent = _grid(vol, tile, 3, 0, cuda), _grid(vol, tile, 3, 1, cuda)
+    ops.reset_launch_counts()
+    out, jv = torch.func.jvp(
+        lambda p: ffd.dense_field(p, tile, vol, mode=mode, impl="cuda", grad_impl="cuda"),
+        (phi,), (tangent,))
+    assert _launches(f"bsi_{mode}") == 2  # the primal and the tangent
+    _, ref = torch.func.jvp(
+        lambda p: ffd.dense_field(p, tile, vol, mode=mode, impl="torch",
+                                  grad_impl="autograd"), (phi,), (tangent,))
+    assert (jv - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_bending_energy_on_card_matches_its_reference(cuda):
+    from repro_torch.core.regularizer import bending_energy_fn
+
+    tile = (5, 5, 5)
+    phi = _grid((512, 228, 385), tile, 3, 2, cuda)  # phantom1's fine grid
+    gshape = tuple(phi.shape[:3])
+    energy = bending_energy_fn(gshape, tile)
+    p = phi.clone().requires_grad_(True)
+    e = energy(p)
+    (g,) = torch.autograd.grad(e, p)
+    p2 = phi.clone().requires_grad_(True)
+    e2 = energy.reference(p2)
+    (g2,) = torch.autograd.grad(e2, p2)
+    assert abs(e.item() - e2.item()) <= 1e-5 * abs(e2.item())
+    assert (g - g2).abs().max() <= 1e-5 * g2.abs().max()
+
+
+def test_velocity_lbfgs_stop_on_card_matches_cpu(cuda):
+    """A small pair with velocity, bending, L-BFGS and early stopping: the
+    card (the forward and adjoint kernels) against the CPU (their plain
+    versions), losses at 1e-4 and ``steps`` equal."""
+    from repro_torch import ConvergenceConfig, jacobian_determinant
+    from repro_torch.core.transform import dense_displacement
+
+    f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(iters=10, transform="velocity", regularizer="bending",
+                               optimizer="lbfgs", stop=ConvergenceConfig(tol=5e-2,
+                                                                         patience=1))
+    ops.reset_launch_counts()
+    card = ffd_register(f, m, options=opts)
+    counts = ops.launch_counts()
+    assert counts["bsi_ttli"] > 0 and counts["bsi_adjoint"] > 0, counts
+    host = ffd_register(f, m, options=opts, device="cpu")
+    assert card.steps == host.steps and min(card.steps) < opts.iters
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card.losses, host.losses))
+    disp = dense_displacement("velocity", card.params, (5, 5, 5), (28, 24, 20),
+                              mode="ttli", impl="cuda", grad_impl="cuda")
+    assert jacobian_determinant(disp).min().item() > 0
+
+
+@pytest.mark.parametrize("transform", ["displacement", "velocity"])
+def test_gauss_newton_linearization_on_card_matches_cpu(cuda, transform):
+    """The level objective's ``linearize`` on the card: the linearisation
+    launches one forward, each ``J v`` one forward (on the tangent) and
+    each ``J^T w`` one adjoint, and the products equal the CPU's (the
+    kernels' plain versions) at 1e-5 of the largest entry."""
+    from repro_torch.core.ffd import grid_shape_for_volume
+    from repro_torch.engine.batch import ffd_level_objective
+
+    f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    gshape = grid_shape_for_volume(f.shape, (5, 5, 5)) + (3,)
+    p = torch.randn(gshape, generator=gen) * 0.5
+    v = torch.randn(gshape, generator=gen)
+    w = torch.randn(f.numel(), generator=gen)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        obj = ffd_level_objective(f.to(dev), m.to(dev), tile=(5, 5, 5),
+                                  bending_weight=5e-3, mode="ttli", impl="cuda",
+                                  grad_impl="cuda", transform=transform)
+        ops.reset_launch_counts()
+        r, jvp, vjp = obj.linearize(p.to(dev))
+        steps = [_launches("bsi_ttli")]
+        jv = jvp(v.to(dev))
+        steps.append(_launches("bsi_ttli"))
+        vj = vjp(w.to(dev))
+        steps.append(_launches("bsi_adjoint"))
+        if dev == "cuda":
+            assert steps == [1, 2, 1], ops.launch_counts()
+        outs[dev] = [t.cpu() for t in (r, jv, vj)]
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def test_gauss_newton_and_affine_on_card_match_cpu(cuda):
+    from repro_torch import affine_register
+
+    f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(iters=3, optimizer="gauss_newton", regularizer="bending")
+    ops.reset_launch_counts()
+    card = ffd_register(f, m, options=opts)
+    # each CG iteration the forward kernel on the tangent, beyond the
+    # value-and-grads' forwards
+    assert _launches("bsi_ttli") > 2 * (3 + 1) + 1, ops.launch_counts()
+    host = ffd_register(f, m, options=opts, device="cpu")
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card.losses, host.losses))
+    a_card = affine_register(f, m)
+    a_host = affine_register(f, m, device="cpu")
+    assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(a_card.losses, a_host.losses))
+    assert (a_card.params.cpu() - a_host.params).abs().max() <= 1e-4

@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402, F401  (the suite's other files import both packages)
 
-from repro_torch import ffd_register, make_pair  # noqa: E402
+from repro_torch import affine_register, ffd_register, make_pair  # noqa: E402
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.convert import cache_from_numpy, model_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -55,6 +55,8 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
     vol = torch.zeros(10, 10, 10)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ffd_register(vol, vol)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        affine_register(vol, vol)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_pair((10, 10, 10))
     cfg = get_config("gemma2-2b", smoke=True)

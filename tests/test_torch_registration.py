@@ -21,6 +21,7 @@ steps the control grids differ by up to 3.0e-4 of entries of magnitude 3.3,
 for the same reason; they are held at 1e-3.
 """
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -39,12 +40,15 @@ from repro.data.volumes import make_pair as ref_make_pair  # noqa: E402
 from repro.core.ffd import downsample2 as rffd_downsample2  # noqa: E402
 from repro.core.ffd import grid_shape_for_volume as rffd_grid_shape  # noqa: E402
 from repro.engine.batch import ffd_level_loss as ref_level_loss  # noqa: E402
-from repro_torch import (RegistrationOptions, ffd_register,  # noqa: E402
-                         make_pair)
+from repro_torch import (ConvergenceConfig, RegistrationOptions,  # noqa: E402
+                         ffd_register, make_pair)
 from repro_torch.convert import (grid_from_numpy, options_from_reference,  # noqa: E402
                                  reference_fields)
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core import similarity as tsim  # noqa: E402
+from repro_torch.core.regularizer import resolve_regularizer  # noqa: E402
+from repro_torch.core.transform import resolve_transform  # noqa: E402
+from repro_torch.engine.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.engine.batch import ffd_level_loss, ffd_level_objective  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
@@ -162,9 +166,9 @@ def test_measure_bsi_time_reports_seconds(pair):
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    (dict(transform="velocity"), NotImplementedError, "queue 1 item 11"),
-    (dict(regularizer="bending"), NotImplementedError, "queue 1 item 11"),
-    (dict(optimizer="lbfgs"), NotImplementedError, "queue 1 item 12"),
+    (dict(transform="velocity", fused="on"), ValueError, "transform='velocity'"),
+    (dict(optimizer="gauss_newton", similarity="ncc"), ValueError, "similarity='ssd'"),
+    (dict(optimizer="gauss_newton", fused="on"), ValueError, "gauss_newton"),
     (dict(compute_dtype="bfloat16"), NotImplementedError, "queue 1 item 18"),
     (dict(grad_impl="xla"), ValueError, "grad_impl must be one of"),
     (dict(mode="gather"), ValueError, "no kernel"),
@@ -175,6 +179,7 @@ def test_measure_bsi_time_reports_seconds(pair):
     (dict(fused="sideways"), ValueError, "fused must be one of"),
     (dict(similarity=lambda w, f: (w - f).abs().mean(), fused="on"), ValueError,
      "no fused kernel"),
+    (dict(stop=1e-4), TypeError, "ConvergenceConfig"),
 ])
 def test_options_name_what_is_not_ported(fields, error, match):
     with pytest.raises(error, match=match):
@@ -195,11 +200,20 @@ def test_options_name_what_is_not_ported(fields, error, match):
     dict(mode="auto", impl="auto", grad_impl="auto", fused="auto"),
     dict(mode="gather", impl="auto", grad_impl="autograd"),
     dict(similarity=lambda w, f: (w - f).abs().mean(), fused="auto"),
+    dict(transform="velocity"),
+    dict(regularizer="bending"),
+    dict(optimizer="lbfgs"),
+    dict(optimizer="gauss_newton"),
+    dict(stop=ConvergenceConfig()),
 ], ids=lambda f: "-".join(f"{k}={v if isinstance(v, str) else 'fn'}"
                           for k, v in f.items()))
 def test_options_accept_what_is_ported(fields):
     opts = RegistrationOptions(**fields)
-    assert all(getattr(opts, k) == v for k, v in fields.items())
+    # transform, regularizer and optimizer names canonicalise to their specs
+    canonical = {"transform": resolve_transform, "regularizer": resolve_regularizer,
+                 "optimizer": resolve_optimizer}
+    assert all(getattr(opts, k) == canonical.get(k, lambda v: v)(v)
+               for k, v in fields.items())
     assert opts.fused == fields.get("fused", "auto") and opts.fused_reason is None
 
 
@@ -248,8 +262,31 @@ def test_options_from_reference_maps_the_renamed_values():
                                           fused="auto")
     assert reference_fields(opts) == {k: REF_FIELDS[k] for k in (
         "mode", "impl", "grad_impl", "fused")}
+    # the second-order optimisers are ported; compute_dtype is not yet
+    assert options_from_reference(dict(optimizer="lbfgs")).optimizer == resolve_optimizer(
+        "lbfgs")
     with pytest.raises(NotImplementedError):
-        options_from_reference(dict(optimizer="lbfgs"))
+        options_from_reference(dict(compute_dtype="bfloat16"))
+
+
+@pytest.mark.parametrize("field", ["transform", "regularizer", "optimizer", "stop"])
+def test_options_from_reference_carries_spec_parameters(field):
+    """A non-default spec of each kind keeps its fields across (the mapping
+    used to keep only the name: ``velocity(squarings=4)`` became 6
+    squarings)."""
+    from repro.core import regularizer as rreg, transform as rtf
+    from repro.engine import convergence as rconv, optimizer as ropt
+
+    ref_value = {"transform": rtf.velocity(squarings=4),
+                 "regularizer": rreg.bending(weight=5e-3),
+                 "optimizer": ropt.lbfgs(history=5, max_ls=7, c1=1e-3, shrink=0.25),
+                 "stop": rconv.ConvergenceConfig(tol=1e-3, patience=3, max_iters=9)}[field]
+    value = getattr(options_from_reference({field: ref_value}), field)
+    assert type(value).__module__.startswith("repro_torch.")
+    assert dataclasses.asdict(value) == dataclasses.asdict(ref_value)
+    gn = ropt.gauss_newton(cg_iters=4, damping=1e-2, damp_up=5.0, damp_down=2.0)
+    out = options_from_reference(dict(optimizer=gn)).optimizer
+    assert dataclasses.asdict(out) == dataclasses.asdict(gn)
 
 
 def test_options_from_reference_carries_similarity_callables():
