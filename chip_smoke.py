@@ -110,6 +110,18 @@ Phases; any failure raises and the script exits nonzero:
    Adam, L-BFGS, Gauss-Newton and Adam under ``stop=`` (losses at 1e-4,
    ``steps`` equal); a small pair with velocity, bending, L-BFGS and
    ``stop``, card against CPU;
+4c. batched and served registration: ``register_batch`` of two phantom1
+   pairs (seeds 0 and 1, made on the host while the earlier phases run)
+   with ``fused="on"``, cold then warm (seconds, ``compiled``, peak memory,
+   launches asserted twice a solo call's), each pair bit-equal to a solo
+   ``ffd_register``, and again under ``stop=`` (``steps`` equal, launches the
+   solo calls' sum); the ``RegistrationScheduler`` on a stream of phantom1
+   (hard), phantom1 against itself (easy), phantom1 seed 1 and porcine1,
+   two lanes, chunks of 4, ``lr=0.02`` (see ``run_stream``): latencies,
+   makespan, pairs/s; a lane recycled, one stage per level and shape, every
+   result bit-equal to its solo call, the launches the solo calls' sum; the
+   load generator ``launch/serve_registration.py --smoke``; a small batch,
+   card against CPU, each grid within 1e-4 or the CPU's own one-ulp spread;
 5. the flash-attention kernels at gemma2-2b's layer (batch 4, 8160 tokens, 8
    query and 4 key/value heads, head dim 256, softcap 50), global and local
    (window 4096) in bf16 (wgmma) and global in float32 (mma.sync, 3xTF32),
@@ -129,13 +141,15 @@ Phases; any failure raises and the script exits nonzero:
    bf16 plain path's gap to the float32 plain logits (``compare_serve_paths``);
 7. one JSON line of the kernels (the float32 flash row's launches are the
    float32 serving path's of phase 6; the ``bsi_ttli`` and ``bsi_adjoint``
-   rows add their launches on phase 4's velocity and Gauss-Newton paths),
+   rows add their launches on phase 4's velocity and Gauss-Newton paths and
+   on phase 4c's warm batch and stream),
    the nvidia-smi line, and the result line.
 
 Float32 convolutions and matrix products are pinned to full fp32
 (``allow_tf32 = False``) so the library yardsticks compute in fp32 too.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -1539,6 +1553,180 @@ def compare_workflow_paths(torch, fixed, moving):
     assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card.losses, host.losses))
 
 
+def sum_counts(counts):
+    """The kernel-wise sum of launch-count dicts."""
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def solo_runs(torch, pairs, opts):
+    """Solo ``ffd_register`` calls of ``pairs`` under ``opts``, each with its
+    launch counts."""
+    from repro_torch import ffd_register
+    from repro_torch.kernels import ops
+
+    runs = []
+    for f, m in pairs:
+        ops.reset_launch_counts()
+        res = ffd_register(f, m, options=opts)
+        runs.append((res, ops.launch_counts()))
+    return runs
+
+
+def bit_equal(torch, warped, params, losses, steps, solo):
+    """Whether a batched or served result equals a solo ``ffd_register`` bit
+    for bit (``steps`` too under ``stop``)."""
+    return (torch.equal(warped, solo.warped) and torch.equal(params, solo.params)
+            and [float(x) for x in losses] == solo.losses
+            and (steps is None or list(steps) == solo.steps))
+
+
+def run_batch_paths(torch, pairs):
+    """Phase 4c (a): ``register_batch`` of two phantom1 pairs at full width,
+    ``fused="on"``, cold then warm (``compiled`` True then False), its
+    seconds, peak memory and launch counts (asserted: twice a solo call's);
+    each pair's ``warped``, ``params`` and ``losses`` bit-equal to a solo
+    ``ffd_register``; then under ``stop=``, ``steps`` equal and the launches
+    the solo calls' sum.  Returns the warm run's counts and a summary."""
+    from repro_torch import ConvergenceConfig, RegistrationOptions, register_batch
+    from repro_torch.kernels import ops
+
+    fixed = torch.stack([f for f, _ in pairs])
+    moving = torch.stack([m for _, m in pairs])
+    gib = (fixed.numel() + moving.numel()) * 4 / 2**30
+    out = {}
+    opts = RegistrationOptions(fused="on")
+    for label, cold in (("cold", True), ("warm", False)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = register_batch(fixed, moving, options=opts)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expected = sum_counts([expected_launches(opts, opts.levels * (opts.iters + 1))] * 2)
+        log(f"register_batch B=2 phantom1 ({gib:.2f} GiB of inputs), fused='on' "
+            f"({label}): {res.seconds:.3f} s, compiled {res.compiled}, peak device memory "
+            f"{peak:.2f} GiB, losses {res.losses.tolist()}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        assert res.compiled is cold, res.compiled
+        assert counts == expected, (counts, expected)
+        out[f"{label}_s"], out[f"{label}_peak_gib"] = res.seconds, peak
+    batch_counts = counts
+    solo = solo_runs(torch, pairs, opts)
+    same = [bit_equal(torch, res.warped[b], res.params[b], res.losses[b], None, s)
+            for b, (s, _) in enumerate(solo)]
+    log(f"register_batch vs solo ffd_register: bit-equal {same}; solo "
+        f"{[round(s.seconds, 3) for s, _ in solo]} s")
+    assert all(same), same
+    out.update(solo_s=[s.seconds for s, _ in solo], losses=res.losses.tolist())
+    del res
+
+    sopts = RegistrationOptions(fused="on", stop=ConvergenceConfig(tol=1e-3, patience=5))
+    ops.reset_launch_counts()
+    res = register_batch(fixed, moving, options=sopts)
+    counts = ops.launch_counts()
+    solo = solo_runs(torch, pairs, sopts)
+    expected = sum_counts([expected_launches(sopts, sum(n + 1 for n in s.steps))
+                           for s, _ in solo])
+    same = [bit_equal(torch, res.warped[b], res.params[b], res.losses[b],
+                      res.steps[b].tolist(), s) for b, (s, _) in enumerate(solo)]
+    log(f"register_batch stop=(1e-3, 5): {res.seconds:.3f} s, steps {res.steps.tolist()} "
+        f"(solo {[s.steps for s, _ in solo]}), losses {res.losses.tolist()}, bit-equal "
+        f"{same}, launches "
+        f"{ {k: v for k, v in counts.items() if v} } (expected "
+        f"{ {k: v for k, v in expected.items() if v} })")
+    assert all(same), same
+    assert counts == expected == sum_counts([c for _, c in solo]), (counts, expected)
+    out.update(stop_s=res.seconds, stop_steps=res.steps.tolist())
+    return batch_counts, out
+
+
+def run_stream(torch, requests):
+    """Phase 4c (b): the scheduler on a stream of Table 2 shapes, two lanes,
+    chunks of 4, ``fused="on"``, ``lr=0.02`` and
+    ``stop=ConvergenceConfig(tol=1e-3, patience=3)``: every request
+    submitted at once and driven by ``run_until_idle``.  At the default
+    ``lr=0.5`` no Adam step of phantom1's coarse level beats the start, so
+    every pair would stop after ``patience`` steps and none would be hard;
+    at 0.02 the hard pairs run their 40 steps a level and the easy one
+    (moving = fixed) retires after 3, freeing its lane mid-flight.
+    Asserted: all complete, a lane recycled, one stage per level and shape,
+    each result bit-equal to a solo ``ffd_register`` (steps too), and the
+    stream's launches the solo calls' sum (a retired or empty lane launches
+    nothing).  Returns the stream's counts and a summary."""
+    from repro_torch import ConvergenceConfig, RegistrationOptions, RegistrationScheduler
+    from repro_torch.kernels import ops
+
+    opts = RegistrationOptions(fused="on", lr=0.02,
+                               stop=ConvergenceConfig(tol=1e-3, patience=3))
+    sched = RegistrationScheduler(opts, lanes=2, chunk=4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [sched.submit(f, m) for f, m in requests]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    makespan = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    results = [h.result() for h in handles]
+    stats = sched.stats
+    log(f"stream of {len(requests)} (phantom1 hard, phantom1 easy, phantom1, porcine1), "
+        f"lanes 2, chunk 4: makespan {makespan:.3f} s, {len(requests) / makespan:.3f} "
+        f"pairs/s, latencies {[round(r.seconds, 3) for r in results]} s, steps "
+        f"{[r.steps for r in results]}, recycled {[r.recycled for r in results]}, peak "
+        f"device memory {peak:.2f} GiB, {stats}")
+    solo = solo_runs(torch, requests, opts)
+    same = [bit_equal(torch, r.warped, r.params, r.losses, r.steps, s)
+            for r, (s, _) in zip(results, solo)]
+    solo_counts = sum_counts([c for _, c in solo])
+    solo_s = [s.seconds for s, _ in solo]
+    log(f"stream vs solo ffd_register: bit-equal {same}; solo "
+        f"{[round(x, 3) for x in solo_s]} s, sum {sum(solo_s):.3f} s (makespan / sum {makespan / sum(solo_s):.3f}); "
+        f"launches {counts == solo_counts} ({ {k: v for k, v in counts.items() if v} })")
+    assert stats.completed == len(requests) and stats.recycled >= 1, stats
+    assert stats.compiles == opts.levels * 2, stats
+    assert all(same), same
+    assert counts == solo_counts, (counts, solo_counts)
+    return counts, dict(makespan_s=makespan, pairs_per_s=len(requests) / makespan,
+                        latencies_s=[r.seconds for r in results],
+                        steps=[r.steps for r in results], peak_gib=peak,
+                        solo_s=solo_s, recycled=stats.recycled, chunks=stats.chunks)
+
+
+def check_batch_small(torch):
+    """Phase 4c (c): the launcher's smoke run on the card, and a small batch
+    (B = 2 at 28x24x20) on the card against the CPU: losses within 1e-4,
+    each pair's grid within 1e-4 or, where the CPU path itself moves more
+    when the moving volume is nudged by one ulp (up or down), within that
+    spread (Adam divides each gradient entry by its own magnitude, so
+    entries near its eps carry rounding into the step)."""
+    from repro_torch import RegistrationOptions, make_pair, register_batch
+    from repro_torch.launch import serve_registration
+
+    t0 = time.perf_counter()
+    smoke = serve_registration.main(["--smoke"])
+    log(f"serve_registration --smoke: {time.perf_counter() - t0:.2f} s, launches "
+        f"{smoke['counts']}")
+    pairs = [make_pair((28, 24, 20), seed=s, device="cpu")[:2] for s in (0, 1)]
+    fixed = torch.stack([f for f, _ in pairs])
+    moving = torch.stack([m for _, m in pairs])
+    opts = RegistrationOptions(iters=5, fused="on")
+    card = register_batch(fixed, moving, options=opts)
+    host = register_batch(fixed, moving, options=opts, device="cpu")
+    spread = torch.zeros(len(pairs))
+    for end in (float("inf"), float("-inf")):
+        nudged = register_batch(fixed, torch.nextafter(moving, torch.tensor(end)),
+                                options=opts, device="cpu")
+        spread = torch.maximum(spread, (nudged.params - host.params).abs().amax((1, 2, 3, 4)))
+    err = (card.params.cpu() - host.params).abs().amax((1, 2, 3, 4))
+    lerr = ((card.losses.cpu() - host.losses).abs() / host.losses.abs()).max().item()
+    log(f"small batch: card {card.losses.tolist()} cpu {host.losses.tolist()}, params max "
+        f"|diff| per pair {err.tolist()} (limit 1e-4, or the CPU's own one-ulp spread "
+        f"{spread.tolist()}), losses relative {lerr:.3e} (limit 1e-4)")
+    assert (err <= torch.clamp(spread, min=1e-4)).all() and lerr <= 1e-4, (err, spread, lerr)
+
+
 SERVE_ARCH = "gemma2-2b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 8160, 32  # 8160: not a multiple of 64
 
@@ -1904,6 +2092,12 @@ def main():
     log(f"nmi measurement builds ({', '.join(NMI_STAGES.values())}): "
         f"{time.perf_counter() - t0:.2f} s")
 
+    # phase 4c's other pairs, made on the host meanwhile (numpy, then the
+    # plain warp on the CPU)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    extra_pairs = pool.submit(lambda: [
+        make_pair(PAPER_VOLUMES[name], seed=seed, device="cpu")[:2]
+        for name, seed in (("phantom1", 1), ("porcine1", 0))])
     t0 = time.perf_counter()
     fixed, moving, _ = make_pair(PAPER_VOLUMES["phantom1"], seed=0)
     log(f"make_pair(phantom1 {tuple(fixed.shape)}): {time.perf_counter() - t0:.1f} s")
@@ -1922,7 +2116,15 @@ def main():
     check_jvp(torch, fixed)
     vel_counts, gn_counts, workflow = run_workflow_paths(torch, fixed, moving)
     compare_workflow_paths(torch, fixed, moving)
-    del fixed, moving
+    t0 = time.perf_counter()
+    (f1, m1), (f2, m2) = ((f.cuda(), m.cuda()) for f, m in extra_pairs.result())
+    pool.shutdown()
+    batch_counts, batch_call = run_batch_paths(torch, [(fixed, moving), (f1, m1)])
+    stream_counts, stream_call = run_stream(
+        torch, [(fixed, moving), (fixed, fixed), (f1, m1), (f2, m2)])
+    check_batch_small(torch)
+    log(f"phase 4c: {time.perf_counter() - t0:.1f} s")
+    del fixed, moving, f1, m1, f2, m2
     torch.cuda.empty_cache()  # the NMI backward's ~44 GiB stay cached otherwise
     flash_rows, flash_call = check_flash(torch)
     rows += flash_rows
@@ -1950,7 +2152,9 @@ def main():
             # the same kernels' launches on the velocity + L-BFGS path and
             # on the Gauss-Newton path (phase 4b)
             r["more"] = dict(r.get("more", {}), launches_velocity_lbfgs=vel_counts[
-                r["name"]], launches_gauss_newton=gn_counts[r["name"]])
+                r["name"]], launches_gauss_newton=gn_counts[r["name"]],
+                launches_batch=batch_counts[r["name"]],
+                launches_serve=stream_counts[r["name"]])
     log(f"nmi call at phantom1: {nmi_call}")
     log("nmi kernel at phantom1: " + "; ".join(f"{r['name']}: {r['nmi']}" for r in rows
                                                 if "nmi" in r))
@@ -1959,6 +2163,8 @@ def main():
         log(f"{mode} call at phantom1: {call}")
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
     log(f"workflow at phantom1: {workflow}")
+    log(f"register_batch at phantom1: {batch_call}")
+    log(f"stream: {stream_call}")
     log(f"flash_attention at gemma2-2b's layer: {flash_call}")
     log(f"serve call: {serve_call}")
     log(f"serve paths, kernel vs plain: {serve_compare}")

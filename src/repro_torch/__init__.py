@@ -12,14 +12,22 @@ from repro_torch.core.registration import (RegistrationResult, affine_register,
 from repro_torch.core.regularizer import bending
 from repro_torch.core.transform import displacement, jacobian_determinant, velocity
 from repro_torch.data.volumes import PAPER_VOLUMES, make_pair, make_phantom
+from repro_torch.engine.batch import BatchRegistrationResult, register_batch
 from repro_torch.engine.convergence import ConvergenceConfig
 from repro_torch.engine.optimizer import adam, gauss_newton, lbfgs
+from repro_torch.engine.serve import (AsyncRegistrationService, QueueFull,
+                                      RegistrationScheduler, RegistrationTimeout)
 
 __all__ = [
+    "AsyncRegistrationService",
+    "BatchRegistrationResult",
     "ConvergenceConfig",
     "PAPER_VOLUMES",
+    "QueueFull",
     "RegistrationOptions",
     "RegistrationResult",
+    "RegistrationScheduler",
+    "RegistrationTimeout",
     "adam",
     "affine_register",
     "bending",
@@ -30,5 +38,6 @@ __all__ = [
     "lbfgs",
     "make_pair",
     "make_phantom",
+    "register_batch",
     "velocity",
 ]

@@ -15,16 +15,14 @@ import dataclasses
 import time
 from typing import Any
 
-import numpy as np
 import torch
 
 from repro_torch.core import ffd
-from repro_torch.core.ffd import downsample2
 from repro_torch.core.options import RegistrationOptions
-from repro_torch.core.transform import dense_displacement
-from repro_torch.device import resolve_device
+from repro_torch.device import as_volume, resolve_device, synchronize
 from repro_torch.engine.autotune import resolve_options
-from repro_torch.engine.batch import ffd_level_objective, linearize_warp_residual
+from repro_torch.engine.batch import (compile_finish, level_runner,
+                                      linearize_warp_residual, pyramid)
 from repro_torch.engine.convergence import check_stop
 from repro_torch.engine.loop import make_adam_runner
 from repro_torch.engine.optimizer import make_objective
@@ -45,17 +43,6 @@ class RegistrationResult:
     bsi_seconds: float = 0.0  # time inside BSI (paper Figs. 8-9 breakdown)
     traces: list = dataclasses.field(default_factory=list)  # per level: losses
     steps: Any = None  # optimiser steps per level when stop= was set
-
-
-def _volume(x, device):
-    if not isinstance(x, torch.Tensor):  # copy: numpy views of JAX arrays are read-only
-        x = torch.from_numpy(np.array(x, dtype=np.float32))
-    return x.to(device=device, dtype=torch.float32).contiguous()
-
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _affine_coords(theta, vol_shape):
@@ -128,7 +115,7 @@ def affine_register(fixed, moving, *, options=None, device="cuda"):
     if not isinstance(opts, RegistrationOptions):
         raise TypeError(f"options must be a RegistrationOptions, got {opts!r}")
     opts = opts.for_affine()
-    fixed, moving = _volume(fixed, device), _volume(moving, device)
+    fixed, moving = as_volume(fixed, device), as_volume(moving, device)
     if fixed.dim() != 3 or fixed.shape != moving.shape:
         raise ValueError(
             f"fixed and moving must be (X, Y, Z) volumes of one shape, got "
@@ -146,24 +133,9 @@ def affine_register(fixed, moving, *, options=None, device="cuda"):
     losses = [float(trace_host[i - 1]) for i in marks]
     with torch.no_grad():
         warped = _affine_warp(theta, moving, vol_shape)
-    _sync(device)
+    synchronize(device)
     return RegistrationResult(warped, theta, losses, time.perf_counter() - t0,
                               traces=[trace], steps=steps)
-
-
-def _ffd_level_runner(options):
-    """The level loop for ``options``: ``(phi, fixed, moving) -> (phi, trace)``,
-    and ``steps`` under ``stop``."""
-
-    def loss_builder(f, mov):
-        return ffd_level_objective(
-            f, mov, tile=options.tile, bending_weight=options.bending_weight,
-            mode=options.mode, impl=options.impl, grad_impl=options.grad_impl,
-            similarity=options.similarity,
-            transform=options.transform, regularizer=options.regularizer,
-            fused=options.fused)
-
-    return make_adam_runner(loss_builder, options=options)
 
 
 def _time_bsi(fn, device, reps=3):
@@ -203,7 +175,7 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
     opts = RegistrationOptions() if options is None else options
     if not isinstance(opts, RegistrationOptions):
         raise TypeError(f"options must be a RegistrationOptions, got {opts!r}")
-    fixed, moving = _volume(fixed, device), _volume(moving, device)
+    fixed, moving = as_volume(fixed, device), as_volume(moving, device)
     if fixed.dim() != 3 or fixed.shape != moving.shape:
         raise ValueError(
             f"fixed and moving must be (X, Y, Z) volumes of one shape, got "
@@ -211,19 +183,14 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
     opts = resolve_options(opts, tuple(fixed.shape), device)  # autotune the "auto"s
     tile, stop = opts.tile, check_stop(opts.stop, opts.iters)
 
-    pyramid = [(fixed, moving)]
-    for _ in range(opts.levels - 1):
-        f, m = pyramid[-1]
-        pyramid.append((downsample2(f).contiguous(), downsample2(m).contiguous()))
-    pyramid = pyramid[::-1]  # coarse -> fine
-
-    runner = _ffd_level_runner(opts)
+    levels = pyramid(fixed, moving, opts.levels)  # coarse -> fine
+    runner = level_runner(opts)
     phi = None
     losses, traces = [], []
     steps = [] if stop is not None else None
     bsi_seconds = 0.0
     t0 = time.perf_counter()
-    for level, (f, m) in enumerate(pyramid):
+    for level, (f, m) in enumerate(levels):
         gshape = ffd.grid_shape_for_volume(f.shape, tile)
         if phi is None:
             phi = torch.zeros(gshape + (3,), dtype=torch.float32, device=device)
@@ -236,7 +203,7 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
         losses.append(float(trace[-1]))
         traces.append(trace)
 
-        if measure_bsi_time and level == len(pyramid) - 1:
+        if measure_bsi_time and level == len(levels) - 1:
             # the BSI share the paper optimises (Figs. 8-9): two expansions
             # per step run, forward and adjoint
             def expand(p=phi, shape=tuple(f.shape)):
@@ -247,11 +214,7 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
                 ran = steps[-1] if stop is not None else opts.iters
                 bsi_seconds = _time_bsi(expand, device) * ran * 2
 
-    with torch.no_grad():
-        disp = dense_displacement(opts.transform, phi, tile, tuple(fixed.shape),
-                                  mode=opts.mode, impl=opts.impl,
-                                  grad_impl=opts.grad_impl)
-        warped = ffd.warp_volume(moving, disp)
-    _sync(device)
+    warped = compile_finish(tuple(fixed.shape), opts)(phi, moving)
+    synchronize(device)
     return RegistrationResult(warped, phi, losses, time.perf_counter() - t0,
                               bsi_seconds, traces, steps)

@@ -1,7 +1,9 @@
 """Device helpers shared by the registration and the serving code.
 
 ``resolve_device`` turns a caller's ``device`` into a ``torch.device`` and
-refuses CUDA on a host without a card; ``card_name`` is the card's name and
+refuses CUDA on a host without a card; ``as_volume`` puts a caller's volume
+(or stack of volumes) there as contiguous float32, and ``synchronize`` ends
+a timed call; ``card_name`` is the card's name and
 power limit as ``nvidia-smi`` prints them; ``traced`` and
 ``device_ms_by_name`` run a call under ``torch.profiler`` and sum its device
 time per kernel name, and ``resident_blocks`` a kernel's occupancy, for the
@@ -13,10 +15,11 @@ from __future__ import annotations
 import subprocess
 import time
 
+import numpy as np
 import torch
 
-__all__ = ["card_name", "device_ms_by_name", "resident_blocks", "resolve_device",
-           "traced"]
+__all__ = ["as_volume", "card_name", "device_ms_by_name", "resident_blocks",
+           "resolve_device", "synchronize", "traced"]
 
 _ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
                torch.profiler.ProfilerActivity.CUDA]
@@ -34,6 +37,20 @@ def resolve_device(device, what="the registration") -> torch.device:
             f"no CUDA device: {what} runs on the card; pass "
             "device='cpu' to run the kernels' plain versions on the CPU")
     return device
+
+
+def as_volume(x, device) -> torch.Tensor:
+    """``x`` (a tensor or an array) as a contiguous float32 tensor on
+    ``device``."""
+    if not isinstance(x, torch.Tensor):  # copy: numpy views of JAX arrays are read-only
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+    return x.to(device=device, dtype=torch.float32).contiguous()
+
+
+def synchronize(device):
+    """Wait for ``device``'s queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def card_name():

@@ -19,11 +19,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.engine.optimizer import (AdamOptimizer, init_state, make_objective,
-                                          opt_step, resolve_optimizer)
+from repro_torch.engine.optimizer import (AdamOptimizer, Objective, init_state,
+                                          make_objective, opt_step, resolve_optimizer)
 
-__all__ = ["ConvergenceConfig", "adam_until", "check_stop", "optimize_plateau_step",
-           "optimize_until"]
+__all__ = ["ConvergenceConfig", "adam_until", "check_stop", "level_live",
+           "optimize_plateau_step", "optimize_until", "plateau_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +88,28 @@ def optimize_plateau_step(obj, optimizer, k, p, opt, g, loss, since, best, best_
     best = torch.where(improved, loss, best)
     since = torch.where(improved, torch.zeros_like(since), since + 1)
     return k + 1, p, opt, g, loss, since, best, best_p
+
+
+def plateau_step(vg, k, p, m, v, g, since, best, best_p, *, tol, lr, b1=0.9, b2=0.999,
+                 eps=1e-8):
+    """The Adam spelling of :func:`optimize_plateau_step`, the moments as
+    separate ``(m, v)`` operands.  Returns ``(k + 1, p, m, v, g, loss,
+    since, best, best_p)``."""
+    obj = Objective(loss=None, vg=vg)
+    spec = AdamOptimizer(b1=b1, b2=b2, eps=eps)
+    k1, p, opt, g, loss, since, best, best_p = optimize_plateau_step(
+        obj, spec, k, p, {"m": m, "v": v}, g, best, since, best, best_p, tol=tol, lr=lr)
+    return k1, p, opt["m"], opt["v"], g, loss, since, best, best_p
+
+
+def level_live(k, since, *, stop, iters=None):
+    """Whether a level's loop takes another step: ``optimize_until``'s loop
+    condition under ``stop`` (a resolved ``ConvergenceConfig``), else the
+    fixed budget ``k < iters``.  The scheduler's retire signal of a lane;
+    ints give a bool, tensors a bool tensor."""
+    if stop is None:
+        return k < int(iters)
+    return (k < int(stop.max_iters)) & (since < int(stop.patience))
 
 
 def optimize_until(obj, params, *, optimizer, stop, lr):

@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402, F401  (the suite's other files import both packages)
 
-from repro_torch import affine_register, ffd_register, make_pair  # noqa: E402
+from repro_torch import (RegistrationOptions, affine_register, ffd_register,  # noqa: E402
+                         make_pair)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.convert import cache_from_numpy, model_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -84,6 +85,24 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
     # builds the model on the card unless --device cpu
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "gemma2-2b", "--smoke", "--gen", "1"])
+
+
+def test_batched_and_served_registration_need_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import RegistrationScheduler, register_batch
+    from repro_torch.launch import serve_registration
+
+    vols = np.zeros((1, 10, 10, 10), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        register_batch(vols, vols)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RegistrationScheduler()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_registration.main(["--smoke"])
+    assert register_batch(vols, vols, options=RegistrationOptions(levels=1, iters=1),
+                          device="cpu").warped.device.type == "cpu"
+    assert RegistrationScheduler(device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
