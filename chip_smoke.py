@@ -122,6 +122,14 @@ Phases; any failure raises and the script exits nonzero:
    result bit-equal to its solo call, the launches the solo calls' sum; the
    load generator ``launch/serve_registration.py --smoke``; a small batch,
    card against CPU, each grid within 1e-4 or the CPU's own one-ulp spread;
+4d. sharded registration on a one-rank ``torch.distributed`` mesh, NCCL on
+   the card (``engine.shard``; see ``run_mesh_paths``): ``register_batch(...,
+   mesh=)`` of phase 4c's two pairs, ``fused="on"``, warm and under
+   ``stop=``, each asserted bit-equal to phase 4c's unsharded run with the
+   same launches; ``sharded_pipeline``'s outputs asserted ``DTensor``s on
+   ``Shard(0)`` and their gather timed; the scheduler with ``mesh=`` on
+   phase 4c's stream, each result and the launches asserted equal to the
+   unsharded stream's; seconds beside phase 4c's and peak memory;
 5. the flash-attention kernels at gemma2-2b's layer (batch 4, 8160 tokens, 8
    query and 4 key/value heads, head dim 256, softcap 50), global and local
    (window 4096) in bf16 (wgmma) and global in float32 (mma.sync, 3xTF32),
@@ -142,7 +150,8 @@ Phases; any failure raises and the script exits nonzero:
 7. one JSON line of the kernels (the float32 flash row's launches are the
    float32 serving path's of phase 6; the ``bsi_ttli`` and ``bsi_adjoint``
    rows add their launches on phase 4's velocity and Gauss-Newton paths and
-   on phase 4c's warm batch and stream),
+   on phase 4c's warm batch and stream, and with ``bsi_fused`` on phase 4d's
+   sharded batch and stream),
    the nvidia-smi line, and the result line.
 
 Float32 convolutions and matrix products are pinned to full fp32
@@ -1586,7 +1595,9 @@ def run_batch_paths(torch, pairs):
     seconds, peak memory and launch counts (asserted: twice a solo call's);
     each pair's ``warped``, ``params`` and ``losses`` bit-equal to a solo
     ``ffd_register``; then under ``stop=``, ``steps`` equal and the launches
-    the solo calls' sum.  Returns the warm run's counts and a summary."""
+    the solo calls' sum.  Returns the warm run's counts, a summary, and the
+    warm and stop runs with their counts (phase 4d holds the sharded runs to
+    them)."""
     from repro_torch import ConvergenceConfig, RegistrationOptions, register_batch
     from repro_torch.kernels import ops
 
@@ -1598,6 +1609,7 @@ def run_batch_paths(torch, pairs):
     for label, cold in (("cold", True), ("warm", False)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
         ops.reset_launch_counts()
         res = register_batch(fixed, moving, options=opts)
         counts = ops.launch_counts()
@@ -1605,11 +1617,13 @@ def run_batch_paths(torch, pairs):
         expected = sum_counts([expected_launches(opts, opts.levels * (opts.iters + 1))] * 2)
         log(f"register_batch B=2 phantom1 ({gib:.2f} GiB of inputs), fused='on' "
             f"({label}): {res.seconds:.3f} s, compiled {res.compiled}, peak device memory "
-            f"{peak:.2f} GiB, losses {res.losses.tolist()}, launches "
+            f"{peak:.2f} GiB ({peak - base:.2f} above the {base:.2f} GiB allocated before "
+            f"the call), losses {res.losses.tolist()}, launches "
             f"{ {k: v for k, v in counts.items() if v} }")
         assert res.compiled is cold, res.compiled
         assert counts == expected, (counts, expected)
         out[f"{label}_s"], out[f"{label}_peak_gib"] = res.seconds, peak
+        out[f"{label}_call_gib"] = peak - base
     batch_counts = counts
     solo = solo_runs(torch, pairs, opts)
     same = [bit_equal(torch, res.warped[b], res.params[b], res.losses[b], None, s)
@@ -1618,7 +1632,7 @@ def run_batch_paths(torch, pairs):
         f"{[round(s.seconds, 3) for s, _ in solo]} s")
     assert all(same), same
     out.update(solo_s=[s.seconds for s, _ in solo], losses=res.losses.tolist())
-    del res
+    runs = dict(fixed=(res, counts))
 
     sopts = RegistrationOptions(fused="on", stop=ConvergenceConfig(tol=1e-3, patience=5))
     ops.reset_launch_counts()
@@ -1637,7 +1651,8 @@ def run_batch_paths(torch, pairs):
     assert all(same), same
     assert counts == expected == sum_counts([c for _, c in solo]), (counts, expected)
     out.update(stop_s=res.seconds, stop_steps=res.steps.tolist())
-    return batch_counts, out
+    runs["stop"] = (res, counts)
+    return batch_counts, out, runs
 
 
 def run_stream(torch, requests):
@@ -1652,7 +1667,7 @@ def run_stream(torch, requests):
     Asserted: all complete, a lane recycled, one stage per level and shape,
     each result bit-equal to a solo ``ffd_register`` (steps too), and the
     stream's launches the solo calls' sum (a retired or empty lane launches
-    nothing).  Returns the stream's counts and a summary."""
+    nothing).  Returns the stream's counts, a summary and the results."""
     from repro_torch import ConvergenceConfig, RegistrationOptions, RegistrationScheduler
     from repro_torch.kernels import ops
 
@@ -1691,7 +1706,8 @@ def run_stream(torch, requests):
     return counts, dict(makespan_s=makespan, pairs_per_s=len(requests) / makespan,
                         latencies_s=[r.seconds for r in results],
                         steps=[r.steps for r in results], peak_gib=peak,
-                        solo_s=solo_s, recycled=stats.recycled, chunks=stats.chunks)
+                        solo_s=solo_s, recycled=stats.recycled,
+                        chunks=stats.chunks), results
 
 
 def check_batch_small(torch):
@@ -1725,6 +1741,132 @@ def check_batch_small(torch):
         f"|diff| per pair {err.tolist()} (limit 1e-4, or the CPU's own one-ulp spread "
         f"{spread.tolist()}), losses relative {lerr:.3e} (limit 1e-4)")
     assert (err <= torch.clamp(spread, min=1e-4)).all() and lerr <= 1e-4, (err, spread, lerr)
+
+
+def same_result(torch, a, b):
+    """Whether two registration results are equal bit for bit."""
+    steps = (a.steps is None and b.steps is None) or (
+        torch.equal(torch.as_tensor(a.steps), torch.as_tensor(b.steps)))
+    return (torch.equal(a.warped, b.warped) and torch.equal(a.params, b.params)
+            and torch.equal(torch.as_tensor(a.losses), torch.as_tensor(b.losses))
+            and steps)
+
+
+def run_mesh_paths(torch, pairs, runs, requests, stream_results, stream_counts):
+    """Phase 4d: sharded registration on a one-rank mesh, NCCL on the card
+    (``engine.shard``): ``register_batch(..., mesh=)`` of phase 4c's two
+    phantom1 pairs, ``fused="on"``, warm and under ``stop=``, each result
+    and its launches asserted equal to phase 4c's unsharded run (reused, not
+    re-run); ``sharded_pipeline``'s outputs asserted ``DTensor``s sharded on
+    dimension 0, their gather (``full_tensor``, an NCCL all-gather) timed
+    with CUDA events; the scheduler with ``mesh=`` on phase 4c's stream,
+    each served result and the launches asserted equal to the unsharded
+    stream's.  Returns the launch counts and a summary."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch import ConvergenceConfig, RegistrationOptions, RegistrationScheduler
+    from repro_torch import register_batch
+    from repro_torch.engine import make_registration_mesh, sharded_pipeline
+    from repro_torch.engine.autotune import resolve_options
+    from repro_torch.kernels import ops
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # no network: loopback only
+    t0 = time.perf_counter()
+    mesh = make_registration_mesh()
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one, group=mesh.get_group())  # NCCL's communicator comes up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # DTensor's first gather pays its one-time set-up; the timed calls do not
+    tiny = DTensor.from_local(one, mesh, (Shard(0),), run_check=False).full_tensor()
+    torch.cuda.synchronize()
+    log(f"mesh: {mesh}, backend {dist.get_backend()}, world {dist.get_world_size()}, "
+        f"first all-reduce {one.item()}; bring-up: NCCL {t1 - t0:.2f} s, DTensor's "
+        f"first gather {time.perf_counter() - t1:.2f} s")
+    assert dist.get_backend() == "nccl" and mesh.size() == 1 and one.item() == 1.0
+    assert torch.equal(tiny, one)
+    fixed = torch.stack([f for f, _ in pairs])
+    moving = torch.stack([m for _, m in pairs])
+    out, counts_out = {}, {}
+    stop = ConvergenceConfig(tol=1e-3, patience=5)
+    for label, opts in (("fixed", RegistrationOptions(fused="on")),
+                        ("stop", RegistrationOptions(fused="on", stop=stop))):
+        base, base_counts = runs[label]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated() / 2**30
+        ops.reset_launch_counts()
+        res = register_batch(fixed, moving, options=opts, mesh=mesh)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = same_result(torch, res, base)
+        log(f"register_batch mesh=1 rank, {label}: {res.seconds:.3f} s (unsharded "
+            f"{base.seconds:.3f} s), peak device memory {peak:.2f} GiB ({peak - before:.2f} "
+            f"above the {before:.2f} GiB allocated before the call), steps "
+            f"{None if res.steps is None else res.steps.tolist()}, bit-equal to "
+            f"unsharded {same}, launches {counts == base_counts} "
+            f"({ {k: v for k, v in counts.items() if v} })")
+        assert same and counts == base_counts, (same, counts, base_counts)
+        out[f"{label}_s"], out[f"{label}_peak_gib"] = res.seconds, peak
+        out[f"{label}_call_gib"] = peak - before
+        out[f"{label}_unsharded_s"] = base.seconds
+        counts_out[label] = counts
+        del res
+
+    sopts = resolve_options(RegistrationOptions(fused="on", stop=stop),
+                            tuple(fixed.shape[1:]), "cuda")
+    shards = sharded_pipeline(fixed, moving, options=sopts, mesh=mesh)
+    assert all(isinstance(t, DTensor) and t.placements == (Shard(0),)
+               and t.to_local().shape[0] == 2 for t in shards), shards
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    gathered = [t.full_tensor() for t in shards]
+    end.record()
+    end.synchronize()
+    gather_ms = start.elapsed_time(end)
+    base = runs["stop"][0]
+    same = (torch.equal(gathered[0], base.warped) and torch.equal(gathered[1], base.params)
+            and torch.equal(gathered[2], base.losses)
+            and torch.equal(gathered[3].cpu(), base.steps))
+    mb = sum(g.numel() * g.element_size() for g in gathered) / 1e6
+    log(f"sharded_pipeline: {[type(t).__name__ for t in shards]}, placements "
+        f"{shards[0].placements}, local rows {shards[0].to_local().shape[0]}; gather "
+        f"(full_tensor, NCCL) {gather_ms:.3f} ms device time for {mb:.1f} MB, bit-equal "
+        f"{same}")
+    assert same
+    out["gather_ms"], out["gather_mb"] = gather_ms, mb
+    del shards, gathered
+
+    sched = RegistrationScheduler(RegistrationOptions(fused="on", lr=0.02,
+                                                      stop=ConvergenceConfig(tol=1e-3,
+                                                                             patience=3)),
+                                  lanes=2, chunk=4, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = [sched.submit(f, m) for f, m in requests]
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    makespan = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    results = [h.result() for h in handles]
+    same = [same_result(torch, r, b) and r.recycled == b.recycled
+            for r, b in zip(results, stream_results)]
+    log(f"stream mesh=1 rank: makespan {makespan:.3f} s, latencies "
+        f"{[round(r.seconds, 3) for r in results]} s, peak device memory {peak:.2f} GiB, "
+        f"{sched.stats}; bit-equal to unsharded {same}, launches "
+        f"{counts == stream_counts}")
+    assert all(same) and counts == stream_counts, (same, counts, stream_counts)
+    assert sched.stats.recycled >= 1, sched.stats
+    out.update(stream_makespan_s=makespan, stream_peak_gib=peak,
+               stream_chunks=sched.stats.chunks)
+    counts_out["stream"] = counts
+    dist.destroy_process_group()
+    return counts_out, out
 
 
 SERVE_ARCH = "gemma2-2b"
@@ -2119,12 +2261,18 @@ def main():
     t0 = time.perf_counter()
     (f1, m1), (f2, m2) = ((f.cuda(), m.cuda()) for f, m in extra_pairs.result())
     pool.shutdown()
-    batch_counts, batch_call = run_batch_paths(torch, [(fixed, moving), (f1, m1)])
-    stream_counts, stream_call = run_stream(
-        torch, [(fixed, moving), (fixed, fixed), (f1, m1), (f2, m2)])
+    batch_counts, batch_call, batch_runs = run_batch_paths(torch, [(fixed, moving),
+                                                                   (f1, m1)])
+    requests = [(fixed, moving), (fixed, fixed), (f1, m1), (f2, m2)]
+    stream_counts, stream_call, stream_results = run_stream(torch, requests)
     check_batch_small(torch)
-    log(f"phase 4c: {time.perf_counter() - t0:.1f} s")
-    del fixed, moving, f1, m1, f2, m2
+    phase_4c = time.perf_counter() - t0
+    log(f"phase 4c: {phase_4c:.1f} s")
+    t0 = time.perf_counter()
+    mesh_counts, mesh_call = run_mesh_paths(torch, [(fixed, moving), (f1, m1)], batch_runs,
+                                            requests, stream_results, stream_counts)
+    log(f"phase 4d: {time.perf_counter() - t0:.1f} s (phase 4c {phase_4c:.1f} s)")
+    del fixed, moving, f1, m1, f2, m2, batch_runs, stream_results, requests
     torch.cuda.empty_cache()  # the NMI backward's ~44 GiB stay cached otherwise
     flash_rows, flash_call = check_flash(torch)
     rows += flash_rows
@@ -2155,6 +2303,11 @@ def main():
                 r["name"]], launches_gauss_newton=gn_counts[r["name"]],
                 launches_batch=batch_counts[r["name"]],
                 launches_serve=stream_counts[r["name"]])
+        if r["name"] in ("bsi_ttli", "bsi_adjoint", "bsi_fused"):
+            # and on the sharded batch and stream (phase 4d)
+            r["more"] = dict(r.get("more", {}),
+                             launches_batch_mesh=mesh_counts["fixed"][r["name"]],
+                             launches_serve_mesh=mesh_counts["stream"][r["name"]])
     log(f"nmi call at phantom1: {nmi_call}")
     log("nmi kernel at phantom1: " + "; ".join(f"{r['name']}: {r['nmi']}" for r in rows
                                                 if "nmi" in r))
@@ -2165,6 +2318,7 @@ def main():
     log(f"workflow at phantom1: {workflow}")
     log(f"register_batch at phantom1: {batch_call}")
     log(f"stream: {stream_call}")
+    log(f"sharded (phase 4d): {mesh_call}")
     log(f"flash_attention at gemma2-2b's layer: {flash_call}")
     log(f"serve call: {serve_call}")
     log(f"serve paths, kernel vs plain: {serve_compare}")

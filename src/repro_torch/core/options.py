@@ -25,16 +25,43 @@ refuse what it refuses: ``fused="on"`` with the velocity transform or with
 Gauss-Newton, Gauss-Newton with a similarity other than SSD, a ``stop``
 that is not a ``ConvergenceConfig``.  ``compute_dtype`` other than None
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+
+Entry points take ``options=``; the JAX package's legacy keyword spelling
+(``ffd_register(f, m, tile=..., iters=...)``) still works through
+:func:`merge_legacy_options`, which warns once per call site and builds the
+same options object, so both spellings return bit-identical results.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
+import warnings
 from typing import Any
 
 from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, KERNEL_MODES, MODE_NAMES
 
-__all__ = ["RegistrationOptions"]
+__all__ = ["UNSET", "RegistrationOptions", "merge_legacy_options"]
+
+
+class _Unset:
+    """Sentinel: a keyword that was not passed, as against an explicit value."""
+
+    _instance = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self):
+        return "UNSET"
+
+    def __bool__(self):
+        return False
+
+
+UNSET = _Unset()
 
 _FUSED = ("auto", "on", "off")
 
@@ -202,3 +229,47 @@ class RegistrationOptions:
             mode=base.mode, impl=base.impl, grad_impl=base.grad_impl,
             compute_dtype=base.compute_dtype, transform=base.transform,
             regularizer=base.regularizer, fused="off")
+
+
+# One DeprecationWarning per (entry point, call site), whatever the process's
+# warning filters; tests reset it with _reset_deprecation_registry().
+_WARNED_SITES: set = set()
+
+
+def _reset_deprecation_registry():
+    _WARNED_SITES.clear()
+
+
+def merge_legacy_options(fn_name, options, legacy: dict, *, defaults=None,
+                         stacklevel=3) -> RegistrationOptions:
+    """The deprecation shim behind the registration entry points.
+
+    ``legacy`` maps field name -> value or :data:`UNSET` for the keyword
+    arguments the entry point still accepts.  ``options=`` with no legacy
+    keyword passes through; legacy keywords (or nothing) overlay
+    ``defaults`` (``RegistrationOptions()`` by default) into a fresh
+    :class:`RegistrationOptions`, and if any was passed a
+    ``DeprecationWarning`` names them, once per call site.  Both at once
+    raise ``TypeError``: preferring one would make the other a no-op.
+    """
+    passed = {k: v for k, v in legacy.items() if v is not UNSET}
+    if options is not None:
+        if not isinstance(options, RegistrationOptions):
+            raise TypeError(f"{fn_name}: options must be a RegistrationOptions, "
+                            f"got {type(options).__name__}")
+        if passed:
+            raise TypeError(f"{fn_name}: pass either options= or the legacy keyword "
+                            f"arguments {sorted(passed)}, not both")
+        return options
+    if passed:
+        frame = sys._getframe(stacklevel - 1)
+        site = (fn_name, frame.f_code.co_filename, frame.f_lineno)
+        if site not in _WARNED_SITES:
+            _WARNED_SITES.add(site)
+            spelled = ", ".join(f"{k}=..." for k in sorted(passed))
+            warnings.warn(
+                f"{fn_name}: the keyword arguments {sorted(passed)} are deprecated; "
+                f"pass options=RegistrationOptions({spelled}) instead (see "
+                "repro_torch.core.options)", DeprecationWarning, stacklevel=stacklevel)
+    base = RegistrationOptions() if defaults is None else defaults
+    return base.replace(**passed) if passed else base

@@ -6,7 +6,9 @@ similarity + regularisation of the control grid (the gradient through the
 analytic BSI adjoint), the grid upsampled between levels, and a final warp.
 ``affine_register`` optimises a 3x4 affine about the volume centre on the
 similarity.  Both run on the card unless the caller passes
-``device="cpu"``, where every kernel's plain version runs.
+``device="cpu"``, where every kernel's plain version runs.  Both take
+``options=``, or the JAX package's legacy keywords (``tile=``, ``iters=``,
+...) through the deprecation shim (``core.options.merge_legacy_options``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import ffd
-from repro_torch.core.options import RegistrationOptions
+from repro_torch.core.options import UNSET, RegistrationOptions, merge_legacy_options
 from repro_torch.device import as_volume, resolve_device, synchronize
 from repro_torch.engine.autotune import resolve_options
 from repro_torch.engine.batch import (compile_finish, level_runner,
@@ -101,20 +103,22 @@ def _affine_runner(options):
         lambda f, mov: _affine_objective(f, mov, options.similarity), options=options)
 
 
-def affine_register(fixed, moving, *, options=None, device="cuda"):
+def affine_register(fixed, moving, *, options=None, iters=UNSET, lr=UNSET,
+                    similarity=UNSET, stop=UNSET, optimizer=UNSET, device="cuda"):
     """Optimise a 3x4 affine about the volume centre on ``options.similarity``.
 
     Of ``options`` (default :data:`AFFINE_DEFAULTS`: ``iters=60, lr=0.02``)
     only ``iters``, ``lr``, ``similarity``, ``stop`` and ``optimizer``
     apply; ``"gauss_newton"`` needs ``similarity="ssd"`` and linearises the
-    affine warp.  ``losses`` are the trace at every 10th step and the last;
-    under ``stop`` the result's ``steps`` is ``[steps taken]``.
+    affine warp.  The legacy keywords overlay :data:`AFFINE_DEFAULTS`.
+    ``losses`` are the trace at every 10th step and the last; under
+    ``stop`` the result's ``steps`` is ``[steps taken]``.
     """
     device = resolve_device(device)
-    opts = AFFINE_DEFAULTS if options is None else options
-    if not isinstance(opts, RegistrationOptions):
-        raise TypeError(f"options must be a RegistrationOptions, got {opts!r}")
-    opts = opts.for_affine()
+    opts = merge_legacy_options(
+        "affine_register", options,
+        dict(iters=iters, lr=lr, similarity=similarity, stop=stop, optimizer=optimizer),
+        defaults=AFFINE_DEFAULTS).for_affine()
     fixed, moving = as_volume(fixed, device), as_volume(moving, device)
     if fixed.dim() != 3 or fixed.shape != moving.shape:
         raise ValueError(
@@ -157,12 +161,16 @@ def _time_bsi(fn, device, reps=3):
     return (time.perf_counter() - t0) / reps
 
 
-def ffd_register(fixed, moving, *, options=None, device="cuda",
+def ffd_register(fixed, moving, *, options=None, tile=UNSET, levels=UNSET, iters=UNSET,
+                 lr=UNSET, bending_weight=UNSET, mode=UNSET, impl=UNSET, grad_impl=UNSET,
+                 compute_dtype=UNSET, similarity=UNSET, transform=UNSET,
+                 regularizer=UNSET, stop=UNSET, optimizer=UNSET, device="cuda",
                  measure_bsi_time=False):
     """Multi-resolution FFD registration (NiftyReg workflow, paper §6).
 
     ``fixed`` and ``moving`` are ``(X, Y, Z)`` numpy arrays or tensors;
-    ``options`` a ``RegistrationOptions`` (its defaults run the kernels).
+    ``options`` a ``RegistrationOptions`` (its defaults run the kernels), or
+    the legacy keywords, its fields one by one (deprecated, bit-identical).
     Its ``"auto"`` axes are resolved once, for the finest volume on
     ``device``, before the pyramid (``engine.autotune.resolve_options``).
     ``measure_bsi_time`` times the finest level's BSI expansion and reports
@@ -172,9 +180,12 @@ def ffd_register(fixed, moving, *, options=None, device="cuda",
     ``steps`` lists the steps each level took.
     """
     device = resolve_device(device)
-    opts = RegistrationOptions() if options is None else options
-    if not isinstance(opts, RegistrationOptions):
-        raise TypeError(f"options must be a RegistrationOptions, got {opts!r}")
+    opts = merge_legacy_options(
+        "ffd_register", options,
+        dict(tile=tile, levels=levels, iters=iters, lr=lr, bending_weight=bending_weight,
+             mode=mode, impl=impl, grad_impl=grad_impl, compute_dtype=compute_dtype,
+             similarity=similarity, transform=transform, regularizer=regularizer,
+             stop=stop, optimizer=optimizer))
     fixed, moving = as_volume(fixed, device), as_volume(moving, device)
     if fixed.dim() != 3 or fixed.shape != moving.shape:
         raise ValueError(

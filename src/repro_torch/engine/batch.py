@@ -25,7 +25,8 @@ loop, on fresh copies of its rows, so its trajectory is the solo one bit
 for bit however chunks and recycling slice it.  The factories keep the JAX
 package's names; nothing is compiled, each returns a plain function, and
 their caches keep one closure per configuration.
-Sharding (``mesh=``) is not in the package yet (ROADMAP.md queue 1 item 14b).
+With ``mesh=`` the batch is split over the ranks of a ``torch.distributed``
+mesh (``engine.shard``), each rank running ``ffd_pipeline`` on its block.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import ffd
-from repro_torch.core.options import RegistrationOptions
+from repro_torch.core.options import UNSET, merge_legacy_options
 from repro_torch.core.regularizer import regularizer_term
 from repro_torch.core.similarity import resolve_similarity
 from repro_torch.core.transform import (VelocityTransform, dense_displacement,
@@ -251,34 +252,70 @@ def ffd_pipeline(fixed, moving, *, options):
 
 
 @functools.lru_cache(maxsize=32)
-def _compiled_batch(vol_shape, options):
-    """The per-pair pipeline of one ``(vol_shape, options)`` configuration.
+def _compiled_batch(vol_shape, options, shards=None):
+    """The pipeline of one ``(vol_shape, options, shards)`` configuration:
+    the per-pair ``ffd_pipeline``, or for a mesh of ``shards`` batch shards
+    ``engine.shard.sharded_pipeline``, which takes the caller's ``mesh=`` at
+    each call.  No mesh is cached: a ``DeviceMesh`` hashes without its
+    process group, so a cached one could outlive its group.
 
     Nothing is compiled: the kernels are built once per process, at their
     first launch.  The cache's misses mark a configuration's first call,
     which ``register_batch`` reports as ``compiled``.
     """
     del vol_shape  # cache key only
-    return functools.partial(ffd_pipeline, options=options)
+    if shards is None:
+        return functools.partial(ffd_pipeline, options=options)
+    from repro_torch.engine.shard import sharded_pipeline
+
+    return functools.partial(sharded_pipeline, options=options)
 
 
-def register_batch(fixed, moving, *, options=None, device="cuda"):
+def register_batch(fixed, moving, *, options=None, tile=UNSET, levels=UNSET, iters=UNSET,
+                   lr=UNSET, bending_weight=UNSET, mode=UNSET, impl=UNSET,
+                   grad_impl=UNSET, compute_dtype=UNSET, similarity=UNSET,
+                   transform=UNSET, regularizer=UNSET, mesh=None, stop=UNSET,
+                   optimizer=UNSET, device="cuda"):
     """Register a ``(B, X, Y, Z)`` stack of pairs, one ``ffd_pipeline`` per pair.
 
-    ``options`` (default ``RegistrationOptions()``) is resolved once for the
-    volume shape on ``device`` (``engine.autotune.resolve_options``).  Each
-    pair runs on fresh copies of its volumes, so ``warped[b]``, ``params[b]``
-    and ``losses[b]`` equal a solo ``ffd_register`` of pair ``b`` under the
-    same options bit for bit, and the batch launches what the solo calls
-    launch together.  Under ``options.stop`` the result's ``steps`` is a
-    ``(B, levels)`` int32 tensor on the host.  Runs on the card unless
-    ``device="cpu"``.
+    ``options`` (default ``RegistrationOptions()``; or the legacy keywords,
+    its fields one by one, deprecated and bit-identical) is resolved once
+    for the volume shape on ``device`` (``engine.autotune.resolve_options``).
+    Each pair runs on fresh copies of its volumes, so ``warped[b]``,
+    ``params[b]`` and ``losses[b]`` equal a solo ``ffd_register`` of pair
+    ``b`` under the same options bit for bit, and the batch launches what
+    the solo calls launch together.  Under ``options.stop`` the result's
+    ``steps`` is a ``(B, levels)`` int32 tensor on the host.  Runs on the
+    card unless ``device="cpu"``.
+
+    ``mesh`` (``engine.shard.make_registration_mesh``) splits the batch over
+    the mesh's ranks.  Every rank calls with the same stacks; the batch is
+    padded to the mesh's batch multiple (repeating the last pair), each rank
+    copies its block of rows from the stacks, where they lie, to its own
+    device (``mesh``'s, which must be of ``device``'s type), the first
+    rank's resolution of ``options`` is used by all, and the results are
+    gathered (``DTensor.full_tensor``) and stripped of the pad rows.  Every rank returns the same result, equal to
+    ``mesh=None``'s bit for bit.  Not an options field: it names ranks and
+    devices, which no options-keyed cache should hold.
     """
     device = resolve_device(device, "register_batch")
-    opts = RegistrationOptions() if options is None else options
-    if not isinstance(opts, RegistrationOptions):
-        raise TypeError(f"options must be a RegistrationOptions, got {opts!r}")
-    fixed, moving = as_volume(fixed, device), as_volume(moving, device)
+    opts = merge_legacy_options(
+        "register_batch", options,
+        dict(tile=tile, levels=levels, iters=iters, lr=lr, bending_weight=bending_weight,
+             mode=mode, impl=impl, grad_impl=grad_impl, compute_dtype=compute_dtype,
+             similarity=similarity, transform=transform, regularizer=regularizer,
+             stop=stop, optimizer=optimizer))
+    if mesh is not None:
+        if mesh.device_type != device.type:
+            raise ValueError(f"register_batch got a {mesh.device_type} mesh and "
+                             f"device={str(device)!r}")
+        from repro_torch.engine import shard
+
+        device = shard.mesh_device(mesh)
+        # the stacks stay where they are: each rank copies only its rows
+        fixed, moving = shard.as_source(fixed), shard.as_source(moving)
+    else:
+        fixed, moving = as_volume(fixed, device), as_volume(moving, device)
     if fixed.dim() != 4:
         raise ValueError(
             f"register_batch expects (B, X, Y, Z) stacks, got {tuple(fixed.shape)}; "
@@ -291,17 +328,31 @@ def register_batch(fixed, moving, *, options=None, device="cuda"):
         raise ValueError(
             f"shape mismatch: {tuple(fixed.shape)} vs {tuple(moving.shape)}")
     vol_shape = tuple(fixed.shape[1:])
-    opts = resolve_options(opts, vol_shape, device)
+    if mesh is None:
+        opts = resolve_options(opts, vol_shape, device)
+    else:
+        opts = shard.resolve_on_mesh(opts, vol_shape, device, mesh)
 
     t0 = time.perf_counter()
+    b = fixed.shape[0]
+    multiple = None if mesh is None else shard.batch_multiple(mesh)
     misses = _compiled_batch.cache_info().misses
-    run = _compiled_batch(vol_shape, opts)
+    run = _compiled_batch(vol_shape, opts, multiple)
     compiled = _compiled_batch.cache_info().misses > misses
-    outs = [run(fixed[b].clone(), moving[b].clone()) for b in range(fixed.shape[0])]
-    warped, params, losses = (torch.stack([o[j] for o in outs]) for j in range(3))
+    stop = check_stop(opts.stop, opts.iters)
     steps = None
-    if opts.stop is not None:
-        steps = torch.tensor([o[3] for o in outs], dtype=torch.int32)
+    if mesh is None:
+        outs = [run(fixed[i].clone(), moving[i].clone()) for i in range(b)]
+        warped, params, losses = (torch.stack([o[j] for o in outs]) for j in range(3))
+        if stop is not None:
+            steps = torch.tensor([o[3] for o in outs], dtype=torch.int32)
+    else:
+        out = run(shard.pad_batch(fixed, multiple)[0], shard.pad_batch(moving, multiple)[0],
+                  mesh=mesh)
+        # gather the shards and strip the pad rows
+        warped, params, losses = (t.full_tensor()[:b] for t in out[:3])
+        if stop is not None:
+            steps = out[3].full_tensor()[:b].cpu()
     synchronize(device)
     return BatchRegistrationResult(warped, params, losses, time.perf_counter() - t0,
                                    compiled=compiled, steps=steps)

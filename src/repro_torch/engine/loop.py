@@ -10,10 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.options import RegistrationOptions
+from repro_torch.core.options import UNSET, RegistrationOptions, merge_legacy_options
 from repro_torch.engine.convergence import check_stop, optimize_until
-from repro_torch.engine.optimizer import (Objective, init_state, make_objective,
-                                          opt_step, resolve_optimizer)
+from repro_torch.engine.optimizer import (AdamOptimizer, Objective, init_state,
+                                          make_objective, opt_step, resolve_optimizer)
 
 __all__ = ["make_adam_runner", "optimize_scan"]
 
@@ -38,19 +38,30 @@ def optimize_scan(obj, params, *, optimizer, iters, lr):
     return p, torch.stack(trace)
 
 
-def make_adam_runner(loss_builder, *, options):
+def make_adam_runner(loss_builder, *, options=None, iters=UNSET, lr=UNSET, b1=0.9,
+                     b2=0.999, eps=1e-8, stop=UNSET, optimizer=UNSET):
     """A ``(params, *data) -> (params, trace)`` runner for one level.
 
     ``loss_builder(*data)`` returns the scalar loss of the params or an
     :class:`~repro_torch.engine.optimizer.Objective`; ``options`` supplies
     ``iters``, ``lr``, ``optimizer`` (whose spec carries its own
-    hyperparameters) and ``stop``.  With a ``ConvergenceConfig`` the runner
-    returns ``(params, trace, steps_taken)``, the trace padded to
+    hyperparameters) and ``stop``.  The legacy ``iters=`` / ``lr=`` /
+    ``stop=`` / ``optimizer=`` keywords still work through the deprecation
+    shim (``core.options.merge_legacy_options``); one of the two spellings
+    is needed.  ``b1`` / ``b2`` / ``eps`` are Adam's, folded into a default
+    Adam spec as the JAX package folds them.  With a ``ConvergenceConfig``
+    the runner returns ``(params, trace, steps_taken)``, the trace padded to
     ``stop.max_iters`` (``engine.convergence``).
     """
-    if not isinstance(options, RegistrationOptions):
-        raise TypeError(f"options must be a RegistrationOptions, got {options!r}")
+    if options is None and (iters is UNSET or lr is UNSET):
+        raise TypeError("make_adam_runner needs options=RegistrationOptions(...) or "
+                        "the legacy iters=/lr= keywords")
+    options = merge_legacy_options(
+        "make_adam_runner", options,
+        dict(iters=iters, lr=lr, stop=stop, optimizer=optimizer))
     spec = resolve_optimizer(options.optimizer)
+    if isinstance(spec, AdamOptimizer) and spec == AdamOptimizer():
+        spec = AdamOptimizer(b1=b1, b2=b2, eps=eps)  # the defaults change nothing
     stop = check_stop(options.stop, options.iters)
 
     def run(p, *data):

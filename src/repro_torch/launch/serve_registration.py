@@ -8,6 +8,7 @@ run).  On the card (``--device cpu`` runs the kernels' plain versions):
 
     PYTHONPATH=src python -m repro_torch.launch.serve_registration [--rate 4.0] [--n 32]
     PYTHONPATH=src python -m repro_torch.launch.serve_registration --smoke
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve_registration --mesh
 
 ``--smoke`` pushes 8 mixed pairs (two volume shapes, easy and hard) through
 the queue as fast as the scheduler takes them and asserts that every
@@ -15,7 +16,10 @@ request completes, that bucketing held the stage count to ``levels x
 shapes``, and, on the card, that the forward and adjoint kernels launched.
 The options pin ``mode="separable", impl="cuda", grad_impl="cuda"`` and
 ``fused="off"`` (no race): the separable forward kernel and the adjoint
-kernel carry every step.
+kernel carry every step.  ``--mesh`` splits the lanes over the ranks of the
+process group (``torchrun``'s, else one rank; ``engine.shard``), the lane
+count rounded to an even split; every rank plays the same stream on the
+first rank's clock and prints the same numbers.
 """
 
 from __future__ import annotations
@@ -55,14 +59,15 @@ def mixed_pairs(n, shapes, hard_every=3, seed=0):
 
 
 def play(sched, pairs, arrivals, *, timeout=None):
-    """Submit ``pairs`` at ``arrivals`` (seconds) and drive to completion.
-    Returns ``(handles, latencies, makespan)``."""
+    """Submit ``pairs`` at ``arrivals`` (seconds) and drive to completion, on
+    the scheduler's clock (``sched.now()``: with a mesh the first rank's, so
+    every rank submits alike).  Returns ``(handles, latencies, makespan)``."""
     handles, latencies = {}, {}
-    start = time.perf_counter()
+    start = sched.now()
     submitted = 0
     n = len(pairs)
     while len(latencies) < n:
-        now = time.perf_counter() - start
+        now = sched.now() - start
         while submitted < n and arrivals[submitted] <= now:
             f, m = pairs[submitted]
             handles[submitted] = sched.submit(f, m, timeout=timeout)
@@ -71,11 +76,11 @@ def play(sched, pairs, arrivals, *, timeout=None):
             sched.step()
         elif submitted < n:
             time.sleep(max(arrivals[submitted] - now, 0.0) + 1e-4)
-        end = time.perf_counter() - start
+        end = sched.now() - start
         for i, h in handles.items():
             if h.done and i not in latencies:
                 latencies[i] = end - arrivals[i]
-    return handles, latencies, time.perf_counter() - start
+    return handles, latencies, sched.now() - start
 
 
 def main(argv=None):
@@ -94,6 +99,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="split the lanes over the process group's ranks (torchrun's, "
+                         "else one)")
     ap.add_argument("--smoke", action="store_true",
                     help="8 mixed pairs over two shapes; assert all complete, "
                          "stages == levels x shapes, and the kernels launched")
@@ -117,8 +125,19 @@ def main(argv=None):
         shapes = [shape]
     pairs = mixed_pairs(n, shapes, seed=args.seed)
 
-    sched = RegistrationScheduler(options, lanes=args.lanes, chunk=args.chunk,
-                                  max_queue=max(2 * n, 16), device=args.device)
+    mesh = None
+    lanes = args.lanes
+    if args.mesh:
+        from repro_torch.engine.shard import batch_multiple, make_registration_mesh
+
+        mesh = make_registration_mesh(device=args.device)
+        mult = batch_multiple(mesh)
+        lanes = max(lanes, mult) // mult * mult  # round to an even split
+        print(f"mesh: {lanes} lanes over {mult} rank(s), {lanes // mult} a rank "
+              f"({mesh.device_type})")
+
+    sched = RegistrationScheduler(options, lanes=lanes, chunk=args.chunk,
+                                  max_queue=max(2 * n, 16), mesh=mesh, device=args.device)
     # warm each stage (one per shape x level) outside the timed stream
     for shape_ in shapes:
         f = np.zeros(shape_, np.float32)

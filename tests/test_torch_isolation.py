@@ -105,6 +105,33 @@ def test_batched_and_served_registration_need_the_card_unless_asked_for_the_cpu(
     assert RegistrationScheduler(device="cpu").device.type == "cpu"
 
 
+def test_the_registration_mesh_needs_the_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import torch.distributed as dist
+
+    from repro_torch import RegistrationScheduler, register_batch
+    from repro_torch.engine import make_registration_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_registration_mesh()
+    assert not dist.is_initialized()  # no group was started for the refused mesh
+    mesh = make_registration_mesh(device="cpu")
+    try:
+        assert dist.get_backend() == "gloo"
+        vols = np.zeros((1, 10, 10, 10), np.float32)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            register_batch(vols, vols, mesh=mesh)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            RegistrationScheduler(mesh=mesh)
+        res = register_batch(vols, vols, options=RegistrationOptions(levels=1, iters=1),
+                             mesh=mesh, device="cpu")
+        assert res.warped.device.type == "cpu"
+        assert RegistrationScheduler(mesh=mesh, device="cpu").device.type == "cpu"
+    finally:
+        dist.destroy_process_group()
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
