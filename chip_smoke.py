@@ -110,6 +110,24 @@ Phases; any failure raises and the script exits nonzero:
    Adam, L-BFGS, Gauss-Newton and Adam under ``stop=`` (losses at 1e-4,
    ``steps`` equal); a small pair with velocity, bending, L-BFGS and
    ``stop``, card against CPU;
+1b. compute_dtype="bfloat16", run right after phase 4's main path
+   (``check_bf16_kernels``, ``run_bf16_path``): the bf16 forward kernels
+   ``bsi_ttli_bf16`` and ``bsi_separable_bf16`` at phantom1, tile 5^3, 3
+   channels, on a bf16 grid against their plain versions (every value
+   within one bf16 step plus the float32 kernels' 1e-5 of the largest
+   value, asserted; how many differ, how many by more than a step; two
+   calls bit-equal),
+   timed beside the float32 kernel, the 0.0812 ms bound and
+   ``conv_transpose3d`` in bf16; then ``ffd_register`` of the main path's
+   pair with ``compute_dtype="bfloat16"``, ``ttli / cuda / cuda``,
+   ``fused="off"``, ``lr=0.02``, cold and warm beside the same float32 call
+   (seconds, peak memory above the call's start), its launches asserted
+   (the level loops' forwards ``bsi_ttli_bf16``, as many as float32's less
+   the final warp's, which stays one float32 ``bsi_ttli`` as in the JAX
+   package; the adjoint's as float32's), a float32 warp, the JAX package's
+   bf16 bounds against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3),
+   ``mode="separable"`` in bf16 counted, and the per-level losses within
+   1e-3 relative of the plain bf16 path's;
 4c. batched and served registration: ``register_batch`` of two phantom1
    pairs (seeds 0 and 1, made on the host while the earlier phases run)
    with ``fused="on"``, cold then warm (seconds, ``compiled``, peak memory,
@@ -929,6 +947,185 @@ def run_main_path(torch, fixed, moving):
     log(f"main path: mean |moving - fixed| {mae0:.6f} -> |warped - fixed| {mae1:.6f}")
     assert mae1 < mae0, (mae0, mae1)
     return counts
+
+
+def bf16_ulps(torch, out, ref, f32_gap=1e-5):
+    """bf16 ``out`` against bf16 ``ref``, each a float32 value rounded once:
+    ``(worst, beyond, differ)``.  ``worst`` is the largest ``|out - ref|``
+    over its bound, one bf16 step of the larger magnitude ``m`` (``2^(floor
+    (log2 m) - 7)``) plus ``f32_gap`` of the largest value, the most the two
+    float32 values may differ before rounding (the float32 kernels'
+    tolerance); ``worst <= 1`` holds every value within one step of the
+    other's rounding.  ``beyond``: values more than one step apart (only
+    near zero, where the float32 gap exceeds a step); ``differ``: values
+    that differ at all."""
+    a, b = out.float(), ref.float()
+    m = torch.maximum(a.abs(), b.abs())
+    step = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+    diff = (a - b).abs()
+    worst = (diff / (step + f32_gap * b.abs().max())).max().item()
+    return worst, int((diff > step).sum().item()), int((out != ref).sum().item())
+
+
+def bf16_yardstick(torch, phi, vol):
+    """``conv_transpose3d`` in bf16 computing the forward BSI of the bf16
+    ``phi`` cropped to ``vol``, channels last (cuDNN; its rounding is its
+    own, so it is timed, not compared)."""
+    import torch.nn.functional as F
+
+    c = phi.shape[3]
+    K = conv_kernel(torch, TILE, c, phi.device).to(torch.bfloat16)
+    phi_cf = phi.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
+    (dx, dy, dz), (X, Y, Z) = TILE, vol
+
+    def forward():
+        full = F.conv_transpose3d(phi_cf, K, stride=TILE, groups=c)
+        return full[0, :, 3 * dx:3 * dx + X, 3 * dy:3 * dy + Y, 3 * dz:3 * dz + Z]
+
+    return lambda: forward().permute(1, 2, 3, 0)
+
+
+def check_bf16_kernels(torch, fixed, lib):
+    """Phase 1b (a): the bf16 forward kernels at phantom1, tile 5^3, 3
+    channels, against their plain versions on the same bf16 grid: every
+    value within one bf16 step plus 1e-5 of the largest value (asserted:
+    the float32 sums of kernel and plain may differ that much before their
+    one rounding), how many differ at all, two calls bit-equal (asserted); each timed beside the float32 kernel on the
+    float32 grid, the bound and ``conv_transpose3d`` in bf16."""
+    from repro_torch.core import ffd
+    from repro_torch.kernels import bsi_separable, bsi_ttli, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds
+
+    dev = fixed.device
+    vol = tuple(fixed.shape)
+    gshape = ffd.grid_shape_for_volume(vol, TILE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 2.5
+    phi = phi32.to(torch.bfloat16)
+    # the same function for both kernels, so timed once (cuDNN's bf16
+    # transposed conv is slow: 3 calls after one warm-up)
+    library_ms = cuda_ms(torch, bf16_yardstick(torch, phi, vol), reps=3, warmup=1)
+    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
+    rows = []
+    for name, module, kernel, replaces in (
+            ("bsi_ttli_bf16", bsi_ttli, ops.bsi_ttli, "src/repro/kernels/bsi_ttli.py:72"),
+            ("bsi_separable_bf16", bsi_separable, ops.bsi_separable,
+             "src/repro/kernels/bsi_separable.py:70")):
+        ops.reset_launch_counts()
+        out, again = kernel(phi, TILE, vol), kernel(phi, TILE, vol)
+        assert ops.launch_counts()[name] == 2, ops.launch_counts()
+        ref = module.plain(phi, TILE, vol)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.bfloat16 and out.shape == vol + (3,), out.dtype
+        worst, beyond, differ = bf16_ulps(torch, out, ref)
+        same = torch.equal(out, again)
+        err = (out.float() - ref.float()).abs().max().item()
+        f32_err = (out.float() - module.plain(phi32, TILE, vol)).abs().max().item()
+        log(f"{name}: max |kernel - plain| {err:.3e}; against one bf16 step + 1e-5 of "
+            f"the largest value {worst:.3f} (limit 1); {differ} of {out.numel()} values "
+            f"differ, {beyond} by more than one step; two calls bit-equal: {same}; "
+            f"max |kernel - float32 plain on the float32 grid| {f32_err:.3e}")
+        assert math.isfinite(worst) and worst <= 1.0 and same, (worst, same)
+        del out, again, ref
+        log_forward_occupancy(lib, name, vol)
+        b_ms, b_by = bounds[name]
+        f32_name = name[:-len("_bf16")]
+        row = dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{f32_name}.cu",
+            replaces=replaces, max_abs_err=err,
+            ms=cuda_ms(torch, lambda: kernel(phi, TILE, vol)),
+            plain_ms=cuda_ms(torch, lambda: module.plain(phi, TILE, vol), reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+            more=dict(float32_kernel_ms=cuda_ms(torch, lambda: kernel(phi32, TILE, vol)),
+                      values_differing=differ, values_beyond_one_step=beyond,
+                      worst_over_bound=worst))
+        log(f"{name}: kernel {row['ms']:.4f} ms (float32 kernel "
+            f"{row['more']['float32_kernel_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library (conv_transpose3d, bf16) "
+            f"{row['library_ms']:.4f} ms")
+        rows.append(row)
+    return rows
+
+
+def run_bf16_path(torch, fixed, moving):
+    """Phase 1b (b): ``ffd_register(compute_dtype="bfloat16")`` on the main
+    path's pair, ``ttli / cuda / cuda`` unfused at ``lr=0.02`` (at 0.5 the
+    coarse level makes no progress at phantom1), cold and warm beside the
+    same float32 call, each counted; then ``mode="separable"`` in bf16,
+    counted; then the plain bf16 path (``impl="torch"``).  Asserts the
+    launches (the level loops' forwards all ``bsi_ttli_bf16``, the adjoint's
+    as in float32, the final full-resolution warp one float32 ``bsi_ttli``
+    as in the JAX package), a float32 warp, the JAX package's own bf16
+    bounds against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3),
+    which a bf16 path that never optimised would also meet at phantom1
+    (the whole registration moves the MAE to the fixed volume by ~4e-4),
+    and so limits set from the H100's readings (final loss within 1e-2
+    relative of float32's, measured 6e-4; warp MAE against float32 < 1e-4,
+    measured 5.5e-6), and the kernel path's per-level losses within 1e-3
+    relative of the plain bf16 path's.  Returns each counted path's
+    launches and a summary."""
+    from repro_torch import RegistrationOptions, ffd_register
+    from repro_torch.core import metrics
+    from repro_torch.kernels import ops
+
+    opts32 = RegistrationOptions(mode="ttli", impl="cuda", grad_impl="cuda", fused="off",
+                                 lr=0.02)
+    opts16 = opts32.replace(compute_dtype="bfloat16")
+    steps = opts32.levels * (opts32.iters + 1)
+    expected = {"float32": only(bsi_ttli=steps + 1, bsi_adjoint=steps),
+                "bfloat16": only(bsi_ttli_bf16=steps, bsi_ttli=1, bsi_adjoint=steps)}
+    runs, counts, calls = {}, {}, {}
+    for when in ("cold", "warm"):
+        for label, opts in (("float32", opts32), ("bfloat16", opts16)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            res = ffd_register(fixed, moving, options=opts)
+            counts[label] = ops.launch_counts()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            calls.setdefault(label, {})[when] = dict(seconds=res.seconds, peak_gib=peak)
+            log(f"bf16 path: {label} {when} {res.seconds:.3f} s, {peak:.2f} GiB above "
+                f"the call's start; losses {res.losses}; launches "
+                f"{ {k: v for k, v in counts[label].items() if v} }")
+            assert counts[label] == expected[label], (label, counts[label])
+            runs[label] = res
+    r32, r16 = runs["float32"], runs["bfloat16"]
+    assert r16.warped.dtype == torch.float32 and r16.params.dtype == torch.float32
+    assert torch.isfinite(r16.warped).all() and torch.isfinite(r16.params).all()
+    mae = (r16.warped - r32.warped).abs().mean().item()
+    mae0, mae1 = metrics.mae(moving, fixed).item(), metrics.mae(r16.warped, fixed).item()
+    loss_rel = abs(r16.losses[-1] - r32.losses[-1]) / abs(r32.losses[-1])
+    log(f"bf16 path: final loss {r16.losses[-1]:.6e} vs float32 {r32.losses[-1]:.6e}, "
+        f"relative {loss_rel:.3e} (limits 1.1x + 1e-4 and 1e-2 relative); warp MAE "
+        f"against float32 {mae:.3e} (limits 5e-3 and 1e-4); MAE to fixed "
+        f"{mae0:.6f} -> {mae1:.6f}")
+    assert r16.losses[-1] < 1.1 * r32.losses[-1] + 1e-4, (r16.losses, r32.losses)
+    assert mae < 5e-3, mae
+    assert loss_rel < 1e-2, (loss_rel, r16.losses, r32.losses)
+    assert mae < 1e-4, mae
+    calls["bfloat16"].update(losses=r16.losses, float32_losses=r32.losses,
+                             final_loss_rel_vs_float32=loss_rel, warp_mae_vs_float32=mae)
+
+    ops.reset_launch_counts()
+    sep = ffd_register(fixed, moving, options=opts16.replace(mode="separable"))
+    counts["separable"] = ops.launch_counts()
+    want = only(bsi_separable_bf16=steps, bsi_separable=1, bsi_adjoint=steps)
+    log(f"bf16 separable path: {sep.seconds:.3f} s, losses {sep.losses}; launches "
+        f"{ {k: v for k, v in counts['separable'].items() if v} }")
+    assert counts["separable"] == want, counts["separable"]
+    calls["separable"] = dict(seconds=sep.seconds, losses=sep.losses)
+
+    ops.reset_launch_counts()
+    plain = ffd_register(fixed, moving, options=opts16.replace(impl="torch",
+                                                               grad_impl="torch"))
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r16.losses, plain.losses))
+    log(f"bf16 path: kernels {r16.losses} plain {plain.losses} max relative {rel:.3e} "
+        f"(limit 1e-3); {r16.seconds:.3f} s vs {plain.seconds:.3f} s")
+    assert rel <= 1e-3, rel
+    calls["plain_bf16"] = dict(seconds=plain.seconds, losses=plain.losses)
+    return counts, calls
 
 
 def compare_paths(torch, fixed, moving):
@@ -2248,6 +2445,10 @@ def main():
     rows += check_matmul_kernels(torch, fixed, moving, lib, stage_libs)
     rows += check_forward_forms(torch, fixed, lib)
     counts = run_main_path(torch, fixed, moving)
+    t0 = time.perf_counter()
+    rows += check_bf16_kernels(torch, fixed, lib)
+    bf16_counts, bf16_calls = run_bf16_path(torch, fixed, moving)
+    log(f"phase 1b: {time.perf_counter() - t0:.1f} s")
     compare_paths(torch, fixed, moving)
     nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)
     ncc_counts = compare_multimodal_paths(torch, fixed, moving)
@@ -2290,6 +2491,8 @@ def main():
                    "bsi_fused_ncc_matmul": matmul_counts["ncc_matmul"],
                    "bsi_fused_nmi_matmul": matmul_counts["nmi_matmul"],
                    "bsi_separable": form_counts["separable"],
+                   "bsi_ttli_bf16": bf16_counts["bfloat16"],
+                   "bsi_separable_bf16": bf16_counts["separable"],
                    "bsi_tt": form_counts["tt"],
                    "flash_attention": serve_counts,
                    "flash_attention_f32": serve_compare["fp32_counts"]}
@@ -2315,6 +2518,7 @@ def main():
     for mode, call in form_calls.items():
         log(f"{mode} call at phantom1: {call}")
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
+    log(f"bf16 calls at phantom1 (phase 1b): {bf16_calls}")
     log(f"workflow at phantom1: {workflow}")
     log(f"register_batch at phantom1: {batch_call}")
     log(f"stream: {stream_call}")

@@ -106,7 +106,8 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
     with the same ``_fused_spec``; a transform, regularizer or optimizer
     spec, and a ``ConvergenceConfig``, to this package's with the same
     fields.  ``fused_reason`` is the JAX package's introspection field and
-    is dropped.
+    is dropped.  ``compute_dtype`` keeps its canonical name
+    (``"bfloat16"``).
     """
     kw = {k: v for k, v in fields.items() if k != "fused_reason"}
     if "impl" in kw:

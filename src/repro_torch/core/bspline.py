@@ -14,7 +14,10 @@ Conventions (shared by every BSI implementation of the package)
   axis, so all weights live in a ``(delta, 4)`` look-up table.
 
 The LUTs are built in float64 numpy and cast once, so they are bitwise equal
-to the JAX package's.
+to the JAX package's, bfloat16 included: the JAX package's numpy cast
+(``ml_dtypes``) takes a float64 to bfloat16 through float32, round to
+nearest even at each step, and :func:`_cast` does the same in torch (the
+card's machine has no ``ml_dtypes``).
 """
 
 from __future__ import annotations
@@ -33,8 +36,13 @@ __all__ = [
 ]
 
 
-def _np_dtype(dtype) -> str:
-    return str(dtype).removeprefix("torch.")
+def _cast(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A float64 LUT as a tensor of ``dtype`` (a torch dtype) on ``device``,
+    rounded as the JAX package rounds it: numpy dtypes in one cast,
+    bfloat16 through float32."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(a.astype(str(dtype).removeprefix("torch."))).to(device)
 
 
 def bspline_basis(u, dtype=torch.float32):
@@ -52,28 +60,27 @@ def bspline_basis(u, dtype=torch.float32):
 
 
 @functools.lru_cache(maxsize=None)
-def _weight_lut_np(delta: int, dtype_name: str) -> np.ndarray:
+def _weight_lut_np(delta: int) -> np.ndarray:
     # float64 then one cast: LUT rounding stays out of the error budget
     u = np.arange(delta, dtype=np.float64) / float(delta)
     b0 = (1.0 - u) ** 3 / 6.0
     b1 = (3.0 * u**3 - 6.0 * u**2 + 4.0) / 6.0
     b2 = (-3.0 * u**3 + 3.0 * u**2 + 3.0 * u + 1.0) / 6.0
     b3 = u**3 / 6.0
-    return np.stack([b0, b1, b2, b3], axis=-1).astype(dtype_name)
+    return np.stack([b0, b1, b2, b3], axis=-1)
 
 
 def weight_lut(delta: int, dtype=torch.float32, device="cpu"):
     """``(delta, 4)`` aligned-grid weight LUT: ``W[a, l] = B_l(a / delta)``."""
-    lut = _weight_lut_np(int(delta), _np_dtype(dtype))
-    return torch.from_numpy(lut.copy()).to(device)
+    return _cast(_weight_lut_np(int(delta)), dtype, device)
 
 
 @functools.lru_cache(maxsize=None)
-def _basis_matrix_np(tile: tuple, dtype_name: str) -> np.ndarray:
+def _basis_matrix_np(tile: tuple) -> np.ndarray:
     dx, dy, dz = tile
-    wx, wy, wz = (_weight_lut_np(d, "float64") for d in (dx, dy, dz))
+    wx, wy, wz = (_weight_lut_np(d) for d in (dx, dy, dz))
     b = np.einsum("al,bm,cn->abclmn", wx, wy, wz)
-    return b.reshape(dx * dy * dz, 64).astype(dtype_name)
+    return b.reshape(dx * dy * dz, 64)
 
 
 def basis_matrix(tile, dtype=torch.float32, device="cpu"):
@@ -82,13 +89,12 @@ def basis_matrix(tile, dtype=torch.float32, device="cpu"):
     ``B[v, k] = Wx[a, l] * Wy[b, m] * Wz[c, n]`` with voxel offset
     ``v = (a*dy + b)*dz + c`` and control offset ``k = (l*4 + m)*4 + n``.
     """
-    tile = tuple(int(d) for d in tile)
-    return torch.from_numpy(_basis_matrix_np(tile, _np_dtype(dtype)).copy()).to(device)
+    return _cast(_basis_matrix_np(tuple(int(d) for d in tile)), dtype, device)
 
 
 @functools.lru_cache(maxsize=None)
-def _lerp_luts_np(delta: int, dtype_name: str):
-    w = _weight_lut_np(delta, "float64")
+def _lerp_luts_np(delta: int):
+    w = _weight_lut_np(delta)
     b0, b1, b2, b3 = w[:, 0], w[:, 1], w[:, 2], w[:, 3]
     # pairwise renormalisation (paper §3.3): B0*p0 + B1*p1 ==
     # (B0+B1) * lerp(p0, p1, B1/(B0+B1)); partition of unity makes the
@@ -96,7 +102,7 @@ def _lerp_luts_np(delta: int, dtype_name: str):
     t0 = b1 / (b0 + b1)
     t1 = b3 / (b2 + b3)
     s = b2 + b3
-    return tuple(a.astype(dtype_name) for a in (t0, t1, s))
+    return t0, t1, s
 
 
 def lerp_luts(delta: int, dtype=torch.float32, device="cpu"):
@@ -105,8 +111,7 @@ def lerp_luts(delta: int, dtype=torch.float32, device="cpu"):
     ``sum_l B_l(u_a) * p_l == lerp(lerp(p0, p1, t0), lerp(p2, p3, t1), s)``:
     3 lerps per axis level, 63 per voxel in 3-D (paper App. B).
     """
-    luts = _lerp_luts_np(int(delta), _np_dtype(dtype))
-    return tuple(torch.from_numpy(a.copy()).to(device) for a in luts)
+    return tuple(_cast(a, dtype, device) for a in _lerp_luts_np(int(delta)))
 
 
 def grid_points_for_tiles(num_tiles) -> tuple:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.interpolate import crop_interpolate
+from repro_torch.core.interpolate import as_compute_dtype, crop_interpolate
 
 __all__ = [
     "grid_shape_for_volume",
@@ -63,14 +63,17 @@ def upsample_grid(phi, new_shape):
 
 
 def dense_field(phi, tile, vol_shape, *, mode="separable", impl="torch",
-                grad_impl="autograd"):
+                grad_impl="autograd", compute_dtype=None):
     """Expand a control grid to a dense displacement field cropped to the volume.
 
     ``impl`` and ``grad_impl`` are as in ``repro_torch.core.interpolate``;
     with ``impl="cuda"`` the crop is fused into the kernel.
+    ``compute_dtype`` (``"bfloat16"``) runs the expansion in reduced
+    precision, the field in that dtype, while the analytic adjoints
+    accumulate in float32 and the gradient takes ``phi``'s dtype.
     """
     return crop_interpolate(phi, tile, vol_shape, mode=mode, impl=impl,
-                            grad_impl=grad_impl)
+                            grad_impl=grad_impl, dtype=compute_dtype)
 
 
 class _FusedLoss(torch.autograd.Function):
@@ -78,12 +81,14 @@ class _FusedLoss(torch.autograd.Function):
     package): the gradient is that of the unfused composition."""
 
     @staticmethod
-    def forward(ctx, phi, moving, fixed, tile, spec, mode, impl, grad_impl):
+    def forward(ctx, phi, moving, fixed, tile, spec, mode, impl, grad_impl, cd):
         from repro_torch.kernels import ops  # kernels import core modules
 
         ctx.save_for_backward(phi, moving, fixed)
-        ctx.conf = (tile, spec, mode, impl, grad_impl)
+        ctx.conf = (tile, spec, mode, impl, grad_impl, cd)
         disp_form = "matmul" if mode == "matmul" else "lerp"
+        if cd is not None:  # the JAX package's casts (its kernels/ops.py:337-339)
+            phi, moving, fixed = phi.to(cd), moving.to(cd), fixed.to(torch.float32)
         return ops.fused_similarity_loss(phi, moving, fixed, tile, sim_spec=spec,
                                          disp_form=disp_form)
 
@@ -92,18 +97,20 @@ class _FusedLoss(torch.autograd.Function):
         from repro_torch.core.similarity import _loss_from_spec
 
         phi, moving, fixed = ctx.saved_tensors
-        tile, spec, mode, impl, grad_impl = ctx.conf
+        tile, spec, mode, impl, grad_impl, cd = ctx.conf
         with torch.enable_grad():
             p = phi.detach().requires_grad_(True)
             disp = dense_field(p, tile, moving.shape, mode=mode, impl=impl,
-                               grad_impl=grad_impl)
-            loss = _loss_from_spec(spec)(warp_volume(moving, disp), fixed)
+                               grad_impl=grad_impl, compute_dtype=cd)
+            warped = warp_volume(moving, disp, compute_dtype=cd)
+            loss = _loss_from_spec(spec)(warped.to(torch.float32),
+                                         fixed.to(torch.float32))
             (dphi,) = torch.autograd.grad(loss, p, g)
-        return dphi, None, None, None, None, None, None, None
+        return dphi, None, None, None, None, None, None, None, None
 
 
 def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separable",
-                    impl="torch", grad_impl="autograd"):
+                    impl="torch", grad_impl="autograd", compute_dtype=None):
     """``similarity(warp(moving, bsi(phi)), fixed)`` without a dense field.
 
     The forward is the fused kernels (``kernels.ops.fused_similarity_loss``;
@@ -113,7 +120,11 @@ def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separab
     The backward recomputes ``dense_field -> warp_volume -> similarity``
     with ``mode`` / ``impl`` / ``grad_impl`` and returns its gradient, so the
     gradient is the unfused path's.  ``ssd``, ``ncc``, ``lncc`` and ``nmi``
-    have fused kernels.
+    have fused kernels.  ``compute_dtype`` casts ``phi`` and ``moving`` as
+    the unfused pair of knobs does (``fixed`` and the sums stay float32);
+    the fused kernels take no bf16 yet, so on the card it raises
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 18d) and runs on the
+    CPU through their plain versions.
     """
     from repro_torch.core.similarity import fused_spec
 
@@ -125,7 +136,7 @@ def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separab
         )
     tile = tuple(int(t) for t in tile)
     return _FusedLoss.apply(phi, moving.detach(), fixed.detach(), tile, tuple(spec),
-                            mode, impl, grad_impl)
+                            mode, impl, grad_impl, as_compute_dtype(compute_dtype))
 
 
 def identity_grid(shape, dtype=torch.float32, device=None):
@@ -178,12 +189,20 @@ def sample_with_gradient(vol, coords):
     return values.detach(), grad
 
 
-def warp_volume(moving, disp):
+def warp_volume(moving, disp, compute_dtype=None):
     """Resample ``moving`` at identity + displacement (both in voxel units).
 
-    Sampling coordinates are float32 (or the displacement's wider dtype).
+    Sampling coordinates are float32 (or the displacement's wider dtype):
+    bf16 holds no integer above 256 exactly, so a bf16 identity grid would
+    shift the samples of a larger volume by whole voxels.
+    ``compute_dtype`` (``"bfloat16"``) casts the sampled intensities; the
+    interpolation weights stay float32, so the warp comes back float32, as
+    in the JAX package.
     """
     coord_dtype = torch.promote_types(disp.dtype, torch.float32)
+    cd = as_compute_dtype(compute_dtype)
+    if cd is not None:
+        moving = moving.to(cd)
     disp = disp.to(coord_dtype)
     ident = identity_grid(moving.shape, coord_dtype, disp.device)
     return trilinear_sample(moving, ident + disp)

@@ -29,6 +29,19 @@ Gradient path
 BSI is linear, so the Function saves no tensors: the backward needs only the
 cotangent, accumulates in fp32 and casts back to the primal dtype; its
 forward-mode derivative is the forward, kernel or plain, on the tangent.
+
+Compute dtype
+-------------
+Every form takes ``dtype`` (None: ``phi``'s), the JAX package's mixed
+precision.  Under ``bfloat16`` the contract, kernels and plain forms alike,
+is: ``phi`` rounded to bf16 and the LUTs rounded to bf16 as the JAX package
+rounds them (``core.bspline``), float32 arithmetic throughout, one rounding
+to bf16 at the store; the field is bf16.  The analytic adjoints widen a bf16
+cotangent to float32 (exactly) and return ``phi``'s dtype, so float32
+parameters get float32 gradients.  An explicit ``grad_impl="autograd"``
+differentiates the float32-arithmetic plain form through its casts (the
+JAX package's ``"xla"`` differentiates its bf16 arithmetic instead, and
+accumulates in bf16).
 """
 
 from __future__ import annotations
@@ -48,12 +61,51 @@ __all__ = [
     "bsi_adjoint",
     "interpolate",
     "crop_interpolate",
+    "as_compute_dtype",
+    "compute_dtype_name",
+    "COMPUTE_DTYPES",
     "MODES",
     "MODE_NAMES",
     "IMPLS",
     "KERNEL_MODES",
     "GRAD_IMPLS",
 ]
+
+
+# compute dtypes of the forward; the JAX package's also takes float16
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def compute_dtype_name(dtype):
+    """A compute dtype (None, a torch dtype or its name) as its canonical
+    name, or None.  ``float16`` raises ``NotImplementedError``, anything
+    else outside :data:`COMPUTE_DTYPES` ``ValueError``."""
+    if dtype is None:
+        return None
+    name = str(dtype).removeprefix("torch.")
+    if name == "float16":
+        raise NotImplementedError(
+            "compute_dtype='float16' is not in the package yet (ROADMAP.md queue 1 "
+            "item 18f)")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES} or None, "
+                         f"got {dtype!r}")
+    return name
+
+
+def as_compute_dtype(dtype):
+    """A compute dtype as a torch dtype, or None (:func:`compute_dtype_name`)."""
+    name = compute_dtype_name(dtype)
+    return None if name is None else getattr(torch, name)
+
+
+def _operands(phi, dtype):
+    """``(phi, st, dt)``: ``phi`` rounded to the compute dtype ``st`` (None:
+    its own), the field's, and widened to the arithmetic dtype ``dt``,
+    float32 or wider."""
+    st = phi.dtype if dtype is None else dtype
+    dt = torch.promote_types(st, torch.float32)
+    return phi.to(st).to(dt), st, dt
 
 
 def _dims(phi, tile):
@@ -64,11 +116,12 @@ def _dims(phi, tile):
     return (dx, dy, dz), (tx, ty, tz), phi.shape[3]
 
 
-def bsi_gather(phi, tile):
+def bsi_gather(phi, tile, dtype=None):
     """Thread-per-voxel analog: per-voxel 64-point gather + weighted sum."""
+    phi, st, dt = _operands(phi, dtype)
     (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
-    dev, dt = phi.device, phi.dtype
-    wx, wy, wz = (weight_lut(d, dt, dev) for d in (dx, dy, dz))
+    dev = phi.device
+    wx, wy, wz = (weight_lut(d, st, dev).to(dt) for d in (dx, dy, dz))
     x = torch.arange(tx * dx, device=dev)
     y = torch.arange(ty * dy, device=dev)
     z = torch.arange(tz * dz, device=dev)
@@ -91,14 +144,15 @@ def bsi_gather(phi, tile):
                     * wz[az, n][None, None, :]
                 )
                 out = out + g * w[..., None]
-    return out
+    return out.to(st)
 
 
-def bsi_tt(phi, tile):
+def bsi_tt(phi, tile, dtype=None):
     """Thread-per-tile form: tile-shared control-point slices, 64 weighted sums."""
+    phi, st, dt = _operands(phi, dtype)
     (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
-    dev, dt = phi.device, phi.dtype
-    wx, wy, wz = (weight_lut(d, dt, dev) for d in (dx, dy, dz))
+    dev = phi.device
+    wx, wy, wz = (weight_lut(d, st, dev).to(dt) for d in (dx, dy, dz))
 
     out = torch.zeros((tx, dx, ty, dy, tz, dz, c), dtype=dt, device=dev)
     for l in range(4):
@@ -108,24 +162,25 @@ def bsi_tt(phi, tile):
                 w = (wx[:, l][:, None, None] * wy[:, m][None, :, None]
                      * wz[:, n][None, None, :]).reshape(1, dx, 1, dy, 1, dz, 1)
                 out = out + sl[:, None, :, None, :, None, :] * w
-    return out.reshape(tx * dx, ty * dy, tz * dz, c)
+    return out.reshape(tx * dx, ty * dy, tz * dz, c).to(st)
 
 
 def _lerp(a, b, t):
     return a + t * (b - a)
 
 
-def bsi_ttli(phi, tile):
+def bsi_ttli(phi, tile, dtype=None):
     """TT + lerp reformulation (paper §3.3, App. B): 63 lerps per voxel.
 
     Axis-staged pairwise lerps: three lerps collapse the four x-neighbours,
     then y, then z, in the order of the TTLI kernel.
     """
+    phi, st, dt = _operands(phi, dtype)
     (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
-    dev, dt = phi.device, phi.dtype
-    t0x, t1x, sx = lerp_luts(dx, dt, dev)
-    t0y, t1y, sy = lerp_luts(dy, dt, dev)
-    t0z, t1z, sz = lerp_luts(dz, dt, dev)
+    dev = phi.device
+    t0x, t1x, sx = (t.to(dt) for t in lerp_luts(dx, st, dev))
+    t0y, t1y, sy = (t.to(dt) for t in lerp_luts(dy, st, dev))
+    t0z, t1z, sz = (t.to(dt) for t in lerp_luts(dz, st, dev))
 
     # x stage: (tx+3, Y, Z, C) -> (tx, dx, Y, Z, C)
     f = [phi[l : l + tx] for l in range(4)]
@@ -146,14 +201,15 @@ def bsi_ttli(phi, tile):
     r = lambda t: t[None, None, None, :, None]
     h01 = _lerp(f[0][:, :, :, None], f[1][:, :, :, None], r(t0z))
     h23 = _lerp(f[2][:, :, :, None], f[3][:, :, :, None], r(t1z))
-    return _lerp(h01, h23, r(sz)).reshape(tx * dx, ty * dy, tz * dz, c)
+    return _lerp(h01, h23, r(sz)).reshape(tx * dx, ty * dy, tz * dz, c).to(st)
 
 
-def bsi_separable(phi, tile):
+def bsi_separable(phi, tile, dtype=None):
     """Three per-axis tensor contractions against the ``(d, 4)`` LUTs."""
+    phi, st, dt = _operands(phi, dtype)
     (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
-    dev, dt = phi.device, phi.dtype
-    wx, wy, wz = (weight_lut(d, dt, dev) for d in (dx, dy, dz))
+    dev = phi.device
+    wx, wy, wz = (weight_lut(d, st, dev).to(dt) for d in (dx, dy, dz))
 
     px = torch.stack([phi[l : l + tx] for l in range(4)])  # (4, tx, Y, Z, C)
     hx = torch.einsum("al,ltyzc->tayzc", wx, px).reshape(tx * dx, ty + 3, tz + 3, c)
@@ -161,24 +217,25 @@ def bsi_separable(phi, tile):
     hy = torch.einsum("bm,mxtzc->xtbzc", wy, py).reshape(tx * dx, ty * dy, tz + 3, c)
     pz = torch.stack([hy[:, :, n : n + tz] for n in range(4)])  # (4, X, Y, tz, C)
     hz = torch.einsum("cn,nxytk->xytck", wz, pz)
-    return hz.reshape(tx * dx, ty * dy, tz * dz, c)
+    return hz.reshape(tx * dx, ty * dy, tz * dz, c).to(st)
 
 
-def bsi_matmul(phi, tile):
+def bsi_matmul(phi, tile, dtype=None):
     """Matrix form (Wu & Zou): one ``(d^3, 64) @ (64, C)`` product per tile.
 
     The 64 shifted views of the control grid are the per-tile column matrix;
     the Kronecker basis (:func:`~repro_torch.core.bspline.basis_matrix`)
     contracts them in one product.
     """
+    phi, st, dt = _operands(phi, dtype)
     (dx, dy, dz), (tx, ty, tz), c = _dims(phi, tile)
-    b = basis_matrix((dx, dy, dz), phi.dtype, phi.device)  # (d^3, 64)
+    b = basis_matrix((dx, dy, dz), st, phi.device).to(dt)  # (d^3, 64)
     win = torch.stack([
         phi[l : l + tx, m : m + ty, n : n + tz]
         for l in range(4) for m in range(4) for n in range(4)
     ], dim=3)  # (tx, ty, tz, 64, C)
     h = torch.einsum("vk,xyzkc->vxyzc", b, win).reshape(dx, dy, dz, tx, ty, tz, c)
-    return h.permute(3, 0, 4, 1, 5, 2, 6).reshape(tx * dx, ty * dy, tz * dz, c)
+    return h.permute(3, 0, 4, 1, 5, 2, 6).reshape(tx * dx, ty * dy, tz * dz, c).to(st)
 
 
 MODES = {
@@ -299,18 +356,21 @@ def bsi_adjoint(g, tile, grid_shape, *, impl="torch"):
     return bsi_adjoint_separable(_pad_to_tiles(g, tile, grid_shape), tile)
 
 
-def _forward(phi, tile, vol_shape, mode, impl):
+def _forward(phi, tile, vol_shape, mode, impl, dtype):
     if impl == "cuda":
         if mode not in KERNEL_MODES:
             raise ValueError(
                 f"mode {mode!r} has no kernel; impl='cuda' runs modes {KERNEL_MODES}")
         from repro_torch.kernels import ops  # kernels import this module
 
+        # the kernel of phi's dtype: the grid is rounded to the compute dtype
+        # first, as the JAX package's kernels receive it
+        phi = phi if dtype is None else phi.to(dtype)
         return ops.FORWARD_KERNELS[mode](phi, tile, vol_shape)
     if impl != "torch":
         raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
     X, Y, Z = vol_shape
-    return MODES[mode](phi, tile)[:X, :Y, :Z]
+    return MODES[mode](phi, tile, dtype)[:X, :Y, :Z]
 
 
 class _AnalyticBsi(torch.autograd.Function):
@@ -324,20 +384,23 @@ class _AnalyticBsi(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(phi, tile, vol_shape, mode, impl, grad_impl):
-        return _forward(phi, tile, vol_shape, mode, impl)
+    def forward(phi, tile, vol_shape, mode, impl, grad_impl, dtype):
+        return _forward(phi, tile, vol_shape, mode, impl, dtype)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        phi, tile, vol_shape, mode, impl, grad_impl = inputs
+        phi, tile, vol_shape, mode, impl, grad_impl, dtype = inputs
         ctx.conf = (tile, tuple(phi.shape[:3]), grad_impl, phi.dtype)
-        ctx.fwd = (tile, vol_shape, mode, impl, grad_impl)
+        ctx.fwd = (tile, vol_shape, mode, impl, grad_impl, dtype)
 
     @staticmethod
     def backward(ctx, g):
         tile, grid_shape, grad_impl, dtype = ctx.conf
-        dphi = bsi_adjoint(g.contiguous(), tile, grid_shape, impl=grad_impl)
-        return dphi.to(dtype), None, None, None, None, None
+        # a bf16 cotangent widens to float32 exactly: the float32 adjoint
+        # computes what an adjoint reading bf16 would
+        g = g.to(torch.promote_types(g.dtype, torch.float32)).contiguous()
+        dphi = bsi_adjoint(g, tile, grid_shape, impl=grad_impl)
+        return dphi.to(dtype), None, None, None, None, None, None
 
     @staticmethod
     def jvp(ctx, phi_t, *_):
@@ -345,12 +408,13 @@ class _AnalyticBsi(torch.autograd.Function):
 
 
 def crop_interpolate(phi, tile, vol_shape, *, mode="separable", impl="torch",
-                     grad_impl="autograd"):
+                     grad_impl="autograd", dtype=None):
     """:func:`interpolate` cropped to ``vol_shape`` voxels.
 
     With the kernels the crop costs nothing: the forward kernels write only
     the voxels inside the volume and the adjoint kernels read only those.
     """
+    dtype = as_compute_dtype(dtype)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; choose from {MODE_NAMES}")
     if grad_impl not in GRAD_IMPLS:
@@ -364,8 +428,8 @@ def crop_interpolate(phi, tile, vol_shape, *, mode="separable", impl="torch",
                 f"{impl!r} forward has no autograd graph, use grad_impl='cuda', "
                 "'matmul' or 'torch'"
             )
-        return _forward(phi, tile, vol_shape, mode, impl)
-    return _AnalyticBsi.apply(phi, tile, vol_shape, mode, impl, grad_impl)
+        return _forward(phi, tile, vol_shape, mode, impl, dtype)
+    return _AnalyticBsi.apply(phi, tile, vol_shape, mode, impl, grad_impl, dtype)
 
 
 def interpolate(phi, tile, *, mode="separable", impl="torch", dtype=None,
@@ -378,18 +442,15 @@ def interpolate(phi, tile, *, mode="separable", impl="torch", dtype=None,
       mode: one of ``MODE_NAMES``.
       impl: ``torch`` (the plain forms) or ``cuda`` (the mode's kernel, for
         every mode but ``gather``; its plain version on a CPU tensor).
-      dtype: compute dtype; only float32 (or None) in this package so far.
+      dtype: compute dtype (None: ``phi``'s; ``"bfloat16"`` or
+        ``"float32"``, module docstring); the field takes it, gradients
+        stay in ``phi``'s.
       grad_impl: ``autograd``, ``torch``, ``cuda`` or ``matmul`` (module
         docstring).
 
     Returns:
       ``(Tx*dx, Ty*dy, Tz*dz, C)`` dense field.
     """
-    if dtype is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            "reduced-precision BSI is not in the package yet (ROADMAP.md "
-            "queue 1 item 18)"
-        )
     (dx, dy, dz), (tx, ty, tz), _ = _dims(phi, tile)
     return crop_interpolate(phi, tile, (tx * dx, ty * dy, tz * dz), mode=mode,
-                            impl=impl, grad_impl=grad_impl)
+                            impl=impl, grad_impl=grad_impl, dtype=dtype)

@@ -23,8 +23,11 @@ defaults are all ``"auto"``).  ``transform``, ``regularizer``,
 ``optimizer`` and ``stop`` take every value the JAX package takes and
 refuse what it refuses: ``fused="on"`` with the velocity transform or with
 Gauss-Newton, Gauss-Newton with a similarity other than SSD, a ``stop``
-that is not a ``ConvergenceConfig``.  ``compute_dtype`` other than None
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+that is not a ``ConvergenceConfig``.  ``compute_dtype`` is canonicalised
+to a dtype name as in the JAX package (``torch.bfloat16``, ``"bfloat16"``
+and ``"float32"`` are accepted); ``float16``, which the JAX package also
+takes, raises ``NotImplementedError`` naming the ROADMAP.md item that
+ports it.
 
 Entry points take ``options=``; the JAX package's legacy keyword spelling
 (``ffd_register(f, m, tile=..., iters=...)``) still works through
@@ -39,7 +42,8 @@ import sys
 import warnings
 from typing import Any
 
-from repro_torch.core.interpolate import GRAD_IMPLS, IMPLS, KERNEL_MODES, MODE_NAMES
+from repro_torch.core.interpolate import (GRAD_IMPLS, IMPLS, KERNEL_MODES, MODE_NAMES,
+                                          compute_dtype_name)
 
 __all__ = ["UNSET", "RegistrationOptions", "merge_legacy_options"]
 
@@ -65,9 +69,6 @@ UNSET = _Unset()
 
 _FUSED = ("auto", "on", "off")
 
-def _not_yet(what, item):
-    return NotImplementedError(f"{what} is not in the package yet (ROADMAP.md {item})")
-
 
 @dataclasses.dataclass(frozen=True)
 class RegistrationOptions:
@@ -88,7 +89,12 @@ class RegistrationOptions:
     grad_impl:       adjoint: ``autograd`` | ``torch`` | ``cuda`` (separable
                      kernel) | ``matmul`` (transposed-matmul kernel) |
                      ``auto``.
-    compute_dtype:   None (float32 throughout).
+    compute_dtype:   None (float32 throughout) or a dtype name:
+                     ``"bfloat16"`` runs BSI and the warp's sampled
+                     intensities in bf16 while the parameters, the
+                     optimiser state, the adjoints' accumulation and the
+                     objective stay float32 (``core.interpolate``);
+                     ``"float32"`` is float32 throughout.
     similarity:      ``"ssd"``, ``"ncc"``, ``"lncc"``, ``"nmi"``, a factory
                      variant (``nmi(bins=16)``) or a ``(warped, fixed) ->
                      scalar`` callable.
@@ -155,7 +161,7 @@ class RegistrationOptions:
         if self.fused in (True, False):  # bool spelling
             object.__setattr__(self, "fused", "on" if self.fused else "off")
         if self.compute_dtype is not None:
-            raise _not_yet("compute_dtype", "queue 1 item 18")
+            object.__setattr__(self, "compute_dtype", compute_dtype_name(self.compute_dtype))
         for name, allowed in (("mode", MODE_NAMES + ("auto",)),
                               ("impl", IMPLS + ("auto",)),
                               ("grad_impl", GRAD_IMPLS + ("auto",)), ("fused", _FUSED)):

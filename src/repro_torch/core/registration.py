@@ -177,7 +177,11 @@ def ffd_register(fixed, moving, *, options=None, tile=UNSET, levels=UNSET, iters
     two expansions per step (forward and adjoint) of the steps that level
     ran as ``bsi_seconds``.  Under ``options.stop`` (a
     ``ConvergenceConfig``) each level ends on a plateau and the result's
-    ``steps`` lists the steps each level took.
+    ``steps`` lists the steps each level took.  ``options.compute_dtype``
+    (``"bfloat16"``) runs each level's BSI and warp in reduced precision
+    with float32 parameters, optimiser state, adjoint accumulation and
+    objective; the final warp is float32, as in the JAX package, and so is
+    ``warped``.
     """
     device = resolve_device(device)
     opts = merge_legacy_options(
@@ -219,7 +223,8 @@ def ffd_register(fixed, moving, *, options=None, tile=UNSET, levels=UNSET, iters
             # per step run, forward and adjoint
             def expand(p=phi, shape=tuple(f.shape)):
                 return ffd.dense_field(p, tile, shape, mode=opts.mode, impl=opts.impl,
-                                       grad_impl=opts.grad_impl)
+                                       grad_impl=opts.grad_impl,
+                                       compute_dtype=opts.compute_dtype)
 
             with torch.no_grad():
                 ran = steps[-1] if stop is not None else opts.iters

@@ -124,13 +124,16 @@ def scaling_and_squaring(vel, squarings):
 
 
 def dense_displacement(transform, phi, tile, vol_shape, *, mode="separable",
-                       impl="torch", grad_impl="autograd", inverse=False):
+                       impl="torch", grad_impl="autograd", compute_dtype=None,
+                       inverse=False):
     """Control grid -> dense displacement field under ``transform``.
 
     ``displacement`` returns the BSI expansion; ``velocity`` integrates it
-    by scaling and squaring.  ``inverse=True`` returns the inverse map's
-    displacement: for ``velocity`` the flow of ``-v``; ``displacement`` has
-    none and raises.
+    by scaling and squaring.  ``mode``, ``impl``, ``grad_impl`` and
+    ``compute_dtype`` configure the expansion as in ``ffd.dense_field``; the
+    compositions run in float32 coordinates, like the warp.
+    ``inverse=True`` returns the inverse map's displacement: for
+    ``velocity`` the flow of ``-v``; ``displacement`` has none and raises.
     """
     spec = resolve_transform(transform)
     if isinstance(spec, DisplacementTransform) and inverse:
@@ -138,7 +141,7 @@ def dense_displacement(transform, phi, tile, vol_shape, *, mode="separable",
             "the displacement (classic FFD) transform has no analytic inverse; "
             "use transform='velocity' for invertible fields")
     field = ffd.dense_field(phi, tile, vol_shape, mode=mode, impl=impl,
-                            grad_impl=grad_impl)
+                            grad_impl=grad_impl, compute_dtype=compute_dtype)
     if isinstance(spec, DisplacementTransform):
         return field
     return scaling_and_squaring(-field if inverse else field, spec.squarings)

@@ -24,6 +24,20 @@
 // 128-byte line (a column's run starts anywhere: rows are Z * c floats,
 // 4620 bytes at phantom1).
 //
+// The element type T of the grid and the field is float or __nv_bfloat16
+// (bsi_ttli_bf16, bsi_separable_bf16).  A bf16 grid is widened as it is
+// loaded; the LUTs (rounded to bf16 on the host, passed as floats), the
+// shared memory and the arithmetic stay float32, and each value is rounded
+// once, to nearest even, at its store: the contract of
+// core/interpolate.py, which the plain versions follow.  (The JAX package's
+// TTLI kernel writes its lerps in phi's dtype, so interpreted on a CPU it
+// rounds every lerp to bf16; this kernel does not copy that.)  A bf16 line
+// holds 64 values, so in a bf16 column thread t takes the pairs (2t - s,
+// 2t - s + 1), (2t - s + 512, ...), s the column's start modulo 64 values:
+// each pair is one aligned 4-byte store and a warp's 32 pairs one aligned
+// 128-byte line; a pair that straddles the run's start or end stores its
+// one value inside (a run may start or end on an odd value).
+//
 // The fused ssd, stats and ncc kernels (bsi_fused.cu) run on the same
 // blocks; in the lerp form they run the same x-y stage (fwd_xy_stage) and
 // build their z table with the same stepping (fwd_z_positions, one position
@@ -33,6 +47,8 @@
 // 1 leaves out the x-y stage, 2 the z stage's arithmetic and table (a
 // constant is stored), 4 the stores; 8 the stores alone (1 and 2 together).
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "bsi_common.cuh"
 
@@ -112,13 +128,17 @@ __device__ __forceinline__ void fwd_z_table(int* s_tab, int P, int c, int dz) {
   });
 }
 
+// A grid value as float32: bf16 widens exactly.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // The x-y stage of the block on x tile ti, y tile tj and the bz tiles along
 // z from tk0: slot q = (z control point tk0 + q / c, channel q % c) of
 // column (a, b) to s_hy[(a * dy + b) * fwd_column_floats(g) + q], with c = C
-// ? C : g.c.  The grid's x and y strides fit an int (the grid is small).
-// Does not synchronise.
-template <class S, int C>
-__device__ __forceinline__ void fwd_xy_stage(const float* __restrict__ phi,
+// ? C : g.c; T the grid's element type.  The grid's x and y strides fit an
+// int (the grid is small).  Does not synchronise.
+template <class S, int C, typename T>
+__device__ __forceinline__ void fwd_xy_stage(const T* __restrict__ phi,
                                              const float* __restrict__ luts,
                                              const FwdBlock& g, int ti, int tj, int tk0,
                                              float* s_hy) {
@@ -128,13 +148,14 @@ __device__ __forceinline__ void fwd_xy_stage(const float* __restrict__ phi,
   const float* ly = lx + S::kLutRows * g.dx;
   const int ys = g.nz * c, xs = g.ny * ys;
   const int qmax = (g.nz - tk0) * c;  // slots inside the grid
-  const float* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk0 * c;
+  const T* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk0 * c;
   for (int q = threadIdx.x; q < Q; q += blockDim.x) {
     float w[4][4];
 #pragma unroll
     for (int l = 0; l < 4; ++l)
 #pragma unroll
-      for (int m = 0; m < 4; ++m) w[l][m] = q < qmax ? src[l * xs + m * ys + q] : 0.f;
+      for (int m = 0; m < 4; ++m)
+        w[l][m] = q < qmax ? to_float(src[l * xs + m * ys + q]) : 0.f;
     float* dst = s_hy + q;
     for (int a = 0; a < g.dx; ++a) {
       float h[4];
@@ -149,11 +170,12 @@ __device__ __forceinline__ void fwd_xy_stage(const float* __restrict__ phi,
 
 // luts: the LUTs of S for x, then y, then z, in device memory.  Needs
 // fwd_smem_bytes(g) of shared memory.  C: the channels, fixed at compile
-// time (3), or 0 to read g.c.
-template <class S, int C>
-__device__ inline void forward_block(const float* __restrict__ phi,
+// time (3), or 0 to read g.c.  T: float, or __nv_bfloat16 for a bf16 grid
+// and field.
+template <class S, int C, typename T>
+__device__ inline void forward_block(const T* __restrict__ phi,
                                      const float* __restrict__ luts,
-                                     float* __restrict__ out, const FwdBlock& g,
+                                     T* __restrict__ out, const FwdBlock& g,
                                      float* smem) {
   const int c = C ? C : g.c;
   const int tj = blockIdx.x, ti = blockIdx.y, tk0 = blockIdx.z * g.bz;
@@ -175,35 +197,62 @@ __device__ inline void forward_block(const float* __restrict__ phi,
   // z stage: the block's columns (xl, yl) inside the volume, yl fastest
   const int z0 = tk0 * g.dz;
   const int run = min(P, (g.Z - z0) * c);  // positions inside the volume
-  const size_t zc = (size_t)g.Z * c;  // floats of one (x, y) row of the field
+  const size_t zc = (size_t)g.Z * c;  // values of one (x, y) row of the field
   const int x0 = ti * g.dx, y0 = tj * g.dy;
   const int nxl = min(g.dx, g.X - x0), nyl = min(g.dy, g.Y - y0);
   for (int xl = 0; xl < nxl; ++xl)
     for (int yl = 0; yl < nyl; ++yl) {
-      float* o = out + ((size_t)(x0 + xl) * g.Y + y0 + yl) * zc + (size_t)z0 * c;
+      T* o = out + ((size_t)(x0 + xl) * g.Y + y0 + yl) * zc + (size_t)z0 * c;
       const float* h = s_hy + (xl * g.dy + yl) * Q;
-      // lanes before the column's start compute position 0 and store nothing
-      const int s = (int)(reinterpret_cast<size_t>(o) / sizeof(float) & 31);
-      for (int p = (int)threadIdx.x - s; p < run; p += kThreads) {
+      if constexpr (sizeof(T) == sizeof(float)) {
+        // lanes before the column's start compute position 0 and store nothing
+        const int s = (int)(reinterpret_cast<size_t>(o) / sizeof(float) & 31);
+        for (int p = (int)threadIdx.x - s; p < run; p += kThreads) {
 #if REPRO_FWD_SKIP & 10
-        const float v = 0.f;
+          const float v = 0.f;
 #else
-        const float v = z_value<S, C>(s_tab, s_lz, h, c, g.dz, max(p, 0));
+          const float v = z_value<S, C>(s_tab, s_lz, h, c, g.dz, max(p, 0));
 #endif
 #if REPRO_FWD_SKIP & 4
-        if (v == -1.25e-30f)  // never true here: keeps the arithmetic, drops the store
+          if (v == -1.25e-30f)  // never true here: keeps the arithmetic, drops the store
 #endif
-          if (p >= 0) o[p] = v;
+            if (p >= 0) o[p] = v;
+        }
+      } else {
+        // bf16: pairs of positions, a warp's pairs one aligned line; a
+        // position outside the run computes a neighbour and stores nothing
+        const int s = (int)(reinterpret_cast<size_t>(o) / sizeof(T) & 63);
+        for (int p = 2 * (int)threadIdx.x - s; p < run; p += 2 * kThreads) {
+          const bool in0 = p >= 0, in1 = p + 1 >= 0 && p + 1 < run;
+#if REPRO_FWD_SKIP & 10
+          const float v0 = 0.f, v1 = 0.f;
+#else
+          const float v0 = z_value<S, C>(s_tab, s_lz, h, c, g.dz, max(p, 0));
+          const float v1 = z_value<S, C>(s_tab, s_lz, h, c, g.dz, min(max(p + 1, 0), run - 1));
+#endif
+#if REPRO_FWD_SKIP & 4
+          if (v0 == -1.25e-30f)  // never true here: keeps the arithmetic, drops the store
+#endif
+          {
+            if (in0 && in1)
+              *reinterpret_cast<__nv_bfloat162*>(o + p) = __floats2bfloat162_rn(v0, v1);
+            else if (in0)
+              o[p] = __float2bfloat16_rn(v0);
+            else if (in1)
+              o[p + 1] = __float2bfloat16_rn(v1);
+          }
+        }
       }
     }
 }
 
-// The launch of a forward kernel, instantiated for 3 and any channels:
+// The launch of a forward kernel of element type T, instantiated for 3 and
+// any channels:
 // checks the block, picks the instantiation and opts into its shared memory.
 // Returns the launch's cudaError_t.
-template <typename Kernel>
-inline int launch_forward(Kernel c3, Kernel any, const float* phi, const float* luts,
-                          float* out, const FwdBlock& g, void* stream) {
+template <typename T, typename Kernel>
+inline int launch_forward(Kernel c3, Kernel any, const T* phi, const float* luts, T* out,
+                          const FwdBlock& g, void* stream) {
   if (g.bz < 1) return (int)cudaErrorInvalidValue;
   const Kernel kernel = g.c == 3 ? c3 : any;
   const size_t smem = fwd_smem_bytes(g);

@@ -21,6 +21,14 @@
 // (X, Y, Z) are written: dense_field's crop is fused.  Built with the
 // default FMA contraction: each 4-term sum may round once per term less than
 // the plain version's einsum (within 1e-5 relative).
+//
+// bsi_separable_bf16, the compute_dtype="bfloat16" variant, is the same
+// code on a bf16 grid and field: bf16 operands widened, float32 sweeps, one
+// rounding at the store, the Pallas kernel's own contract
+// (preferred_element_type=float32 on each sweep, one cast at the store,
+// repro/kernels/bsi_separable.py:37-57).  Within one bf16 step of the plain
+// version (the float32 sums may differ in their last bits).  Bound at
+// phantom1: 272.2 MB, 0.0812 ms at 3.35 TB/s.
 #include "bsi_forward.cuh"
 
 namespace repro_torch {
@@ -30,6 +38,17 @@ template <int C>
 __global__ void __launch_bounds__(kThreads)
     bsi_separable_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
                          float* __restrict__ out, FwdBlock g) {
+  extern __shared__ float4 smem4[];
+  forward_block<WeightStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
+}
+
+// The same on a bf16 grid, writing a bf16 field: float32 arithmetic, one
+// rounding at the store (bsi_forward.cuh).
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    bsi_separable_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                              const float* __restrict__ luts,
+                              __nv_bfloat16* __restrict__ out, FwdBlock g) {
   extern __shared__ float4 smem4[];
   forward_block<WeightStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
 }
@@ -47,4 +66,14 @@ extern "C" int bsi_separable_f32(const float* phi, const float* luts, float* out
   const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
   return launch_forward(bsi_separable_kernel<3>, bsi_separable_kernel<0>, phi, luts, out, g,
                         stream);
+}
+
+// The same with phi and out bf16 and luts rounded to bf16 (held as floats).
+extern "C" int bsi_separable_bf16(const __nv_bfloat16* phi, const float* luts,
+                                  __nv_bfloat16* out, int nx, int ny, int nz, int c, int dx,
+                                  int dy, int dz, int X, int Y, int Z, int bz, void* stream) {
+  using namespace repro_torch;
+  const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
+  return launch_forward(bsi_separable_bf16_kernel<3>, bsi_separable_bf16_kernel<0>, phi, luts,
+                        out, g, stream);
 }

@@ -23,6 +23,15 @@
 // shared loads and a store, and no index is decoded in a loop over voxels.
 // Only voxels inside (X, Y, Z) are written: dense_field's crop is fused, and
 // no padded copy of the field exists.
+//
+// bsi_ttli_bf16, the compute_dtype="bfloat16" variant, replaces the same
+// Pallas kernel run on a bf16 grid (its output takes phi's dtype,
+// repro/kernels/bsi_ttli.py:70).  It reads the bf16 grid and the LUTs
+// rounded to bf16, computes in float32 and rounds each value once at its
+// store.  The Pallas kernel writes its lerps in phi's dtype, so interpreted
+// on a CPU it rounds every lerp to bf16; this kernel does not, and the
+// tests hold it to the JAX package's own bf16 bounds.  Bound at phantom1:
+// 269.7 MB of bf16 field and 2.5 MB of grid, 0.0812 ms at 3.35 TB/s.
 #include "bsi_forward.cuh"
 
 namespace repro_torch {
@@ -32,6 +41,17 @@ template <int C>
 __global__ void __launch_bounds__(kThreads)
     bsi_ttli_kernel(const float* __restrict__ phi, const float* __restrict__ luts,
                     float* __restrict__ out, FwdBlock g) {
+  extern __shared__ float4 smem4[];
+  forward_block<LerpStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
+}
+
+// The same on a bf16 grid, writing a bf16 field: float32 arithmetic, one
+// rounding at the store (bsi_forward.cuh).
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    bsi_ttli_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                         const float* __restrict__ luts, __nv_bfloat16* __restrict__ out,
+                         FwdBlock g) {
   extern __shared__ float4 smem4[];
   forward_block<LerpStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
 }
@@ -48,4 +68,14 @@ extern "C" int bsi_ttli_f32(const float* phi, const float* luts, float* out, int
   using namespace repro_torch;
   const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
   return launch_forward(bsi_ttli_kernel<3>, bsi_ttli_kernel<0>, phi, luts, out, g, stream);
+}
+
+// The same with phi and out bf16 and luts rounded to bf16 (held as floats).
+extern "C" int bsi_ttli_bf16(const __nv_bfloat16* phi, const float* luts, __nv_bfloat16* out,
+                             int nx, int ny, int nz, int c, int dx, int dy, int dz, int X,
+                             int Y, int Z, int bz, void* stream) {
+  using namespace repro_torch;
+  const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
+  return launch_forward(bsi_ttli_bf16_kernel<3>, bsi_ttli_bf16_kernel<0>, phi, luts, out, g,
+                        stream);
 }

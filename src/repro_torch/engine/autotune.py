@@ -8,8 +8,8 @@ the caller may leave any of them ``"auto"``: the tuner times the candidate
 forms on the workload the registration loop runs and caches the winner:
 
 * in-process, keyed by ``device|grid|tile`` and what else changes
-  the measurement (the similarity, the velocity transform, a non-default
-  optimiser, the candidate list);
+  the measurement (the similarity, a compute dtype as ``|cd=bfloat16``, the
+  velocity transform, a non-default optimiser, the candidate list);
 * on disk as JSON, at ``$REPRO_TORCH_AUTOTUNE_CACHE`` or
   ``~/.cache/repro_torch/bsi_autotune.json``.  The file is versioned
   (``SCHEMA_VERSION``, entries under ``{"__schema__": N, "entries": {...}}``)
@@ -34,6 +34,15 @@ The one error a candidate may raise and be stepped past is a plain form's
 saves ~47 GB at the paper's phantom1 volume), recorded as "did not fit"; a
 kernel that fails to build, launch or allocate raises.  Every race measured
 in this process is appended to :data:`RACES`.
+
+Under a ``compute_dtype`` the workload runs in it and ``grad_impl="auto"``
+never picks ``autograd``, whose backward would differentiate the reduced
+forward rather than accumulate the analytic adjoint in float32.  Under
+``"bfloat16"`` on a CUDA device the forward pool holds only the forms with
+a bf16 kernel (``kernels.ops.BF16_FORWARD``: ``ttli`` and ``separable``)
+until ROADMAP.md queue 1 item 18e ports ``tt`` and ``matmul``, and
+``fused="auto"`` resolves ``"off"`` without a race until item 18d ports the
+fused kernels.
 """
 
 from __future__ import annotations
@@ -49,8 +58,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.interpolate import (GRAD_IMPLS, KERNEL_MODES, MODE_NAMES,
-                                          interpolate)
+                                          compute_dtype_name, interpolate)
 from repro_torch.core.similarity import fused_spec, resolve_similarity, similarity_token
+from repro_torch.kernels.ops import BF16_FORWARD
 
 __all__ = ["BsiChoice", "RACES", "Race", "SCHEMA_VERSION", "autotune_bsi",
            "autotune_fused", "resolve_bsi", "resolve_options", "default_candidates",
@@ -95,13 +105,21 @@ def default_cache_path() -> str:
         os.path.expanduser("~"), ".cache", "repro_torch", "bsi_autotune.json")
 
 
-def default_candidates(device):
+def _kernel_candidates(device, compute_dtype=None):
+    """The forward kernels, on a CUDA device under ``"bfloat16"`` only those
+    with a bf16 kernel (``kernels.ops.BF16_FORWARD``)."""
+    if torch.device(device).type == "cuda" and compute_dtype == "bfloat16":
+        return tuple(c for c in KERNEL_CANDIDATES if c[0] in BF16_FORWARD)
+    return KERNEL_CANDIDATES
+
+
+def default_candidates(device, compute_dtype=None):
     """``(mode, impl)`` forms ``impl="auto"`` times on ``device``: on a CUDA
-    device the forward kernels, on the CPU the plain forms (there a kernel's
-    dispatcher runs its plain version, so timing it says nothing of the
-    kernel)."""
+    device the forward kernels (under ``"bfloat16"`` those with a bf16
+    kernel), on the CPU the plain forms (there a kernel's dispatcher runs
+    its plain version, so timing it says nothing of the kernel)."""
     if torch.device(device).type == "cuda":
-        return KERNEL_CANDIDATES
+        return _kernel_candidates(device, compute_dtype)
     return PLAIN_CANDIDATES
 
 
@@ -231,7 +249,7 @@ def _tensor(values, device):
 
 def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
                  reps=3, cache_path=None, stop=None, transform=None,
-                 optimizer=None) -> BsiChoice:
+                 optimizer=None, compute_dtype=None) -> BsiChoice:
     """Time one registration-step gradient of each candidate BSI form on
     ``device`` and return (and cache) the fastest.
 
@@ -258,6 +276,8 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
       optimizer: the options' optimiser.  The workload stays the one
         forward and backward step every optimiser runs, but a non-default
         optimiser keys its entry apart (``|opt=...``).
+      compute_dtype: the options' compute dtype; the workload's BSI and
+        warp run in it and the key gains ``|cd=<name>``.
     """
     if stop is not None:
         raise ValueError(
@@ -271,7 +291,8 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
     device = torch.device(device)
     grid_shape = tuple(int(g) for g in grid_shape)
     tile = tuple(int(t) for t in tile)
-    cands = (_cross(default_candidates(device), default_grad_impls(device))
+    cd = compute_dtype_name(compute_dtype)
+    cands = (_cross(default_candidates(device, cd), default_grad_impls(device))
              if candidates is None else tuple(tuple(c) for c in candidates))
     if not cands:
         raise ValueError(f"no BSI candidate to time among {candidates}")
@@ -279,6 +300,7 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
     velocity = isinstance(tspec, VelocityTransform)
     opt_token = None if optimizer is None else optimizer_token(optimizer)
     key = (_key(device, grid_shape, tile) + f"|grad|sim={similarity_token(similarity)}"
+           + ("" if cd is None else f"|cd={cd}")
            + (f"|tf={transform_token(tspec)}" if velocity else "")
            + ("" if opt_token in (None, "adam") else f"|opt={opt_token}")
            + "|" + ",".join("/".join(c) for c in cands))
@@ -298,10 +320,12 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
     def workload(mode, impl, grad_impl):
         def fn():
             p = phi.detach().requires_grad_(True)
-            out = interpolate(p, tile, mode=mode, impl=impl, grad_impl=grad_impl)
+            out = interpolate(p, tile, mode=mode, impl=impl, grad_impl=grad_impl,
+                              dtype=cd)
             if velocity:
                 out = scaling_and_squaring(out, tspec.squarings)
-            torch.autograd.grad(sim_fn(warp_volume(mov, out), fix), p)
+            warped = warp_volume(mov, out, compute_dtype=cd)
+            torch.autograd.grad(sim_fn(warped.to(torch.float32), fix), p)
         return fn
 
     timings, best = [], None
@@ -320,7 +344,7 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
 
 
 def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, reps=3,
-                   cache_path=None) -> BsiChoice:
+                   cache_path=None, compute_dtype=None) -> BsiChoice:
     """Race the fused level step against the unfused one on ``device``.
 
     ``base`` is the resolved unfused ``BsiChoice`` (concrete ``mode``,
@@ -330,8 +354,9 @@ def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, rep
     unfused composition, and returns ``base`` with ``fused`` set to the
     winner.  A similarity with no fused kernel resolves ``"off"`` without a
     race.  Cached like :func:`autotune_bsi`, keyed per volume, similarity and
-    base.  It races on whatever device it is given; :func:`resolve_options`
-    calls it only for a CUDA device.
+    base, and the compute dtype (``|cd=<name>``), in which both steps run.
+    It races on whatever device it is given; :func:`resolve_options` calls
+    it only for a CUDA device and not under ``"bfloat16"``.
     """
     from repro_torch.core import ffd
 
@@ -339,10 +364,12 @@ def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, rep
     grid_shape = tuple(int(g) for g in grid_shape)
     tile = tuple(int(t) for t in tile)
     vol_shape = tuple(int(s) for s in vol_shape)
+    cd = compute_dtype_name(compute_dtype)
     if fused_spec(similarity) is None:
         return dataclasses.replace(base, fused="off")
     key = (_key(device, grid_shape, tile) + "|fused|v" + "x".join(map(str, vol_shape))
            + f"|sim={similarity_token(similarity)}"
+           + ("" if cd is None else f"|cd={cd}")
            + f"|base={base.mode}/{base.impl}/{base.grad_impl}")
     cache_path = default_cache_path() if cache_path is None else cache_path
     choice = _cached(cache_path, key)
@@ -355,11 +382,12 @@ def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, rep
     phi = _tensor(rng.standard_normal(grid_shape + (3,)), device)
     mov = _tensor(rng.random(vol_shape), device)
     fix = _tensor(rng.random(vol_shape), device)
-    bsi = dict(mode=base.mode, impl=base.impl, grad_impl=base.grad_impl)
+    bsi = dict(mode=base.mode, impl=base.impl, grad_impl=base.grad_impl,
+               compute_dtype=cd)
 
     def unfused_loss(p):
         disp = ffd.dense_field(p, tile, vol_shape, **bsi)
-        return sim_fn(ffd.warp_volume(mov, disp), fix)
+        return sim_fn(ffd.warp_volume(mov, disp, compute_dtype=cd).to(torch.float32), fix)
 
     def fused_loss(p):
         return ffd.fused_warp_loss(p, mov, fix, tile, similarity=similarity, **bsi)
@@ -386,18 +414,19 @@ def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, rep
     return best
 
 
-def _candidate_pool(mode, impl, device):
+def _candidate_pool(mode, impl, device, compute_dtype=None):
     """``(mode, impl)`` candidates honouring the fixed axes: an explicit
     ``impl`` takes its forms on any device (``"cuda"`` on the CPU times the
-    kernels' plain versions); ``"auto"`` takes :func:`default_candidates`,
-    or the plain form of a ``mode`` that has no kernel (``gather``)."""
+    kernels' plain versions; on a CUDA device under ``"bfloat16"`` only the
+    bf16 kernels); ``"auto"`` takes :func:`default_candidates`, or the plain
+    form of a ``mode`` that has no kernel (``gather``)."""
     if impl == "torch" or (impl == "auto" and mode in MODE_NAMES
                            and mode not in KERNEL_MODES):
         pool = PLAIN_CANDIDATES
     elif impl == "cuda":
-        pool = KERNEL_CANDIDATES
+        pool = _kernel_candidates(device, compute_dtype)
     else:
-        pool = default_candidates(device)
+        pool = default_candidates(device, compute_dtype)
     return tuple(c for c in pool if mode in ("auto", c[0]))
 
 
@@ -406,15 +435,21 @@ def resolve_bsi(mode, impl, grid_shape, tile, *, grad_impl, device, **tune_kwarg
 
     Explicit choices pass through untouched; an ``"auto"`` axis narrows the
     candidates to the fixed axes and times the rest
-    (:func:`autotune_bsi`, which takes ``tune_kwargs``).
+    (:func:`autotune_bsi`, which takes ``tune_kwargs``).  Under a
+    ``compute_dtype`` (in ``tune_kwargs``) ``grad_impl="auto"`` leaves
+    ``autograd`` out: only the analytic adjoints accumulate in float32 (an
+    explicit ``"autograd"`` passes through).
     """
     if grad_impl != "auto" and grad_impl not in GRAD_IMPLS:
         raise ValueError(
             f"unknown grad_impl {grad_impl!r}; choose from {GRAD_IMPLS} or 'auto'")
     if "auto" not in (mode, impl, grad_impl):
         return mode, impl, grad_impl
+    cd = compute_dtype_name(tune_kwargs.get("compute_dtype"))
     gis = default_grad_impls(device) if grad_impl == "auto" else (grad_impl,)
-    cands = _cross(_candidate_pool(mode, impl, device), gis)
+    if grad_impl == "auto" and cd is not None:
+        gis = tuple(g for g in gis if g != "autograd")
+    cands = _cross(_candidate_pool(mode, impl, device, cd), gis)
     if not cands:
         raise ValueError(f"no BSI candidates match mode={mode!r} impl={impl!r} "
                          f"grad_impl={grad_impl!r}")
@@ -436,7 +471,8 @@ def resolve_options(options, vol_shape, device):
     unfused winner on the volume (:func:`autotune_fused`); on the CPU it
     resolves ``"off"`` without a race (the kernels' plain versions run
     there, and their time says nothing of the card); a similarity with no
-    fused kernel, the velocity transform and Gauss-Newton resolve ``"off"``
+    fused kernel, the velocity transform, Gauss-Newton and the ``"bfloat16"``
+    compute dtype on the card (no bf16 fused kernel yet) resolve ``"off"``
     without a race.  Cached on ``(options, vol_shape,
     device)``; ``fused_reason`` is left out of the options' equality, so it
     never splits that cache.
@@ -456,7 +492,8 @@ def resolve_options(options, vol_shape, device):
     mode, impl, grad_impl = resolve_bsi(
         options.mode, options.impl, grid_shape, options.tile, device=device,
         grad_impl=options.grad_impl, similarity=options.similarity,
-        transform=options.transform, optimizer=options.optimizer)
+        transform=options.transform, optimizer=options.optimizer,
+        compute_dtype=options.compute_dtype)
     is_velocity = isinstance(options.transform, VelocityTransform)
     is_gn = isinstance(options.optimizer, GaussNewtonOptimizer)
     fused, reason = options.fused, f"forced {options.fused}"
@@ -473,10 +510,14 @@ def resolve_options(options, vol_shape, device):
             fused, reason = "off", (
                 f"{device.type} device: the kernels run their plain versions there, "
                 "so a race would say nothing of the card")
+        elif options.compute_dtype == "bfloat16":
+            fused, reason = "off", ("bfloat16 compute dtype: the fused kernels take no "
+                                    "bf16 yet (ROADMAP.md queue 1 item 18d)")
         else:
             choice = autotune_fused(grid_shape, options.tile, vol_shape,
                                     base=BsiChoice(mode, impl, 0.0, grad_impl),
-                                    similarity=options.similarity, device=device)
+                                    similarity=options.similarity, device=device,
+                                    compute_dtype=options.compute_dtype)
             fused = choice.fused
             reason = ("autotune: fused level step "
                       + ("won" if fused == "on" else "lost") + " the race")

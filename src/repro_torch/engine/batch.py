@@ -39,6 +39,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import ffd
+from repro_torch.core.interpolate import as_compute_dtype
 from repro_torch.core.options import UNSET, merge_legacy_options
 from repro_torch.core.regularizer import regularizer_term
 from repro_torch.core.similarity import resolve_similarity
@@ -72,17 +73,28 @@ class BatchRegistrationResult:
     steps: Any = None
 
 
-def ffd_level_loss(f, mov, *, tile, bending_weight, mode, impl, grad_impl="autograd",
-                   similarity="ssd", transform="displacement", regularizer="none",
-                   fused="off"):
-    """Similarity + regularisation objective ``phi -> scalar`` for one level.
+def ffd_level_loss(f, mov, **kwargs):
+    """Similarity + regularisation objective ``phi -> scalar`` for one level
+    (:func:`_level_loss`)."""
+    return _level_loss(f, mov, **kwargs)[0]
+
+
+def _level_loss(f, mov, *, tile, bending_weight, mode, impl, grad_impl="autograd",
+                compute_dtype=None, similarity="ssd", transform="displacement",
+                regularizer="none", fused="off"):
+    """``(loss_fn, mov)``: the level's objective ``phi -> scalar`` and the
+    moving volume in the compute dtype, which it samples.
 
     ``fused="on"`` (or True) swaps the similarity term for
     ``ffd.fused_warp_loss``: the fused kernel forward, the unfused gradient.
     It has no scaling-and-squaring composition, so it refuses the velocity
-    transform.
+    transform.  ``compute_dtype`` (``"bfloat16"``) runs the expansion and
+    the warp's sampled intensities in reduced precision; ``mov`` is cast
+    once here, not once a step, and the similarity is scored in float32.
     """
     vol_shape = tuple(f.shape)
+    cd = as_compute_dtype(compute_dtype)
+    mov = mov if cd is None else mov.to(cd)
     _, sim = resolve_similarity(similarity)
     tspec = resolve_transform(transform)
     gshape = ffd.grid_shape_for_volume(vol_shape, tile)
@@ -99,19 +111,19 @@ def ffd_level_loss(f, mov, *, tile, bending_weight, mode, impl, grad_impl="autog
         def loss_fn(p):
             simloss = ffd.fused_warp_loss(
                 p, mov, f, tile, similarity=similarity, mode=mode, impl=impl,
-                grad_impl=grad_impl)
+                grad_impl=grad_impl, compute_dtype=cd)
             return simloss + reg(p)
 
-        return loss_fn
+        return loss_fn, mov
 
     def loss_fn(p):
         disp = dense_displacement(tspec, p, tile, vol_shape, mode=mode, impl=impl,
-                                  grad_impl=grad_impl)
-        warped = ffd.warp_volume(mov, disp)
+                                  grad_impl=grad_impl, compute_dtype=cd)
+        warped = ffd.warp_volume(mov, disp, compute_dtype=cd)
         # score in fp32 whatever the input dtype
         return sim(warped.to(torch.float32), f.to(torch.float32)) + reg(p)
 
-    return loss_fn
+    return loss_fn, mov
 
 
 def ffd_level_objective(f, mov, **kwargs):
@@ -130,7 +142,7 @@ def ffd_level_objective(f, mov, **kwargs):
     (``core.interpolate``).  Any other similarity, or the fused step, gives
     a scalar objective only.
     """
-    loss_fn = ffd_level_loss(f, mov, **kwargs)
+    loss_fn, mov = _level_loss(f, mov, **kwargs)  # mov cast once, shared
     similarity = kwargs.get("similarity", "ssd")
     key, _ = resolve_similarity(similarity)
     if key != "ssd" or kwargs.get("fused", "off") in ("on", True):
@@ -140,7 +152,8 @@ def ffd_level_objective(f, mov, **kwargs):
     tile = kwargs["tile"]
     tspec = resolve_transform(kwargs.get("transform", "displacement"))
     bsi = dict(mode=kwargs["mode"], impl=kwargs["impl"],
-               grad_impl=kwargs.get("grad_impl", "autograd"))
+               grad_impl=kwargs.get("grad_impl", "autograd"),
+               compute_dtype=kwargs.get("compute_dtype"))
     reg = regularizer_term(kwargs.get("regularizer", "none"),
                            grid_shape=ffd.grid_shape_for_volume(vol_shape, tile),
                            tile=tile, bending_weight=kwargs["bending_weight"])
@@ -157,6 +170,8 @@ def ffd_level_objective(f, mov, **kwargs):
             pg = p.detach().requires_grad_(True)
             field = ffd.dense_field(pg, tile, vol_shape, **bsi)
             disp = scaling_and_squaring(field, tspec.squarings) if velocity else field
+            # float32 coordinates from a bf16 field, as the warp takes them
+            disp = disp.to(torch.promote_types(disp.dtype, torch.float32))
             coords = ffd.identity_grid(vol_shape, disp.dtype, disp.device) + disp
 
         def coords_jvp(v):
@@ -213,8 +228,8 @@ def _lane_obj(f, m, options):
     o = options
     return ffd_level_objective(
         f, m, tile=o.tile, bending_weight=o.bending_weight, mode=o.mode, impl=o.impl,
-        grad_impl=o.grad_impl, similarity=o.similarity, transform=o.transform,
-        regularizer=o.regularizer, fused=o.fused)
+        grad_impl=o.grad_impl, compute_dtype=o.compute_dtype, similarity=o.similarity,
+        transform=o.transform, regularizer=o.regularizer, fused=o.fused)
 
 
 def level_runner(options):
@@ -504,7 +519,8 @@ def compile_level_chunk(lvl_shape, options, chunk):
 def compile_finish(vol_shape, options):
     """``(phi, moving) -> warped``: the finest grid's full-resolution
     displacement and the warp of the moving volume, as ``ffd_register``
-    ends.  Nothing is compiled; a plain function."""
+    ends: in float32 whatever ``options.compute_dtype``, as the JAX
+    package's pipeline ends.  Nothing is compiled; a plain function."""
     o = options
 
     def finish(phi, moving):

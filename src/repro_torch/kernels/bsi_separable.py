@@ -9,6 +9,10 @@ in place of the lerp LUTs: the x, y and z sweeps of
 weighted sum of the previous stage, writing only the voxels inside the
 volume.  :func:`plain` is the same function in tensor ops;
 ``kernels.ops.bsi_separable`` picks between the two by the tensor's device.
+A bf16 grid runs ``bsi_separable_bf16``: bf16 grid and LUTs, float32
+sweeps, one rounding at the store, a bf16 field (the JAX package's kernel
+likewise contracts bf16 operands into float32 and casts once,
+``repro/kernels/bsi_separable.py:37-57``).
 """
 
 from __future__ import annotations
@@ -25,20 +29,22 @@ __all__ = ["launch", "plain", "weight_luts"]
 
 
 @functools.lru_cache(maxsize=None)
-def weight_luts(tile, device) -> torch.Tensor:
-    """The ``(d, 4)`` weight LUTs of x, then y, then z, flattened into one
-    float32 tensor on ``device``."""
-    return torch.cat([weight_lut(d, torch.float32, device).reshape(-1) for d in tile])
+def weight_luts(tile, device, dtype=torch.float32) -> torch.Tensor:
+    """The ``(d, 4)`` weight LUTs of x, then y, then z, rounded to ``dtype``
+    and flattened into one float32 tensor on ``device``."""
+    return torch.cat([weight_lut(d, dtype, device).float().reshape(-1) for d in tile])
 
 
 def launch(phi, out, tile, lib=None):
     """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped);
     ``lib`` a measurement build (default: the kernels as built)."""
-    bsi_ttli.launch_forward("bsi_separable", phi, weight_luts(tuple(tile), phi.device),
-                            out, tile, lib)
+    bsi_ttli.launch_forward("bsi_separable", phi,
+                            weight_luts(tuple(tile), phi.device, phi.dtype), out, tile, lib)
 
 
 def plain(phi, tile, vol_shape):
-    """The kernel's function in tensor ops: :func:`bsi_separable`, cropped."""
+    """The kernel's function in tensor ops: :func:`bsi_separable`, cropped;
+    for a bf16 ``phi`` the float32 form on the widened grid and LUTs,
+    rounded once."""
     X, Y, Z = vol_shape
     return bsi_separable(phi, tile)[:X, :Y, :Z]

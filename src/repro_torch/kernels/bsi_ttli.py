@@ -9,7 +9,10 @@ into shared memory, then the z stage, each position's offsets from a table
 the block decodes once, writing whole rows of the field and only the voxels
 inside the volume.  :func:`plain` is the same function in
 tensor ops; ``kernels.ops.bsi_ttli`` picks between the two by the tensor's
-device.  :func:`block_tiles` and :func:`stage_smem_bytes` size the fused
+device.  Both take a float32 or a bf16 grid and write a field of its dtype
+(entry points ``bsi_ttli_f32`` and ``bsi_ttli_bf16``): in bf16 the kernel
+reads the grid and the bf16-rounded LUTs, computes in float32 and rounds
+once at the store, the contract of ``core.interpolate``.  :func:`block_tiles` and :func:`stage_smem_bytes` size the fused
 nmi kernel's staging (``csrc/bsi_common.cuh``), which runs the same x and y
 stages; the fused ssd, stats and ncc kernels run on :func:`forward_blocks`
 (``kernels.bsi_fused.moment_blocks``).
@@ -109,15 +112,21 @@ def forward_blocks(tile, channels, vol_shape) -> ForwardBlocks:
                          run=bz * dz * c, smem=_forward_smem(tile, c, bz))
 
 
+# the forward kernels' entry point of each dtype they take
+ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 @functools.lru_cache(maxsize=None)
-def stage_luts(tile, device) -> torch.Tensor:
-    """``(t0, t1, s)`` of x, then y, then z, as one float32 tensor on ``device``."""
-    return torch.cat([t for d in tile for t in lerp_luts(d, torch.float32, device)])
+def stage_luts(tile, device, dtype=torch.float32) -> torch.Tensor:
+    """``(t0, t1, s)`` of x, then y, then z, rounded to ``dtype`` and held as
+    one float32 tensor on ``device`` (the kernels compute in float32)."""
+    return torch.cat([t.float() for d in tile for t in lerp_luts(d, dtype, device)])
 
 
 def launch_forward(entry, phi, luts, out, tile, lib=None):
-    """Launch forward kernel ``entry`` (``"bsi_ttli"``, ``"bsi_separable"``) on
-    the current stream with its LUTs: ``phi`` -> ``out`` (cropped); ``lib`` a
+    """Launch forward kernel ``entry`` (``"bsi_ttli"``, ``"bsi_separable"``) of
+    ``phi``'s dtype (float32 or bf16, ``out`` the same) on the current
+    stream with its LUTs: ``phi`` -> ``out`` (cropped); ``lib`` a
     measurement build (default: the kernels as built).  Raises if the block
     does not fit or the launch fails."""
     nx, ny, nz, c = phi.shape
@@ -127,7 +136,7 @@ def launch_forward(entry, phi, luts, out, tile, lib=None):
     lib = lib or load_library()
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        rc = getattr(lib, f"{entry}_f32")(
+        rc = getattr(lib, f"{entry}_{ENTRY_SUFFIX[phi.dtype]}")(
             phi.data_ptr(), luts.data_ptr(), out.data_ptr(), nx, ny, nz, c, *tile, X, Y,
             Z, geo.bz, stream)
     if rc:
@@ -137,10 +146,13 @@ def launch_forward(entry, phi, luts, out, tile, lib=None):
 def launch(phi, out, tile, lib=None):
     """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped);
     ``lib`` a measurement build (default: the kernels as built)."""
-    launch_forward("bsi_ttli", phi, stage_luts(tuple(tile), phi.device), out, tile, lib)
+    launch_forward("bsi_ttli", phi, stage_luts(tuple(tile), phi.device, phi.dtype), out,
+                   tile, lib)
 
 
 def plain(phi, tile, vol_shape):
-    """The kernel's function in tensor ops: :func:`bsi_ttli`, cropped."""
+    """The kernel's function in tensor ops: :func:`bsi_ttli`, cropped; for a
+    bf16 ``phi`` the float32 form on the widened grid and LUTs, rounded
+    once."""
     X, Y, Z = vol_shape
     return bsi_ttli(phi, tile)[:X, :Y, :Z]

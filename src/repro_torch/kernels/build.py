@@ -56,6 +56,8 @@ _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 _SIGNATURES = {
     "bsi_ttli_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, bz
     "bsi_separable_f32": "ppp" + "i" * 11,
+    "bsi_ttli_bf16": "ppp" + "i" * 11,  # bf16 phi and out, float luts
+    "bsi_separable_bf16": "ppp" + "i" * 11,
     "bsi_tt_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, columns a block
     "bsi_matmul_f32": "ppp" + "i" * 12,  # ..., X, Y, Z, z tiles a unit, blocks
     "bsi_adjoint_f32": "p" * 6 + "i" * 14,

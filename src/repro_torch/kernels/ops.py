@@ -3,12 +3,17 @@
 Each dispatcher takes tensors in the JAX package's layouts (channels last;
 attention's ``(B, S, heads, head dim)``).  On a CPU tensor it runs its
 kernel's plain PyTorch version; on a CUDA tensor it checks device, dtype
-(float32; attention also bfloat16), shape and contiguity, allocates the outputs
-with ``torch.empty``, launches the kernel on the current stream, raises if
-the launch failed, and adds one to its kernel's launch count
-(:func:`launch_counts`; the fused variants count apart per displacement
-form, ``bsi_fused_ncc`` and ``bsi_fused_ncc_matmul``).  There is no
-fallback: a CUDA tensor runs the kernel or raises.
+(float32; attention, ``bsi_ttli`` and ``bsi_separable`` also bfloat16),
+shape and contiguity, allocates the outputs with ``torch.empty``, launches
+the kernel on the current stream, raises if the launch failed, and adds one
+to its kernel's launch count (:func:`launch_counts`; the fused variants
+count apart per displacement form, ``bsi_fused_ncc`` and
+``bsi_fused_ncc_matmul``, the bf16 forward kernels apart from the float32
+ones, ``bsi_ttli_bf16``).  There is no fallback and no cast: a CUDA tensor
+runs the kernel of its dtype or raises, a bf16 one where no bf16 kernel is
+ported yet ``NotImplementedError`` naming its ROADMAP.md item (queue 1:
+18c the adjoints, 18d the fused kernels, 18e ``bsi_tt`` and
+``bsi_matmul``).
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
@@ -61,8 +66,8 @@ def _fused_name(kind, disp_form):
 
 
 # Launches per kernel since the last reset.
-_KERNELS = ("bsi_ttli", "bsi_separable", "bsi_tt", "bsi_matmul", "bsi_adjoint",
-            "bsi_adjoint_matmul") + tuple(
+_KERNELS = ("bsi_ttli", "bsi_separable", "bsi_ttli_bf16", "bsi_separable_bf16", "bsi_tt",
+            "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul") + tuple(
     _fused_name(kind, form) for form in _fused.DISP_FORMS
     for kind in ("ssd", "stats", "ncc", "nmi", "lncc")) + ("flash_attention",)
 _LAUNCHES = dict.fromkeys(_KERNELS, 0)
@@ -88,6 +93,14 @@ def _on_card(t, name) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
+def _not_yet_bf16(t, name, item):
+    """Raise for a bf16 CUDA tensor ``t`` that kernel ``name`` does not take
+    yet (ROADMAP.md queue 1 ``item``)."""
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{name} has no bf16 kernel yet (ROADMAP.md queue 1 item {item})")
+
+
 def _check(t, name, ndim, device, dtype=torch.float32):
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -108,46 +121,57 @@ def _covers(grid_shape, tile, vol_shape, name):
             )
 
 
-def _forward(name, module, phi, tile, vol_shape):
+# The forward modes whose kernel takes a bf16 grid (ROADMAP.md queue 1 item
+# 18e ports ``tt`` and ``matmul``); the autotuner's bf16 pool reads it.
+BF16_FORWARD = ("separable", "ttli")
+
+
+def _forward(mode, module, phi, tile, vol_shape):
+    """A forward kernel's dispatch; a bf16 ``phi`` counts as
+    ``bsi_<mode>_bf16``, or raises where ``mode`` is not in
+    :data:`BF16_FORWARD`."""
+    name = f"bsi_{mode}"
     tile = tuple(int(d) for d in tile)
     full = tuple((int(n) - 3) * d for n, d in zip(phi.shape[:3], tile))
     vol_shape = full if vol_shape is None else tuple(int(s) for s in vol_shape)
     _covers(phi.shape[:3], tile, vol_shape, name)
     if not _on_card(phi, name):
         return module.plain(phi, tile, vol_shape)
-    _check(phi, "phi", 4, phi.device)
-    out = torch.empty(vol_shape + (phi.shape[3],), dtype=torch.float32,
-                      device=phi.device)
+    if mode not in BF16_FORWARD:
+        _not_yet_bf16(phi, name, "18e")
+    dtype = torch.bfloat16 if phi.dtype == torch.bfloat16 else torch.float32
+    _check(phi, "phi", 4, phi.device, dtype)
+    out = torch.empty(vol_shape + (phi.shape[3],), dtype=dtype, device=phi.device)
     module.launch(phi, out, tile)
-    _LAUNCHES[name] += 1
+    _LAUNCHES[name if dtype == torch.float32 else f"{name}_bf16"] += 1
     return out
 
 
 def bsi_ttli(phi, tile, vol_shape=None):
     """Forward BSI, TTLI form, cropped to ``vol_shape`` (default: whole tiles).
 
-    ``phi``: ``(Nx, Ny, Nz, C)`` control grid.  Returns the
-    ``vol_shape + (C,)`` dense field.
+    ``phi``: ``(Nx, Ny, Nz, C)`` control grid, float32 or bf16.  Returns
+    the ``vol_shape + (C,)`` dense field of ``phi``'s dtype.
     """
-    return _forward("bsi_ttli", _ttli, phi, tile, vol_shape)
+    return _forward("ttli", _ttli, phi, tile, vol_shape)
 
 
 def bsi_separable(phi, tile, vol_shape=None):
     """Forward BSI, separable form (three per-axis sweeps), cropped to
     ``vol_shape`` (default: whole tiles); as :func:`bsi_ttli`."""
-    return _forward("bsi_separable", _separable, phi, tile, vol_shape)
+    return _forward("separable", _separable, phi, tile, vol_shape)
 
 
 def bsi_tt(phi, tile, vol_shape=None):
     """Forward BSI, TT form (64-term weighted sum per voxel), cropped to
     ``vol_shape`` (default: whole tiles); as :func:`bsi_ttli`."""
-    return _forward("bsi_tt", _tt, phi, tile, vol_shape)
+    return _forward("tt", _tt, phi, tile, vol_shape)
 
 
 def bsi_matmul(phi, tile, vol_shape=None):
     """Forward BSI, matrix form, cropped to ``vol_shape`` (default: whole
     tiles); as :func:`bsi_ttli`."""
-    return _forward("bsi_matmul", _matmul, phi, tile, vol_shape)
+    return _forward("matmul", _matmul, phi, tile, vol_shape)
 
 
 # The forward kernel of each mode of ``core.interpolate.KERNEL_MODES``.
@@ -159,7 +183,10 @@ def _adjoint_inputs(g, tile, grid_shape, name):
     tile = tuple(int(d) for d in tile)
     grid_shape = tuple(int(n) for n in grid_shape)
     _covers(grid_shape, tile, g.shape[:3], name)
-    return tile, grid_shape, _on_card(g, name)
+    card = _on_card(g, name)
+    if card:
+        _not_yet_bf16(g, name, "18c")
+    return tile, grid_shape, card
 
 
 def bsi_adjoint(g, tile, grid_shape):
@@ -205,6 +232,8 @@ def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     _covers(phi.shape[:3], tile, moving.shape, name)
     if not _on_card(phi, name):
         return False
+    for t in (phi, moving):
+        _not_yet_bf16(t, name, "18d")
     _check(phi, "phi", 4, phi.device)
     _check(moving, "moving", 3, phi.device)
     if fixed is not None:

@@ -223,6 +223,9 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
         "bsi_adjoint_matmul": (field_b + grid_b, backward),
         "bsi_separable": (grid_b + field_b, forward),
         "bsi_tt": (grid_b + field_b, forward),
+        # compute_dtype="bfloat16": a bf16 grid and field, float32 arithmetic
+        "bsi_ttli_bf16": ((grid_b + field_b) // 2, forward),
+        "bsi_separable_bf16": ((grid_b + field_b) // 2, forward),
     }
 
 

@@ -1132,3 +1132,105 @@ def test_gauss_newton_and_affine_on_card_match_cpu(cuda):
     a_host = affine_register(f, m, device="cpu")
     assert all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(a_card.losses, a_host.losses))
     assert (a_card.params.cpu() - a_host.params).abs().max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# compute_dtype="bfloat16": the bf16 forward kernels and the bf16 path
+# ---------------------------------------------------------------------------
+
+BF16_KERNELS = [("bsi_ttli", bsi_ttli), ("bsi_separable", bsi_separable)]
+
+
+def _bf16_gap(out, ref):
+    """``|out - ref|`` over one bf16 step of the larger magnitude plus 1e-5
+    of the largest value: both are a float32 value rounded once, and the
+    float32 sums of kernel and plain may differ by the float32 kernels'
+    1e-5 before the rounding.  At most 1 holds each value within a step."""
+    a, b = out.float(), ref.float()
+    m = torch.maximum(a.abs(), b.abs())
+    step = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+    return ((a - b).abs() / (step + 1e-5 * b.abs().max())).max().item()
+
+
+@pytest.mark.parametrize("name,module", BF16_KERNELS, ids=["ttli", "separable"])
+@pytest.mark.parametrize("vol,tile", CASES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_bf16_forward_kernels_match_plain(cuda, name, module, vol, tile, c):
+    """A bf16 grid runs the bf16 kernel: a bf16 field within one bf16 step
+    of the plain version's (odd volumes: runs and columns starting on odd
+    values), counted apart from the float32 kernel, two calls bit-equal."""
+    phi = (_grid(vol, tile, c, 0, cuda) * 2.5).to(torch.bfloat16)
+    kernel = getattr(ops, name)
+    ops.reset_launch_counts()
+    out, again = kernel(phi, tile, vol), kernel(phi, tile, vol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == _no_launches_but(**{f"{name}_bf16": 2})
+    ref = module.plain(phi, tile, vol)
+    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == vol + (c,)
+    assert _bf16_gap(out, ref) <= 1.0
+    assert torch.equal(out, again)
+
+
+def test_bf16_dispatchers_raise_where_no_bf16_kernel_is_ported(cuda):
+    """No cast: a bf16 CUDA tensor runs a bf16 kernel or raises naming the
+    item that ports it (18e: TT and matrix forms, 18d: the fused kernels,
+    18c: the adjoints read float32), and the options route there too."""
+    tile, vol = (5, 5, 5), (10, 10, 10)
+    phi = _grid(vol, tile, 3, 8, cuda).to(torch.bfloat16)
+    vol_t = torch.rand(vol, device=cuda)
+    for fn in (ops.bsi_tt, ops.bsi_matmul):
+        with pytest.raises(NotImplementedError, match="18e"):
+            fn(phi, tile, vol)
+    with pytest.raises(NotImplementedError, match="18d"):
+        ops.fused_ssd_loss(phi, vol_t, vol_t, tile)
+    with pytest.raises(NotImplementedError, match="18d"):
+        ops.fused_ssd_loss(phi.float(), vol_t.to(torch.bfloat16), vol_t, tile)
+    with pytest.raises(NotImplementedError, match="18d"):
+        ops.fused_stats(phi, vol_t, tile, disp_form="matmul")
+    g = torch.rand(vol + (3,), device=cuda, dtype=torch.bfloat16)
+    for fn in (ops.bsi_adjoint, ops.bsi_adjoint_matmul):
+        with pytest.raises(NotImplementedError, match="18c"):
+            fn(g, tile, phi.shape[:3])
+    f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    for fields, item in ((dict(mode="tt"), "18e"), (dict(fused="on"), "18d")):
+        opts = RegistrationOptions(iters=1, compute_dtype="bfloat16", **fields)
+        with pytest.raises(NotImplementedError, match=item):
+            ffd_register(f, m, options=opts, device=cuda)
+
+
+def test_bf16_registration_on_card_matches_cpu(cuda):
+    """The bf16 default path (``ttli / cuda / cuda`` unfused) on the card
+    against the CPU's plain versions: the level loops' forwards the bf16
+    kernel, the final warp float32 as in the JAX package; per-level losses
+    within 1e-3 relative and the warps within 1e-3 (a value may round a
+    bf16 step apart, and Adam carries it)."""
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5, fused="off", compute_dtype="bfloat16")
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, moving, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, moving, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == _no_launches_but(bsi_ttli_bf16=steps, bsi_ttli=1, bsi_adjoint=steps)
+    assert card.warped.dtype == card.params.dtype == torch.float32
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
+    assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
+
+
+def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch):
+    """On the card under bf16, ``"auto"`` races only ``ttli`` and
+    ``separable`` with the analytic adjoints, and ``fused="auto"``
+    resolves ``"off"`` without a race (no bf16 fused kernel yet)."""
+    from repro_torch.engine import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
+    before = len(autotune.RACES)
+    opts = autotune.resolve_options(
+        RegistrationOptions(mode="auto", impl="auto", grad_impl="auto",
+                            compute_dtype="bfloat16"), (40, 33, 47), cuda)
+    assert opts.mode in ("ttli", "separable") and opts.impl == "cuda"
+    assert opts.grad_impl != "autograd" and opts.fused == "off"
+    assert "18d" in opts.fused_reason
+    races = autotune.RACES[before:]
+    assert len(races) == 1 and "|cd=bfloat16|" in races[0].key
+    assert {name.split("/")[0] for name, _ in races[0].timings} == {"ttli", "separable"}

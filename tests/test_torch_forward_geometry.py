@@ -11,7 +11,12 @@ rounded down to 32 floats.  It checks that every ``(x, y, z, channel)`` of
 the field is written exactly once and nothing outside it, that each
 address equals the flat index it stands for, that each warp's stores fall
 in one aligned 128-byte line, that every shared-memory read and write
-lands inside the block's y-stage values, and that the block fits.  The card runs the kernels themselves
+lands inside the block's y-stage values, and that the block fits.  The
+bf16 kernels (``bsi_ttli_bf16``, ``bsi_separable_bf16``) share all of it
+but the stores: a thread takes pairs of positions from the column's start
+rounded down to 64 values, so the same checks run on their mapping, each
+pair one aligned 4-byte store and a pair straddling the run's ends storing
+its one value inside.  The card runs the kernels themselves
 (``tests/test_torch_cuda.py``).
 """
 
@@ -124,6 +129,49 @@ def _z_stage(geo, tile, c, vol, block, off):
     return np.concatenate(written, axis=1) if written else np.zeros((4, 0), np.int64)
 
 
+def _z_stage_bf16(geo, tile, c, vol, block, off):
+    """:func:`_z_stage` for the bf16 kernels: thread ``t`` stores the pairs
+    ``(2t - s, 2t - s + 1) + k * 2 * THREADS``, ``s`` the column's start
+    modulo 64 values; a pair with both inside the run is one 4-byte store
+    at an even value, a pair with one inside stores that one, and every
+    store of a warp falls in one aligned 128-byte line (64 values).  The
+    positions a thread computes but does not store stay inside the run."""
+    dx, dy, dz = tile
+    X, Y, Z = vol
+    tj, ti, bk = block
+    q_cols = (geo.bz + 3) * c
+    z0 = bk * geo.bz * dz
+    run = min(geo.run, (Z - z0) * c)
+    t = np.arange(THREADS)
+    x0, y0 = ti * dx, tj * dy
+    written = []
+    for xl, yl in itertools.product(range(min(dx, X - x0)), range(min(dy, Y - y0))):
+        x, y = x0 + xl, y0 + yl
+        start = (x * Y + y) * Z * c + z0 * c
+        p = 2 * t - start % 64  # the kernel's first pair; then + 2 * THREADS
+        while (p < run).any():
+            live = p < run
+            in0 = live & (p >= 0)
+            in1 = live & (p + 1 >= 0) & (p + 1 < run)
+            # the z-table reads of both positions, clamped into the run
+            for q in (np.maximum(p[live], 0), np.minimum(np.maximum(p[live] + 1, 0), run - 1)):
+                assert ((q >= 0) & (q < run)).all()
+            pair = in0 & in1
+            assert ((start + p[pair]) % 2 == 0).all()  # 4-byte aligned pairs
+            stored = np.concatenate([p[in0], p[in1] + 1])
+            owner = np.concatenate([t[in0], t[in1]])
+            addr = start + stored
+            flat = ((x * Y + y) * Z + z0 + stored // c) * c + stored % c
+            assert np.array_equal(addr, flat)
+            for warp in np.unique(owner // 32):  # one aligned 128-byte line a warp
+                assert len(np.unique(addr[owner // 32 == warp] // 64)) == 1
+            assert ((xl * dy + yl) * q_cols + off[stored] + 3 * c < dx * dy * q_cols).all()
+            written.append(np.stack([np.full_like(stored, x), np.full_like(stored, y),
+                                     z0 + stored // c, stored % c]))
+            p = p + 2 * THREADS
+    return np.concatenate(written, axis=1) if written else np.zeros((4, 0), np.int64)
+
+
 def _geometry(tile, c, vol):
     geo = bsi_ttli.forward_blocks(tile, c, vol)
     dx, dy, dz = tile
@@ -168,6 +216,44 @@ def test_every_voxel_written_once_phantom1(tile, c):
     for block in itertools.product(*({0, n - 1} for n in geo.grid)):
         _xy_stage(geo, tile, c, grid_shape, block)
         pos = _z_stage(geo, tile, c, PHANTOM1, block, off)
+        tj, ti, bk = block
+        lo = np.array([ti * dx, tj * dy, bk * geo.bz * dz, 0])
+        hi = np.minimum(lo + [dx, dy, geo.bz * dz, c], PHANTOM1 + (c,))
+        assert ((pos >= lo[:, None]) & (pos < hi[:, None])).all()
+        n = hi - lo
+        local = pos - lo[:, None]
+        count = np.zeros(int(np.prod(n)), np.int64)
+        np.add.at(count, ((local[0] * n[1] + local[1]) * n[2] + local[2]) * n[3]
+                  + local[3], 1)
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("vol", SMALL)
+def test_bf16_every_value_written_once_small(tile, c, vol):
+    """The bf16 stores: every block of a small volume (odd runs, columns
+    starting on odd values), the whole field counted."""
+    geo = _geometry(tile, c, vol)
+    off = _table(geo, tile, c)
+    count = np.zeros(int(np.prod(vol)) * c, np.int64)
+    for block in itertools.product(*(range(n) for n in geo.grid)):
+        x, y, z, ch = _z_stage_bf16(geo, tile, c, vol, block, off)
+        assert (x < vol[0]).all() and (y < vol[1]).all() and (z < vol[2]).all()
+        np.add.at(count, ((x * vol[1] + y) * vol[2] + z) * c + ch, 1)
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("c", [1, 3])
+def test_bf16_every_value_written_once_phantom1(tile, c):
+    """The bf16 stores at phantom1, the first and last block of each axis
+    as in :func:`test_every_voxel_written_once_phantom1`."""
+    geo = _geometry(tile, c, PHANTOM1)
+    dx, dy, dz = tile
+    off = _table(geo, tile, c)
+    for block in itertools.product(*({0, n - 1} for n in geo.grid)):
+        pos = _z_stage_bf16(geo, tile, c, PHANTOM1, block, off)
         tj, ti, bk = block
         lo = np.array([ti * dx, tj * dy, bk * geo.bz * dz, 0])
         hi = np.minimum(lo + [dx, dy, geo.bz * dz, c], PHANTOM1 + (c,))

@@ -390,8 +390,9 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
     fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul")
              for k in ("", "_stats", "_ncc", "_nmi", "_lncc")]
     assert ops.launch_counts() == dict.fromkeys(
-        ["bsi_ttli", "bsi_separable", "bsi_tt", "bsi_matmul", "bsi_adjoint",
-         "bsi_adjoint_matmul"] + fused + ["flash_attention"], 0)
+        ["bsi_ttli", "bsi_separable", "bsi_ttli_bf16", "bsi_separable_bf16", "bsi_tt",
+         "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul"] + fused + ["flash_attention"],
+        0)
 
 
 def test_dispatchers_check_coverage():

@@ -169,7 +169,7 @@ def test_measure_bsi_time_reports_seconds(pair):
     (dict(transform="velocity", fused="on"), ValueError, "transform='velocity'"),
     (dict(optimizer="gauss_newton", similarity="ncc"), ValueError, "similarity='ssd'"),
     (dict(optimizer="gauss_newton", fused="on"), ValueError, "gauss_newton"),
-    (dict(compute_dtype="bfloat16"), NotImplementedError, "queue 1 item 18"),
+    (dict(compute_dtype="float16"), NotImplementedError, "queue 1 item 18f"),
     (dict(grad_impl="xla"), ValueError, "grad_impl must be one of"),
     (dict(mode="gather"), ValueError, "no kernel"),
     (dict(grad_impl="autograd"), ValueError, "autograd"),
@@ -262,11 +262,12 @@ def test_options_from_reference_maps_the_renamed_values():
                                           fused="auto")
     assert reference_fields(opts) == {k: REF_FIELDS[k] for k in (
         "mode", "impl", "grad_impl", "fused")}
-    # the second-order optimisers are ported; compute_dtype is not yet
+    # the second-order optimisers and bf16 are ported; float16 is not yet
     assert options_from_reference(dict(optimizer="lbfgs")).optimizer == resolve_optimizer(
         "lbfgs")
-    with pytest.raises(NotImplementedError):
-        options_from_reference(dict(compute_dtype="bfloat16"))
+    assert options_from_reference(dict(compute_dtype="bfloat16")).compute_dtype == "bfloat16"
+    with pytest.raises(NotImplementedError, match="18f"):
+        options_from_reference(dict(compute_dtype="float16"))
 
 
 @pytest.mark.parametrize("field", ["transform", "regularizer", "optimizer", "stop"])

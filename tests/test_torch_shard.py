@@ -237,6 +237,17 @@ def test_register_batch_mesh_one_rank(mesh, stacks, reference, port_spread, case
         assert res.steps.min() < STOP_FIELDS["iters"]  # a level stopped early
 
 
+def test_register_batch_mesh_one_rank_bf16(mesh, stacks):
+    """``compute_dtype="bfloat16"`` rides the options to the mesh's ranks:
+    bit-equal to ``mesh=None``, a float32 warp and grid."""
+    fixed, moving = stacks
+    opts = _options(False).replace(compute_dtype="bfloat16")
+    base = register_batch(fixed, moving, options=opts, device="cpu")
+    res = register_batch(fixed, moving, options=opts, device="cpu", mesh=mesh)
+    assert _bit_equal(res, base)
+    assert res.warped.dtype == res.params.dtype == torch.float32
+
+
 def test_register_batch_mesh_rejects_bad_shapes(mesh):
     v = torch.zeros((8, 8, 8))
     with pytest.raises(ValueError, match="stacks"):
