@@ -128,6 +128,24 @@ Phases; any failure raises and the script exits nonzero:
    bf16 bounds against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3),
    ``mode="separable"`` in bf16 counted, and the per-level losses within
    1e-3 relative of the plain bf16 path's;
+1c. the bf16 fused level step, right after phase 1b
+   (``check_bf16_fused_kernels``, ``run_bf16_fused_path``): the five fused
+   variants' bf16 kernels (lerp form, bf16 ``phi`` and ``moving``, float32
+   ``fixed``) at phantom1 against their plain versions (ssd, stats, ncc on
+   the main pair; nmi at 32 bins and lncc at window 9 on the remapped pair;
+   the float32 rows' tolerances; two calls bit-equal; registers, no spills,
+   blocks an SM) and ``bsi_adjoint`` on a bf16 cotangent, asserted bit-equal
+   to the float32 kernel on the widened cotangent, each timed beside its
+   float32 kernel, its plain version and its bound; then ``ffd_register``
+   with ``compute_dtype="bfloat16", fused="on", lr=0.02`` (``ttli / cuda /
+   cuda``) cold and warm beside the float32 fused call and phase 1b's bf16
+   unfused one, its launches asserted (a step one ``bsi_fused_bf16``, one
+   ``bsi_ttli_bf16`` and one ``bsi_adjoint_bf16``; the final warp one
+   float32 ``bsi_ttli``), final loss within 1e-2 relative and warp MAE
+   below 1e-4 of float32's, per-level losses within 1e-3 relative of the
+   plain bf16 fused path's; the bf16 fused ncc, nmi and lncc steps at
+   ``iters=5``, counted, within 1e-2 of float32's; and ``fused="auto"``
+   under bf16 raced on a fresh cache (its key ``|cd=bfloat16|``);
 4c. batched and served registration: ``register_batch`` of two phantom1
    pairs (seeds 0 and 1, made on the host while the earlier phases run)
    with ``fused="on"``, cold then warm (seconds, ``compiled``, peak memory,
@@ -1053,9 +1071,10 @@ def run_bf16_path(torch, fixed, moving):
     coarse level makes no progress at phantom1), cold and warm beside the
     same float32 call, each counted; then ``mode="separable"`` in bf16,
     counted; then the plain bf16 path (``impl="torch"``).  Asserts the
-    launches (the level loops' forwards all ``bsi_ttli_bf16``, the adjoint's
-    as in float32, the final full-resolution warp one float32 ``bsi_ttli``
-    as in the JAX package), a float32 warp, the JAX package's own bf16
+    launches (the level loops' forwards all ``bsi_ttli_bf16``, the adjoints
+    ``bsi_adjoint_bf16`` on the bf16 cotangent, as many as float32's, the
+    final full-resolution warp one float32 ``bsi_ttli`` as in the JAX
+    package), a float32 warp, the JAX package's own bf16
     bounds against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3),
     which a bf16 path that never optimised would also meet at phantom1
     (the whole registration moves the MAE to the fixed volume by ~4e-4),
@@ -1073,7 +1092,7 @@ def run_bf16_path(torch, fixed, moving):
     opts16 = opts32.replace(compute_dtype="bfloat16")
     steps = opts32.levels * (opts32.iters + 1)
     expected = {"float32": only(bsi_ttli=steps + 1, bsi_adjoint=steps),
-                "bfloat16": only(bsi_ttli_bf16=steps, bsi_ttli=1, bsi_adjoint=steps)}
+                "bfloat16": only(bsi_ttli_bf16=steps, bsi_ttli=1, bsi_adjoint_bf16=steps)}
     runs, counts, calls = {}, {}, {}
     for when in ("cold", "warm"):
         for label, opts in (("float32", opts32), ("bfloat16", opts16)):
@@ -1110,7 +1129,7 @@ def run_bf16_path(torch, fixed, moving):
     ops.reset_launch_counts()
     sep = ffd_register(fixed, moving, options=opts16.replace(mode="separable"))
     counts["separable"] = ops.launch_counts()
-    want = only(bsi_separable_bf16=steps, bsi_separable=1, bsi_adjoint=steps)
+    want = only(bsi_separable_bf16=steps, bsi_separable=1, bsi_adjoint_bf16=steps)
     log(f"bf16 separable path: {sep.seconds:.3f} s, losses {sep.losses}; launches "
         f"{ {k: v for k, v in counts['separable'].items() if v} }")
     assert counts["separable"] == want, counts["separable"]
@@ -1125,6 +1144,337 @@ def run_bf16_path(torch, fixed, moving):
         f"(limit 1e-3); {r16.seconds:.3f} s vs {plain.seconds:.3f} s")
     assert rel <= 1e-3, rel
     calls["plain_bf16"] = dict(seconds=plain.seconds, losses=plain.losses)
+    return counts, calls
+
+
+def bf16_adjoint_yardstick(torch, g, tile):
+    """``conv3d`` in bf16 computing the adjoint of the bf16 cotangent ``g``
+    (cuDNN; a bf16 result, so it is timed, not compared)."""
+    import torch.nn.functional as F
+
+    X, Y, Z, c = g.shape
+    full = [-(-s // d) * d for s, d in zip((X, Y, Z), tile)]
+    K = conv_kernel(torch, tile, c, g.device).to(torch.bfloat16)
+    g_cf = torch.zeros([1, c] + full, dtype=torch.bfloat16, device=g.device)
+    g_cf[0, :, :X, :Y, :Z] = g.permute(3, 0, 1, 2)
+    return lambda: F.conv3d(g_cf, K, stride=tile, padding=tuple(3 * d for d in tile),
+                            groups=c)[0].permute(1, 2, 3, 0)
+
+
+def ptxas_occupancy(lib, symbol, smem):
+    """The ptxas line of the one kernel named by ``symbol`` (asserted: no
+    spills) and its resident blocks an SM at ``smem`` bytes a block of 256
+    threads (``launch/profile_forward.py``)."""
+    from repro_torch.launch.profile_forward import kernel_occupancy
+
+    occ = kernel_occupancy(lib, symbol, smem, None)
+    assert "0/0 B spill" in occ["registers"], occ["registers"]
+    return occ["registers"], occ["blocks_per_sm"]
+
+
+def check_bf16_fused_kernels(torch, fixed, moving, lib):
+    """Phase 1c (a): the bf16 kernels of the bf16 fused level step at
+    phantom1, tile 5^3, against their plain versions on the same bf16
+    inputs: the five fused variants in the lerp form on a bf16 ``phi`` and
+    ``moving`` and a float32 ``fixed`` (ssd, stats and ncc on the main
+    path's pair, nmi at 32 bins and lncc at window 9 on the multi-modal
+    pair; the sums at 1e-5 relative, stats' min, max and count exact, the
+    nmi histogram at 1e-5 of its largest cell and its loss at 1e-5, lncc's
+    count exact), and ``bsi_adjoint`` on a bf16 cotangent, bit-equal to the
+    float32 kernel on the widened cotangent and at 1e-5 relative of its
+    plain version.  Two calls of each bit-equal, registers with no spills
+    (asserted), shared memory and blocks an SM; each timed beside its
+    float32 kernel on the float32 inputs, its plain version and its bound
+    (``launch/bounds.py``: bf16 bytes for ``phi``, ``moving`` and ``g``)."""
+    from repro_torch.core import ffd
+    from repro_torch.kernels import bsi_adjoint, bsi_fused, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds, nmi_bound
+    from repro_torch.launch.profile_adjoint import kernel_occupancy as adjoint_occupancy
+
+    dev = fixed.device
+    vol = tuple(fixed.shape)
+    gshape = ffd.grid_shape_for_volume(vol, TILE)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 1.0
+    g32 = torch.randn(vol + (3,), generator=gen, device=dev) * 1e-3
+    bf = torch.bfloat16
+    phi, mov, g = phi32.to(bf), moving.to(bf), g32.to(bf)
+    rem32 = remap(moving)
+    rem = rem32.to(bf)
+    n = moving.numel()
+    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
+    fused_src, fused_rep = "src/repro_torch/csrc/bsi_fused.cu", "src/repro/kernels/bsi_fused.py:291"
+    rows = []
+
+    def row(name, err, call, call32, plain, bound, replaces=fused_rep, source=fused_src,
+            library_ms=None, **more):
+        """Time ``call`` (the bf16 kernel), ``call32`` (its float32 kernel on
+        the float32 inputs) and ``plain``; each call counted once under
+        ``name`` before (asserted)."""
+        ops.reset_launch_counts()
+        call()
+        assert ops.launch_counts()[name] == 1, (name, ops.launch_counts())
+        b_ms, b_by = bound
+        r = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 max_abs_err=err, ms=cuda_ms(torch, call),
+                 plain_ms=cuda_ms(torch, plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+                 library_ms=library_ms,
+                 more=dict(float32_kernel_ms=cuda_ms(torch, call32), **more))
+        log(f"{name}: kernel {r['ms']:.4f} ms (float32 kernel "
+            f"{r['more']['float32_kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), library "
+            f"{'-' if library_ms is None else format(library_ms, '.4f')} ms")
+        rows.append(r)
+
+    def same(call):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        return torch.equal(a, b)
+
+    # --- bsi_adjoint on a bf16 cotangent
+    out, out32 = ops.bsi_adjoint(g, TILE, gshape), ops.bsi_adjoint(g.float(), TILE, gshape)
+    ref = bsi_adjoint.plain(g, TILE, gshape)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    bits = torch.equal(out, out32)
+    again = same(lambda: ops.bsi_adjoint(g, TILE, gshape))
+    geo = bsi_adjoint.stream_blocks(TILE, 3, vol, bsi_adjoint.card_sms(dev))
+    (line, per_sm), = (v for k, v in adjoint_occupancy(lib, TILE, 3, vol).items()
+                       if "ILi3ELi5E13__nv_bfloat16" in k)
+    log(f"bsi_adjoint_bf16: out {out.dtype}; bit-equal to the float32 kernel on "
+        f"g.float(): {bits}; max |kernel - plain| {err:.3e}, relative {rel:.3e} (limit "
+        f"1e-5); two calls bit-equal: {again}; {line}; {geo.smem} B of shared memory a "
+        f"block (the float32 kernel's), {per_sm} blocks an SM")
+    assert out.dtype == torch.float32 and bits and again, (bits, again)
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    del out, out32, ref
+    # the cast the backward made before this kernel: the bf16 cotangent
+    # widened to float32 (270 MB read, 539 MB written at phantom1)
+    widen_ms = cuda_ms(torch, lambda: g.float())
+    row("bsi_adjoint_bf16", err, lambda: ops.bsi_adjoint(g, TILE, gshape),
+        lambda: ops.bsi_adjoint(g32, TILE, gshape),
+        lambda: bsi_adjoint.plain(g, TILE, gshape), bounds["bsi_adjoint_separable_bf16"],
+        replaces="src/repro/kernels/bsi_adjoint.py:125",
+        source="src/repro_torch/csrc/bsi_adjoint.cu",
+        library_ms=cuda_ms(torch, bf16_adjoint_yardstick(torch, g, TILE), reps=3,
+                           warmup=1),
+        bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms)
+    log(f"bsi_adjoint_bf16: the cotangent's widening cast it replaces {widen_ms:.4f} ms")
+
+    # --- the fused ssd, stats and ncc walks on the main path's pair
+    out = ops.fused_ssd_loss(phi, mov, fixed, TILE)
+    ref = bsi_fused.plain(phi, mov, fixed, TILE) / n
+    err = abs(out.item() - ref.item())
+    rel = err / abs(ref.item())
+    log(f"bsi_fused_bf16: kernel {out.item():.9g} plain {ref.item():.9g} relative "
+        f"{rel:.3e} (limit 1e-5); float32 kernel on the float32 inputs "
+        f"{ops.fused_ssd_loss(phi32, moving, fixed, TILE).item():.9g}")
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_bf16", lambda: ops.fused_ssd_loss(phi, mov, fixed, TILE),
+             vol)
+    row("bsi_fused_bf16", err, lambda: ops.fused_ssd_loss(phi, mov, fixed, TILE),
+        lambda: ops.fused_ssd_loss(phi32, moving, fixed, TILE),
+        lambda: bsi_fused.plain(phi, mov, fixed, TILE), bounds["bsi_fused_ssd_bf16"])
+
+    out = ops.fused_stats(phi, mov, TILE)
+    st = bsi_fused.plain_stats(phi, mov, TILE)
+    rel = abs(out[0].item() - st[0].item()) / abs(st[0].item())
+    log(f"bsi_fused_stats_bf16: kernel {out.tolist()} plain {st.tolist()}; sum relative "
+        f"{rel:.3e} (limit 1e-5); min, max, count exact: {torch.equal(out[1:], st[1:])}")
+    assert torch.equal(out[1:], st[1:]) and out[3].item() == n, (out, st)
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_stats_bf16", lambda: ops.fused_stats(phi, mov, TILE), vol)
+    row("bsi_fused_stats_bf16", (out - st).abs().max().item(),
+        lambda: ops.fused_stats(phi, mov, TILE), lambda: ops.fused_stats(phi32, moving, TILE),
+        lambda: bsi_fused.plain_stats(phi, mov, TILE), bounds["bsi_fused_stats_bf16"])
+
+    scal = torch.stack([st[0] / n, fixed.mean()])
+    out = ops.fused_ncc_moments(phi, mov, fixed, scal, TILE)
+    mom = bsi_fused.plain_ncc(phi, mov, fixed, scal, TILE)
+    err = (out - mom).abs().max().item()
+    rel = err / mom.abs().max().item()
+    log(f"bsi_fused_ncc_bf16: moments kernel {out.tolist()} plain {mom.tolist()}; "
+        f"relative {rel:.3e} (limit 1e-5)")
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, "bsi_fused_ncc_bf16",
+             lambda: ops.fused_ncc_moments(phi, mov, fixed, scal, TILE), vol)
+    row("bsi_fused_ncc_bf16", err, lambda: ops.fused_ncc_moments(phi, mov, fixed, scal, TILE),
+        lambda: ops.fused_ncc_moments(phi32, moving, fixed, scal, TILE),
+        lambda: bsi_fused.plain_ncc(phi, mov, fixed, scal, TILE), bounds["bsi_fused_ncc_bf16"])
+
+    # --- nmi (32 bins) and lncc (window 9) on the multi-modal pair
+    st = bsi_fused.plain_stats(phi, rem, TILE)
+    scal = torch.stack([st[1], st[2], fixed.min(), fixed.max()])
+    kw = dict(bins=32, sigma=0.5 / 31, eps=1e-8)  # nmi()'s defaults
+    out = ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **kw)
+    ref = bsi_fused.plain_nmi(phi, rem, fixed, scal, TILE, **kw)
+    err = (out - ref).abs().max().item()
+    rel_cell = err / ref.abs().max().item()
+    spec = ("nmi", 32, 0.5, 1e-8)
+    loss = ops.fused_similarity_loss(phi, rem, fixed, TILE, sim_spec=spec).item()
+    loss_ref = ops.two_pass_loss(spec, phi, rem, fixed, TILE, **plain_passes()).item()
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    again = same(lambda: ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **kw))
+    blocks = bsi_fused.block_tiles(TILE, "lerp", bsi_fused.nmi_smem_bytes(32))
+    smem = bsi_fused._disp_smem_bytes(TILE, blocks, "lerp") + bsi_fused.nmi_smem_bytes(32)
+    line, per_sm = ptxas_occupancy(lib, "bsi_fused_nmi_bf16_kernelILi32EE", smem)
+    support, evaluated, products = nmi_work(torch, phi, rem, fixed, scal, 32, 0.5 / 31,
+                                            "lerp")
+    nb = nmi_bound(vol, TILE, 32, evaluated=evaluated, products=products, bf16=True)
+    log(f"bsi_fused_nmi_bf16: histogram max |kernel - plain| {err:.3e}, relative to the "
+        f"largest cell {rel_cell:.3e} (limit 1e-5); loss kernel {loss:.9g} plain "
+        f"{loss_ref:.9g} relative {loss_rel:.3e} (limit 1e-5); two calls bit-equal: "
+        f"{again}; {line}; {smem} B of shared memory a block, {per_sm} blocks an SM; "
+        f"bound {nb['ms']:.4f} ms ({nb['by']}, {nb['form']}) from {evaluated} weights "
+        f"and {products} non-zero products (support +-{support})")
+    assert math.isfinite(rel_cell) and rel_cell <= 1e-5, rel_cell
+    assert math.isfinite(loss_rel) and loss_rel <= 1e-5 and again, (loss_rel, again)
+    row("bsi_fused_nmi_bf16", err,
+        lambda: ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **kw),
+        lambda: ops.fused_nmi_histogram(phi32, rem32, fixed, scal, TILE, **kw),
+        lambda: bsi_fused.plain_nmi(phi, rem, fixed, scal, TILE, **kw), (nb["ms"], nb["by"]),
+        bound_form=nb["form"], blocks_per_sm=per_sm)
+
+    lk = dict(window=9, eps=1e-5)
+    out = ops.fused_lncc(phi, rem, fixed, TILE, **lk)
+    ref = bsi_fused.plain_lncc(phi, rem, fixed, TILE, **lk)
+    err = abs(out[0].item() - ref[0].item())
+    rel = err / abs(ref[0].item())
+    npos = math.prod(s - 8 for s in vol)
+    again = same(lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk))
+    own, _ = bsi_fused.lncc_blocks(TILE, 9, "lerp", vol)
+    smem = bsi_fused._lncc_smem_bytes(TILE, own, 9, "lerp")
+    line, per_sm = ptxas_occupancy(lib, "bsi_fused_lncc_bf16_kernelILi9EE", smem)
+    log(f"bsi_fused_lncc_bf16: sum cc kernel {out[0].item():.9g} plain "
+        f"{ref[0].item():.9g} relative {rel:.3e} (limit 1e-5); count "
+        f"{out[1].item():.0f} (VALID positions {npos}); two calls bit-equal: {again}; "
+        f"{line}; column {own} tiles, {smem} B of shared memory a block, {per_sm} blocks "
+        "an SM")
+    assert math.isfinite(rel) and rel <= 1e-5 and again, (rel, again)
+    assert out[1].item() == ref[1].item() == npos, (out, ref)
+    row("bsi_fused_lncc_bf16", err, lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk),
+        lambda: ops.fused_lncc(phi32, rem32, fixed, TILE, **lk),
+        lambda: bsi_fused.plain_lncc(phi, rem, fixed, TILE, **lk),
+        bounds["bsi_fused_lncc_bf16"], replaces=fused_rep + " (lncc, :218-239)",
+        blocks_per_sm=per_sm)
+    return rows
+
+
+def run_bf16_fused_path(torch, fixed, moving, bf16_calls):
+    """Phase 1c (b): ``ffd_register`` of the main path's pair with
+    ``RegistrationOptions(compute_dtype="bfloat16", fused="on", lr=0.02)``,
+    ``ttli / cuda / cuda``, cold and warm beside the same float32 fused call
+    (seconds, peak memory above the call's start), and beside phase 1b's
+    bf16 unfused call.  Asserts the launches (a step: one ``bsi_fused_bf16``,
+    the backward's recomputed field one ``bsi_ttli_bf16`` and its bf16
+    cotangent one ``bsi_adjoint_bf16``; the final warp one float32
+    ``bsi_ttli``, as in the JAX package), the final loss within 1e-2
+    relative of the float32 fused call's and the warp's MAE against it below
+    1e-4 (phase 1b's limits), and the per-level losses within 1e-3 relative
+    of the plain bf16 fused path's (``impl="torch"``, the fused forward on
+    the ssd kernel's plain version).  Then the bf16 fused
+    ncc, nmi (the remapped pair) and lncc steps at ``iters=5``, counted,
+    each level's loss within 1e-2 relative of the float32 fused call's; and
+    ``fused="auto"`` under bf16 raced once on a fresh disk cache.  Returns
+    each counted path's launches and a summary."""
+    from repro_torch import RegistrationOptions, ffd_register
+    from repro_torch.kernels import bsi_fused, ops
+
+    opts32 = RegistrationOptions(mode="ttli", impl="cuda", grad_impl="cuda", fused="on",
+                                 lr=0.02)
+    opts16 = opts32.replace(compute_dtype="bfloat16")
+    steps = opts32.levels * (opts32.iters + 1)
+    expected = {"float32": only(bsi_fused=steps, bsi_ttli=steps + 1, bsi_adjoint=steps),
+                "bfloat16": only(bsi_fused_bf16=steps, bsi_ttli_bf16=steps, bsi_ttli=1,
+                                 bsi_adjoint_bf16=steps)}
+    runs, counts, calls = {}, {}, {}
+    for when in ("cold", "warm"):
+        for label, opts in (("float32", opts32), ("bfloat16", opts16)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ops.reset_launch_counts()
+            res = ffd_register(fixed, moving, options=opts)
+            counts[label] = ops.launch_counts()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            calls.setdefault(label, {})[when] = dict(seconds=res.seconds, peak_gib=peak)
+            log(f"bf16 fused path: {label} fused {when} {res.seconds:.3f} s, {peak:.2f} GiB "
+                f"above the call's start; losses {res.losses}; launches "
+                f"{ {k: v for k, v in counts[label].items() if v} }")
+            assert counts[label] == expected[label], (label, counts[label])
+            runs[label] = res
+    r32, r16 = runs["float32"], runs["bfloat16"]
+    assert r16.warped.dtype == torch.float32 and r16.params.dtype == torch.float32
+    assert torch.isfinite(r16.warped).all() and torch.isfinite(r16.params).all()
+    mae = (r16.warped - r32.warped).abs().mean().item()
+    loss_rel = abs(r16.losses[-1] - r32.losses[-1]) / abs(r32.losses[-1])
+    off = bf16_calls["bfloat16"]
+    log(f"bf16 fused path: final loss {r16.losses[-1]:.6e} vs float32 fused "
+        f"{r32.losses[-1]:.6e}, relative {loss_rel:.3e} (limit 1e-2); warp MAE against "
+        f"float32 {mae:.3e} (limit 1e-4); warm {calls['bfloat16']['warm']['seconds']:.3f} s "
+        f"vs bf16 unfused (phase 1b) {off['warm']['seconds']:.3f} s and float32 fused "
+        f"{calls['float32']['warm']['seconds']:.3f} s; peak "
+        f"{calls['bfloat16']['warm']['peak_gib']:.2f} GiB vs {off['warm']['peak_gib']:.2f} "
+        f"and {calls['float32']['warm']['peak_gib']:.2f} GiB")
+    assert loss_rel < 1e-2, (loss_rel, r16.losses, r32.losses)
+    assert mae < 1e-4, mae
+    calls["bfloat16"].update(losses=r16.losses, float32_losses=r32.losses,
+                             final_loss_rel_vs_float32=loss_rel, warp_mae_vs_float32=mae,
+                             unfused_bf16=dict(off))
+
+    def plain_ssd(phi, mov, fix, tile, *, sim_spec, disp_form="lerp"):
+        """The fused SSD forward on the ssd kernel's plain version."""
+        assert sim_spec == ("ssd",), sim_spec
+        return bsi_fused.plain(phi, mov, fix, tile, disp_form=disp_form) / mov.numel()
+
+    ops.reset_launch_counts()
+    fused_loss, ops.fused_similarity_loss = ops.fused_similarity_loss, plain_ssd
+    try:
+        plain = ffd_register(fixed, moving, options=opts16.replace(impl="torch",
+                                                                   grad_impl="torch"))
+    finally:
+        ops.fused_similarity_loss = fused_loss
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r16.losses, plain.losses))
+    log(f"bf16 fused path: kernels {r16.losses} plain {plain.losses} max relative "
+        f"{rel:.3e} (limit 1e-3); {r16.seconds:.3f} s vs {plain.seconds:.3f} s")
+    assert rel <= 1e-3, rel
+    calls["plain_bf16_fused"] = dict(seconds=plain.seconds, losses=plain.losses)
+
+    # the multi-modal variants' bf16 kernels on their own steps
+    rem = remap(moving)
+    for sim, mov, want in (
+            ("ncc", moving, dict(bsi_fused_stats_bf16=1, bsi_fused_ncc_bf16=1)),
+            ("nmi", rem, dict(bsi_fused_stats_bf16=1, bsi_fused_nmi_bf16=1)),
+            ("lncc", rem, dict(bsi_fused_lncc_bf16=1))):
+        o32 = opts32.replace(similarity=sim, iters=5)
+        o16 = o32.replace(compute_dtype="bfloat16")
+        n = o32.levels * (o32.iters + 1)
+        a32 = ffd_register(fixed, mov, options=o32)
+        ops.reset_launch_counts()
+        a16 = ffd_register(fixed, mov, options=o16)
+        counts[sim] = ops.launch_counts()
+        exp = only(bsi_ttli_bf16=n, bsi_ttli=1, bsi_adjoint_bf16=n,
+                   **{k: v * n for k, v in want.items()})
+        rel = max(abs(a - b) / abs(b) for a, b in zip(a16.losses, a32.losses))
+        log(f"bf16 fused {sim} at iters=5: {a16.seconds:.3f} s, losses {a16.losses} vs "
+            f"float32 fused {a32.losses}, max relative {rel:.3e} (limit 1e-2); launches "
+            f"{ {k: v for k, v in counts[sim].items() if v} }")
+        assert counts[sim] == exp, (sim, counts[sim], exp)
+        assert all(math.isfinite(x) for x in a16.losses) and rel < 1e-2, (sim, rel)
+        calls[f"{sim}_iters5"] = dict(seconds=a16.seconds, losses=a16.losses,
+                                      float32_losses=a32.losses)
+
+    from repro_torch.engine import autotune
+
+    winner = log_fused_resolution(
+        torch, tuple(fixed.shape), "bf16 (ttli / cuda / cuda, lr=0.02)", mode="ttli",
+        impl="cuda", grad_impl="cuda", lr=0.02, compute_dtype="bfloat16")
+    race = autotune.RACES[-1]
+    assert "|cd=bfloat16|" in race.key, race.key
+    calls["auto_fused"] = dict(fused=winner, race_seconds=race.seconds,
+                               timings_us=dict(race.timings))
     return counts, calls
 
 
@@ -2449,6 +2799,10 @@ def main():
     rows += check_bf16_kernels(torch, fixed, lib)
     bf16_counts, bf16_calls = run_bf16_path(torch, fixed, moving)
     log(f"phase 1b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += check_bf16_fused_kernels(torch, fixed, moving, lib)
+    fused16_counts, fused16_calls = run_bf16_fused_path(torch, fixed, moving, bf16_calls)
+    log(f"phase 1c: {time.perf_counter() - t0:.1f} s")
     compare_paths(torch, fixed, moving)
     nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)
     ncc_counts = compare_multimodal_paths(torch, fixed, moving)
@@ -2493,6 +2847,12 @@ def main():
                    "bsi_separable": form_counts["separable"],
                    "bsi_ttli_bf16": bf16_counts["bfloat16"],
                    "bsi_separable_bf16": bf16_counts["separable"],
+                   "bsi_adjoint_bf16": fused16_counts["bfloat16"],
+                   "bsi_fused_bf16": fused16_counts["bfloat16"],
+                   "bsi_fused_stats_bf16": fused16_counts["ncc"],
+                   "bsi_fused_ncc_bf16": fused16_counts["ncc"],
+                   "bsi_fused_nmi_bf16": fused16_counts["nmi"],
+                   "bsi_fused_lncc_bf16": fused16_counts["lncc"],
                    "bsi_tt": form_counts["tt"],
                    "flash_attention": serve_counts,
                    "flash_attention_f32": serve_compare["fp32_counts"]}
@@ -2519,6 +2879,7 @@ def main():
         log(f"{mode} call at phantom1: {call}")
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
     log(f"bf16 calls at phantom1 (phase 1b): {bf16_calls}")
+    log(f"bf16 fused calls at phantom1 (phase 1c): {fused16_calls}")
     log(f"workflow at phantom1: {workflow}")
     log(f"register_batch at phantom1: {batch_call}")
     log(f"stream: {stream_call}")

@@ -46,6 +46,15 @@
 // order within a band and the bands from the last), so two calls give the
 // same bits.
 //
+// bsi_adjoint_bf16, the backward of a compute_dtype="bfloat16" field,
+// replaces the same Pallas kernel run on a bf16 cotangent (its LUTs float32,
+// its sums float32: repro/kernels/ops.py:200-211).  The streaming kernel
+// takes the cotangent's type: a bf16 row is staged as bf16 in the float32
+// kernel's slots and widened as each value is loaded, and everything after
+// the load is the float32 kernel's, so it gives that kernel's bits on
+// g.float().  Bound at phantom1: 269.7 MB of bf16 cotangent read and 4.9 MB
+// of grid written, 0.0820 ms at 3.35 TB/s.
+//
 // Transposed-matmul form.  Replaces: the Pallas TPU kernel
 // repro/kernels/bsi_adjoint.py:bsi_adjoint_matmul_pallas (_kernel_matmul),
 // dispatched by repro/kernels/ops.py:bsi_adjoint_pallas(form="matmul").
@@ -80,12 +89,15 @@
 
 namespace repro_torch {
 
-__device__ __forceinline__ int chunk_shift(const float* src) {
-  return (int)(((size_t)src >> 2) & 3);
+// Where src's data begins in its 16-byte chunk, in elements of T.
+template <typename T>
+__device__ __forceinline__ int chunk_shift(const T* src) {
+  return (int)(((size_t)src / sizeof(T)) & (16 / sizeof(T) - 1));
 }
 
-__device__ __forceinline__ const float* align16(const float* p) {
-  return (const float*)((size_t)p & ~(size_t)15);
+template <typename T>
+__device__ __forceinline__ const T* align16(const T* p) {
+  return (const T*)((size_t)p & ~(size_t)15);
 }
 
 __device__ __forceinline__ void bar_init(unsigned bar) {
@@ -109,17 +121,20 @@ __device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
         : "memory");
 }
 
-// One thread's copy of the 16-byte chunks that cover `floats` floats from
-// src into shared memory at dst (dst_p its generic address) by the bulk
-// copy engine, completing on the mbarrier bar: the chunks from src rounded
-// down, cut at the tensor's last whole chunk before `end`; the floats past
-// that cut (the tensor's last row only) by plain loads.
-__device__ __forceinline__ void stage_bulk(unsigned dst, float* dst_p, unsigned bar,
-                                           const float* src, int floats, const float* end) {
-  const float* lo = align16(src);
-  const float* hi = lo + 4 * ((src - lo + floats + 3) / 4);
-  const float* cut = hi < align16(end) ? hi : align16(end);
-  const unsigned bytes = cut > lo ? 4u * (unsigned)(cut - lo) : 0u;
+// One thread's copy of the 16-byte chunks that cover n elements of type T
+// (float, or bf16: 4 or 8 a chunk) from src into shared memory at dst
+// (dst_p its generic address) by the bulk copy engine, completing on the
+// mbarrier bar: the chunks from src rounded down, cut at the tensor's last
+// whole chunk before `end`; the elements past that cut (the tensor's last
+// row only) by plain loads.
+template <typename T>
+__device__ __forceinline__ void stage_bulk(unsigned dst, T* dst_p, unsigned bar,
+                                           const T* src, int n, const T* end) {
+  constexpr int E = 16 / sizeof(T);  // elements a chunk
+  const T* lo = align16(src);
+  const T* hi = lo + E * ((src - lo + n + E - 1) / E);
+  const T* cut = hi < align16(end) ? hi : align16(end);
+  const unsigned bytes = cut > lo ? (unsigned)(sizeof(T) * (cut - lo)) : 0u;
   bar_expect_tx(bar, bytes);
   if (bytes)
     asm volatile(
@@ -127,8 +142,7 @@ __device__ __forceinline__ void stage_bulk(unsigned dst, float* dst_p, unsigned 
         "[%3];\n" ::"r"(dst),
         "l"(lo), "r"(bytes), "r"(bar)
         : "memory");
-  for (const float* p = cut > src ? cut : src; p < src + floats && p < end; ++p)
-    dst_p[p - lo] = *p;
+  for (const T* p = cut > src ? cut : src; p < src + n && p < end; ++p) dst_p[p - lo] = *p;
 }
 
 #ifndef REPRO_SEP_SKIP  // measurement builds: 1 leaves out the row loads, 2 the
@@ -188,9 +202,18 @@ inline size_t stream_smem(const StreamGeo& s) {
 // whose tile is not a halo own that control point.  The rows stream through
 // the ring: thread 0 issues row t's copy kStreamStages - 1 rows ahead of its
 // reduction, behind a barrier that frees the slot it fills.
-template <int C, int D>
+//
+// T: the cotangent's element type, float or __nv_bfloat16
+// (compute_dtype="bfloat16": the backward of a bf16 field).  A bf16 row is
+// staged as bf16, in the 16-byte chunks that cover it (8 values each; the
+// row's shift in its first chunk is 0..7 values, and a row may start on an
+// odd value), within the float32 kernel's slots, which hold it with room to
+// spare; each value widens exactly as it is loaded.  The geometry, the LUTs,
+// the arithmetic and its order are the float32 kernel's, so on g.float()
+// that kernel gives the same bits.
+template <int C, int D, typename T>
 __global__ void __launch_bounds__(kStreamThreads, 4)
-    adjoint_stream_kernel(const float* __restrict__ g, const float* __restrict__ wy,
+    adjoint_stream_kernel(const T* __restrict__ g, const float* __restrict__ wy,
                           const float* __restrict__ wz, float* __restrict__ hyp,
                           StreamGeo s) {
   extern __shared__ float smem[];
@@ -229,16 +252,16 @@ __global__ void __launch_bounds__(kStreamThreads, 4)
   for (int i = 0; i < (D ? 4 * D : 0); ++i) w[i] = __ldg(wz + i);
 
   const size_t zrow = (size_t)s.Z * c;
-  const float* rows = g + ((size_t)x * s.Y + t0 * s.dy) * zrow + (size_t)zs0 * c;
-  const float* g_end = g + (size_t)s.X * s.Y * zrow;
+  const T* rows = g + ((size_t)x * s.Y + t0 * s.dy) * zrow + (size_t)zs0 * c;
+  const T* g_end = g + (size_t)s.X * s.Y * zrow;
   const unsigned ring_s = (unsigned)__cvta_generic_to_shared(ring);
   auto stage = [&](int t) {  // thread 0 issues row t into slot t % kStreamStages
     const int k = t % kStreamStages;
     if (REPRO_SEP_SKIP & 1)
       bar_expect_tx(bars + 8 * k, 0);
     else
-      stage_bulk(ring_s + 4u * k * s.slot, ring + k * s.slot, bars + 8 * k,
-                 rows + (size_t)t * zrow, seg, g_end);
+      stage_bulk(ring_s + 4u * k * s.slot, reinterpret_cast<T*>(ring + k * s.slot),
+                 bars + 8 * k, rows + (size_t)t * zrow, seg, g_end);
   };
   if (threadIdx.x == 0)
     for (int t = 0; t < kStreamStages - 1 && t < nrows; ++t) stage(t);
@@ -255,12 +278,12 @@ __global__ void __launch_bounds__(kStreamThreads, 4)
     if (REPRO_SEP_SKIP & 2) {
       hz = (float)t;
     } else {
-      const float* row = ring + (t % kStreamStages) * s.slot +
-                         chunk_shift(rows + (size_t)t * zrow) + place;
+      const T* row = reinterpret_cast<const T*>(ring + (t % kStreamStages) * s.slot) +
+                     chunk_shift(rows + (size_t)t * zrow) + place;
       float p0 = 0.f, p1 = 0.f, p2 = 0.f, p3 = 0.f;  // the tile's band sums
 #pragma unroll
       for (int a = 0; a < (D ? D : dz); ++a) {
-        const float v = a < na ? row[a * c] : 0.f;
+        const float v = a < na ? to_float(row[a * c]) : 0.f;
         const float* wa = D ? w + 4 * a : s_wz + 4 * a;
         p0 = fmaf(wa[0], v, p0);
         p1 = fmaf(wa[1], v, p1);
@@ -354,14 +377,14 @@ __global__ void __launch_bounds__(kThreads)
     if (i0 + o < nx) out[((size_t)(i0 + o) * ny + j) * nq + q] = acc[o];
 }
 
-template <int C, int D>
-inline cudaError_t launch_stream(const float* g, const float* wy, const float* wz,
-                                 float* hyp, const StreamGeo& s, int threads, int ncp,
+template <int C, int D, typename T>
+inline cudaError_t launch_stream(const T* g, const float* wy, const float* wz, float* hyp,
+                                 const StreamGeo& s, int threads, int ncp,
                                  cudaStream_t stream) {
   const size_t smem = stream_smem(s);
-  cudaError_t err = allow_smem(adjoint_stream_kernel<C, D>, smem);
+  cudaError_t err = allow_smem(adjoint_stream_kernel<C, D, T>, smem);
   if (err != cudaSuccess) return err;
-  adjoint_stream_kernel<C, D><<<dim3(s.X, s.runs, s.nzp * ncp), threads, smem, stream>>>(
+  adjoint_stream_kernel<C, D, T><<<dim3(s.X, s.runs, s.nzp * ncp), threads, smem, stream>>>(
       g, wy, wz, hyp, s);
   return cudaGetLastError();
 }
@@ -670,18 +693,15 @@ inline cudaError_t launch_boxes(const float* g, const float* basis, float* parti
 
 }  // namespace repro_torch
 
-// g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume;
-// wx, wy, wz: the (d, 4) weight LUTs; hyp: X*runs*(run + 3)*(Tz + 3)*c floats
-// of scratch, runs = ceil(ceil(Y/dy)/run); out: (nx, ny, nz, c).  (span,
-// cb): z control points and channels a block owns, cb * (span + 3) lanes
-// of `threads` (29 owners a warp); run: y tiles a block streams, at least 3
-// or all of them (kernels/bsi_adjoint.py:stream_blocks).  Returns the first
-// cudaError_t.
-extern "C" int bsi_adjoint_f32(const float* g, const float* wx, const float* wy,
-                               const float* wz, float* hyp, float* out, int X, int Y,
-                               int Z, int c, int nx, int ny, int nz, int dx, int dy, int dz,
-                               int span, int cb, int run, int threads, void* stream) {
-  using namespace repro_torch;
+namespace repro_torch {
+
+// The separable adjoint of a cotangent of element type T: the streaming
+// launch, then the x sweep (float32 partials in, float32 out).
+template <typename T>
+inline int adjoint_separable(const T* g, const float* wx, const float* wy, const float* wz,
+                             float* hyp, float* out, int X, int Y, int Z, int c, int nx,
+                             int ny, int nz, int dx, int dy, int dz, int span, int cb,
+                             int run, int threads, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int Ty = (Y + dy - 1) / dy, Tz = (Z + dz - 1) / dz;
   if (span < 1 || cb < 1 || run < (Ty < 3 ? Ty : 3) || threads > kStreamThreads ||
@@ -706,6 +726,34 @@ extern "C" int bsi_adjoint_f32(const float* g, const float* wx, const float* wy,
     adjoint_xsweep_kernel<0><<<grid, kThreads, lut, st>>>(hyp, wx, out, s, dx, nx, ny, nz);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace repro_torch
+
+// g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume;
+// wx, wy, wz: the (d, 4) weight LUTs; hyp: X*runs*(run + 3)*(Tz + 3)*c floats
+// of scratch, runs = ceil(ceil(Y/dy)/run); out: (nx, ny, nz, c).  (span,
+// cb): z control points and channels a block owns, cb * (span + 3) lanes
+// of `threads` (29 owners a warp); run: y tiles a block streams, at least 3
+// or all of them (kernels/bsi_adjoint.py:stream_blocks).  Returns the first
+// cudaError_t.
+extern "C" int bsi_adjoint_f32(const float* g, const float* wx, const float* wy,
+                               const float* wz, float* hyp, float* out, int X, int Y,
+                               int Z, int c, int nx, int ny, int nz, int dx, int dy, int dz,
+                               int span, int cb, int run, int threads, void* stream) {
+  return repro_torch::adjoint_separable(g, wx, wy, wz, hyp, out, X, Y, Z, c, nx, ny, nz, dx,
+                                        dy, dz, span, cb, run, threads, stream);
+}
+
+// The same on a bf16 cotangent (the backward of a bf16 field): float32 LUTs,
+// sums and output, the float32 entry's geometry.
+extern "C" int bsi_adjoint_bf16(const __nv_bfloat16* g, const float* wx, const float* wy,
+                                const float* wz, float* hyp, float* out, int X, int Y,
+                                int Z, int c, int nx, int ny, int nz, int dx, int dy,
+                                int dz, int span, int cb, int run, int threads,
+                                void* stream) {
+  return repro_torch::adjoint_separable(g, wx, wy, wz, hyp, out, X, Y, Z, c, nx, ny, nz, dx,
+                                        dy, dz, span, cb, run, threads, stream);
 }
 
 // g: (X, Y, Z, c) float32 cotangent of the field cropped to the volume;

@@ -20,6 +20,7 @@
 // (bsi_tt.cu, bsi_matmul.cu).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -59,6 +60,19 @@ struct WeightStage {
   }
 };
 
+// A grid or volume value as float32: bf16 widens exactly.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v as an element of type T would hold it, widened again: itself for float,
+// rounded once to nearest even for bf16 (the bf16 displacement of the fused
+// kernels, which the JAX package's stores before its warp).
+template <typename T>
+__device__ __forceinline__ float as_stored(float v) {
+  if constexpr (sizeof(T) == sizeof(float)) return v;
+  else return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 struct TileBlock {
   int nx, ny, nz, c;  // stored control points per axis, channels
   int dx, dy, dz;     // tile: voxels per control interval
@@ -82,9 +96,10 @@ __host__ __device__ inline size_t stage_smem_bytes(const TileBlock& g) {
 }
 
 // The block's control window, (bx+3, by+3, bz+3, c) with channels fastest;
-// points past the grid read 0 (only tiles outside the volume use them).
-// Does not synchronise.
-__device__ inline void stage_window(const float* __restrict__ phi, const TileBlock& g,
+// points past the grid read 0 (only tiles outside the volume use them); T
+// the grid's element type, widened as it is loaded.  Does not synchronise.
+template <typename T>
+__device__ inline void stage_window(const T* __restrict__ phi, const TileBlock& g,
                                     int ti0, int tj0, int tk0, float* s_win) {
   const int wy = g.by + 3, wz = g.bz + 3;
   const int nwin = window_floats(g);
@@ -98,7 +113,7 @@ __device__ inline void stage_window(const float* __restrict__ phi, const TileBlo
     const int gi = ti0 + ix, gj = tj0 + jy, gk = tk0 + kz;
     float v = 0.f;
     if (gi < g.nx && gj < g.ny && gk < g.nz)
-      v = phi[(((size_t)gi * g.ny + gj) * g.nz + gk) * g.c + ch];
+      v = to_float(phi[(((size_t)gi * g.ny + gj) * g.nz + gk) * g.c + ch]);
     s_win[i] = v;
   }
 }
@@ -115,8 +130,9 @@ __host__ __device__ inline int basis_floats(const TileBlock& g) {
 // of x, then y, then z (lut_floats floats).  After the call, hy(xl, yl, kz,
 // ch) = smem[lut + window + ((xl*BY + yl)*(bz+3) + kz)*c + ch] with BY =
 // by*dy, for the block's local voxels xl, yl and its local z control points
-// kz.  Ends with __syncthreads().
-__device__ inline void stage_xy(const float* __restrict__ phi,
+// kz.  T: the grid's element type (stage_window).  Ends with __syncthreads().
+template <typename T>
+__device__ inline void stage_xy(const T* __restrict__ phi,
                                 const float* __restrict__ luts,
                                 const TileBlock& g, int ti0, int tj0, int tk0,
                                 float* smem) {

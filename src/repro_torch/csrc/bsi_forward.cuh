@@ -128,10 +128,6 @@ __device__ __forceinline__ void fwd_z_table(int* s_tab, int P, int c, int dz) {
   });
 }
 
-// A grid value as float32: bf16 widens exactly.
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
 // The x-y stage of the block on x tile ti, y tile tj and the bz tiles along
 // z from tk0: slot q = (z control point tk0 + q / c, channel q % c) of
 // column (a, b) to s_hy[(a * dy + b) * fwd_column_floats(g) + q], with c = C

@@ -142,7 +142,25 @@
 // fragment loads are free of bank conflicts.  At phantom1 the weights
 // stage, the histogram stage and the warp with its staging still add up
 // rather than overlap (PERF.md).
+//
+// compute_dtype="bfloat16" (the _bf16 entry points, the lerp form only):
+// the JAX kernel's contract (_fused_kernel, with repro/kernels/ops.py's
+// casts): phi and mov bf16, fix and every sum float32; the displacement in
+// float32 from the widened grid and the bf16-rounded lerp LUTs, rounded
+// once to bf16 where it is formed and widened (as_stored), then the float32
+// warp of the widened bf16 taps.  The kernels are the float32 ones with a
+// type T for phi and mov (walk_block, nmi_block, lncc_block, each behind a
+// __global__ of its own so that the float32 kernels keep their names): the
+// staging widens the grid as it loads it and the ring holds float32
+// samples, so each block's shared memory and layout are the float32
+// kernel's.  The stats walk streams the bf16 moving volume and keeps lines
+// of 32 voxels, aligned to 32 values: a warp's reads of a line are one
+// aligned 64-byte half of a 128-byte line.  Bound at phantom1: 272.2 MB
+// for ssd, ncc, nmi and lncc (0.0812 ms), 92.4 MB for stats (its 0.0352 ms
+// of operations bind); like the float32 walks, paced by the taps.
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "bsi_forward.cuh"
 
@@ -161,9 +179,11 @@
 
 namespace repro_torch {
 
-__device__ __forceinline__ float sample_clamped(const float* __restrict__ vol, int X,
-                                                int Y, int Z, float cx, float cy,
-                                                float cz) {
+// The clamped 8-tap sample of vol (element type T: a bf16 volume's taps
+// widen exactly) at float32 coordinates (cx, cy, cz), lerped in float32.
+template <typename T>
+__device__ __forceinline__ float sample_clamped(const T* __restrict__ vol, int X, int Y,
+                                                int Z, float cx, float cy, float cz) {
   cx = fminf(fmaxf(cx, 0.f), (float)(X - 1));
   cy = fminf(fmaxf(cy, 0.f), (float)(Y - 1));
   cz = fminf(fmaxf(cz, 0.f), (float)(Z - 1));
@@ -172,7 +192,7 @@ __device__ __forceinline__ float sample_clamped(const float* __restrict__ vol, i
   const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
   const int x1 = min(x0 + 1, X - 1), y1 = min(y0 + 1, Y - 1), z1 = min(z0 + 1, Z - 1);
   auto at = [&](int x, int y, int z) {
-    return __ldg(vol + ((size_t)x * Y + y) * Z + z);
+    return to_float(__ldg(vol + ((size_t)x * Y + y) * Z + z));
   };
   const float c00 = at(x0, y0, z0) * (1.f - tx) + at(x1, y0, z0) * tx;
   const float c01 = at(x0, y0, z1) * (1.f - tx) + at(x1, y0, z1) * tx;
@@ -206,9 +226,10 @@ __device__ inline void stage_basis(const float* __restrict__ tabs, const TileBlo
 }
 
 // Stage what the displacement of the block's voxels needs; tabs: the lerp
-// LUTs (kLerp) or the (d^3, 64) basis (kMatmul).  Ends with __syncthreads().
-template <int F>
-__device__ inline void stage_disp(const float* __restrict__ phi,
+// LUTs (kLerp) or the (d^3, 64) basis (kMatmul); T the grid's element type.
+// Ends with __syncthreads().
+template <int F, typename T>
+__device__ inline void stage_disp(const T* __restrict__ phi,
                                   const float* __restrict__ tabs, const TileBlock& g,
                                   int ti0, int tj0, int tk0, float* smem) {
   if (F == kLerp) {
@@ -259,8 +280,10 @@ __device__ __forceinline__ void matmul_disp(const float* s_bt, const float* s_wi
   u[2] = u2;
 }
 
-// The block's voxels after stage_disp: local voxel i -> warped sample.
-template <int F>
+// The block's voxels after stage_disp: local voxel i -> warped sample; T
+// the element type of the grid and the moving volume (the displacement is
+// rounded to it once, as the JAX kernel stores it in phi's dtype).
+template <int F, typename T>
 struct WarpBlock {
   const float* t0z;
   const float* t1z;
@@ -299,14 +322,16 @@ struct WarpBlock {
     if (F == kLerp) {
       const int tz = zl / dz, cz = zl - tz * dz;
       lerp_z(s_hy + ((size_t)(xl * BY + yl) * wz + tz) * 3, t0z, t1z, sz, cz, u);
-      return;
+    } else {
+      matmul_disp(s_bt, s_win, nv, wy, wz, dx, dy, dz, xl, yl, zl, u);
     }
-    matmul_disp(s_bt, s_win, nv, wy, wz, dx, dy, dz, xl, yl, zl, u);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) u[i] = as_stored<T>(u[i]);
   }
 
   // The moving volume sampled at identity + displacement of a local voxel.
-  __device__ __forceinline__ float warp(const float* __restrict__ mov, int X, int Y,
-                                        int Z, int xl, int yl, int zl) const {
+  __device__ __forceinline__ float warp(const T* __restrict__ mov, int X, int Y, int Z,
+                                        int xl, int yl, int zl) const {
     float u[3];
     disp(xl, yl, zl, u);
     return sample_clamped(mov, X, Y, Z, (float)(x0 + xl) + u[0], (float)(y0 + yl) + u[1],
@@ -462,16 +487,20 @@ struct WalkSums {
 // The block's columns (xl, yl) inside the volume, yl fastest, each walked
 // over its voxels [za, zb) of the run in lines of 32: line l of a column is
 // the voxels p = za + 32 l + lane - s, s the start of [za, zb) in `aligned`
-// modulo 32 floats, so a warp's reads of it are one aligned 128-byte line.
+// (element type A) modulo 32 values, so a warp's reads of it are one
+// aligned 128-byte line of floats, or one aligned 64-byte half of a line of
+// bf16 values (the bf16 stats walk, whose streamed volume is the moving
+// one: its lines stay 32 voxels, so that every variant deals the same lines
+// to its warps).  T: the moving volume's element type.
 // The lines, column after column, are dealt to the 8 warps in 8 contiguous
 // shares, none more than a line longer than another.  Each voxel's
 // displacement by disp(xl, yl, p, u), the moving volume sampled at identity
 // + u, clamped, and the sample added to the thread's sums; U lines of a
 // column at a time.
-template <int U, int K, typename Disp>
+template <int U, int K, typename A, typename T, typename Disp>
 __device__ __forceinline__ void walk_lines(const FwdBlock& g, int x0, int y0, int z0,
-                                           int za, int zb, const float* aligned,
-                                           const float* __restrict__ mov, WalkSums<K>& sums,
+                                           int za, int zb, const A* aligned,
+                                           const T* __restrict__ mov, WalkSums<K>& sums,
                                            Disp disp) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int nyl = min(g.dy, g.Y - y0);
@@ -483,7 +512,7 @@ __device__ __forceinline__ void walk_lines(const FwdBlock& g, int x0, int y0, in
   while (line < end) {
     const int n = min(L - l, end - line);  // lines of this column
     const size_t at = ((size_t)(x0 + xl) * g.Y + y0 + yl) * g.Z + z0;
-    const int s = (int)(reinterpret_cast<size_t>(aligned + at + za) / sizeof(float) & 31);
+    const int s = (int)(reinterpret_cast<size_t>(aligned + at + za) / sizeof(A) & 31);
     const float fx = (float)(x0 + xl), fy = (float)(y0 + yl);
 #pragma unroll U
     for (int p = za + 32 * l + lane - s, i = 0; i < n; ++i, p += 32) {
@@ -614,13 +643,16 @@ __device__ inline void walk_chunk_disp(const float4* s_basis, const float4* s_wi
 // ab, aa, bb with a = w - mu_w, b = f - mu_f, scal = (mu_w, mu_f)) kernels
 // of displacement form F on the forward kernels' blocks (see the header);
 // tabs: the lerp LUTs of x, then y, then z (kLerp) or the (d^3, 64) basis
-// (kMatmul).
-template <int F, int K>
-__global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
-    bsi_fused_walk_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
-                          const float* __restrict__ mov, const float* __restrict__ fix,
-                          const float* __restrict__ scal, float* __restrict__ partials,
-                          FwdBlock g) {
+// (kMatmul).  T: the element type of phi and mov, float or (kLerp only)
+// __nv_bfloat16; fix and every sum stay float32.
+template <int F, int K, typename T>
+__device__ __forceinline__ void walk_block(const T* __restrict__ phi,
+                                           const float* __restrict__ tabs,
+                                           const T* __restrict__ mov,
+                                           const float* __restrict__ fix,
+                                           const float* __restrict__ scal,
+                                           float* __restrict__ partials, const FwdBlock& g) {
+  static_assert(F == kLerp || sizeof(T) == sizeof(float), "bf16: the lerp form only");
   extern __shared__ float4 smem4[];
   WalkSums<K> sums(fix);
 #if REPRO_FUSED_SKIP & 8
@@ -632,8 +664,14 @@ __global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
   const int x0 = ti * g.dx, y0 = tj * g.dy, z0 = tk0 * g.dz;
   const int R = walk_run(g);
   const int run = min(R, g.Z - z0);  // voxels of a column inside the volume
-  const float* aligned = K == kStats ? mov : fix;
-  if (F == kLerp) {
+  // the volume whose lines the warps read aligned: the moving one for stats
+  auto walk = [&](auto unroll, int za, int zb, auto disp) {
+    if constexpr (K == kStats)
+      walk_lines<decltype(unroll)::value>(g, x0, y0, z0, za, zb, mov, mov, sums, disp);
+    else
+      walk_lines<decltype(unroll)::value>(g, x0, y0, z0, za, zb, fix, mov, sums, disp);
+  };
+  if constexpr (F == kLerp) {
     const int Q = fwd_column_floats(g);
     float* s_hy = reinterpret_cast<float*>(smem4 + R);
     {
@@ -650,11 +688,12 @@ __global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
     fwd_xy_stage<LerpStage, 3>(phi, tabs, g, ti, tj, tk0, s_hy);
 #endif
     __syncthreads();
-    walk_lines<1>(g, x0, y0, z0, 0, run, aligned, mov, sums,
-                  [&](int xl, int yl, int p, float* u) {
-                 const float4 e = smem4[p];
-                 lerp_z(s_hy + (xl * g.dy + yl) * Q + __float_as_int(e.x), e.y, e.z, e.w, u);
-               });
+    walk(std::integral_constant<int, 1>(), 0, run, [&](int xl, int yl, int p, float* u) {
+      const float4 e = smem4[p];
+      lerp_z(s_hy + (xl * g.dy + yl) * Q + __float_as_int(e.x), e.y, e.z, e.w, u);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) u[i] = as_stored<T>(u[i]);  // its one rounding
+    });
   } else {
     // chunk by chunk: the displacement of its tiles (the next chunk's
     // window copied meanwhile), then the walk of their voxels
@@ -689,18 +728,38 @@ __global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
       cp_async_wait_all();
       __syncthreads();  // the chunk's displacement and the next window are in
       const int za = c0 * g.dz;
-      walk_lines<2>(g, x0, y0, z0, za, min(run, za + zt * g.dz), aligned, mov, sums,
-                    [&](int xl, int yl, int p, float* u) {
-                      const float* up = s_u + (xl * nyl + yl) * cv + p - za;
-                      u[0] = up[0];
-                      u[1] = up[su];
-                      u[2] = up[2 * su];
-                    });
+      walk(std::integral_constant<int, 2>(), za, min(run, za + zt * g.dz),
+           [&](int xl, int yl, int p, float* u) {
+             const float* up = s_u + (xl * nyl + yl) * cv + p - za;
+             u[0] = up[0];
+             u[1] = up[su];
+             u[2] = up[2 * su];
+           });
       __syncthreads();  // the walk has read s_u
     }
   }
 #endif
   sums.store(partials);
+}
+
+template <int F, int K>
+__global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
+    bsi_fused_walk_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
+                          const float* __restrict__ mov, const float* __restrict__ fix,
+                          const float* __restrict__ scal, float* __restrict__ partials,
+                          FwdBlock g) {
+  walk_block<F, K>(phi, tabs, mov, fix, scal, partials, g);
+}
+
+// The lerp form on a bf16 grid and moving volume (compute_dtype="bfloat16").
+template <int K>
+__global__ void __launch_bounds__(kThreads, 4)
+    bsi_fused_walk_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                               const float* __restrict__ tabs,
+                               const __nv_bfloat16* __restrict__ mov,
+                               const float* __restrict__ fix, const float* __restrict__ scal,
+                               float* __restrict__ partials, FwdBlock g) {
+  walk_block<kLerp, K>(phi, tabs, mov, fix, scal, partials, g);
 }
 
 // An nmi block is two teams of kNmiTeam threads, each with its own staged
@@ -815,20 +874,24 @@ constexpr float kNmiMarksteinMin = 0x1p-100f;
 // the round's k-steps with mma.m16n8k8 TF32 in the 3xTF32 split (lo hi + hi
 // lo + hi hi), each round from zero into its float32 sums: the tensor cores
 // round their accumulation down, which over a block's voxels in one
-// accumulator biases the histogram by about 1e-5.
-template <int F, int BP>
-__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
-    bsi_fused_nmi_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
-                         const float* __restrict__ mov, const float* __restrict__ fix,
-                         const float* __restrict__ scal,
-                         const float* __restrict__ centres, float* __restrict__ partials,
-                         TileBlock g, int X, int Y, int Z, int bins, int support,
-                         float sigma, float eps) {
+// accumulator biases the histogram by about 1e-5.  T: the element type of
+// phi and mov (WarpBlock); the staging holds them widened, so the shared
+// memory is the float32 kernel's.
+template <int F, int BP, typename T>
+__device__ __forceinline__ void nmi_block(const T* __restrict__ phi,
+                                          const float* __restrict__ tabs,
+                                          const T* __restrict__ mov,
+                                          const float* __restrict__ fix,
+                                          const float* __restrict__ scal,
+                                          const float* __restrict__ centres,
+                                          float* __restrict__ partials, const TileBlock& g,
+                                          int X, int Y, int Z, int bins, int support,
+                                          float sigma, float eps) {
   using L = NmiLayout<BP>;
   extern __shared__ float smem[];
   const int ti0 = blockIdx.x * g.bx, tj0 = blockIdx.y * g.by, tk0 = blockIdx.z * g.bz;
   stage_disp<F>(phi, tabs, g, ti0, tj0, tk0, smem);
-  const WarpBlock<F> b(smem, g, ti0, tj0, tk0);
+  const WarpBlock<F, T> b(smem, g, ti0, tj0, tk0);
 
   const int team = threadIdx.x / kNmiTeam, tt = threadIdx.x % kNmiTeam;
   float* s_c = smem + disp_smem_bytes<F>(g) / sizeof(float);
@@ -983,6 +1046,32 @@ __global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
   }
 }
 
+template <int F, int BP>
+__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
+    bsi_fused_nmi_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
+                         const float* __restrict__ mov, const float* __restrict__ fix,
+                         const float* __restrict__ scal,
+                         const float* __restrict__ centres, float* __restrict__ partials,
+                         TileBlock g, int X, int Y, int Z, int bins, int support,
+                         float sigma, float eps) {
+  nmi_block<F, BP>(phi, tabs, mov, fix, scal, centres, partials, g, X, Y, Z, bins, support,
+                   sigma, eps);
+}
+
+// The lerp form on a bf16 grid and moving volume (compute_dtype="bfloat16").
+template <int BP>
+__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : 4)
+    bsi_fused_nmi_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                              const float* __restrict__ tabs,
+                              const __nv_bfloat16* __restrict__ mov,
+                              const float* __restrict__ fix, const float* __restrict__ scal,
+                              const float* __restrict__ centres,
+                              float* __restrict__ partials, TileBlock g, int X, int Y, int Z,
+                              int bins, int support, float sigma, float eps) {
+  nmi_block<kLerp, BP>(phi, tabs, mov, fix, scal, centres, partials, g, X, Y, Z, bins,
+                       support, sigma, eps);
+}
+
 // The lncc kernel's column: a block owns (ox, oy, oz) tiles, E voxels per
 // axis, and stages S = E + win - 1 per axis.  Its shared memory, in floats:
 // the displacement's constants (disp_floats), then the ring of the last
@@ -1028,13 +1117,19 @@ struct LnccColumn {
 // form stages the x stage two slices ahead and the x-y stage one slice
 // ahead, each double-buffered, so one barrier a step separates them.  W: the
 // window where it is a compile-time constant (the sums' loops unroll and
-// their loads go out together), else 0 and the window is win_arg.
-template <int F, int W>
-__global__ void __launch_bounds__(kThreads, 2)
-    bsi_fused_lncc_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
-                          const float* __restrict__ mov, const float* __restrict__ fix,
-                          float* __restrict__ partials, TileBlock g, int ox, int oy,
-                          int oz, int X, int Y, int Z, int win_arg, float inv, float eps) {
+// their loads go out together), else 0 and the window is win_arg.  T: the
+// element type of phi and mov; the window, the stages and the ring hold
+// float32 (a bf16 grid widened as staged, the displacement rounded to bf16
+// once and widened, the warped samples float32), so the shared memory is
+// the float32 kernel's.
+template <int F, int W, typename T>
+__device__ __forceinline__ void lncc_block(const T* __restrict__ phi,
+                                           const float* __restrict__ tabs,
+                                           const T* __restrict__ mov,
+                                           const float* __restrict__ fix,
+                                           float* __restrict__ partials, const TileBlock& g,
+                                           int ox, int oy, int oz, int X, int Y, int Z,
+                                           int win_arg, float inv, float eps) {
   const int win = W > 0 ? W : win_arg;
   extern __shared__ float smem[];
   __shared__ float red[kThreads];
@@ -1126,6 +1221,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         } else {
           matmul_disp(smem, s_win, nv, wy, wz, g.dx, g.dy, g.dz, s, yl, zl, u);
         }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) u[k] = as_stored<T>(u[k]);
         rw[i] = sample_clamped(mov, X, Y, Z, (float)(x0 + s) + u[0], (float)(y0 + yl) + u[1],
                                (float)(z0 + zl) + u[2]);
         rf[i] = __ldg(fix + (row + yl) * Z + z0 + zl);
@@ -1201,6 +1298,28 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (threadIdx.x == 0) row[0] = s0;
   const float s1 = block_reduce<kThreads>(cnt, red, SumOp());
   if (threadIdx.x == 0) row[1] = s1;
+}
+
+template <int F, int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_fused_lncc_kernel(const float* __restrict__ phi, const float* __restrict__ tabs,
+                          const float* __restrict__ mov, const float* __restrict__ fix,
+                          float* __restrict__ partials, TileBlock g, int ox, int oy,
+                          int oz, int X, int Y, int Z, int win_arg, float inv, float eps) {
+  lncc_block<F, W>(phi, tabs, mov, fix, partials, g, ox, oy, oz, X, Y, Z, win_arg, inv, eps);
+}
+
+// The lerp form on a bf16 grid and moving volume (compute_dtype="bfloat16").
+template <int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_fused_lncc_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                               const float* __restrict__ tabs,
+                               const __nv_bfloat16* __restrict__ mov,
+                               const float* __restrict__ fix, float* __restrict__ partials,
+                               TileBlock g, int ox, int oy, int oz, int X, int Y, int Z,
+                               int win_arg, float inv, float eps) {
+  lncc_block<kLerp, W>(phi, tabs, mov, fix, partials, g, ox, oy, oz, X, Y, Z, win_arg, inv,
+                       eps);
 }
 
 constexpr int kReduceThreads = 1024;
@@ -1283,51 +1402,72 @@ inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, i
 }
 
 // The walk of moment K in either form on the forward kernels' grid; (bx, by)
-// must be (1, 1).
-template <int K>
+// must be (1, 1).  T: the element type of phi and mov; bf16 in the lerp form
+// only.
+template <int K, typename T>
 inline int launch_moment(int form, int nx, int ny, int nz, int dx, int dy, int dz, int X,
                          int Y, int Z, int bx, int by, int bz, int n_partials,
-                         float* partials, float* out, void* stream, const float* phi,
-                         const float* tabs, const float* mov, const float* fix,
+                         float* partials, float* out, void* stream, const T* phi,
+                         const float* tabs, const T* mov, const float* fix,
                          const float* scal) {
   if (bx != 1 || by != 1 || bz < 1 || (form != kLerp && form != kMatmul))
     return (int)cudaErrorInvalidValue;
   const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
   const int lanes = K == kSsd ? 1 : K == kStats ? 4 : 3, mode = K == kStats ? 1 : 0;
-  return form == kLerp
-             ? launch_fused(bsi_fused_walk_kernel<kLerp, K>, fwd_grid(g),
-                            walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials,
-                            out, stream, phi, tabs, mov, fix, scal, partials, g)
-             : launch_fused(bsi_fused_walk_kernel<kMatmul, K>, fwd_grid(g),
-                            walk_smem_bytes<kMatmul>(g), n_partials, lanes, mode, partials,
-                            out, stream, phi, tabs, mov, fix, scal, partials, g);
+  if constexpr (sizeof(T) != sizeof(float)) {
+    if (form != kLerp) return (int)cudaErrorInvalidValue;
+    return launch_fused(bsi_fused_walk_bf16_kernel<K>, fwd_grid(g),
+                        walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials, out,
+                        stream, phi, tabs, mov, fix, scal, partials, g);
+  } else {
+    return form == kLerp
+               ? launch_fused(bsi_fused_walk_kernel<kLerp, K>, fwd_grid(g),
+                              walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials,
+                              out, stream, phi, tabs, mov, fix, scal, partials, g)
+               : launch_fused(bsi_fused_walk_kernel<kMatmul, K>, fwd_grid(g),
+                              walk_smem_bytes<kMatmul>(g), n_partials, lanes, mode,
+                              partials, out, stream, phi, tabs, mov, fix, scal, partials, g);
+  }
 }
 
 // The lncc kernel on the column grid of `own`; the window of 9 (the LNCC
-// default) runs the instantiation with the window fixed at compile time.
-template <int F>
+// default) runs the instantiation with the window fixed at compile time.  T:
+// the element type of phi and mov (bf16: F is kLerp).
+template <int F, typename T>
 inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, int Z,
                        int win, int n_partials, float* partials, float* out, void* stream,
-                       const float* phi, const float* tabs, const float* mov,
+                       const T* phi, const float* tabs, const T* mov,
                        const float* fix, float inv, float eps) {
   const size_t smem =
       sizeof(float) * LnccColumn::make<F>(g, own.bx, own.by, own.bz, win).floats;
-  auto kernel = win == 9 ? bsi_fused_lncc_kernel<F, 9> : bsi_fused_lncc_kernel<F, 0>;
+  auto kernel = [&] {
+    if constexpr (sizeof(T) != sizeof(float))
+      return win == 9 ? bsi_fused_lncc_bf16_kernel<9> : bsi_fused_lncc_bf16_kernel<0>;
+    else
+      return win == 9 ? bsi_fused_lncc_kernel<F, 9> : bsi_fused_lncc_kernel<F, 0>;
+  }();
   return launch_fused(kernel, tile_grid(own, X, Y, Z), smem, n_partials, 2, 2, partials,
                       out, stream, phi, tabs, mov, fix, partials, g, own.bx, own.by,
                       own.bz, X, Y, Z, win, inv, eps);
 }
 
-// The nmi kernel for `bins` (padded to 32 or 64) on the tile-block grid of g.
-template <int F>
+// The nmi kernel for `bins` (padded to 32 or 64) on the tile-block grid of
+// g; T: the element type of phi and mov (bf16: F is kLerp).
+template <int F, typename T>
 inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
-                      float* partials, float* out, void* stream, const float* phi,
-                      const float* tabs, const float* mov, const float* fix,
+                      float* partials, float* out, void* stream, const T* phi,
+                      const float* tabs, const T* mov, const float* fix,
                       const float* scal, const float* centres, int bins, int support,
                       float sigma, float eps) {
   const size_t smem = disp_smem_bytes<F>(g) + sizeof(float) * nmi_extra_floats(bins);
-  auto kernel = nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_kernel<F, 32>
-                                            : bsi_fused_nmi_kernel<F, 64>;
+  auto kernel = [&] {
+    if constexpr (sizeof(T) != sizeof(float))
+      return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_bf16_kernel<32>
+                                         : bsi_fused_nmi_bf16_kernel<64>;
+    else
+      return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_kernel<F, 32>
+                                         : bsi_fused_nmi_kernel<F, 64>;
+  }();
   return launch_fused(kernel, tile_grid(g, X, Y, Z), smem, n_partials, bins * bins, 0,
                       partials, out, stream, phi, tabs, mov, fix, scal, centres, partials,
                       g, X, Y, Z, bins, support, sigma, eps);
@@ -1335,12 +1475,15 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
 
 }  // namespace repro_torch
 
-// Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all float32 and
-// contiguous.  tabs: the lerp LUTs (form 0) or the (dx*dy*dz, 64) basis
-// (form 1).  partials: n_partials rows of K floats, one row per thread
-// block (the caller sizes it with the same grid); out: K floats.  Each
-// returns the first cudaError_t, or cudaErrorInvalidValue on a size
-// mismatch or an unknown form.  (bx, by, bz): the tiles a block owns; the
+// Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all contiguous,
+// fix float32, phi and mov float32 (the _f32 entries) or bf16 (the _bf16
+// entries, compute_dtype="bfloat16": the lerp form only, form 0, else
+// cudaErrorInvalidValue).  tabs: the lerp LUTs (form 0; rounded to bf16 for
+// the _bf16 entries, held as floats) or the (dx*dy*dz, 64) basis (form 1).
+// partials: n_partials rows of K floats, one row per thread block (the
+// caller sizes it with the same grid); out: K floats.  Each returns the
+// first cudaError_t, or cudaErrorInvalidValue on a size mismatch or an
+// unknown form.  (bx, by, bz): the tiles a block owns; the
 // ssd, stats and ncc walks take (1, 1, bz), the forward kernels' blocks
 // (kernels/bsi_fused.py:moment_blocks).
 
@@ -1361,83 +1504,104 @@ extern "C" int bsi_fused_walk_layout(int nx, int ny, int nz, int dx, int dy, int
   return 0;
 }
 
-// out: 1 float, the sum of squared differences.
-extern "C" int bsi_fused_ssd_f32(const float* phi, const float* tabs, const float* mov,
-                                 const float* fix, float* partials, int n_partials,
-                                 float* out, int nx, int ny, int nz, int dx, int dy,
-                                 int dz, int X, int Y, int Z, int bx, int by, int bz,
-                                 int form, void* stream) {
-  return repro_torch::launch_moment<repro_torch::kSsd>(
-      form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out, stream,
-      phi, tabs, mov, fix, nullptr);
-}
+namespace repro_torch {
 
-// out: 4 floats, the sum, min, max and count of the warped volume.
-extern "C" int bsi_fused_stats_f32(const float* phi, const float* tabs, const float* mov,
-                                   float* partials, int n_partials, float* out, int nx,
-                                   int ny, int nz, int dx, int dy, int dz, int X, int Y,
-                                   int Z, int bx, int by, int bz, int form,
-                                   void* stream) {
-  return repro_torch::launch_moment<repro_torch::kStats>(
-      form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out, stream,
-      phi, tabs, mov, nullptr, nullptr);
-}
-
-// scal: (mu_w, mu_f); out: 3 floats, sum ab, sum aa, sum bb.
-extern "C" int bsi_fused_ncc_f32(const float* phi, const float* tabs, const float* mov,
-                                 const float* fix, const float* scal, float* partials,
-                                 int n_partials, float* out, int nx, int ny, int nz,
-                                 int dx, int dy, int dz, int X, int Y, int Z, int bx,
-                                 int by, int bz, int form, void* stream) {
-  return repro_torch::launch_moment<repro_torch::kNcc>(
-      form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out, stream,
-      phi, tabs, mov, fix, scal);
-}
-
-// scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; 2 <= bins <= 64;
-// support: the half-width in bins of the evaluated Parzen weights
-// (kernels/bsi_fused.py:nmi_support), >= 0.  out: bins * bins floats, the
-// joint histogram (row: moving bin).
-extern "C" int bsi_fused_nmi_f32(const float* phi, const float* tabs, const float* mov,
-                                 const float* fix, const float* scal,
-                                 const float* centres, float* partials, int n_partials,
-                                 float* out, int nx, int ny, int nz, int dx, int dy,
-                                 int dz, int X, int Y, int Z, int bx, int by, int bz,
-                                 int form, int bins, int support, float sigma, float eps,
-                                 void* stream) {
-  using namespace repro_torch;
-  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
+template <typename T>
+inline int fused_nmi(const T* phi, const float* tabs, const T* mov, const float* fix,
+                     const float* scal, const float* centres, float* partials,
+                     int n_partials, float* out, int nx, int ny, int nz, int dx, int dy,
+                     int dz, int X, int Y, int Z, int bx, int by, int bz, int form, int bins,
+                     int support, float sigma, float eps, void* stream) {
+  if (form != kLerp && (form != kMatmul || sizeof(T) != sizeof(float)))
+    return (int)cudaErrorInvalidValue;
   if (bins < 2 || bins > kNmiMaxBins || support < 0) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  if (form == kMatmul)
-    return launch_nmi<kMatmul>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs,
-                               mov, fix, scal, centres, bins, support, sigma, eps);
+  if constexpr (sizeof(T) == sizeof(float))
+    if (form == kMatmul)
+      return launch_nmi<kMatmul>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs,
+                                 mov, fix, scal, centres, bins, support, sigma, eps);
   return launch_nmi<kLerp>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs, mov,
                            fix, scal, centres, bins, support, sigma, eps);
 }
 
-// (bx, by, bz): the tiles a block owns, its column's march along x and its
-// y-z footprint (grid: ceil(tiles / owned) blocks per axis, n_partials of
-// them); (ex, ey, ez): the halo tiles staged beyond them, ceil((win - 1) /
-// d) per axis.  1 <= win <= min(X, Y, Z); inv: 1 / win^3.  out: 2 floats,
-// the sum of the local cc^2 over the VALID window positions and their
-// count.
-extern "C" int bsi_fused_lncc_f32(const float* phi, const float* tabs, const float* mov,
-                                  const float* fix, float* partials, int n_partials,
-                                  float* out, int nx, int ny, int nz, int dx, int dy,
-                                  int dz, int X, int Y, int Z, int bx, int by, int bz,
-                                  int form, int ex, int ey, int ez, int win, float inv,
-                                  float eps, void* stream) {
-  using namespace repro_torch;
-  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
+template <typename T>
+inline int fused_lncc(const T* phi, const float* tabs, const T* mov, const float* fix,
+                      float* partials, int n_partials, float* out, int nx, int ny, int nz,
+                      int dx, int dy, int dz, int X, int Y, int Z, int bx, int by, int bz,
+                      int form, int ex, int ey, int ez, int win, float inv, float eps,
+                      void* stream) {
+  if (form != kLerp && (form != kMatmul || sizeof(T) != sizeof(float)))
+    return (int)cudaErrorInvalidValue;
   if (win < 1 || win > X || win > Y || win > Z) return (int)cudaErrorInvalidValue;
   if (ex * dx < win - 1 || ey * dy < win - 1 || ez * dz < win - 1)
     return (int)cudaErrorInvalidValue;
   const TileBlock own{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx + ex, by + ey, bz + ez};
-  if (form == kMatmul)
-    return launch_lncc<kMatmul>(g, own, X, Y, Z, win, n_partials, partials, out, stream,
-                                phi, tabs, mov, fix, inv, eps);
+  if constexpr (sizeof(T) == sizeof(float))
+    if (form == kMatmul)
+      return launch_lncc<kMatmul>(g, own, X, Y, Z, win, n_partials, partials, out, stream,
+                                  phi, tabs, mov, fix, inv, eps);
   return launch_lncc<kLerp>(g, own, X, Y, Z, win, n_partials, partials, out, stream, phi,
                             tabs, mov, fix, inv, eps);
 }
+
+}  // namespace repro_torch
+
+// The entry points of element type T (float: _f32, __nv_bfloat16: _bf16).
+#define REPRO_FUSED_ENTRIES(SUFFIX, T)                                                     \
+  /* out: 1 float, the sum of squared differences. */                                      \
+  extern "C" int bsi_fused_ssd_##SUFFIX(                                                   \
+      const T* phi, const float* tabs, const T* mov, const float* fix, float* partials,    \
+      int n_partials, float* out, int nx, int ny, int nz, int dx, int dy, int dz, int X,   \
+      int Y, int Z, int bx, int by, int bz, int form, void* stream) {                      \
+    return repro_torch::launch_moment<repro_torch::kSsd>(                                  \
+        form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out,      \
+        stream, phi, tabs, mov, fix, nullptr);                                             \
+  }                                                                                        \
+  /* out: 4 floats, the sum, min, max and count of the warped volume. */                   \
+  extern "C" int bsi_fused_stats_##SUFFIX(                                                 \
+      const T* phi, const float* tabs, const T* mov, float* partials, int n_partials,      \
+      float* out, int nx, int ny, int nz, int dx, int dy, int dz, int X, int Y, int Z,     \
+      int bx, int by, int bz, int form, void* stream) {                                    \
+    return repro_torch::launch_moment<repro_torch::kStats>(                                \
+        form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out,      \
+        stream, phi, tabs, mov, nullptr, nullptr);                                         \
+  }                                                                                        \
+  /* scal: (mu_w, mu_f); out: 3 floats, sum ab, sum aa, sum bb. */                         \
+  extern "C" int bsi_fused_ncc_##SUFFIX(                                                   \
+      const T* phi, const float* tabs, const T* mov, const float* fix, const float* scal,  \
+      float* partials, int n_partials, float* out, int nx, int ny, int nz, int dx, int dy, \
+      int dz, int X, int Y, int Z, int bx, int by, int bz, int form, void* stream) {       \
+    return repro_torch::launch_moment<repro_torch::kNcc>(                                  \
+        form, nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, n_partials, partials, out,      \
+        stream, phi, tabs, mov, fix, scal);                                                \
+  }                                                                                        \
+  /* scal: (lo_w, hi_w, lo_f, hi_f); centres: bins floats; 2 <= bins <= 64; support:       \
+     the half-width in bins of the evaluated Parzen weights (bsi_fused.py:nmi_support),    \
+     >= 0.  out: bins * bins floats, the joint histogram (row: moving bin). */             \
+  extern "C" int bsi_fused_nmi_##SUFFIX(                                                   \
+      const T* phi, const float* tabs, const T* mov, const float* fix, const float* scal,  \
+      const float* centres, float* partials, int n_partials, float* out, int nx, int ny,   \
+      int nz, int dx, int dy, int dz, int X, int Y, int Z, int bx, int by, int bz,         \
+      int form, int bins, int support, float sigma, float eps, void* stream) {             \
+    return repro_torch::fused_nmi(phi, tabs, mov, fix, scal, centres, partials,            \
+                                  n_partials, out, nx, ny, nz, dx, dy, dz, X, Y, Z, bx,    \
+                                  by, bz, form, bins, support, sigma, eps, stream);        \
+  }                                                                                        \
+  /* (bx, by, bz): the tiles a block owns, its column's march along x and its y-z          \
+     footprint (grid: ceil(tiles / owned) blocks per axis, n_partials of them); (ex, ey,   \
+     ez): the halo tiles staged beyond them, ceil((win - 1) / d) per axis.  1 <= win <=    \
+     min(X, Y, Z); inv: 1 / win^3.  out: 2 floats, the sum of the local cc^2 over the      \
+     VALID window positions and their count. */                                            \
+  extern "C" int bsi_fused_lncc_##SUFFIX(                                                  \
+      const T* phi, const float* tabs, const T* mov, const float* fix, float* partials,    \
+      int n_partials, float* out, int nx, int ny, int nz, int dx, int dy, int dz, int X,   \
+      int Y, int Z, int bx, int by, int bz, int form, int ex, int ey, int ez, int win,     \
+      float inv, float eps, void* stream) {                                                \
+    return repro_torch::fused_lncc(phi, tabs, mov, fix, partials, n_partials, out, nx, ny, \
+                                   nz, dx, dy, dz, X, Y, Z, bx, by, bz, form, ex, ey, ez,  \
+                                   win, inv, eps, stream);                                 \
+  }
+
+REPRO_FUSED_ENTRIES(f32, float)
+REPRO_FUSED_ENTRIES(bf16, __nv_bfloat16)

@@ -41,8 +41,9 @@ forward rather than accumulate the analytic adjoint in float32.  Under
 ``"bfloat16"`` on a CUDA device the forward pool holds only the forms with
 a bf16 kernel (``kernels.ops.BF16_FORWARD``: ``ttli`` and ``separable``)
 until ROADMAP.md queue 1 item 18e ports ``tt`` and ``matmul``, and
-``fused="auto"`` resolves ``"off"`` without a race until item 18d ports the
-fused kernels.
+``fused="auto"`` races the fused level step in bf16 (its lerp form, the form
+of both those modes) against the unfused winner, the race keyed
+``|cd=bfloat16|``.
 """
 
 from __future__ import annotations
@@ -356,7 +357,7 @@ def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, rep
     race.  Cached like :func:`autotune_bsi`, keyed per volume, similarity and
     base, and the compute dtype (``|cd=<name>``), in which both steps run.
     It races on whatever device it is given; :func:`resolve_options` calls
-    it only for a CUDA device and not under ``"bfloat16"``.
+    it only for a CUDA device.
     """
     from repro_torch.core import ffd
 
@@ -471,9 +472,9 @@ def resolve_options(options, vol_shape, device):
     unfused winner on the volume (:func:`autotune_fused`); on the CPU it
     resolves ``"off"`` without a race (the kernels' plain versions run
     there, and their time says nothing of the card); a similarity with no
-    fused kernel, the velocity transform, Gauss-Newton and the ``"bfloat16"``
-    compute dtype on the card (no bf16 fused kernel yet) resolve ``"off"``
-    without a race.  Cached on ``(options, vol_shape,
+    fused kernel, the velocity transform and Gauss-Newton resolve ``"off"``
+    without a race.  Under ``compute_dtype="bfloat16"`` the race runs both
+    steps in bf16.  Cached on ``(options, vol_shape,
     device)``; ``fused_reason`` is left out of the options' equality, so it
     never splits that cache.
     """
@@ -510,9 +511,6 @@ def resolve_options(options, vol_shape, device):
             fused, reason = "off", (
                 f"{device.type} device: the kernels run their plain versions there, "
                 "so a race would say nothing of the card")
-        elif options.compute_dtype == "bfloat16":
-            fused, reason = "off", ("bfloat16 compute dtype: the fused kernels take no "
-                                    "bf16 yet (ROADMAP.md queue 1 item 18d)")
         else:
             choice = autotune_fused(grid_shape, options.tile, vol_shape,
                                     base=BsiChoice(mode, impl, 0.0, grad_impl),

@@ -10,7 +10,11 @@ volume instead of padding:
     through shared memory and runs the z and y sweeps, writing the y-reduced
     intermediate as one partial per run of y tiles; a second launch sums
     the runs' partials and runs the x sweep (:func:`stream_blocks` is the
-    geometry);
+    geometry).  The cotangent is float32 or bf16 (entry points
+    ``bsi_adjoint_f32`` and ``bsi_adjoint_bf16``, the backward of a bf16
+    field): a bf16 one is staged as bf16 in the float32 kernel's ring and
+    widened as it is loaded, with the float32 kernel's geometry, LUTs and
+    sums, so it gives the float32 kernel's bits on the widened cotangent;
 ``bsi_adjoint_matmul_pallas``  each tile's cotangent contracted against the
     ``(d^3, 64)`` Kronecker basis into 64 bands, then the bands overlap-added
     onto the control points (:func:`launch_matmul`, :func:`plain_matmul`).
@@ -156,9 +160,10 @@ def card_sms(device) -> int:
 
 def launch(g, out, tile, lib=None, geo=None):
     """Launch the streaming z-y kernel and the x sweep on the current
-    stream: ``g`` -> ``out``, with the geometry ``geo`` (by default
-    :func:`stream_blocks` for the card's SMs).  The runs' partials of hy
-    (:attr:`StreamBlocks.partial_floats`) are allocated here; PyTorch's
+    stream: ``g`` (float32 or bf16) -> ``out`` (float32), with the geometry
+    ``geo`` (by default :func:`stream_blocks` for the card's SMs, the same
+    for both dtypes: the float32 slots hold a bf16 row).  The runs' partials
+    of hy (:attr:`StreamBlocks.partial_floats`) are allocated here; PyTorch's
     caching allocator reuses their memory only for work queued after these
     launches on the same stream."""
     X, Y, Z, c = g.shape
@@ -169,7 +174,7 @@ def launch(g, out, tile, lib=None, geo=None):
     lib = lib or load_library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = lib.bsi_adjoint_f32(
+        rc = getattr(lib, f"bsi_adjoint_{bsi_ttli.ENTRY_SUFFIX[g.dtype]}")(
             g.data_ptr(), wx.data_ptr(), wy.data_ptr(), wz.data_ptr(), hyp.data_ptr(),
             out.data_ptr(), X, Y, Z, c, nx, ny, nz, *tile, geo.span, geo.channels, geo.run,
             geo.threads, stream)

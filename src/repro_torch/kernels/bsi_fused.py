@@ -40,6 +40,20 @@ staged basis and control window, a thread two tiles of a column at a time.
 ``nmi`` runs on blocks of :func:`block_tiles`, ``lncc`` on
 :func:`lncc_blocks`.
 
+Under ``compute_dtype="bfloat16"`` the lerp form of every variant takes a
+bf16 ``phi`` and ``moving`` (entry points ``bsi_fused_<variant>_bf16``;
+``fixed`` and every sum stay float32), the contract of the JAX kernel
+(``repro/kernels/bsi_fused.py:_fused_kernel``): the displacement in float32
+from the widened grid and the bf16-rounded lerp LUTs, rounded once to bf16
+and widened, then the float32 warp of the widened bf16 intensities.  The
+grid is widened as it is staged and the warped samples are float32, so the
+shared memory of every variant is the float32 kernel's and
+:func:`moment_blocks`, :func:`block_tiles` and :func:`lncc_blocks` serve
+both dtypes.  The bf16 stats walk keeps lines of 32 voxels, aligned to 32
+values of its streamed volume, the bf16 moving one: a warp's reads of a
+line are one aligned 64-byte half of a 128-byte line.  The matrix form has
+no bf16 kernel (ROADMAP.md queue 1 item 18e).
+
 The ``plain_*`` functions compute the same results in tensor ops, without
 autograd: the displacement (``bsi_ttli.plain`` or ``bsi_matmul.plain``, both
 rounding each operation as the kernels do), the clamped 8-tap sample and the
@@ -216,7 +230,8 @@ def check_walk_layout(lib, dims) -> None:
     block for ``dims``, the entry points' ``(nx, ny, nz, dx, dy, dz, X, Y, Z,
     bx, by, bz, form)``, as :func:`moment_blocks` does: the same chunk and
     dynamic shared memory, so that ``check_smem`` and :func:`occupancy_key`
-    speak of the block the card runs."""
+    speak of the block the card runs.  The layout is the same for a bf16
+    grid and volume (the block stages float32)."""
     out = (ctypes.c_longlong * 2)()
     rc = lib.bsi_fused_walk_layout(*dims, out)
     geo = moment_blocks(dims[3:6], dims[6:9], DISP_FORMS[dims[12]])
@@ -226,12 +241,17 @@ def check_walk_layout(lib, dims) -> None:
             f"not moment_blocks' (chunk {geo.chunk}, {geo.smem} B) for {dims}")
 
 
-def occupancy_key(kind, disp_form, tile, vol_shape) -> tuple:
+def occupancy_key(kind, disp_form, tile, vol_shape, bf16=False) -> tuple:
     """``(symbol, smem, grid)`` of the ``kind`` kernel (``ssd``, ``stats`` or
-    ``ncc``) in ``disp_form``: the part of its instantiation's name in its
-    ``-Xptxas -v`` line, its dynamic shared memory a block and its grid."""
+    ``ncc``) in ``disp_form`` (``bf16``: the lerp form's bf16 kernel): the
+    part of its instantiation's name in its ``-Xptxas -v`` line, its dynamic
+    shared memory a block and its grid."""
     geo = moment_blocks(tuple(tile), tuple(vol_shape), disp_form)
     form, moment = DISP_FORMS.index(disp_form), ("ssd", "stats", "ncc").index(kind)
+    if bf16:
+        if disp_form != "lerp":
+            raise ValueError("the matrix form has no bf16 kernel (ROADMAP.md item 18e)")
+        return f"bsi_fused_walk_bf16_kernelILi{moment}EE", geo.smem, geo.grid
     return f"bsi_fused_walk_kernelILi{form}ELi{moment}EE", geo.smem, geo.grid
 
 
@@ -314,12 +334,15 @@ def lncc_blocks(tile, window, disp_form, vol_shape) -> tuple:
 def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=None,
            bins=None, sigma=None, eps=None, window=None, extra=None, lib=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
-    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  ``blocks``: the
-    tiles a block owns, ``moment_blocks(...).tiles`` for ``ssd``, ``stats``
-    and ``ncc``; for ``lncc`` the owned tiles and ``extra`` the halo
-    tiles.
+    (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  ``phi`` and
+    ``moving`` are both float32 or both bf16 (the lerp form only, with the
+    bf16-rounded LUTs); ``fixed`` float32.  ``blocks``: the tiles a block
+    owns, ``moment_blocks(...).tiles`` for ``ssd``, ``stats`` and ``ncc``;
+    for ``lncc`` the owned tiles and ``extra`` the halo tiles.
     ``lib``: the loaded kernels (default :func:`load_library`'s; a
     measurement build's, ``load_library(defines)``, to time a variant)."""
+    if kind not in (*LANES, "nmi"):
+        raise ValueError(f"no fused kernel variant {kind!r}")
     nx, ny, nz, _ = phi.shape
     X, Y, Z = moving.shape
     n = num_partials(moving.shape, tile, blocks)
@@ -330,38 +353,38 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
     dims = (nx, ny, nz, *tile, X, Y, Z, *blocks, DISP_FORMS.index(disp_form))
     if kind in ("ssd", "stats", "ncc"):
         check_walk_layout(lib, dims)
+    suffix = bsi_ttli.ENTRY_SUFFIX[phi.dtype]
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
         if disp_form == "lerp":
-            tabs = bsi_ttli.stage_luts(tile, phi.device).data_ptr()
+            tabs = bsi_ttli.stage_luts(tile, phi.device, phi.dtype).data_ptr()
         else:
             tabs = bsi_matmul.basis(tile, phi.device).data_ptr()
+        entry = getattr(lib, f"bsi_fused_{kind}_{suffix}")
         if kind == "ssd":
-            rc = lib.bsi_fused_ssd_f32(
+            rc = entry(
                 phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 partials.data_ptr(), n, out.data_ptr(), *dims, stream)
         elif kind == "stats":
-            rc = lib.bsi_fused_stats_f32(
+            rc = entry(
                 phi.data_ptr(), tabs, moving.data_ptr(), partials.data_ptr(), n,
                 out.data_ptr(), *dims, stream)
         elif kind == "ncc":
-            rc = lib.bsi_fused_ncc_f32(
+            rc = entry(
                 phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 scal.data_ptr(), partials.data_ptr(), n, out.data_ptr(), *dims, stream)
         elif kind == "nmi":
             centres = parzen_centres(bins, phi.device)
-            rc = lib.bsi_fused_nmi_f32(
+            rc = entry(
                 phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 scal.data_ptr(), centres.data_ptr(), partials.data_ptr(), n,
                 out.data_ptr(), *dims, bins, nmi_support(bins, sigma * (bins - 1)),
                 ctypes.c_float(sigma), ctypes.c_float(eps), stream)
-        elif kind == "lncc":
-            rc = lib.bsi_fused_lncc_f32(
+        else:
+            rc = entry(
                 phi.data_ptr(), tabs, moving.data_ptr(), fixed.data_ptr(),
                 partials.data_ptr(), n, out.data_ptr(), *dims, *extra, window,
                 ctypes.c_float(1.0 / window**3), ctypes.c_float(eps), stream)
-        else:
-            raise ValueError(f"no fused kernel variant {kind!r}")
     if rc:
         raise RuntimeError(f"bsi_fused {kind} kernel launch failed: cudaError_t {rc}")
     return out.view(bins, bins) if kind == "nmi" else out
@@ -369,7 +392,10 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
 
 def warped(phi, moving, tile, disp_form="lerp"):
     """The kernels' warp in tensor ops: the moving volume sampled at identity
-    + the displacement of ``disp_form``, clamped 8-tap, without autograd."""
+    + the displacement of ``disp_form``, clamped 8-tap, without autograd.  A
+    bf16 ``phi`` gives a bf16 displacement (the float32 form rounded once),
+    widened for the float32 coordinates; a bf16 ``moving`` gives bf16 taps
+    lerped in float32; the warp is float32."""
     X, Y, Z = moving.shape
     if disp_form not in DISP_FORMS:
         raise ValueError(f"unknown disp_form {disp_form!r}; choose from {DISP_FORMS}")

@@ -61,12 +61,15 @@ _SIGNATURES = {
     "bsi_tt_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, columns a block
     "bsi_matmul_f32": "ppp" + "i" * 12,  # ..., X, Y, Z, z tiles a unit, blocks
     "bsi_adjoint_f32": "p" * 6 + "i" * 14,
+    "bsi_adjoint_bf16": "p" * 6 + "i" * 14,  # bf16 g; float LUTs, scratch, out
     "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,
-    "bsi_fused_ssd_f32": "ppppp" + "ip" + _DIMS,
-    "bsi_fused_stats_f32": "pppp" + "ip" + _DIMS,
-    "bsi_fused_ncc_f32": "pppppp" + "ip" + _DIMS,
-    "bsi_fused_nmi_f32": "ppppppp" + "ip" + _DIMS + "iiff",
-    "bsi_fused_lncc_f32": "ppppp" + "ip" + _DIMS + "iiii" + "ff",
+    # the fused variants; their _bf16 twins take bf16 phi and mov (lerp form)
+    **{f"bsi_fused_{kind}_{suffix}": sig for suffix in ("f32", "bf16") for kind, sig in (
+        ("ssd", "ppppp" + "ip" + _DIMS),
+        ("stats", "pppp" + "ip" + _DIMS),
+        ("ncc", "pppppp" + "ip" + _DIMS),
+        ("nmi", "ppppppp" + "ip" + _DIMS + "iiff"),
+        ("lncc", "ppppp" + "ip" + _DIMS + "iiii" + "ff"))},
     "bsi_fused_walk_layout": _DIMS,  # ..., form; out: chunk, smem (2 long long)
     # q, k, v, out; B, S, H, KV, hd, causal, window; scale, softcap
     "flash_attention_f32": "pppp" + "i" * 7 + "ff",  # flash_attention.cu

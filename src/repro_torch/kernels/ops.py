@@ -8,12 +8,16 @@ shape and contiguity, allocates the outputs with ``torch.empty``, launches
 the kernel on the current stream, raises if the launch failed, and adds one
 to its kernel's launch count (:func:`launch_counts`; the fused variants
 count apart per displacement form, ``bsi_fused_ncc`` and
-``bsi_fused_ncc_matmul``, the bf16 forward kernels apart from the float32
-ones, ``bsi_ttli_bf16``).  There is no fallback and no cast: a CUDA tensor
-runs the kernel of its dtype or raises, a bf16 one where no bf16 kernel is
-ported yet ``NotImplementedError`` naming its ROADMAP.md item (queue 1:
-18c the adjoints, 18d the fused kernels, 18e ``bsi_tt`` and
-``bsi_matmul``).
+``bsi_fused_ncc_matmul``, the bf16 kernels apart from the float32 ones,
+``bsi_ttli_bf16``, ``bsi_adjoint_bf16``, ``bsi_fused_ncc_bf16``).  Under
+bf16 the card runs ``bsi_ttli``, ``bsi_separable``, the separable
+``bsi_adjoint`` (a bf16 cotangent; float32 out) and the five fused variants
+in the lerp form (bf16 ``phi`` and ``moving``; ``fixed`` float32).  There is
+no fallback and no cast: a CUDA tensor runs the kernel of its dtype or
+raises, a bf16 one where no bf16 kernel is ported yet
+``NotImplementedError`` naming its ROADMAP.md item (queue 1 item 18e, the
+matrix and TT forms: ``bsi_tt``, ``bsi_matmul``, ``bsi_adjoint_matmul`` and
+the fused kernels with ``disp_form="matmul"``).
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
@@ -59,17 +63,25 @@ __all__ = [
 ]
 
 
-def _fused_name(kind, disp_form):
-    """The launch-count key of fused variant ``kind`` in ``disp_form``."""
+_FUSED_KINDS = ("ssd", "stats", "ncc", "nmi", "lncc")
+
+
+def _fused_name(kind, disp_form, dtype=torch.float32):
+    """The launch-count key of fused variant ``kind`` in ``disp_form`` on
+    ``dtype`` inputs: ``bsi_fused_ncc``, ``bsi_fused_ncc_matmul``,
+    ``bsi_fused_ncc_bf16``."""
     name = "bsi_fused" if kind == "ssd" else f"bsi_fused_{kind}"
-    return name if disp_form == "lerp" else f"{name}_matmul"
+    if disp_form != "lerp":
+        name += "_matmul"
+    return name if dtype == torch.float32 else f"{name}_bf16"
 
 
 # Launches per kernel since the last reset.
 _KERNELS = ("bsi_ttli", "bsi_separable", "bsi_ttli_bf16", "bsi_separable_bf16", "bsi_tt",
-            "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul") + tuple(
-    _fused_name(kind, form) for form in _fused.DISP_FORMS
-    for kind in ("ssd", "stats", "ncc", "nmi", "lncc")) + ("flash_attention",)
+            "bsi_matmul", "bsi_adjoint", "bsi_adjoint_bf16", "bsi_adjoint_matmul") + tuple(
+    _fused_name(kind, form, dtype) for form, dtype in (
+        ("lerp", torch.float32), ("matmul", torch.float32), ("lerp", torch.bfloat16))
+    for kind in _FUSED_KINDS) + ("flash_attention",)
 _LAUNCHES = dict.fromkeys(_KERNELS, 0)
 
 
@@ -183,34 +195,35 @@ def _adjoint_inputs(g, tile, grid_shape, name):
     tile = tuple(int(d) for d in tile)
     grid_shape = tuple(int(n) for n in grid_shape)
     _covers(grid_shape, tile, g.shape[:3], name)
-    card = _on_card(g, name)
-    if card:
-        _not_yet_bf16(g, name, "18c")
-    return tile, grid_shape, card
+    return tile, grid_shape, _on_card(g, name)
 
 
 def bsi_adjoint(g, tile, grid_shape):
     """BSI adjoint: cotangent of the cropped field -> control-grid cotangent.
 
-    ``g``: ``(X, Y, Z, C)`` with ``X <= (Nx - 3) * dx`` and so on; the voxels
-    past the volume count as zero.  Returns ``grid_shape + (C,)`` float32.
+    ``g``: ``(X, Y, Z, C)`` float32 or bf16 with ``X <= (Nx - 3) * dx`` and
+    so on; the voxels past the volume count as zero.  Returns ``grid_shape
+    + (C,)`` float32; a bf16 ``g`` counts as ``bsi_adjoint_bf16``.
     """
     tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint")
     if not card:
         return _adjoint.plain(g, tile, grid_shape)
-    _check(g, "g", 4, g.device)
+    dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+    _check(g, "g", 4, g.device, dtype)
     out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
                       device=g.device)
     _adjoint.launch(g, out, tile)
-    _LAUNCHES["bsi_adjoint"] += 1
+    _LAUNCHES["bsi_adjoint" if dtype == torch.float32 else "bsi_adjoint_bf16"] += 1
     return out
 
 
 def bsi_adjoint_matmul(g, tile, grid_shape):
-    """The BSI adjoint in the transposed matrix form; as :func:`bsi_adjoint`."""
+    """The BSI adjoint in the transposed matrix form; as :func:`bsi_adjoint`,
+    float32 ``g`` only on the card (bf16: ROADMAP.md queue 1 item 18e)."""
     tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint_matmul")
     if not card:
         return _adjoint.plain_matmul(g, tile, grid_shape)
+    _not_yet_bf16(g, "bsi_adjoint_matmul", "18e")
     _check(g, "g", 4, g.device)
     out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
                       device=g.device)
@@ -220,7 +233,9 @@ def bsi_adjoint_matmul(g, tile, grid_shape):
 
 
 def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
-    """Check the fused kernels' shared inputs; True on the card."""
+    """Check the fused kernels' shared inputs: ``None`` on the CPU, else the
+    dtype of ``phi`` and ``moving`` on the card (both float32, or both bf16
+    in the lerp form; ``fixed`` float32)."""
     if disp_form not in _fused.DISP_FORMS:
         raise ValueError(
             f"unknown disp_form {disp_form!r}; choose from {_fused.DISP_FORMS}")
@@ -231,14 +246,15 @@ def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
         raise ValueError(f"phi must be (Nx, Ny, Nz, 3), got {tuple(phi.shape)}")
     _covers(phi.shape[:3], tile, moving.shape, name)
     if not _on_card(phi, name):
-        return False
-    for t in (phi, moving):
-        _not_yet_bf16(t, name, "18d")
-    _check(phi, "phi", 4, phi.device)
-    _check(moving, "moving", 3, phi.device)
+        return None
+    dtype = torch.bfloat16 if phi.dtype == torch.bfloat16 else torch.float32
+    if dtype == torch.bfloat16 and disp_form != "lerp":
+        _not_yet_bf16(phi, f"{name}(disp_form={disp_form!r})", "18e")
+    _check(phi, "phi", 4, phi.device, dtype)
+    _check(moving, "moving", 3, phi.device, dtype)
     if fixed is not None:
         _check(fixed, "fixed", 3, phi.device)
-    return True
+    return dtype
 
 
 def _moment_blocks(tile, moving, disp_form):
@@ -251,16 +267,19 @@ def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
 
     The fused level step's forward, SSD only; the differentiable face is
     ``repro_torch.core.ffd.fused_warp_loss``.  ``disp_form`` is ``"lerp"``
-    or ``"matmul"`` (the displacement's form).  Returns a 0-dim float32
-    tensor.
+    or ``"matmul"`` (the displacement's form).  ``phi`` and ``moving`` are
+    float32, or both bf16 in the lerp form (``compute_dtype="bfloat16"``;
+    every fused variant likewise); ``fixed`` is float32.  Returns a 0-dim
+    float32 tensor.
     """
     tile = tuple(int(d) for d in tile)
     n = moving.numel()
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_ssd_loss", disp_form):
+    dtype = _fused_inputs(phi, moving, fixed, tile, "fused_ssd_loss", disp_form)
+    if dtype is None:
         return _fused.plain(phi, moving, fixed, tile, disp_form=disp_form) / n
     total = _fused.launch("ssd", phi, moving, fixed, tile,
                           _moment_blocks(tile, moving, disp_form), disp_form=disp_form)
-    _LAUNCHES[_fused_name("ssd", disp_form)] += 1
+    _LAUNCHES[_fused_name("ssd", disp_form, dtype)] += 1
     return total[0] / n
 
 
@@ -268,11 +287,12 @@ def fused_stats(phi, moving, tile, *, disp_form="lerp"):
     """``(sum, min, max, count)`` of ``warp(moving, bsi(phi))``, float32 ``(4,)``;
     the first pass of the fused NCC and NMI."""
     tile = tuple(int(d) for d in tile)
-    if not _fused_inputs(phi, moving, None, tile, "fused_stats", disp_form):
+    dtype = _fused_inputs(phi, moving, None, tile, "fused_stats", disp_form)
+    if dtype is None:
         return _fused.plain_stats(phi, moving, tile, disp_form=disp_form)
     out = _fused.launch("stats", phi, moving, None, tile,
                         _moment_blocks(tile, moving, disp_form), disp_form=disp_form)
-    _LAUNCHES[_fused_name("stats", disp_form)] += 1
+    _LAUNCHES[_fused_name("stats", disp_form, dtype)] += 1
     return out
 
 
@@ -280,13 +300,14 @@ def fused_ncc_moments(phi, moving, fixed, scal, tile, *, disp_form="lerp"):
     """The centred ``(sum ab, sum aa, sum bb)`` of the warp ``w`` and ``fixed``,
     ``a = w - scal[0]``, ``b = fixed - scal[1]``; float32 ``(3,)``."""
     tile = tuple(int(d) for d in tile)
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_ncc_moments", disp_form):
+    dtype = _fused_inputs(phi, moving, fixed, tile, "fused_ncc_moments", disp_form)
+    if dtype is None:
         return _fused.plain_ncc(phi, moving, fixed, scal, tile, disp_form=disp_form)
     _check(scal, "scal", 1, phi.device)
     out = _fused.launch("ncc", phi, moving, fixed, tile,
                         _moment_blocks(tile, moving, disp_form), disp_form=disp_form,
                         scal=scal)
-    _LAUNCHES[_fused_name("ncc", disp_form)] += 1
+    _LAUNCHES[_fused_name("ncc", disp_form, dtype)] += 1
     return out
 
 
@@ -300,14 +321,15 @@ def fused_nmi_histogram(phi, moving, fixed, scal, tile, *, bins, sigma, eps,
         raise ValueError(
             f"the fused nmi kernel takes 2 to {_fused.MAX_BINS} bins, got {bins}; "
             "run it unfused (fused='off')")
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_nmi_histogram", disp_form):
+    dtype = _fused_inputs(phi, moving, fixed, tile, "fused_nmi_histogram", disp_form)
+    if dtype is None:
         return _fused.plain_nmi(phi, moving, fixed, scal, tile, bins=bins,
                                 sigma=sigma, eps=eps, disp_form=disp_form)
     _check(scal, "scal", 1, phi.device)
     blocks = _fused.block_tiles(tile, disp_form, _fused.nmi_smem_bytes(bins))
     out = _fused.launch("nmi", phi, moving, fixed, tile, blocks, disp_form=disp_form,
                         scal=scal, bins=bins, sigma=sigma, eps=eps)
-    _LAUNCHES[_fused_name("nmi", disp_form)] += 1
+    _LAUNCHES[_fused_name("nmi", disp_form, dtype)] += 1
     return out
 
 
@@ -323,14 +345,15 @@ def fused_lncc(phi, moving, fixed, tile, *, window, eps, disp_form="lerp"):
     ``(2,)``."""
     tile = tuple(int(d) for d in tile)
     window = lncc_window(window, moving.shape)
-    if not _fused_inputs(phi, moving, fixed, tile, "fused_lncc", disp_form):
+    dtype = _fused_inputs(phi, moving, fixed, tile, "fused_lncc", disp_form)
+    if dtype is None:
         return _fused.plain_lncc(phi, moving, fixed, tile, window=window, eps=eps,
                                  disp_form=disp_form)
     own, extra = _fused.lncc_blocks(tile, window, disp_form,
                                     tuple(int(s) for s in moving.shape))
     out = _fused.launch("lncc", phi, moving, fixed, tile, own, disp_form=disp_form,
                         eps=float(eps), window=window, extra=extra)
-    _LAUNCHES[_fused_name("lncc", disp_form)] += 1
+    _LAUNCHES[_fused_name("lncc", disp_form, dtype)] += 1
     return out
 
 

@@ -107,10 +107,11 @@ def attention_fp32_bound(seq, *, heads, kv_heads, head_dim, causal, window=0,
 
 
 def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channels=3,
-              support=8) -> dict:
+              support=8, bf16=False) -> dict:
     """The fused NMI kernel's bound, the least over the forms that compute
     its function.  Each form moves the bytes of :func:`kernel_bounds`'
-    ``bsi_fused_nmi`` and does its displacement, sample and normalisation,
+    ``bsi_fused_nmi`` (``bsi_fused_nmi_bf16`` with ``bf16``: a bf16 grid
+    and moving volume) and does its displacement, sample and normalisation,
     and 7 fp32 operations for each Parzen weight evaluated (``evaluated`` of
     them over both volumes; default ``2 min(bins, 2 support + 1)`` a voxel,
     the most at the half-width ``support`` of
@@ -127,7 +128,8 @@ def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channe
     products of the kernel's 3xTF32 split at 495 TFLOP/s, the work it does
     rather than a bound."""
     vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
-    moved, old = kernel_bounds(vol_shape, tile, channels, bins)["bsi_fused_nmi"]
+    moved, old = kernel_bounds(vol_shape, tile, channels, bins)[
+        "bsi_fused_nmi_bf16" if bf16 else "bsi_fused_nmi"]
     width = min(bins, 2 * support + 1)
     evaluated = 2 * width * vox if evaluated is None else evaluated
     products = width * width * vox if products is None else products
@@ -226,6 +228,11 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
         # compute_dtype="bfloat16": a bf16 grid and field, float32 arithmetic
         "bsi_ttli_bf16": ((grid_b + field_b) // 2, forward),
         "bsi_separable_bf16": ((grid_b + field_b) // 2, forward),
+        # a bf16 cotangent in, the float32 grid cotangent out
+        "bsi_adjoint_separable_bf16": (field_b // 2 + grid_b, backward),
+        # a bf16 grid and moving volume; fixed, scal and the sums float32
+        **{f"bsi_fused_{k}_bf16": (b - grid_b // 2 - vol_b // 2, forward + f)
+           for k, (b, f) in fused.items()},
     }
 
 

@@ -143,8 +143,12 @@ def fused_report(name, call, plain, reps=20) -> dict:
 
 def occupancy(lib, name, tile, vol) -> dict:
     """The kernel's ptxas line, its shared memory a block (dynamic and
-    static), resident blocks an SM and grid."""
-    symbol, smem, grid = bsi_fused.occupancy_key(*KERNELS[name], tile, vol)
+    static), resident blocks an SM and grid; ``name`` a key of
+    :data:`KERNELS`, or a lerp-form one with ``_bf16`` appended (the bf16
+    kernel, ``bsi_fused_stats_bf16``)."""
+    bf16 = name.endswith("_bf16")
+    kind, form = KERNELS[name.removesuffix("_bf16")]
+    symbol, smem, grid = bsi_fused.occupancy_key(kind, form, tile, vol, bf16=bf16)
     line = [ln for ln in lib.info.ptxas if symbol in ln and "registers" in ln]
     static = int(re.search(r"(\d+) B static smem", line[0]).group(1)) if line else 0
     return kernel_occupancy(lib, symbol, smem + static, grid)

@@ -130,16 +130,18 @@ def test_every_z_control_point_has_one_owner(tile, c):
                                  for ch in range(c)]
 
 
-def _bulk_copy(start, floats, end):
-    """A row copy of ``floats`` floats from float ``start`` of a tensor that
-    ends at float ``end`` (addresses in floats from a 16-byte boundary;
-    csrc: ``stage_bulk``): the whole 16-byte chunks from ``start`` rounded
-    down, cut at the tensor's last whole chunk, then plain loads of the
-    floats past the cut.  Returns the chunks' first float, the floats they
-    copy and the floats loaded one by one."""
-    lo = start - start % 4
-    hi = lo + 4 * ((start - lo + floats + 3) // 4)
-    cut = min(hi, end - end % 4)
+def _bulk_copy(start, floats, end, per_chunk=4):
+    """A row copy of ``floats`` values from value ``start`` of a tensor that
+    ends at value ``end`` (addresses in values from a 16-byte boundary,
+    ``per_chunk`` values a 16-byte chunk: 4 floats, 8 bf16; csrc:
+    ``stage_bulk``): the whole 16-byte chunks from ``start`` rounded down,
+    cut at the tensor's last whole chunk, then plain loads of the values
+    past the cut.  Returns the chunks' first value, the values they copy
+    and the values loaded one by one."""
+    e = per_chunk
+    lo = start - start % e
+    hi = lo + e * ((start - lo + floats + e - 1) // e)
+    cut = min(hi, end - end % e)
     tail = list(range(max(cut, start), min(start + floats, end)))
     return lo, max(0, cut - lo), tail
 
@@ -182,6 +184,41 @@ def test_row_copies_cover_the_segment_within_the_slot(vol, shifts, offset):
             assert all(p - lo < geo.slot for p in tail)
             assert not tail or row == X * Y - 1
     assert shifts_seen == {(t + offset) % 4 for t in shifts}
+
+
+@pytest.mark.parametrize("vol", [(2, 7, 385), (2, 7, 13), (3, 5, 1200), (2, 3, 7)])
+@pytest.mark.parametrize("offset", [0, 1, 2, 7])
+def test_bf16_row_copies_fit_the_float32_slots(vol, offset):
+    """A bf16 cotangent's rows (``adjoint_stream_kernel<C, D, __nv_bfloat16>``):
+    each block's copy of its segment of each row, as 16-byte chunks of 8
+    values from the segment's start rounded down (a shift of 0..7 values,
+    any parity: rows of Z*3 values start on odd values too), lands in the
+    float32 geometry's slot, ``4 * slot`` bytes; the lanes' loads at
+    ``shift + place + a*c`` stay inside the copied segment; the values past
+    the tensor's last whole chunk (its last row only) by plain loads."""
+    tile, c = (5, 5, 5) if vol[2] < 1000 else (5, 5, 2), 3
+    geo = bsi_adjoint.stream_blocks(tile, c, vol)
+    X, Y, Z = vol
+    end = offset + X * Y * Z * c
+    shifts = set()
+    for zp, cp in _parts(geo, tile, c, vol):
+        kz0, nk, lanes = _lanes(geo, tile, c, vol, zp, cp)
+        zs0, seg = _segment(tile, vol, c, kz0, nk)
+        for row in range(X * Y):
+            start = offset + row * Z * c + zs0 * c
+            lo, copied, tail = _bulk_copy(start, seg, end, per_chunk=8)
+            shift = start - lo
+            shifts.add(shift)
+            assert lo % 8 == 0 and copied % 8 == 0 and 2 * copied <= 4 * geo.slot
+            assert 2 * (shift + seg) <= 4 * geo.slot
+            covered = set(range(lo, lo + copied)) | set(tail)
+            assert set(range(start, start + seg)) <= covered
+            assert all(2 * (p - lo) < 4 * geo.slot for p in tail)
+            assert not tail or row == X * Y - 1
+            for ch, kz, na, _ in lanes:
+                place = (kz * tile[2] - zs0) * c + ch
+                assert all(0 <= place + a * c < seg for a in range(na))
+    assert len(shifts) > 1 and any(s % 2 for s in shifts) == bool(Z * c % 2 or offset % 2)
 
 
 @pytest.mark.parametrize("c", [1, 3, 4])

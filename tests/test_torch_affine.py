@@ -39,6 +39,7 @@ from repro_torch.core import registration as treg  # noqa: E402
 from repro_torch.engine import optimizer as topt  # noqa: E402
 from test_torch_optimizer import reference_objective  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE = (28, 24, 20)
 
 

@@ -25,6 +25,7 @@ from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models.model import ParamDict  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 
 def _qkv(B, S, H, KV, hd, seed=0):
     rng = np.random.default_rng(seed)

@@ -31,6 +31,7 @@ from repro_torch.engine import autotune  # noqa: E402
 from repro_torch.engine.autotune import autotune_bsi, resolve_bsi  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 GRID, TILE = (7, 7, 7), (2, 2, 2)
 CPU = torch.device("cpu")
 PAIR = (("ttli", "torch", "torch"), ("separable", "torch", "torch"))

@@ -44,6 +44,7 @@ from repro_torch.engine import convergence as tconv  # noqa: E402
 from repro_torch.engine.autotune import resolve_options  # noqa: E402
 from repro_torch.engine.optimizer import init_state  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE = (28, 24, 20)
 SMALL = (22, 20, 18)
 CPU = torch.device("cpu")

@@ -40,6 +40,7 @@ from repro_torch.engine import autotune
 from repro_torch.engine.batch import register_batch
 from repro_torch.kernels import bsi_separable, bsi_ttli, ops
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 BF16 = torch.bfloat16
 MODES = ("gather", "matmul", "separable", "tt", "ttli")
 SIMS = ("ssd", "ncc", "lncc", "nmi")
@@ -291,9 +292,8 @@ def test_autotune_keys_the_compute_dtype_and_excludes_autograd(tmp_path):
     keys = list(json.load(open(cache))["entries"])
     assert any("|cd=bfloat16|" in k for k in keys)
     assert any("|cd=" not in k for k in keys)
-    # on a card bf16 races only the forms with a bf16 kernel (18e), and the
-    # fused step resolves off without a race (18d); pure functions of the
-    # device's type, no card needed
+    # on a card bf16 races only the forms with a bf16 kernel (18e); pure
+    # functions of the device's type, no card needed
     cuda = torch.device("cuda")
     bf16_kernels = {("separable", "cuda"), ("ttli", "cuda")}
     assert set(autotune.default_candidates(cuda, "bfloat16")) == bf16_kernels

@@ -11,6 +11,9 @@ versions are held against the JAX package by the other ``test_torch_*``
 files on the CPU.
 """
 
+import math
+import re
+
 import numpy as np
 import pytest
 
@@ -931,14 +934,48 @@ def fresh_build(tmp_path_factory):
 
 
 def test_walk_kernels_do_not_spill(fresh_build):
-    """ptxas's line for each (form, moment) instantiation of the walk, named
-    by ``bsi_fused.occupancy_key``: no spill stores or loads."""
-    for form in bsi_fused.DISP_FORMS:
-        for kind in ("ssd", "stats", "ncc"):
-            symbol, _, _ = bsi_fused.occupancy_key(kind, form, (5, 5, 5), (512, 228, 385))
-            lines = [ln for ln in fresh_build.ptxas if symbol in ln and "registers" in ln]
-            assert len(lines) == 1, (symbol, fresh_build.ptxas)
-            assert "0/0 B spill stores/loads" in lines[0], lines
+    """ptxas's line for each (form, moment) instantiation of the walk, and
+    each moment's bf16 kernel (lerp form), named by
+    ``bsi_fused.occupancy_key``: no spill stores or loads."""
+    keys = [(kind, form, False) for form in bsi_fused.DISP_FORMS
+            for kind in ("ssd", "stats", "ncc")]
+    keys += [(kind, "lerp", True) for kind in ("ssd", "stats", "ncc")]
+    for kind, form, bf16 in keys:
+        symbol, _, _ = bsi_fused.occupancy_key(kind, form, (5, 5, 5), (512, 228, 385),
+                                               bf16=bf16)
+        lines = [ln for ln in fresh_build.ptxas if symbol in ln and "registers" in ln]
+        assert len(lines) == 1, (symbol, fresh_build.ptxas)
+        assert "0/0 B spill stores/loads" in lines[0], lines
+
+
+def _ptxas_line(build, *parts):
+    """The one ptxas line of ``build`` whose kernel name holds ``parts``."""
+    lines = [ln for ln in build.ptxas if "registers" in ln
+             and all(p in ln.split(":")[0] for p in parts)]
+    assert len(lines) == 1, (parts, lines)
+    return lines[0]
+
+
+def test_bf16_fused_and_adjoint_kernels_do_not_spill(fresh_build):
+    """The bf16 nmi kernel at 32 bins, the bf16 lncc kernels (window 9 and
+    any) and the separable adjoint's bf16 streaming kernels (the paper's
+    tile and any): no spill stores or loads.  The bf16 nmi kernel at 64
+    bins spills what the float32 lerp-form kernel at 64 bins spills (8
+    bytes on the H100's build), no more: the same arithmetic after the
+    loads."""
+    for parts in (("bsi_fused_nmi_bf16_kernelILi32EE",),
+                  ("bsi_fused_lncc_bf16_kernelILi9EE",),
+                  ("bsi_fused_lncc_bf16_kernelILi0EE",),
+                  ("adjoint_stream_kernelILi3ELi5E", "bfloat16"),
+                  ("adjoint_stream_kernelILi0ELi0E", "bfloat16")):
+        line = _ptxas_line(fresh_build, *parts)
+        assert "0/0 B spill stores/loads" in line, line
+
+    def spill(line):
+        return re.search(r"(\d+/\d+ B) spill", line).group(1)
+
+    assert spill(_ptxas_line(fresh_build, "bsi_fused_nmi_bf16_kernelILi64EE")) == spill(
+        _ptxas_line(fresh_build, "bsi_fused_nmi_kernelILi0ELi64EE"))
 
 
 def test_flash_bf16_kernel_does_not_spill(fresh_build):
@@ -1173,28 +1210,39 @@ def test_bf16_forward_kernels_match_plain(cuda, name, module, vol, tile, c):
 
 def test_bf16_dispatchers_raise_where_no_bf16_kernel_is_ported(cuda):
     """No cast: a bf16 CUDA tensor runs a bf16 kernel or raises naming the
-    item that ports it (18e: TT and matrix forms, 18d: the fused kernels,
-    18c: the adjoints read float32), and the options route there too."""
+    item that ports it (18e: the TT and matrix forms, the matmul adjoint and
+    the fused kernels' matrix form), and the options route there too; a
+    float32 grid with a bf16 volume, or the reverse, is refused."""
     tile, vol = (5, 5, 5), (10, 10, 10)
     phi = _grid(vol, tile, 3, 8, cuda).to(torch.bfloat16)
     vol_t = torch.rand(vol, device=cuda)
+    mov = vol_t.to(torch.bfloat16)
     for fn in (ops.bsi_tt, ops.bsi_matmul):
         with pytest.raises(NotImplementedError, match="18e"):
             fn(phi, tile, vol)
-    with pytest.raises(NotImplementedError, match="18d"):
+    mm = dict(disp_form="matmul")
+    scal = torch.zeros(4, device=cuda)
+    for call in (lambda: ops.fused_ssd_loss(phi, mov, vol_t, tile, **mm),
+                 lambda: ops.fused_stats(phi, mov, tile, **mm),
+                 lambda: ops.fused_ncc_moments(phi, mov, vol_t, scal[:2], tile, **mm),
+                 lambda: ops.fused_nmi_histogram(phi, mov, vol_t, scal, tile, bins=32,
+                                                 sigma=0.5 / 31, eps=1e-8, **mm),
+                 lambda: ops.fused_lncc(phi, mov, vol_t, tile, window=9, eps=1e-5, **mm)):
+        with pytest.raises(NotImplementedError, match="18e"):
+            call()
+    with pytest.raises(TypeError, match="moving"):
         ops.fused_ssd_loss(phi, vol_t, vol_t, tile)
-    with pytest.raises(NotImplementedError, match="18d"):
-        ops.fused_ssd_loss(phi.float(), vol_t.to(torch.bfloat16), vol_t, tile)
-    with pytest.raises(NotImplementedError, match="18d"):
-        ops.fused_stats(phi, vol_t, tile, disp_form="matmul")
+    with pytest.raises(TypeError, match="moving"):
+        ops.fused_ssd_loss(phi.float(), mov, vol_t, tile)
+    with pytest.raises(TypeError, match="fixed"):
+        ops.fused_ssd_loss(phi, mov, mov, tile)
     g = torch.rand(vol + (3,), device=cuda, dtype=torch.bfloat16)
-    for fn in (ops.bsi_adjoint, ops.bsi_adjoint_matmul):
-        with pytest.raises(NotImplementedError, match="18c"):
-            fn(g, tile, phi.shape[:3])
+    with pytest.raises(NotImplementedError, match="18e"):
+        ops.bsi_adjoint_matmul(g, tile, phi.shape[:3])
     f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    for fields, item in ((dict(mode="tt"), "18e"), (dict(fused="on"), "18d")):
+    for fields in (dict(mode="tt"), dict(mode="matmul", grad_impl="cuda", fused="on")):
         opts = RegistrationOptions(iters=1, compute_dtype="bfloat16", **fields)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="18e"):
             ffd_register(f, m, options=opts, device=cuda)
 
 
@@ -1211,16 +1259,115 @@ def test_bf16_registration_on_card_matches_cpu(cuda):
     counts = ops.launch_counts()
     host = ffd_register(fixed, moving, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
-    assert counts == _no_launches_but(bsi_ttli_bf16=steps, bsi_ttli=1, bsi_adjoint=steps)
+    assert counts == _no_launches_but(bsi_ttli_bf16=steps, bsi_ttli=1,
+                                      bsi_adjoint_bf16=steps)
     assert card.warped.dtype == card.params.dtype == torch.float32
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
     assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("sim,want", [
+    ("ssd", dict(bsi_fused_bf16=1)),
+    ("ncc", dict(bsi_fused_stats_bf16=1, bsi_fused_ncc_bf16=1)),
+    ("nmi", dict(bsi_fused_stats_bf16=1, bsi_fused_nmi_bf16=1)),
+    ("lncc", dict(bsi_fused_lncc_bf16=1))])
+def test_bf16_fused_registration_on_card_matches_cpu(cuda, sim, want):
+    """The bf16 fused level step (``ttli / cuda / cuda``, ``fused="on"``)
+    on the card against the CPU's plain versions: a step's forward the bf16
+    fused kernels, its backward the bf16 forward kernel and the bf16
+    adjoint, the final warp float32; per-level losses within 1e-3 relative
+    and the warps within 1e-3, as the unfused bf16 path."""
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5, fused="on", mode="ttli", impl="cuda",
+                               grad_impl="cuda", similarity=sim, compute_dtype="bfloat16")
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, moving, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, moving, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == _no_launches_but(bsi_ttli_bf16=steps, bsi_ttli=1,
+                                      bsi_adjoint_bf16=steps,
+                                      **{k: v * steps for k, v in want.items()})
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
+    assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("vol,tile", WALK_CASES)
+def test_bf16_fused_kernels_at_odd_volumes(cuda, vol, tile):
+    """The five fused variants' bf16 kernels on a bf16 ``phi`` and
+    ``moving`` (columns, runs and lines starting on odd values) against
+    their plain versions on the same inputs, as the float32 kernels are
+    held: ssd, stats and ncc sums at 1e-5 relative, stats' min, max and
+    count exact, two calls bit-equal; nmi's histogram at 1e-5 of its
+    largest cell; lncc at 1e-5 with its count exact; each counted apart."""
+    phi, mov, fix = _fused_inputs(vol, tile, 16, cuda)
+    phi, mov = phi.to(torch.bfloat16), mov.to(torch.bfloat16)
+    ops.reset_launch_counts()
+    ssd = [ops.fused_ssd_loss(phi, mov, fix, tile) for _ in range(2)]
+    st = [ops.fused_stats(phi, mov, tile) for _ in range(2)]
+    assert torch.equal(ssd[0], ssd[1]) and torch.equal(st[0], st[1])
+    ref = bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
+    assert abs(ssd[0].item() - ref.item()) <= 1e-5 * abs(ref.item())
+    ref = bsi_fused.plain_stats(phi, mov, tile)
+    assert torch.equal(st[0][1:], ref[1:]) and st[0][3].item() == mov.numel()
+    assert abs(st[0][0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
+    scal = torch.stack([ref[0] / mov.numel(), fix.mean()])
+    ncc = [ops.fused_ncc_moments(phi, mov, fix, scal, tile) for _ in range(2)]
+    assert torch.equal(ncc[0], ncc[1])
+    want = bsi_fused.plain_ncc(phi, mov, fix, scal, tile)
+    assert (ncc[0] - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    scal = torch.stack([ref[1], ref[2], fix.min(), fix.max()])
+    nmi = dict(bins=32, sigma=0.5 / 31, eps=1e-8)
+    out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **nmi)
+    want = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **nmi)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    w = ops.lncc_window(9, vol)
+    out = ops.fused_lncc(phi, mov, fix, tile, window=9, eps=1e-5)
+    want = bsi_fused.plain_lncc(phi, mov, fix, tile, window=w, eps=1e-5)
+    assert out[1].item() == want[1].item() == np.prod([s - w + 1 for s in vol])
+    assert abs(out[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
+    assert ops.launch_counts() == _no_launches_but(
+        bsi_fused_bf16=2, bsi_fused_stats_bf16=2, bsi_fused_ncc_bf16=2,
+        bsi_fused_nmi_bf16=1, bsi_fused_lncc_bf16=1)
+
+
+@pytest.mark.parametrize("vol,tile", CASES + UNALIGNED + [LONG_Z])
+@pytest.mark.parametrize("c", [1, 3])
+def test_bf16_adjoint_kernel_is_the_float32_kernel_on_the_widened_cotangent(cuda, vol,
+                                                                           tile, c):
+    """A bf16 cotangent runs ``bsi_adjoint_bf16``: bit for bit the float32
+    kernel on ``g.float()`` (the same geometry, LUTs and sums; only the
+    load differs), rows starting on odd values included, and within 1e-5
+    of the plain version on the bf16 cotangent."""
+    g = _adjoint_input(vol, c, 36, cuda).to(torch.bfloat16)
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    ops.reset_launch_counts()
+    out = ops.bsi_adjoint(g, tile, gshape)
+    assert ops.launch_counts() == _no_launches_but(bsi_adjoint_bf16=1)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, ops.bsi_adjoint(g.float(), tile, gshape))
+    ref = bsi_adjoint.plain(g, tile, gshape)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("vol,tile", UNALIGNED)
+def test_bf16_adjoint_kernel_reads_an_unaligned_view(cuda, vol, tile):
+    """A bf16 view that starts on an odd value (planes of Y*Z*C = 273
+    values) and ends where its allocation ends: bit for bit the float32
+    kernel."""
+    c = 3
+    big = _adjoint_input((vol[0] + 1,) + vol[1:], c, 37, cuda).to(torch.bfloat16)
+    g = big[1:]
+    assert g.data_ptr() % 4 == 2 and g.is_contiguous() and math.prod(vol[1:]) * c % 2
+    gshape = ffd.grid_shape_for_volume(vol, tile)
+    assert torch.equal(ops.bsi_adjoint(g, tile, gshape),
+                       ops.bsi_adjoint(g.float(), tile, gshape))
+
+
 def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch):
     """On the card under bf16, ``"auto"`` races only ``ttli`` and
-    ``separable`` with the analytic adjoints, and ``fused="auto"``
-    resolves ``"off"`` without a race (no bf16 fused kernel yet)."""
+    ``separable`` with the analytic adjoints, and ``fused="auto"`` races
+    the bf16 fused level step against the winner, keyed ``|cd=bfloat16|``."""
     from repro_torch.engine import autotune
 
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
@@ -1229,8 +1376,10 @@ def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch):
         RegistrationOptions(mode="auto", impl="auto", grad_impl="auto",
                             compute_dtype="bfloat16"), (40, 33, 47), cuda)
     assert opts.mode in ("ttli", "separable") and opts.impl == "cuda"
-    assert opts.grad_impl != "autograd" and opts.fused == "off"
-    assert "18d" in opts.fused_reason
+    assert opts.grad_impl != "autograd" and opts.fused in ("on", "off")
+    assert "race" in opts.fused_reason
     races = autotune.RACES[before:]
-    assert len(races) == 1 and "|cd=bfloat16|" in races[0].key
+    assert len(races) == 2 and all("|cd=bfloat16|" in r.key for r in races)
     assert {name.split("/")[0] for name, _ in races[0].timings} == {"ttli", "separable"}
+    assert "|fused|" in races[1].key
+    assert {name for name, _ in races[1].timings} == {"fused=off", "fused=on"}

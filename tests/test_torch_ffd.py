@@ -18,6 +18,7 @@ from repro.engine.batch import ffd_level_loss as ref_level_loss  # noqa: E402
 from repro_torch.core import ffd  # noqa: E402
 from repro_torch.engine.batch import ffd_level_objective  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 VOL = (13, 11, 9)
 TILE = (5, 4, 3)
 

@@ -27,6 +27,7 @@ from repro.models import attention as rattn  # noqa: E402
 from repro_torch.kernels import flash_attention  # noqa: E402
 from repro_torch.kernels.bsi_matmul import tf32_rna, tf32_split  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 KEY_BLOCK = 32  # the float32 kernel's key block
 
 

@@ -42,6 +42,7 @@ import torch
 from repro_torch.core import ffd
 from repro_torch.kernels import bsi_fused, bsi_matmul, bsi_ttli
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 THREADS = bsi_ttli.KERNEL_THREADS
 WARPS = THREADS // 32
 PHANTOM1 = (512, 228, 385)
@@ -112,14 +113,15 @@ def _xy_writes(geo, tile):
     assert (writes == 1).all()
 
 
-def _lines(tile, vol, block, bz, za, zb):
+def _lines(tile, vol, block, bz, za, zb, itemsize=4):
     """``walk_lines`` of one block over its threads, voxels [za, zb) of each
     run: ``(xl, yl, at, p)`` for each warp's line with voxels in it (``p``
     the lanes' voxels inside [za, zb), ``at`` the column's flat index of
     voxel 0 of the run), after checking the warps' shares of the lines, each
     lane's address against the flat index and each warp's reads of a line
-    against one aligned 32-float line (the volume's base is aligned, as an
-    allocation is)."""
+    against one aligned line of 32 values of ``itemsize`` bytes (the
+    volume's base is aligned, as an allocation is): a 128-byte line of
+    floats, a 64-byte half of one of bf16 values (the bf16 stats walk)."""
     dx, dy, dz = tile
     X, Y, Z = vol
     tj, ti, bk = block
@@ -144,7 +146,8 @@ def _lines(tile, vol, block, bz, za, zb):
                     continue
                 addr = at + p
                 assert np.array_equal(addr, ((x0 + xl) * Y + y0 + yl) * Z + z0 + p)
-                assert len(np.unique(addr // 32)) == 1  # one aligned 128-byte line
+                assert len(np.unique(addr // 32)) == 1  # one aligned line of 32 values
+                assert len(np.unique(addr * itemsize // 128)) == 1  # in one 128-byte line
                 out.append((xl, yl, at, p))
             line += n
             l = 0
@@ -283,6 +286,23 @@ def test_every_voxel_visited_once_small(tile, vol):
 
 
 @pytest.mark.parametrize("tile", TILES)
+@pytest.mark.parametrize("vol", SMALL[:4] + [PHANTOM1])
+def test_bf16_stats_lines_are_aligned_half_lines(tile, vol):
+    """The bf16 stats walk (``bsi_fused_walk_bf16_kernel<kStats>``) streams
+    the bf16 moving volume: the same lines of 32 voxels, aligned to 32
+    values, each warp's reads one aligned 64-byte half of a 128-byte line;
+    the first and last block of each axis."""
+    geo = _geometry(tile, vol)
+    dz = tile[2]
+    for block in itertools.product(*({0, n - 1} for n in geo.grid)):
+        z0 = block[2] * geo.bz * dz
+        run = min(geo.run, vol[2] - z0)
+        visits = _lines(tile, vol, block, geo.bz, 0, run, itemsize=2)
+        nx, ny = (min(d, s - b * d) for d, s, b in zip(tile, vol, (block[1], block[0])))
+        assert sum(len(p) for *_, p in visits) == nx * ny * run
+
+
+@pytest.mark.parametrize("tile", TILES)
 def test_every_voxel_visited_once_phantom1(tile):
     """phantom1: a block's walk depends on the block only through its
     offsets and the volume's edges, so the first and last block of each
@@ -412,6 +432,13 @@ def test_occupancy_key(kind, form):
     assert symbol == f"bsi_fused_walk_kernelILi{f}ELi{k}EE"
     geo = bsi_fused.moment_blocks((5, 5, 5), PHANTOM1, form)
     assert (smem, grid) == (geo.smem, geo.grid)
+    # the bf16 kernel (lerp form only) on the same blocks
+    if form == "lerp":
+        assert bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, bf16=True) == (
+            f"bsi_fused_walk_bf16_kernelILi{k}EE", smem, grid)
+    else:
+        with pytest.raises(ValueError, match="18e"):
+            bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, bf16=True)
 
 
 def test_the_constants_are_the_csrc_ones():

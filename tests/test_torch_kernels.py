@@ -19,6 +19,7 @@ from repro.kernels import ops as rops  # noqa: E402
 from repro_torch.core import interpolate as tint  # noqa: E402
 from repro_torch.kernels import bsi_fused, bsi_separable, bsi_tt, ops  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 # (control grid points, tile): non-cubic tiles, the paper's 5^3
 GRIDS = [
     ((7, 6, 5), (5, 4, 3)),
@@ -385,14 +386,19 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         for spec in (("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
             ops.fused_similarity_loss(phi, m, f, (5, 4, 3), sim_spec=spec,
                                       disp_form=form)
+    # bf16 inputs: the bf16 kernels' plain versions
+    phi16, m16 = phi.to(torch.bfloat16), m.to(torch.bfloat16)
+    ops.bsi_adjoint(g.to(torch.bfloat16), (5, 4, 3), (7, 6, 5))
+    for spec in (("ssd",), ("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
+        ops.fused_similarity_loss(phi16, m16, f, (5, 4, 3), sim_spec=spec)
     q = torch.ones((1, 8, 2, 16))
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1], window=4, softcap=30.0)
-    fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul")
+    fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul", "_bf16")
              for k in ("", "_stats", "_ncc", "_nmi", "_lncc")]
     assert ops.launch_counts() == dict.fromkeys(
         ["bsi_ttli", "bsi_separable", "bsi_ttli_bf16", "bsi_separable_bf16", "bsi_tt",
-         "bsi_matmul", "bsi_adjoint", "bsi_adjoint_matmul"] + fused + ["flash_attention"],
-        0)
+         "bsi_matmul", "bsi_adjoint", "bsi_adjoint_bf16", "bsi_adjoint_matmul"] + fused
+        + ["flash_attention"], 0)
 
 
 def test_dispatchers_check_coverage():

@@ -37,6 +37,7 @@ from repro_torch.kernels import bsi_matmul
 from repro_torch.kernels.bsi_ttli import KERNEL_THREADS, MAX_SMEM_BYTES
 from repro_torch.launch.bounds import matmul_tf32_ms
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 CSRC = Path(bsi_matmul.__file__).parent.parent / "csrc"
 
 

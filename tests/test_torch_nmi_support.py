@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.similarity import parzen_centres, parzen_weights  # noqa: E402
 from repro_torch.kernels import bsi_fused, bsi_ttli  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 BINS = [2, 10, 16, 32, 64]
 SIGMA_RATIOS = [0.25, 0.5, 1.0, 2.0]
 EPS = 1e-8  # nmi()'s default

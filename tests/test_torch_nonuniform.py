@@ -22,6 +22,7 @@ from repro_torch.core import interpolate  # noqa: E402
 from repro_torch.core.nonuniform import (axis_weights, bsi_nonuniform,  # noqa: E402
                                          grid_points_for_spacing)
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 FRACTIONAL = ((4.7, 3.3, 5.9), (17, 13, 19))
 INTEGER = ((5.0, 4.0, 3.0), (20, 16, 12))
 

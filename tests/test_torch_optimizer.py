@@ -53,6 +53,7 @@ from repro_torch.engine import convergence as tconv  # noqa: E402
 from repro_torch.engine import optimizer as topt  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE, TILE = (28, 24, 20), (5, 5, 5)
 REF_FIELDS = dict(mode="ttli", impl="jnp", grad_impl="jnp", fused="off", levels=2,
                   iters=5)

@@ -22,6 +22,7 @@ from repro_torch.core.options import (UNSET, _reset_deprecation_registry,  # noq
                                       merge_legacy_options)
 from repro_torch.engine.loop import make_adam_runner  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE = (18, 16, 14)
 SMALL = dict(tile=(6, 6, 6), levels=2, iters=4, lr=0.1, mode="separable",
              impl="cuda", grad_impl="cuda")  # the kernels' plain versions on the CPU

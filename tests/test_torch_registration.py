@@ -52,6 +52,7 @@ from repro_torch.engine.optimizer import resolve_optimizer  # noqa: E402
 from repro_torch.engine.batch import ffd_level_loss, ffd_level_objective  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE = (28, 24, 20)
 REF_FIELDS = dict(mode="ttli", impl="jnp", grad_impl="jnp", fused="off", levels=2,
                   iters=5)

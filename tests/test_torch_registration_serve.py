@@ -29,6 +29,7 @@ from repro_torch import (AsyncRegistrationService, QueueFull,  # noqa: E402
 from repro_torch.convert import options_from_reference  # noqa: E402
 from repro_torch.launch import serve_registration  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE = (22, 20, 18)
 REF_FIELDS = dict(tile=(6, 6, 6), levels=2, iters=16, lr=0.1, mode="separable",
                   impl="jnp", grad_impl="xla", fused="off",

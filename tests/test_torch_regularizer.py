@@ -25,6 +25,7 @@ from repro_torch.convert import options_from_reference  # noqa: E402
 from repro_torch.core import ffd  # noqa: E402
 from repro_torch.core import regularizer as treg  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 GRIDS = [((9, 8, 7), (5, 5, 5)), ((12, 10, 9), (4, 3, 5))]
 
 

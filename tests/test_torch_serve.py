@@ -37,6 +37,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.training.steps import _cast, make_decode_step, make_prefill_step  # noqa: E402,E501
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 ROOT = Path(__file__).resolve().parents[1]
 ARCH, B, S, MAX_LEN = "gemma2-2b", 2, 48, 56
 

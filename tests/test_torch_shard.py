@@ -48,6 +48,7 @@ from repro_torch.engine.shard import (GRID_AXES, LOSS_AXES, VOLUME_AXES,  # noqa
                                       batch_mask, batch_multiple, lane_sharding,
                                       pad_batch)
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPE = (18, 16, 14)
 REF_FIELDS = dict(tile=(5, 5, 5), levels=2, iters=4, mode="separable", impl="jnp",
                   grad_impl="jnp", fused="off")

@@ -34,6 +34,7 @@ from repro_torch import (AsyncRegistrationService, ConvergenceConfig,  # noqa: E
 from repro_torch.engine import make_registration_mesh  # noqa: E402
 from repro_torch.launch import serve_registration  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 SHAPES = [(22, 20, 18), (22, 20, 18), (18, 16, 14), (22, 20, 18)]
 HARD = [True, False, True, True]  # the easy pair frees its lane for request 3
 OPTS = RegistrationOptions(tile=(6, 6, 6), levels=2, iters=16, lr=0.1, mode="separable",

@@ -29,6 +29,7 @@ from repro_torch.convert import options_from_reference  # noqa: E402
 from repro_torch.core import ffd  # noqa: E402
 from repro_torch.core import transform as tf  # noqa: E402
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 VOL, TILE = (20, 18, 16), (5, 5, 5)
 
 

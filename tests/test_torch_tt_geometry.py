@@ -29,6 +29,7 @@ from repro_torch.core.bspline import weight_lut
 from repro_torch.kernels import bsi_tt
 from repro_torch.kernels.bsi_ttli import KERNEL_THREADS, MAX_SMEM_BYTES
 
+from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 THREADS = KERNEL_THREADS
 GROUP = bsi_tt.GROUP_THREADS
 PHANTOM1 = (512, 228, 385)
