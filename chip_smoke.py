@@ -146,6 +146,24 @@ Phases; any failure raises and the script exits nonzero:
    plain bf16 fused path's; the bf16 fused ncc, nmi and lncc steps at
    ``iters=5``, counted, within 1e-2 of float32's; and ``fused="auto"``
    under bf16 raced on a fresh cache (its key ``|cd=bfloat16|``);
+1d. the bf16 matrix and TT forms, right after phase 1c
+   (``check_bf16_matrix_kernels``, ``run_bf16_matrix_path``): at phantom1,
+   ``bsi_tt_bf16`` against its plain version bit for bit; ``bsi_matmul_bf16``
+   within one bf16 step plus 1e-5 of the largest value of plain and bit-equal
+   to the float32 kernel on the widened grid with the bf16 basis's fragments,
+   rounded once; ``bsi_adjoint_matmul_bf16`` bit-equal to the float32 kernel
+   on the widened cotangent; the five fused variants' bf16 kernels in the
+   matrix form (as phase 1c's lerp-form rows); each with two calls
+   bit-equal, registers (no spills, asserted), blocks an SM, timed beside
+   its float32 kernel, plain version, bound and library call.  Then
+   ``ffd_register(compute_dtype="bfloat16", mode="matmul", impl="cuda",
+   grad_impl="matmul", lr=0.02)`` with ``fused="off"`` and ``"on"``, cold
+   and warm beside float32, its launches asserted (the final warp one
+   float32 ``bsi_matmul``), the JAX package's bf16 bounds and this card's
+   against float32, per-level losses within 1e-3 of the plain bf16 path's;
+   ``mode="tt"`` in bf16 at full depth, counted; the matrix form's fused
+   ncc, nmi and lncc steps in bf16 at ``iters=5`` within 1e-2 of float32's;
+   and all-``"auto"`` under bf16 raced on a fresh cache (the four forms);
 4c. batched and served registration: ``register_batch`` of two phantom1
    pairs (seeds 0 and 1, made on the host while the earlier phases run)
    with ``fused="on"``, cold then warm (seconds, ``compiled``, peak memory,
@@ -1172,24 +1190,44 @@ def ptxas_occupancy(lib, symbol, smem):
     return occ["registers"], occ["blocks_per_sm"]
 
 
-def check_bf16_fused_kernels(torch, fixed, moving, lib):
-    """Phase 1c (a): the bf16 kernels of the bf16 fused level step at
-    phantom1, tile 5^3, against their plain versions on the same bf16
-    inputs: the five fused variants in the lerp form on a bf16 ``phi`` and
-    ``moving`` and a float32 ``fixed`` (ssd, stats and ncc on the main
-    path's pair, nmi at 32 bins and lncc at window 9 on the multi-modal
-    pair; the sums at 1e-5 relative, stats' min, max and count exact, the
-    nmi histogram at 1e-5 of its largest cell and its loss at 1e-5, lncc's
-    count exact), and ``bsi_adjoint`` on a bf16 cotangent, bit-equal to the
-    float32 kernel on the widened cotangent and at 1e-5 relative of its
-    plain version.  Two calls of each bit-equal, registers with no spills
-    (asserted), shared memory and blocks an SM; each timed beside its
-    float32 kernel on the float32 inputs, its plain version and its bound
-    (``launch/bounds.py``: bf16 bytes for ``phi``, ``moving`` and ``g``)."""
+def bf16_row(torch, rows, name, err, call, call32, plain, bound, replaces, source,
+             library_ms=None, **more):
+    """A bf16 kernel's row of the kernels line: ``call`` (the bf16 kernel),
+    ``call32`` (its float32 kernel on the float32 inputs) and ``plain``
+    timed; ``call`` counted once under ``name`` before (asserted)."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    call()
+    assert ops.launch_counts()[name] == 1, (name, ops.launch_counts())
+    b_ms, b_by = bound
+    r = dict(name=name, route="cuda", source=source, replaces=replaces,
+             max_abs_err=err, ms=cuda_ms(torch, call),
+             plain_ms=cuda_ms(torch, plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+             library_ms=library_ms,
+             more=dict(float32_kernel_ms=cuda_ms(torch, call32), **more))
+    log(f"{name}: kernel {r['ms']:.4f} ms (float32 kernel "
+        f"{r['more']['float32_kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), library "
+        f"{'-' if library_ms is None else format(library_ms, '.4f')} ms")
+    rows.append(r)
+
+
+def same_twice(torch, call):
+    """Two calls of ``call`` bit-equal."""
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    return torch.equal(a, b)
+
+
+FUSED_SRC, FUSED_REP = "src/repro_torch/csrc/bsi_fused.cu", "src/repro/kernels/bsi_fused.py:291"
+
+
+def bf16_fused_inputs(torch, fixed, moving):
+    """Phases 1c and 1d: the float32 grid of the bf16 fused rows (seed 6),
+    the bf16 cotangent's float32 source, and the bf16 grid, moving volume,
+    cotangent and remapped moving volume."""
     from repro_torch.core import ffd
-    from repro_torch.kernels import bsi_adjoint, bsi_fused, ops
-    from repro_torch.launch.bounds import bound_ms, kernel_bounds, nmi_bound
-    from repro_torch.launch.profile_adjoint import kernel_occupancy as adjoint_occupancy
 
     dev = fixed.device
     vol = tuple(fixed.shape)
@@ -1198,38 +1236,166 @@ def check_bf16_fused_kernels(torch, fixed, moving, lib):
     phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 1.0
     g32 = torch.randn(vol + (3,), generator=gen, device=dev) * 1e-3
     bf = torch.bfloat16
-    phi, mov, g = phi32.to(bf), moving.to(bf), g32.to(bf)
+    return phi32, g32, phi32.to(bf), moving.to(bf), g32.to(bf), remap(moving).to(bf)
+
+
+def check_bf16_fused_variants(torch, fixed, moving, lib, form, rows):
+    """Phases 1c and 1d: the five fused variants' bf16 kernels in
+    displacement form ``form`` at phantom1, tile 5^3, on a bf16 ``phi`` and
+    ``moving`` and a float32 ``fixed`` (ssd, stats and ncc on the main
+    path's pair, nmi at 32 bins and lncc at window 9 on the multi-modal
+    pair) against their plain versions on the same inputs: the sums at 1e-5
+    relative, stats' min, max and count exact, the nmi histogram at 1e-5 of
+    its largest cell and its loss at 1e-5, lncc's count exact.  Two calls of
+    each bit-equal, registers with no spills (asserted), shared memory and
+    blocks an SM; each timed beside its float32 kernel on the float32
+    inputs, its plain version and its bound (``launch/bounds.py``: bf16
+    bytes for ``phi`` and ``moving``; the matrix form's ssd, stats and ncc
+    with their 0.516 ms floor of unfused instructions beside).  Appends the
+    rows to ``rows``."""
+    from repro_torch.kernels import bsi_fused, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds, nmi_bound, unfused_floor_ms
+
+    vol = tuple(fixed.shape)
+    phi32, _, phi, mov, _, rem = bf16_fused_inputs(torch, fixed, moving)
     rem32 = remap(moving)
-    rem = rem32.to(bf)
     n = moving.numel()
+    bf = torch.bfloat16
+    f = bsi_fused.DISP_FORMS.index(form)
+    mm = form == "matmul"
+    key = "_matmul_bf16" if mm else "_bf16"
     bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
-    fused_src, fused_rep = "src/repro_torch/csrc/bsi_fused.cu", "src/repro/kernels/bsi_fused.py:291"
+    floor = dict(unfused_floor_ms=unfused_floor_ms(vol)) if mm else {}
+    replaces = FUSED_REP + (" (disp_form='matmul', :87-89)" if mm else "")
+    kw = dict(disp_form=form)
+
+    def name(kind):
+        return ops._fused_name(kind, form, bf)
+
+    def row(nm, err, call, call32, plain, bound, **more):
+        bf16_row(torch, rows, nm, err, call, call32, plain, bound, replaces, FUSED_SRC,
+                 **more)
+
+    # --- the ssd, stats and ncc walks on the main path's pair
+    out = ops.fused_ssd_loss(phi, mov, fixed, TILE, **kw)
+    ref = bsi_fused.plain(phi, mov, fixed, TILE, **kw) / n
+    err = abs(out.item() - ref.item())
+    rel = err / abs(ref.item())
+    log(f"{name('ssd')}: kernel {out.item():.9g} plain {ref.item():.9g} relative "
+        f"{rel:.3e} (limit 1e-5); float32 kernel on the float32 inputs "
+        f"{ops.fused_ssd_loss(phi32, moving, fixed, TILE, **kw).item():.9g}")
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, name("ssd"), lambda: ops.fused_ssd_loss(phi, mov, fixed, TILE, **kw),
+             vol)
+    row(name("ssd"), err, lambda: ops.fused_ssd_loss(phi, mov, fixed, TILE, **kw),
+        lambda: ops.fused_ssd_loss(phi32, moving, fixed, TILE, **kw),
+        lambda: bsi_fused.plain(phi, mov, fixed, TILE, **kw),
+        bounds[f"bsi_fused_ssd{key}"], **floor)
+
+    out = ops.fused_stats(phi, mov, TILE, **kw)
+    st = bsi_fused.plain_stats(phi, mov, TILE, **kw)
+    rel = abs(out[0].item() - st[0].item()) / abs(st[0].item())
+    log(f"{name('stats')}: kernel {out.tolist()} plain {st.tolist()}; sum relative "
+        f"{rel:.3e} (limit 1e-5); min, max, count exact: {torch.equal(out[1:], st[1:])}")
+    assert torch.equal(out[1:], st[1:]) and out[3].item() == n, (out, st)
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, name("stats"), lambda: ops.fused_stats(phi, mov, TILE, **kw), vol)
+    row(name("stats"), (out - st).abs().max().item(),
+        lambda: ops.fused_stats(phi, mov, TILE, **kw),
+        lambda: ops.fused_stats(phi32, moving, TILE, **kw),
+        lambda: bsi_fused.plain_stats(phi, mov, TILE, **kw),
+        bounds[f"bsi_fused_stats{key}"], **floor)
+
+    scal = torch.stack([st[0] / n, fixed.mean()])
+    out = ops.fused_ncc_moments(phi, mov, fixed, scal, TILE, **kw)
+    mom = bsi_fused.plain_ncc(phi, mov, fixed, scal, TILE, **kw)
+    err = (out - mom).abs().max().item()
+    rel = err / mom.abs().max().item()
+    log(f"{name('ncc')}: moments kernel {out.tolist()} plain {mom.tolist()}; "
+        f"relative {rel:.3e} (limit 1e-5)")
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    log_walk(torch, lib, name("ncc"),
+             lambda: ops.fused_ncc_moments(phi, mov, fixed, scal, TILE, **kw), vol)
+    row(name("ncc"), err, lambda: ops.fused_ncc_moments(phi, mov, fixed, scal, TILE, **kw),
+        lambda: ops.fused_ncc_moments(phi32, moving, fixed, scal, TILE, **kw),
+        lambda: bsi_fused.plain_ncc(phi, mov, fixed, scal, TILE, **kw),
+        bounds[f"bsi_fused_ncc{key}"], **floor)
+
+    # --- nmi (32 bins) and lncc (window 9) on the multi-modal pair
+    st = bsi_fused.plain_stats(phi, rem, TILE, **kw)
+    scal = torch.stack([st[1], st[2], fixed.min(), fixed.max()])
+    nk = dict(bins=32, sigma=0.5 / 31, eps=1e-8, **kw)  # nmi()'s defaults
+    out = ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **nk)
+    ref = bsi_fused.plain_nmi(phi, rem, fixed, scal, TILE, **nk)
+    err = (out - ref).abs().max().item()
+    rel_cell = err / ref.abs().max().item()
+    spec = ("nmi", 32, 0.5, 1e-8)
+    loss = ops.fused_similarity_loss(phi, rem, fixed, TILE, sim_spec=spec, **kw).item()
+    loss_ref = ops.two_pass_loss(spec, phi, rem, fixed, TILE, **plain_passes(), **kw).item()
+    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
+    again = same_twice(torch, lambda: ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE,
+                                                              **nk))
+    blocks = bsi_fused.block_tiles(TILE, form, bsi_fused.nmi_smem_bytes(32))
+    smem = bsi_fused._disp_smem_bytes(TILE, blocks, form) + bsi_fused.nmi_smem_bytes(32)
+    line, per_sm = ptxas_occupancy(lib, f"bsi_fused_nmi_bf16_kernelILi{f}ELi32EE", smem)
+    support, evaluated, products = nmi_work(torch, phi, rem, fixed, scal, 32, 0.5 / 31, form)
+    nb = nmi_bound(vol, TILE, 32, evaluated=evaluated, products=products, bf16=True)
+    log(f"{name('nmi')}: histogram max |kernel - plain| {err:.3e}, relative to the "
+        f"largest cell {rel_cell:.3e} (limit 1e-5); loss kernel {loss:.9g} plain "
+        f"{loss_ref:.9g} relative {loss_rel:.3e} (limit 1e-5); two calls bit-equal: "
+        f"{again}; {line}; {smem} B of shared memory a block, {per_sm} blocks an SM; "
+        f"bound {nb['ms']:.4f} ms ({nb['by']}, {nb['form']}) from {evaluated} weights "
+        f"and {products} non-zero products (support +-{support})")
+    assert math.isfinite(rel_cell) and rel_cell <= 1e-5, rel_cell
+    assert math.isfinite(loss_rel) and loss_rel <= 1e-5 and again, (loss_rel, again)
+    row(name("nmi"), err, lambda: ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **nk),
+        lambda: ops.fused_nmi_histogram(phi32, rem32, fixed, scal, TILE, **nk),
+        lambda: bsi_fused.plain_nmi(phi, rem, fixed, scal, TILE, **nk), (nb["ms"], nb["by"]),
+        bound_form=nb["form"], blocks_per_sm=per_sm)
+
+    lk = dict(window=9, eps=1e-5, **kw)
+    out = ops.fused_lncc(phi, rem, fixed, TILE, **lk)
+    ref = bsi_fused.plain_lncc(phi, rem, fixed, TILE, **lk)
+    err = abs(out[0].item() - ref[0].item())
+    rel = err / abs(ref[0].item())
+    npos = math.prod(s - 8 for s in vol)
+    again = same_twice(torch, lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk))
+    own, _ = bsi_fused.lncc_blocks(TILE, 9, form, vol)
+    smem = bsi_fused._lncc_smem_bytes(TILE, own, 9, form)
+    line, per_sm = ptxas_occupancy(lib, f"bsi_fused_lncc_bf16_kernelILi{f}ELi9EE", smem)
+    log(f"{name('lncc')}: sum cc kernel {out[0].item():.9g} plain "
+        f"{ref[0].item():.9g} relative {rel:.3e} (limit 1e-5); count "
+        f"{out[1].item():.0f} (VALID positions {npos}); two calls bit-equal: {again}; "
+        f"{line}; column {own} tiles, {smem} B of shared memory a block, {per_sm} blocks "
+        "an SM")
+    assert math.isfinite(rel) and rel <= 1e-5 and again, (rel, again)
+    assert out[1].item() == ref[1].item() == npos, (out, ref)
+    row(name("lncc"), err, lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk),
+        lambda: ops.fused_lncc(phi32, rem32, fixed, TILE, **lk),
+        lambda: bsi_fused.plain_lncc(phi, rem, fixed, TILE, **lk),
+        bounds[f"bsi_fused_lncc{key}"], blocks_per_sm=per_sm)
+
+
+def check_bf16_fused_kernels(torch, fixed, moving, lib):
+    """Phase 1c (a): the bf16 kernels of the bf16 fused level step at
+    phantom1, tile 5^3, against their plain versions on the same bf16
+    inputs: ``bsi_adjoint`` on a bf16 cotangent, bit-equal to the float32
+    kernel on the widened cotangent and at 1e-5 relative of its plain
+    version, two calls bit-equal, registers with no spills (asserted),
+    shared memory and blocks an SM, timed beside the float32 kernel, its
+    plain version and its bound; then the five fused variants in the lerp
+    form (:func:`check_bf16_fused_variants`)."""
+    from repro_torch.core import ffd
+    from repro_torch.kernels import bsi_adjoint, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds
+    from repro_torch.launch.profile_adjoint import kernel_occupancy as adjoint_occupancy
+
+    dev = fixed.device
+    vol = tuple(fixed.shape)
+    gshape = ffd.grid_shape_for_volume(vol, TILE)
+    _, g32, _, _, g, _ = bf16_fused_inputs(torch, fixed, moving)
+    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
     rows = []
-
-    def row(name, err, call, call32, plain, bound, replaces=fused_rep, source=fused_src,
-            library_ms=None, **more):
-        """Time ``call`` (the bf16 kernel), ``call32`` (its float32 kernel on
-        the float32 inputs) and ``plain``; each call counted once under
-        ``name`` before (asserted)."""
-        ops.reset_launch_counts()
-        call()
-        assert ops.launch_counts()[name] == 1, (name, ops.launch_counts())
-        b_ms, b_by = bound
-        r = dict(name=name, route="cuda", source=source, replaces=replaces,
-                 max_abs_err=err, ms=cuda_ms(torch, call),
-                 plain_ms=cuda_ms(torch, plain, reps=3), bound_ms=b_ms, bound_by=b_by,
-                 library_ms=library_ms,
-                 more=dict(float32_kernel_ms=cuda_ms(torch, call32), **more))
-        log(f"{name}: kernel {r['ms']:.4f} ms (float32 kernel "
-            f"{r['more']['float32_kernel_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), library "
-            f"{'-' if library_ms is None else format(library_ms, '.4f')} ms")
-        rows.append(r)
-
-    def same(call):
-        a, b = call(), call()
-        torch.cuda.synchronize()
-        return torch.equal(a, b)
 
     # --- bsi_adjoint on a bf16 cotangent
     out, out32 = ops.bsi_adjoint(g, TILE, gshape), ops.bsi_adjoint(g.float(), TILE, gshape)
@@ -1238,7 +1404,7 @@ def check_bf16_fused_kernels(torch, fixed, moving, lib):
     err = (out - ref).abs().max().item()
     rel = err / ref.abs().max().item()
     bits = torch.equal(out, out32)
-    again = same(lambda: ops.bsi_adjoint(g, TILE, gshape))
+    again = same_twice(torch, lambda: ops.bsi_adjoint(g, TILE, gshape))
     geo = bsi_adjoint.stream_blocks(TILE, 3, vol, bsi_adjoint.card_sms(dev))
     (line, per_sm), = (v for k, v in adjoint_occupancy(lib, TILE, 3, vol).items()
                        if "ILi3ELi5E13__nv_bfloat16" in k)
@@ -1252,113 +1418,301 @@ def check_bf16_fused_kernels(torch, fixed, moving, lib):
     # the cast the backward made before this kernel: the bf16 cotangent
     # widened to float32 (270 MB read, 539 MB written at phantom1)
     widen_ms = cuda_ms(torch, lambda: g.float())
-    row("bsi_adjoint_bf16", err, lambda: ops.bsi_adjoint(g, TILE, gshape),
-        lambda: ops.bsi_adjoint(g32, TILE, gshape),
-        lambda: bsi_adjoint.plain(g, TILE, gshape), bounds["bsi_adjoint_separable_bf16"],
-        replaces="src/repro/kernels/bsi_adjoint.py:125",
-        source="src/repro_torch/csrc/bsi_adjoint.cu",
-        library_ms=cuda_ms(torch, bf16_adjoint_yardstick(torch, g, TILE), reps=3,
-                           warmup=1),
-        bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms)
+    bf16_row(torch, rows, "bsi_adjoint_bf16", err, lambda: ops.bsi_adjoint(g, TILE, gshape),
+             lambda: ops.bsi_adjoint(g32, TILE, gshape),
+             lambda: bsi_adjoint.plain(g, TILE, gshape),
+             bounds["bsi_adjoint_separable_bf16"], "src/repro/kernels/bsi_adjoint.py:125",
+             "src/repro_torch/csrc/bsi_adjoint.cu",
+             library_ms=cuda_ms(torch, bf16_adjoint_yardstick(torch, g, TILE), reps=3,
+                                warmup=1),
+             bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms)
     log(f"bsi_adjoint_bf16: the cotangent's widening cast it replaces {widen_ms:.4f} ms")
 
-    # --- the fused ssd, stats and ncc walks on the main path's pair
-    out = ops.fused_ssd_loss(phi, mov, fixed, TILE)
-    ref = bsi_fused.plain(phi, mov, fixed, TILE) / n
-    err = abs(out.item() - ref.item())
-    rel = err / abs(ref.item())
-    log(f"bsi_fused_bf16: kernel {out.item():.9g} plain {ref.item():.9g} relative "
-        f"{rel:.3e} (limit 1e-5); float32 kernel on the float32 inputs "
-        f"{ops.fused_ssd_loss(phi32, moving, fixed, TILE).item():.9g}")
-    assert math.isfinite(rel) and rel <= 1e-5, rel
-    log_walk(torch, lib, "bsi_fused_bf16", lambda: ops.fused_ssd_loss(phi, mov, fixed, TILE),
-             vol)
-    row("bsi_fused_bf16", err, lambda: ops.fused_ssd_loss(phi, mov, fixed, TILE),
-        lambda: ops.fused_ssd_loss(phi32, moving, fixed, TILE),
-        lambda: bsi_fused.plain(phi, mov, fixed, TILE), bounds["bsi_fused_ssd_bf16"])
-
-    out = ops.fused_stats(phi, mov, TILE)
-    st = bsi_fused.plain_stats(phi, mov, TILE)
-    rel = abs(out[0].item() - st[0].item()) / abs(st[0].item())
-    log(f"bsi_fused_stats_bf16: kernel {out.tolist()} plain {st.tolist()}; sum relative "
-        f"{rel:.3e} (limit 1e-5); min, max, count exact: {torch.equal(out[1:], st[1:])}")
-    assert torch.equal(out[1:], st[1:]) and out[3].item() == n, (out, st)
-    assert math.isfinite(rel) and rel <= 1e-5, rel
-    log_walk(torch, lib, "bsi_fused_stats_bf16", lambda: ops.fused_stats(phi, mov, TILE), vol)
-    row("bsi_fused_stats_bf16", (out - st).abs().max().item(),
-        lambda: ops.fused_stats(phi, mov, TILE), lambda: ops.fused_stats(phi32, moving, TILE),
-        lambda: bsi_fused.plain_stats(phi, mov, TILE), bounds["bsi_fused_stats_bf16"])
-
-    scal = torch.stack([st[0] / n, fixed.mean()])
-    out = ops.fused_ncc_moments(phi, mov, fixed, scal, TILE)
-    mom = bsi_fused.plain_ncc(phi, mov, fixed, scal, TILE)
-    err = (out - mom).abs().max().item()
-    rel = err / mom.abs().max().item()
-    log(f"bsi_fused_ncc_bf16: moments kernel {out.tolist()} plain {mom.tolist()}; "
-        f"relative {rel:.3e} (limit 1e-5)")
-    assert math.isfinite(rel) and rel <= 1e-5, rel
-    log_walk(torch, lib, "bsi_fused_ncc_bf16",
-             lambda: ops.fused_ncc_moments(phi, mov, fixed, scal, TILE), vol)
-    row("bsi_fused_ncc_bf16", err, lambda: ops.fused_ncc_moments(phi, mov, fixed, scal, TILE),
-        lambda: ops.fused_ncc_moments(phi32, moving, fixed, scal, TILE),
-        lambda: bsi_fused.plain_ncc(phi, mov, fixed, scal, TILE), bounds["bsi_fused_ncc_bf16"])
-
-    # --- nmi (32 bins) and lncc (window 9) on the multi-modal pair
-    st = bsi_fused.plain_stats(phi, rem, TILE)
-    scal = torch.stack([st[1], st[2], fixed.min(), fixed.max()])
-    kw = dict(bins=32, sigma=0.5 / 31, eps=1e-8)  # nmi()'s defaults
-    out = ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **kw)
-    ref = bsi_fused.plain_nmi(phi, rem, fixed, scal, TILE, **kw)
-    err = (out - ref).abs().max().item()
-    rel_cell = err / ref.abs().max().item()
-    spec = ("nmi", 32, 0.5, 1e-8)
-    loss = ops.fused_similarity_loss(phi, rem, fixed, TILE, sim_spec=spec).item()
-    loss_ref = ops.two_pass_loss(spec, phi, rem, fixed, TILE, **plain_passes()).item()
-    loss_rel = abs(loss - loss_ref) / abs(loss_ref)
-    again = same(lambda: ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **kw))
-    blocks = bsi_fused.block_tiles(TILE, "lerp", bsi_fused.nmi_smem_bytes(32))
-    smem = bsi_fused._disp_smem_bytes(TILE, blocks, "lerp") + bsi_fused.nmi_smem_bytes(32)
-    line, per_sm = ptxas_occupancy(lib, "bsi_fused_nmi_bf16_kernelILi32EE", smem)
-    support, evaluated, products = nmi_work(torch, phi, rem, fixed, scal, 32, 0.5 / 31,
-                                            "lerp")
-    nb = nmi_bound(vol, TILE, 32, evaluated=evaluated, products=products, bf16=True)
-    log(f"bsi_fused_nmi_bf16: histogram max |kernel - plain| {err:.3e}, relative to the "
-        f"largest cell {rel_cell:.3e} (limit 1e-5); loss kernel {loss:.9g} plain "
-        f"{loss_ref:.9g} relative {loss_rel:.3e} (limit 1e-5); two calls bit-equal: "
-        f"{again}; {line}; {smem} B of shared memory a block, {per_sm} blocks an SM; "
-        f"bound {nb['ms']:.4f} ms ({nb['by']}, {nb['form']}) from {evaluated} weights "
-        f"and {products} non-zero products (support +-{support})")
-    assert math.isfinite(rel_cell) and rel_cell <= 1e-5, rel_cell
-    assert math.isfinite(loss_rel) and loss_rel <= 1e-5 and again, (loss_rel, again)
-    row("bsi_fused_nmi_bf16", err,
-        lambda: ops.fused_nmi_histogram(phi, rem, fixed, scal, TILE, **kw),
-        lambda: ops.fused_nmi_histogram(phi32, rem32, fixed, scal, TILE, **kw),
-        lambda: bsi_fused.plain_nmi(phi, rem, fixed, scal, TILE, **kw), (nb["ms"], nb["by"]),
-        bound_form=nb["form"], blocks_per_sm=per_sm)
-
-    lk = dict(window=9, eps=1e-5)
-    out = ops.fused_lncc(phi, rem, fixed, TILE, **lk)
-    ref = bsi_fused.plain_lncc(phi, rem, fixed, TILE, **lk)
-    err = abs(out[0].item() - ref[0].item())
-    rel = err / abs(ref[0].item())
-    npos = math.prod(s - 8 for s in vol)
-    again = same(lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk))
-    own, _ = bsi_fused.lncc_blocks(TILE, 9, "lerp", vol)
-    smem = bsi_fused._lncc_smem_bytes(TILE, own, 9, "lerp")
-    line, per_sm = ptxas_occupancy(lib, "bsi_fused_lncc_bf16_kernelILi9EE", smem)
-    log(f"bsi_fused_lncc_bf16: sum cc kernel {out[0].item():.9g} plain "
-        f"{ref[0].item():.9g} relative {rel:.3e} (limit 1e-5); count "
-        f"{out[1].item():.0f} (VALID positions {npos}); two calls bit-equal: {again}; "
-        f"{line}; column {own} tiles, {smem} B of shared memory a block, {per_sm} blocks "
-        "an SM")
-    assert math.isfinite(rel) and rel <= 1e-5 and again, (rel, again)
-    assert out[1].item() == ref[1].item() == npos, (out, ref)
-    row("bsi_fused_lncc_bf16", err, lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk),
-        lambda: ops.fused_lncc(phi32, rem32, fixed, TILE, **lk),
-        lambda: bsi_fused.plain_lncc(phi, rem, fixed, TILE, **lk),
-        bounds["bsi_fused_lncc_bf16"], replaces=fused_rep + " (lncc, :218-239)",
-        blocks_per_sm=per_sm)
+    check_bf16_fused_variants(torch, fixed, moving, lib, "lerp", rows)
     return rows
+
+
+def check_bf16_matrix_kernels(torch, fixed, moving, lib):
+    """Phase 1d (a): the bf16 matrix and TT forms' kernels at phantom1, tile
+    5^3, 3 channels, against their plain versions on the same bf16 inputs:
+    ``bsi_tt_bf16`` bit for bit; ``bsi_matmul_bf16`` within one bf16 step
+    plus 1e-5 of the largest value and bit-equal to the float32 kernel on
+    the widened grid with the bf16 basis's fragments, rounded once;
+    ``bsi_adjoint_matmul_bf16`` bit-equal to the float32 kernel on the
+    widened cotangent and at 1e-5 relative of its plain version; the five
+    fused variants in the matrix form (:func:`check_bf16_fused_variants`).
+    Two calls of each bit-equal, registers with no spills (asserted), shared
+    memory and blocks an SM; each timed beside its float32 kernel, its plain
+    version, its bound and, for the forwards and the adjoint, the library
+    call (``conv_transpose3d`` and ``conv3d`` in bf16)."""
+    from repro_torch.core import ffd
+    from repro_torch.device import resident_blocks
+    from repro_torch.kernels import bsi_adjoint, bsi_matmul, bsi_tt, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds, unfused_floor_ms
+
+    dev = fixed.device
+    vol = tuple(fixed.shape)
+    gshape = ffd.grid_shape_for_volume(vol, TILE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 2.5
+    phi = phi32.to(torch.bfloat16)
+    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
+    library_ms = cuda_ms(torch, bf16_yardstick(torch, phi, vol), reps=3, warmup=1)
+    rows = []
+
+    # --- bsi_tt_bf16: bit for bit its plain version
+    out, again = ops.bsi_tt(phi, TILE, vol), ops.bsi_tt(phi, TILE, vol)
+    ref = bsi_tt.plain(phi, TILE, vol)
+    torch.cuda.synchronize()
+    bits, same = torch.equal(out, ref), torch.equal(out, again)
+    symbol, smem, grid = bsi_tt.occupancy_key(TILE, 3, vol, bsi_adjoint.card_sms(dev),
+                                              bf16=True)
+    line, per_sm = ptxas_occupancy(lib, symbol, smem)
+    log(f"bsi_tt_bf16: out {out.dtype}; equal to plain bit for bit: {bits}; two calls "
+        f"bit-equal: {same}; {line}; {smem} B of shared memory a block, {per_sm} blocks "
+        f"an SM, grid {grid}")
+    assert out.dtype == torch.bfloat16 and bits and same, (bits, same)
+    del out, again, ref
+    bf16_row(torch, rows, "bsi_tt_bf16", 0.0, lambda: ops.bsi_tt(phi, TILE, vol),
+             lambda: ops.bsi_tt(phi32, TILE, vol), lambda: bsi_tt.plain(phi, TILE, vol),
+             bounds["bsi_tt_bf16"], "src/repro/kernels/bsi_tt.py:58",
+             "src/repro_torch/csrc/bsi_tt.cu", library_ms=library_ms,
+             unfused_floor_ms=unfused_floor_ms(vol), blocks_per_sm=per_sm)
+
+    # --- bsi_matmul_bf16: one bf16 step of plain; the float32 kernel's hi
+    # products on the widened grid, rounded once
+    out, again = ops.bsi_matmul(phi, TILE, vol), ops.bsi_matmul(phi, TILE, vol)
+    ref = bsi_matmul.plain(phi, TILE, vol)
+    frag = bsi_matmul.basis_fragments
+    bsi_matmul.basis_fragments = lambda t, d, dt=torch.float32: frag(t, d, torch.bfloat16)
+    try:
+        wide = ops.bsi_matmul(phi.float(), TILE, vol).to(torch.bfloat16)
+    finally:
+        bsi_matmul.basis_fragments = frag
+    torch.cuda.synchronize()
+    worst, beyond, differ = bf16_ulps(torch, out, ref)
+    bits, same = torch.equal(out, wide), torch.equal(out, again)
+    err = (out.float() - ref.float()).abs().max().item()
+    symbol, smem, grid = bsi_matmul.occupancy_key(TILE, 3, vol, bsi_adjoint.card_sms(dev),
+                                                  bf16=True)
+    line, per_sm = ptxas_occupancy(lib, symbol, smem)
+    log(f"bsi_matmul_bf16: max |kernel - plain| {err:.3e}; against one bf16 step + 1e-5 "
+        f"of the largest value {worst:.3f} (limit 1); {differ} of {out.numel()} values "
+        f"differ, {beyond} by more than one step; bit-equal to bf16 of the float32 "
+        f"kernel on phi.float() with the bf16 fragments: {bits}; two calls bit-equal: "
+        f"{same}; {line}; {smem} B of shared memory a block, {per_sm} blocks an SM, grid "
+        f"{grid}")
+    assert out.dtype == torch.bfloat16 and math.isfinite(worst) and worst <= 1.0
+    assert bits and same, (bits, same)
+    del out, again, ref, wide
+    bf16_row(torch, rows, "bsi_matmul_bf16", err, lambda: ops.bsi_matmul(phi, TILE, vol),
+             lambda: ops.bsi_matmul(phi32, TILE, vol),
+             lambda: bsi_matmul.plain(phi, TILE, vol), bounds["bsi_matmul_bf16"],
+             "src/repro/kernels/bsi_matmul.py:91", "src/repro_torch/csrc/bsi_matmul.cu",
+             library_ms=library_ms, values_differing=differ,
+             values_beyond_one_step=beyond, worst_over_bound=worst,
+             bit_equal_to_float32_kernel=bits, blocks_per_sm=per_sm)
+
+    # --- bsi_adjoint_matmul_bf16: the float32 kernel on g.float(), bit for bit
+    _, g32, _, _, g, _ = bf16_fused_inputs(torch, fixed, moving)
+    out = ops.bsi_adjoint_matmul(g, TILE, gshape)
+    out32 = ops.bsi_adjoint_matmul(g.float(), TILE, gshape)
+    ref = bsi_adjoint.plain_matmul(g, TILE, gshape)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    bits = torch.equal(out, out32)
+    again = same_twice(torch, lambda: ops.bsi_adjoint_matmul(g, TILE, gshape))
+    geo = bsi_adjoint.matmul_blocks(TILE, 3, vol)
+    regs = [ln for ln in lib.info.ptxas if "registers" in ln
+            and f"adjoint_matmul_box_bf16_kernelILi{geo.cols}E" in ln]
+    assert len(regs) == 1 and "0/0 B spill" in regs[0], regs
+    per_sm = resident_blocks(int(re.search(r"(\d+) registers", regs[0]).group(1)),
+                             geo.smem, 2 * geo.cols)
+    log(f"bsi_adjoint_matmul_bf16: out {out.dtype}; bit-equal to the float32 kernel on "
+        f"g.float(): {bits}; max |kernel - plain| {err:.3e}, relative {rel:.3e} (limit "
+        f"1e-5); two calls bit-equal: {again}; {regs[0]}; {geo.smem} B of shared memory a "
+        f"block (the float32 kernel's), {per_sm} blocks an SM")
+    assert out.dtype == torch.float32 and bits and again, (bits, again)
+    assert math.isfinite(rel) and rel <= 1e-5, rel
+    del out, out32, ref
+    widen_ms = cuda_ms(torch, lambda: g.float())
+    bf16_row(torch, rows, "bsi_adjoint_matmul_bf16", err,
+             lambda: ops.bsi_adjoint_matmul(g, TILE, gshape),
+             lambda: ops.bsi_adjoint_matmul(g32, TILE, gshape),
+             lambda: bsi_adjoint.plain_matmul(g, TILE, gshape),
+             bounds["bsi_adjoint_matmul_bf16"], "src/repro/kernels/bsi_adjoint.py:194",
+             "src/repro_torch/csrc/bsi_adjoint.cu",
+             library_ms=cuda_ms(torch, bf16_adjoint_yardstick(torch, g, TILE), reps=3,
+                                warmup=1),
+             bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms,
+             blocks_per_sm=per_sm)
+    log(f"bsi_adjoint_matmul_bf16: the cotangent's widening cast it replaces "
+        f"{widen_ms:.4f} ms")
+
+    check_bf16_fused_variants(torch, fixed, moving, lib, "matmul", rows)
+    return rows
+
+
+def run_bf16_matrix_path(torch, fixed, moving):
+    """Phase 1d (b)-(e): ``ffd_register`` of the main path's pair in the
+    matrix form under bf16, ``mode="matmul", impl="cuda",
+    grad_impl="matmul", lr=0.02``, with ``fused="off"`` and ``"on"``, each
+    cold and warm beside the same float32 call (seconds, peak memory above
+    the call's start), its launches asserted (unfused: a step one
+    ``bsi_matmul_bf16`` and one ``bsi_adjoint_matmul_bf16``; fused also one
+    ``bsi_fused_matmul_bf16``, the backward's field recomputed by
+    ``bsi_matmul_bf16``; the final warp one float32 ``bsi_matmul`` as in the
+    JAX package); the JAX package's bf16 bounds against float32 (final loss
+    < 1.1x + 1e-4, warp MAE < 5e-3) and this card's (1e-2 relative, 1e-4);
+    the per-level losses within 1e-3 relative of the plain bf16 path's.
+    Then (c) ``mode="tt"`` in bf16 unfused at full depth (``bsi_tt_bf16``,
+    ``bsi_adjoint_bf16``), counted, at the same bounds against float32;
+    (d) the fused ncc, nmi (the remapped pair) and lncc steps in the matrix
+    form at ``iters=5``, counted, each level's loss within 1e-2 relative of
+    float32's; (e) all-``"auto"`` under bf16 on a fresh disk cache: the race
+    of the four forms' kernels, its winner and seconds.  Returns each
+    counted path's launches and a summary."""
+    from repro_torch import RegistrationOptions, ffd_register
+    from repro_torch.core import metrics
+    from repro_torch.engine import autotune
+    from repro_torch.kernels import bsi_fused, ops
+
+    base = RegistrationOptions(mode="matmul", impl="cuda", grad_impl="matmul", lr=0.02)
+    steps = base.levels * (base.iters + 1)
+    counts, calls = {}, {}
+    mae0 = metrics.mae(moving, fixed).item()
+
+    def call(label, opts, want):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        res = ffd_register(fixed, moving, options=opts)
+        got = ops.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        log(f"bf16 matrix path: {label} {res.seconds:.3f} s, {peak:.2f} GiB above the "
+            f"call's start; losses {res.losses}; launches "
+            f"{ {k: v for k, v in got.items() if v} }")
+        assert got == want, (label, got, want)
+        return res, got, dict(seconds=res.seconds, peak_gib=peak)
+
+    def close(label, r16, r32):
+        """The JAX package's bf16 bounds and this card's against float32."""
+        assert r16.warped.dtype == torch.float32 and r16.params.dtype == torch.float32
+        assert torch.isfinite(r16.warped).all() and torch.isfinite(r16.params).all()
+        mae = (r16.warped - r32.warped).abs().mean().item()
+        rel = abs(r16.losses[-1] - r32.losses[-1]) / abs(r32.losses[-1])
+        mae1 = metrics.mae(r16.warped, fixed).item()
+        log(f"bf16 {label}: final loss {r16.losses[-1]:.6e} vs float32 "
+            f"{r32.losses[-1]:.6e}, relative {rel:.3e} (limits 1.1x + 1e-4 and 1e-2 "
+            f"relative); warp MAE against float32 {mae:.3e} (limits 5e-3 and 1e-4); MAE "
+            f"to fixed {mae0:.6f} -> {mae1:.6f}")
+        assert r16.losses[-1] < 1.1 * r32.losses[-1] + 1e-4, (r16.losses, r32.losses)
+        assert mae < 5e-3 and rel < 1e-2 and mae < 1e-4, (mae, rel)
+        return dict(losses=r16.losses, float32_losses=r32.losses,
+                    final_loss_rel_vs_float32=rel, warp_mae_vs_float32=mae,
+                    mae=(mae0, mae1))
+
+    def plain_ssd(phi, mov, fix, tile, *, sim_spec, disp_form="lerp"):
+        """The fused SSD forward on the ssd kernel's plain version."""
+        assert sim_spec == ("ssd",), sim_spec
+        return bsi_fused.plain(phi, mov, fix, tile, disp_form=disp_form) / mov.numel()
+
+    # (b) the matrix form, unfused and fused
+    for fused in ("off", "on"):
+        o32 = base.replace(fused=fused)
+        o16 = o32.replace(compute_dtype="bfloat16")
+        extra32 = dict(bsi_fused_matmul=steps) if fused == "on" else {}
+        extra16 = dict(bsi_fused_matmul_bf16=steps) if fused == "on" else {}
+        want32 = only(bsi_matmul=steps + 1, bsi_adjoint_matmul=steps, **extra32)
+        want16 = only(bsi_matmul_bf16=steps, bsi_matmul=1, bsi_adjoint_matmul_bf16=steps,
+                      **extra16)
+        entry = {}
+        for when in ("cold", "warm"):
+            r32, _, c32 = call(f"float32 fused={fused} {when}", o32, want32)
+            r16, counts[f"matmul_{fused}"], c16 = call(f"bfloat16 fused={fused} {when}",
+                                                        o16, want16)
+            entry[when] = dict(bfloat16=c16, float32=c32)
+        entry.update(close(f"matrix form fused={fused}", r16, r32))
+        ops.reset_launch_counts()
+        real = ops.fused_similarity_loss
+        if fused == "on":
+            ops.fused_similarity_loss = plain_ssd
+        try:
+            plain = ffd_register(fixed, moving, options=o16.replace(impl="torch",
+                                                                    grad_impl="torch"))
+        finally:
+            ops.fused_similarity_loss = real
+        assert not any(ops.launch_counts().values()), ops.launch_counts()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r16.losses, plain.losses))
+        log(f"bf16 matrix path fused={fused}: kernels {r16.losses} plain {plain.losses} "
+            f"max relative {rel:.3e} (limit 1e-3); {r16.seconds:.3f} s vs "
+            f"{plain.seconds:.3f} s")
+        assert rel <= 1e-3, rel
+        entry["plain_bf16"] = dict(seconds=plain.seconds, losses=plain.losses,
+                                   max_rel_vs_kernels=rel)
+        calls[f"matmul_fused_{fused}"] = entry
+
+    # (c) the TT form, unfused, at full depth
+    o32 = base.replace(mode="tt", grad_impl="cuda", fused="off")
+    r32, _, c32 = call("float32 tt", o32, only(bsi_tt=steps + 1, bsi_adjoint=steps))
+    r16, counts["tt"], c16 = call("bfloat16 tt", o32.replace(compute_dtype="bfloat16"),
+                                  only(bsi_tt_bf16=steps, bsi_tt=1, bsi_adjoint_bf16=steps))
+    calls["tt"] = dict(bfloat16=c16, float32=c32, **close("TT form", r16, r32))
+
+    # (d) the matrix form's fused ncc, nmi and lncc steps at iters=5
+    rem = remap(moving)
+    for sim, mov, want in (
+            ("ncc", moving, dict(bsi_fused_stats_matmul_bf16=1, bsi_fused_ncc_matmul_bf16=1)),
+            ("nmi", rem, dict(bsi_fused_stats_matmul_bf16=1, bsi_fused_nmi_matmul_bf16=1)),
+            ("lncc", rem, dict(bsi_fused_lncc_matmul_bf16=1))):
+        o32 = base.replace(similarity=sim, iters=5, fused="on")
+        o16 = o32.replace(compute_dtype="bfloat16")
+        n = o32.levels * (o32.iters + 1)
+        a32 = ffd_register(fixed, mov, options=o32)
+        ops.reset_launch_counts()
+        a16 = ffd_register(fixed, mov, options=o16)
+        counts[sim] = ops.launch_counts()
+        exp = only(bsi_matmul_bf16=n, bsi_matmul=1, bsi_adjoint_matmul_bf16=n,
+                   **{k: v * n for k, v in want.items()})
+        rel = max(abs(a - b) / abs(b) for a, b in zip(a16.losses, a32.losses))
+        log(f"bf16 matrix-form fused {sim} at iters=5: {a16.seconds:.3f} s, losses "
+            f"{a16.losses} vs float32 {a32.losses}, max relative {rel:.3e} (limit 1e-2); "
+            f"launches { {k: v for k, v in counts[sim].items() if v} }")
+        assert counts[sim] == exp, (sim, counts[sim], exp)
+        assert all(math.isfinite(x) for x in a16.losses) and rel < 1e-2, (sim, rel)
+        calls[f"{sim}_iters5"] = dict(seconds=a16.seconds, losses=a16.losses,
+                                      float32_losses=a32.losses)
+
+    # (e) all-"auto" under bf16: the four forms raced on a fresh disk cache
+    opts = RegistrationOptions(mode="auto", impl="auto", grad_impl="auto", fused="auto",
+                               compute_dtype="bfloat16")
+    with tempfile.TemporaryDirectory(prefix="repro_torch_autotune_") as cache_dir:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "bf16.json")
+        try:
+            autotune._MEM_CACHE.clear()
+            autotune.resolve_options.cache_clear()
+            n_races = len(autotune.RACES)
+            t0 = time.perf_counter()
+            r = autotune.resolve_options(opts, tuple(fixed.shape), torch.device("cuda"))
+            race_s = time.perf_counter() - t0
+        finally:
+            del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    races = autotune.RACES[n_races:]
+    forms = {name.split("/")[0] for name, _ in races[0].timings}
+    log(f"bf16 all-auto at {tuple(fixed.shape)}: mode={r.mode} impl={r.impl} "
+        f"grad_impl={r.grad_impl} fused={r.fused} ({r.fused_reason}); resolve "
+        f"{race_s:.3f} s, {len(races)} races ("
+        + "; ".join(f"{race.seconds:.3f} s: " + ", ".join(
+            f"{nm} " + ("did not fit" if us is None else f"{us / 1e3:.3f} ms")
+            for nm, us in race.timings) for race in races) + ")")
+    assert forms == {"ttli", "separable", "tt", "matmul"}, forms
+    assert all("|cd=bfloat16|" in race.key for race in races), races
+    assert r.impl == "cuda" and r.grad_impl != "autograd", r
+    calls["auto"] = dict(resolved=(r.mode, r.impl, r.grad_impl, r.fused), race_s=race_s,
+                         races=[(race.seconds, race.timings) for race in races])
+    return counts, calls
 
 
 def run_bf16_fused_path(torch, fixed, moving, bf16_calls):
@@ -2803,6 +3157,10 @@ def main():
     rows += check_bf16_fused_kernels(torch, fixed, moving, lib)
     fused16_counts, fused16_calls = run_bf16_fused_path(torch, fixed, moving, bf16_calls)
     log(f"phase 1c: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += check_bf16_matrix_kernels(torch, fixed, moving, lib)
+    matrix16_counts, matrix16_calls = run_bf16_matrix_path(torch, fixed, moving)
+    log(f"phase 1d: {time.perf_counter() - t0:.1f} s")
     compare_paths(torch, fixed, moving)
     nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)
     ncc_counts = compare_multimodal_paths(torch, fixed, moving)
@@ -2853,6 +3211,14 @@ def main():
                    "bsi_fused_ncc_bf16": fused16_counts["ncc"],
                    "bsi_fused_nmi_bf16": fused16_counts["nmi"],
                    "bsi_fused_lncc_bf16": fused16_counts["lncc"],
+                   "bsi_tt_bf16": matrix16_counts["tt"],
+                   "bsi_matmul_bf16": matrix16_counts["matmul_off"],
+                   "bsi_adjoint_matmul_bf16": matrix16_counts["matmul_off"],
+                   "bsi_fused_matmul_bf16": matrix16_counts["matmul_on"],
+                   "bsi_fused_stats_matmul_bf16": matrix16_counts["ncc"],
+                   "bsi_fused_ncc_matmul_bf16": matrix16_counts["ncc"],
+                   "bsi_fused_nmi_matmul_bf16": matrix16_counts["nmi"],
+                   "bsi_fused_lncc_matmul_bf16": matrix16_counts["lncc"],
                    "bsi_tt": form_counts["tt"],
                    "flash_attention": serve_counts,
                    "flash_attention_f32": serve_compare["fp32_counts"]}
@@ -2880,6 +3246,7 @@ def main():
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
     log(f"bf16 calls at phantom1 (phase 1b): {bf16_calls}")
     log(f"bf16 fused calls at phantom1 (phase 1c): {fused16_calls}")
+    log(f"bf16 matrix and TT calls at phantom1 (phase 1d): {matrix16_calls}")
     log(f"workflow at phantom1: {workflow}")
     log(f"register_batch at phantom1: {batch_call}")
     log(f"stream: {stream_call}")

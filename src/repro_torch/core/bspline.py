@@ -31,6 +31,7 @@ __all__ = [
     "bspline_basis",
     "weight_lut",
     "basis_matrix",
+    "fused_basis",
     "lerp_luts",
     "grid_points_for_tiles",
 ]
@@ -90,6 +91,26 @@ def basis_matrix(tile, dtype=torch.float32, device="cpu"):
     ``v = (a*dy + b)*dz + c`` and control offset ``k = (l*4 + m)*4 + n``.
     """
     return _cast(_basis_matrix_np(tuple(int(d) for d in tile)), dtype, device)
+
+
+def fused_basis(tile, dtype=torch.float32, device="cpu"):
+    """The ``(dx*dy*dz, 64)`` basis of the fused kernels' matrix form.
+
+    float32: :func:`basis_matrix`, the float64 product cast once.  bfloat16:
+    the product of the per-axis LUTs rounded to bf16, ``bf16(bf16(wx *
+    wy) * wz)``, as the JAX package's fused kernel forms it from its bf16
+    LUTs (``repro/kernels/bsi_matmul.py:kron_basis``: each product of two
+    bf16 values is exact in float32, then rounded once); some entries lie a
+    bf16 step from :func:`basis_matrix`'s one rounding.  Returns ``dtype``.
+    """
+    tile = tuple(int(d) for d in tile)
+    if dtype != torch.bfloat16:
+        return basis_matrix(tile, dtype, device)
+    dx, dy, dz = tile
+    wx, wy, wz = (weight_lut(d, dtype, "cpu").float() for d in tile)
+    b = (wx.reshape(dx, 1, 1, 4, 1, 1) * wy.reshape(1, dy, 1, 1, 4, 1)).to(dtype).float()
+    b = (b * wz.reshape(1, 1, dz, 1, 1, 4)).to(dtype)
+    return b.reshape(dx * dy * dz, 64).to(device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -122,10 +122,9 @@ def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separab
     gradient is the unfused path's.  ``ssd``, ``ncc``, ``lncc`` and ``nmi``
     have fused kernels.  ``compute_dtype`` casts ``phi`` and ``moving`` as
     the unfused pair of knobs does (``fixed`` and the sums stay float32):
-    under ``"bfloat16"`` the card runs the fused kernels' bf16 lerp form
-    (every ``mode`` but ``"matmul"``, whose bf16 kernels are ROADMAP.md
-    queue 1 item 18e and raise ``NotImplementedError``), and the backward's
-    recomputed bf16 field hands the separable adjoint a bf16 cotangent.
+    under ``"bfloat16"`` the card runs the fused kernels' bf16 kernels in
+    the form of ``mode``, and the backward's recomputed bf16 field hands
+    the adjoint of ``grad_impl`` a bf16 cotangent.
     """
     from repro_torch.core.similarity import fused_spec
 

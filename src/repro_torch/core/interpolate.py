@@ -37,10 +37,9 @@ precision.  Under ``bfloat16`` the contract, kernels and plain forms alike,
 is: ``phi`` rounded to bf16 and the LUTs rounded to bf16 as the JAX package
 rounds them (``core.bspline``), float32 arithmetic throughout, one rounding
 to bf16 at the store; the field is bf16.  The analytic adjoints read a bf16
-cotangent as float32 (exactly: ``"cuda"`` in its bf16 kernel, ``"torch"``
-in the plain adjoint's promotion, ``"matmul"`` by widening it first until
-its kernel takes bf16) and return ``phi``'s dtype, so float32 parameters
-get float32 gradients.  An explicit ``grad_impl="autograd"``
+cotangent as float32 (exactly: ``"cuda"`` and ``"matmul"`` in their bf16
+kernels, ``"torch"`` in the plain adjoint's promotion) and return ``phi``'s
+dtype, so float32 parameters get float32 gradients.  An explicit ``grad_impl="autograd"``
 differentiates the float32-arithmetic plain form through its casts (the
 JAX package's ``"xla"`` differentiates its bf16 arithmetic instead, and
 accumulates in bf16).
@@ -398,13 +397,9 @@ class _AnalyticBsi(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tile, grid_shape, grad_impl, dtype = ctx.conf
-        # the separable adjoints read a bf16 cotangent themselves (the kernel
-        # widens each value as it loads it, the plain form promotes), as the
-        # JAX package's Pallas adjoint does; the matmul kernel takes float32
-        # only until ROADMAP.md queue 1 item 18e, so its cotangent is widened
-        # here, exactly
-        if grad_impl == "matmul":
-            g = g.to(torch.promote_types(g.dtype, torch.float32))
+        # the adjoints read a bf16 cotangent themselves (the kernels widen
+        # each value as they load it, the plain forms promote), as the JAX
+        # package's Pallas adjoints do
         g = g.contiguous()
         dphi = bsi_adjoint(g, tile, grid_shape, impl=grad_impl)
         return dphi.to(dtype), None, None, None, None, None, None

@@ -85,6 +85,14 @@
 // read back from L2).  A small second launch sums, for each control point,
 // the partials of the boxes that hold it, in box order.  No atomics: the
 // result is deterministic.
+//
+// bsi_adjoint_matmul_bf16 replaces the same Pallas kernel run on a bf16
+// cotangent (its basis and sums float32: repro/kernels/ops.py:200-211).  The
+// box kernel takes the cotangent's type: a bf16 plane is staged as bf16 in
+// the float32 kernel's ring and widened as it is moved into U, and
+// everything after is the float32 kernel's, so it gives that kernel's bits
+// on g.float().  Bound at phantom1: 269.7 MB of bf16 cotangent read and 4.9
+// MB of grid written, 0.0820 ms.
 #include "bsi_common.cuh"
 
 namespace repro_torch {
@@ -435,7 +443,7 @@ inline size_t adjoint_box_smem(const AdjointBoxes& a, int cols) {
 
 // A 16-byte asynchronous copy into shared memory (through L2 only) of the
 // first `bytes` bytes at src, the rest zero-filled.
-__device__ __forceinline__ void cp_async_16(unsigned dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async_16(unsigned dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(bytes));
 }
@@ -463,10 +471,19 @@ __device__ __forceinline__ void cp_async_wait() {
 // two and sixteen contiguous vectors.
 // After a box's last plane the bands go to shared memory and each control
 // point of the box is owned by one thread, which sums its channels.
-template <int COLS>
-__global__ void __launch_bounds__(2 * COLS)
-    adjoint_matmul_box_kernel(const float* __restrict__ g, const float* __restrict__ basis,
-                              float* __restrict__ partials, AdjointBoxes a) {
+//
+// T: the cotangent's element type, float or __nv_bfloat16 (the backward of
+// a bf16 field).  A bf16 row is staged as bf16, in the 16-byte chunks that
+// cover it (8 values each, the row's shift 0..7 values), within the float32
+// kernel's slots, and widened as the plane is moved into U; the basis (the
+// float32 one), the geometry and every sum are the float32 kernel's, so on
+// g.float() that kernel gives the same bits.
+template <int COLS, typename T>
+__device__ __forceinline__ void adjoint_matmul_box(const T* __restrict__ g,
+                                                   const float* __restrict__ basis,
+                                                   float* __restrict__ partials,
+                                                   const AdjointBoxes& a) {
+  constexpr int E = 16 / sizeof(T);  // values of a 16-byte chunk
   constexpr int LD = COLS + 4;   // a row of U; the pad turns the banks by 4 a row
   constexpr int NT = 2 * COLS;   // threads
   constexpr int NW = NT / 32;    // warps
@@ -497,7 +514,7 @@ __global__ void __launch_bounds__(2 * COLS)
   const int nplanes =
       blockIdx.x < nboxes ? ((nboxes - 1 - blockIdx.x) / gridDim.x + 1) * a.dx : 0;
   const int zrow = a.Z * a.c;
-  const float* g_end = g + (size_t)a.X * a.Y * zrow;
+  const T* g_end = g + (size_t)a.X * a.Y * zrow;
   const unsigned ring = (unsigned)__cvta_generic_to_shared(s_ring);
 
   // Plane t's box and its first voxel (x0, y0, and zc0 in a row); row r
@@ -522,14 +539,14 @@ __global__ void __launch_bounds__(2 * COLS)
     for (int r = warp; r < nrows; r += NW) {
       const int x = x0 + (s_rxy[r] >> 16), y = y0 + (s_rxy[r] & 0xffff);
       if (x >= a.X || y >= a.Y) continue;
-      const float* src = g + ((size_t)x * a.Y + y) * zrow + zc0;
-      const float* lo = (const float*)((size_t)src & ~(size_t)15);
-      const int chunks = (int)((src - lo + row_len + 3) / 4);
+      const T* src = g + ((size_t)x * a.Y + y) * zrow + zc0;
+      const T* lo = (const T*)((size_t)src & ~(size_t)15);
+      const int chunks = (int)((src - lo + row_len + E - 1) / E);
       for (int i = lane; i < chunks; i += 32) {
-        const float* p = lo + 4 * i;
+        const T* p = lo + E * i;
         const long long left = g_end - p;
-        const int bytes = left >= 4 ? 16 : (left > 0 ? 4 * (int)left : 0);
-        cp_async_16(slot + 4u * (r * RS + 4 * i), bytes ? p : g, bytes);
+        const int bytes = left >= E ? 16 : (left > 0 ? (int)sizeof(T) * (int)left : 0);
+        cp_async_16(slot + 4u * r * RS + 16u * i, bytes ? (const void*)p : g, bytes);
       }
     }
   };
@@ -566,19 +583,21 @@ __global__ void __launch_bounds__(2 * COLS)
       for (int r = warp; r < nrows; r += NW) {
         const int x = x0 + (s_rxy[r] >> 16), y = y0 + (s_rxy[r] & 0xffff);
         const int n = x < a.X && y < a.Y ? zlim : 0;
-        const float* row = g + ((size_t)x * a.Y + y) * zrow + zc0;  // as staged
-        const float* src = raw + r * RS + (int)(((size_t)row >> 2) & 3);
+        const T* row = g + ((size_t)x * a.Y + y) * zrow + zc0;  // as staged
+        const T* src = reinterpret_cast<const T*>(raw + r * RS) +
+                       (int)(((size_t)row / sizeof(T)) & (E - 1));
         float* dst = s_u + s_rdst[r];
         if (row_len <= 32 * kLaneFloats) {  // a lane's places held in registers
           float val[kLaneFloats];
 #pragma unroll
           for (int j = 0; j < kLaneFloats; ++j)
-            val[j] = lane + 32 * j < n ? src[lane + 32 * j] : 0.f;
+            val[j] = lane + 32 * j < n ? to_float(src[lane + 32 * j]) : 0.f;
 #pragma unroll
           for (int j = 0; j < kLaneFloats; ++j)
             if (zoff[j] >= 0) dst[zoff[j]] = val[j];
         } else {
-          for (int e = lane; e < row_len; e += 32) dst[s_zoff[e]] = e < n ? src[e] : 0.f;
+          for (int e = lane; e < row_len; e += 32)
+            dst[s_zoff[e]] = e < n ? to_float(src[e]) : 0.f;
         }
       }
     }
@@ -639,6 +658,22 @@ __global__ void __launch_bounds__(2 * COLS)
   cp_async_wait<0>();
 }
 
+template <int COLS>
+__global__ void __launch_bounds__(2 * COLS)
+    adjoint_matmul_box_kernel(const float* __restrict__ g, const float* __restrict__ basis,
+                              float* __restrict__ partials, AdjointBoxes a) {
+  adjoint_matmul_box<COLS>(g, basis, partials, a);
+}
+
+// The same on a bf16 cotangent.
+template <int COLS>
+__global__ void __launch_bounds__(2 * COLS)
+    adjoint_matmul_box_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                                   const float* __restrict__ basis,
+                                   float* __restrict__ partials, AdjointBoxes a) {
+  adjoint_matmul_box<COLS>(g, basis, partials, a);
+}
+
 // out[p, ch] = the sum over the boxes whose partial holds control point p, in
 // box order; 0 where none does.  out: (nx, ny, nz, c).
 __global__ void __launch_bounds__(kThreads)
@@ -670,25 +705,53 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The persistent box launch: as many blocks as the card holds at once.
-template <int COLS>
-inline cudaError_t launch_boxes(const float* g, const float* basis, float* partials,
+// The persistent box launch of the kernel for COLS and T: as many blocks as
+// the card holds at once.
+template <int COLS, typename T>
+inline cudaError_t launch_boxes(const T* g, const float* basis, float* partials,
                                 const AdjointBoxes& a, cudaStream_t stream) {
+  void (*kernel)(const T*, const float*, float*, AdjointBoxes);
+  if constexpr (sizeof(T) == sizeof(float)) kernel = adjoint_matmul_box_kernel<COLS>;
+  else kernel = adjoint_matmul_box_bf16_kernel<COLS>;
   const size_t smem = adjoint_box_smem(a, COLS);
-  cudaError_t err = allow_smem(adjoint_matmul_box_kernel<COLS>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, adjoint_matmul_box_kernel<COLS>, 2 * COLS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 2 * COLS, smem);
   if (err != cudaSuccess) return err;
   const long long nboxes = (long long)a.nbx * a.nby * a.nbz;
   const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned grid = (unsigned)(nboxes < slots ? nboxes : slots);
-  adjoint_matmul_box_kernel<COLS><<<grid, 2 * COLS, smem, stream>>>(g, basis, partials, a);
+  kernel<<<grid, 2 * COLS, smem, stream>>>(g, basis, partials, a);
   return cudaGetLastError();
+}
+
+// The matmul adjoint of a cotangent of element type T: the box launch, then
+// the seam pass (float32 partials in, float32 out).
+template <typename T>
+inline int adjoint_matmul(const T* g, const float* basis, float* partials, float* out,
+                          int X, int Y, int Z, int c, int nx, int ny, int nz, int dx,
+                          int dy, int dz, int bx, int by, int bz, int cols, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int Tx = (X + dx - 1) / dx, Ty = (Y + dy - 1) / dy, Tz = (Z + dz - 1) / dz;
+  const AdjointBoxes a{X,  Y,  Z,  c,  dx, dy, dz, Tx, Ty, Tz, bx, by, bz,
+                       (Tx + bx - 1) / bx, (Ty + by - 1) / by, (Tz + bz - 1) / bz};
+  if (bx * by * bz * c > cols) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  switch (cols) {
+    case 128: err = launch_boxes<128>(g, basis, partials, a, s); break;
+    case 64: err = launch_boxes<64>(g, basis, partials, a, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long total = (long long)nx * ny * nz * c;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  adjoint_matmul_seam_kernel<<<(unsigned)(blocks < (1LL << 30) ? blocks : (1LL << 30)),
+                               kThreads, 0, s>>>(partials, out, a, nx, ny, nz);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace repro_torch
@@ -765,22 +828,17 @@ extern "C" int bsi_adjoint_matmul_f32(const float* g, const float* basis, float*
                                       float* out, int X, int Y, int Z, int c, int nx,
                                       int ny, int nz, int dx, int dy, int dz, int bx,
                                       int by, int bz, int cols, void* stream) {
-  using namespace repro_torch;
-  cudaStream_t s = (cudaStream_t)stream;
-  const int Tx = (X + dx - 1) / dx, Ty = (Y + dy - 1) / dy, Tz = (Z + dz - 1) / dz;
-  const AdjointBoxes a{X,  Y,  Z,  c,  dx, dy, dz, Tx, Ty, Tz, bx, by, bz,
-                       (Tx + bx - 1) / bx, (Ty + by - 1) / by, (Tz + bz - 1) / bz};
-  if (bx * by * bz * c > cols) return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (cols) {
-    case 128: err = launch_boxes<128>(g, basis, partials, a, s); break;
-    case 64: err = launch_boxes<64>(g, basis, partials, a, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const long long total = (long long)nx * ny * nz * c;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  adjoint_matmul_seam_kernel<<<(unsigned)(blocks < (1LL << 30) ? blocks : (1LL << 30)),
-                               kThreads, 0, s>>>(partials, out, a, nx, ny, nz);
-  return (int)cudaGetLastError();
+  return repro_torch::adjoint_matmul(g, basis, partials, out, X, Y, Z, c, nx, ny, nz, dx,
+                                     dy, dz, bx, by, bz, cols, stream);
+}
+
+// The same on a bf16 cotangent (the backward of a bf16 field): the float32
+// basis, partials and output, the float32 entry's geometry.
+extern "C" int bsi_adjoint_matmul_bf16(const __nv_bfloat16* g, const float* basis,
+                                       float* partials, float* out, int X, int Y, int Z,
+                                       int c, int nx, int ny, int nz, int dx, int dy,
+                                       int dz, int bx, int by, int bz, int cols,
+                                       void* stream) {
+  return repro_torch::adjoint_matmul(g, basis, partials, out, X, Y, Z, c, nx, ny, nz, dx,
+                                     dy, dz, bx, by, bz, cols, stream);
 }

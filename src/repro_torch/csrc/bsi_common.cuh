@@ -17,7 +17,7 @@
 // sum against the (d, 4) weight LUT (WeightStage: the sweeps of
 // bsi_separable).  Also the tensor cores' 3xTF32 split and product (the
 // fused nmi histogram, bsi_matmul.cu) and the bulk store of a staged run
-// (bsi_tt.cu, bsi_matmul.cu).
+// (bsi_tt.cu, bsi_matmul.cu), of float or bf16 elements.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -63,6 +63,14 @@ struct WeightStage {
 // A grid or volume value as float32: bf16 widens exactly.
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v stored as an element of type T: itself for float, rounded once to
+// nearest even for bf16.
+template <typename T>
+__device__ __forceinline__ T store_as(float v) {
+  if constexpr (sizeof(T) == sizeof(float)) return v;
+  else return __float2bfloat16_rn(v);
+}
 
 // v as an element of type T would hold it, widened again: itself for float,
 // rounded once to nearest even for bf16 (the bf16 displacement of the fused
@@ -196,7 +204,7 @@ __device__ __forceinline__ void mma_tf32(float* d, const unsigned* a, const unsi
 
 // The bulk copy engine (TMA) stores a staged run: [gdst, gdst + bytes) from
 // shared memory, both 16-byte aligned, bytes a multiple of 16.
-__device__ __forceinline__ void bulk_store(float* gdst, const float* ssrc, int bytes) {
+__device__ __forceinline__ void bulk_store(void* gdst, const void* ssrc, int bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gdst),
                "r"((unsigned)__cvta_generic_to_shared(ssrc)), "r"(bytes)
                : "memory");

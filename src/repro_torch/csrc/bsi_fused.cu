@@ -143,21 +143,27 @@
 // stage, the histogram stage and the warp with its staging still add up
 // rather than overlap (PERF.md).
 //
-// compute_dtype="bfloat16" (the _bf16 entry points, the lerp form only):
-// the JAX kernel's contract (_fused_kernel, with repro/kernels/ops.py's
-// casts): phi and mov bf16, fix and every sum float32; the displacement in
-// float32 from the widened grid and the bf16-rounded lerp LUTs, rounded
-// once to bf16 where it is formed and widened (as_stored), then the float32
-// warp of the widened bf16 taps.  The kernels are the float32 ones with a
-// type T for phi and mov (walk_block, nmi_block, lncc_block, each behind a
-// __global__ of its own so that the float32 kernels keep their names): the
-// staging widens the grid as it loads it and the ring holds float32
-// samples, so each block's shared memory and layout are the float32
-// kernel's.  The stats walk streams the bf16 moving volume and keeps lines
-// of 32 voxels, aligned to 32 values: a warp's reads of a line are one
-// aligned 64-byte half of a 128-byte line.  Bound at phantom1: 272.2 MB
-// for ssd, ncc, nmi and lncc (0.0812 ms), 92.4 MB for stats (its 0.0352 ms
-// of operations bind); like the float32 walks, paced by the taps.
+// compute_dtype="bfloat16" (the _bf16 entry points, both forms): the JAX
+// kernel's contract (_fused_kernel, with repro/kernels/ops.py's casts): phi
+// and mov bf16, fix and every sum float32; the displacement in float32 from
+// the widened grid and the bf16-rounded tables, rounded once to bf16 where
+// it is formed and widened (as_stored), then the float32 warp of the
+// widened bf16 taps.  The lerp form's tables are the bf16 lerp LUTs; the
+// matrix form's basis is the one the JAX kernel builds from its bf16 LUTs
+// (repro/kernels/bsi_fused.py:87-89, kron_basis: each product rounded to
+// bf16; kernels/bsi_fused.py:basis_table), not bsi_matmul's basis rounded
+// once.  The kernels are the float32 ones with a type T for phi and mov
+// (walk_block, nmi_block, lncc_block, each behind a __global__ of its own
+// so that the float32 kernels keep their names): the staging widens the
+// grid as it loads it (the matrix-form walk's window by plain loads where
+// the float32 walk uses cp.async) and the ring holds float32 samples, so
+// each block's shared memory and layout are the float32 kernel's.  The
+// stats walk streams the bf16 moving volume and keeps lines of 32 voxels,
+// aligned to 32 values: a warp's reads of a line are one aligned 64-byte
+// half of a 128-byte line.  Bound at phantom1: 272.2 MB for ssd, ncc, nmi
+// and lncc (0.0812 ms), 92.4 MB for stats (its 0.0352 ms of operations
+// bind); like the float32 walks, paced by the taps; the matrix form keeps
+// its 0.516 ms floor of 384 unfused instructions a voxel.
 #include <math_constants.h>
 
 #include <type_traits>
@@ -546,23 +552,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // The matrix form's window of a chunk of zt tiles of the block on x tile ti
-// and y tile tj from z tile tk, by cp.async (the layout of
-// walk_smem_bytes): points (l, m, tk + kz), kz < zt + 3; past them and past
-// the grid along z, 0 (only voxels outside the volume use them).  Does not
-// wait.
-__device__ inline void walk_stage_window(const float* __restrict__ phi, const FwdBlock& g,
+// and y tile tj from z tile tk (the layout of walk_smem_bytes): points (l,
+// m, tk + kz), kz < zt + 3; past them and past the grid along z, 0 (only
+// voxels outside the volume use them).  A float32 grid by cp.async, which
+// does not wait; a bf16 grid (T) by loads widened as they are stored.
+template <typename T>
+__device__ inline void walk_stage_window(const T* __restrict__ phi, const FwdBlock& g,
                                          int ti, int tj, int tk, int zt, int wq,
                                          float4* s_win) {
   const int ys = g.nz * 3, xs = g.ny * ys, row = kWalkTiles * wq;
-  const float* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk * 3;
+  const T* src = phi + ((size_t)ti * g.ny + tj) * ys + (size_t)tk * 3;
   for (int i = threadIdx.x; i < 16 * row; i += kThreads) {
     const int lm = i / row, e = i - row * lm, kz = e % wq * kWalkTiles + e / wq;
     const bool valid = kz < zt + 3 && tk + kz < g.nz;
-    const float* q = valid ? src + (lm >> 2) * xs + (lm & 3) * ys + kz * 3 : phi;
+    const T* q = valid ? src + (lm >> 2) * xs + (lm & 3) * ys + kz * 3 : phi;
     float* d = reinterpret_cast<float*>(s_win + i);
-    cp_async4(d, q, valid);
-    cp_async4(d + 1, q + 1, valid);
-    cp_async4(d + 2, q + 2, valid);
+    if constexpr (sizeof(T) == sizeof(float)) {
+      cp_async4(d, q, valid);
+      cp_async4(d + 1, q + 1, valid);
+      cp_async4(d + 2, q + 2, valid);
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) d[ch] = valid ? to_float(__ldg(q + ch)) : 0.f;
+    }
   }
 }
 
@@ -576,8 +588,11 @@ __device__ inline void walk_stage_window(const float* __restrict__ phi, const Fw
 // so a basis quad loaded serves kWalkTiles voxels and a window point up to
 // 4 kWalkOffsets: per channel the 64 terms B[v, k] * window[tile + (l, m,
 // n)] in the order k = (l*4 + m)*4 + n, each product rounded and then added,
-// as kernels/bsi_matmul.py:plain sums them.  The tiles of an item past the
-// chunk are computed from the room past its points and not stored.
+// as kernels/bsi_matmul.py:plain sums them, and stored as V holds it (a
+// bf16 grid's displacement rounded once to bf16, as_stored).  The tiles of
+// an item past the chunk are computed from the room past its points and not
+// stored.  V: the element type of phi.
+template <typename V>
 __device__ inline void walk_chunk_disp(const float4* s_basis, const float4* s_win,
                                        float* s_u, int ncols, int nyl, int zt, int wq,
                                        int cv, int dy, int dz) {
@@ -630,9 +645,9 @@ __device__ inline void walk_chunk_disp(const float4* s_basis, const float4* s_wi
         for (int r = 0; r < kWalkOffsets; ++r) {
           if (r0 + r >= dz || j >= real) break;
           float* v = u + j * dz + r0 + r;
-          v[0] = acc[j][r][0];
-          v[su] = acc[j][r][1];
-          v[2 * su] = acc[j][r][2];
+          v[0] = as_stored<V>(acc[j][r][0]);
+          v[su] = as_stored<V>(acc[j][r][1]);
+          v[2 * su] = as_stored<V>(acc[j][r][2]);
         }
     }
   }
@@ -643,8 +658,8 @@ __device__ inline void walk_chunk_disp(const float4* s_basis, const float4* s_wi
 // ab, aa, bb with a = w - mu_w, b = f - mu_f, scal = (mu_w, mu_f)) kernels
 // of displacement form F on the forward kernels' blocks (see the header);
 // tabs: the lerp LUTs of x, then y, then z (kLerp) or the (d^3, 64) basis
-// (kMatmul).  T: the element type of phi and mov, float or (kLerp only)
-// __nv_bfloat16; fix and every sum stay float32.
+// (kMatmul).  T: the element type of phi and mov, float or __nv_bfloat16;
+// fix and every sum stay float32.
 template <int F, int K, typename T>
 __device__ __forceinline__ void walk_block(const T* __restrict__ phi,
                                            const float* __restrict__ tabs,
@@ -652,7 +667,6 @@ __device__ __forceinline__ void walk_block(const T* __restrict__ phi,
                                            const float* __restrict__ fix,
                                            const float* __restrict__ scal,
                                            float* __restrict__ partials, const FwdBlock& g) {
-  static_assert(F == kLerp || sizeof(T) == sizeof(float), "bf16: the lerp form only");
   extern __shared__ float4 smem4[];
   WalkSums<K> sums(fix);
 #if REPRO_FUSED_SKIP & 8
@@ -723,7 +737,7 @@ __device__ __forceinline__ void walk_block(const T* __restrict__ phi,
                           wq, s_win + (b ^ 1) * wf);
 #endif
 #if !(REPRO_FUSED_SKIP & 2)
-      walk_chunk_disp(s_basis, s_win + b * wf, s_u, ncols, nyl, zt, wq, cv, g.dy, g.dz);
+      walk_chunk_disp<T>(s_basis, s_win + b * wf, s_u, ncols, nyl, zt, wq, cv, g.dy, g.dz);
 #endif
       cp_async_wait_all();
       __syncthreads();  // the chunk's displacement and the next window are in
@@ -751,15 +765,15 @@ __global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
   walk_block<F, K>(phi, tabs, mov, fix, scal, partials, g);
 }
 
-// The lerp form on a bf16 grid and moving volume (compute_dtype="bfloat16").
-template <int K>
-__global__ void __launch_bounds__(kThreads, 4)
+// The same on a bf16 grid and moving volume (compute_dtype="bfloat16").
+template <int F, int K>
+__global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
     bsi_fused_walk_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
                                const float* __restrict__ tabs,
                                const __nv_bfloat16* __restrict__ mov,
                                const float* __restrict__ fix, const float* __restrict__ scal,
                                float* __restrict__ partials, FwdBlock g) {
-  walk_block<kLerp, K>(phi, tabs, mov, fix, scal, partials, g);
+  walk_block<F, K>(phi, tabs, mov, fix, scal, partials, g);
 }
 
 // An nmi block is two teams of kNmiTeam threads, each with its own staged
@@ -1058,9 +1072,9 @@ __global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
                    sigma, eps);
 }
 
-// The lerp form on a bf16 grid and moving volume (compute_dtype="bfloat16").
-template <int BP>
-__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : 4)
+// The same on a bf16 grid and moving volume (compute_dtype="bfloat16").
+template <int F, int BP>
+__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
     bsi_fused_nmi_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
                               const float* __restrict__ tabs,
                               const __nv_bfloat16* __restrict__ mov,
@@ -1068,8 +1082,8 @@ __global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : 4)
                               const float* __restrict__ centres,
                               float* __restrict__ partials, TileBlock g, int X, int Y, int Z,
                               int bins, int support, float sigma, float eps) {
-  nmi_block<kLerp, BP>(phi, tabs, mov, fix, scal, centres, partials, g, X, Y, Z, bins,
-                       support, sigma, eps);
+  nmi_block<F, BP>(phi, tabs, mov, fix, scal, centres, partials, g, X, Y, Z, bins, support,
+                   sigma, eps);
 }
 
 // The lncc kernel's column: a block owns (ox, oy, oz) tiles, E voxels per
@@ -1309,8 +1323,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   lncc_block<F, W>(phi, tabs, mov, fix, partials, g, ox, oy, oz, X, Y, Z, win_arg, inv, eps);
 }
 
-// The lerp form on a bf16 grid and moving volume (compute_dtype="bfloat16").
-template <int W>
+// The same on a bf16 grid and moving volume (compute_dtype="bfloat16").
+template <int F, int W>
 __global__ void __launch_bounds__(kThreads, 2)
     bsi_fused_lncc_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
                                const float* __restrict__ tabs,
@@ -1318,8 +1332,8 @@ __global__ void __launch_bounds__(kThreads, 2)
                                const float* __restrict__ fix, float* __restrict__ partials,
                                TileBlock g, int ox, int oy, int oz, int X, int Y, int Z,
                                int win_arg, float inv, float eps) {
-  lncc_block<kLerp, W>(phi, tabs, mov, fix, partials, g, ox, oy, oz, X, Y, Z, win_arg, inv,
-                       eps);
+  lncc_block<F, W>(phi, tabs, mov, fix, partials, g, ox, oy, oz, X, Y, Z, win_arg, inv,
+                   eps);
 }
 
 constexpr int kReduceThreads = 1024;
@@ -1401,9 +1415,15 @@ inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, i
   return (int)reduce_partials(partials, n_partials, K, mode, out, s);
 }
 
+// The walk kernel of form F, moment K and element type T.
+template <int F, int K, typename T>
+inline auto walk_kernel() {
+  if constexpr (sizeof(T) == sizeof(float)) return bsi_fused_walk_kernel<F, K>;
+  else return bsi_fused_walk_bf16_kernel<F, K>;
+}
+
 // The walk of moment K in either form on the forward kernels' grid; (bx, by)
-// must be (1, 1).  T: the element type of phi and mov; bf16 in the lerp form
-// only.
+// must be (1, 1).  T: the element type of phi and mov.
 template <int K, typename T>
 inline int launch_moment(int form, int nx, int ny, int nz, int dx, int dy, int dz, int X,
                          int Y, int Z, int bx, int by, int bz, int n_partials,
@@ -1414,25 +1434,18 @@ inline int launch_moment(int form, int nx, int ny, int nz, int dx, int dy, int d
     return (int)cudaErrorInvalidValue;
   const FwdBlock g{nx, ny, nz, 3, dx, dy, dz, bz, X, Y, Z};
   const int lanes = K == kSsd ? 1 : K == kStats ? 4 : 3, mode = K == kStats ? 1 : 0;
-  if constexpr (sizeof(T) != sizeof(float)) {
-    if (form != kLerp) return (int)cudaErrorInvalidValue;
-    return launch_fused(bsi_fused_walk_bf16_kernel<K>, fwd_grid(g),
-                        walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials, out,
-                        stream, phi, tabs, mov, fix, scal, partials, g);
-  } else {
-    return form == kLerp
-               ? launch_fused(bsi_fused_walk_kernel<kLerp, K>, fwd_grid(g),
-                              walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials,
-                              out, stream, phi, tabs, mov, fix, scal, partials, g)
-               : launch_fused(bsi_fused_walk_kernel<kMatmul, K>, fwd_grid(g),
-                              walk_smem_bytes<kMatmul>(g), n_partials, lanes, mode,
-                              partials, out, stream, phi, tabs, mov, fix, scal, partials, g);
-  }
+  return form == kLerp
+             ? launch_fused(walk_kernel<kLerp, K, T>(), fwd_grid(g),
+                            walk_smem_bytes<kLerp>(g), n_partials, lanes, mode, partials,
+                            out, stream, phi, tabs, mov, fix, scal, partials, g)
+             : launch_fused(walk_kernel<kMatmul, K, T>(), fwd_grid(g),
+                            walk_smem_bytes<kMatmul>(g), n_partials, lanes, mode, partials,
+                            out, stream, phi, tabs, mov, fix, scal, partials, g);
 }
 
 // The lncc kernel on the column grid of `own`; the window of 9 (the LNCC
 // default) runs the instantiation with the window fixed at compile time.  T:
-// the element type of phi and mov (bf16: F is kLerp).
+// the element type of phi and mov.
 template <int F, typename T>
 inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, int Z,
                        int win, int n_partials, float* partials, float* out, void* stream,
@@ -1442,7 +1455,7 @@ inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, i
       sizeof(float) * LnccColumn::make<F>(g, own.bx, own.by, own.bz, win).floats;
   auto kernel = [&] {
     if constexpr (sizeof(T) != sizeof(float))
-      return win == 9 ? bsi_fused_lncc_bf16_kernel<9> : bsi_fused_lncc_bf16_kernel<0>;
+      return win == 9 ? bsi_fused_lncc_bf16_kernel<F, 9> : bsi_fused_lncc_bf16_kernel<F, 0>;
     else
       return win == 9 ? bsi_fused_lncc_kernel<F, 9> : bsi_fused_lncc_kernel<F, 0>;
   }();
@@ -1452,7 +1465,7 @@ inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, i
 }
 
 // The nmi kernel for `bins` (padded to 32 or 64) on the tile-block grid of
-// g; T: the element type of phi and mov (bf16: F is kLerp).
+// g; T: the element type of phi and mov.
 template <int F, typename T>
 inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
                       float* partials, float* out, void* stream, const T* phi,
@@ -1462,8 +1475,8 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
   const size_t smem = disp_smem_bytes<F>(g) + sizeof(float) * nmi_extra_floats(bins);
   auto kernel = [&] {
     if constexpr (sizeof(T) != sizeof(float))
-      return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_bf16_kernel<32>
-                                         : bsi_fused_nmi_bf16_kernel<64>;
+      return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_bf16_kernel<F, 32>
+                                         : bsi_fused_nmi_bf16_kernel<F, 64>;
     else
       return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_kernel<F, 32>
                                          : bsi_fused_nmi_kernel<F, 64>;
@@ -1477,9 +1490,9 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
 
 // Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all contiguous,
 // fix float32, phi and mov float32 (the _f32 entries) or bf16 (the _bf16
-// entries, compute_dtype="bfloat16": the lerp form only, form 0, else
-// cudaErrorInvalidValue).  tabs: the lerp LUTs (form 0; rounded to bf16 for
-// the _bf16 entries, held as floats) or the (dx*dy*dz, 64) basis (form 1).
+// entries, compute_dtype="bfloat16").  tabs: the lerp LUTs (form 0) or the
+// (dx*dy*dz, 64) basis (form 1; kernels/bsi_fused.py:basis_table), for the
+// _bf16 entries rounded to bf16 and held as floats.
 // partials: n_partials rows of K floats, one row per thread block (the
 // caller sizes it with the same grid); out: K floats.  Each returns the
 // first cudaError_t, or cudaErrorInvalidValue on a size mismatch or an
@@ -1512,14 +1525,12 @@ inline int fused_nmi(const T* phi, const float* tabs, const T* mov, const float*
                      int n_partials, float* out, int nx, int ny, int nz, int dx, int dy,
                      int dz, int X, int Y, int Z, int bx, int by, int bz, int form, int bins,
                      int support, float sigma, float eps, void* stream) {
-  if (form != kLerp && (form != kMatmul || sizeof(T) != sizeof(float)))
-    return (int)cudaErrorInvalidValue;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
   if (bins < 2 || bins > kNmiMaxBins || support < 0) return (int)cudaErrorInvalidValue;
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
-  if constexpr (sizeof(T) == sizeof(float))
-    if (form == kMatmul)
-      return launch_nmi<kMatmul>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs,
-                                 mov, fix, scal, centres, bins, support, sigma, eps);
+  if (form == kMatmul)
+    return launch_nmi<kMatmul>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs,
+                               mov, fix, scal, centres, bins, support, sigma, eps);
   return launch_nmi<kLerp>(g, X, Y, Z, n_partials, partials, out, stream, phi, tabs, mov,
                            fix, scal, centres, bins, support, sigma, eps);
 }
@@ -1530,17 +1541,15 @@ inline int fused_lncc(const T* phi, const float* tabs, const T* mov, const float
                       int dx, int dy, int dz, int X, int Y, int Z, int bx, int by, int bz,
                       int form, int ex, int ey, int ez, int win, float inv, float eps,
                       void* stream) {
-  if (form != kLerp && (form != kMatmul || sizeof(T) != sizeof(float)))
-    return (int)cudaErrorInvalidValue;
+  if (form != kLerp && form != kMatmul) return (int)cudaErrorInvalidValue;
   if (win < 1 || win > X || win > Y || win > Z) return (int)cudaErrorInvalidValue;
   if (ex * dx < win - 1 || ey * dy < win - 1 || ez * dz < win - 1)
     return (int)cudaErrorInvalidValue;
   const TileBlock own{nx, ny, nz, 3, dx, dy, dz, bx, by, bz};
   const TileBlock g{nx, ny, nz, 3, dx, dy, dz, bx + ex, by + ey, bz + ez};
-  if constexpr (sizeof(T) == sizeof(float))
-    if (form == kMatmul)
-      return launch_lncc<kMatmul>(g, own, X, Y, Z, win, n_partials, partials, out, stream,
-                                  phi, tabs, mov, fix, inv, eps);
+  if (form == kMatmul)
+    return launch_lncc<kMatmul>(g, own, X, Y, Z, win, n_partials, partials, out, stream,
+                                phi, tabs, mov, fix, inv, eps);
   return launch_lncc<kLerp>(g, own, X, Y, Z, win, n_partials, partials, out, stream, phi,
                             tabs, mov, fix, inv, eps);
 }

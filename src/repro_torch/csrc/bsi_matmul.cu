@@ -57,6 +57,13 @@
 //   unit's stores overlap the next unit's products.  No atomics: two calls
 //   are bit-equal.
 //
+// bsi_matmul_bf16, the compute_dtype="bfloat16" variant, replaces the same
+// Pallas kernel run on a bf16 grid (its operands bf16, its product float32,
+// its field phi's dtype: repro/kernels/bsi_matmul.py:88-90): the bf16 rows
+// copied as they are, widened into W^T (exact in TF32, as the bf16 basis
+// is), one wgmma a k-step, one rounding to bf16 at the staging.  Bound at
+// phantom1: 269.7 MB of bf16 field and 2.5 MB of grid, 0.0812 ms.
+//
 // Measurement builds (-DREPRO_MM_SKIP=mask, launch/profile_forward.py): 1
 // leaves out the stores to the field (the sums are kept), 2 the products (a
 // constant is staged and stored at the same positions), 4 the window's copy
@@ -149,14 +156,26 @@ struct Unit {
   int ti, tj, h;
 };
 
-// C: the channels (3), or 0 for any
-template <int C>
-__global__ void __launch_bounds__(kThreads, 2)
-    bsi_matmul_kernel(const float* __restrict__ phi, const uint4* __restrict__ afrag,
-                      float* __restrict__ out, MMBlock g) {
+// C: the channels (3), or 0 for any.  T: the element type of the grid and
+// the field, float or __nv_bfloat16.  A bf16 grid's rows are copied as bf16
+// (E = 8 values a 16-byte chunk) and widened where W^T is built; a bf16
+// value is exact in TF32, and so is the bf16 basis (basis_fragments of
+// bf16: its lo parts are zero), so only the hi_B hi_W product runs, into
+// the float32 kernel's accumulator in its order, and each value is rounded
+// once where it is staged; the runs' alignment and stores count E values
+// to 16 bytes.
+template <int C, typename T>
+__device__ __forceinline__ void mm_block(const T* __restrict__ phi,
+                                         const uint4* __restrict__ afrag,
+                                         T* __restrict__ out, const MMBlock& g) {
+  constexpr bool kWide = sizeof(T) == sizeof(float);
+  constexpr int E = 16 / sizeof(T);  // values of a 16-byte chunk
   extern __shared__ float4 smem4[];
   const int c = C ? C : g.c;
+  // a raw window row's and a staged run's slot, in floats; run_t: the
+  // run's slot in values of T
   const int raw_row = mm_raw_row(g), run = mm_run(g), ncol = g.dx * g.dy;
+  const int run_t = run * (int)(sizeof(float) / sizeof(T));
   const int halves = mm_halves(g), wt_bytes = mm_wt_bytes(g);
   // W^T on a 1024-byte boundary (the swizzle repeats every 256 bytes)
   const uint32_t s_base = (uint32_t)__cvta_generic_to_shared(smem4);
@@ -174,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nv = g.dx * g.dy * g.dz, mg = mm_mgroups(g);
   const int tasks = mg * halves;  // (64-row tile, n-half), the tile fastest
   const bool a_fixed = mg <= kGroups;
-  const unsigned obase = (unsigned)(reinterpret_cast<size_t>(out) / sizeof(float));
+  const unsigned obase = (unsigned)(reinterpret_cast<size_t>(out) / sizeof(T));
 
   // Units are walked with a stride of the grid, each place stepped from the
   // last without a division.
@@ -190,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     return p;
   };
   // row wr = (l, m) of unit p: its first value in the grid
-  auto row_src = [&](Unit p, int wr) {
+  auto row_src = [&](Unit p, int wr) -> const T* {
     return phi +
            ((size_t)((p.ti + (wr >> 2)) * g.ny + p.tj + (wr & 3)) * g.nz + p.h * g.zt) * c;
   };
@@ -201,14 +220,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto copy_window = [&](Unit p) {
     const int wr = tid >> 4;
     const int nval = (min(g.zt, tz - p.h * g.zt) + 3) * c;
-    const float* src = row_src(p, wr);
-    const int shift = (int)(reinterpret_cast<size_t>(src) & 15) / 4;
-    const float* base = src - shift;
+    const T* src = row_src(p, wr);
+    const int shift = (int)(reinterpret_cast<size_t>(src) & 15) / (int)sizeof(T);
+    const T* base = src - shift;
     const unsigned dst = (unsigned)__cvta_generic_to_shared(s_raw + wr * raw_row);
-    for (int q = tid & 15; 4 * q < shift + nval; q += 16) {
-      const int valid = min(shift + nval - 4 * q, 4);
+    for (int q = tid & 15; E * q < shift + nval; q += 16) {
+      const int valid = min(shift + nval - E * q, E);
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst + 16 * q),
-                   "l"(base + 4 * q), "r"(4 * valid)
+                   "l"(base + E * q), "r"((int)sizeof(T) * valid)
                    : "memory");
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
@@ -221,19 +240,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int ncols = min(g.zt, tz - p.h * g.zt) * c, nrows = halves * kHalf;
     for (int job = tid; job < 16 * nrows; job += kThreads) {
       const int wr = job / nrows, n = job - wr * nrows;
-      const float* r =
-          s_raw + wr * raw_row + (int)(reinterpret_cast<size_t>(row_src(p, wr)) & 15) / 4;
+      const T* r = reinterpret_cast<const T*>(s_raw + wr * raw_row) +
+                   (int)(reinterpret_cast<size_t>(row_src(p, wr)) & 15) / (int)sizeof(T);
       uint4 hi = make_uint4(0, 0, 0, 0), lo = hi;
       if (n < ncols) {
-        split_tf32(r[n], &hi.x, &lo.x);
-        split_tf32(r[n + c], &hi.y, &lo.y);
-        split_tf32(r[n + 2 * c], &hi.z, &lo.z);
-        split_tf32(r[n + 3 * c], &hi.w, &lo.w);
+        split_tf32(to_float(r[n]), &hi.x, &lo.x);
+        split_tf32(to_float(r[n + c]), &hi.y, &lo.y);
+        split_tf32(to_float(r[n + 2 * c]), &hi.z, &lo.z);
+        split_tf32(to_float(r[n + 3 * c]), &hi.w, &lo.w);
       }
       const int s = (wr >> 2) * 2 + ((wr >> 1) & 1), q = (wr & 1) ^ ((n >> 2) & 1);
       const int off = s * nrows * 32 + n * 32 + q * 16;
       *reinterpret_cast<uint4*>(wt_ptr + off) = hi;
-      *reinterpret_cast<uint4*>(wt_ptr + wt_bytes + off) = lo;
+      if (kWide) *reinterpret_cast<uint4*>(wt_ptr + wt_bytes + off) = lo;  // bf16: 0
     }
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
@@ -279,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int ti = cur.ti, tj = cur.tj;
     const int tk0 = cur.h * g.zt, ztu = min(g.zt, tz - tk0);
     const int ncols = ztu * c;
-    float* stage = s_stage + (it & 1) * ncol * run;
+    T* stage = reinterpret_cast<T*>(s_stage + (it & 1) * ncol * run);
     // the staging buffer's copies of two units ago have read it
     if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
     __syncthreads();  // W^T is built; the staging buffer is free
@@ -305,8 +324,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int s = 0; s < 8; ++s) {
         const uint32_t off = (s * halves + nh) * kHalf * 32;
         const uint64_t bh = wt_desc(wt_hi + off), bl = wt_desc(wt_lo + off);
-        wgmma_tf32_n24(sml, al[s], bh, s > 0);
-        wgmma_tf32_n24(sml, ah[s], bl, 1);
+        if (kWide) {
+          wgmma_tf32_n24(sml, al[s], bh, s > 0);
+          wgmma_tf32_n24(sml, ah[s], bl, 1);
+        }
         wgmma_tf32_n24(acc, ah[s], bh, s > 0);
       }
       mm_wgmma_commit_wait(acc, sml);
@@ -318,8 +339,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int e = 0; e < 2; ++e) {
         const unsigned x = ti * g.dx + ra[e], y = tj * g.dy + rb[e];
         const unsigned delta =
-            (obase + ((x * g.Y + y) * g.Z + tk0 * g.dz) * (unsigned)c) & 3u;
-        sb[e] = (ra[e] * g.dy + rb[e]) * run + (int)delta + rz[e] * c;
+            (obase + ((x * g.Y + y) * g.Z + tk0 * g.dz) * (unsigned)c) & (E - 1u);
+        sb[e] = (ra[e] * g.dy + rb[e]) * run_t + (int)delta + rz[e] * c;
       }
       // entry 4 i + 2 e + j: row g + 8 e, column 24 nh + 8 i + 2 t + j =
       // (tk, ch), at (tk * dz + cz) * c + ch of its run
@@ -332,7 +353,8 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int tk = col / c, pc = tk * g.dz * c + col - tk * c;
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (rok[e]) stage[sb[e] + pc] = acc[4 * i + 2 * e + j] + sml[4 * i + 2 * e + j];
+            if (rok[e])
+              stage[sb[e] + pc] = store_as<T>(acc[4 * i + 2 * e + j] + sml[4 * i + 2 * e + j]);
         }
     }
 #if !(REPRO_MM_SKIP & 4)
@@ -349,16 +371,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int a = ab / g.dy, b = ab - a * g.dy;
       const int x = ti * g.dx + a, y = tj * g.dy + b;
       if (x >= g.X || y >= g.Y) continue;
-      float* o = out + ((size_t)x * g.Y + y) * g.Z * c + (size_t)z0 * c;
+      T* o = out + ((size_t)x * g.Y + y) * g.Z * c + (size_t)z0 * c;
       const unsigned delta =
-          (obase + (((unsigned)x * g.Y + y) * g.Z + z0) * (unsigned)c) & 3u;
-      const float* v = stage + ab * run + delta;
-      // floats before o's next 16-byte boundary; the body in whole 16 bytes
-      const int head = (int)((16 - (reinterpret_cast<size_t>(o) & 15)) & 15) / 4;
-      const int body = max(n - head, 0) & ~3;
+          (obase + (((unsigned)x * g.Y + y) * g.Z + z0) * (unsigned)c) & (E - 1u);
+      const T* v = stage + ab * run_t + delta;
+      // values before o's next 16-byte boundary; the body in whole 16 bytes
+      const int head = (int)((16 - (reinterpret_cast<size_t>(o) & 15)) & 15) / (int)sizeof(T);
+      const int body = max(n - head, 0) & ~(E - 1);
 #if !(REPRO_MM_SKIP & 1)
       if (body > 0) {
-        if (lane == 0) bulk_store(o + head, v + head, body * (int)sizeof(float));
+        if (lane == 0) bulk_store(o + head, v + head, body * (int)sizeof(T));
         if (lane < head) o[lane] = v[lane];
         if (lane < n - head - body) o[head + body + lane] = v[head + body + lane];
       } else if (lane < n) {
@@ -375,6 +397,36 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_matmul_kernel(const float* __restrict__ phi, const uint4* __restrict__ afrag,
+                      float* __restrict__ out, MMBlock g) {
+  mm_block<C>(phi, afrag, out, g);
+}
+
+// The same on a bf16 grid, writing a bf16 field.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                           const uint4* __restrict__ afrag,
+                           __nv_bfloat16* __restrict__ out, MMBlock g) {
+  mm_block<C>(phi, afrag, out, g);
+}
+
+// The launch of `kernel` (the instantiation for g.c) on `blocks` persistent
+// blocks; returns its cudaError_t.
+template <typename T, typename Kernel>
+inline int launch_matmul(Kernel kernel, const T* phi, const float* afrag, T* out,
+                         const MMBlock& g, int blocks, void* stream) {
+  if (g.zt < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = mm_smem_bytes(g);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      phi, reinterpret_cast<const uint4*>(afrag), out, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace repro_torch
 
 // phi: (nx, ny, nz, c) float32, contiguous; afrag: the basis's A fragments
@@ -386,13 +438,20 @@ extern "C" int bsi_matmul_f32(const float* phi, const float* afrag, float* out, 
                               int Y, int Z, int zt, int blocks, void* stream) {
   using namespace repro_torch;
   const MMBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, zt};
-  if (zt < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   void (*kernel)(const float*, const uint4*, float*, MMBlock) =
       c == 3 ? bsi_matmul_kernel<3> : bsi_matmul_kernel<0>;
-  const size_t smem = mm_smem_bytes(g);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      phi, reinterpret_cast<const uint4*>(afrag), out, g);
-  return (int)cudaGetLastError();
+  return launch_matmul(kernel, phi, afrag, out, g, blocks, stream);
+}
+
+// The same with phi and out bf16 and afrag the bf16 basis's fragments
+// (basis_fragments(..., bfloat16): lo parts zero).
+extern "C" int bsi_matmul_bf16(const __nv_bfloat16* phi, const float* afrag,
+                               __nv_bfloat16* out, int nx, int ny, int nz, int c, int dx,
+                               int dy, int dz, int X, int Y, int Z, int zt, int blocks,
+                               void* stream) {
+  using namespace repro_torch;
+  const MMBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, zt};
+  void (*kernel)(const __nv_bfloat16*, const uint4*, __nv_bfloat16*, MMBlock) =
+      c == 3 ? bsi_matmul_bf16_kernel<3> : bsi_matmul_bf16_kernel<0>;
+  return launch_matmul(kernel, phi, afrag, out, g, blocks, stream);
 }

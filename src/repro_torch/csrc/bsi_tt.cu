@@ -42,6 +42,16 @@
 // - More than 64 channels: a group holds 64 slots, not whole z tiles, and
 //   each thread stores its own values (consecutive channels: coalesced).
 //
+// bsi_tt_bf16, the compute_dtype="bfloat16" variant, replaces the same
+// Pallas kernel run on a bf16 grid (its field phi's dtype): the grid widened
+// as it is loaded, the weights the products of the bf16 LUTs in float32
+// (kernels/bsi_tt.py:weight_table), the same float32 sums, one rounding to
+// bf16 where a value is staged; the staging and its bulk stores move bf16
+// values.  (The Pallas kernel sums in phi's dtype, so interpreted on a CPU
+// it rounds every term to bf16; this kernel does not.)  Bound at phantom1:
+// 272.2 MB, 0.0812 ms; its 128 instructions a value keep the 0.515 ms
+// floor.
+//
 // Measurement builds (-DREPRO_TT_SKIP=mask, launch/profile_forward.py): 1
 // leaves out the stores to the field (the sums are kept), 2 the weights
 // (each term's weight a constant), 4 the sums (a constant is staged and
@@ -108,11 +118,16 @@ __device__ __forceinline__ void group_sync(int grp) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + grp), "r"(kGroupThreads) : "memory");
 }
 
-// R: z offsets summed together (tt_chunk)
-template <int R>
-__global__ void __launch_bounds__(kThreads, 2)
-    bsi_tt_kernel(const float* __restrict__ phi, const float* __restrict__ wtab,
-                  float* __restrict__ out, TTBlock g) {
+// R: z offsets summed together (tt_chunk); T: the element type of the grid
+// and the field, float or __nv_bfloat16 (the grid widened as it is loaded,
+// each value rounded once where it is staged; a staged run's alignment and
+// its stores count E = 16 / sizeof(T) values to 16 bytes).
+template <int R, typename T>
+__device__ __forceinline__ void tt_block(const T* __restrict__ phi,
+                                         const float* __restrict__ wtab,
+                                         T* __restrict__ out, const TTBlock& g) {
+  constexpr int E = 16 / sizeof(T);   // values of 16 bytes
+  constexpr int L = 128 / sizeof(T);  // values of a 128-byte line
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int c = g.c, dz = g.dz, sg = g.sg;
@@ -156,11 +171,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int k = rem / c, ch = rem - k * c;
     st0 = direct ? lg : (lg - ch) * dz + ch;
     const int ys = g.nz * c, xs = g.ny * ys;  // the grid is small: ints
-    const float* src = phi + ((size_t)(ti * g.ny + (active ? tj : 0)) * g.nz + k) * c + ch;
+    const T* src = phi + ((size_t)(ti * g.ny + (active ? tj : 0)) * g.nz + k) * c + ch;
 #pragma unroll
     for (int q = 0; q < 64; ++q) {
       const int l = q >> 4, m = (q >> 2) & 3, n = q & 3;
-      p[q] = active ? __ldg(src + l * xs + m * ys + n * c) : 0.f;
+      p[q] = active ? to_float(__ldg(src + l * xs + m * ys + n * c)) : 0.f;
     }
   }
 
@@ -185,14 +200,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float* w = s_w + (col - col0) * nw;
     // the staging of this column, offset so that a value and its place in
     // the field share their alignment modulo 16 bytes (the first row's)
-    // (32-bit arithmetic: only the offset modulo 4 floats matters)
-    float* st;
+    // (32-bit arithmetic: only the offset modulo E values matters)
+    T* st;
     {
       const int F0 = s_run[grp][0], tj_lo = s_run[grp][2];
-      const unsigned o1 = (unsigned)(reinterpret_cast<size_t>(out) / sizeof(float)) +
+      const unsigned o1 = (unsigned)(reinterpret_cast<size_t>(out) / sizeof(T)) +
                           ((unsigned)x * g.Y + tj_lo * g.dy + b) * (unsigned)(g.Z * c) +
                           (unsigned)(F0 - tj_lo * srow * dz);
-      st = s_st + (i & 1) * sbuf + (o1 & 3);
+      st = reinterpret_cast<T*>(s_st + (i & 1) * sbuf) + (o1 & (E - 1));
     }
     if (active && y < g.Y) {
 #pragma unroll 1
@@ -234,7 +249,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #endif
 #pragma unroll
         for (int rr = 0; rr < R; ++rr)
-          if (r0 + rr < dz) st[st0 + (r0 + rr) * (direct ? sg : c)] = acc[rr];
+          if (r0 + rr < dz) st[st0 + (r0 + rr) * (direct ? sg : c)] = store_as<T>(acc[rr]);
       }
     }
 #if REPRO_TT_SKIP & 8
@@ -249,16 +264,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int rem = sg0 + lg - tj * srow, k = rem / c, ch = rem - k * c;
       if (active && y < g.Y)
         for (int r = 0; r < dz && k * dz + r < g.Z; ++r) {
-          const float v = st[lg + r * sg];
+          const T v = st[lg + r * sg];
 #if REPRO_TT_SKIP & 1
-          if (v == -1.25e-30f)  // never true here: drops the store
+          if (to_float(v) == -1.25e-30f)  // never true here: drops the store
 #endif
             out[(((size_t)x * g.Y + y) * g.Z + k * dz + r) * c + ch] = v;
         }
       continue;
     }
-    // each row's piece of the column, every warp one aligned 128-byte line;
-    // lanes before the piece's start store nothing
+    // each row's piece of the column, every warp one aligned 128-byte line
+    // (of bf16 values, one aligned half of one); lanes before the piece's
+    // start store nothing
     const int F0 = s_run[grp][0], len = s_run[grp][1];
     const int tj_lo = s_run[grp][2], tj_hi = s_run[grp][3], frow = srow * dz;
     for (int rj = tj_lo; rj <= tj_hi && len > 0; ++rj) {
@@ -266,25 +282,25 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (yr >= g.Y) break;
       const int rs = rj * frow;
       const int lo = max(F0, rs), hi = min(F0 + len, rs + g.Z * c);
-      float* o = out + ((size_t)x * g.Y + yr) * g.Z * c + (lo - rs);
-      const float* v = st + (lo - F0);
+      T* o = out + ((size_t)x * g.Y + yr) * g.Z * c + (lo - rs);
+      const T* v = st + (lo - F0);
       const int n = hi - lo;
-      // floats before o's next 16-byte boundary; the body in whole 16 bytes
-      const int head = (int)((16 - (reinterpret_cast<size_t>(o) & 15)) & 15) / 4;
-      const int body = max(n - head, 0) & ~3;
+      // values before o's next 16-byte boundary; the body in whole 16 bytes
+      const int head = (int)((16 - (reinterpret_cast<size_t>(o) & 15)) & 15) / (int)sizeof(T);
+      const int body = max(n - head, 0) & ~(E - 1);
       if (body > 0 &&
           (reinterpret_cast<size_t>(v + head) & 15) == 0) {  // aligned alike
 #if !(REPRO_TT_SKIP & 1)
-        if (lg == 0) bulk_store(o + head, v + head, body * (int)sizeof(float));
+        if (lg == 0) bulk_store(o + head, v + head, body * (int)sizeof(T));
         if (lg < head) o[lg] = v[lg];
         if (lg < n - head - body) o[head + body + lg] = v[head + body + lg];
 #endif
         continue;
       }
-      const int sh = (int)(reinterpret_cast<size_t>(o) / sizeof(float) & 31);
+      const int sh = (int)(reinterpret_cast<size_t>(o) / sizeof(T) & (L - 1));
       for (int q = lg - sh; q < n; q += kGroupThreads) {
 #if REPRO_TT_SKIP & 1
-        if (v[max(q, 0)] == -1.25e-30f)  // never true here: drops the store
+        if (to_float(v[max(q, 0)]) == -1.25e-30f)  // never true here: drops the store
 #endif
           if (q >= 0) o[q] = v[q];
       }
@@ -292,6 +308,58 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (lg == 0) asm volatile("cp.async.bulk.commit_group;" ::: "memory");
   }
   if (lg == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_tt_kernel(const float* __restrict__ phi, const float* __restrict__ wtab,
+                  float* __restrict__ out, TTBlock g) {
+  tt_block<R>(phi, wtab, out, g);
+}
+
+// The same on a bf16 grid, writing a bf16 field.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_tt_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
+                       const float* __restrict__ wtab, __nv_bfloat16* __restrict__ out,
+                       TTBlock g) {
+  tt_block<R>(phi, wtab, out, g);
+}
+
+// The kernel of element type T at R z offsets summed together.
+template <int R, typename T>
+inline auto tt_kernel() {
+  if constexpr (sizeof(T) == sizeof(float)) return bsi_tt_kernel<R>;
+  else return bsi_tt_bf16_kernel<R>;
+}
+
+// The launch of the instantiation of tt_chunk(g); returns the launch's
+// cudaError_t.
+template <typename T>
+inline int launch_tt(const T* phi, const float* wtab, T* out, const TTBlock& g,
+                     void* stream) {
+  if (g.pc < 1) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const T*, const float*, T*, TTBlock);
+  switch (tt_chunk(g)) {
+    case 1: kernel = tt_kernel<1, T>(); break;
+    case 2: kernel = tt_kernel<2, T>(); break;
+    case 3: kernel = tt_kernel<3, T>(); break;
+    case 4: kernel = tt_kernel<4, T>(); break;
+    case 5: kernel = tt_kernel<5, T>(); break;
+    case 6: kernel = tt_kernel<6, T>(); break;
+    case 7: kernel = tt_kernel<7, T>(); break;
+    default: kernel = tt_kernel<kMaxChunk, T>(); break;
+  }
+  const size_t smem = tt_smem_bytes(g);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<tt_grid(g), kThreads, smem, (cudaStream_t)stream>>>(phi, wtab, out, g);
+  return (int)cudaGetLastError();
+}
+
+// A group's slots: whole z tiles, or its threads where c exceeds them.
+inline int tt_group_slots(int c) {
+  return c > kGroupThreads ? kGroupThreads : kGroupThreads / c * c;
 }
 
 }  // namespace repro_torch
@@ -304,24 +372,16 @@ extern "C" int bsi_tt_f32(const float* phi, const float* wtab, float* out, int n
                           int ny, int nz, int c, int dx, int dy, int dz, int X, int Y,
                           int Z, int pc, void* stream) {
   using namespace repro_torch;
-  // a group's slots: whole z tiles, or its threads where c exceeds them
-  const int sg = c > kGroupThreads ? kGroupThreads : kGroupThreads / c * c;
-  const TTBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, sg, pc};
-  if (pc < 1) return (int)cudaErrorInvalidValue;
-  void (*kernel)(const float*, const float*, float*, TTBlock);
-  switch (tt_chunk(g)) {
-    case 1: kernel = bsi_tt_kernel<1>; break;
-    case 2: kernel = bsi_tt_kernel<2>; break;
-    case 3: kernel = bsi_tt_kernel<3>; break;
-    case 4: kernel = bsi_tt_kernel<4>; break;
-    case 5: kernel = bsi_tt_kernel<5>; break;
-    case 6: kernel = bsi_tt_kernel<6>; break;
-    case 7: kernel = bsi_tt_kernel<7>; break;
-    default: kernel = bsi_tt_kernel<kMaxChunk>; break;
-  }
-  const size_t smem = tt_smem_bytes(g);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<tt_grid(g), kThreads, smem, (cudaStream_t)stream>>>(phi, wtab, out, g);
-  return (int)cudaGetLastError();
+  const TTBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, tt_group_slots(c), pc};
+  return launch_tt(phi, wtab, out, g, stream);
+}
+
+// The same with phi and out bf16 and wtab the products of the LUTs rounded
+// to bf16 (weight_table(..., bfloat16), floats).
+extern "C" int bsi_tt_bf16(const __nv_bfloat16* phi, const float* wtab, __nv_bfloat16* out,
+                           int nx, int ny, int nz, int c, int dx, int dy, int dz, int X,
+                           int Y, int Z, int pc, void* stream) {
+  using namespace repro_torch;
+  const TTBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, tt_group_slots(c), pc};
+  return launch_tt(phi, wtab, out, g, stream);
 }

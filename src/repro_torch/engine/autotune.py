@@ -38,12 +38,10 @@ in this process is appended to :data:`RACES`.
 Under a ``compute_dtype`` the workload runs in it and ``grad_impl="auto"``
 never picks ``autograd``, whose backward would differentiate the reduced
 forward rather than accumulate the analytic adjoint in float32.  Under
-``"bfloat16"`` on a CUDA device the forward pool holds only the forms with
-a bf16 kernel (``kernels.ops.BF16_FORWARD``: ``ttli`` and ``separable``)
-until ROADMAP.md queue 1 item 18e ports ``tt`` and ``matmul``, and
-``fused="auto"`` races the fused level step in bf16 (its lerp form, the form
-of both those modes) against the unfused winner, the race keyed
-``|cd=bfloat16|``.
+``"bfloat16"`` on a CUDA device the race times the four forms' bf16
+kernels, and ``fused="auto"`` races the fused level step in bf16 (the
+matrix form for ``matmul``, the lerp form for the others) against the
+unfused winner, the races keyed ``|cd=bfloat16|``.
 """
 
 from __future__ import annotations
@@ -61,7 +59,6 @@ import torch
 from repro_torch.core.interpolate import (GRAD_IMPLS, KERNEL_MODES, MODE_NAMES,
                                           compute_dtype_name, interpolate)
 from repro_torch.core.similarity import fused_spec, resolve_similarity, similarity_token
-from repro_torch.kernels.ops import BF16_FORWARD
 
 __all__ = ["BsiChoice", "RACES", "Race", "SCHEMA_VERSION", "autotune_bsi",
            "autotune_fused", "resolve_bsi", "resolve_options", "default_candidates",
@@ -106,21 +103,13 @@ def default_cache_path() -> str:
         os.path.expanduser("~"), ".cache", "repro_torch", "bsi_autotune.json")
 
 
-def _kernel_candidates(device, compute_dtype=None):
-    """The forward kernels, on a CUDA device under ``"bfloat16"`` only those
-    with a bf16 kernel (``kernels.ops.BF16_FORWARD``)."""
-    if torch.device(device).type == "cuda" and compute_dtype == "bfloat16":
-        return tuple(c for c in KERNEL_CANDIDATES if c[0] in BF16_FORWARD)
-    return KERNEL_CANDIDATES
-
-
-def default_candidates(device, compute_dtype=None):
+def default_candidates(device):
     """``(mode, impl)`` forms ``impl="auto"`` times on ``device``: on a CUDA
-    device the forward kernels (under ``"bfloat16"`` those with a bf16
-    kernel), on the CPU the plain forms (there a kernel's dispatcher runs
-    its plain version, so timing it says nothing of the kernel)."""
+    device the forward kernels (each takes float32 and bf16), on the CPU the
+    plain forms (there a kernel's dispatcher runs its plain version, so
+    timing it says nothing of the kernel)."""
     if torch.device(device).type == "cuda":
-        return _kernel_candidates(device, compute_dtype)
+        return KERNEL_CANDIDATES
     return PLAIN_CANDIDATES
 
 
@@ -293,7 +282,7 @@ def autotune_bsi(grid_shape, tile, *, device, similarity="ssd", candidates=None,
     grid_shape = tuple(int(g) for g in grid_shape)
     tile = tuple(int(t) for t in tile)
     cd = compute_dtype_name(compute_dtype)
-    cands = (_cross(default_candidates(device, cd), default_grad_impls(device))
+    cands = (_cross(default_candidates(device), default_grad_impls(device))
              if candidates is None else tuple(tuple(c) for c in candidates))
     if not cands:
         raise ValueError(f"no BSI candidate to time among {candidates}")
@@ -415,19 +404,18 @@ def autotune_fused(grid_shape, tile, vol_shape, *, base, similarity, device, rep
     return best
 
 
-def _candidate_pool(mode, impl, device, compute_dtype=None):
+def _candidate_pool(mode, impl, device):
     """``(mode, impl)`` candidates honouring the fixed axes: an explicit
     ``impl`` takes its forms on any device (``"cuda"`` on the CPU times the
-    kernels' plain versions; on a CUDA device under ``"bfloat16"`` only the
-    bf16 kernels); ``"auto"`` takes :func:`default_candidates`, or the plain
-    form of a ``mode`` that has no kernel (``gather``)."""
+    kernels' plain versions); ``"auto"`` takes :func:`default_candidates`,
+    or the plain form of a ``mode`` that has no kernel (``gather``)."""
     if impl == "torch" or (impl == "auto" and mode in MODE_NAMES
                            and mode not in KERNEL_MODES):
         pool = PLAIN_CANDIDATES
     elif impl == "cuda":
-        pool = _kernel_candidates(device, compute_dtype)
+        pool = KERNEL_CANDIDATES
     else:
-        pool = default_candidates(device, compute_dtype)
+        pool = default_candidates(device)
     return tuple(c for c in pool if mode in ("auto", c[0]))
 
 
@@ -450,7 +438,7 @@ def resolve_bsi(mode, impl, grid_shape, tile, *, grad_impl, device, **tune_kwarg
     gis = default_grad_impls(device) if grad_impl == "auto" else (grad_impl,)
     if grad_impl == "auto" and cd is not None:
         gis = tuple(g for g in gis if g != "autograd")
-    cands = _cross(_candidate_pool(mode, impl, device, cd), gis)
+    cands = _cross(_candidate_pool(mode, impl, device), gis)
     if not cands:
         raise ValueError(f"no BSI candidates match mode={mode!r} impl={impl!r} "
                          f"grad_impl={grad_impl!r}")

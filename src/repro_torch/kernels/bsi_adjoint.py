@@ -22,6 +22,12 @@ volume instead of padding:
     into one partial per control point it touches; a second launch sums the
     partials of the boxes that share a point (:func:`matmul_blocks` is the
     geometry, :func:`plain_matmul_blocked` the same reduction in tensor ops).
+    The cotangent is float32 or bf16 (``bsi_adjoint_matmul_f32``,
+    ``bsi_adjoint_matmul_bf16``): a bf16 one is staged as bf16 in the
+    float32 kernel's ring and widened as each plane is moved into place,
+    with the float32 basis (the JAX package's, ``repro/kernels/ops.py:208``)
+    and the float32 kernel's geometry and sums, so it gives that kernel's
+    bits on the widened cotangent.
 
 ``kernels.ops.bsi_adjoint`` and ``kernels.ops.bsi_adjoint_matmul`` pick
 between a kernel and its plain version by the tensor's device.
@@ -260,9 +266,9 @@ def matmul_blocks(tile, channels, vol_shape) -> MatmulBlocks:
 
 
 def launch_matmul(g, out, tile, lib=None):
-    """Launch the box kernel and the seam pass on the current stream: ``g``
-    -> ``out``.  The partials (:attr:`MatmulBlocks.partial_floats`) are
-    allocated here."""
+    """Launch the box kernel of ``g``'s dtype (float32 or bf16) and the seam
+    pass on the current stream: ``g`` -> ``out`` (float32).  The partials
+    (:attr:`MatmulBlocks.partial_floats`) are allocated here."""
     X, Y, Z, c = g.shape
     nx, ny, nz, _ = out.shape
     geo = matmul_blocks(tile, c, (X, Y, Z))
@@ -270,7 +276,7 @@ def launch_matmul(g, out, tile, lib=None):
     lib = lib or load_library()
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        rc = lib.bsi_adjoint_matmul_f32(
+        rc = getattr(lib, f"bsi_adjoint_matmul_{bsi_ttli.ENTRY_SUFFIX[g.dtype]}")(
             g.data_ptr(), bsi_matmul.basis(tile, g.device).data_ptr(),
             partials.data_ptr(), out.data_ptr(), X, Y, Z, c, nx, ny, nz, *tile,
             *geo.box, geo.cols, stream)

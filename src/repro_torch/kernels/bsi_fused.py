@@ -40,24 +40,26 @@ staged basis and control window, a thread two tiles of a column at a time.
 ``nmi`` runs on blocks of :func:`block_tiles`, ``lncc`` on
 :func:`lncc_blocks`.
 
-Under ``compute_dtype="bfloat16"`` the lerp form of every variant takes a
+Under ``compute_dtype="bfloat16"`` every variant, in both forms, takes a
 bf16 ``phi`` and ``moving`` (entry points ``bsi_fused_<variant>_bf16``;
 ``fixed`` and every sum stay float32), the contract of the JAX kernel
 (``repro/kernels/bsi_fused.py:_fused_kernel``): the displacement in float32
-from the widened grid and the bf16-rounded lerp LUTs, rounded once to bf16
-and widened, then the float32 warp of the widened bf16 intensities.  The
-grid is widened as it is staged and the warped samples are float32, so the
-shared memory of every variant is the float32 kernel's and
-:func:`moment_blocks`, :func:`block_tiles` and :func:`lncc_blocks` serve
-both dtypes.  The bf16 stats walk keeps lines of 32 voxels, aligned to 32
-values of its streamed volume, the bf16 moving one: a warp's reads of a
-line are one aligned 64-byte half of a 128-byte line.  The matrix form has
-no bf16 kernel (ROADMAP.md queue 1 item 18e).
+from the widened grid and the bf16-rounded tables (the lerp LUTs, or the
+matrix form's basis as the JAX kernel builds it from its bf16 LUTs,
+:func:`basis_table`), rounded once to bf16 and widened, then the float32
+warp of the widened bf16 intensities.  The grid is widened as it is staged
+and the warped samples are float32, so the shared memory of every variant
+is the float32 kernel's and :func:`moment_blocks`, :func:`block_tiles` and
+:func:`lncc_blocks` serve both dtypes.  The bf16 stats walk keeps lines of
+32 voxels, aligned to 32 values of its streamed volume, the bf16 moving
+one: a warp's reads of a line are one aligned 64-byte half of a 128-byte
+line.
 
 The ``plain_*`` functions compute the same results in tensor ops, without
-autograd: the displacement (``bsi_ttli.plain`` or ``bsi_matmul.plain``, both
-rounding each operation as the kernels do), the clamped 8-tap sample and the
-sums.  ``kernels.ops`` picks between the two by the tensor's device.
+autograd: the displacement (:func:`displacement`: ``bsi_ttli.plain`` or
+``bsi_matmul``'s sum, both rounding each operation as the kernels do), the
+clamped 8-tap sample and the sums.  ``kernels.ops`` picks between the two by
+the tensor's device.
 """
 
 from __future__ import annotations
@@ -69,15 +71,16 @@ import math
 
 import torch
 
+from repro_torch.core.bspline import fused_basis
 from repro_torch.core.similarity import local_cc, parzen_centres, parzen_weights
 from repro_torch.kernels import bsi_matmul, bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "NMI_STRIDE", "MomentBlocks", "block_tiles",
-           "check_walk_layout", "launch", "lncc_blocks", "moment_blocks", "nmi_padded_bins",
-           "nmi_smem_bytes", "nmi_support", "nmi_support_range", "num_partials",
-           "occupancy_key", "plain", "plain_lncc", "plain_ncc", "plain_nmi", "plain_stats",
-           "warped"]
+__all__ = ["DISP_FORMS", "LANES", "MAX_BINS", "NMI_STRIDE", "MomentBlocks", "basis_table",
+           "block_tiles", "check_walk_layout", "displacement", "launch", "lncc_blocks",
+           "moment_blocks", "nmi_padded_bins", "nmi_smem_bytes", "nmi_support",
+           "nmi_support_range", "num_partials", "occupancy_key", "plain", "plain_lncc",
+           "plain_ncc", "plain_nmi", "plain_stats", "warped"]
 
 DISP_FORMS = ("lerp", "matmul")
 LANES = {"ssd": 1, "stats": 4, "ncc": 3, "lncc": 2}
@@ -243,16 +246,13 @@ def check_walk_layout(lib, dims) -> None:
 
 def occupancy_key(kind, disp_form, tile, vol_shape, bf16=False) -> tuple:
     """``(symbol, smem, grid)`` of the ``kind`` kernel (``ssd``, ``stats`` or
-    ``ncc``) in ``disp_form`` (``bf16``: the lerp form's bf16 kernel): the
-    part of its instantiation's name in its ``-Xptxas -v`` line, its dynamic
-    shared memory a block and its grid."""
+    ``ncc``) in ``disp_form`` (``bf16``: its bf16 kernel, on the same
+    blocks): the part of its instantiation's name in its ``-Xptxas -v``
+    line, its dynamic shared memory a block and its grid."""
     geo = moment_blocks(tuple(tile), tuple(vol_shape), disp_form)
     form, moment = DISP_FORMS.index(disp_form), ("ssd", "stats", "ncc").index(kind)
-    if bf16:
-        if disp_form != "lerp":
-            raise ValueError("the matrix form has no bf16 kernel (ROADMAP.md item 18e)")
-        return f"bsi_fused_walk_bf16_kernelILi{moment}EE", geo.smem, geo.grid
-    return f"bsi_fused_walk_kernelILi{form}ELi{moment}EE", geo.smem, geo.grid
+    name = "bsi_fused_walk_bf16_kernel" if bf16 else "bsi_fused_walk_kernel"
+    return f"{name}ILi{form}ELi{moment}EE", geo.smem, geo.grid
 
 
 def _lncc_smem_bytes(tile, own, window, disp_form) -> int:
@@ -335,8 +335,8 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
            bins=None, sigma=None, eps=None, window=None, extra=None, lib=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
     (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  ``phi`` and
-    ``moving`` are both float32 or both bf16 (the lerp form only, with the
-    bf16-rounded LUTs); ``fixed`` float32.  ``blocks``: the tiles a block
+    ``moving`` are both float32 or both bf16 (with the bf16-rounded LUTs or
+    basis); ``fixed`` float32.  ``blocks``: the tiles a block
     owns, ``moment_blocks(...).tiles`` for ``ssd``, ``stats`` and ``ncc``;
     for ``lncc`` the owned tiles and ``extra`` the halo tiles.
     ``lib``: the loaded kernels (default :func:`load_library`'s; a
@@ -359,7 +359,7 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
         if disp_form == "lerp":
             tabs = bsi_ttli.stage_luts(tile, phi.device, phi.dtype).data_ptr()
         else:
-            tabs = bsi_matmul.basis(tile, phi.device).data_ptr()
+            tabs = basis_table(tile, phi.device, phi.dtype).data_ptr()
         entry = getattr(lib, f"bsi_fused_{kind}_{suffix}")
         if kind == "ssd":
             rc = entry(
@@ -390,18 +390,37 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
     return out.view(bins, bins) if kind == "nmi" else out
 
 
+@functools.lru_cache(maxsize=None)
+def basis_table(tile, device, dtype=torch.float32) -> torch.Tensor:
+    """The matrix form's ``(d^3, 64)`` basis for ``phi`` of ``dtype``, held
+    as float32 on ``device``: ``core.bspline.fused_basis``, for bf16 the
+    products of the bf16 LUTs each rounded to bf16, as the JAX kernel builds
+    it (``bsi_matmul.basis`` rounds the float64 product once instead)."""
+    return fused_basis(tile, dtype, device).float().contiguous()
+
+
+def displacement(phi, tile, vol_shape, disp_form="lerp"):
+    """The kernels' displacement of ``disp_form`` in tensor ops, cropped to
+    ``vol_shape``: ``bsi_ttli.plain``, or the 64-term sum of
+    ``bsi_matmul.plain`` with the basis of :func:`basis_table`; of a bf16
+    ``phi`` the float32 sums of the widened grid rounded once to bf16."""
+    if disp_form == "lerp":
+        return bsi_ttli.plain(phi, tile, vol_shape)
+    b = basis_table(tuple(int(d) for d in tile), phi.device, phi.dtype)
+    return bsi_matmul.basis_sum(phi.float(), b, tile, vol_shape).to(phi.dtype)
+
+
 def warped(phi, moving, tile, disp_form="lerp"):
     """The kernels' warp in tensor ops: the moving volume sampled at identity
-    + the displacement of ``disp_form``, clamped 8-tap, without autograd.  A
-    bf16 ``phi`` gives a bf16 displacement (the float32 form rounded once),
-    widened for the float32 coordinates; a bf16 ``moving`` gives bf16 taps
-    lerped in float32; the warp is float32."""
+    + the :func:`displacement` of ``disp_form``, clamped 8-tap, without
+    autograd.  A bf16 ``phi`` gives a bf16 displacement (the float32 form
+    rounded once), widened for the float32 coordinates; a bf16 ``moving``
+    gives bf16 taps lerped in float32; the warp is float32."""
     X, Y, Z = moving.shape
     if disp_form not in DISP_FORMS:
         raise ValueError(f"unknown disp_form {disp_form!r}; choose from {DISP_FORMS}")
-    form = bsi_ttli if disp_form == "lerp" else bsi_matmul
     with torch.no_grad():
-        disp = form.plain(phi, tile, (X, Y, Z))
+        disp = displacement(phi, tile, (X, Y, Z), disp_form)
         dev = moving.device
         axes = [torch.arange(s, dtype=torch.float32, device=dev) for s in (X, Y, Z)]
         ident = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)

@@ -18,6 +18,16 @@ products take 0.109 ms at 495 TFLOP/s.  It rounds otherwise than
 :func:`plain` and is held to it at 1e-5 absolute (:func:`exact` is the
 float64 yardstick of both).  ``kernels.ops.bsi_matmul`` picks between the
 two by the tensor's device.
+
+On a bf16 grid (``compute_dtype="bfloat16"``, entry ``bsi_matmul_bf16``)
+both follow the contract of ``core.interpolate``: the grid widened, the
+basis rounded to bf16 (``basis_matrix(tile, bfloat16)``, the JAX kernel's
+operand) and widened, float32 sums, one rounding to bf16 at the store.  A
+bf16 value is exact in TF32, so the split's lo parts are zero and the
+kernel runs only the ``hi_B hi_W`` product, one wgmma a k-step, in the
+float32 kernel's order: its bits are those of the float32 kernel on the
+widened grid with the bf16 basis's fragments, rounded once.  It stages the
+bf16 rows as they are and writes a bf16 field.
 """
 
 from __future__ import annotations
@@ -29,9 +39,9 @@ import torch
 
 from repro_torch.core.bspline import basis_matrix
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.bsi_ttli import MAX_SMEM_BYTES, check_smem
+from repro_torch.kernels.bsi_ttli import ENTRY_SUFFIX, MAX_SMEM_BYTES, check_smem
 
-__all__ = ["MatmulBlocks", "basis", "basis_fragments", "exact", "launch",
+__all__ = ["MatmulBlocks", "basis", "basis_fragments", "basis_sum", "exact", "launch",
            "matmul_blocks", "occupancy_key", "plain", "tf32_rna", "tf32_split"]
 
 MAX_COLUMNS = 48  # a unit's (z tile, channel) columns at most, past one z tile
@@ -42,9 +52,10 @@ BLOCKS_PER_SM = 2  # persistent blocks a launch starts per SM
 
 
 @functools.lru_cache(maxsize=None)
-def basis(tile, device) -> torch.Tensor:
-    """The ``(d^3, 64)`` float32 basis on ``device`` (float64, cast once)."""
-    return basis_matrix(tile, torch.float32, device).contiguous()
+def basis(tile, device, dtype=torch.float32) -> torch.Tensor:
+    """The ``(d^3, 64)`` basis on ``device`` (float64, cast once to
+    ``dtype``), held as float32."""
+    return basis_matrix(tile, dtype, device).float().contiguous()
 
 
 def tf32_rna(x) -> torch.Tensor:
@@ -63,8 +74,9 @@ def tf32_split(x) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def basis_fragments(tile, device) -> torch.Tensor:
-    """The basis's hi and lo TF32 parts as the kernel's A fragments, each
+def basis_fragments(tile, device, dtype=torch.float32) -> torch.Tensor:
+    """The basis (:func:`basis` of ``dtype``; of bf16 the lo parts are
+    zero) as hi and lo TF32 parts in the kernel's A fragments, each
     warp's 16 rows of a wgmma's 64 in the ``m16n8k8`` layout: ``(m16 tiles,
     8 k-steps, hi/lo, 32 lanes, 4)`` float32 on ``device``, rows padded to
     whole 64-row tiles with zeros (warp ``w`` of a warpgroup holds m16 tile
@@ -72,7 +84,7 @@ def basis_fragments(tile, device) -> torch.Tensor:
     (lane // 4, lane % 4)`` of m tile ``mi`` at k-step ``s`` holds rows
     ``16 mi + g (+8)`` and columns ``8 s + t (+4)``: entry ``r`` is row
     ``16 mi + g + 8 (r % 2)``, column ``8 s + t + 4 (r // 2)``."""
-    b = basis(tuple(int(d) for d in tile), "cpu")
+    b = basis(tuple(int(d) for d in tile), "cpu", dtype)
     nv = b.shape[0]
     mt = -(-nv // 64) * 4  # whole 64-row tiles, a warpgroup's
     padded = torch.zeros((mt * 16, 64))
@@ -156,18 +168,20 @@ def matmul_blocks(tile, channels, vol_shape, sms=132) -> MatmulBlocks:
                         grid=min(units, BLOCKS_PER_SM * sms), smem=_smem(tile, c, zt))
 
 
-def occupancy_key(tile, channels, vol_shape, sms=132) -> tuple:
+def occupancy_key(tile, channels, vol_shape, sms=132, bf16=False) -> tuple:
     """``(symbol, smem, grid)``: the part of the kernel's instantiation's
-    name in its ``-Xptxas -v`` line, its shared memory a block and its
-    grid."""
+    name in its ``-Xptxas -v`` line (``bf16``: the bf16 kernel's, on the
+    same blocks), its shared memory a block and its grid."""
     geo = matmul_blocks(tuple(tile), channels, tuple(vol_shape), sms)
-    return f"bsi_matmul_kernelILi{3 if channels == 3 else 0}E", geo.smem, geo.grid
+    name = "bsi_matmul_bf16_kernel" if bf16 else "bsi_matmul_kernel"
+    return f"{name}ILi{3 if channels == 3 else 0}E", geo.smem, geo.grid
 
 
 def launch(phi, out, tile, lib=None):
-    """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped);
-    ``lib`` a measurement build (default: the kernels as built); raises if
-    its blocks do not fit."""
+    """Launch the kernel of ``phi``'s dtype (float32 or bf16, ``out`` the
+    same) on the current stream: ``phi`` -> ``out`` (cropped); ``lib`` a
+    measurement build (default: the kernels as built); raises if its blocks
+    do not fit."""
     nx, ny, nz, c = phi.shape
     X, Y, Z, _ = out.shape
     tile = tuple(int(d) for d in tile)
@@ -177,15 +191,15 @@ def launch(phi, out, tile, lib=None):
     lib = lib or load_library()
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        rc = lib.bsi_matmul_f32(
-            phi.data_ptr(), basis_fragments(tile, phi.device).data_ptr(),
+        rc = getattr(lib, f"bsi_matmul_{ENTRY_SUFFIX[phi.dtype]}")(
+            phi.data_ptr(), basis_fragments(tile, phi.device, phi.dtype).data_ptr(),
             out.data_ptr(), nx, ny, nz, c, *tile, X, Y, Z, geo.z_tiles, geo.grid,
             stream)
     if rc:
         raise RuntimeError(f"bsi_matmul kernel launch failed: cudaError_t {rc}")
 
 
-def _sum(phi, b, tile, vol_shape):
+def basis_sum(phi, b, tile, vol_shape):
     """The 64 terms ``b[:, k] * window[k]`` added one at a time, ``k`` in
     order, in the dtype of ``phi`` and ``b``, cropped to ``vol_shape``."""
     dx, dy, dz = tile
@@ -206,9 +220,14 @@ def plain(phi, tile, vol_shape):
     terms ``B[v, k] * window[k]`` added one at a time, ``k`` in order, each
     product and sum rounded to float32.  The fused kernels' matrix-form
     displacement, built without FMA contraction, rounds the same way; the
-    tensor-core kernel does not (3xTF32) and is held to it at 1e-5."""
+    tensor-core kernel does not (3xTF32) and is held to it at 1e-5.  A bf16
+    ``phi`` gives the same sums of the widened grid and the bf16-rounded
+    basis, rounded once to a bf16 field."""
     tile = tuple(int(d) for d in tile)
-    return _sum(phi, basis(tile, phi.device), tile, vol_shape)
+    if phi.dtype == torch.bfloat16:
+        b = basis(tile, phi.device, torch.bfloat16)
+        return basis_sum(phi.float(), b, tile, vol_shape).to(torch.bfloat16)
+    return basis_sum(phi, basis(tile, phi.device), tile, vol_shape)
 
 
 def exact(phi, tile, vol_shape):
@@ -217,4 +236,4 @@ def exact(phi, tile, vol_shape):
     :func:`plain`'s rounding."""
     tile = tuple(int(d) for d in tile)
     b = basis_matrix(tile, torch.float64, phi.device)
-    return _sum(phi.double(), b, tile, vol_shape)
+    return basis_sum(phi.double(), b, tile, vol_shape)

@@ -16,7 +16,13 @@ with 3 channels on an H100 at one instruction a clock, the form's floor
 under its rounding (the function's bytes take 0.16 ms).  :func:`plain` is
 :func:`repro_torch.core.interpolate.bsi_tt` cropped, which rounds every
 product and sum as the kernel does; ``kernels.ops.bsi_tt`` picks between
-the two by the tensor's device.
+the two by the tensor's device.  Both take a float32 or a bf16 grid and
+write a field of its dtype (entry points ``bsi_tt_f32`` and
+``bsi_tt_bf16``): in bf16 the grid is widened as it is loaded, the weights
+are products of the bf16-rounded LUTs in float32, the sums float32 as
+before, and each value is rounded once where it is staged, so the bf16
+kernel is its plain version bit for bit too; the staging and its bulk
+stores move 2-byte values, 8 to 16 bytes.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from repro_torch.core.bspline import weight_lut
 from repro_torch.core.interpolate import bsi_tt
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.bsi_adjoint import card_sms
-from repro_torch.kernels.bsi_ttli import KERNEL_THREADS, MAX_SMEM_BYTES, check_smem
+from repro_torch.kernels.bsi_ttli import (ENTRY_SUFFIX, KERNEL_THREADS, MAX_SMEM_BYTES,
+                                          check_smem)
 
 __all__ = ["MAX_CHUNK", "TTBlocks", "launch", "occupancy_key", "plain", "tt_blocks",
            "weight_table"]
@@ -117,24 +124,26 @@ def tt_blocks(tile, channels, vol_shape, sms=132) -> TTBlocks:
                     smem=_smem(slots, dz, rows, part_cols))
 
 
-def occupancy_key(tile, channels, vol_shape, sms=132) -> tuple:
+def occupancy_key(tile, channels, vol_shape, sms=132, bf16=False) -> tuple:
     """``(symbol, smem, grid)``: the part of the kernel's instantiation's
-    name in its ``-Xptxas -v`` line, its shared memory a block and its
-    grid."""
+    name in its ``-Xptxas -v`` line (``bf16``: the bf16 kernel's, on the
+    same blocks), its shared memory a block and its grid."""
     geo = tt_blocks(tuple(tile), channels, tuple(vol_shape), sms)
-    return f"bsi_tt_kernelILi{geo.chunk}E", geo.smem, geo.grid
+    name = "bsi_tt_bf16_kernel" if bf16 else "bsi_tt_kernel"
+    return f"{name}ILi{geo.chunk}E", geo.smem, geo.grid
 
 
 @functools.lru_cache(maxsize=None)
-def weight_table(tile, device) -> torch.Tensor:
+def weight_table(tile, device, dtype=torch.float32) -> torch.Tensor:
     """The kernel's weights, ``(dx * dy, rows * 64)`` float32 on ``device``:
     row ``a * dy + b`` holds column ``(a, b)``'s slice, ``w[r * 64 + k] =
-    (wx[a,l] * wy[b,m]) * wz[r,n]`` at ``k = (l * 4 + m) * 4 + n``, rounded
-    as the plain :func:`bsi_tt` rounds it; 0 for ``r >= dz`` (the rows
-    that fill the last chunk)."""
+    (wx[a,l] * wy[b,m]) * wz[r,n]`` at ``k = (l * 4 + m) * 4 + n``, of the
+    LUTs rounded to ``dtype`` and widened, the products in float32 as the
+    plain :func:`bsi_tt` rounds them; 0 for ``r >= dz`` (the rows that fill
+    the last chunk)."""
     dx, dy, dz = tile
     _, rows = _chunk_rows(dz)
-    wx, wy, wz = (weight_lut(d, torch.float32, "cpu") for d in tile)
+    wx, wy, wz = (weight_lut(d, dtype, "cpu").float() for d in tile)
     w = torch.zeros((dx, dy, rows, 4, 4, 4))
     w[:, :, :dz] = ((wx[:, None, None, :, None, None] * wy[None, :, None, None, :, None])
                     * wz[None, None, :, None, None, :])
@@ -142,7 +151,8 @@ def weight_table(tile, device) -> torch.Tensor:
 
 
 def launch(phi, out, tile, lib=None):
-    """Launch the kernel on the current stream: ``phi`` -> ``out`` (cropped);
+    """Launch the kernel of ``phi``'s dtype (float32 or bf16, ``out`` the
+    same) on the current stream: ``phi`` -> ``out`` (cropped);
     ``lib`` a measurement build (default: the kernels as built); raises if
     its blocks do not fit."""
     nx, ny, nz, c = phi.shape
@@ -152,8 +162,9 @@ def launch(phi, out, tile, lib=None):
     lib = lib or load_library()
     with torch.cuda.device(phi.device):
         stream = torch.cuda.current_stream(phi.device).cuda_stream
-        rc = lib.bsi_tt_f32(
-            phi.data_ptr(), weight_table(tile, phi.device).data_ptr(), out.data_ptr(),
+        rc = getattr(lib, f"bsi_tt_{ENTRY_SUFFIX[phi.dtype]}")(
+            phi.data_ptr(), weight_table(tile, phi.device, phi.dtype).data_ptr(),
+            out.data_ptr(),
             nx, ny, nz, c, *tile, X, Y, Z, geo.part_cols, stream)
     if rc:
         raise RuntimeError(f"bsi_tt kernel launch failed: cudaError_t {rc}")

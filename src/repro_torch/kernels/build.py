@@ -59,11 +59,14 @@ _SIGNATURES = {
     "bsi_ttli_bf16": "ppp" + "i" * 11,  # bf16 phi and out, float luts
     "bsi_separable_bf16": "ppp" + "i" * 11,
     "bsi_tt_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, columns a block
+    "bsi_tt_bf16": "ppp" + "i" * 11,  # bf16 phi and out, float weights
     "bsi_matmul_f32": "ppp" + "i" * 12,  # ..., X, Y, Z, z tiles a unit, blocks
+    "bsi_matmul_bf16": "ppp" + "i" * 12,  # bf16 phi and out, float fragments
     "bsi_adjoint_f32": "p" * 6 + "i" * 14,
     "bsi_adjoint_bf16": "p" * 6 + "i" * 14,  # bf16 g; float LUTs, scratch, out
     "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,
-    # the fused variants; their _bf16 twins take bf16 phi and mov (lerp form)
+    "bsi_adjoint_matmul_bf16": "pppp" + "i" * 14,  # bf16 g; float basis, out
+    # the fused variants; their _bf16 twins take bf16 phi and mov
     **{f"bsi_fused_{kind}_{suffix}": sig for suffix in ("f32", "bf16") for kind, sig in (
         ("ssd", "ppppp" + "ip" + _DIMS),
         ("stats", "pppp" + "ip" + _DIMS),
@@ -88,13 +91,17 @@ class BuildInfo:
 
 
 class Library:
-    """The loaded kernels: call ``lib.<entry point>(...)``; ``info`` is the build."""
+    """The loaded kernels: call ``lib.<entry point>(...)``; ``info`` is the
+    build.  An entry point the library lacks (an earlier commit's build,
+    loaded to compare with) is left out."""
 
     def __init__(self, info: BuildInfo):
         self.info = info
         self._dll = ctypes.CDLL(str(info.path))
         for name, sig in _SIGNATURES.items():
-            fn = getattr(self._dll, name)
+            fn = getattr(self._dll, name, None)
+            if fn is None:
+                continue
             fn.argtypes = [_CTYPES[c] for c in sig + "p"]
             fn.restype = ctypes.c_int
             setattr(self, name, fn)

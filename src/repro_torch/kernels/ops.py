@@ -3,21 +3,18 @@
 Each dispatcher takes tensors in the JAX package's layouts (channels last;
 attention's ``(B, S, heads, head dim)``).  On a CPU tensor it runs its
 kernel's plain PyTorch version; on a CUDA tensor it checks device, dtype
-(float32; attention, ``bsi_ttli`` and ``bsi_separable`` also bfloat16),
+(float32 or bfloat16),
 shape and contiguity, allocates the outputs with ``torch.empty``, launches
 the kernel on the current stream, raises if the launch failed, and adds one
 to its kernel's launch count (:func:`launch_counts`; the fused variants
 count apart per displacement form, ``bsi_fused_ncc`` and
 ``bsi_fused_ncc_matmul``, the bf16 kernels apart from the float32 ones,
-``bsi_ttli_bf16``, ``bsi_adjoint_bf16``, ``bsi_fused_ncc_bf16``).  Under
-bf16 the card runs ``bsi_ttli``, ``bsi_separable``, the separable
-``bsi_adjoint`` (a bf16 cotangent; float32 out) and the five fused variants
-in the lerp form (bf16 ``phi`` and ``moving``; ``fixed`` float32).  There is
-no fallback and no cast: a CUDA tensor runs the kernel of its dtype or
-raises, a bf16 one where no bf16 kernel is ported yet
-``NotImplementedError`` naming its ROADMAP.md item (queue 1 item 18e, the
-matrix and TT forms: ``bsi_tt``, ``bsi_matmul``, ``bsi_adjoint_matmul`` and
-the fused kernels with ``disp_form="matmul"``).
+``bsi_ttli_bf16``, ``bsi_adjoint_matmul_bf16``, ``bsi_fused_ncc_matmul_bf16``).
+Under bf16 the card runs every forward form (``bsi_ttli``,
+``bsi_separable``, ``bsi_tt``, ``bsi_matmul``), both adjoints (a bf16
+cotangent; float32 out) and the five fused variants in both displacement
+forms (bf16 ``phi`` and ``moving``; ``fixed`` float32).  There is no
+fallback and no cast: a CUDA tensor runs the kernel of its dtype or raises.
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
@@ -77,11 +74,10 @@ def _fused_name(kind, disp_form, dtype=torch.float32):
 
 
 # Launches per kernel since the last reset.
-_KERNELS = ("bsi_ttli", "bsi_separable", "bsi_ttli_bf16", "bsi_separable_bf16", "bsi_tt",
-            "bsi_matmul", "bsi_adjoint", "bsi_adjoint_bf16", "bsi_adjoint_matmul") + tuple(
-    _fused_name(kind, form, dtype) for form, dtype in (
-        ("lerp", torch.float32), ("matmul", torch.float32), ("lerp", torch.bfloat16))
-    for kind in _FUSED_KINDS) + ("flash_attention",)
+_KERNELS = tuple(f"bsi_{form}{suffix}" for suffix in ("", "_bf16") for form in (
+    "ttli", "separable", "tt", "matmul", "adjoint", "adjoint_matmul")) + tuple(
+    _fused_name(kind, form, dtype) for dtype in (torch.float32, torch.bfloat16)
+    for form in ("lerp", "matmul") for kind in _FUSED_KINDS) + ("flash_attention",)
 _LAUNCHES = dict.fromkeys(_KERNELS, 0)
 
 
@@ -105,14 +101,6 @@ def _on_card(t, name) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
-def _not_yet_bf16(t, name, item):
-    """Raise for a bf16 CUDA tensor ``t`` that kernel ``name`` does not take
-    yet (ROADMAP.md queue 1 ``item``)."""
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name} has no bf16 kernel yet (ROADMAP.md queue 1 item {item})")
-
-
 def _check(t, name, ndim, device, dtype=torch.float32):
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
@@ -133,15 +121,9 @@ def _covers(grid_shape, tile, vol_shape, name):
             )
 
 
-# The forward modes whose kernel takes a bf16 grid (ROADMAP.md queue 1 item
-# 18e ports ``tt`` and ``matmul``); the autotuner's bf16 pool reads it.
-BF16_FORWARD = ("separable", "ttli")
-
-
 def _forward(mode, module, phi, tile, vol_shape):
     """A forward kernel's dispatch; a bf16 ``phi`` counts as
-    ``bsi_<mode>_bf16``, or raises where ``mode`` is not in
-    :data:`BF16_FORWARD`."""
+    ``bsi_<mode>_bf16``."""
     name = f"bsi_{mode}"
     tile = tuple(int(d) for d in tile)
     full = tuple((int(n) - 3) * d for n, d in zip(phi.shape[:3], tile))
@@ -149,8 +131,6 @@ def _forward(mode, module, phi, tile, vol_shape):
     _covers(phi.shape[:3], tile, vol_shape, name)
     if not _on_card(phi, name):
         return module.plain(phi, tile, vol_shape)
-    if mode not in BF16_FORWARD:
-        _not_yet_bf16(phi, name, "18e")
     dtype = torch.bfloat16 if phi.dtype == torch.bfloat16 else torch.float32
     _check(phi, "phi", 4, phi.device, dtype)
     out = torch.empty(vol_shape + (phi.shape[3],), dtype=dtype, device=phi.device)
@@ -218,24 +198,25 @@ def bsi_adjoint(g, tile, grid_shape):
 
 
 def bsi_adjoint_matmul(g, tile, grid_shape):
-    """The BSI adjoint in the transposed matrix form; as :func:`bsi_adjoint`,
-    float32 ``g`` only on the card (bf16: ROADMAP.md queue 1 item 18e)."""
+    """The BSI adjoint in the transposed matrix form; as :func:`bsi_adjoint`
+    (a bf16 ``g`` counts as ``bsi_adjoint_matmul_bf16``)."""
     tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint_matmul")
     if not card:
         return _adjoint.plain_matmul(g, tile, grid_shape)
-    _not_yet_bf16(g, "bsi_adjoint_matmul", "18e")
-    _check(g, "g", 4, g.device)
+    dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+    _check(g, "g", 4, g.device, dtype)
     out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
                       device=g.device)
     _adjoint.launch_matmul(g, out, tile)
-    _LAUNCHES["bsi_adjoint_matmul"] += 1
+    _LAUNCHES["bsi_adjoint_matmul" if dtype == torch.float32
+              else "bsi_adjoint_matmul_bf16"] += 1
     return out
 
 
 def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     """Check the fused kernels' shared inputs: ``None`` on the CPU, else the
-    dtype of ``phi`` and ``moving`` on the card (both float32, or both bf16
-    in the lerp form; ``fixed`` float32)."""
+    dtype of ``phi`` and ``moving`` on the card (both float32 or both bf16;
+    ``fixed`` float32)."""
     if disp_form not in _fused.DISP_FORMS:
         raise ValueError(
             f"unknown disp_form {disp_form!r}; choose from {_fused.DISP_FORMS}")
@@ -248,8 +229,6 @@ def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     if not _on_card(phi, name):
         return None
     dtype = torch.bfloat16 if phi.dtype == torch.bfloat16 else torch.float32
-    if dtype == torch.bfloat16 and disp_form != "lerp":
-        _not_yet_bf16(phi, f"{name}(disp_form={disp_form!r})", "18e")
     _check(phi, "phi", 4, phi.device, dtype)
     _check(moving, "moving", 3, phi.device, dtype)
     if fixed is not None:
@@ -268,8 +247,8 @@ def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
     The fused level step's forward, SSD only; the differentiable face is
     ``repro_torch.core.ffd.fused_warp_loss``.  ``disp_form`` is ``"lerp"``
     or ``"matmul"`` (the displacement's form).  ``phi`` and ``moving`` are
-    float32, or both bf16 in the lerp form (``compute_dtype="bfloat16"``;
-    every fused variant likewise); ``fixed`` is float32.  Returns a 0-dim
+    both float32 or both bf16 (``compute_dtype="bfloat16"``; every fused
+    variant likewise); ``fixed`` is float32.  Returns a 0-dim
     float32 tensor.
     """
     tile = tuple(int(d) for d in tile)

@@ -226,12 +226,16 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
         "bsi_separable": (grid_b + field_b, forward),
         "bsi_tt": (grid_b + field_b, forward),
         # compute_dtype="bfloat16": a bf16 grid and field, float32 arithmetic
-        "bsi_ttli_bf16": ((grid_b + field_b) // 2, forward),
-        "bsi_separable_bf16": ((grid_b + field_b) // 2, forward),
+        **{f"bsi_{form}_bf16": ((grid_b + field_b) // 2, forward)
+           for form in ("ttli", "separable", "tt", "matmul")},
         # a bf16 cotangent in, the float32 grid cotangent out
         "bsi_adjoint_separable_bf16": (field_b // 2 + grid_b, backward),
-        # a bf16 grid and moving volume; fixed, scal and the sums float32
+        "bsi_adjoint_matmul_bf16": (field_b // 2 + grid_b, backward),
+        # a bf16 grid and moving volume; fixed, scal, the basis and the sums
+        # float32
         **{f"bsi_fused_{k}_bf16": (b - grid_b // 2 - vol_b // 2, forward + f)
+           for k, (b, f) in fused.items()},
+        **{f"bsi_fused_{k}_matmul_bf16": (b + basis_b - grid_b // 2 - vol_b // 2, forward + f)
            for k, (b, f) in fused.items()},
     }
 

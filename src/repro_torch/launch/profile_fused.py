@@ -144,8 +144,8 @@ def fused_report(name, call, plain, reps=20) -> dict:
 def occupancy(lib, name, tile, vol) -> dict:
     """The kernel's ptxas line, its shared memory a block (dynamic and
     static), resident blocks an SM and grid; ``name`` a key of
-    :data:`KERNELS`, or a lerp-form one with ``_bf16`` appended (the bf16
-    kernel, ``bsi_fused_stats_bf16``)."""
+    :data:`KERNELS`, or one with ``_bf16`` appended (the bf16 kernel,
+    ``bsi_fused_stats_bf16``, ``bsi_fused_ncc_matmul_bf16``)."""
     bf16 = name.endswith("_bf16")
     kind, form = KERNELS[name.removesuffix("_bf16")]
     symbol, smem, grid = bsi_fused.occupancy_key(kind, form, tile, vol, bf16=bf16)

@@ -38,7 +38,7 @@ from repro_torch.core import bspline, ffd, interpolate
 from repro_torch.core.similarity import resolve_similarity
 from repro_torch.engine import autotune
 from repro_torch.engine.batch import register_batch
-from repro_torch.kernels import bsi_separable, bsi_ttli, ops
+from repro_torch.kernels import bsi_matmul, bsi_separable, bsi_tt, bsi_ttli, ops
 
 from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 BF16 = torch.bfloat16
@@ -110,32 +110,48 @@ def test_plain_bf16_forms_against_reference(mode, grid, tile):
     assert torch.equal(same, out)
 
 
-@pytest.mark.parametrize("module", [bsi_ttli, bsi_separable], ids=["ttli", "separable"])
+FORM_MODULES = {"ttli": bsi_ttli, "separable": bsi_separable, "tt": bsi_tt,
+                "matmul": bsi_matmul}
+
+
+@pytest.mark.parametrize("mode", list(FORM_MODULES))
 @pytest.mark.parametrize("vol,tile", [((13, 11, 9), (5, 4, 3)), ((10, 10, 10), (5, 5, 5))])
-def test_kernel_plain_is_the_float32_form_rounded_once(monkeypatch, module, vol, tile):
+def test_kernel_plain_is_the_float32_form_rounded_once(monkeypatch, mode, vol, tile):
     """A bf16 ``plain`` equals ``bf16(float32 plain on the same widened
-    inputs)`` bit for bit: the bf16 grid widened, the LUTs rounded to bf16
-    and widened, float32 arithmetic, one rounding.  On a CPU tensor the
-    dispatcher runs it."""
+    inputs)`` bit for bit: the bf16 grid widened, the LUTs (the matrix
+    form: its basis) rounded to bf16 and widened, float32 arithmetic, one
+    rounding.  On a CPU tensor the dispatcher runs it."""
+    module = FORM_MODULES[mode]
     rng = np.random.default_rng(7)
     g = ffd.grid_shape_for_volume(vol, tile)
     phi = torch.from_numpy(2.5 * rng.standard_normal(g + (3,)).astype(np.float32)).to(BF16)
     out = module.plain(phi, tile, vol)
     assert out.dtype == BF16 and out.shape == vol + (3,)
-    kernel = ops.bsi_ttli if module is bsi_ttli else ops.bsi_separable
-    assert torch.equal(kernel(phi, tile, vol), out)
-    # the float32 form, handed LUTs rounded to bf16 in place of its own
-    luts, weights = interpolate.lerp_luts, interpolate.weight_lut
+    assert torch.equal(ops.FORWARD_KERNELS[mode](phi, tile, vol), out)
+    # the float32 form, handed LUTs (basis) rounded to bf16 in place of its own
+    luts, weights, basis = interpolate.lerp_luts, interpolate.weight_lut, bsi_matmul.basis
     monkeypatch.setattr(interpolate, "lerp_luts", lambda d, dt, dev: tuple(
         t.to(dt) for t in luts(d, BF16, dev)))
     monkeypatch.setattr(interpolate, "weight_lut",
                         lambda d, dt, dev: weights(d, BF16, dev).to(dt))
+    monkeypatch.setattr(bsi_matmul, "basis", lambda t, dev, dt=torch.float32: basis(
+        t, dev, BF16))
     widened = module.plain(phi.float(), tile, vol)
     assert widened.dtype == torch.float32
     assert torch.equal(widened.to(BF16), out)
-    # and the kernels' LUT tensors hold the same bf16 values as floats
-    held = (bsi_ttli.stage_luts(tile, "cpu", BF16) if module is bsi_ttli
-            else bsi_separable.weight_luts(tile, "cpu", BF16))
+    # and the kernels' tables hold the same bf16 values as floats; TT's the
+    # float32 products of the bf16 LUTs, as plain forms them
+    if mode == "tt":
+        dx, dy, dz = tile
+        wx, wy, wz = (weights(d, BF16, "cpu").float() for d in tile)
+        want = ((wx[:, None, None, :, None, None] * wy[None, :, None, None, :, None])
+                * wz[None, None, :, None, None, :])
+        held = bsi_tt.weight_table(tile, "cpu", BF16).reshape(dx, dy, -1, 4, 4, 4)
+        assert held.dtype == torch.float32 and torch.equal(held[:, :, :dz], want)
+        return
+    held = {"ttli": lambda: bsi_ttli.stage_luts(tile, "cpu", BF16),
+            "separable": lambda: bsi_separable.weight_luts(tile, "cpu", BF16),
+            "matmul": lambda: basis(tile, "cpu", BF16)}[mode]()
     assert held.dtype == torch.float32 and torch.equal(held, held.to(BF16).float())
 
 
@@ -292,14 +308,13 @@ def test_autotune_keys_the_compute_dtype_and_excludes_autograd(tmp_path):
     keys = list(json.load(open(cache))["entries"])
     assert any("|cd=bfloat16|" in k for k in keys)
     assert any("|cd=" not in k for k in keys)
-    # on a card bf16 races only the forms with a bf16 kernel (18e); pure
-    # functions of the device's type, no card needed
+    # on a card bf16 races the four kernel forms, each with a bf16 kernel;
+    # pure functions of the device's type, no card needed
     cuda = torch.device("cuda")
-    bf16_kernels = {("separable", "cuda"), ("ttli", "cuda")}
-    assert set(autotune.default_candidates(cuda, "bfloat16")) == bf16_kernels
-    assert set(autotune._candidate_pool("auto", "cuda", cuda, "bfloat16")) == bf16_kernels
-    assert len(autotune.default_candidates(cuda)) == 4
-    assert len(autotune._candidate_pool("auto", "torch", cuda, "bfloat16")) == 5
+    kernels = {("separable", "cuda"), ("ttli", "cuda"), ("tt", "cuda"), ("matmul", "cuda")}
+    assert set(autotune.default_candidates(cuda)) == kernels
+    assert set(autotune._candidate_pool("auto", "cuda", cuda)) == kernels
+    assert len(autotune._candidate_pool("auto", "torch", cuda)) == 5
 
 
 def test_resolve_options_under_bf16_on_the_cpu():

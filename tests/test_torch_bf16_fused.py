@@ -138,10 +138,10 @@ def test_bf16_cotangent_adjoint_matches_reference_kernel(full, tile, c):
 
 @pytest.mark.parametrize("grad_impl", ["cuda", "torch", "matmul"])
 def test_bf16_backward_hands_the_adjoint_its_cotangent(monkeypatch, grad_impl):
-    """``grad_impl="cuda"`` and ``"torch"`` pass the bf16 cotangent to the
-    separable adjoint as it is; ``"matmul"`` widens it first (its kernel
-    takes float32 until ROADMAP.md item 18e); the gradients are the same
-    float32 values either way."""
+    """Every ``grad_impl`` passes the bf16 cotangent to its adjoint as it
+    is (``"cuda"`` and ``"torch"`` the separable one, ``"matmul"`` the
+    transposed matrix form, each widening it as it reads it); the
+    gradients are the adjoint's float32 values on the widened cotangent."""
     from repro_torch.core import interpolate
 
     phi_np, _, _ = _inputs((12, 11, 9), (3, 3, 3))
@@ -159,7 +159,7 @@ def test_bf16_backward_hands_the_adjoint_its_cotangent(monkeypatch, grad_impl):
     field = interpolate.crop_interpolate(phi, (3, 3, 3), (12, 11, 9), mode="ttli",
                                          impl="cuda", grad_impl=grad_impl, dtype="bfloat16")
     (grad,) = torch.autograd.grad((field.float() * w).sum(), phi)
-    assert seen == [torch.float32 if grad_impl == "matmul" else BF16]
+    assert seen == [BF16]
     assert grad.dtype == torch.float32
     g16 = w.to(BF16)  # the cotangent of field: w, rounded to the field's dtype
     want = real(g16.float(), (3, 3, 3), phi.shape[:3],

@@ -939,7 +939,8 @@ def test_walk_kernels_do_not_spill(fresh_build):
     ``bsi_fused.occupancy_key``: no spill stores or loads."""
     keys = [(kind, form, False) for form in bsi_fused.DISP_FORMS
             for kind in ("ssd", "stats", "ncc")]
-    keys += [(kind, "lerp", True) for kind in ("ssd", "stats", "ncc")]
+    keys += [(kind, form, True) for form in bsi_fused.DISP_FORMS
+             for kind in ("ssd", "stats", "ncc")]
     for kind, form, bf16 in keys:
         symbol, _, _ = bsi_fused.occupancy_key(kind, form, (5, 5, 5), (512, 228, 385),
                                                bf16=bf16)
@@ -957,25 +958,37 @@ def _ptxas_line(build, *parts):
 
 
 def test_bf16_fused_and_adjoint_kernels_do_not_spill(fresh_build):
-    """The bf16 nmi kernel at 32 bins, the bf16 lncc kernels (window 9 and
-    any) and the separable adjoint's bf16 streaming kernels (the paper's
-    tile and any): no spill stores or loads.  The bf16 nmi kernel at 64
-    bins spills what the float32 lerp-form kernel at 64 bins spills (8
-    bytes on the H100's build), no more: the same arithmetic after the
-    loads."""
-    for parts in (("bsi_fused_nmi_bf16_kernelILi32EE",),
-                  ("bsi_fused_lncc_bf16_kernelILi9EE",),
-                  ("bsi_fused_lncc_bf16_kernelILi0EE",),
+    """The bf16 nmi kernels at 32 bins and the bf16 lncc kernels (window 9
+    and any), in both forms, the separable adjoint's bf16 streaming kernels
+    (the paper's tile and any), the matmul adjoint's bf16 box kernel of 128
+    columns (the one phantom1 runs; the 64-column one spills 24/44 B on
+    the H100's build, its float32 twin none) and the bf16 TT (at the
+    paper's tile) and matrix-form forward kernels: no spill stores or
+    loads.
+    Each bf16 nmi kernel at 64 bins spills what the float32 kernel of its
+    form at 64 bins spills (8 bytes for the lerp form on the H100's
+    build), no more: the same arithmetic after the loads."""
+    for parts in (("bsi_fused_nmi_bf16_kernelILi0ELi32EE",),
+                  ("bsi_fused_nmi_bf16_kernelILi1ELi32EE",),
+                  ("bsi_fused_lncc_bf16_kernelILi0ELi9EE",),
+                  ("bsi_fused_lncc_bf16_kernelILi0ELi0EE",),
+                  ("bsi_fused_lncc_bf16_kernelILi1ELi9EE",),
+                  ("bsi_fused_lncc_bf16_kernelILi1ELi0EE",),
                   ("adjoint_stream_kernelILi3ELi5E", "bfloat16"),
-                  ("adjoint_stream_kernelILi0ELi0E", "bfloat16")):
+                  ("adjoint_stream_kernelILi0ELi0E", "bfloat16"),
+                  ("adjoint_matmul_box_bf16_kernelILi128E",),
+                  ("bsi_tt_bf16_kernelILi5E",),
+                  ("bsi_matmul_bf16_kernelILi3E",),
+                  ("bsi_matmul_bf16_kernelILi0E",)):
         line = _ptxas_line(fresh_build, *parts)
         assert "0/0 B spill stores/loads" in line, line
 
     def spill(line):
         return re.search(r"(\d+/\d+ B) spill", line).group(1)
 
-    assert spill(_ptxas_line(fresh_build, "bsi_fused_nmi_bf16_kernelILi64EE")) == spill(
-        _ptxas_line(fresh_build, "bsi_fused_nmi_kernelILi0ELi64EE"))
+    for form in (0, 1):
+        assert spill(_ptxas_line(fresh_build, f"bsi_fused_nmi_bf16_kernelILi{form}ELi64EE")) \
+            == spill(_ptxas_line(fresh_build, f"bsi_fused_nmi_kernelILi{form}ELi64EE"))
 
 
 def test_flash_bf16_kernel_does_not_spill(fresh_build):
@@ -1175,7 +1188,8 @@ def test_gauss_newton_and_affine_on_card_match_cpu(cuda):
 # compute_dtype="bfloat16": the bf16 forward kernels and the bf16 path
 # ---------------------------------------------------------------------------
 
-BF16_KERNELS = [("bsi_ttli", bsi_ttli), ("bsi_separable", bsi_separable)]
+BF16_KERNELS = [("bsi_ttli", bsi_ttli), ("bsi_separable", bsi_separable),
+                ("bsi_tt", bsi_tt), ("bsi_matmul", bsi_matmul)]
 
 
 def _bf16_gap(out, ref):
@@ -1189,7 +1203,7 @@ def _bf16_gap(out, ref):
     return ((a - b).abs() / (step + 1e-5 * b.abs().max())).max().item()
 
 
-@pytest.mark.parametrize("name,module", BF16_KERNELS, ids=["ttli", "separable"])
+@pytest.mark.parametrize("name,module", BF16_KERNELS, ids=["ttli", "separable", "tt", "matmul"])
 @pytest.mark.parametrize("vol,tile", CASES)
 @pytest.mark.parametrize("c", [1, 3])
 def test_bf16_forward_kernels_match_plain(cuda, name, module, vol, tile, c):
@@ -1208,42 +1222,103 @@ def test_bf16_forward_kernels_match_plain(cuda, name, module, vol, tile, c):
     assert torch.equal(out, again)
 
 
-def test_bf16_dispatchers_raise_where_no_bf16_kernel_is_ported(cuda):
-    """No cast: a bf16 CUDA tensor runs a bf16 kernel or raises naming the
-    item that ports it (18e: the TT and matrix forms, the matmul adjoint and
-    the fused kernels' matrix form), and the options route there too; a
-    float32 grid with a bf16 volume, or the reverse, is refused."""
+@pytest.mark.parametrize("vol,tile", CASES + [((7, 6, 700), (5, 4, 3))])
+@pytest.mark.parametrize("c", [1, 3])
+def test_bf16_tt_kernel_is_plain_bit_for_bit(cuda, vol, tile, c):
+    """``bsi_tt_bf16`` equals its plain version bit for bit (the weights of
+    the bf16 LUTs, the float32 sums in order, one rounding), odd runs and
+    bulk stores of 2-byte values included."""
+    phi = (_grid(vol, tile, c, 1, cuda) * 2.5).to(torch.bfloat16)
+    assert torch.equal(ops.bsi_tt(phi, tile, vol), bsi_tt.plain(phi, tile, vol))
+
+
+@pytest.mark.parametrize("vol,tile", CASES + [((7, 6, 700), (5, 4, 3))])
+@pytest.mark.parametrize("c", [1, 3])
+def test_bf16_matmul_kernel_is_the_float32_kernel_rounded_once(cuda, monkeypatch, vol,
+                                                               tile, c):
+    """``bsi_matmul_bf16`` runs the float32 kernel's hi products in its
+    order: bit for bit ``bf16`` of the float32 kernel on the widened grid
+    with the bf16 basis's fragments (their lo parts zero)."""
+    phi = (_grid(vol, tile, c, 2, cuda) * 2.5).to(torch.bfloat16)
+    out = ops.bsi_matmul(phi, tile, vol)
+    frag = bsi_matmul.basis_fragments
+    monkeypatch.setattr(bsi_matmul, "basis_fragments",
+                        lambda t, dev, dt=torch.float32: frag(t, dev, torch.bfloat16))
+    wide = ops.bsi_matmul(phi.float(), tile, vol)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, wide.to(torch.bfloat16))
+
+
+def test_bf16_dispatchers_run_their_kernels_and_refuse_mixed_dtypes(cuda):
+    """No cast: a bf16 CUDA tensor runs the bf16 kernel of every form (the
+    TT and matrix forwards, the matmul adjoint, the fused kernels' matrix
+    form), counted apart, and the options route there too; a float32 grid
+    with a bf16 volume, or the reverse, is refused in either form."""
     tile, vol = (5, 5, 5), (10, 10, 10)
     phi = _grid(vol, tile, 3, 8, cuda).to(torch.bfloat16)
     vol_t = torch.rand(vol, device=cuda)
     mov = vol_t.to(torch.bfloat16)
+    ops.reset_launch_counts()
     for fn in (ops.bsi_tt, ops.bsi_matmul):
-        with pytest.raises(NotImplementedError, match="18e"):
-            fn(phi, tile, vol)
+        assert fn(phi, tile, vol).dtype == torch.bfloat16
     mm = dict(disp_form="matmul")
-    scal = torch.zeros(4, device=cuda)
-    for call in (lambda: ops.fused_ssd_loss(phi, mov, vol_t, tile, **mm),
-                 lambda: ops.fused_stats(phi, mov, tile, **mm),
-                 lambda: ops.fused_ncc_moments(phi, mov, vol_t, scal[:2], tile, **mm),
-                 lambda: ops.fused_nmi_histogram(phi, mov, vol_t, scal, tile, bins=32,
-                                                 sigma=0.5 / 31, eps=1e-8, **mm),
-                 lambda: ops.fused_lncc(phi, mov, vol_t, tile, window=9, eps=1e-5, **mm)):
-        with pytest.raises(NotImplementedError, match="18e"):
-            call()
-    with pytest.raises(TypeError, match="moving"):
-        ops.fused_ssd_loss(phi, vol_t, vol_t, tile)
-    with pytest.raises(TypeError, match="moving"):
-        ops.fused_ssd_loss(phi.float(), mov, vol_t, tile)
-    with pytest.raises(TypeError, match="fixed"):
-        ops.fused_ssd_loss(phi, mov, mov, tile)
+    scal = torch.tensor([0.5, 0.5, 0.0, 1.0], device=cuda)
+    ops.fused_ssd_loss(phi, mov, vol_t, tile, **mm)
+    ops.fused_stats(phi, mov, tile, **mm)
+    ops.fused_ncc_moments(phi, mov, vol_t, scal[:2], tile, **mm)
+    ops.fused_nmi_histogram(phi, mov, vol_t, scal, tile, bins=32, sigma=0.5 / 31,
+                            eps=1e-8, **mm)
+    ops.fused_lncc(phi, mov, vol_t, tile, window=9, eps=1e-5, **mm)
     g = torch.rand(vol + (3,), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="18e"):
-        ops.bsi_adjoint_matmul(g, tile, phi.shape[:3])
+    out = ops.bsi_adjoint_matmul(g, tile, phi.shape[:3])
+    assert out.dtype == torch.float32
+    assert ops.launch_counts() == _no_launches_but(
+        bsi_tt_bf16=1, bsi_matmul_bf16=1, bsi_fused_matmul_bf16=1,
+        bsi_fused_stats_matmul_bf16=1, bsi_fused_ncc_matmul_bf16=1,
+        bsi_fused_nmi_matmul_bf16=1, bsi_fused_lncc_matmul_bf16=1,
+        bsi_adjoint_matmul_bf16=1)
+    for form in bsi_fused.DISP_FORMS:
+        with pytest.raises(TypeError, match="moving"):
+            ops.fused_ssd_loss(phi, vol_t, vol_t, tile, disp_form=form)
+        with pytest.raises(TypeError, match="moving"):
+            ops.fused_ssd_loss(phi.float(), mov, vol_t, tile, disp_form=form)
+        with pytest.raises(TypeError, match="fixed"):
+            ops.fused_ssd_loss(phi, mov, mov, tile, disp_form=form)
     f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    for fields in (dict(mode="tt"), dict(mode="matmul", grad_impl="cuda", fused="on")):
+    for fields, want in ((dict(mode="tt"), "bsi_tt_bf16"),
+                         (dict(mode="matmul", grad_impl="matmul", fused="on"),
+                          "bsi_fused_matmul_bf16")):
         opts = RegistrationOptions(iters=1, compute_dtype="bfloat16", **fields)
-        with pytest.raises(NotImplementedError, match="18e"):
-            ffd_register(f, m, options=opts, device=cuda)
+        ops.reset_launch_counts()
+        ffd_register(f, m, options=opts, device=cuda)
+        assert ops.launch_counts()[want] > 0, ops.launch_counts()
+
+
+@pytest.mark.parametrize("fields,want", [
+    (dict(mode="tt", fused="off"), dict(bsi_tt_bf16=1, bsi_adjoint_bf16=1)),
+    (dict(mode="matmul", grad_impl="matmul", fused="off"),
+     dict(bsi_matmul_bf16=1, bsi_adjoint_matmul_bf16=1)),
+    (dict(mode="matmul", grad_impl="matmul", fused="on"),
+     dict(bsi_fused_matmul_bf16=1, bsi_matmul_bf16=1, bsi_adjoint_matmul_bf16=1))],
+    ids=["tt", "matmul", "matmul-fused"])
+def test_bf16_matrix_and_tt_registration_on_card_matches_cpu(cuda, fields, want):
+    """The bf16 TT and matrix forms, unfused and fused, on the card against
+    the CPU's plain versions: a step's kernels bf16 (the fused step's
+    backward recomputing its field by ``bsi_matmul_bf16``), the final warp
+    one float32 forward; per-level losses within 1e-3 relative and the
+    warps within 1e-3, as the lerp form's bf16 paths."""
+    fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
+    opts = RegistrationOptions(levels=2, iters=5, impl="cuda", compute_dtype="bfloat16",
+                               **{"grad_impl": "cuda", **fields})
+    ops.reset_launch_counts()
+    card = ffd_register(fixed, moving, options=opts, device=cuda)
+    counts = ops.launch_counts()
+    host = ffd_register(fixed, moving, options=opts, device="cpu")
+    steps = opts.levels * (opts.iters + 1)
+    assert counts == _no_launches_but(**{f"bsi_{opts.mode}": 1},
+                                      **{k: v * steps for k, v in want.items()})
+    assert card.warped.dtype == card.params.dtype == torch.float32
+    np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
+    assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
 
 
 def test_bf16_registration_on_card_matches_cpu(cuda):
@@ -1292,61 +1367,70 @@ def test_bf16_fused_registration_on_card_matches_cpu(cuda, sim, want):
     assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("form", bsi_fused.DISP_FORMS)
 @pytest.mark.parametrize("vol,tile", WALK_CASES)
-def test_bf16_fused_kernels_at_odd_volumes(cuda, vol, tile):
-    """The five fused variants' bf16 kernels on a bf16 ``phi`` and
-    ``moving`` (columns, runs and lines starting on odd values) against
-    their plain versions on the same inputs, as the float32 kernels are
-    held: ssd, stats and ncc sums at 1e-5 relative, stats' min, max and
-    count exact, two calls bit-equal; nmi's histogram at 1e-5 of its
-    largest cell; lncc at 1e-5 with its count exact; each counted apart."""
+def test_bf16_fused_kernels_at_odd_volumes(cuda, vol, tile, form):
+    """The five fused variants' bf16 kernels in each displacement form on a
+    bf16 ``phi`` and ``moving`` (columns, runs and lines starting on odd
+    values) against their plain versions on the same inputs, as the float32
+    kernels are held: ssd, stats and ncc sums at 1e-5 relative, stats' min,
+    max and count exact, two calls bit-equal; nmi's histogram at 1e-5 of
+    its largest cell; lncc at 1e-5 with its count exact; each counted
+    apart."""
     phi, mov, fix = _fused_inputs(vol, tile, 16, cuda)
     phi, mov = phi.to(torch.bfloat16), mov.to(torch.bfloat16)
     ops.reset_launch_counts()
-    ssd = [ops.fused_ssd_loss(phi, mov, fix, tile) for _ in range(2)]
-    st = [ops.fused_stats(phi, mov, tile) for _ in range(2)]
+    ops_kw = dict(disp_form=form)
+    ssd = [ops.fused_ssd_loss(phi, mov, fix, tile, **ops_kw) for _ in range(2)]
+    st = [ops.fused_stats(phi, mov, tile, **ops_kw) for _ in range(2)]
     assert torch.equal(ssd[0], ssd[1]) and torch.equal(st[0], st[1])
-    ref = bsi_fused.plain(phi, mov, fix, tile) / mov.numel()
+    ref = bsi_fused.plain(phi, mov, fix, tile, **ops_kw) / mov.numel()
     assert abs(ssd[0].item() - ref.item()) <= 1e-5 * abs(ref.item())
-    ref = bsi_fused.plain_stats(phi, mov, tile)
+    ref = bsi_fused.plain_stats(phi, mov, tile, **ops_kw)
     assert torch.equal(st[0][1:], ref[1:]) and st[0][3].item() == mov.numel()
     assert abs(st[0][0].item() - ref[0].item()) <= 1e-5 * abs(ref[0].item())
     scal = torch.stack([ref[0] / mov.numel(), fix.mean()])
-    ncc = [ops.fused_ncc_moments(phi, mov, fix, scal, tile) for _ in range(2)]
+    ncc = [ops.fused_ncc_moments(phi, mov, fix, scal, tile, **ops_kw) for _ in range(2)]
     assert torch.equal(ncc[0], ncc[1])
-    want = bsi_fused.plain_ncc(phi, mov, fix, scal, tile)
+    want = bsi_fused.plain_ncc(phi, mov, fix, scal, tile, **ops_kw)
     assert (ncc[0] - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     scal = torch.stack([ref[1], ref[2], fix.min(), fix.max()])
-    nmi = dict(bins=32, sigma=0.5 / 31, eps=1e-8)
+    nmi = dict(bins=32, sigma=0.5 / 31, eps=1e-8, **ops_kw)
     out = ops.fused_nmi_histogram(phi, mov, fix, scal, tile, **nmi)
     want = bsi_fused.plain_nmi(phi, mov, fix, scal, tile, **nmi)
     assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     w = ops.lncc_window(9, vol)
-    out = ops.fused_lncc(phi, mov, fix, tile, window=9, eps=1e-5)
-    want = bsi_fused.plain_lncc(phi, mov, fix, tile, window=w, eps=1e-5)
+    out = ops.fused_lncc(phi, mov, fix, tile, window=9, eps=1e-5, **ops_kw)
+    want = bsi_fused.plain_lncc(phi, mov, fix, tile, window=w, eps=1e-5, **ops_kw)
     assert out[1].item() == want[1].item() == np.prod([s - w + 1 for s in vol])
     assert abs(out[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
-    assert ops.launch_counts() == _no_launches_but(
-        bsi_fused_bf16=2, bsi_fused_stats_bf16=2, bsi_fused_ncc_bf16=2,
-        bsi_fused_nmi_bf16=1, bsi_fused_lncc_bf16=1)
+    assert ops.launch_counts() == _no_launches_but(**{
+        ops._fused_name(kind, form, torch.bfloat16): n for kind, n in (
+            ("ssd", 2), ("stats", 2), ("ncc", 2), ("nmi", 1), ("lncc", 1))})
 
 
+@pytest.mark.parametrize("form", ["separable", "matmul"])
 @pytest.mark.parametrize("vol,tile", CASES + UNALIGNED + [LONG_Z])
 @pytest.mark.parametrize("c", [1, 3])
 def test_bf16_adjoint_kernel_is_the_float32_kernel_on_the_widened_cotangent(cuda, vol,
-                                                                           tile, c):
-    """A bf16 cotangent runs ``bsi_adjoint_bf16``: bit for bit the float32
-    kernel on ``g.float()`` (the same geometry, LUTs and sums; only the
-    load differs), rows starting on odd values included, and within 1e-5
-    of the plain version on the bf16 cotangent."""
+                                                                           tile, c, form):
+    """A bf16 cotangent runs ``bsi_adjoint_bf16`` (or
+    ``bsi_adjoint_matmul_bf16``): bit for bit the float32 kernel on
+    ``g.float()`` (the same geometry, LUTs or basis and sums; only the load
+    differs), rows starting on odd values included, and within 1e-5 of the
+    plain version on the bf16 cotangent."""
     g = _adjoint_input(vol, c, 36, cuda).to(torch.bfloat16)
     gshape = ffd.grid_shape_for_volume(vol, tile)
+    kernel, plain, name = ((ops.bsi_adjoint, bsi_adjoint.plain, "bsi_adjoint")
+                           if form == "separable" else
+                           (ops.bsi_adjoint_matmul, bsi_adjoint.plain_matmul,
+                            "bsi_adjoint_matmul"))
     ops.reset_launch_counts()
-    out = ops.bsi_adjoint(g, tile, gshape)
-    assert ops.launch_counts() == _no_launches_but(bsi_adjoint_bf16=1)
+    out = kernel(g, tile, gshape)
+    assert ops.launch_counts() == _no_launches_but(**{f"{name}_bf16": 1})
     assert out.dtype == torch.float32
-    assert torch.equal(out, ops.bsi_adjoint(g.float(), tile, gshape))
-    ref = bsi_adjoint.plain(g, tile, gshape)
+    assert torch.equal(out, kernel(g.float(), tile, gshape))
+    ref = plain(g, tile, gshape)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
@@ -1360,14 +1444,14 @@ def test_bf16_adjoint_kernel_reads_an_unaligned_view(cuda, vol, tile):
     g = big[1:]
     assert g.data_ptr() % 4 == 2 and g.is_contiguous() and math.prod(vol[1:]) * c % 2
     gshape = ffd.grid_shape_for_volume(vol, tile)
-    assert torch.equal(ops.bsi_adjoint(g, tile, gshape),
-                       ops.bsi_adjoint(g.float(), tile, gshape))
+    for kernel in (ops.bsi_adjoint, ops.bsi_adjoint_matmul):
+        assert torch.equal(kernel(g, tile, gshape), kernel(g.float(), tile, gshape))
 
 
 def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch):
-    """On the card under bf16, ``"auto"`` races only ``ttli`` and
-    ``separable`` with the analytic adjoints, and ``fused="auto"`` races
-    the bf16 fused level step against the winner, keyed ``|cd=bfloat16|``."""
+    """On the card under bf16, ``"auto"`` races the four forms' bf16
+    kernels with the analytic adjoints, and ``fused="auto"`` races the bf16
+    fused level step against the winner, keyed ``|cd=bfloat16|``."""
     from repro_torch.engine import autotune
 
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
@@ -1375,11 +1459,12 @@ def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch):
     opts = autotune.resolve_options(
         RegistrationOptions(mode="auto", impl="auto", grad_impl="auto",
                             compute_dtype="bfloat16"), (40, 33, 47), cuda)
-    assert opts.mode in ("ttli", "separable") and opts.impl == "cuda"
+    assert opts.mode in ("ttli", "separable", "tt", "matmul") and opts.impl == "cuda"
     assert opts.grad_impl != "autograd" and opts.fused in ("on", "off")
     assert "race" in opts.fused_reason
     races = autotune.RACES[before:]
     assert len(races) == 2 and all("|cd=bfloat16|" in r.key for r in races)
-    assert {name.split("/")[0] for name, _ in races[0].timings} == {"ttli", "separable"}
+    assert {name.split("/")[0] for name, _ in races[0].timings} == {
+        "ttli", "separable", "tt", "matmul"}
     assert "|fused|" in races[1].key
     assert {name for name, _ in races[1].timings} == {"fused=off", "fused=on"}

@@ -288,7 +288,7 @@ def test_every_voxel_visited_once_small(tile, vol):
 @pytest.mark.parametrize("tile", TILES)
 @pytest.mark.parametrize("vol", SMALL[:4] + [PHANTOM1])
 def test_bf16_stats_lines_are_aligned_half_lines(tile, vol):
-    """The bf16 stats walk (``bsi_fused_walk_bf16_kernel<kStats>``) streams
+    """The bf16 stats walk (``bsi_fused_walk_bf16_kernel<F, kStats>``) streams
     the bf16 moving volume: the same lines of 32 voxels, aligned to 32
     values, each warp's reads one aligned 64-byte half of a 128-byte line;
     the first and last block of each axis."""
@@ -432,13 +432,9 @@ def test_occupancy_key(kind, form):
     assert symbol == f"bsi_fused_walk_kernelILi{f}ELi{k}EE"
     geo = bsi_fused.moment_blocks((5, 5, 5), PHANTOM1, form)
     assert (smem, grid) == (geo.smem, geo.grid)
-    # the bf16 kernel (lerp form only) on the same blocks
-    if form == "lerp":
-        assert bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, bf16=True) == (
-            f"bsi_fused_walk_bf16_kernelILi{k}EE", smem, grid)
-    else:
-        with pytest.raises(ValueError, match="18e"):
-            bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, bf16=True)
+    # the bf16 kernel of the same form, on the same blocks
+    assert bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, bf16=True) == (
+        f"bsi_fused_walk_bf16_kernelILi{f}ELi{k}EE", smem, grid)
 
 
 def test_the_constants_are_the_csrc_ones():

@@ -86,38 +86,42 @@ def _decode(geo, tile, vol, u):
     return r // ty, r % ty, tk0, min(geo.z_tiles, tz - tk0)
 
 
-def _window(geo, c, grid_shape, ti, tj, tk0, ztu):
+def _window(geo, c, grid_shape, ti, tj, tk0, ztu, itemsize=4):
     """The window's copy: thread ``tid`` copies 16-byte chunks ``tid % 16 +
     16 i`` of row ``tid // 16``, from the row's start rounded down to 16
     bytes, only the unit's values read (the rest of a chunk zeros).  Each
     of the unit's values lands once, at its row's shift plus its place in
     the row, from the grid's flat index of its control point.  Returns the
     raw rows holding the unit's own index of each value, ``((l * 4 + m) *
-    (ztu + 3) + z) * c + ch``, -1 for a zero, and each row's shift."""
+    (ztu + 3) + z) * c + ch``, -1 for a zero, and each row's shift.
+    ``itemsize``: the grid's bytes a value (bf16: 2, ``E = 8`` values a
+    chunk, in the float32 kernel's rows)."""
+    E = 16 // itemsize
     nx, ny, nz = grid_shape
     nval = (ztu + 3) * c
-    raw = np.full((16, geo.raw_row), -2, np.int64)
+    row = geo.raw_row * 4 // itemsize  # values of a raw row
+    raw = np.full((16, row), -2, np.int64)
     shifts = []
     for wr in range(16):
         l, m = wr // 4, wr % 4
         start = (((ti + l) * ny + tj + m) * nz + tk0) * c  # the row's first value
-        shift = start % 4  # the grid's base is 16-byte aligned
+        shift = start % E  # the grid's base is 16-byte aligned
         shifts.append(shift)
         q = np.arange(16)
-        q = np.concatenate([q + 16 * i for i in range(-(-geo.raw_row // 64))])
-        q = q[4 * q < shift + nval]
-        assert (4 * q + 4 <= geo.raw_row).all()  # inside the raw row
+        q = np.concatenate([q + 16 * i for i in range(-(-row // (16 * E)))])
+        q = q[E * q < shift + nval]
+        assert (E * q + E <= row).all()  # inside the raw row
         for qq in q:
-            valid = min(shift + nval - 4 * qq, 4)
-            assert 1 <= valid <= 4
-            flat = start - shift + 4 * qq + np.arange(4)
+            valid = min(shift + nval - E * qq, E)
+            assert 1 <= valid <= E
+            flat = start - shift + E * qq + np.arange(E)
             i = flat - start  # the value's place in the row
-            assert (raw[wr, 4 * qq:4 * qq + 4] == -2).all()  # each chunk once
-            ok = (np.arange(4) < valid) & (i >= 0)
+            assert (raw[wr, E * qq:E * qq + E] == -2).all()  # each chunk once
+            ok = (np.arange(E) < valid) & (i >= 0)
             zi, ch = tk0 + i // c, i % c
             assert (flat[ok] == (((ti + l) * ny + tj + m) * nz + zi[ok]) * c + ch[ok]).all()
-            assert (flat[np.arange(4) < valid] < nx * ny * nz * c).all()
-            raw[wr, 4 * qq:4 * qq + 4] = np.where(ok, ((l * 4 + m) * (ztu + 3)) * c + i, -1)
+            assert (flat[np.arange(E) < valid] < nx * ny * nz * c).all()
+            raw[wr, E * qq:E * qq + E] = np.where(ok, ((l * 4 + m) * (ztu + 3)) * c + i, -1)
         # every value of the row is there, at its shift
         assert np.array_equal(raw[wr, shift:shift + nval],
                               (l * 4 + m) * (ztu + 3) * c + np.arange(nval))
@@ -137,7 +141,7 @@ def _wt(geo, c, raw, shifts, ztu):
         wr, n = divmod(job, nrows)
         if n < ncols:
             pos = shifts[wr] + n + c * np.arange(4)
-            assert (pos < geo.raw_row).all()
+            assert (pos < raw.shape[1]).all()
             vals = raw[wr, pos]
             assert (vals >= 0).all()  # the unit's values, never a zero
         else:
@@ -181,16 +185,19 @@ def _operands_read_the_column_matrix(geo, c, wt, ztu):
             assert (got[~ok] == -1).all()
 
 
-def _unit(geo, tile, c, vol, u, obase=0):
+def _unit(geo, tile, c, vol, u, obase=0, itemsize=4):
     """Unit ``u`` over the block's warps and lanes: each accumulator entry's
     staging position, then each voxel column's stores.  Returns the flat
-    field indices written."""
+    field indices written.  ``obase``: the field's base in values past a
+    16-byte boundary; ``itemsize``: its bytes a value (bf16: 2, ``E = 8``
+    values to 16 bytes, a run's slot ``2 * run`` values)."""
+    E = 16 // itemsize
     dx, dy, dz = tile
     X, Y, Z = vol
     ty, tz = -(-Y // dy), -(-Z // dz)
     YY, ZZ = ty * dy, tz * dz  # the whole tiles' field: an id per value
     ti, tj, tk0, ztu = _decode(geo, tile, vol, u)
-    ncols, nv, ncol, run = ztu * c, dx * dy * dz, dx * dy, geo.run
+    ncols, nv, ncol, run = ztu * c, dx * dy * dz, dx * dy, geo.run * 4 // itemsize
     stage = np.full(ncol * run, -1, np.int64)
     lane = np.arange(32)
     gq, tq = lane // 4, lane % 4
@@ -208,7 +215,7 @@ def _unit(geo, tile, c, vol, u, obase=0):
             rb = (v - ra * dy * dz) // dz
             rz = v - ra * dy * dz - rb * dz
             x, y = ti * dx + ra, tj * dy + rb
-            delta = (obase + ((x * Y + y) * Z + tk0 * dz) * c) % 4
+            delta = (obase + ((x * Y + y) * Z + tk0 * dz) * c) % E
             sb = (ra * dy + rb) * run + delta + rz * c
             for i in range(HALF // 8):  # the task's n8 slices
                 col = nh * HALF + 8 * i + 2 * tq[:, None] + e2[None, :]  # (lane, j)
@@ -244,16 +251,16 @@ def _unit(geo, tile, c, vol, u, obase=0):
         if x >= X or y >= Y:
             continue
         o = ((x * Y + y) * Z + z0) * c
-        v0 = ab * run + (obase + o) % 4
-        head = (4 - (obase + o) % 4) % 4
-        body = max(n - head, 0) // 4 * 4
+        v0 = ab * run + (obase + o) % E
+        head = (E - (obase + o) % E) % E
+        body = max(n - head, 0) // E * E
         if body > 0:
             # the bulk copy: 16-byte aligned at both ends (the staging's base
             # is), whole 16 bytes; the head and the tail by lanes
-            assert (obase + o + head) % 4 == 0 and (v0 + head) % 4 == 0
+            assert (obase + o + head) % E == 0 and (v0 + head) % E == 0
             stored(o + head + np.arange(body), v0 + head + np.arange(body), ab)
             tail = n - head - body
-            assert head < 4 and tail < 4
+            assert head < E and tail < E
             stored(o + lane[:head], v0 + lane[:head], ab)
             stored(o + head + body + lane[:tail], v0 + head + body + lane[:tail], ab)
         else:
@@ -262,14 +269,14 @@ def _unit(geo, tile, c, vol, u, obase=0):
     return np.concatenate(written) if written else np.zeros(0, np.int64)
 
 
-def _written_once(geo, tile, c, vol, units, obase=0, xs=None):
+def _written_once(geo, tile, c, vol, units, obase=0, xs=None, itemsize=4):
     """The values of ``units``, all in the x planes ``xs`` (default: the
     volume's): each exactly once, nothing outside the field.  Returns the
     count of each value of those planes."""
     X, Y, Z = vol
     x0, x1 = xs or (0, X)
     plane = Y * Z * c
-    addr = np.concatenate([_unit(geo, tile, c, vol, u, obase) for u in units])
+    addr = np.concatenate([_unit(geo, tile, c, vol, u, obase, itemsize) for u in units])
     addr = addr - x0 * plane
     assert (addr >= 0).all() and (addr < (x1 - x0) * plane).all()
     counts = np.bincount(addr, minlength=(x1 - x0) * plane)
@@ -277,11 +284,11 @@ def _written_once(geo, tile, c, vol, units, obase=0, xs=None):
     return counts
 
 
-def _check_windows(geo, tile, c, vol, units):
+def _check_windows(geo, tile, c, vol, units, itemsize=4):
     grid_shape = ffd.grid_shape_for_volume(vol, tile)
     for u in units:
         ti, tj, tk0, ztu = _decode(geo, tile, vol, u)
-        raw, shifts = _window(geo, c, grid_shape, ti, tj, tk0, ztu)
+        raw, shifts = _window(geo, c, grid_shape, ti, tj, tk0, ztu, itemsize)
         _operands_read_the_column_matrix(geo, c, _wt(geo, c, raw, shifts, ztu), ztu)
 
 

@@ -83,10 +83,13 @@ def _weight_reads(geo, dz):
     assert summed == list(range(dz))
 
 
-def _block(geo, tile, c, vol, grid_shape, block):
+def _block(geo, tile, c, vol, grid_shape, block, itemsize=4):
     """One block over its threads: the flat field index of every value it
     writes, after checking each address, each staging position and each
-    warp's line."""
+    warp's line.  ``itemsize``: the field's bytes a value, 4 (float32) or 2
+    (the bf16 kernel: ``E = 8`` values to 16 bytes, 64 to a 128-byte line,
+    the staging in the float32 kernel's buffers)."""
+    E, L = 16 // itemsize, 128 // itemsize
     dx, dy, dz = tile
     X, Y, Z = vol
     nx, ny, nz = grid_shape
@@ -135,13 +138,13 @@ def _block(geo, tile, c, vol, grid_shape, block):
             # staging: each value once, in the group's 2 x slots * dz; not
             # direct, (tj, z = k * dz + r, ch) at F - F0, F its position in
             # the x tile's field order
-            sbuf = -(-sg * dz // 4) * 4 + 4
+            sbuf = (-(-sg * dz // 4) * 4 + 4) * 4 // itemsize  # values of a buffer
             F0, length, frow = sg0[gi * GROUP] * dz, nslots[gi * GROUP] * dz, srow * dz
             # the column's staging offset: its first value shares the
-            # alignment of its place in the field modulo 4 floats (the
+            # alignment of its place in the field modulo E values (the
             # field's base is aligned, as an allocation is)
             tj_lo = F0 // frow
-            delta = ((x * Y + tj_lo * dy + b) * Z * c + F0 - tj_lo * frow) % 4
+            delta = ((x * Y + tj_lo * dy + b) * Z * c + F0 - tj_lo * frow) % E
             staged = np.full(sbuf, -1, np.int64)
             for r in range(dz):
                 idx = delta + (st0 + r * stride)[mine]
@@ -181,26 +184,27 @@ def _block(geo, tile, c, vol, grid_shape, block):
                     assert (zc < Z * c).all()
                     written.append(addr)
 
-                head = (4 - o % 4) % 4
-                body = max(n - head, 0) // 4 * 4
-                if body > 0 and (v0 + head) % 4 == 0:
+                head = (E - o % E) % E
+                body = max(n - head, 0) // E * E
+                if body > 0 and (v0 + head) % E == 0:
                     # the bulk copy: 16-byte aligned at both ends, whole 16
                     # bytes; the head and the tail, each in one 16-byte run,
                     # by the first lanes
-                    assert (o + head) % 4 == 0 and v0 + head + body <= sbuf
+                    assert (o + head) % E == 0 and v0 + head + body <= sbuf
                     stored(o + head + np.arange(body), v0 + head + np.arange(body))
                     tail = n - head - body
-                    assert head < 4 and tail < 4
+                    assert head < E and tail < E
                     stored(o + lane[:head], v0 + lane[:head])
                     stored(o + head + body + lane[:tail], v0 + head + body + lane[:tail])
                     continue
                 # otherwise the group's lanes from the piece's start rounded
-                # down to 32 floats: every warp one aligned 128-byte line
-                qq = lane - o % 32
+                # down to a line of L values: every warp one aligned 128-byte
+                # line (of bf16 values, one aligned half of one)
+                qq = lane - o % L
                 while (qq < n).any():
                     w = (qq >= 0) & (qq < n)
                     addr = o + qq
-                    line = np.where(w, addr // 32, -1).reshape(-1, 32)
+                    line = np.where(w, addr * itemsize // 128, -1).reshape(-1, 32)
                     has = w.reshape(-1, 32).any(axis=1)
                     lo_line = np.where(w.reshape(-1, 32), line, 1 << 62).min(axis=1)
                     assert (line.max(axis=1)[has] == lo_line[has]).all()  # a line a warp
@@ -210,13 +214,13 @@ def _block(geo, tile, c, vol, grid_shape, block):
     return out, cols
 
 
-def _x_tile(geo, tile, c, vol, grid_shape, ti):
+def _x_tile(geo, tile, c, vol, grid_shape, ti, itemsize=4):
     """Every slot block and part of x tile ``ti``: the parts cover each of
     its columns once; returns the flat indices of its values."""
     dx, dy, _ = tile
     cols, addrs = [], []
     for bx, part in itertools.product(range(geo.grid[0]), range(geo.grid[2])):
-        addr, block_cols = _block(geo, tile, c, vol, grid_shape, (bx, ti, part))
+        addr, block_cols = _block(geo, tile, c, vol, grid_shape, (bx, ti, part), itemsize)
         addrs.append(addr)
         if bx == 0:
             cols += block_cols
@@ -224,14 +228,14 @@ def _x_tile(geo, tile, c, vol, grid_shape, ti):
     return np.concatenate(addrs)
 
 
-def _written_once(geo, tile, c, vol, tiles):
+def _written_once(geo, tile, c, vol, tiles, itemsize=4):
     """The values of x tiles ``tiles``: each of theirs exactly once."""
     grid_shape = ffd.grid_shape_for_volume(vol, tile)
     X, Y, Z = vol
     plane = Y * Z * c
     for ti in tiles:
         x0 = ti * tile[0]
-        addr = _x_tile(geo, tile, c, vol, grid_shape, ti) - x0 * plane
+        addr = _x_tile(geo, tile, c, vol, grid_shape, ti, itemsize) - x0 * plane
         n = min(tile[0], X - x0) * plane
         assert (addr >= 0).all() and (addr < n).all()
         assert (np.bincount(addr, minlength=n) == 1).all()
