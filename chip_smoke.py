@@ -9,7 +9,8 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 Phases; any failure raises and the script exits nonzero:
 
 1. the card's name and power limit (nvidia-smi) and the device count;
-2. build the kernels from ``src/repro_torch/csrc`` with nvcc (build seconds,
+2. build the kernels from ``src/repro_torch/csrc`` with nvcc, the nmi
+   measurement builds and the main pair beside it (build seconds,
    registers and spills from ``-Xptxas -v``; the bf16 flash kernel's HGMMA
    instructions from ``cuobjdump -sass``, asserted, and no spills; the
    float32 flash kernel's HMMA instructions, asserted);
@@ -111,59 +112,76 @@ Phases; any failure raises and the script exits nonzero:
    ``steps`` equal); a small pair with velocity, bending, L-BFGS and
    ``stop``, card against CPU;
 1b. compute_dtype="bfloat16", run right after phase 4's main path
-   (``check_bf16_kernels``, ``run_bf16_path``): the bf16 forward kernels
-   ``bsi_ttli_bf16`` and ``bsi_separable_bf16`` at phantom1, tile 5^3, 3
-   channels, on a bf16 grid against their plain versions (every value
+   (``check_reduced_forward``, ``run_reduced_path``): the bf16 forward
+   kernels ``bsi_ttli_bf16`` and ``bsi_separable_bf16`` at phantom1, tile
+   5^3, 3 channels, on a bf16 grid against their plain versions (every value
    within one bf16 step plus the float32 kernels' 1e-5 of the largest
    value, asserted; how many differ, how many by more than a step; two
-   calls bit-equal),
-   timed beside the float32 kernel, the 0.0812 ms bound and
-   ``conv_transpose3d`` in bf16; then ``ffd_register`` of the main path's
-   pair with ``compute_dtype="bfloat16"``, ``ttli / cuda / cuda``,
-   ``fused="off"``, ``lr=0.02``, cold and warm beside the same float32 call
-   (seconds, peak memory above the call's start), its launches asserted
-   (the level loops' forwards ``bsi_ttli_bf16``, as many as float32's less
-   the final warp's, which stays one float32 ``bsi_ttli`` as in the JAX
-   package; the adjoint's as float32's), a float32 warp, the JAX package's
-   bf16 bounds against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3),
-   ``mode="separable"`` in bf16 counted, and the per-level losses within
-   1e-3 relative of the plain bf16 path's;
+   calls bit-equal), timed beside the float32 kernel, the 0.0812 ms bound
+   and ``conv_transpose3d`` in bf16; then ``ffd_register`` of the main
+   path's pair with ``compute_dtype="bfloat16"``, ``ttli / cuda / cuda``,
+   ``fused="off"``, ``lr=0.02``, beside the same float32 call (seconds,
+   peak memory above the call's start; one call each, the kernels having
+   run in the checks before), its launches asserted (the level loops'
+   forwards ``bsi_ttli_bf16``, as many as float32's less the final warp's,
+   which stays one float32 ``bsi_ttli`` as in the JAX package; the
+   adjoint's as float32's), a float32 warp, the JAX package's bf16 bounds
+   against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3) and this
+   card's (1e-2 relative, 1e-4), the per-level losses within 1e-3 relative
+   of the plain bf16 path's; ``mode="separable"`` in bf16 counted; the
+   share of zeros in one step's bf16 displacement cotangent (printed); a
+   small bf16 pair (40 x 32 x 24) card against CPU at 1e-4;
 1c. the bf16 fused level step, right after phase 1b
-   (``check_bf16_fused_kernels``, ``run_bf16_fused_path``): the five fused
-   variants' bf16 kernels (lerp form, bf16 ``phi`` and ``moving``, float32
-   ``fixed``) at phantom1 against their plain versions (ssd, stats, ncc on
-   the main pair; nmi at 32 bins and lncc at window 9 on the remapped pair;
-   the float32 rows' tolerances; two calls bit-equal; registers, no spills,
-   blocks an SM) and ``bsi_adjoint`` on a bf16 cotangent, asserted bit-equal
-   to the float32 kernel on the widened cotangent, each timed beside its
-   float32 kernel, its plain version and its bound; then ``ffd_register``
-   with ``compute_dtype="bfloat16", fused="on", lr=0.02`` (``ttli / cuda /
-   cuda``) cold and warm beside the float32 fused call and phase 1b's bf16
-   unfused one, its launches asserted (a step one ``bsi_fused_bf16``, one
-   ``bsi_ttli_bf16`` and one ``bsi_adjoint_bf16``; the final warp one
-   float32 ``bsi_ttli``), final loss within 1e-2 relative and warp MAE
-   below 1e-4 of float32's, per-level losses within 1e-3 relative of the
-   plain bf16 fused path's; the bf16 fused ncc, nmi and lncc steps at
-   ``iters=5``, counted, within 1e-2 of float32's; and ``fused="auto"``
-   under bf16 raced on a fresh cache (its key ``|cd=bfloat16|``);
+   (``check_reduced_fused_kernels``, ``run_reduced_fused_path``): the five
+   fused variants' bf16 kernels (lerp form, bf16 ``phi`` and ``moving``,
+   float32 ``fixed``) at phantom1 against their plain versions (ssd, stats,
+   ncc on the main pair; nmi at 32 bins and lncc at window 9 on the
+   remapped pair; the float32 rows' tolerances; two calls bit-equal;
+   registers, no spills, blocks an SM) and ``bsi_adjoint`` on a bf16
+   cotangent, asserted bit-equal to the float32 kernel on the widened
+   cotangent, each timed beside its float32 kernel, its plain version and
+   its bound; then ``ffd_register`` with ``compute_dtype="bfloat16",
+   fused="on", lr=0.02`` (``ttli / cuda / cuda``) beside the float32 fused
+   call and phase 1b's bf16 unfused one, its launches asserted (a step one
+   ``bsi_fused_bf16``, one ``bsi_ttli_bf16`` and one ``bsi_adjoint_bf16``;
+   the final warp one float32 ``bsi_ttli``), phase 1b's bounds against
+   float32, per-level losses within 1e-3 relative of the plain bf16 fused
+   path's; the bf16 fused ncc, nmi and lncc steps at ``iters=5``, counted,
+   within 1e-2 of float32's; and ``fused="auto"`` under bf16 raced on a
+   fresh cache (its key ``|cd=bfloat16|``);
 1d. the bf16 matrix and TT forms, right after phase 1c
-   (``check_bf16_matrix_kernels``, ``run_bf16_matrix_path``): at phantom1,
-   ``bsi_tt_bf16`` against its plain version bit for bit; ``bsi_matmul_bf16``
-   within one bf16 step plus 1e-5 of the largest value of plain and bit-equal
-   to the float32 kernel on the widened grid with the bf16 basis's fragments,
-   rounded once; ``bsi_adjoint_matmul_bf16`` bit-equal to the float32 kernel
-   on the widened cotangent; the five fused variants' bf16 kernels in the
-   matrix form (as phase 1c's lerp-form rows); each with two calls
-   bit-equal, registers (no spills, asserted), blocks an SM, timed beside
-   its float32 kernel, plain version, bound and library call.  Then
-   ``ffd_register(compute_dtype="bfloat16", mode="matmul", impl="cuda",
-   grad_impl="matmul", lr=0.02)`` with ``fused="off"`` and ``"on"``, cold
-   and warm beside float32, its launches asserted (the final warp one
-   float32 ``bsi_matmul``), the JAX package's bf16 bounds and this card's
-   against float32, per-level losses within 1e-3 of the plain bf16 path's;
-   ``mode="tt"`` in bf16 at full depth, counted; the matrix form's fused
-   ncc, nmi and lncc steps in bf16 at ``iters=5`` within 1e-2 of float32's;
-   and all-``"auto"`` under bf16 raced on a fresh cache (the four forms);
+   (``check_reduced_matrix_kernels``, ``run_reduced_matrix_path``): at
+   phantom1, ``bsi_tt_bf16`` against its plain version bit for bit;
+   ``bsi_matmul_bf16`` within one bf16 step plus 1e-5 of the largest value
+   of plain and bit-equal to the float32 kernel on the widened grid with
+   the bf16 basis's fragments, rounded once; ``bsi_adjoint_matmul_bf16``
+   bit-equal to the float32 kernel on the widened cotangent; the five fused
+   variants' bf16 kernels in the matrix form (as phase 1c's lerp-form
+   rows); each with two calls bit-equal, registers (no spills, asserted),
+   blocks an SM, timed beside its float32 kernel, plain version, bound and
+   library call.  Then ``ffd_register(compute_dtype="bfloat16",
+   mode="matmul", impl="cuda", grad_impl="matmul", lr=0.02)`` with
+   ``fused="off"`` and ``"on"`` beside float32, its launches asserted (the
+   final warp one float32 ``bsi_matmul``), phase 1b's bounds against
+   float32, per-level losses within 1e-3 of the plain bf16 path's;
+   ``mode="tt"`` in bf16 at full depth, counted, at the same bounds; the
+   matrix form's fused ncc, nmi and lncc steps in bf16 at ``iters=5``
+   within 1e-2 of float32's; and all-``"auto"`` under bf16 raced on a
+   fresh cache (the four forms);
+1e. compute_dtype="float16", right after phase 1d: phases 1b, 1c and 1d's
+   checks and paths, the same functions, on the 16 fp16 kernels
+   (``run_reduced_phases``), each reduced call beside the float32 call of
+   phases 1b-1d, not run again.  Every kernel check is held as under bf16
+   (``bsi_tt_f16`` bit for bit, ``bsi_matmul_f16`` to the float32 kernel's
+   bits with the fp16 fragments, both adjoints to the float32 kernels' on
+   ``g.float()``, the others within one fp16 step plus 1e-5 or at 1e-5
+   relative), as are the launches and the per-level losses against the
+   plain fp16 paths (1e-3) and the small pair card against CPU (1e-4).
+   Printed, not asserted: each fp16 registration's final loss and warp
+   against float32, and the share of zeros in one step's fp16
+   displacement cotangent at phantom1 (the JAX package's fp16 gradient
+   underflows there, the port copies it, and the fp16 registration stays
+   near its start; ROADMAP queue 3);
 4c. batched and served registration: ``register_batch`` of two phantom1
    pairs (seeds 0 and 1, made on the host while the earlier phases run)
    with ``fused="on"``, cold then warm (seconds, ``compiled``, peak memory,
@@ -871,6 +889,7 @@ def log_forward_occupancy(lib, name, vol):
     along_z = f"{occ['bz']} tiles along z a block, " if "bz" in occ else ""
     log(f"{name}: {occ['registers']}; {occ['smem']} B of shared memory a block, "
         f"{occ['blocks_per_sm']} blocks an SM; {along_z}grid {occ['grid']}")
+    return occ
 
 
 def log_walk(torch, lib, name, call, vol):
@@ -985,32 +1004,33 @@ def run_main_path(torch, fixed, moving):
     return counts
 
 
-def bf16_ulps(torch, out, ref, f32_gap=1e-5):
-    """bf16 ``out`` against bf16 ``ref``, each a float32 value rounded once:
-    ``(worst, beyond, differ)``.  ``worst`` is the largest ``|out - ref|``
-    over its bound, one bf16 step of the larger magnitude ``m`` (``2^(floor
-    (log2 m) - 7)``) plus ``f32_gap`` of the largest value, the most the two
-    float32 values may differ before rounding (the float32 kernels'
-    tolerance); ``worst <= 1`` holds every value within one step of the
-    other's rounding.  ``beyond``: values more than one step apart (only
-    near zero, where the float32 gap exceeds a step); ``differ``: values
-    that differ at all."""
+def reduced_ulps(torch, out, ref, f32_gap=1e-5):
+    """``out`` against ``ref``, both of a reduced dtype (bf16, fp16), each a
+    float32 value rounded once: ``(worst, beyond, differ)``.  ``worst`` is
+    the largest ``|out - ref|`` over its bound, one step of the dtype at the
+    larger magnitude (``core.bspline.reduced_step``) plus ``f32_gap`` of the
+    largest value, the most the two float32 values may differ before
+    rounding (the float32 kernels' tolerance); ``worst <= 1`` holds every
+    value within one step of the other's rounding.  ``beyond``: values more
+    than one step apart (only near zero, where the float32 gap exceeds a
+    step); ``differ``: values that differ at all."""
+    from repro_torch.core.bspline import reduced_step
+
     a, b = out.float(), ref.float()
-    m = torch.maximum(a.abs(), b.abs())
-    step = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+    step = reduced_step(torch.maximum(a.abs(), b.abs()), out.dtype)
     diff = (a - b).abs()
     worst = (diff / (step + f32_gap * b.abs().max())).max().item()
     return worst, int((diff > step).sum().item()), int((out != ref).sum().item())
 
 
-def bf16_yardstick(torch, phi, vol):
-    """``conv_transpose3d`` in bf16 computing the forward BSI of the bf16
-    ``phi`` cropped to ``vol``, channels last (cuDNN; its rounding is its
-    own, so it is timed, not compared)."""
+def reduced_yardstick(torch, phi, vol):
+    """``conv_transpose3d`` in ``phi``'s reduced dtype computing the forward
+    BSI of ``phi`` cropped to ``vol``, channels last (cuDNN; its rounding is
+    its own, so it is timed, not compared)."""
     import torch.nn.functional as F
 
     c = phi.shape[3]
-    K = conv_kernel(torch, TILE, c, phi.device).to(torch.bfloat16)
+    K = conv_kernel(torch, TILE, c, phi.device).to(phi.dtype)
     phi_cf = phi.permute(3, 0, 1, 2).unsqueeze(0).contiguous()
     (dx, dy, dz), (X, Y, Z) = TILE, vol
 
@@ -1021,159 +1041,16 @@ def bf16_yardstick(torch, phi, vol):
     return lambda: forward().permute(1, 2, 3, 0)
 
 
-def check_bf16_kernels(torch, fixed, lib):
-    """Phase 1b (a): the bf16 forward kernels at phantom1, tile 5^3, 3
-    channels, against their plain versions on the same bf16 grid: every
-    value within one bf16 step plus 1e-5 of the largest value (asserted:
-    the float32 sums of kernel and plain may differ that much before their
-    one rounding), how many differ at all, two calls bit-equal (asserted); each timed beside the float32 kernel on the
-    float32 grid, the bound and ``conv_transpose3d`` in bf16."""
-    from repro_torch.core import ffd
-    from repro_torch.kernels import bsi_separable, bsi_ttli, ops
-    from repro_torch.launch.bounds import bound_ms, kernel_bounds
-
-    dev = fixed.device
-    vol = tuple(fixed.shape)
-    gshape = ffd.grid_shape_for_volume(vol, TILE)
-    gen = torch.Generator(device=dev).manual_seed(5)
-    phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 2.5
-    phi = phi32.to(torch.bfloat16)
-    # the same function for both kernels, so timed once (cuDNN's bf16
-    # transposed conv is slow: 3 calls after one warm-up)
-    library_ms = cuda_ms(torch, bf16_yardstick(torch, phi, vol), reps=3, warmup=1)
-    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
-    rows = []
-    for name, module, kernel, replaces in (
-            ("bsi_ttli_bf16", bsi_ttli, ops.bsi_ttli, "src/repro/kernels/bsi_ttli.py:72"),
-            ("bsi_separable_bf16", bsi_separable, ops.bsi_separable,
-             "src/repro/kernels/bsi_separable.py:70")):
-        ops.reset_launch_counts()
-        out, again = kernel(phi, TILE, vol), kernel(phi, TILE, vol)
-        assert ops.launch_counts()[name] == 2, ops.launch_counts()
-        ref = module.plain(phi, TILE, vol)
-        torch.cuda.synchronize()
-        assert out.dtype == torch.bfloat16 and out.shape == vol + (3,), out.dtype
-        worst, beyond, differ = bf16_ulps(torch, out, ref)
-        same = torch.equal(out, again)
-        err = (out.float() - ref.float()).abs().max().item()
-        f32_err = (out.float() - module.plain(phi32, TILE, vol)).abs().max().item()
-        log(f"{name}: max |kernel - plain| {err:.3e}; against one bf16 step + 1e-5 of "
-            f"the largest value {worst:.3f} (limit 1); {differ} of {out.numel()} values "
-            f"differ, {beyond} by more than one step; two calls bit-equal: {same}; "
-            f"max |kernel - float32 plain on the float32 grid| {f32_err:.3e}")
-        assert math.isfinite(worst) and worst <= 1.0 and same, (worst, same)
-        del out, again, ref
-        log_forward_occupancy(lib, name, vol)
-        b_ms, b_by = bounds[name]
-        f32_name = name[:-len("_bf16")]
-        row = dict(
-            name=name, route="cuda", source=f"src/repro_torch/csrc/{f32_name}.cu",
-            replaces=replaces, max_abs_err=err,
-            ms=cuda_ms(torch, lambda: kernel(phi, TILE, vol)),
-            plain_ms=cuda_ms(torch, lambda: module.plain(phi, TILE, vol), reps=3),
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-            more=dict(float32_kernel_ms=cuda_ms(torch, lambda: kernel(phi32, TILE, vol)),
-                      values_differing=differ, values_beyond_one_step=beyond,
-                      worst_over_bound=worst))
-        log(f"{name}: kernel {row['ms']:.4f} ms (float32 kernel "
-            f"{row['more']['float32_kernel_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), library (conv_transpose3d, bf16) "
-            f"{row['library_ms']:.4f} ms")
-        rows.append(row)
-    return rows
-
-
-def run_bf16_path(torch, fixed, moving):
-    """Phase 1b (b): ``ffd_register(compute_dtype="bfloat16")`` on the main
-    path's pair, ``ttli / cuda / cuda`` unfused at ``lr=0.02`` (at 0.5 the
-    coarse level makes no progress at phantom1), cold and warm beside the
-    same float32 call, each counted; then ``mode="separable"`` in bf16,
-    counted; then the plain bf16 path (``impl="torch"``).  Asserts the
-    launches (the level loops' forwards all ``bsi_ttli_bf16``, the adjoints
-    ``bsi_adjoint_bf16`` on the bf16 cotangent, as many as float32's, the
-    final full-resolution warp one float32 ``bsi_ttli`` as in the JAX
-    package), a float32 warp, the JAX package's own bf16
-    bounds against float32 (final loss < 1.1x + 1e-4, warp MAE < 5e-3),
-    which a bf16 path that never optimised would also meet at phantom1
-    (the whole registration moves the MAE to the fixed volume by ~4e-4),
-    and so limits set from the H100's readings (final loss within 1e-2
-    relative of float32's, measured 6e-4; warp MAE against float32 < 1e-4,
-    measured 5.5e-6), and the kernel path's per-level losses within 1e-3
-    relative of the plain bf16 path's.  Returns each counted path's
-    launches and a summary."""
-    from repro_torch import RegistrationOptions, ffd_register
-    from repro_torch.core import metrics
-    from repro_torch.kernels import ops
-
-    opts32 = RegistrationOptions(mode="ttli", impl="cuda", grad_impl="cuda", fused="off",
-                                 lr=0.02)
-    opts16 = opts32.replace(compute_dtype="bfloat16")
-    steps = opts32.levels * (opts32.iters + 1)
-    expected = {"float32": only(bsi_ttli=steps + 1, bsi_adjoint=steps),
-                "bfloat16": only(bsi_ttli_bf16=steps, bsi_ttli=1, bsi_adjoint_bf16=steps)}
-    runs, counts, calls = {}, {}, {}
-    for when in ("cold", "warm"):
-        for label, opts in (("float32", opts32), ("bfloat16", opts16)):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            ops.reset_launch_counts()
-            res = ffd_register(fixed, moving, options=opts)
-            counts[label] = ops.launch_counts()
-            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-            calls.setdefault(label, {})[when] = dict(seconds=res.seconds, peak_gib=peak)
-            log(f"bf16 path: {label} {when} {res.seconds:.3f} s, {peak:.2f} GiB above "
-                f"the call's start; losses {res.losses}; launches "
-                f"{ {k: v for k, v in counts[label].items() if v} }")
-            assert counts[label] == expected[label], (label, counts[label])
-            runs[label] = res
-    r32, r16 = runs["float32"], runs["bfloat16"]
-    assert r16.warped.dtype == torch.float32 and r16.params.dtype == torch.float32
-    assert torch.isfinite(r16.warped).all() and torch.isfinite(r16.params).all()
-    mae = (r16.warped - r32.warped).abs().mean().item()
-    mae0, mae1 = metrics.mae(moving, fixed).item(), metrics.mae(r16.warped, fixed).item()
-    loss_rel = abs(r16.losses[-1] - r32.losses[-1]) / abs(r32.losses[-1])
-    log(f"bf16 path: final loss {r16.losses[-1]:.6e} vs float32 {r32.losses[-1]:.6e}, "
-        f"relative {loss_rel:.3e} (limits 1.1x + 1e-4 and 1e-2 relative); warp MAE "
-        f"against float32 {mae:.3e} (limits 5e-3 and 1e-4); MAE to fixed "
-        f"{mae0:.6f} -> {mae1:.6f}")
-    assert r16.losses[-1] < 1.1 * r32.losses[-1] + 1e-4, (r16.losses, r32.losses)
-    assert mae < 5e-3, mae
-    assert loss_rel < 1e-2, (loss_rel, r16.losses, r32.losses)
-    assert mae < 1e-4, mae
-    calls["bfloat16"].update(losses=r16.losses, float32_losses=r32.losses,
-                             final_loss_rel_vs_float32=loss_rel, warp_mae_vs_float32=mae)
-
-    ops.reset_launch_counts()
-    sep = ffd_register(fixed, moving, options=opts16.replace(mode="separable"))
-    counts["separable"] = ops.launch_counts()
-    want = only(bsi_separable_bf16=steps, bsi_separable=1, bsi_adjoint_bf16=steps)
-    log(f"bf16 separable path: {sep.seconds:.3f} s, losses {sep.losses}; launches "
-        f"{ {k: v for k, v in counts['separable'].items() if v} }")
-    assert counts["separable"] == want, counts["separable"]
-    calls["separable"] = dict(seconds=sep.seconds, losses=sep.losses)
-
-    ops.reset_launch_counts()
-    plain = ffd_register(fixed, moving, options=opts16.replace(impl="torch",
-                                                               grad_impl="torch"))
-    assert not any(ops.launch_counts().values()), ops.launch_counts()
-    rel = max(abs(a - b) / abs(b) for a, b in zip(r16.losses, plain.losses))
-    log(f"bf16 path: kernels {r16.losses} plain {plain.losses} max relative {rel:.3e} "
-        f"(limit 1e-3); {r16.seconds:.3f} s vs {plain.seconds:.3f} s")
-    assert rel <= 1e-3, rel
-    calls["plain_bf16"] = dict(seconds=plain.seconds, losses=plain.losses)
-    return counts, calls
-
-
-def bf16_adjoint_yardstick(torch, g, tile):
-    """``conv3d`` in bf16 computing the adjoint of the bf16 cotangent ``g``
-    (cuDNN; a bf16 result, so it is timed, not compared)."""
+def reduced_adjoint_yardstick(torch, g, tile):
+    """``conv3d`` in ``g``'s reduced dtype computing the adjoint of the
+    cotangent ``g`` (cuDNN; a result of the dtype, so it is timed, not
+    compared)."""
     import torch.nn.functional as F
 
     X, Y, Z, c = g.shape
     full = [-(-s // d) * d for s, d in zip((X, Y, Z), tile)]
-    K = conv_kernel(torch, tile, c, g.device).to(torch.bfloat16)
-    g_cf = torch.zeros([1, c] + full, dtype=torch.bfloat16, device=g.device)
+    K = conv_kernel(torch, tile, c, g.device).to(g.dtype)
+    g_cf = torch.zeros([1, c] + full, dtype=g.dtype, device=g.device)
     g_cf[0, :, :X, :Y, :Z] = g.permute(3, 0, 1, 2)
     return lambda: F.conv3d(g_cf, K, stride=tile, padding=tuple(3 * d for d in tile),
                             groups=c)[0].permute(1, 2, 3, 0)
@@ -1190,11 +1067,12 @@ def ptxas_occupancy(lib, symbol, smem):
     return occ["registers"], occ["blocks_per_sm"]
 
 
-def bf16_row(torch, rows, name, err, call, call32, plain, bound, replaces, source,
-             library_ms=None, **more):
-    """A bf16 kernel's row of the kernels line: ``call`` (the bf16 kernel),
-    ``call32`` (its float32 kernel on the float32 inputs) and ``plain``
-    timed; ``call`` counted once under ``name`` before (asserted)."""
+def reduced_row(torch, rows, name, err, call, call32, plain, bound, replaces, source,
+                library_ms=None, **more):
+    """A reduced dtype's kernel's row of the kernels line: ``call`` (the
+    kernel), ``call32`` (its float32 kernel on the float32 inputs) and
+    ``plain`` timed; ``call`` counted once under ``name`` before
+    (asserted)."""
     from repro_torch.kernels import ops
 
     ops.reset_launch_counts()
@@ -1220,13 +1098,33 @@ def same_twice(torch, call):
     return torch.equal(a, b)
 
 
+def dtype_suffix(dtype):
+    """The kernels' name suffix of ``dtype``: ``f32``, ``bf16``, ``f16``."""
+    from repro_torch.kernels.bsi_ttli import ENTRY_SUFFIX
+
+    return ENTRY_SUFFIX[dtype]
+
+
 FUSED_SRC, FUSED_REP = "src/repro_torch/csrc/bsi_fused.cu", "src/repro/kernels/bsi_fused.py:291"
+# the mangled element type in the adjoint stream kernel's instantiation
+MANGLED = {"bf16": "13__nv_bfloat16", "f16": "6__half"}
 
 
-def bf16_fused_inputs(torch, fixed, moving):
-    """Phases 1c and 1d: the float32 grid of the bf16 fused rows (seed 6),
-    the bf16 cotangent's float32 source, and the bf16 grid, moving volume,
-    cotangent and remapped moving volume."""
+def reduced_grid(torch, fixed, dtype, seed):
+    """A seeded float32 grid of |values| ~2.5 voxels at phantom1, tile 5^3,
+    and the same rounded to ``dtype``."""
+    from repro_torch.core import ffd
+
+    gshape = ffd.grid_shape_for_volume(tuple(fixed.shape), TILE)
+    gen = torch.Generator(device=fixed.device).manual_seed(seed)
+    phi32 = torch.randn(gshape + (3,), generator=gen, device=fixed.device) * 2.5
+    return phi32, phi32.to(dtype)
+
+
+def reduced_fused_inputs(torch, fixed, moving, dtype):
+    """Phases 1c-1e: the float32 grid of the reduced fused rows (seed 6),
+    the reduced cotangent's float32 source, and the grid, moving volume,
+    cotangent and remapped moving volume in ``dtype``."""
     from repro_torch.core import ffd
 
     dev = fixed.device
@@ -1235,46 +1133,46 @@ def bf16_fused_inputs(torch, fixed, moving):
     gen = torch.Generator(device=dev).manual_seed(6)
     phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 1.0
     g32 = torch.randn(vol + (3,), generator=gen, device=dev) * 1e-3
-    bf = torch.bfloat16
-    return phi32, g32, phi32.to(bf), moving.to(bf), g32.to(bf), remap(moving).to(bf)
+    return (phi32, g32, phi32.to(dtype), moving.to(dtype), g32.to(dtype),
+            remap(moving).to(dtype))
 
 
-def check_bf16_fused_variants(torch, fixed, moving, lib, form, rows):
-    """Phases 1c and 1d: the five fused variants' bf16 kernels in
-    displacement form ``form`` at phantom1, tile 5^3, on a bf16 ``phi`` and
-    ``moving`` and a float32 ``fixed`` (ssd, stats and ncc on the main
-    path's pair, nmi at 32 bins and lncc at window 9 on the multi-modal
-    pair) against their plain versions on the same inputs: the sums at 1e-5
-    relative, stats' min, max and count exact, the nmi histogram at 1e-5 of
-    its largest cell and its loss at 1e-5, lncc's count exact.  Two calls of
-    each bit-equal, registers with no spills (asserted), shared memory and
-    blocks an SM; each timed beside its float32 kernel on the float32
-    inputs, its plain version and its bound (``launch/bounds.py``: bf16
-    bytes for ``phi`` and ``moving``; the matrix form's ssd, stats and ncc
-    with their 0.516 ms floor of unfused instructions beside).  Appends the
-    rows to ``rows``."""
+def check_reduced_fused_variants(torch, fixed, moving, lib, form, rows, dtype):
+    """Phases 1c-1e: the five fused variants' kernels of the reduced
+    ``dtype`` in displacement form ``form`` at phantom1, tile 5^3, on a
+    ``phi`` and ``moving`` of the dtype and a float32 ``fixed`` (ssd, stats
+    and ncc on the main path's pair, nmi at 32 bins and lncc at window 9 on
+    the multi-modal pair) against their plain versions on the same inputs:
+    the sums at 1e-5 relative, stats' min, max and count exact, the nmi
+    histogram at 1e-5 of its largest cell and its loss at 1e-5, lncc's count
+    exact.  Two calls of each bit-equal, registers with no spills
+    (asserted), shared memory and blocks an SM; each timed beside its
+    float32 kernel on the float32 inputs, its plain version and its bound
+    (``launch/bounds.py``: 2-byte ``phi`` and ``moving``; the matrix form's
+    ssd, stats and ncc with their 0.516 ms floor of unfused instructions
+    beside).  Appends the rows to ``rows``."""
     from repro_torch.kernels import bsi_fused, ops
     from repro_torch.launch.bounds import bound_ms, kernel_bounds, nmi_bound, unfused_floor_ms
 
     vol = tuple(fixed.shape)
-    phi32, _, phi, mov, _, rem = bf16_fused_inputs(torch, fixed, moving)
+    phi32, _, phi, mov, _, rem = reduced_fused_inputs(torch, fixed, moving, dtype)
     rem32 = remap(moving)
     n = moving.numel()
-    bf = torch.bfloat16
+    sx = dtype_suffix(dtype)
     f = bsi_fused.DISP_FORMS.index(form)
     mm = form == "matmul"
-    key = "_matmul_bf16" if mm else "_bf16"
+    key = f"_matmul_{sx}" if mm else f"_{sx}"
     bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
     floor = dict(unfused_floor_ms=unfused_floor_ms(vol)) if mm else {}
     replaces = FUSED_REP + (" (disp_form='matmul', :87-89)" if mm else "")
     kw = dict(disp_form=form)
 
     def name(kind):
-        return ops._fused_name(kind, form, bf)
+        return ops._fused_name(kind, form, dtype)
 
     def row(nm, err, call, call32, plain, bound, **more):
-        bf16_row(torch, rows, nm, err, call, call32, plain, bound, replaces, FUSED_SRC,
-                 **more)
+        reduced_row(torch, rows, nm, err, call, call32, plain, bound, replaces, FUSED_SRC,
+                    **more)
 
     # --- the ssd, stats and ncc walks on the main path's pair
     out = ops.fused_ssd_loss(phi, mov, fixed, TILE, **kw)
@@ -1337,9 +1235,9 @@ def check_bf16_fused_variants(torch, fixed, moving, lib, form, rows):
                                                               **nk))
     blocks = bsi_fused.block_tiles(TILE, form, bsi_fused.nmi_smem_bytes(32))
     smem = bsi_fused._disp_smem_bytes(TILE, blocks, form) + bsi_fused.nmi_smem_bytes(32)
-    line, per_sm = ptxas_occupancy(lib, f"bsi_fused_nmi_bf16_kernelILi{f}ELi32EE", smem)
+    line, per_sm = ptxas_occupancy(lib, f"bsi_fused_nmi_{sx}_kernelILi{f}ELi32EE", smem)
     support, evaluated, products = nmi_work(torch, phi, rem, fixed, scal, 32, 0.5 / 31, form)
-    nb = nmi_bound(vol, TILE, 32, evaluated=evaluated, products=products, bf16=True)
+    nb = nmi_bound(vol, TILE, 32, evaluated=evaluated, products=products, suffix=f"_{sx}")
     log(f"{name('nmi')}: histogram max |kernel - plain| {err:.3e}, relative to the "
         f"largest cell {rel_cell:.3e} (limit 1e-5); loss kernel {loss:.9g} plain "
         f"{loss_ref:.9g} relative {loss_rel:.3e} (limit 1e-5); two calls bit-equal: "
@@ -1362,7 +1260,7 @@ def check_bf16_fused_variants(torch, fixed, moving, lib, form, rows):
     again = same_twice(torch, lambda: ops.fused_lncc(phi, rem, fixed, TILE, **lk))
     own, _ = bsi_fused.lncc_blocks(TILE, 9, form, vol)
     smem = bsi_fused._lncc_smem_bytes(TILE, own, 9, form)
-    line, per_sm = ptxas_occupancy(lib, f"bsi_fused_lncc_bf16_kernelILi{f}ELi9EE", smem)
+    line, per_sm = ptxas_occupancy(lib, f"bsi_fused_lncc_{sx}_kernelILi{f}ELi9EE", smem)
     log(f"{name('lncc')}: sum cc kernel {out[0].item():.9g} plain "
         f"{ref[0].item():.9g} relative {rel:.3e} (limit 1e-5); count "
         f"{out[1].item():.0f} (VALID positions {npos}); two calls bit-equal: {again}; "
@@ -1376,15 +1274,67 @@ def check_bf16_fused_variants(torch, fixed, moving, lib, form, rows):
         bounds[f"bsi_fused_lncc{key}"], blocks_per_sm=per_sm)
 
 
-def check_bf16_fused_kernels(torch, fixed, moving, lib):
-    """Phase 1c (a): the bf16 kernels of the bf16 fused level step at
-    phantom1, tile 5^3, against their plain versions on the same bf16
-    inputs: ``bsi_adjoint`` on a bf16 cotangent, bit-equal to the float32
-    kernel on the widened cotangent and at 1e-5 relative of its plain
-    version, two calls bit-equal, registers with no spills (asserted),
-    shared memory and blocks an SM, timed beside the float32 kernel, its
-    plain version and its bound; then the five fused variants in the lerp
-    form (:func:`check_bf16_fused_variants`)."""
+def check_reduced_forward(torch, fixed, lib, dtype):
+    """Phases 1b (a) and 1e: the TTLI and separable forward kernels of the
+    reduced ``dtype`` at phantom1, tile 5^3, 3 channels, against their plain
+    versions on the same grid of the dtype: every value within one step of
+    the dtype plus 1e-5 of the largest value (asserted: the float32 sums of
+    kernel and plain may differ that much before their one rounding), how
+    many differ at all, two calls bit-equal (asserted), registers with no
+    spills; each timed beside the float32 kernel on the float32 grid, the
+    bound and ``conv_transpose3d`` in the dtype."""
+    from repro_torch.kernels import bsi_separable, bsi_ttli, ops
+    from repro_torch.launch.bounds import bound_ms, kernel_bounds
+
+    vol = tuple(fixed.shape)
+    sx = f"_{dtype_suffix(dtype)}"
+    phi32, phi = reduced_grid(torch, fixed, dtype, seed=5)
+    # the same function for both kernels, so timed once (cuDNN's reduced
+    # transposed conv is slow: 3 calls after one warm-up)
+    library_ms = cuda_ms(torch, reduced_yardstick(torch, phi, vol), reps=3, warmup=1)
+    bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
+    rows = []
+    for stem, module, kernel, replaces in (
+            ("bsi_ttli", bsi_ttli, ops.bsi_ttli, "src/repro/kernels/bsi_ttli.py:72"),
+            ("bsi_separable", bsi_separable, ops.bsi_separable,
+             "src/repro/kernels/bsi_separable.py:70")):
+        name = stem + sx
+        ops.reset_launch_counts()
+        out, again = kernel(phi, TILE, vol), kernel(phi, TILE, vol)
+        assert ops.launch_counts()[name] == 2, ops.launch_counts()
+        ref = module.plain(phi, TILE, vol)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == vol + (3,), out.dtype
+        worst, beyond, differ = reduced_ulps(torch, out, ref)
+        same = torch.equal(out, again)
+        err = (out.float() - ref.float()).abs().max().item()
+        f32_err = (out.float() - module.plain(phi32, TILE, vol)).abs().max().item()
+        log(f"{name}: max |kernel - plain| {err:.3e}; against one step + 1e-5 of the "
+            f"largest value {worst:.3f} (limit 1); {differ} of {out.numel()} values "
+            f"differ, {beyond} by more than one step; two calls bit-equal: {same}; "
+            f"max |kernel - float32 plain on the float32 grid| {f32_err:.3e}")
+        assert math.isfinite(worst) and worst <= 1.0 and same, (worst, same)
+        del out, again, ref
+        occ = log_forward_occupancy(lib, name, vol)
+        reduced_row(torch, rows, name, err, lambda k=kernel: k(phi, TILE, vol),
+                    lambda k=kernel: k(phi32, TILE, vol),
+                    lambda m=module: m.plain(phi, TILE, vol), bounds[name], replaces,
+                    f"src/repro_torch/csrc/{stem}.cu", library_ms=library_ms,
+                    values_differing=differ, values_beyond_one_step=beyond,
+                    worst_over_bound=worst, blocks_per_sm=occ["blocks_per_sm"])
+    return rows
+
+
+def check_reduced_fused_kernels(torch, fixed, moving, lib, dtype):
+    """Phases 1c (a) and 1e: the kernels of the reduced ``dtype``'s fused
+    level step at phantom1, tile 5^3, against their plain versions on the
+    same inputs: ``bsi_adjoint`` on a cotangent of the dtype, bit-equal to
+    the float32 kernel on the widened cotangent and at 1e-5 relative of its
+    plain version, two calls bit-equal, registers with no spills
+    (asserted), shared memory and blocks an SM, timed beside the float32
+    kernel, its plain version, its bound and ``conv3d`` in the dtype; then
+    the five fused variants in the lerp form
+    (:func:`check_reduced_fused_variants`)."""
     from repro_torch.core import ffd
     from repro_torch.kernels import bsi_adjoint, ops
     from repro_torch.launch.bounds import bound_ms, kernel_bounds
@@ -1392,12 +1342,17 @@ def check_bf16_fused_kernels(torch, fixed, moving, lib):
 
     dev = fixed.device
     vol = tuple(fixed.shape)
+    sx = dtype_suffix(dtype)
     gshape = ffd.grid_shape_for_volume(vol, TILE)
-    _, g32, _, _, g, _ = bf16_fused_inputs(torch, fixed, moving)
+    _, g32, _, _, g, _ = reduced_fused_inputs(torch, fixed, moving, dtype)
     bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
     rows = []
 
-    # --- bsi_adjoint on a bf16 cotangent
+    # --- bsi_adjoint on a cotangent of the dtype
+    log(f"the {sx} cotangent of the adjoint rows: {(g == 0).float().mean().item():.4f} of "
+        f"its values zero, "
+        f"{(g.float().abs() < torch.finfo(dtype).smallest_normal).float().mean().item():.4f}"
+        " subnormal or zero")
     out, out32 = ops.bsi_adjoint(g, TILE, gshape), ops.bsi_adjoint(g.float(), TILE, gshape)
     ref = bsi_adjoint.plain(g, TILE, gshape)
     torch.cuda.synchronize()
@@ -1407,44 +1362,47 @@ def check_bf16_fused_kernels(torch, fixed, moving, lib):
     again = same_twice(torch, lambda: ops.bsi_adjoint(g, TILE, gshape))
     geo = bsi_adjoint.stream_blocks(TILE, 3, vol, bsi_adjoint.card_sms(dev))
     (line, per_sm), = (v for k, v in adjoint_occupancy(lib, TILE, 3, vol).items()
-                       if "ILi3ELi5E13__nv_bfloat16" in k)
-    log(f"bsi_adjoint_bf16: out {out.dtype}; bit-equal to the float32 kernel on "
+                       if f"ILi3ELi5E{MANGLED[sx]}" in k)
+    log(f"bsi_adjoint_{sx}: out {out.dtype}; bit-equal to the float32 kernel on "
         f"g.float(): {bits}; max |kernel - plain| {err:.3e}, relative {rel:.3e} (limit "
         f"1e-5); two calls bit-equal: {again}; {line}; {geo.smem} B of shared memory a "
         f"block (the float32 kernel's), {per_sm} blocks an SM")
     assert out.dtype == torch.float32 and bits and again, (bits, again)
     assert math.isfinite(rel) and rel <= 1e-5, rel
     del out, out32, ref
-    # the cast the backward made before this kernel: the bf16 cotangent
-    # widened to float32 (270 MB read, 539 MB written at phantom1)
+    # the cast the backward would make before a float32 kernel: the
+    # cotangent widened to float32 (270 MB read, 539 MB written at phantom1)
     widen_ms = cuda_ms(torch, lambda: g.float())
-    bf16_row(torch, rows, "bsi_adjoint_bf16", err, lambda: ops.bsi_adjoint(g, TILE, gshape),
-             lambda: ops.bsi_adjoint(g32, TILE, gshape),
-             lambda: bsi_adjoint.plain(g, TILE, gshape),
-             bounds["bsi_adjoint_separable_bf16"], "src/repro/kernels/bsi_adjoint.py:125",
-             "src/repro_torch/csrc/bsi_adjoint.cu",
-             library_ms=cuda_ms(torch, bf16_adjoint_yardstick(torch, g, TILE), reps=3,
-                                warmup=1),
-             bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms)
-    log(f"bsi_adjoint_bf16: the cotangent's widening cast it replaces {widen_ms:.4f} ms")
+    reduced_row(torch, rows, f"bsi_adjoint_{sx}", err,
+                lambda: ops.bsi_adjoint(g, TILE, gshape),
+                lambda: ops.bsi_adjoint(g32, TILE, gshape),
+                lambda: bsi_adjoint.plain(g, TILE, gshape),
+                bounds[f"bsi_adjoint_separable_{sx}"], "src/repro/kernels/bsi_adjoint.py:125",
+                "src/repro_torch/csrc/bsi_adjoint.cu",
+                library_ms=cuda_ms(torch, reduced_adjoint_yardstick(torch, g, TILE), reps=3,
+                                   warmup=1),
+                bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms,
+                blocks_per_sm=per_sm)
+    log(f"bsi_adjoint_{sx}: the cotangent's widening cast it replaces {widen_ms:.4f} ms")
 
-    check_bf16_fused_variants(torch, fixed, moving, lib, "lerp", rows)
+    check_reduced_fused_variants(torch, fixed, moving, lib, "lerp", rows, dtype)
     return rows
 
 
-def check_bf16_matrix_kernels(torch, fixed, moving, lib):
-    """Phase 1d (a): the bf16 matrix and TT forms' kernels at phantom1, tile
-    5^3, 3 channels, against their plain versions on the same bf16 inputs:
-    ``bsi_tt_bf16`` bit for bit; ``bsi_matmul_bf16`` within one bf16 step
-    plus 1e-5 of the largest value and bit-equal to the float32 kernel on
-    the widened grid with the bf16 basis's fragments, rounded once;
-    ``bsi_adjoint_matmul_bf16`` bit-equal to the float32 kernel on the
-    widened cotangent and at 1e-5 relative of its plain version; the five
-    fused variants in the matrix form (:func:`check_bf16_fused_variants`).
-    Two calls of each bit-equal, registers with no spills (asserted), shared
-    memory and blocks an SM; each timed beside its float32 kernel, its plain
-    version, its bound and, for the forwards and the adjoint, the library
-    call (``conv_transpose3d`` and ``conv3d`` in bf16)."""
+def check_reduced_matrix_kernels(torch, fixed, moving, lib, dtype):
+    """Phases 1d (a) and 1e: the matrix and TT forms' kernels of the reduced
+    ``dtype`` at phantom1, tile 5^3, 3 channels, against their plain
+    versions on the same inputs: ``bsi_tt`` bit for bit; ``bsi_matmul``
+    within one step of the dtype plus 1e-5 of the largest value and
+    bit-equal to the float32 kernel on the widened grid with the dtype's
+    basis fragments, rounded once; ``bsi_adjoint_matmul`` bit-equal to the
+    float32 kernel on the widened cotangent and at 1e-5 relative of its
+    plain version; the five fused variants in the matrix form
+    (:func:`check_reduced_fused_variants`).  Two calls of each bit-equal,
+    registers with no spills (asserted), shared memory and blocks an SM;
+    each timed beside its float32 kernel, its plain version, its bound and,
+    for the forwards and the adjoint, the library call (``conv_transpose3d``
+    and ``conv3d`` in the dtype)."""
     from repro_torch.core import ffd
     from repro_torch.device import resident_blocks
     from repro_torch.kernels import bsi_adjoint, bsi_matmul, bsi_tt, ops
@@ -1452,69 +1410,67 @@ def check_bf16_matrix_kernels(torch, fixed, moving, lib):
 
     dev = fixed.device
     vol = tuple(fixed.shape)
+    sx = dtype_suffix(dtype)
     gshape = ffd.grid_shape_for_volume(vol, TILE)
-    gen = torch.Generator(device=dev).manual_seed(7)
-    phi32 = torch.randn(gshape + (3,), generator=gen, device=dev) * 2.5
-    phi = phi32.to(torch.bfloat16)
+    phi32, phi = reduced_grid(torch, fixed, dtype, seed=7)
     bounds = {k: bound_ms(*v) for k, v in kernel_bounds(vol, TILE, 3).items()}
-    library_ms = cuda_ms(torch, bf16_yardstick(torch, phi, vol), reps=3, warmup=1)
+    library_ms = cuda_ms(torch, reduced_yardstick(torch, phi, vol), reps=3, warmup=1)
     rows = []
 
-    # --- bsi_tt_bf16: bit for bit its plain version
+    # --- bsi_tt: bit for bit its plain version
     out, again = ops.bsi_tt(phi, TILE, vol), ops.bsi_tt(phi, TILE, vol)
     ref = bsi_tt.plain(phi, TILE, vol)
     torch.cuda.synchronize()
     bits, same = torch.equal(out, ref), torch.equal(out, again)
     symbol, smem, grid = bsi_tt.occupancy_key(TILE, 3, vol, bsi_adjoint.card_sms(dev),
-                                              bf16=True)
+                                              dtype=dtype)
     line, per_sm = ptxas_occupancy(lib, symbol, smem)
-    log(f"bsi_tt_bf16: out {out.dtype}; equal to plain bit for bit: {bits}; two calls "
+    log(f"bsi_tt_{sx}: out {out.dtype}; equal to plain bit for bit: {bits}; two calls "
         f"bit-equal: {same}; {line}; {smem} B of shared memory a block, {per_sm} blocks "
         f"an SM, grid {grid}")
-    assert out.dtype == torch.bfloat16 and bits and same, (bits, same)
+    assert out.dtype == dtype and bits and same, (bits, same)
     del out, again, ref
-    bf16_row(torch, rows, "bsi_tt_bf16", 0.0, lambda: ops.bsi_tt(phi, TILE, vol),
-             lambda: ops.bsi_tt(phi32, TILE, vol), lambda: bsi_tt.plain(phi, TILE, vol),
-             bounds["bsi_tt_bf16"], "src/repro/kernels/bsi_tt.py:58",
-             "src/repro_torch/csrc/bsi_tt.cu", library_ms=library_ms,
-             unfused_floor_ms=unfused_floor_ms(vol), blocks_per_sm=per_sm)
+    reduced_row(torch, rows, f"bsi_tt_{sx}", 0.0, lambda: ops.bsi_tt(phi, TILE, vol),
+                lambda: ops.bsi_tt(phi32, TILE, vol), lambda: bsi_tt.plain(phi, TILE, vol),
+                bounds[f"bsi_tt_{sx}"], "src/repro/kernels/bsi_tt.py:58",
+                "src/repro_torch/csrc/bsi_tt.cu", library_ms=library_ms,
+                unfused_floor_ms=unfused_floor_ms(vol), blocks_per_sm=per_sm)
 
-    # --- bsi_matmul_bf16: one bf16 step of plain; the float32 kernel's hi
-    # products on the widened grid, rounded once
+    # --- bsi_matmul: one step of plain; the float32 kernel's hi products on
+    # the widened grid, rounded once
     out, again = ops.bsi_matmul(phi, TILE, vol), ops.bsi_matmul(phi, TILE, vol)
     ref = bsi_matmul.plain(phi, TILE, vol)
     frag = bsi_matmul.basis_fragments
-    bsi_matmul.basis_fragments = lambda t, d, dt=torch.float32: frag(t, d, torch.bfloat16)
+    bsi_matmul.basis_fragments = lambda t, d, dt=torch.float32: frag(t, d, dtype)
     try:
-        wide = ops.bsi_matmul(phi.float(), TILE, vol).to(torch.bfloat16)
+        wide = ops.bsi_matmul(phi.float(), TILE, vol).to(dtype)
     finally:
         bsi_matmul.basis_fragments = frag
     torch.cuda.synchronize()
-    worst, beyond, differ = bf16_ulps(torch, out, ref)
+    worst, beyond, differ = reduced_ulps(torch, out, ref)
     bits, same = torch.equal(out, wide), torch.equal(out, again)
     err = (out.float() - ref.float()).abs().max().item()
     symbol, smem, grid = bsi_matmul.occupancy_key(TILE, 3, vol, bsi_adjoint.card_sms(dev),
-                                                  bf16=True)
+                                                  dtype=dtype)
     line, per_sm = ptxas_occupancy(lib, symbol, smem)
-    log(f"bsi_matmul_bf16: max |kernel - plain| {err:.3e}; against one bf16 step + 1e-5 "
-        f"of the largest value {worst:.3f} (limit 1); {differ} of {out.numel()} values "
-        f"differ, {beyond} by more than one step; bit-equal to bf16 of the float32 "
-        f"kernel on phi.float() with the bf16 fragments: {bits}; two calls bit-equal: "
-        f"{same}; {line}; {smem} B of shared memory a block, {per_sm} blocks an SM, grid "
-        f"{grid}")
-    assert out.dtype == torch.bfloat16 and math.isfinite(worst) and worst <= 1.0
+    log(f"bsi_matmul_{sx}: max |kernel - plain| {err:.3e}; against one step + 1e-5 of the "
+        f"largest value {worst:.3f} (limit 1); {differ} of {out.numel()} values differ, "
+        f"{beyond} by more than one step; bit-equal to {sx} of the float32 kernel on "
+        f"phi.float() with the {sx} fragments: {bits}; two calls bit-equal: {same}; "
+        f"{line}; {smem} B of shared memory a block, {per_sm} blocks an SM, grid {grid}")
+    assert out.dtype == dtype and math.isfinite(worst) and worst <= 1.0
     assert bits and same, (bits, same)
     del out, again, ref, wide
-    bf16_row(torch, rows, "bsi_matmul_bf16", err, lambda: ops.bsi_matmul(phi, TILE, vol),
-             lambda: ops.bsi_matmul(phi32, TILE, vol),
-             lambda: bsi_matmul.plain(phi, TILE, vol), bounds["bsi_matmul_bf16"],
-             "src/repro/kernels/bsi_matmul.py:91", "src/repro_torch/csrc/bsi_matmul.cu",
-             library_ms=library_ms, values_differing=differ,
-             values_beyond_one_step=beyond, worst_over_bound=worst,
-             bit_equal_to_float32_kernel=bits, blocks_per_sm=per_sm)
+    reduced_row(torch, rows, f"bsi_matmul_{sx}", err, lambda: ops.bsi_matmul(phi, TILE, vol),
+                lambda: ops.bsi_matmul(phi32, TILE, vol),
+                lambda: bsi_matmul.plain(phi, TILE, vol), bounds[f"bsi_matmul_{sx}"],
+                "src/repro/kernels/bsi_matmul.py:91", "src/repro_torch/csrc/bsi_matmul.cu",
+                library_ms=library_ms, values_differing=differ,
+                values_beyond_one_step=beyond, worst_over_bound=worst,
+                bit_equal_to_float32_kernel=bits, blocks_per_sm=per_sm)
 
-    # --- bsi_adjoint_matmul_bf16: the float32 kernel on g.float(), bit for bit
-    _, g32, _, _, g, _ = bf16_fused_inputs(torch, fixed, moving)
+    # --- bsi_adjoint_matmul: the float32 kernel on g.float(), bit for bit
+    _, g32, _, _, g, _ = reduced_fused_inputs(torch, fixed, moving, dtype)
     out = ops.bsi_adjoint_matmul(g, TILE, gshape)
     out32 = ops.bsi_adjoint_matmul(g.float(), TILE, gshape)
     ref = bsi_adjoint.plain_matmul(g, TILE, gshape)
@@ -1525,11 +1481,11 @@ def check_bf16_matrix_kernels(torch, fixed, moving, lib):
     again = same_twice(torch, lambda: ops.bsi_adjoint_matmul(g, TILE, gshape))
     geo = bsi_adjoint.matmul_blocks(TILE, 3, vol)
     regs = [ln for ln in lib.info.ptxas if "registers" in ln
-            and f"adjoint_matmul_box_bf16_kernelILi{geo.cols}E" in ln]
+            and f"adjoint_matmul_box_{sx}_kernelILi{geo.cols}E" in ln]
     assert len(regs) == 1 and "0/0 B spill" in regs[0], regs
     per_sm = resident_blocks(int(re.search(r"(\d+) registers", regs[0]).group(1)),
                              geo.smem, 2 * geo.cols)
-    log(f"bsi_adjoint_matmul_bf16: out {out.dtype}; bit-equal to the float32 kernel on "
+    log(f"bsi_adjoint_matmul_{sx}: out {out.dtype}; bit-equal to the float32 kernel on "
         f"g.float(): {bits}; max |kernel - plain| {err:.3e}, relative {rel:.3e} (limit "
         f"1e-5); two calls bit-equal: {again}; {regs[0]}; {geo.smem} B of shared memory a "
         f"block (the float32 kernel's), {per_sm} blocks an SM")
@@ -1537,159 +1493,359 @@ def check_bf16_matrix_kernels(torch, fixed, moving, lib):
     assert math.isfinite(rel) and rel <= 1e-5, rel
     del out, out32, ref
     widen_ms = cuda_ms(torch, lambda: g.float())
-    bf16_row(torch, rows, "bsi_adjoint_matmul_bf16", err,
-             lambda: ops.bsi_adjoint_matmul(g, TILE, gshape),
-             lambda: ops.bsi_adjoint_matmul(g32, TILE, gshape),
-             lambda: bsi_adjoint.plain_matmul(g, TILE, gshape),
-             bounds["bsi_adjoint_matmul_bf16"], "src/repro/kernels/bsi_adjoint.py:194",
-             "src/repro_torch/csrc/bsi_adjoint.cu",
-             library_ms=cuda_ms(torch, bf16_adjoint_yardstick(torch, g, TILE), reps=3,
-                                warmup=1),
-             bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms,
-             blocks_per_sm=per_sm)
-    log(f"bsi_adjoint_matmul_bf16: the cotangent's widening cast it replaces "
+    reduced_row(torch, rows, f"bsi_adjoint_matmul_{sx}", err,
+                lambda: ops.bsi_adjoint_matmul(g, TILE, gshape),
+                lambda: ops.bsi_adjoint_matmul(g32, TILE, gshape),
+                lambda: bsi_adjoint.plain_matmul(g, TILE, gshape),
+                bounds[f"bsi_adjoint_matmul_{sx}"], "src/repro/kernels/bsi_adjoint.py:194",
+                "src/repro_torch/csrc/bsi_adjoint.cu",
+                library_ms=cuda_ms(torch, reduced_adjoint_yardstick(torch, g, TILE), reps=3,
+                                   warmup=1),
+                bit_equal_to_float32_kernel=bits, widening_cast_ms=widen_ms,
+                blocks_per_sm=per_sm)
+    log(f"bsi_adjoint_matmul_{sx}: the cotangent's widening cast it replaces "
         f"{widen_ms:.4f} ms")
 
-    check_bf16_fused_variants(torch, fixed, moving, lib, "matmul", rows)
+    check_reduced_fused_variants(torch, fixed, moving, lib, "matmul", rows, dtype)
     return rows
 
 
-def run_bf16_matrix_path(torch, fixed, moving):
-    """Phase 1d (b)-(e): ``ffd_register`` of the main path's pair in the
-    matrix form under bf16, ``mode="matmul", impl="cuda",
-    grad_impl="matmul", lr=0.02``, with ``fused="off"`` and ``"on"``, each
-    cold and warm beside the same float32 call (seconds, peak memory above
-    the call's start), its launches asserted (unfused: a step one
-    ``bsi_matmul_bf16`` and one ``bsi_adjoint_matmul_bf16``; fused also one
-    ``bsi_fused_matmul_bf16``, the backward's field recomputed by
-    ``bsi_matmul_bf16``; the final warp one float32 ``bsi_matmul`` as in the
-    JAX package); the JAX package's bf16 bounds against float32 (final loss
-    < 1.1x + 1e-4, warp MAE < 5e-3) and this card's (1e-2 relative, 1e-4);
-    the per-level losses within 1e-3 relative of the plain bf16 path's.
-    Then (c) ``mode="tt"`` in bf16 unfused at full depth (``bsi_tt_bf16``,
-    ``bsi_adjoint_bf16``), counted, at the same bounds against float32;
-    (d) the fused ncc, nmi (the remapped pair) and lncc steps in the matrix
-    form at ``iters=5``, counted, each level's loss within 1e-2 relative of
-    float32's; (e) all-``"auto"`` under bf16 on a fresh disk cache: the race
-    of the four forms' kernels, its winner and seconds.  Returns each
-    counted path's launches and a summary."""
-    from repro_torch import RegistrationOptions, ffd_register
-    from repro_torch.core import metrics
-    from repro_torch.engine import autotune
-    from repro_torch.kernels import bsi_fused, ops
+def counted_call(torch, label, fixed, moving, opts, want=None):
+    """``ffd_register(fixed, moving, options=opts)``, its launches asserted
+    equal to ``want`` where given: the result, its launches, and its
+    seconds and peak memory above the call's start."""
+    from repro_torch import ffd_register
+    from repro_torch.kernels import ops
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = ffd_register(fixed, moving, options=opts)
+    got = ops.launch_counts()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    log(f"{label}: {res.seconds:.3f} s, {peak:.2f} GiB above the call's start; losses "
+        f"{res.losses}; launches { {k: v for k, v in got.items() if v} }")
+    assert want is None or got == want, (label, got, want)
+    return res, got, dict(seconds=res.seconds, peak_gib=peak)
+
+
+def float32_twin(torch, twins, label, fixed, moving, opts, want=None):
+    """The float32 call ``label`` that a reduced call is held against: run
+    and counted (:func:`counted_call`) the first time and kept in
+    ``twins``, so that phase 1e's fp16 calls share phases 1b-1d's."""
+    if label not in twins:
+        twins[label] = counted_call(torch, f"float32 {label}", fixed, moving, opts, want)
+    return twins[label]
+
+
+def held(dtype):
+    """Whether the reduced ``dtype``'s registrations at phantom1 are held to
+    float32's (bf16), or their distance printed only (fp16: the JAX
+    package's fp16 cotangent underflows there, the port copies it, and the
+    registration barely leaves its start; ROADMAP queue 3)."""
+    return dtype_suffix(dtype) == "bf16"
+
+
+def against_float32(torch, fixed, moving, label, res, res32, dtype):
+    """A reduced call's result ``res`` against its float32 twin ``res32``:
+    a finite float32 warp and grid (asserted); the final loss's distance and
+    the warp's MAE from float32's, held under bf16 (:func:`held`) to the JAX
+    package's bounds (final loss < 1.1x + 1e-4, warp MAE < 5e-3), which a
+    path that never optimised would also meet at phantom1, and so to limits
+    set from the H100's readings (final loss within 1e-2 relative, measured
+    6e-4; warp MAE < 1e-4, measured 5.5e-6); printed under fp16."""
+    from repro_torch.core import metrics
+
+    assert res.warped.dtype == res.params.dtype == torch.float32
+    assert torch.isfinite(res.warped).all() and torch.isfinite(res.params).all()
+    mae = (res.warped - res32.warped).abs().mean().item()
+    rel = abs(res.losses[-1] - res32.losses[-1]) / abs(res32.losses[-1])
+    mae0, mae1 = metrics.mae(moving, fixed).item(), metrics.mae(res.warped, fixed).item()
+    log(f"{label}: final loss {res.losses[-1]:.6e} vs float32 {res32.losses[-1]:.6e}, "
+        f"relative {rel:.3e}; warp MAE against float32 {mae:.3e} ("
+        + ("limits 1.1x + 1e-4 and 1e-2 relative, 5e-3 and 1e-4" if held(dtype)
+           else "printed, not held") + f"); MAE to fixed {mae0:.6f} -> {mae1:.6f}")
+    if held(dtype):
+        assert res.losses[-1] < 1.1 * res32.losses[-1] + 1e-4, (res.losses, res32.losses)
+        assert mae < 5e-3 and rel < 1e-2 and mae < 1e-4, (mae, rel)
+    return dict(losses=res.losses, float32_losses=res32.losses,
+                final_loss_rel_vs_float32=rel, warp_mae_vs_float32=mae, mae=(mae0, mae1))
+
+
+def plain_ssd(phi, mov, fix, tile, *, sim_spec, disp_form="lerp"):
+    """The fused SSD forward on the ssd kernel's plain version."""
+    from repro_torch.kernels import bsi_fused
+
+    assert sim_spec == ("ssd",), sim_spec
+    return bsi_fused.plain(phi, mov, fix, tile, disp_form=disp_form) / mov.numel()
+
+
+def against_plain(torch, fixed, moving, label, res, opts):
+    """``opts``' plain path (``impl="torch"``, no launch, asserted; a fused
+    step's forward on the ssd kernel's plain version): the per-level losses
+    of the kernel path's result ``res`` within 1e-3 relative of it
+    (asserted)."""
+    from repro_torch import ffd_register
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    real = ops.fused_similarity_loss
+    if opts.fused == "on":
+        ops.fused_similarity_loss = plain_ssd
+    try:
+        plain = ffd_register(fixed, moving, options=opts.replace(impl="torch",
+                                                                 grad_impl="torch"))
+    finally:
+        ops.fused_similarity_loss = real
+    assert not any(ops.launch_counts().values()), ops.launch_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res.losses, plain.losses))
+    log(f"{label}: kernels {res.losses} plain {plain.losses} max relative {rel:.3e} "
+        f"(limit 1e-3); {res.seconds:.3f} s vs {plain.seconds:.3f} s")
+    assert rel <= 1e-3, (label, rel)
+    return dict(seconds=plain.seconds, losses=plain.losses, max_rel_vs_kernels=rel)
+
+
+def multimodal_steps(torch, fixed, moving, dtype, twins, base, form):
+    """Phases 1c-1e: the fused ncc, nmi (the remapped pair) and lncc steps of
+    the reduced ``dtype`` in displacement form ``form`` at ``iters=5``,
+    counted, each level's loss within 1e-2 relative of the float32 call's
+    (held as :func:`held` says, else printed).  Returns their launches and
+    a summary."""
+    sx = f"_{dtype_suffix(dtype)}"
+    fwd, adj = (("bsi_ttli", "bsi_adjoint") if form == "lerp"
+                else ("bsi_matmul", "bsi_adjoint_matmul"))
+    mm = "_matmul" if form == "matmul" else ""
+    rem = remap(moving)
+    counts, calls = {}, {}
+    for sim, mov, kinds in (("ncc", moving, ("stats", "ncc")), ("nmi", rem, ("stats", "nmi")),
+                            ("lncc", rem, ("lncc",))):
+        o32 = base.replace(similarity=sim, iters=5, fused="on")
+        n = o32.levels * (o32.iters + 1)
+        a32, _, _ = float32_twin(torch, twins, f"{sim} {form} iters=5", fixed, mov, o32)
+        want = only(**{fwd: 1, fwd + sx: n, adj + sx: n},
+                    **{f"bsi_fused_{k}{mm}{sx}": n for k in kinds})
+        a16, counts[sim], c16 = counted_call(torch, f"{sx[1:]} fused {sim} {form} iters=5",
+                                             fixed, mov, o32.replace(compute_dtype=dtype),
+                                             want)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(a16.losses, a32.losses))
+        log(f"{sx[1:]} fused {sim} {form} iters=5: losses {a16.losses} vs float32 "
+            f"{a32.losses}, max relative {rel:.3e} "
+            + ("(limit 1e-2)" if held(dtype) else "(printed, not held)"))
+        assert all(math.isfinite(x) for x in a16.losses), (sim, a16.losses)
+        assert not held(dtype) or rel < 1e-2, (sim, rel)
+        calls[f"{sim}_{form}_iters5"] = dict(c16, losses=a16.losses, float32_losses=a32.losses,
+                                             max_rel_vs_float32=rel)
+    return counts, calls
+
+
+def run_reduced_path(torch, fixed, moving, dtype, twins):
+    """Phases 1b (b) and 1e: ``ffd_register`` of the main path's pair in the
+    reduced ``dtype``, ``ttli / cuda / cuda`` unfused at ``lr=0.02`` (at 0.5
+    the coarse level makes no progress at phantom1), beside the same
+    float32 call (:func:`float32_twin`), each counted: the level loops'
+    forwards all of the dtype, the adjoints on the cotangent of the dtype,
+    as many as float32's, the final full-resolution warp one float32
+    ``bsi_ttli`` as in the JAX package; held to float32
+    (:func:`against_float32`) and to the plain path of the dtype
+    (:func:`against_plain`); then ``mode="separable"`` in the dtype,
+    counted; the share of zeros in one step's displacement cotangent
+    (:func:`cotangent_share`); a small pair (40 x 32 x 24) card against CPU,
+    per-level losses at 1e-4.  Returns each counted path's launches and a
+    summary."""
+    from repro_torch import RegistrationOptions, ffd_register, make_pair
+
+    sx = dtype_suffix(dtype)
+    opts32 = RegistrationOptions(mode="ttli", impl="cuda", grad_impl="cuda", fused="off",
+                                 lr=0.02)
+    opts = opts32.replace(compute_dtype=dtype)
+    steps = opts32.levels * (opts32.iters + 1)
+    r32, _, c32 = float32_twin(torch, twins, "ttli fused=off", fixed, moving, opts32,
+                               only(bsi_ttli=steps + 1, bsi_adjoint=steps))
+    want = only(**{f"bsi_ttli_{sx}": steps, "bsi_ttli": 1, f"bsi_adjoint_{sx}": steps})
+    res, counts_ttli, c16 = counted_call(torch, f"{sx} ttli fused=off", fixed, moving, opts,
+                                         want)
+    counts = {"ttli": counts_ttli}
+    calls = {"ttli": dict(c16, float32=c32,
+                          **against_float32(torch, fixed, moving, f"{sx} ttli fused=off", res,
+                                            r32, dtype),
+                          plain=against_plain(torch, fixed, moving,
+                                              f"{sx} ttli fused=off", res, opts))}
+
+    want = only(**{f"bsi_separable_{sx}": steps, "bsi_separable": 1,
+                   f"bsi_adjoint_{sx}": steps})
+    sep, counts["separable"], c = counted_call(torch, f"{sx} separable", fixed, moving,
+                                               opts.replace(mode="separable"), want)
+    calls["separable"] = dict(c, losses=sep.losses)
+    calls["cotangent"] = cotangent_share(torch, fixed, moving, dtype)
+
+    f, m, _ = make_pair((40, 32, 24), seed=0, device="cpu")
+    small = RegistrationOptions(levels=2, iters=5, fused="off", compute_dtype=dtype)
+    card = ffd_register(f, m, options=small, device=torch.device("cuda"))
+    host = ffd_register(f, m, options=small, device="cpu")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card.losses, host.losses))
+    mae = (card.warped.cpu() - host.warped).abs().mean().item()
+    log(f"{sx} small pair (40, 32, 24) card vs CPU: losses {card.losses} vs {host.losses}, "
+        f"max relative {rel:.3e} (limit 1e-4); warp MAE {mae:.3e}")
+    assert rel <= 1e-4, rel
+    calls["small_card_vs_cpu"] = dict(max_rel=rel, warp_mae=mae)
+    return counts, calls
+
+
+def cotangent_share(torch, fixed, moving, dtype):
+    """The displacement cotangent that one step of the level loss of the
+    reduced ``dtype`` hands its adjoint at phantom1 (SSD, the separable
+    form, a seeded grid of 0.5 voxel): its share of exact zeros and of
+    subnormals, and the float32 run's largest cotangent beside it (printed,
+    not asserted: fp16's least subnormal is 5.96e-8, and the JAX package's
+    fp16 cotangent underflows so)."""
+    from repro_torch.core import ffd, interpolate
+    from repro_torch.engine.batch import ffd_level_loss
+
+    gshape = ffd.grid_shape_for_volume(tuple(fixed.shape), TILE)
+    gen = torch.Generator(device=fixed.device).manual_seed(9)
+    phi = torch.randn(gshape + (3,), generator=gen, device=fixed.device) * 0.5
+    seen, real = [], interpolate.bsi_adjoint
+    normal = torch.finfo(dtype).smallest_normal
+
+    def spy(ct, *args, **kwargs):
+        seen.append((ct.dtype, (ct == 0).float().mean().item(),
+                     (ct.float().abs() < normal).float().mean().item(),
+                     ct.float().abs().max().item()))
+        return real(ct, *args, **kwargs)
+
+    interpolate.bsi_adjoint = spy
+    try:
+        for cd in (dtype, None):
+            p = phi.clone().requires_grad_(True)
+            ffd_level_loss(fixed, moving, tile=TILE, bending_weight=0.0, mode="separable",
+                           impl="cuda", grad_impl="cuda", compute_dtype=cd)(p).backward()
+    finally:
+        interpolate.bsi_adjoint = real
+    (dt, zero, sub, top), (_, zero32, _, top32) = seen
+    log(f"{dtype_suffix(dtype)} displacement cotangent at phantom1 ({dt}): {zero:.4f} of "
+        f"its entries exactly 0, {sub:.4f} subnormal or 0, largest {top:.3e}; float32's "
+        f"largest {top32:.3e}, {zero32:.4f} zero")
+    return dict(zero_share=zero, subnormal_or_zero_share=sub, largest=top,
+                float32_largest=top32, float32_zero_share=zero32)
+
+
+def run_reduced_fused_path(torch, fixed, moving, dtype, twins, unfused):
+    """Phases 1c (b) and 1e: ``ffd_register`` of the main path's pair with
+    ``fused="on", lr=0.02`` in the reduced ``dtype``, ``ttli / cuda /
+    cuda``, beside the same float32 fused call and the unfused call of the
+    dtype (``unfused``, :func:`run_reduced_path`'s summary; seconds, peak
+    memory above the call's start).  Asserts the launches (a step: one
+    ``bsi_fused`` of the dtype, the backward's recomputed field one
+    ``bsi_ttli`` of the dtype and its cotangent one ``bsi_adjoint`` of the
+    dtype; the final warp one float32 ``bsi_ttli``, as in the JAX package);
+    held to float32 (:func:`against_float32`) and to the plain fused path
+    of the dtype (:func:`against_plain`); then the fused ncc, nmi and lncc
+    steps at ``iters=5`` (:func:`multimodal_steps`); and ``fused="auto"``
+    in the dtype raced once on a fresh disk cache.  Returns each counted
+    path's launches and a summary."""
+    from repro_torch import RegistrationOptions
+    from repro_torch.engine import autotune
+
+    sx = dtype_suffix(dtype)
+    opts32 = RegistrationOptions(mode="ttli", impl="cuda", grad_impl="cuda", fused="on",
+                                 lr=0.02)
+    opts = opts32.replace(compute_dtype=dtype)
+    steps = opts32.levels * (opts32.iters + 1)
+    r32, _, c32 = float32_twin(torch, twins, "ttli fused=on", fixed, moving, opts32,
+                               only(bsi_fused=steps, bsi_ttli=steps + 1, bsi_adjoint=steps))
+    want = only(**{f"bsi_fused_{sx}": steps, f"bsi_ttli_{sx}": steps, "bsi_ttli": 1,
+                   f"bsi_adjoint_{sx}": steps})
+    res, fused_counts, c16 = counted_call(torch, f"{sx} ttli fused=on", fixed, moving, opts,
+                                          want)
+    log(f"{sx} fused path: {c16['seconds']:.3f} s vs {sx} unfused {unfused['seconds']:.3f} s "
+        f"and float32 fused {c32['seconds']:.3f} s; peak {c16['peak_gib']:.2f} GiB vs "
+        f"{unfused['peak_gib']:.2f} and {c32['peak_gib']:.2f} GiB")
+    counts = {"fused": fused_counts}
+    calls = {"fused": dict(c16, float32=c32, unfused=dict(seconds=unfused["seconds"]),
+                           **against_float32(torch, fixed, moving, f"{sx} ttli fused=on", res,
+                                             r32, dtype),
+                           plain=against_plain(torch, fixed, moving, f"{sx} ttli fused=on",
+                                               res, opts))}
+    mm_counts, mm_calls = multimodal_steps(torch, fixed, moving, dtype, twins, opts32, "lerp")
+    counts.update(mm_counts)
+    calls.update(mm_calls)
+
+    winner = log_fused_resolution(
+        torch, tuple(fixed.shape), f"{sx} (ttli / cuda / cuda, lr=0.02)", mode="ttli",
+        impl="cuda", grad_impl="cuda", lr=0.02, compute_dtype=dtype)
+    race = autotune.RACES[-1]
+    assert f"|cd={str(dtype).removeprefix('torch.')}|" in race.key, race.key
+    calls["auto_fused"] = dict(fused=winner, race_seconds=race.seconds,
+                               timings_us=dict(race.timings))
+    return counts, calls
+
+
+def run_reduced_matrix_path(torch, fixed, moving, dtype, twins):
+    """Phases 1d (b)-(e) and 1e: ``ffd_register`` of the main path's pair in
+    the matrix form in the reduced ``dtype``, ``mode="matmul", impl="cuda",
+    grad_impl="matmul", lr=0.02``, with ``fused="off"`` and ``"on"``, each
+    beside the same float32 call (:func:`float32_twin`), its launches
+    asserted (unfused: a step one ``bsi_matmul`` and one
+    ``bsi_adjoint_matmul`` of the dtype; fused also one ``bsi_fused_matmul``
+    of the dtype, the backward's field recomputed by ``bsi_matmul``; the
+    final warp one float32 ``bsi_matmul`` as in the JAX package), held to
+    float32 (:func:`against_float32`) and to the plain path of the dtype
+    (:func:`against_plain`).  Then (c) ``mode="tt"`` unfused at full depth,
+    counted, held to float32 likewise; (d) the fused ncc, nmi and lncc steps
+    in the matrix form at ``iters=5`` (:func:`multimodal_steps`); (e)
+    all-``"auto"`` in the dtype on a fresh disk cache: the race of the four
+    forms' kernels, its winner and seconds.  Returns each counted path's
+    launches and a summary."""
+    from repro_torch import RegistrationOptions
+    from repro_torch.engine import autotune
+
+    sx = dtype_suffix(dtype)
+    cd = str(dtype).removeprefix("torch.")
     base = RegistrationOptions(mode="matmul", impl="cuda", grad_impl="matmul", lr=0.02)
     steps = base.levels * (base.iters + 1)
     counts, calls = {}, {}
-    mae0 = metrics.mae(moving, fixed).item()
-
-    def call(label, opts, want):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_allocated()
-        ops.reset_launch_counts()
-        res = ffd_register(fixed, moving, options=opts)
-        got = ops.launch_counts()
-        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
-        log(f"bf16 matrix path: {label} {res.seconds:.3f} s, {peak:.2f} GiB above the "
-            f"call's start; losses {res.losses}; launches "
-            f"{ {k: v for k, v in got.items() if v} }")
-        assert got == want, (label, got, want)
-        return res, got, dict(seconds=res.seconds, peak_gib=peak)
-
-    def close(label, r16, r32):
-        """The JAX package's bf16 bounds and this card's against float32."""
-        assert r16.warped.dtype == torch.float32 and r16.params.dtype == torch.float32
-        assert torch.isfinite(r16.warped).all() and torch.isfinite(r16.params).all()
-        mae = (r16.warped - r32.warped).abs().mean().item()
-        rel = abs(r16.losses[-1] - r32.losses[-1]) / abs(r32.losses[-1])
-        mae1 = metrics.mae(r16.warped, fixed).item()
-        log(f"bf16 {label}: final loss {r16.losses[-1]:.6e} vs float32 "
-            f"{r32.losses[-1]:.6e}, relative {rel:.3e} (limits 1.1x + 1e-4 and 1e-2 "
-            f"relative); warp MAE against float32 {mae:.3e} (limits 5e-3 and 1e-4); MAE "
-            f"to fixed {mae0:.6f} -> {mae1:.6f}")
-        assert r16.losses[-1] < 1.1 * r32.losses[-1] + 1e-4, (r16.losses, r32.losses)
-        assert mae < 5e-3 and rel < 1e-2 and mae < 1e-4, (mae, rel)
-        return dict(losses=r16.losses, float32_losses=r32.losses,
-                    final_loss_rel_vs_float32=rel, warp_mae_vs_float32=mae,
-                    mae=(mae0, mae1))
-
-    def plain_ssd(phi, mov, fix, tile, *, sim_spec, disp_form="lerp"):
-        """The fused SSD forward on the ssd kernel's plain version."""
-        assert sim_spec == ("ssd",), sim_spec
-        return bsi_fused.plain(phi, mov, fix, tile, disp_form=disp_form) / mov.numel()
 
     # (b) the matrix form, unfused and fused
     for fused in ("off", "on"):
         o32 = base.replace(fused=fused)
-        o16 = o32.replace(compute_dtype="bfloat16")
+        label = f"matmul fused={fused}"
         extra32 = dict(bsi_fused_matmul=steps) if fused == "on" else {}
-        extra16 = dict(bsi_fused_matmul_bf16=steps) if fused == "on" else {}
-        want32 = only(bsi_matmul=steps + 1, bsi_adjoint_matmul=steps, **extra32)
-        want16 = only(bsi_matmul_bf16=steps, bsi_matmul=1, bsi_adjoint_matmul_bf16=steps,
-                      **extra16)
-        entry = {}
-        for when in ("cold", "warm"):
-            r32, _, c32 = call(f"float32 fused={fused} {when}", o32, want32)
-            r16, counts[f"matmul_{fused}"], c16 = call(f"bfloat16 fused={fused} {when}",
-                                                        o16, want16)
-            entry[when] = dict(bfloat16=c16, float32=c32)
-        entry.update(close(f"matrix form fused={fused}", r16, r32))
-        ops.reset_launch_counts()
-        real = ops.fused_similarity_loss
-        if fused == "on":
-            ops.fused_similarity_loss = plain_ssd
-        try:
-            plain = ffd_register(fixed, moving, options=o16.replace(impl="torch",
-                                                                    grad_impl="torch"))
-        finally:
-            ops.fused_similarity_loss = real
-        assert not any(ops.launch_counts().values()), ops.launch_counts()
-        rel = max(abs(a - b) / abs(b) for a, b in zip(r16.losses, plain.losses))
-        log(f"bf16 matrix path fused={fused}: kernels {r16.losses} plain {plain.losses} "
-            f"max relative {rel:.3e} (limit 1e-3); {r16.seconds:.3f} s vs "
-            f"{plain.seconds:.3f} s")
-        assert rel <= 1e-3, rel
-        entry["plain_bf16"] = dict(seconds=plain.seconds, losses=plain.losses,
-                                   max_rel_vs_kernels=rel)
-        calls[f"matmul_fused_{fused}"] = entry
+        extra = {f"bsi_fused_matmul_{sx}": steps} if fused == "on" else {}
+        r32, _, c32 = float32_twin(
+            torch, twins, label, fixed, moving, o32,
+            only(bsi_matmul=steps + 1, bsi_adjoint_matmul=steps, **extra32))
+        want = only(**{f"bsi_matmul_{sx}": steps, "bsi_matmul": 1,
+                       f"bsi_adjoint_matmul_{sx}": steps}, **extra)
+        o16 = o32.replace(compute_dtype=dtype)
+        res, counts[f"matmul_{fused}"], c16 = counted_call(torch, f"{sx} {label}", fixed,
+                                                           moving, o16, want)
+        calls[f"matmul_{fused}"] = dict(
+            c16, float32=c32,
+            **against_float32(torch, fixed, moving, f"{sx} {label}", res, r32, dtype),
+            plain=against_plain(torch, fixed, moving, f"{sx} {label}", res, o16))
 
     # (c) the TT form, unfused, at full depth
     o32 = base.replace(mode="tt", grad_impl="cuda", fused="off")
-    r32, _, c32 = call("float32 tt", o32, only(bsi_tt=steps + 1, bsi_adjoint=steps))
-    r16, counts["tt"], c16 = call("bfloat16 tt", o32.replace(compute_dtype="bfloat16"),
-                                  only(bsi_tt_bf16=steps, bsi_tt=1, bsi_adjoint_bf16=steps))
-    calls["tt"] = dict(bfloat16=c16, float32=c32, **close("TT form", r16, r32))
+    r32, _, c32 = float32_twin(torch, twins, "tt", fixed, moving, o32,
+                               only(bsi_tt=steps + 1, bsi_adjoint=steps))
+    want = only(**{f"bsi_tt_{sx}": steps, "bsi_tt": 1, f"bsi_adjoint_{sx}": steps})
+    res, counts["tt"], c16 = counted_call(torch, f"{sx} tt", fixed, moving,
+                                          o32.replace(compute_dtype=dtype), want)
+    calls["tt"] = dict(c16, float32=c32,
+                       **against_float32(torch, fixed, moving, f"{sx} TT form", res, r32,
+                                         dtype))
 
     # (d) the matrix form's fused ncc, nmi and lncc steps at iters=5
-    rem = remap(moving)
-    for sim, mov, want in (
-            ("ncc", moving, dict(bsi_fused_stats_matmul_bf16=1, bsi_fused_ncc_matmul_bf16=1)),
-            ("nmi", rem, dict(bsi_fused_stats_matmul_bf16=1, bsi_fused_nmi_matmul_bf16=1)),
-            ("lncc", rem, dict(bsi_fused_lncc_matmul_bf16=1))):
-        o32 = base.replace(similarity=sim, iters=5, fused="on")
-        o16 = o32.replace(compute_dtype="bfloat16")
-        n = o32.levels * (o32.iters + 1)
-        a32 = ffd_register(fixed, mov, options=o32)
-        ops.reset_launch_counts()
-        a16 = ffd_register(fixed, mov, options=o16)
-        counts[sim] = ops.launch_counts()
-        exp = only(bsi_matmul_bf16=n, bsi_matmul=1, bsi_adjoint_matmul_bf16=n,
-                   **{k: v * n for k, v in want.items()})
-        rel = max(abs(a - b) / abs(b) for a, b in zip(a16.losses, a32.losses))
-        log(f"bf16 matrix-form fused {sim} at iters=5: {a16.seconds:.3f} s, losses "
-            f"{a16.losses} vs float32 {a32.losses}, max relative {rel:.3e} (limit 1e-2); "
-            f"launches { {k: v for k, v in counts[sim].items() if v} }")
-        assert counts[sim] == exp, (sim, counts[sim], exp)
-        assert all(math.isfinite(x) for x in a16.losses) and rel < 1e-2, (sim, rel)
-        calls[f"{sim}_iters5"] = dict(seconds=a16.seconds, losses=a16.losses,
-                                      float32_losses=a32.losses)
+    mm_counts, mm_calls = multimodal_steps(torch, fixed, moving, dtype, twins, base, "matmul")
+    counts.update({f"{k}_matmul": v for k, v in mm_counts.items()})
+    calls.update(mm_calls)
 
-    # (e) all-"auto" under bf16: the four forms raced on a fresh disk cache
+    # (e) all-"auto" in the dtype: the four forms raced on a fresh disk cache
     opts = RegistrationOptions(mode="auto", impl="auto", grad_impl="auto", fused="auto",
-                               compute_dtype="bfloat16")
+                               compute_dtype=dtype)
     with tempfile.TemporaryDirectory(prefix="repro_torch_autotune_") as cache_dir:
-        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir, "bf16.json")
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir, f"{sx}.json")
         try:
             autotune._MEM_CACHE.clear()
             autotune.resolve_options.cache_clear()
@@ -1701,135 +1857,46 @@ def run_bf16_matrix_path(torch, fixed, moving):
             del os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
     races = autotune.RACES[n_races:]
     forms = {name.split("/")[0] for name, _ in races[0].timings}
-    log(f"bf16 all-auto at {tuple(fixed.shape)}: mode={r.mode} impl={r.impl} "
+    log(f"{sx} all-auto at {tuple(fixed.shape)}: mode={r.mode} impl={r.impl} "
         f"grad_impl={r.grad_impl} fused={r.fused} ({r.fused_reason}); resolve "
         f"{race_s:.3f} s, {len(races)} races ("
         + "; ".join(f"{race.seconds:.3f} s: " + ", ".join(
             f"{nm} " + ("did not fit" if us is None else f"{us / 1e3:.3f} ms")
             for nm, us in race.timings) for race in races) + ")")
     assert forms == {"ttli", "separable", "tt", "matmul"}, forms
-    assert all("|cd=bfloat16|" in race.key for race in races), races
+    assert all(f"|cd={cd}|" in race.key for race in races), races
     assert r.impl == "cuda" and r.grad_impl != "autograd", r
     calls["auto"] = dict(resolved=(r.mode, r.impl, r.grad_impl, r.fused), race_s=race_s,
                          races=[(race.seconds, race.timings) for race in races])
     return counts, calls
 
 
-def run_bf16_fused_path(torch, fixed, moving, bf16_calls):
-    """Phase 1c (b): ``ffd_register`` of the main path's pair with
-    ``RegistrationOptions(compute_dtype="bfloat16", fused="on", lr=0.02)``,
-    ``ttli / cuda / cuda``, cold and warm beside the same float32 fused call
-    (seconds, peak memory above the call's start), and beside phase 1b's
-    bf16 unfused call.  Asserts the launches (a step: one ``bsi_fused_bf16``,
-    the backward's recomputed field one ``bsi_ttli_bf16`` and its bf16
-    cotangent one ``bsi_adjoint_bf16``; the final warp one float32
-    ``bsi_ttli``, as in the JAX package), the final loss within 1e-2
-    relative of the float32 fused call's and the warp's MAE against it below
-    1e-4 (phase 1b's limits), and the per-level losses within 1e-3 relative
-    of the plain bf16 fused path's (``impl="torch"``, the fused forward on
-    the ssd kernel's plain version).  Then the bf16 fused
-    ncc, nmi (the remapped pair) and lncc steps at ``iters=5``, counted,
-    each level's loss within 1e-2 relative of the float32 fused call's; and
-    ``fused="auto"`` under bf16 raced once on a fresh disk cache.  Returns
-    each counted path's launches and a summary."""
-    from repro_torch import RegistrationOptions, ffd_register
-    from repro_torch.kernels import bsi_fused, ops
-
-    opts32 = RegistrationOptions(mode="ttli", impl="cuda", grad_impl="cuda", fused="on",
-                                 lr=0.02)
-    opts16 = opts32.replace(compute_dtype="bfloat16")
-    steps = opts32.levels * (opts32.iters + 1)
-    expected = {"float32": only(bsi_fused=steps, bsi_ttli=steps + 1, bsi_adjoint=steps),
-                "bfloat16": only(bsi_fused_bf16=steps, bsi_ttli_bf16=steps, bsi_ttli=1,
-                                 bsi_adjoint_bf16=steps)}
-    runs, counts, calls = {}, {}, {}
-    for when in ("cold", "warm"):
-        for label, opts in (("float32", opts32), ("bfloat16", opts16)):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-            ops.reset_launch_counts()
-            res = ffd_register(fixed, moving, options=opts)
-            counts[label] = ops.launch_counts()
-            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-            calls.setdefault(label, {})[when] = dict(seconds=res.seconds, peak_gib=peak)
-            log(f"bf16 fused path: {label} fused {when} {res.seconds:.3f} s, {peak:.2f} GiB "
-                f"above the call's start; losses {res.losses}; launches "
-                f"{ {k: v for k, v in counts[label].items() if v} }")
-            assert counts[label] == expected[label], (label, counts[label])
-            runs[label] = res
-    r32, r16 = runs["float32"], runs["bfloat16"]
-    assert r16.warped.dtype == torch.float32 and r16.params.dtype == torch.float32
-    assert torch.isfinite(r16.warped).all() and torch.isfinite(r16.params).all()
-    mae = (r16.warped - r32.warped).abs().mean().item()
-    loss_rel = abs(r16.losses[-1] - r32.losses[-1]) / abs(r32.losses[-1])
-    off = bf16_calls["bfloat16"]
-    log(f"bf16 fused path: final loss {r16.losses[-1]:.6e} vs float32 fused "
-        f"{r32.losses[-1]:.6e}, relative {loss_rel:.3e} (limit 1e-2); warp MAE against "
-        f"float32 {mae:.3e} (limit 1e-4); warm {calls['bfloat16']['warm']['seconds']:.3f} s "
-        f"vs bf16 unfused (phase 1b) {off['warm']['seconds']:.3f} s and float32 fused "
-        f"{calls['float32']['warm']['seconds']:.3f} s; peak "
-        f"{calls['bfloat16']['warm']['peak_gib']:.2f} GiB vs {off['warm']['peak_gib']:.2f} "
-        f"and {calls['float32']['warm']['peak_gib']:.2f} GiB")
-    assert loss_rel < 1e-2, (loss_rel, r16.losses, r32.losses)
-    assert mae < 1e-4, mae
-    calls["bfloat16"].update(losses=r16.losses, float32_losses=r32.losses,
-                             final_loss_rel_vs_float32=loss_rel, warp_mae_vs_float32=mae,
-                             unfused_bf16=dict(off))
-
-    def plain_ssd(phi, mov, fix, tile, *, sim_spec, disp_form="lerp"):
-        """The fused SSD forward on the ssd kernel's plain version."""
-        assert sim_spec == ("ssd",), sim_spec
-        return bsi_fused.plain(phi, mov, fix, tile, disp_form=disp_form) / mov.numel()
-
-    ops.reset_launch_counts()
-    fused_loss, ops.fused_similarity_loss = ops.fused_similarity_loss, plain_ssd
-    try:
-        plain = ffd_register(fixed, moving, options=opts16.replace(impl="torch",
-                                                                   grad_impl="torch"))
-    finally:
-        ops.fused_similarity_loss = fused_loss
-    assert not any(ops.launch_counts().values()), ops.launch_counts()
-    rel = max(abs(a - b) / abs(b) for a, b in zip(r16.losses, plain.losses))
-    log(f"bf16 fused path: kernels {r16.losses} plain {plain.losses} max relative "
-        f"{rel:.3e} (limit 1e-3); {r16.seconds:.3f} s vs {plain.seconds:.3f} s")
-    assert rel <= 1e-3, rel
-    calls["plain_bf16_fused"] = dict(seconds=plain.seconds, losses=plain.losses)
-
-    # the multi-modal variants' bf16 kernels on their own steps
-    rem = remap(moving)
-    for sim, mov, want in (
-            ("ncc", moving, dict(bsi_fused_stats_bf16=1, bsi_fused_ncc_bf16=1)),
-            ("nmi", rem, dict(bsi_fused_stats_bf16=1, bsi_fused_nmi_bf16=1)),
-            ("lncc", rem, dict(bsi_fused_lncc_bf16=1))):
-        o32 = opts32.replace(similarity=sim, iters=5)
-        o16 = o32.replace(compute_dtype="bfloat16")
-        n = o32.levels * (o32.iters + 1)
-        a32 = ffd_register(fixed, mov, options=o32)
-        ops.reset_launch_counts()
-        a16 = ffd_register(fixed, mov, options=o16)
-        counts[sim] = ops.launch_counts()
-        exp = only(bsi_ttli_bf16=n, bsi_ttli=1, bsi_adjoint_bf16=n,
-                   **{k: v * n for k, v in want.items()})
-        rel = max(abs(a - b) / abs(b) for a, b in zip(a16.losses, a32.losses))
-        log(f"bf16 fused {sim} at iters=5: {a16.seconds:.3f} s, losses {a16.losses} vs "
-            f"float32 fused {a32.losses}, max relative {rel:.3e} (limit 1e-2); launches "
-            f"{ {k: v for k, v in counts[sim].items() if v} }")
-        assert counts[sim] == exp, (sim, counts[sim], exp)
-        assert all(math.isfinite(x) for x in a16.losses) and rel < 1e-2, (sim, rel)
-        calls[f"{sim}_iters5"] = dict(seconds=a16.seconds, losses=a16.losses,
-                                      float32_losses=a32.losses)
-
-    from repro_torch.engine import autotune
-
-    winner = log_fused_resolution(
-        torch, tuple(fixed.shape), "bf16 (ttli / cuda / cuda, lr=0.02)", mode="ttli",
-        impl="cuda", grad_impl="cuda", lr=0.02, compute_dtype="bfloat16")
-    race = autotune.RACES[-1]
-    assert "|cd=bfloat16|" in race.key, race.key
-    calls["auto_fused"] = dict(fused=winner, race_seconds=race.seconds,
-                               timings_us=dict(race.timings))
-    return counts, calls
+def run_reduced_phases(torch, fixed, moving, lib, dtype, twins):
+    """Phases 1b-1d under bf16 and phase 1e under fp16: each reduced
+    dtype's forward kernels and unfused path (1b), its fused level step
+    (1c) and its matrix and TT forms (1d), the float32 calls shared through
+    ``twins``.  Returns the kernels' rows, each counted path's launches and
+    a summary of the calls."""
+    sx = dtype_suffix(dtype)
+    names = ("1b", "1c", "1d") if dtype == torch.bfloat16 else ("1e",) * 3
+    start = t0 = time.perf_counter()
+    rows = check_reduced_forward(torch, fixed, lib, dtype)
+    counts, calls = run_reduced_path(torch, fixed, moving, dtype, twins)
+    log(f"phase {names[0]} ({sx} forward and unfused path): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += check_reduced_fused_kernels(torch, fixed, moving, lib, dtype)
+    c, k = run_reduced_fused_path(torch, fixed, moving, dtype, twins, calls["ttli"])
+    counts.update(c)
+    calls.update(k)
+    log(f"phase {names[1]} ({sx} fused level step): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += check_reduced_matrix_kernels(torch, fixed, moving, lib, dtype)
+    c, k = run_reduced_matrix_path(torch, fixed, moving, dtype, twins)
+    counts.update(c)
+    calls.update(k)
+    log(f"phase {names[2]} ({sx} matrix and TT forms): {time.perf_counter() - t0:.1f} s; "
+        f"{sx} in all {time.perf_counter() - start:.1f} s")
+    return rows, counts, calls
 
 
 def compare_paths(torch, fixed, moving):
@@ -3112,8 +3179,14 @@ def main():
     log(f"card: {card}; device count {torch.cuda.device_count()}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; cudnn.allow_tf32=False")
 
+    # the nmi measurement builds and the main pair (numpy on the host) run
+    # beside the main build
+    side = concurrent.futures.ThreadPoolExecutor(2)
+    stage_future = side.submit(nmi_stage_builds)
+    pair_future = side.submit(make_pair, PAPER_VOLUMES["phantom1"], seed=0)
     lib = load_library()
-    log(f"build: {lib.info.seconds:.2f} s ({lib.info.path.name})")
+    log(f"build: {lib.info.seconds:.2f} s ({lib.info.path.name}; the measurement builds "
+        "beside it)")
     for line in lib.info.ptxas:
         log(f"  ptxas {line}")
     # the bf16 flash kernel on the tensor cores: wgmma in its SASS, no spills
@@ -3130,10 +3203,9 @@ def main():
     log("flash_attention_f32 SASS: " + ", ".join(
         f"hd {hd} {n} HMMA" for hd, n in zip(head_dims, hmma.values())))
     assert len(hmma) == 5 and all(hmma.values()), hmma
-    t0 = time.perf_counter()
-    stage_libs = nmi_stage_builds()
-    log(f"nmi measurement builds ({', '.join(NMI_STAGES.values())}): "
-        f"{time.perf_counter() - t0:.2f} s")
+    stage_libs = stage_future.result()
+    log(f"nmi measurement builds ({', '.join(NMI_STAGES.values())}): done "
+        f"{time.perf_counter() - t_start:.2f} s after the start")
 
     # phase 4c's other pairs, made on the host meanwhile (numpy, then the
     # plain warp on the CPU)
@@ -3141,26 +3213,24 @@ def main():
     extra_pairs = pool.submit(lambda: [
         make_pair(PAPER_VOLUMES[name], seed=seed, device="cpu")[:2]
         for name, seed in (("phantom1", 1), ("porcine1", 0))])
-    t0 = time.perf_counter()
-    fixed, moving, _ = make_pair(PAPER_VOLUMES["phantom1"], seed=0)
-    log(f"make_pair(phantom1 {tuple(fixed.shape)}): {time.perf_counter() - t0:.1f} s")
+    fixed, moving, _ = pair_future.result()
+    side.shutdown()
+    log(f"make_pair(phantom1 {tuple(fixed.shape)}): done {time.perf_counter() - t_start:.1f} "
+        "s after the start")
 
     rows = check_kernels(torch, fixed, moving, lib, stage_libs)
     rows += check_matmul_kernels(torch, fixed, moving, lib, stage_libs)
     rows += check_forward_forms(torch, fixed, lib)
     counts = run_main_path(torch, fixed, moving)
-    t0 = time.perf_counter()
-    rows += check_bf16_kernels(torch, fixed, lib)
-    bf16_counts, bf16_calls = run_bf16_path(torch, fixed, moving)
-    log(f"phase 1b: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rows += check_bf16_fused_kernels(torch, fixed, moving, lib)
-    fused16_counts, fused16_calls = run_bf16_fused_path(torch, fixed, moving, bf16_calls)
-    log(f"phase 1c: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    rows += check_bf16_matrix_kernels(torch, fixed, moving, lib)
-    matrix16_counts, matrix16_calls = run_bf16_matrix_path(torch, fixed, moving)
-    log(f"phase 1d: {time.perf_counter() - t0:.1f} s")
+    # phases 1b-1d (bf16) and 1e (fp16): one harness, the float32 calls
+    # that each reduced call is held against run once, in phase 1b-1d
+    twins, reduced = {}, {}
+    for dtype in (torch.bfloat16, torch.float16):
+        dt_rows, dt_counts, dt_calls = run_reduced_phases(torch, fixed, moving, lib, dtype,
+                                                          twins)
+        rows += dt_rows
+        reduced[dtype_suffix(dtype)] = (dt_counts, dt_calls)
+    del twins
     compare_paths(torch, fixed, moving)
     nmi_counts, nmi_call = run_multimodal(torch, fixed, moving)
     ncc_counts = compare_multimodal_paths(torch, fixed, moving)
@@ -3203,25 +3273,20 @@ def main():
                    "bsi_fused_ncc_matmul": matmul_counts["ncc_matmul"],
                    "bsi_fused_nmi_matmul": matmul_counts["nmi_matmul"],
                    "bsi_separable": form_counts["separable"],
-                   "bsi_ttli_bf16": bf16_counts["bfloat16"],
-                   "bsi_separable_bf16": bf16_counts["separable"],
-                   "bsi_adjoint_bf16": fused16_counts["bfloat16"],
-                   "bsi_fused_bf16": fused16_counts["bfloat16"],
-                   "bsi_fused_stats_bf16": fused16_counts["ncc"],
-                   "bsi_fused_ncc_bf16": fused16_counts["ncc"],
-                   "bsi_fused_nmi_bf16": fused16_counts["nmi"],
-                   "bsi_fused_lncc_bf16": fused16_counts["lncc"],
-                   "bsi_tt_bf16": matrix16_counts["tt"],
-                   "bsi_matmul_bf16": matrix16_counts["matmul_off"],
-                   "bsi_adjoint_matmul_bf16": matrix16_counts["matmul_off"],
-                   "bsi_fused_matmul_bf16": matrix16_counts["matmul_on"],
-                   "bsi_fused_stats_matmul_bf16": matrix16_counts["ncc"],
-                   "bsi_fused_ncc_matmul_bf16": matrix16_counts["ncc"],
-                   "bsi_fused_nmi_matmul_bf16": matrix16_counts["nmi"],
-                   "bsi_fused_lncc_matmul_bf16": matrix16_counts["lncc"],
                    "bsi_tt": form_counts["tt"],
                    "flash_attention": serve_counts,
                    "flash_attention_f32": serve_compare["fp32_counts"]}
+    # the reduced dtypes' kernels: each in the counted path that runs it
+    for sx, (c, _) in reduced.items():
+        path_counts.update({
+            f"bsi_ttli_{sx}": c["ttli"], f"bsi_separable_{sx}": c["separable"],
+            f"bsi_adjoint_{sx}": c["fused"], f"bsi_fused_{sx}": c["fused"],
+            f"bsi_tt_{sx}": c["tt"], f"bsi_matmul_{sx}": c["matmul_off"],
+            f"bsi_adjoint_matmul_{sx}": c["matmul_off"],
+            f"bsi_fused_matmul_{sx}": c["matmul_on"],
+            **{f"bsi_fused_{k}{mm}_{sx}": c[f"{sim}{mm}"] for mm in ("", "_matmul")
+               for sim, ks in (("ncc", ("stats", "ncc")), ("nmi", ("nmi",)),
+                               ("lncc", ("lncc",))) for k in ks}})
     for r in rows:
         r["launches"] = path_counts.get(r["name"], counts)[r.get("count", r["name"])]
         assert r["launches"] > 0, r
@@ -3244,9 +3309,8 @@ def main():
     for mode, call in form_calls.items():
         log(f"{mode} call at phantom1: {call}")
     log(f"auto call at phantom1: {auto_call}; launches {auto_counts}")
-    log(f"bf16 calls at phantom1 (phase 1b): {bf16_calls}")
-    log(f"bf16 fused calls at phantom1 (phase 1c): {fused16_calls}")
-    log(f"bf16 matrix and TT calls at phantom1 (phase 1d): {matrix16_calls}")
+    for sx, (_, calls) in reduced.items():
+        log(f"{sx} calls at phantom1 (phases {'1b-1d' if sx == 'bf16' else '1e'}): {calls}")
     log(f"workflow at phantom1: {workflow}")
     log(f"register_batch at phantom1: {batch_call}")
     log(f"stream: {stream_call}")

@@ -107,7 +107,7 @@ def options_from_reference(fields: dict) -> RegistrationOptions:
     spec, and a ``ConvergenceConfig``, to this package's with the same
     fields.  ``fused_reason`` is the JAX package's introspection field and
     is dropped.  ``compute_dtype`` keeps its canonical name
-    (``"bfloat16"``).
+    (``"bfloat16"``, ``"float16"``).
     """
     kw = {k: v for k, v in fields.items() if k != "fused_reason"}
     if "impl" in kw:
@@ -137,8 +137,9 @@ def reference_fields(options) -> dict:
 
 def _tensor(a, device) -> torch.Tensor:
     """A numpy array as a tensor of its dtype; bfloat16 arrays (``ml_dtypes``,
-    which torch does not read) go through float32, exactly.  A copy: numpy
-    views of JAX arrays are read-only."""
+    which torch does not read) go through float32, exactly; numpy's own
+    float16 is read as it is.  A copy: numpy views of JAX arrays are
+    read-only."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)

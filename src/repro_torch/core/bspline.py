@@ -14,10 +14,11 @@ Conventions (shared by every BSI implementation of the package)
   axis, so all weights live in a ``(delta, 4)`` look-up table.
 
 The LUTs are built in float64 numpy and cast once, so they are bitwise equal
-to the JAX package's, bfloat16 included: the JAX package's numpy cast
-(``ml_dtypes``) takes a float64 to bfloat16 through float32, round to
+to the JAX package's, bfloat16 and float16 included: the JAX package's numpy
+cast (``ml_dtypes``) takes a float64 to bfloat16 through float32, round to
 nearest even at each step, and :func:`_cast` does the same in torch (the
-card's machine has no ``ml_dtypes``).
+card's machine has no ``ml_dtypes``); numpy casts a float64 to float16
+itself, rounding once to nearest even, subnormals kept.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import numpy as np
 import torch
 
 __all__ = [
+    "REDUCED_DTYPES",
+    "reduced_step",
     "bspline_basis",
     "weight_lut",
     "basis_matrix",
@@ -93,18 +96,38 @@ def basis_matrix(tile, dtype=torch.float32, device="cpu"):
     return _cast(_basis_matrix_np(tuple(int(d) for d in tile)), dtype, device)
 
 
+# the reduced compute dtypes (core.interpolate: float32 arithmetic, each
+# value rounded once to the dtype at its store; the fused basis rounds its
+# products one at a time)
+REDUCED_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def reduced_step(m: torch.Tensor, dtype) -> torch.Tensor:
+    """One step of ``dtype`` (bf16 or fp16) at the magnitudes ``m``, float32:
+    ``2^floor(log2 m)`` times the dtype's epsilon (``2^-7``, ``2^-10``), at
+    least its least subnormal (``2^-133``, ``2^-24``): twice the most that
+    one rounding to the dtype moves a value of magnitude ``m``."""
+    fi = torch.finfo(dtype)
+    bits = 1 - int(np.log2(fi.eps))  # significant bits: 8, 11
+    least = int(np.log2(fi.smallest_normal * fi.eps))
+    exponent = torch.clamp_min(torch.frexp(m).exponent - bits, least)
+    return torch.ldexp(torch.ones_like(m), exponent)
+
+
 def fused_basis(tile, dtype=torch.float32, device="cpu"):
     """The ``(dx*dy*dz, 64)`` basis of the fused kernels' matrix form.
 
-    float32: :func:`basis_matrix`, the float64 product cast once.  bfloat16:
-    the product of the per-axis LUTs rounded to bf16, ``bf16(bf16(wx *
-    wy) * wz)``, as the JAX package's fused kernel forms it from its bf16
-    LUTs (``repro/kernels/bsi_matmul.py:kron_basis``: each product of two
-    bf16 values is exact in float32, then rounded once); some entries lie a
-    bf16 step from :func:`basis_matrix`'s one rounding.  Returns ``dtype``.
+    float32: :func:`basis_matrix`, the float64 product cast once.  bfloat16
+    and float16: the product of the per-axis LUTs of the dtype, each product
+    rounded to it, ``r(r(wx * wy) * wz)``, as the JAX package's fused kernel
+    forms it from its reduced LUTs (``repro/kernels/bsi_matmul.py:kron_basis``:
+    each product of two bf16 or fp16 values is exact in float32, then rounded
+    once, an fp16 product to a subnormal where it falls below fp16's normal
+    range); some entries lie a step from :func:`basis_matrix`'s one
+    rounding.  Returns ``dtype``.
     """
     tile = tuple(int(d) for d in tile)
-    if dtype != torch.bfloat16:
+    if dtype not in REDUCED_DTYPES:
         return basis_matrix(tile, dtype, device)
     dx, dy, dz = tile
     wx, wy, wz = (weight_lut(d, dtype, "cpu").float() for d in tile)

@@ -68,8 +68,8 @@ def dense_field(phi, tile, vol_shape, *, mode="separable", impl="torch",
 
     ``impl`` and ``grad_impl`` are as in ``repro_torch.core.interpolate``;
     with ``impl="cuda"`` the crop is fused into the kernel.
-    ``compute_dtype`` (``"bfloat16"``) runs the expansion in reduced
-    precision, the field in that dtype, while the analytic adjoints
+    ``compute_dtype`` (``"bfloat16"`` or ``"float16"``) runs the expansion
+    in reduced precision, the field in that dtype, while the analytic adjoints
     accumulate in float32 and the gradient takes ``phi``'s dtype.
     """
     return crop_interpolate(phi, tile, vol_shape, mode=mode, impl=impl,
@@ -122,9 +122,10 @@ def fused_warp_loss(phi, moving, fixed, tile, *, similarity="ssd", mode="separab
     gradient is the unfused path's.  ``ssd``, ``ncc``, ``lncc`` and ``nmi``
     have fused kernels.  ``compute_dtype`` casts ``phi`` and ``moving`` as
     the unfused pair of knobs does (``fixed`` and the sums stay float32):
-    under ``"bfloat16"`` the card runs the fused kernels' bf16 kernels in
-    the form of ``mode``, and the backward's recomputed bf16 field hands
-    the adjoint of ``grad_impl`` a bf16 cotangent.
+    under ``"bfloat16"`` (``"float16"``) the card runs the fused kernels'
+    bf16 (fp16) kernels in the form of ``mode``, and the backward's
+    recomputed reduced field hands the adjoint of ``grad_impl`` a cotangent
+    of its dtype.
     """
     from repro_torch.core.similarity import fused_spec
 
@@ -193,9 +194,10 @@ def warp_volume(moving, disp, compute_dtype=None):
     """Resample ``moving`` at identity + displacement (both in voxel units).
 
     Sampling coordinates are float32 (or the displacement's wider dtype):
-    bf16 holds no integer above 256 exactly, so a bf16 identity grid would
-    shift the samples of a larger volume by whole voxels.
-    ``compute_dtype`` (``"bfloat16"``) casts the sampled intensities; the
+    bf16 holds no integer above 256 exactly (fp16 none above 2048), so a
+    reduced identity grid would shift the samples of a larger volume by
+    whole voxels.  ``compute_dtype`` (``"bfloat16"``, ``"float16"``) casts
+    the sampled intensities; the
     interpolation weights stay float32, so the warp comes back float32, as
     in the JAX package.
     """

@@ -33,16 +33,23 @@ forward-mode derivative is the forward, kernel or plain, on the tangent.
 Compute dtype
 -------------
 Every form takes ``dtype`` (None: ``phi``'s), the JAX package's mixed
-precision.  Under ``bfloat16`` the contract, kernels and plain forms alike,
-is: ``phi`` rounded to bf16 and the LUTs rounded to bf16 as the JAX package
-rounds them (``core.bspline``), float32 arithmetic throughout, one rounding
-to bf16 at the store; the field is bf16.  The analytic adjoints read a bf16
-cotangent as float32 (exactly: ``"cuda"`` and ``"matmul"`` in their bf16
+precision.  Under ``bfloat16`` or ``float16`` (the reduced dtypes) the
+contract, kernels and plain forms alike, is: ``phi`` rounded to the dtype
+and the LUTs rounded to it as the JAX package rounds them
+(``core.bspline``), float32 arithmetic throughout, each value rounded once
+to the dtype at its store, to nearest even (fp16 keeps its subnormals); the
+field has the dtype.  The analytic adjoints read a reduced cotangent as
+float32 (exactly: ``"cuda"`` and ``"matmul"`` in their bf16 and fp16
 kernels, ``"torch"`` in the plain adjoint's promotion) and return ``phi``'s
-dtype, so float32 parameters get float32 gradients.  An explicit ``grad_impl="autograd"``
-differentiates the float32-arithmetic plain form through its casts (the
-JAX package's ``"xla"`` differentiates its bf16 arithmetic instead, and
-accumulates in bf16).
+dtype, so float32 parameters get float32 gradients.  The cotangent is the
+one the caller's casts hand back, rounded to the dtype as the JAX package
+rounds it, neither widened earlier nor scaled nor flushed: at paper scale
+most of an fp16 one lies below fp16's smallest subnormal, 5.96e-8, and is 0,
+as in the JAX package.  fp16's largest value is 65504; a grid in voxels
+and intensities in [0, 1] lie far inside it, and nothing is clamped.  An
+explicit ``grad_impl="autograd"`` differentiates the float32-arithmetic
+plain form through its casts (the JAX package's ``"xla"`` differentiates its
+reduced arithmetic instead, and accumulates in the reduced dtype).
 """
 
 from __future__ import annotations
@@ -73,21 +80,17 @@ __all__ = [
 ]
 
 
-# compute dtypes of the forward; the JAX package's also takes float16
-COMPUTE_DTYPES = ("float32", "bfloat16")
+# compute dtypes of the forward, the JAX package's
+COMPUTE_DTYPES = ("float32", "bfloat16", "float16")
 
 
 def compute_dtype_name(dtype):
     """A compute dtype (None, a torch dtype or its name) as its canonical
-    name, or None.  ``float16`` raises ``NotImplementedError``, anything
-    else outside :data:`COMPUTE_DTYPES` ``ValueError``."""
+    name, or None; anything outside :data:`COMPUTE_DTYPES` raises
+    ``ValueError``."""
     if dtype is None:
         return None
     name = str(dtype).removeprefix("torch.")
-    if name == "float16":
-        raise NotImplementedError(
-            "compute_dtype='float16' is not in the package yet (ROADMAP.md queue 1 "
-            "item 18f)")
     if name not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES} or None, "
                          f"got {dtype!r}")
@@ -397,7 +400,7 @@ class _AnalyticBsi(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         tile, grid_shape, grad_impl, dtype = ctx.conf
-        # the adjoints read a bf16 cotangent themselves (the kernels widen
+        # the adjoints read a reduced cotangent themselves (the kernels widen
         # each value as they load it, the plain forms promote), as the JAX
         # package's Pallas adjoints do
         g = g.contiguous()
@@ -444,8 +447,8 @@ def interpolate(phi, tile, *, mode="separable", impl="torch", dtype=None,
       mode: one of ``MODE_NAMES``.
       impl: ``torch`` (the plain forms) or ``cuda`` (the mode's kernel, for
         every mode but ``gather``; its plain version on a CPU tensor).
-      dtype: compute dtype (None: ``phi``'s; ``"bfloat16"`` or
-        ``"float32"``, module docstring); the field takes it, gradients
+      dtype: compute dtype (None: ``phi``'s; ``"bfloat16"``, ``"float16"``
+        or ``"float32"``, module docstring); the field takes it, gradients
         stay in ``phi``'s.
       grad_impl: ``autograd``, ``torch``, ``cuda`` or ``matmul`` (module
         docstring).

@@ -24,10 +24,9 @@ defaults are all ``"auto"``).  ``transform``, ``regularizer``,
 refuse what it refuses: ``fused="on"`` with the velocity transform or with
 Gauss-Newton, Gauss-Newton with a similarity other than SSD, a ``stop``
 that is not a ``ConvergenceConfig``.  ``compute_dtype`` is canonicalised
-to a dtype name as in the JAX package (``torch.bfloat16``, ``"bfloat16"``
-and ``"float32"`` are accepted); ``float16``, which the JAX package also
-takes, raises ``NotImplementedError`` naming the ROADMAP.md item that
-ports it.
+to a dtype name as in the JAX package (``torch.bfloat16``, ``"bfloat16"``,
+``torch.float16``, ``"float16"`` and ``"float32"`` are accepted; any other
+type, ``int8`` say, raises ``ValueError``).
 
 Entry points take ``options=``; the JAX package's legacy keyword spelling
 (``ffd_register(f, m, tile=..., iters=...)``) still works through
@@ -90,11 +89,12 @@ class RegistrationOptions:
                      kernel) | ``matmul`` (transposed-matmul kernel) |
                      ``auto``.
     compute_dtype:   None (float32 throughout) or a dtype name:
-                     ``"bfloat16"`` runs BSI and the warp's sampled
-                     intensities in bf16 while the parameters, the
-                     optimiser state, the adjoints' accumulation and the
-                     objective stay float32 (``core.interpolate``);
-                     ``"float32"`` is float32 throughout.
+                     ``"bfloat16"`` (``"float16"``) runs BSI and the warp's
+                     sampled intensities in bf16 (fp16) while the
+                     parameters, the optimiser state, the adjoints'
+                     accumulation and the objective stay float32
+                     (``core.interpolate``); ``"float32"`` is float32
+                     throughout.
     similarity:      ``"ssd"``, ``"ncc"``, ``"lncc"``, ``"nmi"``, a factory
                      variant (``nmi(bins=16)``) or a ``(warped, fixed) ->
                      scalar`` callable.

@@ -178,10 +178,10 @@ def ffd_register(fixed, moving, *, options=None, tile=UNSET, levels=UNSET, iters
     ran as ``bsi_seconds``.  Under ``options.stop`` (a
     ``ConvergenceConfig``) each level ends on a plateau and the result's
     ``steps`` lists the steps each level took.  ``options.compute_dtype``
-    (``"bfloat16"``) runs each level's BSI and warp in reduced precision
-    with float32 parameters, optimiser state, adjoint accumulation and
-    objective; the final warp is float32, as in the JAX package, and so is
-    ``warped``.
+    (``"bfloat16"``, ``"float16"``) runs each level's BSI and warp in
+    reduced precision with float32 parameters, optimiser state, adjoint
+    accumulation and objective; the final warp is float32, as in the JAX
+    package, and so is ``warped``.
     """
     device = resolve_device(device)
     opts = merge_legacy_options(

@@ -93,6 +93,13 @@
 // everything after is the float32 kernel's, so it gives that kernel's bits
 // on g.float().  Bound at phantom1: 269.7 MB of bf16 cotangent read and 4.9
 // MB of grid written, 0.0820 ms.
+//
+// bsi_adjoint_f16 and bsi_adjoint_matmul_f16, the backward of a
+// compute_dtype="float16" field, are the same code on an fp16 cotangent:
+// each value widened exactly by __half2float (at phantom1 most of the
+// reference's fp16 cotangent is subnormal or zero: no flag of the build
+// flushes fp16 denormals), so each gives the float32 kernel's bits on
+// g.float(); the same bounds.
 #include "bsi_common.cuh"
 
 namespace repro_torch {
@@ -130,7 +137,7 @@ __device__ __forceinline__ void bar_wait(unsigned bar, unsigned parity) {
 }
 
 // One thread's copy of the 16-byte chunks that cover n elements of type T
-// (float, or bf16: 4 or 8 a chunk) from src into shared memory at dst
+// (float, or bf16 or fp16: 4 or 8 a chunk) from src into shared memory at dst
 // (dst_p its generic address) by the bulk copy engine, completing on the
 // mbarrier bar: the chunks from src rounded down, cut at the tensor's last
 // whole chunk before `end`; the elements past that cut (the tensor's last
@@ -211,12 +218,13 @@ inline size_t stream_smem(const StreamGeo& s) {
 // the ring: thread 0 issues row t's copy kStreamStages - 1 rows ahead of its
 // reduction, behind a barrier that frees the slot it fills.
 //
-// T: the cotangent's element type, float or __nv_bfloat16
-// (compute_dtype="bfloat16": the backward of a bf16 field).  A bf16 row is
-// staged as bf16, in the 16-byte chunks that cover it (8 values each; the
-// row's shift in its first chunk is 0..7 values, and a row may start on an
-// odd value), within the float32 kernel's slots, which hold it with room to
-// spare; each value widens exactly as it is loaded.  The geometry, the LUTs,
+// T: the cotangent's element type, float, __nv_bfloat16 or __half
+// (compute_dtype="bfloat16" or "float16": the backward of a bf16 or fp16
+// field).  A 2-byte row is staged as it is, in the 16-byte chunks that
+// cover it (8 values each; the row's shift in its first chunk is 0..7
+// values, and a row may start on an odd value), within the float32
+// kernel's slots, which hold it with room to spare; each value widens
+// exactly as it is loaded (an fp16 subnormal too: to_float).  The geometry, the LUTs,
 // the arithmetic and its order are the float32 kernel's, so on g.float()
 // that kernel gives the same bits.
 template <int C, int D, typename T>
@@ -472,10 +480,11 @@ __device__ __forceinline__ void cp_async_wait() {
 // After a box's last plane the bands go to shared memory and each control
 // point of the box is owned by one thread, which sums its channels.
 //
-// T: the cotangent's element type, float or __nv_bfloat16 (the backward of
-// a bf16 field).  A bf16 row is staged as bf16, in the 16-byte chunks that
-// cover it (8 values each, the row's shift 0..7 values), within the float32
-// kernel's slots, and widened as the plane is moved into U; the basis (the
+// T: the cotangent's element type, float, __nv_bfloat16 or __half (the
+// backward of a bf16 or fp16 field).  A 2-byte row is staged as it is, in
+// the 16-byte chunks that cover it (8 values each, the row's shift 0..7
+// values), within the float32 kernel's slots, and widened as the plane is
+// moved into U; the basis (the
 // float32 one), the geometry and every sum are the float32 kernel's, so on
 // g.float() that kernel gives the same bits.
 template <int COLS, typename T>
@@ -674,6 +683,15 @@ __global__ void __launch_bounds__(2 * COLS)
   adjoint_matmul_box<COLS>(g, basis, partials, a);
 }
 
+// The same on an fp16 cotangent.
+template <int COLS>
+__global__ void __launch_bounds__(2 * COLS)
+    adjoint_matmul_box_f16_kernel(const __half* __restrict__ g,
+                                  const float* __restrict__ basis,
+                                  float* __restrict__ partials, AdjointBoxes a) {
+  adjoint_matmul_box<COLS>(g, basis, partials, a);
+}
+
 // out[p, ch] = the sum over the boxes whose partial holds control point p, in
 // box order; 0 where none does.  out: (nx, ny, nz, c).
 __global__ void __launch_bounds__(kThreads)
@@ -711,8 +729,9 @@ template <int COLS, typename T>
 inline cudaError_t launch_boxes(const T* g, const float* basis, float* partials,
                                 const AdjointBoxes& a, cudaStream_t stream) {
   void (*kernel)(const T*, const float*, float*, AdjointBoxes);
-  if constexpr (sizeof(T) == sizeof(float)) kernel = adjoint_matmul_box_kernel<COLS>;
-  else kernel = adjoint_matmul_box_bf16_kernel<COLS>;
+  if constexpr (kIsFloat<T>) kernel = adjoint_matmul_box_kernel<COLS>;
+  else if constexpr (kIsBf16<T>) kernel = adjoint_matmul_box_bf16_kernel<COLS>;
+  else kernel = adjoint_matmul_box_f16_kernel<COLS>;
   const size_t smem = adjoint_box_smem(a, COLS);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -839,6 +858,26 @@ extern "C" int bsi_adjoint_matmul_bf16(const __nv_bfloat16* g, const float* basi
                                        int c, int nx, int ny, int nz, int dx, int dy,
                                        int dz, int bx, int by, int bz, int cols,
                                        void* stream) {
+  return repro_torch::adjoint_matmul(g, basis, partials, out, X, Y, Z, c, nx, ny, nz, dx,
+                                     dy, dz, bx, by, bz, cols, stream);
+}
+
+// The same on an fp16 cotangent (the backward of an fp16 field): float32
+// LUTs, sums and output, the float32 entry's geometry.
+extern "C" int bsi_adjoint_f16(const __half* g, const float* wx, const float* wy,
+                               const float* wz, float* hyp, float* out, int X, int Y, int Z,
+                               int c, int nx, int ny, int nz, int dx, int dy, int dz,
+                               int span, int cb, int run, int threads, void* stream) {
+  return repro_torch::adjoint_separable(g, wx, wy, wz, hyp, out, X, Y, Z, c, nx, ny, nz, dx,
+                                        dy, dz, span, cb, run, threads, stream);
+}
+
+// The same on an fp16 cotangent: the float32 basis, partials and output, the
+// float32 entry's geometry.
+extern "C" int bsi_adjoint_matmul_f16(const __half* g, const float* basis, float* partials,
+                                      float* out, int X, int Y, int Z, int c, int nx,
+                                      int ny, int nz, int dx, int dy, int dz, int bx,
+                                      int by, int bz, int cols, void* stream) {
   return repro_torch::adjoint_matmul(g, basis, partials, out, X, Y, Z, c, nx, ny, nz, dx,
                                      dy, dz, bx, by, bz, cols, stream);
 }

@@ -17,13 +17,15 @@
 // sum against the (d, 4) weight LUT (WeightStage: the sweeps of
 // bsi_separable).  Also the tensor cores' 3xTF32 split and product (the
 // fused nmi histogram, bsi_matmul.cu) and the bulk store of a staged run
-// (bsi_tt.cu, bsi_matmul.cu), of float or bf16 elements.
+// (bsi_tt.cu, bsi_matmul.cu), of float, bf16 or fp16 elements.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace repro_torch {
 
@@ -60,25 +62,48 @@ struct WeightStage {
   }
 };
 
-// A grid or volume value as float32: bf16 widens exactly.
+// A grid or volume value as float32: bf16 and fp16 widen exactly (an fp16
+// subnormal included: __half2float, never a bit trick).
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+
+// The element types of a grid, field, cotangent or volume: float, or a
+// 2-byte type of the reduced compute dtypes.  Every branch on the type keys
+// on the type itself, never on its size (bf16 and fp16 are both 2 bytes).
+template <typename T>
+constexpr bool kIsFloat = std::is_same_v<T, float>;
+template <typename T>
+constexpr bool kIsBf16 = std::is_same_v<T, __nv_bfloat16>;
+template <typename T>
+constexpr bool kIsHalf = std::is_same_v<T, __half>;
 
 // v stored as an element of type T: itself for float, rounded once to
-// nearest even for bf16.
+// nearest even for bf16 and fp16 (fp16 keeps its subnormals; past 65504 it
+// is inf, which no value of the contract reaches).
 template <typename T>
 __device__ __forceinline__ T store_as(float v) {
-  if constexpr (sizeof(T) == sizeof(float)) return v;
-  else return __float2bfloat16_rn(v);
+  static_assert(kIsFloat<T> || kIsBf16<T> || kIsHalf<T>, "float, bf16 or fp16");
+  if constexpr (kIsFloat<T>) return v;
+  else if constexpr (kIsBf16<T>) return __float2bfloat16_rn(v);
+  else return __float2half_rn(v);
 }
 
 // v as an element of type T would hold it, widened again: itself for float,
-// rounded once to nearest even for bf16 (the bf16 displacement of the fused
-// kernels, which the JAX package's stores before its warp).
+// rounded once to nearest even for bf16 and fp16 (the reduced displacement
+// of the fused kernels, which the JAX package's stores before its warp).
 template <typename T>
 __device__ __forceinline__ float as_stored(float v) {
-  if constexpr (sizeof(T) == sizeof(float)) return v;
-  else return __bfloat162float(__float2bfloat16_rn(v));
+  return to_float(store_as<T>(v));
+}
+
+// Two neighbouring values (o 4-byte aligned) as one 4-byte store of bf16 or
+// fp16, each rounded once to nearest even.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* o, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__half* o, float v0, float v1) {
+  *reinterpret_cast<__half2*>(o) = __floats2half2_rn(v0, v1);
 }
 
 struct TileBlock {

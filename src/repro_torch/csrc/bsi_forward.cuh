@@ -24,19 +24,20 @@
 // 128-byte line (a column's run starts anywhere: rows are Z * c floats,
 // 4620 bytes at phantom1).
 //
-// The element type T of the grid and the field is float or __nv_bfloat16
-// (bsi_ttli_bf16, bsi_separable_bf16).  A bf16 grid is widened as it is
-// loaded; the LUTs (rounded to bf16 on the host, passed as floats), the
+// The element type T of the grid and the field is float, __nv_bfloat16
+// (bsi_ttli_bf16, bsi_separable_bf16) or __half (bsi_ttli_f16,
+// bsi_separable_f16).  A bf16 or fp16 grid is widened as it is loaded; the
+// LUTs (rounded to the grid's type on the host, passed as floats), the
 // shared memory and the arithmetic stay float32, and each value is rounded
 // once, to nearest even, at its store: the contract of
 // core/interpolate.py, which the plain versions follow.  (The JAX package's
 // TTLI kernel writes its lerps in phi's dtype, so interpreted on a CPU it
-// rounds every lerp to bf16; this kernel does not copy that.)  A bf16 line
-// holds 64 values, so in a bf16 column thread t takes the pairs (2t - s,
-// 2t - s + 1), (2t - s + 512, ...), s the column's start modulo 64 values:
-// each pair is one aligned 4-byte store and a warp's 32 pairs one aligned
-// 128-byte line; a pair that straddles the run's start or end stores its
-// one value inside (a run may start or end on an odd value).
+// rounds every lerp to bf16; this kernel does not copy that.)  A line of
+// 2-byte values holds 64 of them, so in such a column thread t takes the
+// pairs (2t - s, 2t - s + 1), (2t - s + 512, ...), s the column's start
+// modulo 64 values: each pair is one aligned 4-byte store and a warp's 32
+// pairs one aligned 128-byte line; a pair that straddles the run's start or
+// end stores its one value inside (a run may start or end on an odd value).
 //
 // The fused ssd, stats and ncc kernels (bsi_fused.cu) run on the same
 // blocks; in the lerp form they run the same x-y stage (fwd_xy_stage) and
@@ -47,8 +48,6 @@
 // 1 leaves out the x-y stage, 2 the z stage's arithmetic and table (a
 // constant is stored), 4 the stores; 8 the stores alone (1 and 2 together).
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "bsi_common.cuh"
 
@@ -166,8 +165,8 @@ __device__ __forceinline__ void fwd_xy_stage(const T* __restrict__ phi,
 
 // luts: the LUTs of S for x, then y, then z, in device memory.  Needs
 // fwd_smem_bytes(g) of shared memory.  C: the channels, fixed at compile
-// time (3), or 0 to read g.c.  T: float, or __nv_bfloat16 for a bf16 grid
-// and field.
+// time (3), or 0 to read g.c.  T: float, or __nv_bfloat16 or __half for a
+// bf16 or fp16 grid and field.
 template <class S, int C, typename T>
 __device__ inline void forward_block(const T* __restrict__ phi,
                                      const float* __restrict__ luts,
@@ -200,7 +199,7 @@ __device__ inline void forward_block(const T* __restrict__ phi,
     for (int yl = 0; yl < nyl; ++yl) {
       T* o = out + ((size_t)(x0 + xl) * g.Y + y0 + yl) * zc + (size_t)z0 * c;
       const float* h = s_hy + (xl * g.dy + yl) * Q;
-      if constexpr (sizeof(T) == sizeof(float)) {
+      if constexpr (kIsFloat<T>) {
         // lanes before the column's start compute position 0 and store nothing
         const int s = (int)(reinterpret_cast<size_t>(o) / sizeof(float) & 31);
         for (int p = (int)threadIdx.x - s; p < run; p += kThreads) {
@@ -215,8 +214,9 @@ __device__ inline void forward_block(const T* __restrict__ phi,
             if (p >= 0) o[p] = v;
         }
       } else {
-        // bf16: pairs of positions, a warp's pairs one aligned line; a
-        // position outside the run computes a neighbour and stores nothing
+        // bf16 or fp16: pairs of positions, a warp's pairs one aligned
+        // line; a position outside the run computes a neighbour and stores
+        // nothing
         const int s = (int)(reinterpret_cast<size_t>(o) / sizeof(T) & 63);
         for (int p = 2 * (int)threadIdx.x - s; p < run; p += 2 * kThreads) {
           const bool in0 = p >= 0, in1 = p + 1 >= 0 && p + 1 < run;
@@ -231,11 +231,11 @@ __device__ inline void forward_block(const T* __restrict__ phi,
 #endif
           {
             if (in0 && in1)
-              *reinterpret_cast<__nv_bfloat162*>(o + p) = __floats2bfloat162_rn(v0, v1);
+              store_pair(o + p, v0, v1);
             else if (in0)
-              o[p] = __float2bfloat16_rn(v0);
+              o[p] = store_as<T>(v0);
             else if (in1)
-              o[p + 1] = __float2bfloat16_rn(v1);
+              o[p + 1] = store_as<T>(v1);
           }
         }
       }

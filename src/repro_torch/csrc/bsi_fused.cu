@@ -143,6 +143,13 @@
 // stage, the histogram stage and the warp with its staging still add up
 // rather than overlap (PERF.md).
 //
+// compute_dtype="float16" (the _f16 entry points, both forms) is the bf16
+// contract below on __half: the same code, the fp16 tables (the lerp LUTs
+// and the basis f16(f16(wx wy) wz) of the fp16 LUTs, kron_basis as the JAX
+// kernel forms it), the displacement rounded once to fp16 (round to
+// nearest even, subnormals kept) and widened, the fp16 taps widened
+// exactly; the same blocks, shared memory and bounds.
+//
 // compute_dtype="bfloat16" (the _bf16 entry points, both forms): the JAX
 // kernel's contract (_fused_kernel, with repro/kernels/ops.py's casts): phi
 // and mov bf16, fix and every sum float32; the displacement in float32 from
@@ -567,7 +574,7 @@ __device__ inline void walk_stage_window(const T* __restrict__ phi, const FwdBlo
     const bool valid = kz < zt + 3 && tk + kz < g.nz;
     const T* q = valid ? src + (lm >> 2) * xs + (lm & 3) * ys + kz * 3 : phi;
     float* d = reinterpret_cast<float*>(s_win + i);
-    if constexpr (sizeof(T) == sizeof(float)) {
+    if constexpr (kIsFloat<T>) {
       cp_async4(d, q, valid);
       cp_async4(d + 1, q + 1, valid);
       cp_async4(d + 2, q + 2, valid);
@@ -773,6 +780,16 @@ __global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
                                const __nv_bfloat16* __restrict__ mov,
                                const float* __restrict__ fix, const float* __restrict__ scal,
                                float* __restrict__ partials, FwdBlock g) {
+  walk_block<F, K>(phi, tabs, mov, fix, scal, partials, g);
+}
+
+// The same on an fp16 grid and moving volume (compute_dtype="float16").
+template <int F, int K>
+__global__ void __launch_bounds__(kThreads, F == kMatmul ? 3 : 4)
+    bsi_fused_walk_f16_kernel(const __half* __restrict__ phi, const float* __restrict__ tabs,
+                              const __half* __restrict__ mov, const float* __restrict__ fix,
+                              const float* __restrict__ scal, float* __restrict__ partials,
+                              FwdBlock g) {
   walk_block<F, K>(phi, tabs, mov, fix, scal, partials, g);
 }
 
@@ -1086,6 +1103,19 @@ __global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
                    sigma, eps);
 }
 
+// The same on an fp16 grid and moving volume (compute_dtype="float16").
+template <int F, int BP>
+__global__ void __launch_bounds__(kThreads, BP > 32 ? 2 : (F == kLerp ? 4 : 3))
+    bsi_fused_nmi_f16_kernel(const __half* __restrict__ phi, const float* __restrict__ tabs,
+                             const __half* __restrict__ mov, const float* __restrict__ fix,
+                             const float* __restrict__ scal,
+                             const float* __restrict__ centres,
+                             float* __restrict__ partials, TileBlock g, int X, int Y, int Z,
+                             int bins, int support, float sigma, float eps) {
+  nmi_block<F, BP>(phi, tabs, mov, fix, scal, centres, partials, g, X, Y, Z, bins, support,
+                   sigma, eps);
+}
+
 // The lncc kernel's column: a block owns (ox, oy, oz) tiles, E voxels per
 // axis, and stages S = E + win - 1 per axis.  Its shared memory, in floats:
 // the displacement's constants (disp_floats), then the ring of the last
@@ -1336,6 +1366,18 @@ __global__ void __launch_bounds__(kThreads, 2)
                    eps);
 }
 
+// The same on an fp16 grid and moving volume (compute_dtype="float16").
+template <int F, int W>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_fused_lncc_f16_kernel(const __half* __restrict__ phi, const float* __restrict__ tabs,
+                              const __half* __restrict__ mov, const float* __restrict__ fix,
+                              float* __restrict__ partials, TileBlock g, int ox, int oy,
+                              int oz, int X, int Y, int Z, int win_arg, float inv,
+                              float eps) {
+  lncc_block<F, W>(phi, tabs, mov, fix, partials, g, ox, oy, oz, X, Y, Z, win_arg, inv,
+                   eps);
+}
+
 constexpr int kReduceThreads = 1024;
 enum LaneOp { kSum = 0, kMin = 1, kMax = 2, kCount = 3 };
 
@@ -1418,8 +1460,9 @@ inline int launch_fused(Kernel kernel, dim3 grid, size_t smem, int n_partials, i
 // The walk kernel of form F, moment K and element type T.
 template <int F, int K, typename T>
 inline auto walk_kernel() {
-  if constexpr (sizeof(T) == sizeof(float)) return bsi_fused_walk_kernel<F, K>;
-  else return bsi_fused_walk_bf16_kernel<F, K>;
+  if constexpr (kIsFloat<T>) return bsi_fused_walk_kernel<F, K>;
+  else if constexpr (kIsBf16<T>) return bsi_fused_walk_bf16_kernel<F, K>;
+  else return bsi_fused_walk_f16_kernel<F, K>;
 }
 
 // The walk of moment K in either form on the forward kernels' grid; (bx, by)
@@ -1454,8 +1497,10 @@ inline int launch_lncc(const TileBlock& g, const TileBlock& own, int X, int Y, i
   const size_t smem =
       sizeof(float) * LnccColumn::make<F>(g, own.bx, own.by, own.bz, win).floats;
   auto kernel = [&] {
-    if constexpr (sizeof(T) != sizeof(float))
+    if constexpr (kIsBf16<T>)
       return win == 9 ? bsi_fused_lncc_bf16_kernel<F, 9> : bsi_fused_lncc_bf16_kernel<F, 0>;
+    else if constexpr (kIsHalf<T>)
+      return win == 9 ? bsi_fused_lncc_f16_kernel<F, 9> : bsi_fused_lncc_f16_kernel<F, 0>;
     else
       return win == 9 ? bsi_fused_lncc_kernel<F, 9> : bsi_fused_lncc_kernel<F, 0>;
   }();
@@ -1474,9 +1519,12 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
                       float sigma, float eps) {
   const size_t smem = disp_smem_bytes<F>(g) + sizeof(float) * nmi_extra_floats(bins);
   auto kernel = [&] {
-    if constexpr (sizeof(T) != sizeof(float))
+    if constexpr (kIsBf16<T>)
       return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_bf16_kernel<F, 32>
                                          : bsi_fused_nmi_bf16_kernel<F, 64>;
+    else if constexpr (kIsHalf<T>)
+      return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_f16_kernel<F, 32>
+                                         : bsi_fused_nmi_f16_kernel<F, 64>;
     else
       return nmi_padded_bins(bins) == 32 ? bsi_fused_nmi_kernel<F, 32>
                                          : bsi_fused_nmi_kernel<F, 64>;
@@ -1489,10 +1537,11 @@ inline int launch_nmi(const TileBlock& g, int X, int Y, int Z, int n_partials,
 }  // namespace repro_torch
 
 // Entry points.  phi: (nx, ny, nz, 3); mov, fix: (X, Y, Z); all contiguous,
-// fix float32, phi and mov float32 (the _f32 entries) or bf16 (the _bf16
-// entries, compute_dtype="bfloat16").  tabs: the lerp LUTs (form 0) or the
+// fix float32, phi and mov float32 (the _f32 entries), bf16 (the _bf16
+// entries, compute_dtype="bfloat16") or fp16 (the _f16 entries,
+// compute_dtype="float16").  tabs: the lerp LUTs (form 0) or the
 // (dx*dy*dz, 64) basis (form 1; kernels/bsi_fused.py:basis_table), for the
-// _bf16 entries rounded to bf16 and held as floats.
+// _bf16 and _f16 entries rounded to their type and held as floats.
 // partials: n_partials rows of K floats, one row per thread block (the
 // caller sizes it with the same grid); out: K floats.  Each returns the
 // first cudaError_t, or cudaErrorInvalidValue on a size mismatch or an
@@ -1556,7 +1605,8 @@ inline int fused_lncc(const T* phi, const float* tabs, const T* mov, const float
 
 }  // namespace repro_torch
 
-// The entry points of element type T (float: _f32, __nv_bfloat16: _bf16).
+// The entry points of element type T (float: _f32, __nv_bfloat16: _bf16,
+// __half: _f16).
 #define REPRO_FUSED_ENTRIES(SUFFIX, T)                                                     \
   /* out: 1 float, the sum of squared differences. */                                      \
   extern "C" int bsi_fused_ssd_##SUFFIX(                                                   \
@@ -1614,3 +1664,4 @@ inline int fused_lncc(const T* phi, const float* tabs, const T* mov, const float
 
 REPRO_FUSED_ENTRIES(f32, float)
 REPRO_FUSED_ENTRIES(bf16, __nv_bfloat16)
+REPRO_FUSED_ENTRIES(f16, __half)

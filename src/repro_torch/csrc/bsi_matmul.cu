@@ -63,6 +63,12 @@
 // copied as they are, widened into W^T (exact in TF32, as the bf16 basis
 // is), one wgmma a k-step, one rounding to bf16 at the staging.  Bound at
 // phantom1: 269.7 MB of bf16 field and 2.5 MB of grid, 0.0812 ms.
+// bsi_matmul_f16, the compute_dtype="float16" variant, is the same code on
+// __half: an fp16 value and the fp16 basis (basis_matrix(tile, float16),
+// rounded once) are exact in TF32 too, so it is one wgmma a k-step and one
+// rounding to fp16 at the staging, the bits of the float32 kernel on the
+// widened grid with the fp16 basis's fragments, rounded once; the same
+// bound.
 //
 // Measurement builds (-DREPRO_MM_SKIP=mask, launch/profile_forward.py): 1
 // leaves out the stores to the field (the sums are kept), 2 the products (a
@@ -157,18 +163,19 @@ struct Unit {
 };
 
 // C: the channels (3), or 0 for any.  T: the element type of the grid and
-// the field, float or __nv_bfloat16.  A bf16 grid's rows are copied as bf16
-// (E = 8 values a 16-byte chunk) and widened where W^T is built; a bf16
-// value is exact in TF32, and so is the bf16 basis (basis_fragments of
-// bf16: its lo parts are zero), so only the hi_B hi_W product runs, into
-// the float32 kernel's accumulator in its order, and each value is rounded
-// once where it is staged; the runs' alignment and stores count E values
-// to 16 bytes.
+// the field, float, __nv_bfloat16 or __half.  A bf16 or fp16 grid's rows
+// are copied as they are (E = 8 values a 16-byte chunk) and widened where
+// W^T is built; a bf16 or fp16 value is exact in TF32 (at most 11
+// significant bits, fp16's subnormals inside float32's exponents), and so
+// is the basis of that type (basis_fragments: its lo parts are zero), so
+// only the hi_B hi_W product runs, into the float32 kernel's accumulator in
+// its order, and each value is rounded once where it is staged; the runs'
+// alignment and stores count E values to 16 bytes.
 template <int C, typename T>
 __device__ __forceinline__ void mm_block(const T* __restrict__ phi,
                                          const uint4* __restrict__ afrag,
                                          T* __restrict__ out, const MMBlock& g) {
-  constexpr bool kWide = sizeof(T) == sizeof(float);
+  constexpr bool kWide = kIsFloat<T>;
   constexpr int E = 16 / sizeof(T);  // values of a 16-byte chunk
   extern __shared__ float4 smem4[];
   const int c = C ? C : g.c;
@@ -252,7 +259,7 @@ __device__ __forceinline__ void mm_block(const T* __restrict__ phi,
       const int s = (wr >> 2) * 2 + ((wr >> 1) & 1), q = (wr & 1) ^ ((n >> 2) & 1);
       const int off = s * nrows * 32 + n * 32 + q * 16;
       *reinterpret_cast<uint4*>(wt_ptr + off) = hi;
-      if (kWide) *reinterpret_cast<uint4*>(wt_ptr + wt_bytes + off) = lo;  // bf16: 0
+      if (kWide) *reinterpret_cast<uint4*>(wt_ptr + wt_bytes + off) = lo;  // bf16, fp16: 0
     }
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   };
@@ -413,6 +420,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   mm_block<C>(phi, afrag, out, g);
 }
 
+// The same on an fp16 grid, writing an fp16 field.
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_matmul_f16_kernel(const __half* __restrict__ phi, const uint4* __restrict__ afrag,
+                          __half* __restrict__ out, MMBlock g) {
+  mm_block<C>(phi, afrag, out, g);
+}
+
 // The launch of `kernel` (the instantiation for g.c) on `blocks` persistent
 // blocks; returns its cudaError_t.
 template <typename T, typename Kernel>
@@ -453,5 +468,17 @@ extern "C" int bsi_matmul_bf16(const __nv_bfloat16* phi, const float* afrag,
   const MMBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, zt};
   void (*kernel)(const __nv_bfloat16*, const uint4*, __nv_bfloat16*, MMBlock) =
       c == 3 ? bsi_matmul_bf16_kernel<3> : bsi_matmul_bf16_kernel<0>;
+  return launch_matmul(kernel, phi, afrag, out, g, blocks, stream);
+}
+
+// The same with phi and out fp16 and afrag the fp16 basis's fragments
+// (basis_fragments(..., float16): lo parts zero).
+extern "C" int bsi_matmul_f16(const __half* phi, const float* afrag, __half* out, int nx,
+                              int ny, int nz, int c, int dx, int dy, int dz, int X, int Y,
+                              int Z, int zt, int blocks, void* stream) {
+  using namespace repro_torch;
+  const MMBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, zt};
+  void (*kernel)(const __half*, const uint4*, __half*, MMBlock) =
+      c == 3 ? bsi_matmul_f16_kernel<3> : bsi_matmul_f16_kernel<0>;
   return launch_matmul(kernel, phi, afrag, out, g, blocks, stream);
 }

@@ -28,7 +28,8 @@
 // (preferred_element_type=float32 on each sweep, one cast at the store,
 // repro/kernels/bsi_separable.py:37-57).  Within one bf16 step of the plain
 // version (the float32 sums may differ in their last bits).  Bound at
-// phantom1: 272.2 MB, 0.0812 ms at 3.35 TB/s.
+// phantom1: 272.2 MB, 0.0812 ms at 3.35 TB/s.  bsi_separable_f16
+// (compute_dtype="float16") is the same code on __half, the same bound.
 #include "bsi_forward.cuh"
 
 namespace repro_torch {
@@ -49,6 +50,16 @@ __global__ void __launch_bounds__(kThreads)
     bsi_separable_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
                               const float* __restrict__ luts,
                               __nv_bfloat16* __restrict__ out, FwdBlock g) {
+  extern __shared__ float4 smem4[];
+  forward_block<WeightStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
+}
+
+// The same on an fp16 grid, writing an fp16 field: float32 arithmetic, one
+// rounding at the store (bsi_forward.cuh).
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    bsi_separable_f16_kernel(const __half* __restrict__ phi, const float* __restrict__ luts,
+                             __half* __restrict__ out, FwdBlock g) {
   extern __shared__ float4 smem4[];
   forward_block<WeightStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
 }
@@ -75,5 +86,15 @@ extern "C" int bsi_separable_bf16(const __nv_bfloat16* phi, const float* luts,
   using namespace repro_torch;
   const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
   return launch_forward(bsi_separable_bf16_kernel<3>, bsi_separable_bf16_kernel<0>, phi, luts,
+                        out, g, stream);
+}
+
+// The same with phi and out fp16 and luts rounded to fp16 (held as floats).
+extern "C" int bsi_separable_f16(const __half* phi, const float* luts, __half* out, int nx,
+                                 int ny, int nz, int c, int dx, int dy, int dz, int X, int Y,
+                                 int Z, int bz, void* stream) {
+  using namespace repro_torch;
+  const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
+  return launch_forward(bsi_separable_f16_kernel<3>, bsi_separable_f16_kernel<0>, phi, luts,
                         out, g, stream);
 }

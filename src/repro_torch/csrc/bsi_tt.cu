@@ -50,7 +50,10 @@
 // values.  (The Pallas kernel sums in phi's dtype, so interpreted on a CPU
 // it rounds every term to bf16; this kernel does not.)  Bound at phantom1:
 // 272.2 MB, 0.0812 ms; its 128 instructions a value keep the 0.515 ms
-// floor.
+// floor.  bsi_tt_f16, the compute_dtype="float16" variant, is the same
+// code on __half: the fp16 grid widened exactly, the weights the products
+// of the fp16 LUTs, one rounding to fp16 (round to nearest even,
+// subnormals kept) where a value is staged; the same bound.
 //
 // Measurement builds (-DREPRO_TT_SKIP=mask, launch/profile_forward.py): 1
 // leaves out the stores to the field (the sums are kept), 2 the weights
@@ -119,9 +122,9 @@ __device__ __forceinline__ void group_sync(int grp) {
 }
 
 // R: z offsets summed together (tt_chunk); T: the element type of the grid
-// and the field, float or __nv_bfloat16 (the grid widened as it is loaded,
-// each value rounded once where it is staged; a staged run's alignment and
-// its stores count E = 16 / sizeof(T) values to 16 bytes).
+// and the field, float, __nv_bfloat16 or __half (the grid widened as it is
+// loaded, each value rounded once where it is staged; a staged run's
+// alignment and its stores count E = 16 / sizeof(T) values to 16 bytes).
 template <int R, typename T>
 __device__ __forceinline__ void tt_block(const T* __restrict__ phi,
                                          const float* __restrict__ wtab,
@@ -326,11 +329,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   tt_block<R>(phi, wtab, out, g);
 }
 
+// The same on an fp16 grid, writing an fp16 field.
+template <int R>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsi_tt_f16_kernel(const __half* __restrict__ phi, const float* __restrict__ wtab,
+                      __half* __restrict__ out, TTBlock g) {
+  tt_block<R>(phi, wtab, out, g);
+}
+
 // The kernel of element type T at R z offsets summed together.
 template <int R, typename T>
 inline auto tt_kernel() {
-  if constexpr (sizeof(T) == sizeof(float)) return bsi_tt_kernel<R>;
-  else return bsi_tt_bf16_kernel<R>;
+  if constexpr (kIsFloat<T>) return bsi_tt_kernel<R>;
+  else if constexpr (kIsBf16<T>) return bsi_tt_bf16_kernel<R>;
+  else return bsi_tt_f16_kernel<R>;
 }
 
 // The launch of the instantiation of tt_chunk(g); returns the launch's
@@ -381,6 +393,16 @@ extern "C" int bsi_tt_f32(const float* phi, const float* wtab, float* out, int n
 extern "C" int bsi_tt_bf16(const __nv_bfloat16* phi, const float* wtab, __nv_bfloat16* out,
                            int nx, int ny, int nz, int c, int dx, int dy, int dz, int X,
                            int Y, int Z, int pc, void* stream) {
+  using namespace repro_torch;
+  const TTBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, tt_group_slots(c), pc};
+  return launch_tt(phi, wtab, out, g, stream);
+}
+
+// The same with phi and out fp16 and wtab the products of the LUTs rounded
+// to fp16 (weight_table(..., float16), floats).
+extern "C" int bsi_tt_f16(const __half* phi, const float* wtab, __half* out, int nx, int ny,
+                          int nz, int c, int dx, int dy, int dz, int X, int Y, int Z, int pc,
+                          void* stream) {
   using namespace repro_torch;
   const TTBlock g{nx, ny, nz, c, dx, dy, dz, X, Y, Z, tt_group_slots(c), pc};
   return launch_tt(phi, wtab, out, g, stream);

@@ -32,6 +32,9 @@
 // on a CPU it rounds every lerp to bf16; this kernel does not, and the
 // tests hold it to the JAX package's own bf16 bounds.  Bound at phantom1:
 // 269.7 MB of bf16 field and 2.5 MB of grid, 0.0812 ms at 3.35 TB/s.
+// bsi_ttli_f16 (compute_dtype="float16") is the same code on __half: the
+// fp16 grid and LUTs, float32 lerps, one rounding to fp16 at the store
+// (subnormals kept), a lane a __half2 pair; the same bound.
 #include "bsi_forward.cuh"
 
 namespace repro_torch {
@@ -52,6 +55,17 @@ __global__ void __launch_bounds__(kThreads)
     bsi_ttli_bf16_kernel(const __nv_bfloat16* __restrict__ phi,
                          const float* __restrict__ luts, __nv_bfloat16* __restrict__ out,
                          FwdBlock g) {
+  extern __shared__ float4 smem4[];
+  forward_block<LerpStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
+}
+
+// The same on an fp16 grid, writing an fp16 field: float32 arithmetic, one
+// rounding at the store (bsi_forward.cuh).
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+    bsi_ttli_f16_kernel(const __half* __restrict__ phi,
+                        const float* __restrict__ luts, __half* __restrict__ out,
+                        FwdBlock g) {
   extern __shared__ float4 smem4[];
   forward_block<LerpStage, C>(phi, luts, out, g, reinterpret_cast<float*>(smem4));
 }
@@ -77,5 +91,15 @@ extern "C" int bsi_ttli_bf16(const __nv_bfloat16* phi, const float* luts, __nv_b
   using namespace repro_torch;
   const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
   return launch_forward(bsi_ttli_bf16_kernel<3>, bsi_ttli_bf16_kernel<0>, phi, luts, out, g,
+                        stream);
+}
+
+// The same with phi and out fp16 and luts rounded to fp16 (held as floats).
+extern "C" int bsi_ttli_f16(const __half* phi, const float* luts, __half* out, int nx,
+                            int ny, int nz, int c, int dx, int dy, int dz, int X, int Y,
+                            int Z, int bz, void* stream) {
+  using namespace repro_torch;
+  const FwdBlock g{nx, ny, nz, c, dx, dy, dz, bz, X, Y, Z};
+  return launch_forward(bsi_ttli_f16_kernel<3>, bsi_ttli_f16_kernel<0>, phi, luts, out, g,
                         stream);
 }

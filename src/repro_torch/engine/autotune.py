@@ -38,10 +38,11 @@ in this process is appended to :data:`RACES`.
 Under a ``compute_dtype`` the workload runs in it and ``grad_impl="auto"``
 never picks ``autograd``, whose backward would differentiate the reduced
 forward rather than accumulate the analytic adjoint in float32.  Under
-``"bfloat16"`` on a CUDA device the race times the four forms' bf16
-kernels, and ``fused="auto"`` races the fused level step in bf16 (the
-matrix form for ``matmul``, the lerp form for the others) against the
-unfused winner, the races keyed ``|cd=bfloat16|``.
+``"bfloat16"`` (``"float16"``) on a CUDA device the race times the four
+forms' bf16 (fp16) kernels, and ``fused="auto"`` races the fused level step
+in that dtype (the matrix form for ``matmul``, the lerp form for the
+others) against the unfused winner, the races keyed ``|cd=bfloat16|``
+(``|cd=float16|``).
 """
 
 from __future__ import annotations
@@ -105,8 +106,8 @@ def default_cache_path() -> str:
 
 def default_candidates(device):
     """``(mode, impl)`` forms ``impl="auto"`` times on ``device``: on a CUDA
-    device the forward kernels (each takes float32 and bf16), on the CPU the
-    plain forms (there a kernel's dispatcher runs its plain version, so
+    device the forward kernels (each takes float32, bf16 and fp16), on the
+    CPU the plain forms (there a kernel's dispatcher runs its plain version, so
     timing it says nothing of the kernel)."""
     if torch.device(device).type == "cuda":
         return KERNEL_CANDIDATES
@@ -461,10 +462,9 @@ def resolve_options(options, vol_shape, device):
     resolves ``"off"`` without a race (the kernels' plain versions run
     there, and their time says nothing of the card); a similarity with no
     fused kernel, the velocity transform and Gauss-Newton resolve ``"off"``
-    without a race.  Under ``compute_dtype="bfloat16"`` the race runs both
-    steps in bf16.  Cached on ``(options, vol_shape,
-    device)``; ``fused_reason`` is left out of the options' equality, so it
-    never splits that cache.
+    without a race.  Under a reduced ``compute_dtype`` the race runs both
+    steps in it.  Cached on ``(options, vol_shape, device)``; ``fused_reason``
+    is left out of the options' equality, so it never splits that cache.
     """
     from repro_torch.core import ffd
     from repro_torch.core.options import RegistrationOptions

@@ -88,9 +88,10 @@ def _level_loss(f, mov, *, tile, bending_weight, mode, impl, grad_impl="autograd
     ``fused="on"`` (or True) swaps the similarity term for
     ``ffd.fused_warp_loss``: the fused kernel forward, the unfused gradient.
     It has no scaling-and-squaring composition, so it refuses the velocity
-    transform.  ``compute_dtype`` (``"bfloat16"``) runs the expansion and
-    the warp's sampled intensities in reduced precision; ``mov`` is cast
-    once here, not once a step, and the similarity is scored in float32.
+    transform.  ``compute_dtype`` (``"bfloat16"``, ``"float16"``) runs the
+    expansion and the warp's sampled intensities in reduced precision;
+    ``mov`` is cast once here, not once a step, and the similarity is
+    scored in float32.
     """
     vol_shape = tuple(f.shape)
     cd = as_compute_dtype(compute_dtype)
@@ -170,7 +171,7 @@ def ffd_level_objective(f, mov, **kwargs):
             pg = p.detach().requires_grad_(True)
             field = ffd.dense_field(pg, tile, vol_shape, **bsi)
             disp = scaling_and_squaring(field, tspec.squarings) if velocity else field
-            # float32 coordinates from a bf16 field, as the warp takes them
+            # float32 coordinates from a reduced field, as the warp takes them
             disp = disp.to(torch.promote_types(disp.dtype, torch.float32))
             coords = ffd.identity_grid(vol_shape, disp.dtype, disp.device) + disp
 

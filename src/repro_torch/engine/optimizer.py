@@ -30,7 +30,8 @@
 Parameters and every optimiser's state are float32 under each
 ``compute_dtype``: the BSI's analytic adjoint returns the parameters' dtype
 and the level loss is scored in float32 (``engine.batch.ffd_level_loss``),
-so a bf16 forward reaches the optimiser only through float32 values.
+so a bf16 or fp16 forward reaches the optimiser only through float32
+values.
 
 The protocol is :func:`opt_step`: ``g`` and ``loss`` are the gradient and
 loss at the current params, and the step returns them at the new params with

@@ -47,13 +47,14 @@ bf16 ``phi`` and ``moving`` (entry points ``bsi_fused_<variant>_bf16``;
 from the widened grid and the bf16-rounded tables (the lerp LUTs, or the
 matrix form's basis as the JAX kernel builds it from its bf16 LUTs,
 :func:`basis_table`), rounded once to bf16 and widened, then the float32
-warp of the widened bf16 intensities.  The grid is widened as it is staged
-and the warped samples are float32, so the shared memory of every variant
-is the float32 kernel's and :func:`moment_blocks`, :func:`block_tiles` and
-:func:`lncc_blocks` serve both dtypes.  The bf16 stats walk keeps lines of
-32 voxels, aligned to 32 values of its streamed volume, the bf16 moving
-one: a warp's reads of a line are one aligned 64-byte half of a 128-byte
-line.
+warp of the widened bf16 intensities.  ``compute_dtype="float16"`` is the
+same with fp16 in place of bf16 (``bsi_fused_<variant>_f16``).  The grid
+is widened as it is staged and the warped samples are float32, so the
+shared memory of every variant is the float32 kernel's and
+:func:`moment_blocks`, :func:`block_tiles` and :func:`lncc_blocks` serve
+every dtype.  The reduced stats walks keep lines of 32 voxels, aligned to
+32 values of their streamed volume, the 2-byte moving one: a warp's reads
+of a line are one aligned 64-byte half of a 128-byte line.
 
 The ``plain_*`` functions compute the same results in tensor ops, without
 autograd: the displacement (:func:`displacement`: ``bsi_ttli.plain`` or
@@ -233,8 +234,8 @@ def check_walk_layout(lib, dims) -> None:
     block for ``dims``, the entry points' ``(nx, ny, nz, dx, dy, dz, X, Y, Z,
     bx, by, bz, form)``, as :func:`moment_blocks` does: the same chunk and
     dynamic shared memory, so that ``check_smem`` and :func:`occupancy_key`
-    speak of the block the card runs.  The layout is the same for a bf16
-    grid and volume (the block stages float32)."""
+    speak of the block the card runs.  The layout is the same for a bf16 or
+    fp16 grid and volume (the block stages float32)."""
     out = (ctypes.c_longlong * 2)()
     rc = lib.bsi_fused_walk_layout(*dims, out)
     geo = moment_blocks(dims[3:6], dims[6:9], DISP_FORMS[dims[12]])
@@ -244,14 +245,15 @@ def check_walk_layout(lib, dims) -> None:
             f"not moment_blocks' (chunk {geo.chunk}, {geo.smem} B) for {dims}")
 
 
-def occupancy_key(kind, disp_form, tile, vol_shape, bf16=False) -> tuple:
+def occupancy_key(kind, disp_form, tile, vol_shape, dtype=torch.float32) -> tuple:
     """``(symbol, smem, grid)`` of the ``kind`` kernel (``ssd``, ``stats`` or
-    ``ncc``) in ``disp_form`` (``bf16``: its bf16 kernel, on the same
-    blocks): the part of its instantiation's name in its ``-Xptxas -v``
-    line, its dynamic shared memory a block and its grid."""
+    ``ncc``) in ``disp_form`` (its kernel for a ``phi`` and ``moving`` of
+    ``dtype``, on the same blocks for every dtype): the part of its
+    instantiation's name in its ``-Xptxas -v`` line, its dynamic shared
+    memory a block and its grid."""
     geo = moment_blocks(tuple(tile), tuple(vol_shape), disp_form)
     form, moment = DISP_FORMS.index(disp_form), ("ssd", "stats", "ncc").index(kind)
-    name = "bsi_fused_walk_bf16_kernel" if bf16 else "bsi_fused_walk_kernel"
+    name = bsi_ttli.kernel_symbol("bsi_fused_walk", dtype)
     return f"{name}ILi{form}ELi{moment}EE", geo.smem, geo.grid
 
 
@@ -335,8 +337,8 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
            bins=None, sigma=None, eps=None, window=None, extra=None, lib=None):
     """Launch variant ``kind`` on the current stream; returns its combined row
     (``(K,)`` float32, or ``(bins, bins)`` for ``nmi``).  ``phi`` and
-    ``moving`` are both float32 or both bf16 (with the bf16-rounded LUTs or
-    basis); ``fixed`` float32.  ``blocks``: the tiles a block
+    ``moving`` are both float32, both bf16 or both fp16 (with the LUTs or
+    basis rounded to their dtype); ``fixed`` float32.  ``blocks``: the tiles a block
     owns, ``moment_blocks(...).tiles`` for ``ssd``, ``stats`` and ``ncc``;
     for ``lncc`` the owned tiles and ``extra`` the halo tiles.
     ``lib``: the loaded kernels (default :func:`load_library`'s; a
@@ -393,17 +395,19 @@ def launch(kind, phi, moving, fixed, tile, blocks, *, disp_form="lerp", scal=Non
 @functools.lru_cache(maxsize=None)
 def basis_table(tile, device, dtype=torch.float32) -> torch.Tensor:
     """The matrix form's ``(d^3, 64)`` basis for ``phi`` of ``dtype``, held
-    as float32 on ``device``: ``core.bspline.fused_basis``, for bf16 the
-    products of the bf16 LUTs each rounded to bf16, as the JAX kernel builds
-    it (``bsi_matmul.basis`` rounds the float64 product once instead)."""
+    as float32 on ``device``: ``core.bspline.fused_basis``, for bf16 or fp16
+    the products of the LUTs of that dtype each rounded to it, as the JAX
+    kernel builds it (``bsi_matmul.basis`` rounds the float64 product once
+    instead)."""
     return fused_basis(tile, dtype, device).float().contiguous()
 
 
 def displacement(phi, tile, vol_shape, disp_form="lerp"):
     """The kernels' displacement of ``disp_form`` in tensor ops, cropped to
     ``vol_shape``: ``bsi_ttli.plain``, or the 64-term sum of
-    ``bsi_matmul.plain`` with the basis of :func:`basis_table`; of a bf16
-    ``phi`` the float32 sums of the widened grid rounded once to bf16."""
+    ``bsi_matmul.plain`` with the basis of :func:`basis_table`; of a bf16 or
+    fp16 ``phi`` the float32 sums of the widened grid rounded once to its
+    dtype."""
     if disp_form == "lerp":
         return bsi_ttli.plain(phi, tile, vol_shape)
     b = basis_table(tuple(int(d) for d in tile), phi.device, phi.dtype)
@@ -413,9 +417,10 @@ def displacement(phi, tile, vol_shape, disp_form="lerp"):
 def warped(phi, moving, tile, disp_form="lerp"):
     """The kernels' warp in tensor ops: the moving volume sampled at identity
     + the :func:`displacement` of ``disp_form``, clamped 8-tap, without
-    autograd.  A bf16 ``phi`` gives a bf16 displacement (the float32 form
-    rounded once), widened for the float32 coordinates; a bf16 ``moving``
-    gives bf16 taps lerped in float32; the warp is float32."""
+    autograd.  A bf16 or fp16 ``phi`` gives a displacement of its dtype (the
+    float32 form rounded once), widened for the float32 coordinates; a bf16
+    or fp16 ``moving`` gives taps of its dtype lerped in float32; the warp
+    is float32."""
     X, Y, Z = moving.shape
     if disp_form not in DISP_FORMS:
         raise ValueError(f"unknown disp_form {disp_form!r}; choose from {DISP_FORMS}")

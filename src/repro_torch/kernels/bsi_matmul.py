@@ -27,7 +27,12 @@ bf16 value is exact in TF32, so the split's lo parts are zero and the
 kernel runs only the ``hi_B hi_W`` product, one wgmma a k-step, in the
 float32 kernel's order: its bits are those of the float32 kernel on the
 widened grid with the bf16 basis's fragments, rounded once.  It stages the
-bf16 rows as they are and writes a bf16 field.
+bf16 rows as they are and writes a bf16 field.  On an fp16 grid
+(``compute_dtype="float16"``, entry ``bsi_matmul_f16``) the same holds with
+fp16 in place of bf16: an fp16 value, and so the fp16 basis
+(``basis_matrix(tile, float16)``), has at most 11 significant bits and
+exponents inside TF32's range, subnormals included, so it too is exact in
+TF32.
 """
 
 from __future__ import annotations
@@ -37,9 +42,10 @@ import functools
 
 import torch
 
-from repro_torch.core.bspline import basis_matrix
+from repro_torch.core.bspline import REDUCED_DTYPES, basis_matrix
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.bsi_ttli import ENTRY_SUFFIX, MAX_SMEM_BYTES, check_smem
+from repro_torch.kernels.bsi_ttli import (ENTRY_SUFFIX, MAX_SMEM_BYTES, check_smem,
+                                          kernel_symbol)
 
 __all__ = ["MatmulBlocks", "basis", "basis_fragments", "basis_sum", "exact", "launch",
            "matmul_blocks", "occupancy_key", "plain", "tf32_rna", "tf32_split"]
@@ -75,8 +81,8 @@ def tf32_split(x) -> tuple:
 
 @functools.lru_cache(maxsize=None)
 def basis_fragments(tile, device, dtype=torch.float32) -> torch.Tensor:
-    """The basis (:func:`basis` of ``dtype``; of bf16 the lo parts are
-    zero) as hi and lo TF32 parts in the kernel's A fragments, each
+    """The basis (:func:`basis` of ``dtype``; of bf16 and fp16 the lo parts
+    are zero: their values are exact in TF32) as hi and lo TF32 parts in the kernel's A fragments, each
     warp's 16 rows of a wgmma's 64 in the ``m16n8k8`` layout: ``(m16 tiles,
     8 k-steps, hi/lo, 32 lanes, 4)`` float32 on ``device``, rows padded to
     whole 64-row tiles with zeros (warp ``w`` of a warpgroup holds m16 tile
@@ -168,18 +174,18 @@ def matmul_blocks(tile, channels, vol_shape, sms=132) -> MatmulBlocks:
                         grid=min(units, BLOCKS_PER_SM * sms), smem=_smem(tile, c, zt))
 
 
-def occupancy_key(tile, channels, vol_shape, sms=132, bf16=False) -> tuple:
+def occupancy_key(tile, channels, vol_shape, sms=132, dtype=torch.float32) -> tuple:
     """``(symbol, smem, grid)``: the part of the kernel's instantiation's
-    name in its ``-Xptxas -v`` line (``bf16``: the bf16 kernel's, on the
-    same blocks), its shared memory a block and its grid."""
+    name in its ``-Xptxas -v`` line (the kernel of ``dtype``, on the same
+    blocks for every dtype), its shared memory a block and its grid."""
     geo = matmul_blocks(tuple(tile), channels, tuple(vol_shape), sms)
-    name = "bsi_matmul_bf16_kernel" if bf16 else "bsi_matmul_kernel"
-    return f"{name}ILi{3 if channels == 3 else 0}E", geo.smem, geo.grid
+    return (f"{kernel_symbol('bsi_matmul', dtype)}ILi{3 if channels == 3 else 0}E",
+            geo.smem, geo.grid)
 
 
 def launch(phi, out, tile, lib=None):
-    """Launch the kernel of ``phi``'s dtype (float32 or bf16, ``out`` the
-    same) on the current stream: ``phi`` -> ``out`` (cropped); ``lib`` a
+    """Launch the kernel of ``phi``'s dtype (float32, bf16 or fp16, ``out``
+    the same) on the current stream: ``phi`` -> ``out`` (cropped); ``lib`` a
     measurement build (default: the kernels as built); raises if its blocks
     do not fit."""
     nx, ny, nz, c = phi.shape
@@ -221,12 +227,12 @@ def plain(phi, tile, vol_shape):
     product and sum rounded to float32.  The fused kernels' matrix-form
     displacement, built without FMA contraction, rounds the same way; the
     tensor-core kernel does not (3xTF32) and is held to it at 1e-5.  A bf16
-    ``phi`` gives the same sums of the widened grid and the bf16-rounded
-    basis, rounded once to a bf16 field."""
+    or fp16 ``phi`` gives the same sums of the widened grid and the basis
+    rounded to its dtype, rounded once to a field of its dtype."""
     tile = tuple(int(d) for d in tile)
-    if phi.dtype == torch.bfloat16:
-        b = basis(tile, phi.device, torch.bfloat16)
-        return basis_sum(phi.float(), b, tile, vol_shape).to(torch.bfloat16)
+    if phi.dtype in REDUCED_DTYPES:
+        b = basis(tile, phi.device, phi.dtype)
+        return basis_sum(phi.float(), b, tile, vol_shape).to(phi.dtype)
     return basis_sum(phi, basis(tile, phi.device), tile, vol_shape)
 
 

@@ -9,9 +9,10 @@ in place of the lerp LUTs: the x, y and z sweeps of
 weighted sum of the previous stage, writing only the voxels inside the
 volume.  :func:`plain` is the same function in tensor ops;
 ``kernels.ops.bsi_separable`` picks between the two by the tensor's device.
-A bf16 grid runs ``bsi_separable_bf16``: bf16 grid and LUTs, float32
-sweeps, one rounding at the store, a bf16 field (the JAX package's kernel
-likewise contracts bf16 operands into float32 and casts once,
+A bf16 or fp16 grid runs ``bsi_separable_bf16`` or ``bsi_separable_f16``:
+the grid and LUTs of its dtype, float32 sweeps, one rounding at the store, a
+field of its dtype (the JAX package's kernel likewise contracts reduced
+operands into float32 and casts once,
 ``repro/kernels/bsi_separable.py:37-57``).
 """
 
@@ -44,7 +45,7 @@ def launch(phi, out, tile, lib=None):
 
 def plain(phi, tile, vol_shape):
     """The kernel's function in tensor ops: :func:`bsi_separable`, cropped;
-    for a bf16 ``phi`` the float32 form on the widened grid and LUTs,
-    rounded once."""
+    for a bf16 or fp16 ``phi`` the float32 form on the widened grid and
+    LUTs, rounded once."""
     X, Y, Z = vol_shape
     return bsi_separable(phi, tile)[:X, :Y, :Z]

@@ -16,13 +16,13 @@ with 3 channels on an H100 at one instruction a clock, the form's floor
 under its rounding (the function's bytes take 0.16 ms).  :func:`plain` is
 :func:`repro_torch.core.interpolate.bsi_tt` cropped, which rounds every
 product and sum as the kernel does; ``kernels.ops.bsi_tt`` picks between
-the two by the tensor's device.  Both take a float32 or a bf16 grid and
-write a field of its dtype (entry points ``bsi_tt_f32`` and
-``bsi_tt_bf16``): in bf16 the grid is widened as it is loaded, the weights
-are products of the bf16-rounded LUTs in float32, the sums float32 as
-before, and each value is rounded once where it is staged, so the bf16
-kernel is its plain version bit for bit too; the staging and its bulk
-stores move 2-byte values, 8 to 16 bytes.
+the two by the tensor's device.  Both take a float32, bf16 or fp16 grid and
+write a field of its dtype (entry points ``bsi_tt_f32``, ``bsi_tt_bf16``
+and ``bsi_tt_f16``): in bf16 or fp16 the grid is widened as it is loaded,
+the weights are products of the LUTs rounded to the dtype, in float32, the
+sums float32 as before, and each value is rounded once where it is staged,
+so the reduced kernels are their plain version bit for bit too; the
+staging and its bulk stores move 2-byte values, 8 to 16 bytes.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ from repro_torch.core.interpolate import bsi_tt
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.bsi_adjoint import card_sms
 from repro_torch.kernels.bsi_ttli import (ENTRY_SUFFIX, KERNEL_THREADS, MAX_SMEM_BYTES,
-                                          check_smem)
+                                          check_smem, kernel_symbol)
 
 __all__ = ["MAX_CHUNK", "TTBlocks", "launch", "occupancy_key", "plain", "tt_blocks",
            "weight_table"]
@@ -124,13 +124,12 @@ def tt_blocks(tile, channels, vol_shape, sms=132) -> TTBlocks:
                     smem=_smem(slots, dz, rows, part_cols))
 
 
-def occupancy_key(tile, channels, vol_shape, sms=132, bf16=False) -> tuple:
+def occupancy_key(tile, channels, vol_shape, sms=132, dtype=torch.float32) -> tuple:
     """``(symbol, smem, grid)``: the part of the kernel's instantiation's
-    name in its ``-Xptxas -v`` line (``bf16``: the bf16 kernel's, on the
-    same blocks), its shared memory a block and its grid."""
+    name in its ``-Xptxas -v`` line (the kernel of ``dtype``, on the same
+    blocks for every dtype), its shared memory a block and its grid."""
     geo = tt_blocks(tuple(tile), channels, tuple(vol_shape), sms)
-    name = "bsi_tt_bf16_kernel" if bf16 else "bsi_tt_kernel"
-    return f"{name}ILi{geo.chunk}E", geo.smem, geo.grid
+    return f"{kernel_symbol('bsi_tt', dtype)}ILi{geo.chunk}E", geo.smem, geo.grid
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,8 +150,8 @@ def weight_table(tile, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def launch(phi, out, tile, lib=None):
-    """Launch the kernel of ``phi``'s dtype (float32 or bf16, ``out`` the
-    same) on the current stream: ``phi`` -> ``out`` (cropped);
+    """Launch the kernel of ``phi``'s dtype (float32, bf16 or fp16, ``out``
+    the same) on the current stream: ``phi`` -> ``out`` (cropped);
     ``lib`` a measurement build (default: the kernels as built); raises if
     its blocks do not fit."""
     nx, ny, nz, c = phi.shape

@@ -9,10 +9,11 @@ into shared memory, then the z stage, each position's offsets from a table
 the block decodes once, writing whole rows of the field and only the voxels
 inside the volume.  :func:`plain` is the same function in
 tensor ops; ``kernels.ops.bsi_ttli`` picks between the two by the tensor's
-device.  Both take a float32 or a bf16 grid and write a field of its dtype
-(entry points ``bsi_ttli_f32`` and ``bsi_ttli_bf16``): in bf16 the kernel
-reads the grid and the bf16-rounded LUTs, computes in float32 and rounds
-once at the store, the contract of ``core.interpolate``.  :func:`block_tiles` and :func:`stage_smem_bytes` size the fused
+device.  Both take a float32, bf16 or fp16 grid and write a field of its
+dtype (entry points ``bsi_ttli_f32``, ``bsi_ttli_bf16`` and
+``bsi_ttli_f16``): in bf16 or fp16 the kernel reads the grid and the LUTs
+rounded to its dtype, computes in float32 and rounds once at the store,
+the contract of ``core.interpolate``.  :func:`block_tiles` and :func:`stage_smem_bytes` size the fused
 nmi kernel's staging (``csrc/bsi_common.cuh``), which runs the same x and y
 stages; the fused ssd, stats and ncc kernels run on :func:`forward_blocks`
 (``kernels.bsi_fused.moment_blocks``).
@@ -29,8 +30,9 @@ from repro_torch.core.bspline import lerp_luts
 from repro_torch.core.interpolate import bsi_ttli
 from repro_torch.kernels.build import load_library
 
-__all__ = ["ForwardBlocks", "block_tiles", "check_smem", "forward_blocks", "launch",
-           "launch_forward", "plain", "stage_luts", "stage_smem_bytes"]
+__all__ = ["ENTRY_SUFFIX", "ForwardBlocks", "block_tiles", "check_smem", "forward_blocks",
+           "kernel_symbol", "launch", "launch_forward", "plain", "stage_luts",
+           "stage_smem_bytes"]
 
 MAX_SMEM_BYTES = 232_448  # dynamic shared memory one H100 block may use
 KERNEL_THREADS = 256  # threads per block of every BSI kernel (csrc: kThreads)
@@ -112,8 +114,16 @@ def forward_blocks(tile, channels, vol_shape) -> ForwardBlocks:
                          run=bz * dz * c, smem=_forward_smem(tile, c, bz))
 
 
-# the forward kernels' entry point of each dtype they take
-ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the entry point of each dtype the BSI kernels take (a grid, field,
+# cotangent or moving volume): float32, and the reduced compute dtypes
+ENTRY_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def kernel_symbol(stem, dtype=torch.float32) -> str:
+    """The ``__global__`` name of kernel ``stem`` (``"bsi_tt"``) for ``dtype``:
+    ``bsi_tt_kernel``, ``bsi_tt_bf16_kernel``, ``bsi_tt_f16_kernel``, the
+    part of its instantiation's name in its ``-Xptxas -v`` line."""
+    return stem + ("" if dtype == torch.float32 else f"_{ENTRY_SUFFIX[dtype]}") + "_kernel"
 
 
 @functools.lru_cache(maxsize=None)
@@ -125,7 +135,7 @@ def stage_luts(tile, device, dtype=torch.float32) -> torch.Tensor:
 
 def launch_forward(entry, phi, luts, out, tile, lib=None):
     """Launch forward kernel ``entry`` (``"bsi_ttli"``, ``"bsi_separable"``) of
-    ``phi``'s dtype (float32 or bf16, ``out`` the same) on the current
+    ``phi``'s dtype (float32, bf16 or fp16, ``out`` the same) on the current
     stream with its LUTs: ``phi`` -> ``out`` (cropped); ``lib`` a
     measurement build (default: the kernels as built).  Raises if the block
     does not fit or the launch fails."""
@@ -152,7 +162,7 @@ def launch(phi, out, tile, lib=None):
 
 def plain(phi, tile, vol_shape):
     """The kernel's function in tensor ops: :func:`bsi_ttli`, cropped; for a
-    bf16 ``phi`` the float32 form on the widened grid and LUTs, rounded
-    once."""
+    bf16 or fp16 ``phi`` the float32 form on the widened grid and LUTs,
+    rounded once."""
     X, Y, Z = vol_shape
     return bsi_ttli(phi, tile)[:X, :Y, :Z]

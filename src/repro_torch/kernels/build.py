@@ -54,20 +54,18 @@ _DIMS = "i" * 13  # nx, ny, nz, dx, dy, dz, X, Y, Z, bx, by, bz, form
 # int, f: float); each ends with the stream (the layout query with its
 # output) and returns a cudaError_t.
 _SIGNATURES = {
-    "bsi_ttli_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, bz
-    "bsi_separable_f32": "ppp" + "i" * 11,
-    "bsi_ttli_bf16": "ppp" + "i" * 11,  # bf16 phi and out, float luts
-    "bsi_separable_bf16": "ppp" + "i" * 11,
-    "bsi_tt_f32": "ppp" + "i" * 11,  # ..., X, Y, Z, columns a block
-    "bsi_tt_bf16": "ppp" + "i" * 11,  # bf16 phi and out, float weights
-    "bsi_matmul_f32": "ppp" + "i" * 12,  # ..., X, Y, Z, z tiles a unit, blocks
-    "bsi_matmul_bf16": "ppp" + "i" * 12,  # bf16 phi and out, float fragments
-    "bsi_adjoint_f32": "p" * 6 + "i" * 14,
-    "bsi_adjoint_bf16": "p" * 6 + "i" * 14,  # bf16 g; float LUTs, scratch, out
-    "bsi_adjoint_matmul_f32": "pppp" + "i" * 14,
-    "bsi_adjoint_matmul_bf16": "pppp" + "i" * 14,  # bf16 g; float basis, out
-    # the fused variants; their _bf16 twins take bf16 phi and mov
-    **{f"bsi_fused_{kind}_{suffix}": sig for suffix in ("f32", "bf16") for kind, sig in (
+    # each BSI entry point in three element types: _f32, and the _bf16 and
+    # _f16 twins that take a bf16 or fp16 phi and field (out), cotangent (g)
+    # or moving volume (mov), everything else float
+    **{f"{name}_{suffix}": sig for suffix in ("f32", "bf16", "f16") for name, sig in (
+        ("bsi_ttli", "ppp" + "i" * 11),  # ..., X, Y, Z, bz; float luts
+        ("bsi_separable", "ppp" + "i" * 11),
+        ("bsi_tt", "ppp" + "i" * 11),  # ..., X, Y, Z, columns a block; float weights
+        ("bsi_matmul", "ppp" + "i" * 12),  # ..., X, Y, Z, z tiles a unit, blocks
+        ("bsi_adjoint", "p" * 6 + "i" * 14),  # float LUTs, scratch, out
+        ("bsi_adjoint_matmul", "pppp" + "i" * 14))},  # float basis, partials, out
+    # the fused variants
+    **{f"bsi_fused_{kind}_{suffix}": sig for suffix in ("f32", "bf16", "f16") for kind, sig in (
         ("ssd", "ppppp" + "ip" + _DIMS),
         ("stats", "pppp" + "ip" + _DIMS),
         ("ncc", "pppppp" + "ip" + _DIMS),

@@ -3,18 +3,18 @@
 Each dispatcher takes tensors in the JAX package's layouts (channels last;
 attention's ``(B, S, heads, head dim)``).  On a CPU tensor it runs its
 kernel's plain PyTorch version; on a CUDA tensor it checks device, dtype
-(float32 or bfloat16),
-shape and contiguity, allocates the outputs with ``torch.empty``, launches
-the kernel on the current stream, raises if the launch failed, and adds one
-to its kernel's launch count (:func:`launch_counts`; the fused variants
-count apart per displacement form, ``bsi_fused_ncc`` and
-``bsi_fused_ncc_matmul``, the bf16 kernels apart from the float32 ones,
-``bsi_ttli_bf16``, ``bsi_adjoint_matmul_bf16``, ``bsi_fused_ncc_matmul_bf16``).
-Under bf16 the card runs every forward form (``bsi_ttli``,
-``bsi_separable``, ``bsi_tt``, ``bsi_matmul``), both adjoints (a bf16
-cotangent; float32 out) and the five fused variants in both displacement
-forms (bf16 ``phi`` and ``moving``; ``fixed`` float32).  There is no
-fallback and no cast: a CUDA tensor runs the kernel of its dtype or raises.
+(float32, bfloat16 or float16: the BSI kernels' ``ENTRY_SUFFIX``), shape and
+contiguity, allocates the outputs with ``torch.empty``, launches the kernel
+on the current stream, raises if the launch failed, and adds one to its
+kernel's launch count (:func:`launch_counts`; the fused variants count
+apart per displacement form, ``bsi_fused_ncc`` and ``bsi_fused_ncc_matmul``,
+the bf16 and fp16 kernels apart from the float32 ones, ``bsi_ttli_bf16``,
+``bsi_adjoint_matmul_f16``, ``bsi_fused_ncc_matmul_bf16``).  Under bf16 or
+fp16 the card runs every forward form (``bsi_ttli``, ``bsi_separable``,
+``bsi_tt``, ``bsi_matmul``), both adjoints (a bf16 or fp16 cotangent;
+float32 out) and the five fused variants in both displacement forms (bf16
+or fp16 ``phi`` and ``moving``; ``fixed`` float32).  There is no fallback
+and no cast: a CUDA tensor runs the kernel of its dtype or raises.
 
 The JAX package's VMEM budget and its volume-in-VMEM gate of the fused
 kernel describe a TPU and are not carried over; the kernels pick their own
@@ -63,20 +63,32 @@ __all__ = [
 _FUSED_KINDS = ("ssd", "stats", "ncc", "nmi", "lncc")
 
 
+def _suffix(dtype):
+    """The launch-count suffix of a BSI kernel of ``dtype``: ``""`` for
+    float32, ``"_bf16"``, ``"_f16"``."""
+    return "" if dtype == torch.float32 else f"_{_ttli.ENTRY_SUFFIX[dtype]}"
+
+
+def _kernel_dtype(t):
+    """The dtype whose kernel a CUDA tensor ``t`` runs: its own where a BSI
+    kernel takes it, else float32, which ``_check`` then refuses."""
+    return t.dtype if t.dtype in _ttli.ENTRY_SUFFIX else torch.float32
+
+
 def _fused_name(kind, disp_form, dtype=torch.float32):
     """The launch-count key of fused variant ``kind`` in ``disp_form`` on
     ``dtype`` inputs: ``bsi_fused_ncc``, ``bsi_fused_ncc_matmul``,
-    ``bsi_fused_ncc_bf16``."""
+    ``bsi_fused_ncc_bf16``, ``bsi_fused_ncc_matmul_f16``."""
     name = "bsi_fused" if kind == "ssd" else f"bsi_fused_{kind}"
     if disp_form != "lerp":
         name += "_matmul"
-    return name if dtype == torch.float32 else f"{name}_bf16"
+    return name + _suffix(dtype)
 
 
 # Launches per kernel since the last reset.
-_KERNELS = tuple(f"bsi_{form}{suffix}" for suffix in ("", "_bf16") for form in (
+_KERNELS = tuple(f"bsi_{form}{_suffix(dtype)}" for dtype in _ttli.ENTRY_SUFFIX for form in (
     "ttli", "separable", "tt", "matmul", "adjoint", "adjoint_matmul")) + tuple(
-    _fused_name(kind, form, dtype) for dtype in (torch.float32, torch.bfloat16)
+    _fused_name(kind, form, dtype) for dtype in _ttli.ENTRY_SUFFIX
     for form in ("lerp", "matmul") for kind in _FUSED_KINDS) + ("flash_attention",)
 _LAUNCHES = dict.fromkeys(_KERNELS, 0)
 
@@ -122,8 +134,8 @@ def _covers(grid_shape, tile, vol_shape, name):
 
 
 def _forward(mode, module, phi, tile, vol_shape):
-    """A forward kernel's dispatch; a bf16 ``phi`` counts as
-    ``bsi_<mode>_bf16``."""
+    """A forward kernel's dispatch; a bf16 or fp16 ``phi`` counts as
+    ``bsi_<mode>_bf16`` or ``bsi_<mode>_f16``."""
     name = f"bsi_{mode}"
     tile = tuple(int(d) for d in tile)
     full = tuple((int(n) - 3) * d for n, d in zip(phi.shape[:3], tile))
@@ -131,18 +143,18 @@ def _forward(mode, module, phi, tile, vol_shape):
     _covers(phi.shape[:3], tile, vol_shape, name)
     if not _on_card(phi, name):
         return module.plain(phi, tile, vol_shape)
-    dtype = torch.bfloat16 if phi.dtype == torch.bfloat16 else torch.float32
+    dtype = _kernel_dtype(phi)
     _check(phi, "phi", 4, phi.device, dtype)
     out = torch.empty(vol_shape + (phi.shape[3],), dtype=dtype, device=phi.device)
     module.launch(phi, out, tile)
-    _LAUNCHES[name if dtype == torch.float32 else f"{name}_bf16"] += 1
+    _LAUNCHES[name + _suffix(dtype)] += 1
     return out
 
 
 def bsi_ttli(phi, tile, vol_shape=None):
     """Forward BSI, TTLI form, cropped to ``vol_shape`` (default: whole tiles).
 
-    ``phi``: ``(Nx, Ny, Nz, C)`` control grid, float32 or bf16.  Returns
+    ``phi``: ``(Nx, Ny, Nz, C)`` control grid, float32, bf16 or fp16.  Returns
     the ``vol_shape + (C,)`` dense field of ``phi``'s dtype.
     """
     return _forward("ttli", _ttli, phi, tile, vol_shape)
@@ -181,42 +193,43 @@ def _adjoint_inputs(g, tile, grid_shape, name):
 def bsi_adjoint(g, tile, grid_shape):
     """BSI adjoint: cotangent of the cropped field -> control-grid cotangent.
 
-    ``g``: ``(X, Y, Z, C)`` float32 or bf16 with ``X <= (Nx - 3) * dx`` and
-    so on; the voxels past the volume count as zero.  Returns ``grid_shape
-    + (C,)`` float32; a bf16 ``g`` counts as ``bsi_adjoint_bf16``.
+    ``g``: ``(X, Y, Z, C)`` float32, bf16 or fp16 with ``X <= (Nx - 3) *
+    dx`` and so on; the voxels past the volume count as zero.  Returns
+    ``grid_shape + (C,)`` float32; a bf16 or fp16 ``g`` counts as
+    ``bsi_adjoint_bf16`` or ``bsi_adjoint_f16``.
     """
     tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint")
     if not card:
         return _adjoint.plain(g, tile, grid_shape)
-    dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+    dtype = _kernel_dtype(g)
     _check(g, "g", 4, g.device, dtype)
     out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
                       device=g.device)
     _adjoint.launch(g, out, tile)
-    _LAUNCHES["bsi_adjoint" if dtype == torch.float32 else "bsi_adjoint_bf16"] += 1
+    _LAUNCHES["bsi_adjoint" + _suffix(dtype)] += 1
     return out
 
 
 def bsi_adjoint_matmul(g, tile, grid_shape):
     """The BSI adjoint in the transposed matrix form; as :func:`bsi_adjoint`
-    (a bf16 ``g`` counts as ``bsi_adjoint_matmul_bf16``)."""
+    (a bf16 or fp16 ``g`` counts as ``bsi_adjoint_matmul_bf16`` or
+    ``bsi_adjoint_matmul_f16``)."""
     tile, grid_shape, card = _adjoint_inputs(g, tile, grid_shape, "bsi_adjoint_matmul")
     if not card:
         return _adjoint.plain_matmul(g, tile, grid_shape)
-    dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+    dtype = _kernel_dtype(g)
     _check(g, "g", 4, g.device, dtype)
     out = torch.empty(grid_shape + (g.shape[3],), dtype=torch.float32,
                       device=g.device)
     _adjoint.launch_matmul(g, out, tile)
-    _LAUNCHES["bsi_adjoint_matmul" if dtype == torch.float32
-              else "bsi_adjoint_matmul_bf16"] += 1
+    _LAUNCHES["bsi_adjoint_matmul" + _suffix(dtype)] += 1
     return out
 
 
 def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     """Check the fused kernels' shared inputs: ``None`` on the CPU, else the
-    dtype of ``phi`` and ``moving`` on the card (both float32 or both bf16;
-    ``fixed`` float32)."""
+    dtype of ``phi`` and ``moving`` on the card (both float32, both bf16 or
+    both fp16; ``fixed`` float32)."""
     if disp_form not in _fused.DISP_FORMS:
         raise ValueError(
             f"unknown disp_form {disp_form!r}; choose from {_fused.DISP_FORMS}")
@@ -228,7 +241,7 @@ def _fused_inputs(phi, moving, fixed, tile, name, disp_form):
     _covers(phi.shape[:3], tile, moving.shape, name)
     if not _on_card(phi, name):
         return None
-    dtype = torch.bfloat16 if phi.dtype == torch.bfloat16 else torch.float32
+    dtype = _kernel_dtype(phi)
     _check(phi, "phi", 4, phi.device, dtype)
     _check(moving, "moving", 3, phi.device, dtype)
     if fixed is not None:
@@ -247,9 +260,9 @@ def fused_ssd_loss(phi, moving, fixed, tile, *, disp_form="lerp"):
     The fused level step's forward, SSD only; the differentiable face is
     ``repro_torch.core.ffd.fused_warp_loss``.  ``disp_form`` is ``"lerp"``
     or ``"matmul"`` (the displacement's form).  ``phi`` and ``moving`` are
-    both float32 or both bf16 (``compute_dtype="bfloat16"``; every fused
-    variant likewise); ``fixed`` is float32.  Returns a 0-dim
-    float32 tensor.
+    both float32, both bf16 or both fp16 (``compute_dtype="bfloat16"`` or
+    ``"float16"``; every fused variant likewise); ``fixed`` is float32.
+    Returns a 0-dim float32 tensor.
     """
     tile = tuple(int(d) for d in tile)
     n = moving.numel()

@@ -52,6 +52,8 @@ SM_CLOCK_HZ = 1.98e9  # the SM clock under load of the cards measured (nvidia-sm
 # the TT and matrix forms unfused: a product and a sum for each of 64 terms
 # and 3 channels, a voxel
 UNFUSED_INSTRUCTIONS = 2 * 64 * 3
+# the kernels' names of the reduced compute dtypes, bf16 and fp16
+REDUCED_SUFFIXES = ("bf16", "f16")
 
 __all__ = ["attention_bound", "attention_fp32_bound", "attention_pairs", "kernel_bounds",
            "bound_ms", "matmul_tf32_ms", "nmi_bound", "unfused_floor_ms"]
@@ -107,11 +109,12 @@ def attention_fp32_bound(seq, *, heads, kv_heads, head_dim, causal, window=0,
 
 
 def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channels=3,
-              support=8, bf16=False) -> dict:
+              support=8, suffix="") -> dict:
     """The fused NMI kernel's bound, the least over the forms that compute
     its function.  Each form moves the bytes of :func:`kernel_bounds`'
-    ``bsi_fused_nmi`` (``bsi_fused_nmi_bf16`` with ``bf16``: a bf16 grid
-    and moving volume) and does its displacement, sample and normalisation,
+    ``bsi_fused_nmi`` plus ``suffix``, the kernels' name suffix of the
+    dtype of its grid and moving volume (``""`` float32, ``"_bf16"``,
+    ``"_f16"``: 2 bytes a value), and does its displacement, sample and normalisation,
     and 7 fp32 operations for each Parzen weight evaluated (``evaluated`` of
     them over both volumes; default ``2 min(bins, 2 support + 1)`` a voxel,
     the most at the half-width ``support`` of
@@ -128,8 +131,7 @@ def nmi_bound(vol_shape, tile, bins=32, *, evaluated=None, products=None, channe
     products of the kernel's 3xTF32 split at 495 TFLOP/s, the work it does
     rather than a bound."""
     vox = vol_shape[0] * vol_shape[1] * vol_shape[2]
-    moved, old = kernel_bounds(vol_shape, tile, channels, bins)[
-        "bsi_fused_nmi_bf16" if bf16 else "bsi_fused_nmi"]
+    moved, old = kernel_bounds(vol_shape, tile, channels, bins)[f"bsi_fused_nmi{suffix}"]
     width = min(bins, 2 * support + 1)
     evaluated = 2 * width * vox if evaluated is None else evaluated
     products = width * width * vox if products is None else products
@@ -225,18 +227,19 @@ def kernel_bounds(vol_shape, tile, channels=3, bins=32, window=9) -> dict:
         "bsi_adjoint_matmul": (field_b + grid_b, backward),
         "bsi_separable": (grid_b + field_b, forward),
         "bsi_tt": (grid_b + field_b, forward),
-        # compute_dtype="bfloat16": a bf16 grid and field, float32 arithmetic
-        **{f"bsi_{form}_bf16": ((grid_b + field_b) // 2, forward)
-           for form in ("ttli", "separable", "tt", "matmul")},
-        # a bf16 cotangent in, the float32 grid cotangent out
-        "bsi_adjoint_separable_bf16": (field_b // 2 + grid_b, backward),
-        "bsi_adjoint_matmul_bf16": (field_b // 2 + grid_b, backward),
-        # a bf16 grid and moving volume; fixed, scal, the basis and the sums
-        # float32
-        **{f"bsi_fused_{k}_bf16": (b - grid_b // 2 - vol_b // 2, forward + f)
-           for k, (b, f) in fused.items()},
-        **{f"bsi_fused_{k}_matmul_bf16": (b + basis_b - grid_b // 2 - vol_b // 2, forward + f)
-           for k, (b, f) in fused.items()},
+        # compute_dtype="bfloat16" and "float16", 2 bytes a value either way:
+        # a reduced grid and field, float32 arithmetic
+        **{f"bsi_{form}_{sx}": ((grid_b + field_b) // 2, forward)
+           for sx in REDUCED_SUFFIXES for form in ("ttli", "separable", "tt", "matmul")},
+        # a reduced cotangent in, the float32 grid cotangent out
+        **{f"bsi_adjoint_{form}_{sx}": (field_b // 2 + grid_b, backward)
+           for sx in REDUCED_SUFFIXES for form in ("separable", "matmul")},
+        # a reduced grid and moving volume; fixed, scal, the basis and the
+        # sums float32
+        **{f"bsi_fused_{k}_{sx}": (b - grid_b // 2 - vol_b // 2, forward + f)
+           for sx in REDUCED_SUFFIXES for k, (b, f) in fused.items()},
+        **{f"bsi_fused_{k}_matmul_{sx}": (b + basis_b - grid_b // 2 - vol_b // 2, forward + f)
+           for sx in REDUCED_SUFFIXES for k, (b, f) in fused.items()},
     }
 
 

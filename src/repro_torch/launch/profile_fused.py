@@ -44,7 +44,7 @@ import torch
 from repro_torch import PAPER_VOLUMES, make_pair
 from repro_torch.core import ffd
 from repro_torch.device import card_name, device_ms_by_name, traced
-from repro_torch.kernels import bsi_fused, ops
+from repro_torch.kernels import bsi_fused, bsi_ttli, ops
 from repro_torch.kernels.build import load_library, nvcc_path
 from repro_torch.launch.profile_adjoint import cuda_ms
 from repro_torch.launch.profile_forward import kernel_occupancy, sm_clock_under_load
@@ -144,11 +144,14 @@ def fused_report(name, call, plain, reps=20) -> dict:
 def occupancy(lib, name, tile, vol) -> dict:
     """The kernel's ptxas line, its shared memory a block (dynamic and
     static), resident blocks an SM and grid; ``name`` a key of
-    :data:`KERNELS`, or one with ``_bf16`` appended (the bf16 kernel,
-    ``bsi_fused_stats_bf16``, ``bsi_fused_ncc_matmul_bf16``)."""
-    bf16 = name.endswith("_bf16")
-    kind, form = KERNELS[name.removesuffix("_bf16")]
-    symbol, smem, grid = bsi_fused.occupancy_key(kind, form, tile, vol, bf16=bf16)
+    :data:`KERNELS`, or one with ``_bf16`` or ``_f16`` appended (the bf16 or
+    fp16 kernel, ``bsi_fused_stats_bf16``, ``bsi_fused_ncc_matmul_f16``)."""
+    dtype = next((dt for dt, sx in bsi_ttli.ENTRY_SUFFIX.items()
+                  if dt != torch.float32 and name.endswith(f"_{sx}")), torch.float32)
+    if dtype != torch.float32:
+        name = name.removesuffix(f"_{bsi_ttli.ENTRY_SUFFIX[dtype]}")
+    kind, form = KERNELS[name]
+    symbol, smem, grid = bsi_fused.occupancy_key(kind, form, tile, vol, dtype=dtype)
     line = [ln for ln in lib.info.ptxas if symbol in ln and "registers" in ln]
     static = int(re.search(r"(\d+) B static smem", line[0]).group(1)) if line else 0
     return kernel_occupancy(lib, symbol, smem + static, grid)

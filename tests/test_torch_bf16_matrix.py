@@ -18,6 +18,9 @@ bf16 LUTs, each product rounded to bf16 (``kron_basis``), which puts some
 entries a bf16 step from the other (3350 of 8000 at a 5^3 tile).  The port
 takes each kernel's own: ``bsi_matmul.basis(tile, dev, bfloat16)`` and
 ``bsi_fused.basis_table(tile, dev, bfloat16)`` (``core.bspline.fused_basis``).
+The same holds under ``compute_dtype="float16"`` (2781 of 8000 entries
+apart at 5^3), and the tests whose body holds for any reduced dtype run on
+fp16 too (``REDUCED``).
 """
 
 import jax.numpy as jnp
@@ -35,7 +38,7 @@ from repro.kernels.bsi_matmul import kron_basis
 from repro_torch import ffd_register
 from repro_torch.convert import options_from_reference
 from repro_torch.core import bspline, ffd, interpolate
-from repro_torch.core.bspline import weight_lut
+from repro_torch.core.bspline import reduced_step, weight_lut
 from repro_torch.kernels import bsi_adjoint, bsi_fused, bsi_matmul, bsi_tt, ops
 
 import test_torch_matmul_geometry as mmgeo
@@ -43,6 +46,8 @@ import test_torch_tt_geometry as ttgeo
 from test_torch_cpu_threads import one_torch_thread  # noqa: E402, F401
 
 BF16 = torch.bfloat16
+REDUCED = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                                  ids=["bf16", "f16"])
 FORWARD = [((13, 11, 9), (5, 4, 3)), ((10, 10, 10), (5, 5, 5)), ((12, 11, 9), (3, 3, 3))]
 
 
@@ -52,85 +57,97 @@ def _grid(vol, tile, seed, scale=2.5):
     return (scale * rng.standard_normal(g + (3,))).astype(np.float32)
 
 
+def _name(dtype):
+    """A torch dtype's name, the compute dtype's: ``"bfloat16"``, ``"float16"``."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _jnp(dtype):
+    return getattr(jnp, _name(dtype))
+
+
 def _steps(a, b):
-    """``|a - b|`` of two bf16 tensors in bf16 steps of the larger
-    magnitude (``2^(floor(log2 m) - 7)``)."""
-    a, b = a.float(), b.float()
-    m = torch.maximum(a.abs(), b.abs())
-    step = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
-    return (a - b).abs() / step
+    """``|a - b|`` of two bf16 (fp16) tensors in steps of their dtype at the
+    larger magnitude (``2^(floor(log2 m) - 7)``; fp16 ``- 10``, its
+    subnormals' step at least)."""
+    step = reduced_step(torch.maximum(a.float().abs(), b.float().abs()), a.dtype)
+    return (a.float() - b.float()).abs() / step
 
 
+@REDUCED
 @pytest.mark.parametrize("vol,tile", FORWARD)
-def test_matmul_plain_follows_the_bf16_contract(vol, tile):
-    """On a bf16 grid ``ops.bsi_matmul`` (the CPU runs its plain version)
-    returns a bf16 field, bit for bit the float32 sums in ``k`` order of the
-    widened grid and the bf16-rounded basis, rounded once, and equal to the
-    contract form ``interpolate.bsi_matmul(..., bfloat16)`` (the same terms
-    summed by ``einsum``: at these inputs no sum lands across a bf16
-    rounding boundary).  (It used to sum with the float32 basis and return
-    float32: 1.27e-2 from the contract form.)"""
-    phi = torch.from_numpy(_grid(vol, tile, 3)).to(BF16)
+def test_matmul_plain_follows_the_bf16_contract(vol, tile, dtype):
+    """On a bf16 (fp16) grid ``ops.bsi_matmul`` (the CPU runs its plain
+    version) returns a field of its dtype, bit for bit the float32 sums in
+    ``k`` order of the widened grid and the basis rounded to the dtype,
+    rounded once, and equal to the contract form ``interpolate.bsi_matmul``
+    of the dtype (the same terms summed by ``einsum``: at these inputs no
+    sum lands across a rounding boundary).  (It used to sum with the float32
+    basis and return float32: 1.27e-2 from the contract form in bf16.)"""
+    phi = torch.from_numpy(_grid(vol, tile, 3)).to(dtype)
     out = ops.bsi_matmul(phi, tile, vol)
-    assert out.dtype == BF16 and out.shape == vol + (3,)
-    b = bspline.basis_matrix(tile, BF16).float()
-    want = bsi_matmul.basis_sum(phi.float(), b, tile, vol).to(BF16)
+    assert out.dtype == dtype and out.shape == vol + (3,)
+    b = bspline.basis_matrix(tile, dtype).float()
+    want = bsi_matmul.basis_sum(phi.float(), b, tile, vol).to(dtype)
     assert torch.equal(out, want)
     X, Y, Z = vol
-    form = interpolate.bsi_matmul(phi.float(), tile, BF16)[:X, :Y, :Z]
-    assert form.dtype == BF16 and torch.equal(out, form)
+    form = interpolate.bsi_matmul(phi.float(), tile, dtype)[:X, :Y, :Z]
+    assert form.dtype == dtype and torch.equal(out, form)
 
 
+@REDUCED
 @pytest.mark.parametrize("tile", [(d, d, d) for d in range(1, 9)]
                          + [(5, 4, 3), (8, 1, 6), (2, 7, 5)])
-def test_fused_basis_is_the_reference_kernels_basis(tile):
-    """``core.bspline.fused_basis`` in bf16 is bit for bit the JAX fused
-    kernel's in-kernel basis, ``kron_basis`` of its bf16 LUTs; the port's
-    bf16 LUTs are the JAX package's."""
-    ref = kron_basis(*(rweight(d, jnp.bfloat16) for d in tile))
-    assert ref.dtype == jnp.bfloat16
-    got = bspline.fused_basis(tile, BF16)
-    assert got.dtype == BF16
+def test_fused_basis_is_the_reference_kernels_basis(tile, dtype):
+    """``core.bspline.fused_basis`` in bf16 (fp16) is bit for bit the JAX
+    fused kernel's in-kernel basis, ``kron_basis`` of its LUTs of the
+    dtype; the port's LUTs are the JAX package's."""
+    ref = kron_basis(*(rweight(d, _jnp(dtype)) for d in tile))
+    assert ref.dtype == _jnp(dtype)
+    got = bspline.fused_basis(tile, dtype)
+    assert got.dtype == dtype
     assert np.array_equal(got.float().numpy(), np.asarray(ref.astype(jnp.float32)))
-    held = bsi_fused.basis_table(tile, "cpu", BF16)
+    held = bsi_fused.basis_table(tile, "cpu", dtype)
     assert held.dtype == torch.float32 and torch.equal(held, got.float())
     # float32 keeps the float64 product cast once (bsi_matmul's basis)
     assert torch.equal(bsi_fused.basis_table(tile, "cpu"), bsi_matmul.basis(tile, "cpu"))
 
 
+@REDUCED
 @pytest.mark.parametrize("mode", ["tt", "matmul"])
 @pytest.mark.parametrize("vol,tile", FORWARD)
-def test_plain_forms_against_reference_kernels(mode, vol, tile):
-    """The TT and matrix forms' plain versions on a bf16 grid against the
-    JAX package's bf16 Pallas kernels (interpreted): the matrix form within
-    one bf16 step (the same bf16 operands, float32 sums in another order);
-    TT at 5e-2 (the JAX kernel accumulates in bf16,
+def test_plain_forms_against_reference_kernels(mode, vol, tile, dtype):
+    """The TT and matrix forms' plain versions on a bf16 (fp16) grid against
+    the JAX package's Pallas kernels of the dtype (interpreted): the matrix
+    form within one step (the same operands, float32 sums in another
+    order); TT at 5e-2 (the JAX kernel accumulates in the dtype,
     ``tests/test_kernels_bsi.py``'s tolerance)."""
     phi = _grid(vol, tile, 4)
     full = tuple((n - 3) * d for n, d in zip(phi.shape[:3], tile))
-    out = ops.FORWARD_KERNELS[mode](torch.from_numpy(phi).to(BF16), tile, full)
-    ref = rops.bsi_pallas(jnp.asarray(phi, jnp.bfloat16), tile, mode=mode)
+    out = ops.FORWARD_KERNELS[mode](torch.from_numpy(phi).to(dtype), tile, full)
+    ref = rops.bsi_pallas(jnp.asarray(phi, _jnp(dtype)), tile, mode=mode)
     ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
     if mode == "matmul":
-        assert _steps(out, ref.to(BF16)).max().item() <= 1.0
+        assert _steps(out, ref.to(dtype)).max().item() <= 1.0
     else:
         assert (out.float() - ref).abs().max().item() <= 5e-2
 
 
+@REDUCED
 @pytest.mark.parametrize("tiles,tile", ttgeo.FORM_GRIDS)
-def test_tt_weights_summed_in_order_are_plain_bit_for_bit(tiles, tile):
-    """The bf16 kernel's weight table (``weight_table(..., bfloat16)``: the
-    float32 products of the bf16 LUTs), its 64 terms added in ``l, m, n``
-    order to the widened grid and each value rounded once, give
-    ``bsi_tt.plain`` of the bf16 grid bit for bit."""
+def test_tt_weights_summed_in_order_are_plain_bit_for_bit(tiles, tile, dtype):
+    """The bf16 (fp16) kernel's weight table (``weight_table(..., dtype)``:
+    the float32 products of the LUTs of the dtype), its 64 terms added in
+    ``l, m, n`` order to the widened grid and each value rounded once, give
+    ``bsi_tt.plain`` of the grid of the dtype bit for bit."""
     dx, dy, dz = tile
     tx, ty, tz = tiles
     rng = np.random.default_rng(34)
     phi = torch.from_numpy(
-        rng.standard_normal((tx + 3, ty + 3, tz + 3, 3)).astype(np.float32) * 2.5).to(BF16)
+        rng.standard_normal((tx + 3, ty + 3, tz + 3, 3)).astype(np.float32) * 2.5).to(dtype)
     rows = bsi_tt.tt_blocks(tile, 3, tile).weight_rows
-    W = bsi_tt.weight_table(tile, "cpu", BF16).reshape(dx, dy, rows, 64)
-    wx, wy, wz = (weight_lut(d, BF16, "cpu").float() for d in tile)
+    W = bsi_tt.weight_table(tile, "cpu", dtype).reshape(dx, dy, rows, 64)
+    wx, wy, wz = (weight_lut(d, dtype, "cpu").float() for d in tile)
     ref_w = ((wx[:, None, None, :, None, None] * wy[None, :, None, None, :, None])
              * wz[None, None, :, None, None, :]).reshape(dx, dy, dz, 64)
     assert torch.equal(W[:, :, :dz], ref_w) and not W[:, :, dz:].any()
@@ -142,7 +159,7 @@ def test_tt_weights_summed_in_order_are_plain_bit_for_bit(tiles, tile):
         acc = acc + p * W[:, :, :dz, q][None, :, None, :, None, :, None]
     full = tuple(t * d for t, d in zip(tiles, tile))
     out = bsi_tt.plain(phi, tile, full)
-    assert out.dtype == BF16 and torch.equal(acc.reshape(full + (3,)).to(BF16), out)
+    assert out.dtype == dtype and torch.equal(acc.reshape(full + (3,)).to(dtype), out)
 
 
 @pytest.mark.parametrize("tile", ttgeo.TILES)
@@ -229,59 +246,62 @@ def _fused_inputs(vol, tile, seed=2):
     return phi, mov, fix
 
 
+@REDUCED
 @pytest.mark.parametrize("spec", FUSED_SPECS, ids=lambda s: "-".join(map(str, s[:2])))
 @pytest.mark.parametrize("vol,tile", FUSED_VOLUMES)
-def test_bf16_fused_matmul_plain_against_reference_kernel(vol, tile, spec):
-    """Each fused variant's plain version in the matrix form on bf16 ``phi``
-    and ``moving`` against the JAX package's fused kernel, interpreted, with
-    ``disp_form="matmul"`` under bf16: 1e-5 relative (measured at most
-    3.3e-7).  Both take the basis of the bf16 LUTs with each product
-    rounded to bf16 and round the displacement once to bf16; only their
-    float32 sums' order differs."""
+def test_bf16_fused_matmul_plain_against_reference_kernel(vol, tile, spec, dtype):
+    """Each fused variant's plain version in the matrix form on bf16 (fp16)
+    ``phi`` and ``moving`` against the JAX package's fused kernel,
+    interpreted, with ``disp_form="matmul"`` under the same dtype: 1e-5
+    relative (measured at most 3.3e-7 in bf16).  Both take the basis of the
+    LUTs of the dtype with each product rounded to it and round the
+    displacement once to it; only their float32 sums' order differs."""
     phi, mov, fix = _fused_inputs(vol, tile)
     ref = float(rops.fused_similarity_loss(
         jnp.asarray(phi), jnp.asarray(mov), jnp.asarray(fix), tile, sim_spec=spec,
-        interpret=True, disp_form="matmul", compute_dtype="bfloat16"))
-    out = ops.fused_similarity_loss(torch.from_numpy(phi).to(BF16),
-                                    torch.from_numpy(mov).to(BF16), torch.from_numpy(fix),
+        interpret=True, disp_form="matmul", compute_dtype=_name(dtype)))
+    out = ops.fused_similarity_loss(torch.from_numpy(phi).to(dtype),
+                                    torch.from_numpy(mov).to(dtype), torch.from_numpy(fix),
                                     tile, sim_spec=spec, disp_form="matmul")
     assert out.dtype == torch.float32 and out.dim() == 0
     assert abs(out.item() - ref) <= 1e-5 * abs(ref)
 
 
+@REDUCED
 @pytest.mark.parametrize("vol,tile", FUSED_VOLUMES)
-def test_bf16_fused_matmul_displacement_is_rounded_once(vol, tile):
-    """The matrix form's plain warp on bf16 inputs: its displacement is the
-    float32 sums of the widened grid with the fused basis, rounded once to
-    bf16 and widened (where it used to stay float32), and the warp the
-    float32 warp of the widened bf16 volume there."""
+def test_bf16_fused_matmul_displacement_is_rounded_once(vol, tile, dtype):
+    """The matrix form's plain warp on bf16 (fp16) inputs: its displacement
+    is the float32 sums of the widened grid with the fused basis, rounded
+    once to the dtype and widened (where it used to stay float32), and the
+    warp the float32 warp of the widened volume there."""
     phi, mov, _ = _fused_inputs(vol, tile, seed=5)
-    p, m = torch.from_numpy(phi).to(BF16), torch.from_numpy(mov).to(BF16)
+    p, m = torch.from_numpy(phi).to(dtype), torch.from_numpy(mov).to(dtype)
     disp = bsi_fused.displacement(p, tile, vol, "matmul")
-    b = bsi_fused.basis_table(tile, "cpu", BF16)
-    assert disp.dtype == BF16
-    assert torch.equal(disp, bsi_matmul.basis_sum(p.float(), b, tile, vol).to(BF16))
+    b = bsi_fused.basis_table(tile, "cpu", dtype)
+    assert disp.dtype == dtype
+    assert torch.equal(disp, bsi_matmul.basis_sum(p.float(), b, tile, vol).to(dtype))
     out = bsi_fused.warped(p, m, tile, "matmul")
     assert out.dtype == torch.float32
     assert torch.equal(out, ffd.warp_volume(m.float(), disp.float()))
 
 
+@REDUCED
 @pytest.mark.parametrize("full,tile,c", [((12, 9, 15), (3, 3, 3), 3),
                                           ((8, 12, 12), (4, 4, 4), 1),
                                           ((10, 9, 8), (5, 3, 2), 3)])
-def test_bf16_matmul_adjoint_reads_the_cotangent_as_float32(full, tile, c):
-    """``bsi_adjoint_matmul`` on a bf16 cotangent (its plain version here)
-    is float32, bit for bit itself on the widened cotangent, and within
-    1e-5 of the JAX package's Pallas matmul adjoint on the same bf16
+def test_bf16_matmul_adjoint_reads_the_cotangent_as_float32(full, tile, c, dtype):
+    """``bsi_adjoint_matmul`` on a bf16 (fp16) cotangent (its plain version
+    here) is float32, bit for bit itself on the widened cotangent, and
+    within 1e-5 of the JAX package's Pallas matmul adjoint on the same
     cotangent (both float32 sums with the float32 basis)."""
     rng = np.random.default_rng(12)
-    g = torch.from_numpy(rng.standard_normal(full + (c,)).astype(np.float32)).to(BF16)
+    g = torch.from_numpy(rng.standard_normal(full + (c,)).astype(np.float32)).to(dtype)
     grid = tuple(n // d + 3 for n, d in zip(full, tile))
     out = ops.bsi_adjoint_matmul(g, tile, grid)
     assert out.dtype == torch.float32 and out.shape == grid + (c,)
     assert torch.equal(out, ops.bsi_adjoint_matmul(g.float(), tile, grid))
     assert torch.equal(out, bsi_adjoint.plain_matmul(g.float(), tile, grid))
-    ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(g.float().numpy(), jnp.bfloat16),
+    ref = np.asarray(rops.bsi_adjoint_pallas(jnp.asarray(g.float().numpy(), _jnp(dtype)),
                                              tile, form="matmul", interpret=True))
     assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
@@ -298,18 +318,19 @@ def pair():
                                                   ("matmul", "matmul", "off"),
                                                   ("matmul", "matmul", "on")],
                          ids=["tt", "matmul", "matmul-fused"])
-def test_bf16_registration_matches_reference(pair, mode, grad_impl, fused):
-    """``ffd_register`` under bf16 in the TT form and in the matrix form
+@REDUCED
+def test_bf16_registration_matches_reference(pair, mode, grad_impl, fused, dtype):
+    """``ffd_register`` under bf16 (fp16) in the TT form and in the matrix form
     (unfused, and fused: the matrix-form fused forward, its backward's
     field recomputed by ``bsi_matmul``), on the card's path (``impl="cuda"``
     and the adjoint kernel of ``grad_impl``, their plain versions here),
-    against the JAX package's same call in bf16 (its ``jnp`` forms; fused,
+    against the JAX package's same call in the dtype (its ``jnp`` forms; fused,
     its fused kernel interpreted) at the JAX package's bf16 bounds (final
     loss within 1.1x + 1e-4 both ways, warp MAE < 5e-3,
     ``tests/test_adjoint.py``)."""
     fixed, moving = pair
     kw = dict(tile=(6, 6, 6), levels=1, iters=8, mode=mode, impl="jnp", grad_impl="jnp",
-              fused=fused, compute_dtype="bfloat16")
+              fused=fused, compute_dtype=_name(dtype))
     ref = ref_ffd_register(fixed, moving, options=RefOptions(**kw))
     opts = options_from_reference(kw).replace(impl="cuda", grad_impl=grad_impl)
     res = ffd_register(fixed, moving, options=opts, device="cpu")

@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import RegistrationOptions, ffd_register, make_pair  # noqa: E402
 from repro_torch.core import ffd  # noqa: E402
+from repro_torch.core.bspline import reduced_step  # noqa: E402
 from repro_torch.core.interpolate import bsi_gather, interpolate  # noqa: E402
 from repro_torch.kernels import (bsi_adjoint, bsi_fused, bsi_matmul,  # noqa: E402
                                   bsi_separable, bsi_tt, bsi_ttli, flash_attention,
@@ -935,15 +936,13 @@ def fresh_build(tmp_path_factory):
 
 def test_walk_kernels_do_not_spill(fresh_build):
     """ptxas's line for each (form, moment) instantiation of the walk, and
-    each moment's bf16 kernel (lerp form), named by
+    each moment's bf16 and fp16 kernels (both forms), named by
     ``bsi_fused.occupancy_key``: no spill stores or loads."""
-    keys = [(kind, form, False) for form in bsi_fused.DISP_FORMS
-            for kind in ("ssd", "stats", "ncc")]
-    keys += [(kind, form, True) for form in bsi_fused.DISP_FORMS
-             for kind in ("ssd", "stats", "ncc")]
-    for kind, form, bf16 in keys:
+    keys = [(kind, form, dtype) for dtype in (torch.float32, torch.bfloat16, torch.float16)
+            for form in bsi_fused.DISP_FORMS for kind in ("ssd", "stats", "ncc")]
+    for kind, form, dtype in keys:
         symbol, _, _ = bsi_fused.occupancy_key(kind, form, (5, 5, 5), (512, 228, 385),
-                                               bf16=bf16)
+                                               dtype=dtype)
         lines = [ln for ln in fresh_build.ptxas if symbol in ln and "registers" in ln]
         assert len(lines) == 1, (symbol, fresh_build.ptxas)
         assert "0/0 B spill stores/loads" in lines[0], lines
@@ -957,29 +956,30 @@ def _ptxas_line(build, *parts):
     return lines[0]
 
 
-def test_bf16_fused_and_adjoint_kernels_do_not_spill(fresh_build):
-    """The bf16 nmi kernels at 32 bins and the bf16 lncc kernels (window 9
-    and any), in both forms, the separable adjoint's bf16 streaming kernels
-    (the paper's tile and any), the matmul adjoint's bf16 box kernel of 128
-    columns (the one phantom1 runs; the 64-column one spills 24/44 B on
-    the H100's build, its float32 twin none) and the bf16 TT (at the
+@pytest.mark.parametrize("sx,type_name", [("bf16", "__nv_bfloat16"), ("f16", "__half")])
+def test_bf16_fused_and_adjoint_kernels_do_not_spill(fresh_build, sx, type_name):
+    """The bf16 (fp16) nmi kernels at 32 bins and lncc kernels (window 9
+    and any), in both forms, the separable adjoint's streaming kernels of
+    the dtype (the paper's tile and any), the matmul adjoint's box kernel
+    of 128 columns (the one phantom1 runs; the bf16 64-column one spills
+    24/44 B on the H100's build, its float32 twin none) and the TT (at the
     paper's tile) and matrix-form forward kernels: no spill stores or
     loads.
-    Each bf16 nmi kernel at 64 bins spills what the float32 kernel of its
-    form at 64 bins spills (8 bytes for the lerp form on the H100's
+    Each reduced nmi kernel at 64 bins spills what the float32 kernel of
+    its form at 64 bins spills (8 bytes for the lerp form on the H100's
     build), no more: the same arithmetic after the loads."""
-    for parts in (("bsi_fused_nmi_bf16_kernelILi0ELi32EE",),
-                  ("bsi_fused_nmi_bf16_kernelILi1ELi32EE",),
-                  ("bsi_fused_lncc_bf16_kernelILi0ELi9EE",),
-                  ("bsi_fused_lncc_bf16_kernelILi0ELi0EE",),
-                  ("bsi_fused_lncc_bf16_kernelILi1ELi9EE",),
-                  ("bsi_fused_lncc_bf16_kernelILi1ELi0EE",),
-                  ("adjoint_stream_kernelILi3ELi5E", "bfloat16"),
-                  ("adjoint_stream_kernelILi0ELi0E", "bfloat16"),
-                  ("adjoint_matmul_box_bf16_kernelILi128E",),
-                  ("bsi_tt_bf16_kernelILi5E",),
-                  ("bsi_matmul_bf16_kernelILi3E",),
-                  ("bsi_matmul_bf16_kernelILi0E",)):
+    for parts in ((f"bsi_fused_nmi_{sx}_kernelILi0ELi32EE",),
+                  (f"bsi_fused_nmi_{sx}_kernelILi1ELi32EE",),
+                  (f"bsi_fused_lncc_{sx}_kernelILi0ELi9EE",),
+                  (f"bsi_fused_lncc_{sx}_kernelILi0ELi0EE",),
+                  (f"bsi_fused_lncc_{sx}_kernelILi1ELi9EE",),
+                  (f"bsi_fused_lncc_{sx}_kernelILi1ELi0EE",),
+                  ("adjoint_stream_kernelILi3ELi5E", type_name),
+                  ("adjoint_stream_kernelILi0ELi0E", type_name),
+                  (f"adjoint_matmul_box_{sx}_kernelILi128E",),
+                  (f"bsi_tt_{sx}_kernelILi5E",),
+                  (f"bsi_matmul_{sx}_kernelILi3E",),
+                  (f"bsi_matmul_{sx}_kernelILi0E",)):
         line = _ptxas_line(fresh_build, *parts)
         assert "0/0 B spill stores/loads" in line, line
 
@@ -987,7 +987,7 @@ def test_bf16_fused_and_adjoint_kernels_do_not_spill(fresh_build):
         return re.search(r"(\d+/\d+ B) spill", line).group(1)
 
     for form in (0, 1):
-        assert spill(_ptxas_line(fresh_build, f"bsi_fused_nmi_bf16_kernelILi{form}ELi64EE")) \
+        assert spill(_ptxas_line(fresh_build, f"bsi_fused_nmi_{sx}_kernelILi{form}ELi64EE")) \
             == spill(_ptxas_line(fresh_build, f"bsi_fused_nmi_kernelILi{form}ELi64EE"))
 
 
@@ -1185,81 +1185,102 @@ def test_gauss_newton_and_affine_on_card_match_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# compute_dtype="bfloat16": the bf16 forward kernels and the bf16 path
+# compute_dtype="bfloat16" and "float16": the reduced kernels and paths, each
+# test run on both dtypes (the fp16 kernels are the bf16 ones' templates on
+# __half)
 # ---------------------------------------------------------------------------
 
 BF16_KERNELS = [("bsi_ttli", bsi_ttli), ("bsi_separable", bsi_separable),
                 ("bsi_tt", bsi_tt), ("bsi_matmul", bsi_matmul)]
+REDUCED = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                                  ids=["bf16", "f16"])
 
 
-def _bf16_gap(out, ref):
-    """``|out - ref|`` over one bf16 step of the larger magnitude plus 1e-5
-    of the largest value: both are a float32 value rounded once, and the
-    float32 sums of kernel and plain may differ by the float32 kernels'
-    1e-5 before the rounding.  At most 1 holds each value within a step."""
+def _sx(dtype):
+    """The kernels' name suffix of ``dtype``: ``bf16`` or ``f16``."""
+    return bsi_ttli.ENTRY_SUFFIX[dtype]
+
+
+def _cd(dtype):
+    """``dtype`` as a compute dtype name: ``"bfloat16"`` or ``"float16"``."""
+    return str(dtype).removeprefix("torch.")
+
+
+def _reduced_gap(out, ref):
+    """``|out - ref|`` over one step of ``out``'s dtype (bf16 or fp16) of the
+    larger magnitude plus 1e-5 of the largest value: both are a float32
+    value rounded once, and the float32 sums of kernel and plain may differ
+    by the float32 kernels' 1e-5 before the rounding.  At most 1 holds each
+    value within a step."""
     a, b = out.float(), ref.float()
-    m = torch.maximum(a.abs(), b.abs())
-    step = torch.ldexp(torch.ones_like(m), torch.frexp(m).exponent - 8)
+    step = reduced_step(torch.maximum(a.abs(), b.abs()), out.dtype)
     return ((a - b).abs() / (step + 1e-5 * b.abs().max())).max().item()
 
 
+@REDUCED
 @pytest.mark.parametrize("name,module", BF16_KERNELS, ids=["ttli", "separable", "tt", "matmul"])
 @pytest.mark.parametrize("vol,tile", CASES)
 @pytest.mark.parametrize("c", [1, 3])
-def test_bf16_forward_kernels_match_plain(cuda, name, module, vol, tile, c):
-    """A bf16 grid runs the bf16 kernel: a bf16 field within one bf16 step
-    of the plain version's (odd volumes: runs and columns starting on odd
-    values), counted apart from the float32 kernel, two calls bit-equal."""
-    phi = (_grid(vol, tile, c, 0, cuda) * 2.5).to(torch.bfloat16)
+def test_bf16_forward_kernels_match_plain(cuda, name, module, vol, tile, c, dtype):
+    """A bf16 (fp16) grid runs the bf16 (fp16) kernel: a field of its dtype
+    within one step of the plain version's (odd volumes: runs and columns
+    starting on odd values), counted apart from the float32 kernel, two
+    calls bit-equal."""
+    phi = (_grid(vol, tile, c, 0, cuda) * 2.5).to(dtype)
     kernel = getattr(ops, name)
     ops.reset_launch_counts()
     out, again = kernel(phi, tile, vol), kernel(phi, tile, vol)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == _no_launches_but(**{f"{name}_bf16": 2})
+    assert ops.launch_counts() == _no_launches_but(**{f"{name}_{_sx(dtype)}": 2})
     ref = module.plain(phi, tile, vol)
-    assert out.dtype == ref.dtype == torch.bfloat16 and out.shape == vol + (c,)
-    assert _bf16_gap(out, ref) <= 1.0
+    assert out.dtype == ref.dtype == dtype and out.shape == vol + (c,)
+    assert _reduced_gap(out, ref) <= 1.0
     assert torch.equal(out, again)
 
 
+@REDUCED
 @pytest.mark.parametrize("vol,tile", CASES + [((7, 6, 700), (5, 4, 3))])
 @pytest.mark.parametrize("c", [1, 3])
-def test_bf16_tt_kernel_is_plain_bit_for_bit(cuda, vol, tile, c):
-    """``bsi_tt_bf16`` equals its plain version bit for bit (the weights of
-    the bf16 LUTs, the float32 sums in order, one rounding), odd runs and
-    bulk stores of 2-byte values included."""
-    phi = (_grid(vol, tile, c, 1, cuda) * 2.5).to(torch.bfloat16)
+def test_bf16_tt_kernel_is_plain_bit_for_bit(cuda, vol, tile, c, dtype):
+    """``bsi_tt_bf16`` (``bsi_tt_f16``) equals its plain version bit for bit
+    (the weights of the LUTs of its dtype, the float32 sums in order, one
+    rounding), odd runs and bulk stores of 2-byte values included."""
+    phi = (_grid(vol, tile, c, 1, cuda) * 2.5).to(dtype)
     assert torch.equal(ops.bsi_tt(phi, tile, vol), bsi_tt.plain(phi, tile, vol))
 
 
+@REDUCED
 @pytest.mark.parametrize("vol,tile", CASES + [((7, 6, 700), (5, 4, 3))])
 @pytest.mark.parametrize("c", [1, 3])
 def test_bf16_matmul_kernel_is_the_float32_kernel_rounded_once(cuda, monkeypatch, vol,
-                                                               tile, c):
-    """``bsi_matmul_bf16`` runs the float32 kernel's hi products in its
-    order: bit for bit ``bf16`` of the float32 kernel on the widened grid
-    with the bf16 basis's fragments (their lo parts zero)."""
-    phi = (_grid(vol, tile, c, 2, cuda) * 2.5).to(torch.bfloat16)
+                                                               tile, c, dtype):
+    """``bsi_matmul_bf16`` (``bsi_matmul_f16``) runs the float32 kernel's hi
+    products in its order: bit for bit the float32 kernel on the widened
+    grid with the basis fragments of its dtype (their lo parts zero: bf16
+    and fp16 values are exact in TF32), rounded once to its dtype."""
+    phi = (_grid(vol, tile, c, 2, cuda) * 2.5).to(dtype)
     out = ops.bsi_matmul(phi, tile, vol)
     frag = bsi_matmul.basis_fragments
     monkeypatch.setattr(bsi_matmul, "basis_fragments",
-                        lambda t, dev, dt=torch.float32: frag(t, dev, torch.bfloat16))
+                        lambda t, dev, dt=torch.float32: frag(t, dev, dtype))
     wide = ops.bsi_matmul(phi.float(), tile, vol)
-    assert out.dtype == torch.bfloat16 and torch.equal(out, wide.to(torch.bfloat16))
+    assert out.dtype == dtype and torch.equal(out, wide.to(dtype))
 
 
-def test_bf16_dispatchers_run_their_kernels_and_refuse_mixed_dtypes(cuda):
-    """No cast: a bf16 CUDA tensor runs the bf16 kernel of every form (the
-    TT and matrix forwards, the matmul adjoint, the fused kernels' matrix
-    form), counted apart, and the options route there too; a float32 grid
-    with a bf16 volume, or the reverse, is refused in either form."""
+@REDUCED
+def test_bf16_dispatchers_run_their_kernels_and_refuse_mixed_dtypes(cuda, dtype):
+    """No cast: a bf16 (fp16) CUDA tensor runs the bf16 (fp16) kernel of
+    every form (the TT and matrix forwards, the matmul adjoint, the fused
+    kernels' matrix form), counted apart, and the options route there too; a
+    float32 grid with a reduced volume, the reverse, or bf16 with fp16, is
+    refused in either form."""
     tile, vol = (5, 5, 5), (10, 10, 10)
-    phi = _grid(vol, tile, 3, 8, cuda).to(torch.bfloat16)
+    phi = _grid(vol, tile, 3, 8, cuda).to(dtype)
     vol_t = torch.rand(vol, device=cuda)
-    mov = vol_t.to(torch.bfloat16)
+    mov = vol_t.to(dtype)
     ops.reset_launch_counts()
     for fn in (ops.bsi_tt, ops.bsi_matmul):
-        assert fn(phi, tile, vol).dtype == torch.bfloat16
+        assert fn(phi, tile, vol).dtype == dtype
     mm = dict(disp_form="matmul")
     scal = torch.tensor([0.5, 0.5, 0.0, 1.0], device=cuda)
     ops.fused_ssd_loss(phi, mov, vol_t, tile, **mm)
@@ -1268,14 +1289,14 @@ def test_bf16_dispatchers_run_their_kernels_and_refuse_mixed_dtypes(cuda):
     ops.fused_nmi_histogram(phi, mov, vol_t, scal, tile, bins=32, sigma=0.5 / 31,
                             eps=1e-8, **mm)
     ops.fused_lncc(phi, mov, vol_t, tile, window=9, eps=1e-5, **mm)
-    g = torch.rand(vol + (3,), device=cuda, dtype=torch.bfloat16)
+    g = torch.rand(vol + (3,), device=cuda, dtype=dtype)
     out = ops.bsi_adjoint_matmul(g, tile, phi.shape[:3])
     assert out.dtype == torch.float32
-    assert ops.launch_counts() == _no_launches_but(
-        bsi_tt_bf16=1, bsi_matmul_bf16=1, bsi_fused_matmul_bf16=1,
-        bsi_fused_stats_matmul_bf16=1, bsi_fused_ncc_matmul_bf16=1,
-        bsi_fused_nmi_matmul_bf16=1, bsi_fused_lncc_matmul_bf16=1,
-        bsi_adjoint_matmul_bf16=1)
+    assert ops.launch_counts() == _no_launches_but(**{f"{k}_{_sx(dtype)}": 1 for k in (
+        "bsi_tt", "bsi_matmul", "bsi_fused_matmul", "bsi_fused_stats_matmul",
+        "bsi_fused_ncc_matmul", "bsi_fused_nmi_matmul", "bsi_fused_lncc_matmul",
+        "bsi_adjoint_matmul")})
+    other = torch.float16 if dtype == torch.bfloat16 else torch.bfloat16
     for form in bsi_fused.DISP_FORMS:
         with pytest.raises(TypeError, match="moving"):
             ops.fused_ssd_loss(phi, vol_t, vol_t, tile, disp_form=form)
@@ -1283,31 +1304,35 @@ def test_bf16_dispatchers_run_their_kernels_and_refuse_mixed_dtypes(cuda):
             ops.fused_ssd_loss(phi.float(), mov, vol_t, tile, disp_form=form)
         with pytest.raises(TypeError, match="fixed"):
             ops.fused_ssd_loss(phi, mov, mov, tile, disp_form=form)
+        with pytest.raises(TypeError, match="moving"):
+            ops.fused_ssd_loss(phi, vol_t.to(other), vol_t, tile, disp_form=form)
     f, m, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    for fields, want in ((dict(mode="tt"), "bsi_tt_bf16"),
+    for fields, want in ((dict(mode="tt"), f"bsi_tt_{_sx(dtype)}"),
                          (dict(mode="matmul", grad_impl="matmul", fused="on"),
-                          "bsi_fused_matmul_bf16")):
-        opts = RegistrationOptions(iters=1, compute_dtype="bfloat16", **fields)
+                          f"bsi_fused_matmul_{_sx(dtype)}")):
+        opts = RegistrationOptions(iters=1, compute_dtype=_cd(dtype), **fields)
         ops.reset_launch_counts()
         ffd_register(f, m, options=opts, device=cuda)
         assert ops.launch_counts()[want] > 0, ops.launch_counts()
 
 
+@REDUCED
 @pytest.mark.parametrize("fields,want", [
-    (dict(mode="tt", fused="off"), dict(bsi_tt_bf16=1, bsi_adjoint_bf16=1)),
+    (dict(mode="tt", fused="off"), ("bsi_tt", "bsi_adjoint")),
     (dict(mode="matmul", grad_impl="matmul", fused="off"),
-     dict(bsi_matmul_bf16=1, bsi_adjoint_matmul_bf16=1)),
+     ("bsi_matmul", "bsi_adjoint_matmul")),
     (dict(mode="matmul", grad_impl="matmul", fused="on"),
-     dict(bsi_fused_matmul_bf16=1, bsi_matmul_bf16=1, bsi_adjoint_matmul_bf16=1))],
+     ("bsi_fused_matmul", "bsi_matmul", "bsi_adjoint_matmul"))],
     ids=["tt", "matmul", "matmul-fused"])
-def test_bf16_matrix_and_tt_registration_on_card_matches_cpu(cuda, fields, want):
-    """The bf16 TT and matrix forms, unfused and fused, on the card against
-    the CPU's plain versions: a step's kernels bf16 (the fused step's
-    backward recomputing its field by ``bsi_matmul_bf16``), the final warp
+def test_bf16_matrix_and_tt_registration_on_card_matches_cpu(cuda, fields, want, dtype):
+    """The bf16 (fp16) TT and matrix forms, unfused and fused, on the card
+    against the CPU's plain versions: a step's kernels of the dtype (the
+    fused step's backward recomputing its field by ``bsi_matmul_bf16`` or
+    ``bsi_matmul_f16``), the final warp
     one float32 forward; per-level losses within 1e-3 relative and the
     warps within 1e-3, as the lerp form's bf16 paths."""
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    opts = RegistrationOptions(levels=2, iters=5, impl="cuda", compute_dtype="bfloat16",
+    opts = RegistrationOptions(levels=2, iters=5, impl="cuda", compute_dtype=_cd(dtype),
                                **{"grad_impl": "cuda", **fields})
     ops.reset_launch_counts()
     card = ffd_register(fixed, moving, options=opts, device=cuda)
@@ -1315,70 +1340,72 @@ def test_bf16_matrix_and_tt_registration_on_card_matches_cpu(cuda, fields, want)
     host = ffd_register(fixed, moving, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
     assert counts == _no_launches_but(**{f"bsi_{opts.mode}": 1},
-                                      **{k: v * steps for k, v in want.items()})
+                                      **{f"{k}_{_sx(dtype)}": steps for k in want})
     assert card.warped.dtype == card.params.dtype == torch.float32
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
     assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
 
 
-def test_bf16_registration_on_card_matches_cpu(cuda):
-    """The bf16 default path (``ttli / cuda / cuda`` unfused) on the card
-    against the CPU's plain versions: the level loops' forwards the bf16
-    kernel, the final warp float32 as in the JAX package; per-level losses
-    within 1e-3 relative and the warps within 1e-3 (a value may round a
-    bf16 step apart, and Adam carries it)."""
+@REDUCED
+def test_bf16_registration_on_card_matches_cpu(cuda, dtype):
+    """The bf16 (fp16) default path (``ttli / cuda / cuda`` unfused) on the
+    card against the CPU's plain versions: the level loops' forwards the
+    kernel of the dtype, the final warp float32 as in the JAX package;
+    per-level losses within 1e-3 relative and the warps within 1e-3 (a
+    value may round a step apart, and Adam carries it)."""
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
-    opts = RegistrationOptions(levels=2, iters=5, fused="off", compute_dtype="bfloat16")
+    opts = RegistrationOptions(levels=2, iters=5, fused="off", compute_dtype=_cd(dtype))
     ops.reset_launch_counts()
     card = ffd_register(fixed, moving, options=opts, device=cuda)
     counts = ops.launch_counts()
     host = ffd_register(fixed, moving, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
-    assert counts == _no_launches_but(bsi_ttli_bf16=steps, bsi_ttli=1,
-                                      bsi_adjoint_bf16=steps)
+    assert counts == _no_launches_but(bsi_ttli=1, **{f"bsi_ttli_{_sx(dtype)}": steps,
+                                                     f"bsi_adjoint_{_sx(dtype)}": steps})
     assert card.warped.dtype == card.params.dtype == torch.float32
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
     assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
 
 
+@REDUCED
 @pytest.mark.parametrize("sim,want", [
-    ("ssd", dict(bsi_fused_bf16=1)),
-    ("ncc", dict(bsi_fused_stats_bf16=1, bsi_fused_ncc_bf16=1)),
-    ("nmi", dict(bsi_fused_stats_bf16=1, bsi_fused_nmi_bf16=1)),
-    ("lncc", dict(bsi_fused_lncc_bf16=1))])
-def test_bf16_fused_registration_on_card_matches_cpu(cuda, sim, want):
-    """The bf16 fused level step (``ttli / cuda / cuda``, ``fused="on"``)
-    on the card against the CPU's plain versions: a step's forward the bf16
-    fused kernels, its backward the bf16 forward kernel and the bf16
-    adjoint, the final warp float32; per-level losses within 1e-3 relative
-    and the warps within 1e-3, as the unfused bf16 path."""
+    ("ssd", ("bsi_fused",)),
+    ("ncc", ("bsi_fused_stats", "bsi_fused_ncc")),
+    ("nmi", ("bsi_fused_stats", "bsi_fused_nmi")),
+    ("lncc", ("bsi_fused_lncc",))])
+def test_bf16_fused_registration_on_card_matches_cpu(cuda, sim, want, dtype):
+    """The bf16 (fp16) fused level step (``ttli / cuda / cuda``,
+    ``fused="on"``) on the card against the CPU's plain versions: a step's
+    forward the fused kernels of the dtype, its backward the forward kernel
+    and the adjoint of the dtype, the final warp float32; per-level losses
+    within 1e-3 relative and the warps within 1e-3, as the unfused path."""
     fixed, moving, _ = make_pair((28, 24, 20), seed=0, device="cpu")
     opts = RegistrationOptions(levels=2, iters=5, fused="on", mode="ttli", impl="cuda",
-                               grad_impl="cuda", similarity=sim, compute_dtype="bfloat16")
+                               grad_impl="cuda", similarity=sim, compute_dtype=_cd(dtype))
     ops.reset_launch_counts()
     card = ffd_register(fixed, moving, options=opts, device=cuda)
     counts = ops.launch_counts()
     host = ffd_register(fixed, moving, options=opts, device="cpu")
     steps = opts.levels * (opts.iters + 1)
-    assert counts == _no_launches_but(bsi_ttli_bf16=steps, bsi_ttli=1,
-                                      bsi_adjoint_bf16=steps,
-                                      **{k: v * steps for k, v in want.items()})
+    assert counts == _no_launches_but(bsi_ttli=1, **{
+        f"{k}_{_sx(dtype)}": steps for k in ("bsi_ttli", "bsi_adjoint") + want})
     np.testing.assert_allclose(card.losses, host.losses, rtol=1e-3)
     assert (card.warped.cpu() - host.warped).abs().mean().item() <= 1e-3
 
 
+@REDUCED
 @pytest.mark.parametrize("form", bsi_fused.DISP_FORMS)
 @pytest.mark.parametrize("vol,tile", WALK_CASES)
-def test_bf16_fused_kernels_at_odd_volumes(cuda, vol, tile, form):
-    """The five fused variants' bf16 kernels in each displacement form on a
-    bf16 ``phi`` and ``moving`` (columns, runs and lines starting on odd
+def test_bf16_fused_kernels_at_odd_volumes(cuda, vol, tile, form, dtype):
+    """The five fused variants' bf16 (fp16) kernels in each displacement
+    form on a ``phi`` and ``moving`` of the dtype (columns, runs and lines starting on odd
     values) against their plain versions on the same inputs, as the float32
     kernels are held: ssd, stats and ncc sums at 1e-5 relative, stats' min,
     max and count exact, two calls bit-equal; nmi's histogram at 1e-5 of
     its largest cell; lncc at 1e-5 with its count exact; each counted
     apart."""
     phi, mov, fix = _fused_inputs(vol, tile, 16, cuda)
-    phi, mov = phi.to(torch.bfloat16), mov.to(torch.bfloat16)
+    phi, mov = phi.to(dtype), mov.to(dtype)
     ops.reset_launch_counts()
     ops_kw = dict(disp_form=form)
     ssd = [ops.fused_ssd_loss(phi, mov, fix, tile, **ops_kw) for _ in range(2)]
@@ -1405,21 +1432,22 @@ def test_bf16_fused_kernels_at_odd_volumes(cuda, vol, tile, form):
     assert out[1].item() == want[1].item() == np.prod([s - w + 1 for s in vol])
     assert abs(out[0].item() - want[0].item()) <= 1e-5 * abs(want[0].item())
     assert ops.launch_counts() == _no_launches_but(**{
-        ops._fused_name(kind, form, torch.bfloat16): n for kind, n in (
+        ops._fused_name(kind, form, dtype): n for kind, n in (
             ("ssd", 2), ("stats", 2), ("ncc", 2), ("nmi", 1), ("lncc", 1))})
 
 
+@REDUCED
 @pytest.mark.parametrize("form", ["separable", "matmul"])
 @pytest.mark.parametrize("vol,tile", CASES + UNALIGNED + [LONG_Z])
 @pytest.mark.parametrize("c", [1, 3])
-def test_bf16_adjoint_kernel_is_the_float32_kernel_on_the_widened_cotangent(cuda, vol,
-                                                                           tile, c, form):
-    """A bf16 cotangent runs ``bsi_adjoint_bf16`` (or
-    ``bsi_adjoint_matmul_bf16``): bit for bit the float32 kernel on
-    ``g.float()`` (the same geometry, LUTs or basis and sums; only the load
-    differs), rows starting on odd values included, and within 1e-5 of the
-    plain version on the bf16 cotangent."""
-    g = _adjoint_input(vol, c, 36, cuda).to(torch.bfloat16)
+def test_bf16_adjoint_kernel_is_the_float32_kernel_on_the_widened_cotangent(
+        cuda, vol, tile, c, form, dtype):
+    """A bf16 (fp16) cotangent runs ``bsi_adjoint_bf16`` (``_f16``) or
+    ``bsi_adjoint_matmul_bf16`` (``_f16``): bit for bit the float32 kernel
+    on ``g.float()`` (the same geometry, LUTs or basis and sums; only the
+    load differs), rows starting on odd values included, and within 1e-5 of
+    the plain version on the reduced cotangent."""
+    g = _adjoint_input(vol, c, 36, cuda).to(dtype)
     gshape = ffd.grid_shape_for_volume(vol, tile)
     kernel, plain, name = ((ops.bsi_adjoint, bsi_adjoint.plain, "bsi_adjoint")
                            if form == "separable" else
@@ -1427,20 +1455,21 @@ def test_bf16_adjoint_kernel_is_the_float32_kernel_on_the_widened_cotangent(cuda
                             "bsi_adjoint_matmul"))
     ops.reset_launch_counts()
     out = kernel(g, tile, gshape)
-    assert ops.launch_counts() == _no_launches_but(**{f"{name}_bf16": 1})
+    assert ops.launch_counts() == _no_launches_but(**{f"{name}_{_sx(dtype)}": 1})
     assert out.dtype == torch.float32
     assert torch.equal(out, kernel(g.float(), tile, gshape))
     ref = plain(g, tile, gshape)
     assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
+@REDUCED
 @pytest.mark.parametrize("vol,tile", UNALIGNED)
-def test_bf16_adjoint_kernel_reads_an_unaligned_view(cuda, vol, tile):
-    """A bf16 view that starts on an odd value (planes of Y*Z*C = 273
+def test_bf16_adjoint_kernel_reads_an_unaligned_view(cuda, vol, tile, dtype):
+    """A bf16 (fp16) view that starts on an odd value (planes of Y*Z*C = 273
     values) and ends where its allocation ends: bit for bit the float32
     kernel."""
     c = 3
-    big = _adjoint_input((vol[0] + 1,) + vol[1:], c, 37, cuda).to(torch.bfloat16)
+    big = _adjoint_input((vol[0] + 1,) + vol[1:], c, 37, cuda).to(dtype)
     g = big[1:]
     assert g.data_ptr() % 4 == 2 and g.is_contiguous() and math.prod(vol[1:]) * c % 2
     gshape = ffd.grid_shape_for_volume(vol, tile)
@@ -1448,22 +1477,24 @@ def test_bf16_adjoint_kernel_reads_an_unaligned_view(cuda, vol, tile):
         assert torch.equal(kernel(g, tile, gshape), kernel(g.float(), tile, gshape))
 
 
-def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch):
-    """On the card under bf16, ``"auto"`` races the four forms' bf16
-    kernels with the analytic adjoints, and ``fused="auto"`` races the bf16
-    fused level step against the winner, keyed ``|cd=bfloat16|``."""
+@REDUCED
+def test_bf16_auto_races_only_the_bf16_kernels(cuda, tmp_path, monkeypatch, dtype):
+    """On the card under bf16 (fp16), ``"auto"`` races the four forms'
+    kernels of the dtype with the analytic adjoints, and ``fused="auto"``
+    races the fused level step of the dtype against the winner, keyed
+    ``|cd=bfloat16|`` (``|cd=float16|``)."""
     from repro_torch.engine import autotune
 
     monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "cache.json"))
     before = len(autotune.RACES)
     opts = autotune.resolve_options(
         RegistrationOptions(mode="auto", impl="auto", grad_impl="auto",
-                            compute_dtype="bfloat16"), (40, 33, 47), cuda)
+                            compute_dtype=_cd(dtype)), (40, 33, 47), cuda)
     assert opts.mode in ("ttli", "separable", "tt", "matmul") and opts.impl == "cuda"
     assert opts.grad_impl != "autograd" and opts.fused in ("on", "off")
     assert "race" in opts.fused_reason
     races = autotune.RACES[before:]
-    assert len(races) == 2 and all("|cd=bfloat16|" in r.key for r in races)
+    assert len(races) == 2 and all(f"|cd={_cd(dtype)}|" in r.key for r in races)
     assert {name.split("/")[0] for name, _ in races[0].timings} == {
         "ttli", "separable", "tt", "matmul"}
     assert "|fused|" in races[1].key

@@ -432,9 +432,10 @@ def test_occupancy_key(kind, form):
     assert symbol == f"bsi_fused_walk_kernelILi{f}ELi{k}EE"
     geo = bsi_fused.moment_blocks((5, 5, 5), PHANTOM1, form)
     assert (smem, grid) == (geo.smem, geo.grid)
-    # the bf16 kernel of the same form, on the same blocks
-    assert bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, bf16=True) == (
-        f"bsi_fused_walk_bf16_kernelILi{f}ELi{k}EE", smem, grid)
+    # the bf16 and fp16 kernels of the same form, on the same blocks
+    for dtype, sx in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        assert bsi_fused.occupancy_key(kind, form, (5, 5, 5), PHANTOM1, dtype=dtype) == (
+            f"bsi_fused_walk_{sx}_kernelILi{f}ELi{k}EE", smem, grid)
 
 
 def test_the_constants_are_the_csrc_ones():

@@ -386,21 +386,23 @@ def test_cpu_tensors_run_the_plain_versions_and_count_no_launch():
         for spec in (("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
             ops.fused_similarity_loss(phi, m, f, (5, 4, 3), sim_spec=spec,
                                       disp_form=form)
-    # bf16 inputs: the bf16 kernels' plain versions, every form
-    phi16, m16, g16 = phi.to(torch.bfloat16), m.to(torch.bfloat16), g.to(torch.bfloat16)
-    for form in ops.FORWARD_KERNELS.values():
-        form(phi16, (5, 4, 3), vol)
-    ops.bsi_adjoint(g16, (5, 4, 3), (7, 6, 5))
-    ops.bsi_adjoint_matmul(g16, (5, 4, 3), (7, 6, 5))
-    for form in bsi_fused.DISP_FORMS:
-        for spec in (("ssd",), ("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
-            ops.fused_similarity_loss(phi16, m16, f, (5, 4, 3), sim_spec=spec,
-                                      disp_form=form)
+    # bf16 and fp16 inputs: the reduced kernels' plain versions, every form
+    for dt in (torch.bfloat16, torch.float16):
+        phi16, m16, g16 = phi.to(dt), m.to(dt), g.to(dt)
+        for form in ops.FORWARD_KERNELS.values():
+            form(phi16, (5, 4, 3), vol)
+        ops.bsi_adjoint(g16, (5, 4, 3), (7, 6, 5))
+        ops.bsi_adjoint_matmul(g16, (5, 4, 3), (7, 6, 5))
+        for form in bsi_fused.DISP_FORMS:
+            for spec in (("ssd",), ("ncc",), ("nmi", 32, 0.5, 1e-8), ("lncc", 5, 1e-5)):
+                ops.fused_similarity_loss(phi16, m16, f, (5, 4, 3), sim_spec=spec,
+                                          disp_form=form)
     q = torch.ones((1, 8, 2, 16))
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1], window=4, softcap=30.0)
-    fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul", "_bf16", "_matmul_bf16")
+    fused = [f"bsi_fused{k}{s}" for s in ("", "_matmul", "_bf16", "_matmul_bf16", "_f16",
+                                          "_matmul_f16")
              for k in ("", "_stats", "_ncc", "_nmi", "_lncc")]
-    forms = [f"bsi_{k}{s}" for s in ("", "_bf16") for k in (
+    forms = [f"bsi_{k}{s}" for s in ("", "_bf16", "_f16") for k in (
         "ttli", "separable", "tt", "matmul", "adjoint", "adjoint_matmul")]
     assert ops.launch_counts() == dict.fromkeys(forms + fused + ["flash_attention"], 0)
 

@@ -170,7 +170,7 @@ def test_measure_bsi_time_reports_seconds(pair):
     (dict(transform="velocity", fused="on"), ValueError, "transform='velocity'"),
     (dict(optimizer="gauss_newton", similarity="ncc"), ValueError, "similarity='ssd'"),
     (dict(optimizer="gauss_newton", fused="on"), ValueError, "gauss_newton"),
-    (dict(compute_dtype="float16"), NotImplementedError, "queue 1 item 18f"),
+    (dict(compute_dtype="int8"), ValueError, "compute_dtype must be one of"),
     (dict(grad_impl="xla"), ValueError, "grad_impl must be one of"),
     (dict(mode="gather"), ValueError, "no kernel"),
     (dict(grad_impl="autograd"), ValueError, "autograd"),
@@ -206,6 +206,7 @@ def test_options_name_what_is_not_ported(fields, error, match):
     dict(optimizer="lbfgs"),
     dict(optimizer="gauss_newton"),
     dict(stop=ConvergenceConfig()),
+    dict(compute_dtype="float16"),
 ], ids=lambda f: "-".join(f"{k}={v if isinstance(v, str) else 'fn'}"
                           for k, v in f.items()))
 def test_options_accept_what_is_ported(fields):
@@ -263,12 +264,14 @@ def test_options_from_reference_maps_the_renamed_values():
                                           fused="auto")
     assert reference_fields(opts) == {k: REF_FIELDS[k] for k in (
         "mode", "impl", "grad_impl", "fused")}
-    # the second-order optimisers and bf16 are ported; float16 is not yet
+    # the second-order optimisers, bf16 and float16 are ported; a type that
+    # is not a float is refused
     assert options_from_reference(dict(optimizer="lbfgs")).optimizer == resolve_optimizer(
         "lbfgs")
     assert options_from_reference(dict(compute_dtype="bfloat16")).compute_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="18f"):
-        options_from_reference(dict(compute_dtype="float16"))
+    assert options_from_reference(dict(compute_dtype="float16")).compute_dtype == "float16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        options_from_reference(dict(compute_dtype="int8"))
 
 
 @pytest.mark.parametrize("field", ["transform", "regularizer", "optimizer", "stop"])
